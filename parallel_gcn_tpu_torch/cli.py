@@ -6,6 +6,7 @@ src/main.cpp:24-32, plus key=value overrides):
     python -m parallel_gcn_tpu_torch <dataset> [file=<params.txt>] [device=cuda|cpu] [key=value ...]
 
 e.g.  python -m parallel_gcn_tpu_torch synth-reddit epochs=10
+      python -m parallel_gcn_tpu_torch synth-reddit model=gat heads=2 hidden_dims=32 dropouts=0.0,0.1 epochs=10
       python -m parallel_gcn_tpu_torch cora device=cpu epochs=5
 
 The device defaults to cuda; the CPU runs only when asked for. Returns 2 on a

@@ -1,9 +1,11 @@
 """Parameters of the JAX package as the port's tensors.
 
-The JAX package's GCN params are a list of arrays and its Adam state a
-(step, m, v) tuple of such lists. Taken as numpy leaves (``np.asarray``),
-these functions turn them into the port's float32 tensors, so both packages
-can run from identical weights.
+The JAX package's GCN params are a list of arrays, its GAT params a list of
+per-layer ``{W, a_src, a_dst}`` dicts, and its Adam state a (step, m, v)
+tuple shaped like the params. Taken as numpy leaves (``np.asarray``), these
+functions turn them into the port's flat lists of float32 tensors in JAX's
+leaf order (``jax.tree.leaves`` sorts dict keys: ``W, a_dst, a_src``), so
+both packages can run from identical weights and optimizer state.
 """
 
 from __future__ import annotations
@@ -14,10 +16,18 @@ import torch
 from parallel_gcn_tpu_torch.optim import AdamState
 
 
+def _leaves(params) -> list:
+    """Flatten a list of arrays or of per-layer dicts in JAX's leaf order."""
+    out = []
+    for p in params:
+        out += [p[k] for k in sorted(p)] if isinstance(p, dict) else [p]
+    return out
+
+
 def _tensors(leaves, device) -> list[torch.Tensor]:
     return [
         torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
-        for a in leaves
+        for a in _leaves(leaves)
     ]
 
 
@@ -26,8 +36,14 @@ def weights_from_numpy(weights: list[np.ndarray], device) -> list[torch.Tensor]:
     return _tensors(weights, device)
 
 
-def adam_state_from_numpy(step, m: list[np.ndarray], v: list[np.ndarray],
-                          device) -> AdamState:
-    """The port's ``AdamState`` from a step count and the moment leaves."""
+def gat_params_from_numpy(params: list[dict], device="cpu") -> list[torch.Tensor]:
+    """A GAT's per-layer ``{W, a_src, a_dst}`` arrays as the port's flat
+    parameter list ``[W_0, a_dst_0, a_src_0, W_1, ...]``."""
+    return _tensors(params, device)
+
+
+def adam_state_from_numpy(step, m: list, v: list, device) -> AdamState:
+    """The port's ``AdamState`` from a step count and the moments, shaped
+    like the params (arrays, or per-layer dicts for a GAT), in leaf order."""
     return AdamState(step=int(np.asarray(step)), m=_tensors(m, device),
                      v=_tensors(v, device))

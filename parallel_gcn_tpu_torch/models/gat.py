@@ -1,0 +1,197 @@
+"""Graph Attention Network (Veličković et al., arXiv:1710.10903).
+
+Port of ``parallel_gcn_tpu/models/gat.py``. Per layer:
+
+    e_ij = LeakyReLU(a_srcᵀ(W h_i) + a_dstᵀ(W h_j))      edge logits
+    α_ij = softmax_j(e_ij)   over j ∈ N(i) ∪ {i}         per-dest softmax
+    h_i' = ELU(‖_k Σ_j α_ij^k (W^k h_j))                  heads concatenated
+    last layer: heads averaged, no nonlinearity (logits)
+
+Three aggregation backends, as in the JAX package:
+
+- ``dense``: the masked [heads, N, N] softmax and one batched product
+  (citation-scale graphs with a dense adjacency);
+- ``segment``: per-edge logits on the padded COO triplets with a
+  scatter-max / exp / index-add softmax (unchunked);
+- ``tile``: the block-sparse tile attention of ``ops.tile_attention`` over
+  the graph's tile pack plus its COO residual (K5 forward, K6 backward on
+  the card): the reddit-scale path.
+
+Parameters are one flat ``nn.ParameterList`` in the JAX package's leaf order
+(``jax.tree.leaves`` sorts each layer's dict keys): ``[W_0, a_dst_0,
+a_src_0, W_1, ...]``, so the trainer's Adam (decaying leaf 0) and its L2 term
+on ``weights[0]`` apply to W_0 unchanged. Feature dropout is K1
+(``ops.cuda_dropout.dropout``, the port's Philox stream; the JAX package
+uses threefry). Attention dropout takes its own seed per layer: on the tile
+backend an int32 for the hash mask, elsewhere K1 on the attention weights.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from parallel_gcn_tpu_torch.data.graph import Graph
+from parallel_gcn_tpu_torch.device import torch_dtype
+from parallel_gcn_tpu_torch.models.gcn import glorot
+from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout
+from parallel_gcn_tpu_torch.ops.sparse_matmul import feature_transform
+from parallel_gcn_tpu_torch.ops.tile_attention import gat_attend_tiles
+
+LEAKY_SLOPE = 0.2  # paper §2.1
+_NEG = -1e9  # masked-logit fill; finite so empty softmax rows stay finite
+LEAVES_PER_LAYER = 3  # W, a_dst, a_src
+
+
+def init_gat_params(
+    generator: torch.Generator, input_dim: int, hidden_dims: Sequence[int],
+    output_dim: int, heads: int,
+) -> list[torch.Tensor]:
+    """Glorot-uniform float32 parameters in leaf order ``[W, a_dst, a_src]``
+    per layer. ``hidden_dims`` are per-head widths; hidden layers concatenate
+    heads, the last layer averages ``output_dim``-wide heads."""
+    dims_in = [input_dim] + [heads * d for d in hidden_dims]
+    dims_out = list(hidden_dims) + [output_dim]
+    out = []
+    for f_in, d in zip(dims_in, dims_out):
+        w = glorot(generator, f_in, heads * d)
+        a_src = glorot(generator, heads, d)
+        a_dst = glorot(generator, heads, d)
+        out += [w, a_dst, a_src]
+    return out
+
+
+def _edge_softmax_segment(graph: Graph, s, t, n_nodes: int) -> torch.Tensor:
+    """Attention weights α [E, heads] over the padded COO triplets; padding
+    edges (val == 0) get weight 0. The max is detached: softmax does not
+    depend on it, so its gradient contributions cancel."""
+    live = (graph.val != 0.0)[:, None]
+    e = torch.where(live, F.leaky_relu(s[graph.row] + t[graph.col], LEAKY_SLOPE), _NEG)
+    m = torch.full((n_nodes, e.shape[1]), _NEG, dtype=e.dtype, device=e.device)
+    m = m.scatter_reduce(0, graph.row[:, None].expand_as(e), e.detach(), "amax",
+                         include_self=True)
+    w = torch.where(live, torch.exp(e - m[graph.row]), 0.0)
+    # f32 denominator: a bf16 sum loses per-edge increments on hub rows
+    den = torch.zeros((n_nodes, e.shape[1]), dtype=torch.float32, device=e.device)
+    den = den.index_add(0, graph.row, w.float())
+    return w / torch.clamp(den, min=1e-16)[graph.row].to(w.dtype)
+
+
+class GATModel(nn.Module):
+    """The GAT forward with its parameters (``self.weights``, float32, JAX
+    leaf order). ``backend`` ∈ {dense, segment, tile}."""
+
+    input_preagg = False  # the trainer's contract: GAT has no Â·X rewrite
+
+    def __init__(
+        self,
+        params: list[torch.Tensor],
+        dropouts: Sequence[float],
+        *,
+        heads: int,
+        attn_dropout: float = 0.0,
+        backend: str = "dense",
+        compute_dtype: str = "float32",
+        residual: bool = False,
+    ):
+        super().__init__()
+        if len(params) % LEAVES_PER_LAYER or len(dropouts) * LEAVES_PER_LAYER != len(params):
+            raise ValueError(f"need {LEAVES_PER_LAYER} params and one dropout per "
+                             f"layer, got {len(params)} params, dropouts {dropouts}")
+        if backend not in ("dense", "segment", "tile"):
+            raise ValueError(f"GAT backend must be dense|segment|tile, got {backend!r}")
+        self.weights = nn.ParameterList(
+            [nn.Parameter(p.float().contiguous()) for p in params]
+        )
+        self.dropouts = tuple(float(d) for d in dropouts)
+        self.heads = heads
+        self.attn_dropout = float(attn_dropout)
+        self.backend = backend
+        self.compute_dtype = torch_dtype(compute_dtype)
+        self.residual = residual
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.weights) // LEAVES_PER_LAYER
+
+    def _attend_dense(self, graph, hw3, s, t, seed, training):
+        mask = (graph.adj > 0)[None]  # [1, N, N]
+        e = F.leaky_relu(s.T[:, :, None] + t.T[:, None, :], LEAKY_SLOPE)  # [heads, N, N]
+        a = torch.softmax(torch.where(mask, e, _NEG), dim=-1)
+        if training and self.attn_dropout > 0.0:
+            a = dropout(a.contiguous(), seed, self.attn_dropout)
+        return torch.einsum("hij,jhd->ihd", a, hw3)
+
+    def _attend_segment(self, graph, hw3, s, t, seed, training):
+        alpha = _edge_softmax_segment(graph, s, t, hw3.shape[0])
+        if training and self.attn_dropout > 0.0:
+            alpha = dropout(alpha.contiguous(), seed, self.attn_dropout)
+        contrib = (alpha[:, :, None] * hw3[graph.col]).float()
+        out = torch.zeros(hw3.shape, dtype=torch.float32, device=hw3.device)
+        return out.index_add(0, graph.row, contrib).to(hw3.dtype)
+
+    def _attend_tile(self, graph, hw3, s, t, seed, training):
+        rate = self.attn_dropout if training else 0.0
+        return gat_attend_tiles(
+            graph, s, t, hw3, slope=LEAKY_SLOPE, attn_dropout=rate,
+            seed=seed if rate > 0.0 else None,
+        ).to(hw3.dtype)
+
+    def _check_graph(self, graph: Graph) -> None:
+        if self.backend == "dense" and graph.adj is None:
+            raise ValueError("GAT dense backend needs the dense adjacency; "
+                             "use backend=segment otherwise")
+        if self.backend == "tile" and graph.bcsr is None:
+            raise ValueError("GAT tile backend needs a bcsr/hybrid-built graph")
+        if self.backend == "segment" and not graph.coo_complete:
+            raise ValueError("GAT segment backend needs complete COO triplets "
+                             "(tile-only hybrid packs carry no per-edge list)")
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        graph: Graph,
+        *,
+        training: bool,
+        seeds: Sequence[int] | None = None,
+        input_preagg: bool | None = None,
+    ) -> torch.Tensor:
+        """Logits [n_nodes, output_dim] float32. ``seeds`` holds two seeds per
+        layer, ``[feature_0, attention_0, feature_1, ...]`` (needed when
+        training with a nonzero rate); attention seeds are int32."""
+        if input_preagg:
+            raise ValueError("GAT has no loop-invariant first aggregation")
+        self._check_graph(graph)
+        L = self.n_layers
+        if training and (any(d > 0 for d in self.dropouts) or self.attn_dropout > 0):
+            if seeds is None or len(seeds) != 2 * L:
+                raise ValueError(f"a training forward with dropout needs {2 * L} seeds")
+        seeds = list(seeds) if seeds is not None else [None] * (2 * L)
+        attend = {"dense": self._attend_dense, "segment": self._attend_segment,
+                  "tile": self._attend_tile}[self.backend]
+        dtype = self.compute_dtype
+        h = x.to(dtype)
+        prev = None
+        for layer in range(L):
+            w, a_dst, a_src = self.weights[LEAVES_PER_LAYER * layer:
+                                           LEAVES_PER_LAYER * (layer + 1)]
+            rate = self.dropouts[layer]
+            if training and rate > 0.0:
+                h = dropout(h.contiguous(), seeds[2 * layer], rate)
+            hw = feature_transform(h, w, dtype)
+            hw3 = hw.view(hw.shape[0], self.heads, a_src.shape[1])
+            s = torch.einsum("nhd,hd->nh", hw3, a_src.to(dtype))
+            t = torch.einsum("nhd,hd->nh", hw3, a_dst.to(dtype))
+            out = attend(graph, hw3, s, t, seeds[2 * layer + 1], training)
+            if layer == L - 1:
+                h = out.mean(dim=1)  # average heads (paper eq. 6)
+                break
+            h = out.reshape(out.shape[0], -1)
+            if self.residual and prev is not None and prev.shape == h.shape:
+                h = h + prev
+            h = F.elu(h)
+            prev = h
+        return h.float()

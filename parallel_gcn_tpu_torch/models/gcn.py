@@ -37,6 +37,13 @@ def set_matmul_precision(precision: str) -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = fast
 
 
+def glorot(generator: torch.Generator, rows: int, cols: int) -> torch.Tensor:
+    """A Glorot-uniform float32 [rows, cols] matrix, half-range
+    sqrt(6/(rows+cols)), drawn on the CPU from ``generator``."""
+    r = (6.0 / (rows + cols)) ** 0.5
+    return torch.empty(rows, cols).uniform_(-r, r, generator=generator)
+
+
 def init_params(
     generator: torch.Generator, input_dim: int, hidden_dims: Sequence[int],
     output_dim: int,
@@ -44,11 +51,7 @@ def init_params(
     """One Glorot-uniform float32 weight per layer (src/gcn.cu:171-172),
     drawn on the CPU from ``generator``."""
     dims = [input_dim, *hidden_dims, output_dim]
-    out = []
-    for rows, cols in zip(dims[:-1], dims[1:]):
-        r = (6.0 / (rows + cols)) ** 0.5
-        out.append(torch.empty(rows, cols).uniform_(-r, r, generator=generator))
-    return out
+    return [glorot(generator, rows, cols) for rows, cols in zip(dims[:-1], dims[1:])]
 
 
 class GCNModel(nn.Module):

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``parallel_gcn_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call for ``sm_90a``
-into a shared library with a plain C interface, named by a hash of the
-sources and flags and kept under ``parallel_gcn_tpu_torch/_build/``, and
-loaded with ``ctypes``. The build runs at the first kernel call of a process
-(a few seconds), never at import. A failed build raises with nvcc's output.
+Each ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, named by a hash of the sources and flags,
+kept under ``parallel_gcn_tpu_torch/_build/`` and loaded with ``ctypes``.
+The build runs at the first kernel call of a process (seconds), never at
+import. A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -21,10 +22,8 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -55,6 +54,46 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, i32, i32, i32, p,
     ]
     lib.pgcn_bcsr_spmm.restype = i32
+    u32, f32 = ctypes.c_uint32, ctypes.c_float
+    sched = [p, i32, p, p, p, i32, p, p, i32, p, i32, i32]
+    drop = [i32, u32, u32, f32]
+    lib.pgcn_gat_fwd.argtypes = [*sched, p, p, i32, p, p, i32, i32, f32, *drop, p]
+    lib.pgcn_gat_fwd.restype = i32
+    lib.pgcn_gat_bwd.argtypes = [*sched, p, p, p, p, i32, i32, i32, p, p, i32, i32, f32,
+                                 *drop, p]
+    lib.pgcn_gat_bwd.restype = i32
+
+
+def _run_nvcc(sources: list[str], out: str) -> str:
+    """Compile each source in its own nvcc process, all at once, then link
+    ``out``; returns the compilers' output. Raises on any failure."""
+    nvcc = _find_nvcc()
+    objs = [f"{out}.{i}.o" for i in range(len(sources))]
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True))
+        for cmd in ([nvcc, *_NVCC_FLAGS, "-c", src, "-o", obj]
+                    for src, obj in zip(sources, objs))
+    ]
+    log, failed = "", []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        log += text
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{text}")
+    if not failed:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", out, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                          f"{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return log
 
 
 def load_library() -> ctypes.CDLL:
@@ -76,13 +115,7 @@ def load_library() -> ctypes.CDLL:
         if not os.path.exists(path):
             os.makedirs(_BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_find_nvcc(), *_NVCC_FLAGS, "-o", tmp, *sources]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-                )
+            log = _run_nvcc(sources, tmp)
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         _declare(lib)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -128,6 +129,18 @@ class BCSR:
     @property
     def n_tile_rows(self) -> int:
         return self.schedule.n_tile_rows
+
+    @cached_property
+    def live_entries(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The nonzero entries as int64 global (row, col) ids, in tile order;
+        listed once per pack (64 tiles at a time) and kept."""
+        rows, cols = [], []
+        for b0 in range(0, self.n_tiles, 64):
+            t, r, c = (self.tiles[b0 : b0 + 64] != 0).nonzero(as_tuple=True)
+            t = t + b0
+            rows.append(self.tile_rows[t].long() * self.tile_r + r)
+            cols.append(self.tile_cols[t].long() * self.tile_c + c)
+        return torch.cat(rows), torch.cat(cols)
 
     def to(self, device) -> "BCSR":
         move = lambda t: None if t is None else t.to(device)

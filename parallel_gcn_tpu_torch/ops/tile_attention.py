@@ -1,0 +1,428 @@
+"""Block-sparse tile attention for the GAT: CUDA kernels and plain versions.
+
+Port of the single-chip half of ``parallel_gcn_tpu/ops/tile_attention.py``:
+the softmax-attended aggregation
+
+    out_i = Σ_j softmax_j(LeakyReLU(s_i + t_j)) · v_j,   j ∈ N(i) ∪ {i}
+
+over a tile-packed graph (the BCSR pattern, plus the COO residual of hybrid
+builds), differentiable in (s, t, v). Two kernels in ``csrc/tile_attention.cu``
+run the tile part:
+
+- K5 (``gat_fwd_tiles``, replaces ``_fwd_kernel``): one sweep gives the
+  unnormalized numerator ``acc`` and the online-softmax statistics (m, den)
+  per destination row;
+- K6 (``gat_bwd_tiles``, replaces ``_bwd_kernel``): from the saved
+  (m, den, ρ = Σ g·out), the forward orientation of each tile entry gives
+  ds and the mirrored orientation gives dt and dv. The mirror trick needs a
+  symmetric edge set, which ``data.graph.split_dense_tiles`` guarantees for
+  the tiles and the residual alike.
+
+The COO residual's statistics merge with the tiles' by the flash rescale
+(``den = den_t·e^{m_t−m} + den_r``) in plain torch, as the JAX package leaves
+them to XLA. Attention dropout (``rate`` > 0) drops the numerator terms with
+the undropped denominator; the mask is ``hash_keep`` of (dest, src, head,
+int32 seed), bit-identical to the JAX package's, so no mask is ever stored.
+
+The JAX package view-splits tiles wider than 512 columns (a TPU VMEM limit);
+the kernels here take whole tiles. The mask hashes global ids, so the result
+is the same either way.
+
+Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
+(``gat_fwd_tiles_plain``, ``gat_bwd_tiles_plain``: the same per-edge formulas
+as the residual code, over the pack's live entries) for CPU tensors.
+``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from parallel_gcn_tpu_torch.ops import _build
+from parallel_gcn_tpu_torch.ops.cuda_bcsr import _DTYPE_CODE, BCSR
+from parallel_gcn_tpu_torch.ops.cuda_dropout import _mulhilo
+
+_NEG = -1e9  # masked-logit fill (finite: empty rows stay finite, exp -> 0)
+_M32 = 0xFFFFFFFF
+_EDGE_CHUNK = 1 << 22  # edges per step of the plain versions
+
+# the CUDA kernels' limits (register arrays sized at compile time)
+MAX_HEADS = 8
+MAX_HD = 256
+
+# kernel launches by wrapper: "gat_fwd" (K5), "gat_bwd" (K6)
+launches = {"gat_fwd": 0, "gat_bwd": 0}
+
+
+# ---------------------------------------------------------------------------
+# attention dropout: the stateless per-edge hash mask
+# ---------------------------------------------------------------------------
+
+
+def rate_to_threshold(rate: float) -> int:
+    """uint32 threshold with P(hash < thr) = 1 − rate (Python's round, as the
+    JAX package computes it)."""
+    return min(int(round((1.0 - rate) * 2.0**32)), 2**32 - 1)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """Low 32 bits of x·c for int64 x holding a uint32 and a uint32 c."""
+    return _mulhilo(c, x)[1]
+
+
+def hash_keep(dest: torch.Tensor, src: torch.Tensor, h: int, seed: int,
+              threshold: int) -> torch.Tensor:
+    """Boolean keep-mask of the murmur3-style mix of (dest, src, head, seed),
+    bit-identical to the JAX package's ``_hash_keep``; ``dest``/``src`` are
+    integer id tensors (broadcastable), ``seed`` an int32."""
+    k = (
+        _mul32(dest.long() & _M32, 0x9E3779B1)
+        + _mul32(src.long() & _M32, 0x85EBCA6B)
+        + ((h * 0xC2B2AE35) & _M32)
+        + (int(seed) & _M32)
+    ) & _M32
+    k = k ^ (k >> 16)
+    k = _mul32(k, 0x7FEB352D)
+    k = k ^ (k >> 15)
+    k = _mul32(k, 0x846CA68B)
+    k = k ^ (k >> 16)
+    return k < threshold
+
+
+def edge_keep(rrow: torch.Tensor, rcol: torch.Tensor, H: int, seed: int,
+              rate: float) -> torch.Tensor:
+    """[E, H] keep-mask for edges with dest ``rrow`` and src ``rcol``."""
+    thr = rate_to_threshold(rate)
+    return torch.stack([hash_keep(rrow, rcol, h, seed, thr) for h in range(H)], dim=1)
+
+
+def _inv_keep(rate: float) -> float:
+    """1/(1 − rate) rounded to float32, as the kernels multiply by it."""
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _leaky_grad(x: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(x >= 0, 1.0, slope)
+
+
+# ---------------------------------------------------------------------------
+# per-edge formulas: the COO residual and the plain tile versions
+# ---------------------------------------------------------------------------
+
+
+def _masked(live: torch.Tensor | None, x: torch.Tensor, fill: float) -> torch.Tensor:
+    return x if live is None else torch.where(live, x, fill)
+
+
+def _edge_logits(sf, tf, dest, src, live, slope):
+    """[E, H] logits LeakyReLU(s_dest + t_src), _NEG where not ``live``."""
+    return _masked(live, _leaky(sf[dest] + tf[src], slope), _NEG)
+
+
+def _edge_max(m: torch.Tensor, dest: torch.Tensor, e: torch.Tensor) -> None:
+    """m[dest] = max(m[dest], e), in place."""
+    m.scatter_reduce_(0, dest[:, None].expand_as(e), e, "amax", include_self=True)
+
+
+def _edge_accumulate(dest, src, live, e, m, v32, rate, seed, den, acc) -> None:
+    """den += Σ w, acc += Σ w̃·v over the edges, w = exp(e − m_dest) (masked
+    before the exp via e = _NEG, re-masked after), w̃ = w·keep/(1 − rate)."""
+    w = _masked(live, torch.exp(e - m[dest]), 0.0)
+    den.index_add_(0, dest, w)
+    if rate > 0.0:
+        keep = edge_keep(dest, src, w.shape[1], seed, rate)
+        w = torch.where(keep, w * _inv_keep(rate), 0.0)
+    acc.index_add_(0, dest, w[:, :, None] * v32[src])
+
+
+def _edge_bwd(dest, src, live, sf, tf, v32, g, m, den_g, rho, slope, rate,
+              seed, ds, dt, dv) -> None:
+    """Gradient contributions of the edges (dest, src), in place. The forward
+    orientation gives ds[dest]; the mirrored orientation (the edge (src, dest),
+    present by symmetry) gives dt[dest] and dv[dest], so every sum is over
+    ``dest``. Logits are masked to _NEG before the exp: padding edges point at
+    padding rows whose m is _NEG."""
+    inv = _inv_keep(rate) if rate > 0.0 else 1.0
+    pre = sf[dest] + tf[src]
+    a = _masked(live, torch.exp(_masked(live, _leaky(pre, slope), _NEG) - m[dest])
+                / den_g[dest], 0.0)
+    dot_a = torch.sum(g[dest] * v32[src], dim=-1)
+    if rate > 0.0:
+        dot_a = torch.where(edge_keep(dest, src, a.shape[1], seed, rate), dot_a * inv, 0.0)
+    ds.index_add_(0, dest, a * (dot_a - rho[dest]) * _leaky_grad(pre, slope))
+
+    pre_m = sf[src] + tf[dest]
+    a_m = _masked(live, torch.exp(_masked(live, _leaky(pre_m, slope), _NEG) - m[src])
+                  / den_g[src], 0.0)
+    dot_b = torch.sum(g[src] * v32[dest], dim=-1)
+    a_mn = a_m
+    if rate > 0.0:
+        # the mirror edge's own ids: dest = src, src = dest
+        keep_m = edge_keep(src, dest, a.shape[1], seed, rate)
+        dot_b = torch.where(keep_m, dot_b * inv, 0.0)
+        a_mn = torch.where(keep_m, a_m * inv, 0.0)
+    dt.index_add_(0, dest, a_m * (dot_b - rho[src]) * _leaky_grad(pre_m, slope))
+    dv.index_add_(0, dest, a_mn[:, :, None] * g[src])
+
+
+def _edge_chunks(dest: torch.Tensor, src: torch.Tensor):
+    for e0 in range(0, dest.shape[0], _EDGE_CHUNK):
+        yield dest[e0 : e0 + _EDGE_CHUNK], src[e0 : e0 + _EDGE_CHUNK]
+
+
+def gat_fwd_tiles_plain(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
+                        seed: int = 0):
+    """Plain PyTorch version of K5: (acc [n, H, D], m [n, H], den [n, H]),
+    all float32, over the pack's edges; rows without edges keep m = _NEG,
+    den = 0, acc = 0."""
+    n, H = s.shape
+    sf, tf, v32 = s.float(), t.float(), v.float()
+    dest, src = pack.live_entries
+    m = torch.full((n, H), _NEG, dtype=torch.float32, device=s.device)
+    for d, c in _edge_chunks(dest, src):
+        _edge_max(m, d, _edge_logits(sf, tf, d, c, None, slope))
+    den = torch.zeros_like(m)
+    acc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for d, c in _edge_chunks(dest, src):
+        _edge_accumulate(d, c, None, _edge_logits(sf, tf, d, c, None, slope),
+                         m, v32, rate, seed, den, acc)
+    return acc, m, den
+
+
+def gat_bwd_tiles_plain(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
+                        rate: float = 0.0, seed: int = 0):
+    """Plain PyTorch version of K6: (ds [n, H], dt [n, H], dv [n, H, D]),
+    float32, the pack's part of the gradient from the forward's (m, den) and
+    ρ = Σ_d g·out."""
+    sf, tf, v32, g = s.float(), t.float(), v.float(), g.float()
+    den_g = torch.clamp(den, min=1e-16)
+    ds = torch.zeros_like(m)
+    dt = torch.zeros_like(m)
+    dv = torch.zeros_like(v32)
+    dest, src = pack.live_entries
+    for d, c in _edge_chunks(dest, src):
+        _edge_bwd(d, c, None, sf, tf, v32, g, m, den_g, rho, slope, rate, seed,
+                  ds, dt, dv)
+    return ds, dt, dv
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_kernel_args(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
+    n, H = s.shape
+    HD = H * v.shape[2]
+    if H > MAX_HEADS or HD > MAX_HD:
+        raise ValueError(f"tile attention kernels take heads <= {MAX_HEADS} and "
+                         f"heads·d <= {MAX_HD}, got {H} heads of {v.shape[2]}")
+    if v.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tile attention kernels take f32 or bf16 v, got {v.dtype}")
+    if pack.tiles.dtype not in _DTYPE_CODE:
+        raise TypeError(f"tile attention kernels take f32/bf16/int8 tiles, "
+                        f"got {pack.tiles.dtype}")
+    if pack.tile_r % 64 or pack.tile_c % 128:
+        raise ValueError(f"tile attention kernels need tile_r % 64 == 0 and "
+                         f"tile_c % 128 == 0, got ({pack.tile_r}, {pack.tile_c})")
+    if pack.n_tile_rows * pack.tile_r != n:
+        raise ValueError(f"pack covers {pack.n_tile_rows * pack.tile_r} rows, "
+                         f"tensors have {n}")
+    sched = pack.schedule
+    for x in (pack.tiles, pack.tile_cols, sched.seg_tile_ptr, sched.seg_row,
+              sched.seg_slot, sched.multi_row, sched.multi_slot_ptr):
+        if x.device != s.device or not x.is_contiguous():
+            raise ValueError("tile pack must be contiguous and on the inputs' device")
+    if pack.tiles.data_ptr() % 16:
+        raise ValueError("tile pack must be 16-byte aligned")
+
+
+def _schedule_args(pack: BCSR) -> list:
+    sched = pack.schedule
+    return [
+        pack.tiles.data_ptr(), _DTYPE_CODE[pack.tiles.dtype],
+        sched.seg_tile_ptr.data_ptr(), sched.seg_row.data_ptr(),
+        sched.seg_slot.data_ptr(), sched.n_seg, sched.multi_row.data_ptr(),
+        sched.multi_slot_ptr.data_ptr(), sched.multi_row.shape[0],
+        pack.tile_cols.data_ptr(), pack.tile_r, pack.tile_c,
+    ]
+
+
+def _dropout_args(rate: float, seed: int) -> list:
+    if rate <= 0.0:
+        return [0, 0, 0, 1.0]
+    return [1, int(seed) & _M32, rate_to_threshold(rate), _inv_keep(rate)]
+
+
+def gat_fwd_tiles(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
+                  seed: int = 0):
+    """The pack's part of the attention forward: (acc [n, H, D], m [n, H],
+    den [n, H]) float32. K5 for CUDA tensors, the plain version for CPU
+    ones."""
+    if s.device.type == "cpu":
+        return gat_fwd_tiles_plain(pack, s, t, v, slope=slope, rate=rate, seed=seed)
+    if s.device.type != "cuda":
+        raise ValueError(f"gat_fwd_tiles: unsupported device {s.device}")
+    _check_kernel_args(pack, s, v)
+    n, H, D = v.shape
+    HD = H * D
+    st = torch.cat([s, t], dim=1).float().contiguous()  # [n, 2H]: s | t
+    vf = v.reshape(n, HD).contiguous()
+    width = HD + 2 * H  # out rows: acc | m | den
+    out = torch.empty((n, width), dtype=torch.float32, device=s.device)
+    ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width),
+                     dtype=torch.float32, device=s.device)
+    lib = _build.load_library()
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pgcn_gat_fwd(
+            *_schedule_args(pack), st.data_ptr(), vf.data_ptr(),
+            _DTYPE_CODE[vf.dtype], out.data_ptr(), ws.data_ptr(), H, D,
+            float(slope), *_dropout_args(rate, seed), ctypes.c_void_p(stream),
+        )
+    _build.check(rc, "tile attention forward kernel")
+    launches["gat_fwd"] += 1
+    return out[:, :HD].view(n, H, D), out[:, HD : HD + H], out[:, HD + H :]
+
+
+def _padded_width(H: int, D: int) -> tuple[int, int]:
+    """K6's padded row layout: each head's D features in P (D rounded up to
+    8) slots, rows S floats apart, S an odd multiple of 8 (16-byte vectors,
+    no power-of-two row stride)."""
+    P = -(-D // 8) * 8
+    S = H * P
+    return P, S + 8 if (S // 8) % 2 == 0 else S
+
+
+def _pad_heads(x: torch.Tensor, H: int, P: int, S: int) -> torch.Tensor:
+    """[n, H·D] → [n, S] with head h at [h·P, h·P + D), zeros elsewhere."""
+    n = x.shape[0]
+    out = x.new_zeros((n, S))
+    out[:, : H * P].view(n, H, P)[:, :, : x.shape[1] // H] = x.reshape(n, H, -1)
+    return out
+
+
+def gat_bwd_tiles(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
+                  rate: float = 0.0, seed: int = 0):
+    """The pack's part of the attention backward: (ds [n, H], dt [n, H],
+    dv [n, H, D]) float32 from the forward's (m, den) and ρ = Σ_d g·out. K6
+    for CUDA tensors, the plain version for CPU ones."""
+    if s.device.type == "cpu":
+        return gat_bwd_tiles_plain(pack, s, t, v, g, m, den, rho, slope=slope,
+                                   rate=rate, seed=seed)
+    if s.device.type != "cuda":
+        raise ValueError(f"gat_bwd_tiles: unsupported device {s.device}")
+    _check_kernel_args(pack, s, v)
+    n, H, D = v.shape
+    HD = H * D
+    # per node: s | t | m | max(den, 1e-16) | ρ
+    node = torch.cat([s.float(), t.float(), m, torch.clamp(den, min=1e-16), rho],
+                     dim=1).contiguous()
+    gf = g.reshape(n, HD).float().contiguous()
+    P, S = _padded_width(H, D)
+    gp, vp = _pad_heads(gf, H, P, S), _pad_heads(v.reshape(n, HD), H, P, S)
+    width = HD + 2 * H  # out rows: dv | ds | dt
+    out = torch.empty((n, width), dtype=torch.float32, device=s.device)
+    ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width),
+                     dtype=torch.float32, device=s.device)
+    lib = _build.load_library()
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pgcn_gat_bwd(
+            *_schedule_args(pack), node.data_ptr(), gf.data_ptr(), gp.data_ptr(),
+            vp.data_ptr(), _DTYPE_CODE[vp.dtype], P, S, out.data_ptr(), ws.data_ptr(),
+            H, D, float(slope), *_dropout_args(rate, seed), ctypes.c_void_p(stream),
+        )
+    _build.check(rc, "tile attention backward kernel")
+    launches["gat_bwd"] += 1
+    return out[:, HD : HD + H], out[:, HD + H :], out[:, :HD].view(n, H, D)
+
+
+# ---------------------------------------------------------------------------
+# the differentiable op: tiles (+ COO residual) -> attended aggregation
+# ---------------------------------------------------------------------------
+
+
+def _residual(graph):
+    """(rrow, rcol, rlive [E, 1]) of a hybrid graph's COO residual."""
+    return graph.row, graph.col, (graph.val != 0.0)[:, None]
+
+
+def _attend_impl(graph, s, t, v, slope, rate, seed):
+    """Forward evaluation: (out [n, H, D], m, den [n, H]), float32."""
+    acc, m, den = gat_fwd_tiles(graph.bcsr, s, t, v, slope=slope, rate=rate, seed=seed)
+    if graph.is_hybrid:
+        rrow, rcol, rlive = _residual(graph)
+        sf, tf = s.float(), t.float()
+        e_r = _edge_logits(sf, tf, rrow, rcol, rlive, slope)
+        m_r = torch.full_like(m, _NEG)
+        _edge_max(m_r, rrow, e_r)
+        m_all = torch.maximum(m, m_r)
+        scale = torch.exp(m - m_all)
+        den = den * scale
+        acc = acc * scale[:, :, None]
+        _edge_accumulate(rrow, rcol, rlive, e_r, m_all, v.float(), rate, seed, den, acc)
+        m = m_all
+    out = acc / torch.clamp(den, min=1e-16)[:, :, None]
+    return out, m, den
+
+
+class _GatAttend(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, t, v, graph, slope, rate, seed):
+        out, m, den = _attend_impl(graph, s, t, v, slope, rate, seed)
+        ctx.save_for_backward(s, t, v, m, den, out)
+        ctx.graph, ctx.slope, ctx.rate, ctx.seed = graph, slope, rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        s, t, v, m, den, out = ctx.saved_tensors
+        graph, slope, rate, seed = ctx.graph, ctx.slope, ctx.rate, ctx.seed
+        g = g.float()
+        rho = torch.sum(g * out, dim=-1)  # [n, H]
+        ds, dt, dv = gat_bwd_tiles(graph.bcsr, s, t, v, g, m, den, rho,
+                                   slope=slope, rate=rate, seed=seed)
+        if graph.is_hybrid:
+            rrow, rcol, rlive = _residual(graph)
+            _edge_bwd(rrow, rcol, rlive, s.float(), t.float(), v.float(), g, m,
+                      torch.clamp(den, min=1e-16), rho, slope, rate, seed, ds, dt, dv)
+        return ds.to(s.dtype), dt.to(t.dtype), dv.to(v.dtype), None, None, None, None
+
+
+def gat_attend_tiles(graph, s: torch.Tensor, t: torch.Tensor, v: torch.Tensor, *,
+                     slope: float, attn_dropout: float = 0.0,
+                     seed: int | None = None) -> torch.Tensor:
+    """Softmax attention aggregation over a tile-packed graph:
+    ``out_i = Σ_j softmax_j(LeakyReLU(s_i + t_j)) · v_j`` over the BCSR
+    pattern plus (hybrid builds) the COO residual.
+
+    s, t: [n_nodes, heads]; v: [n_nodes, heads, d]. Returns [n_nodes, heads,
+    d] float32, differentiable in s, t and v (gradients in their dtypes); the
+    backward saves only (m, den, out), never a per-edge tensor.
+    ``attn_dropout`` > 0 drops the numerator terms by the hash mask of
+    (dest, src, head, ``seed``), an int32 that the rate then requires. The
+    edge set must be symmetric (the repo's graph invariant)."""
+    pack = graph.bcsr
+    if pack is None:
+        raise ValueError("gat_attend_tiles needs a tile pack (bcsr/hybrid build)")
+    n, H = s.shape
+    if t.shape != (n, H) or v.dim() != 3 or v.shape[:2] != (n, H):
+        raise ValueError(f"shapes s {tuple(s.shape)}, t {tuple(t.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if n != pack.n_nodes:
+        raise ValueError(f"{n} rows for a pack of {pack.n_nodes} nodes")
+    rate = float(attn_dropout)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attn_dropout must be in [0, 1), got {rate}")
+    if rate > 0.0 and seed is None:
+        raise ValueError("attn_dropout > 0 needs a seed")
+    return _GatAttend.apply(s, t, v, graph, float(slope), rate,
+                            0 if seed is None else int(seed))

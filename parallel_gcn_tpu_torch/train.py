@@ -9,7 +9,8 @@ Port of ``parallel_gcn_tpu/train.py`` (eager path). Reference semantics
     val losses (window includes the current epoch).
 
 Dropout seeds come from one ``torch.Generator`` seeded with ``cfg.tpu.seed``:
-per epoch, one 62-bit seed per layer.
+per epoch, one 62-bit seed per layer, and for a GAT also one int32
+attention-dropout seed per layer (``epoch_seeds``).
 """
 
 from __future__ import annotations
@@ -23,12 +24,16 @@ import torch
 
 from parallel_gcn_tpu_torch.config import Config
 from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL, DeviceDataset
+from parallel_gcn_tpu_torch.models.gat import GATModel, init_gat_params
 from parallel_gcn_tpu_torch.models.gcn import GCNModel, init_params, set_matmul_precision
 from parallel_gcn_tpu_torch.ops.graphsum import resolve_backend
 from parallel_gcn_tpu_torch.ops.loss import l2_penalty, masked_softmax_xent
 from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
 
+Model = GCNModel | GATModel
+
 _SEED_HIGH = 2**62
+_ATTN_SEED_HIGH = 2**31 - 1
 
 
 @dataclass
@@ -42,16 +47,42 @@ class FitResult:
     total_time_s: float
 
 
+def _gat_backend(cfg: Config, graph, backend: str) -> str:
+    """The GAT aggregation backend for the resolved graph ``backend``, with
+    the JAX package's config errors."""
+    if backend in ("hybrid", "bcsr"):
+        if graph.bcsr is None:
+            raise ValueError("model=gat backend=hybrid/bcsr needs a tile-built graph")
+        if cfg.tpu.edge_chunk:
+            raise ValueError(
+                "edge_chunk streams the SEGMENT attention; the tile backend "
+                "already bounds memory at O(N·heads) — unset edge_chunk or set "
+                "backend=segment"
+            )
+        return "tile"
+    if not graph.coo_complete:
+        raise ValueError(
+            "model=gat backend=segment needs complete COO triplets — this graph "
+            "carries only a tile pack; set backend=hybrid"
+        )
+    return "dense" if backend == "dense" else "segment"
+
+
 def build_model(cfg: Config, dds: DeviceDataset,
-                weights: list[torch.Tensor] | None = None) -> GCNModel:
-    """The configured GCN on ``dds``'s device, with ``weights`` or a Glorot
-    init from ``cfg.tpu.seed``. Sets the matmul precision (process-wide)."""
+                weights: list[torch.Tensor] | None = None) -> Model:
+    """The configured model (``model=gcn`` or ``gat``) on ``dds``'s device,
+    with ``weights`` (a GAT's in JAX leaf order) or a Glorot init from
+    ``cfg.tpu.seed``. Sets the matmul precision (process-wide)."""
+    gat = cfg.gcn.model == "gat"
+    backend = resolve_backend(dds.graph, cfg.tpu.backend, cfg.tpu.dense_threshold)
+    gat_backend = _gat_backend(cfg, dds.graph, backend) if gat else None
     unported = {
-        "model": cfg.gcn.model != "gcn",
+        f"model={cfg.gcn.model}": cfg.gcn.model not in ("gcn", "gat"),
         "remat": cfg.gcn.remat,
         "ce_impl=pallas": cfg.tpu.ce_impl == "pallas",
         "fuse_dropout_matmul": cfg.tpu.fuse_dropout_matmul,
         "n_devices/tp": cfg.tpu.n_devices > 1 or cfg.tpu.tp > 1,
+        "edge_chunk with model=gat": gat and cfg.tpu.edge_chunk > 0,
     }
     missing = [k for k, v in unported.items() if v]
     if missing:
@@ -61,10 +92,25 @@ def build_model(cfg: Config, dds: DeviceDataset,
     set_matmul_precision(cfg.tpu.matmul_precision)
     if weights is None:
         gen = torch.Generator().manual_seed(cfg.tpu.seed)
-        weights = init_params(gen, dds.input_dim, cfg.gcn.hidden_dims, dds.output_dim)
-    backend = resolve_backend(dds.graph, cfg.tpu.backend, cfg.tpu.dense_threshold)
+        if gat:
+            weights = init_gat_params(gen, dds.input_dim, cfg.gcn.hidden_dims,
+                                      dds.output_dim, cfg.gcn.heads)
+        else:
+            weights = init_params(gen, dds.input_dim, cfg.gcn.hidden_dims,
+                                  dds.output_dim)
+    weights = [w.to(dds.device) for w in weights]
+    if gat:
+        return GATModel(
+            weights,
+            cfg.gcn.dropouts,
+            heads=cfg.gcn.heads,
+            attn_dropout=cfg.gcn.attn_dropout,
+            backend=gat_backend,
+            compute_dtype=cfg.tpu.compute_dtype,
+            residual=cfg.gcn.residual,
+        )
     return GCNModel(
-        [w.to(dds.device) for w in weights],
+        weights,
         cfg.gcn.dropouts,
         residual=cfg.gcn.residual,
         backend=backend,
@@ -96,12 +142,12 @@ def preaggregate_input(model: GCNModel, dds: DeviceDataset) -> DeviceDataset:
     return replace(dds, x_agg=x_agg)
 
 
-def _eval_inputs(model: GCNModel, dds: DeviceDataset):
+def _eval_inputs(model: Model, dds: DeviceDataset):
     x_eval = dds.x_agg if dds.x_agg is not None else dds.x
     return x_eval, model.input_preagg or dds.x_agg is not None
 
 
-def make_epoch_step(model: GCNModel, cfg: Config, dds: DeviceDataset) -> Callable:
+def make_epoch_step(model: Model, cfg: Config, dds: DeviceDataset) -> Callable:
     """One-epoch function ``(opt_state, seeds) -> metrics[4]`` (a float32
     tensor on the device: train_loss, train_acc, val_loss, val_acc). Updates
     ``model.weights`` and ``opt_state`` in place."""
@@ -133,7 +179,7 @@ def make_epoch_step(model: GCNModel, cfg: Config, dds: DeviceDataset) -> Callabl
     return epoch_step
 
 
-def make_eval_fn(model: GCNModel, cfg: Config, dds: DeviceDataset,
+def make_eval_fn(model: Model, cfg: Config, dds: DeviceDataset,
                  split: int) -> Callable:
     """``() -> (loss, acc)`` tensors of ``split`` on the current weights."""
     mask = dds.split == split
@@ -150,9 +196,15 @@ def make_eval_fn(model: GCNModel, cfg: Config, dds: DeviceDataset,
     return eval_fn
 
 
-def epoch_seeds(gen: torch.Generator, n_layers: int) -> list[int]:
-    """One dropout seed per layer for the next epoch."""
-    return torch.randint(0, _SEED_HIGH, (n_layers,), generator=gen).tolist()
+def epoch_seeds(gen: torch.Generator, n_layers: int, attention: bool = False) -> list[int]:
+    """One dropout seed per layer for the next epoch; with ``attention``
+    (GAT) two per layer, ``[feature_0, attention_0, feature_1, ...]``, the
+    attention seeds int32 in [0, 2³¹−1) for the tile kernels' hash mask."""
+    feat = torch.randint(0, _SEED_HIGH, (n_layers,), generator=gen).tolist()
+    if not attention:
+        return feat
+    attn = torch.randint(0, _ATTN_SEED_HIGH, (n_layers,), generator=gen).tolist()
+    return [s for pair in zip(feat, attn) for s in pair]
 
 
 def _sync(device: torch.device) -> None:
@@ -180,7 +232,13 @@ def fit(
         print("note: mode=scan (whole-run path) is not yet ported — "
               "running the eager epoch loop")
     model = build_model(cfg, dds, weights)
-    if cfg.tpu.input_preagg:
+    gat = isinstance(model, GATModel)
+    if cfg.tpu.input_preagg and gat:
+        # Â·(X·W0) == (Â·X)·W0 is a GCN identity; GAT's aggregation is
+        # data-dependent, so the knob (on by default) has nothing to hoist
+        if verbose:
+            print("note: input_preagg has no GAT analog — ignored")
+    elif cfg.tpu.input_preagg:
         dds = preaggregate_input(model, dds)
     opt_state = init_adam(list(model.weights))
     gen = torch.Generator().manual_seed(cfg.tpu.seed)
@@ -194,7 +252,7 @@ def fit(
     t0 = time.perf_counter()
     for epoch in range(1, cfg.gcn.epochs + 1):
         te = time.perf_counter()
-        metrics = epoch_step(opt_state, epoch_seeds(gen, model.n_layers))
+        metrics = epoch_step(opt_state, epoch_seeds(gen, model.n_layers, attention=gat))
         tl, ta, vl, va = metrics.tolist()  # waits for the device
         rows.append((tl, ta, vl, va))
         if verbose:
