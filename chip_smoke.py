@@ -13,18 +13,35 @@ Phases, each printed on its own lines:
      d 32 and 41, bf16 and f32, attention dropout 0 and 0.6, forward within
      rtol 1e-4 (f32) / 2e-3 (bf16) + 1e-5·max|ref|, gradients within rtol
      1e-3 + 1e-4·max|ref|, two runs bit-identical), with CUDA-event times;
-  4. profile: the synth-reddit GAT's epoch under ``torch.profiler``: device
-     time by op and the device's idle share;
+     The fused kernels: masked softmax-CE K9 (train and eval variants) at
+     synth-reddit's [233472, 41] f32 logits with its train and val masks
+     (loss rtol 1e-5, accuracy exact, gradient rtol 2e-5 + 1e-5·max|ref|);
+     dropout⊗matmul K10 forward, dW and dX at layer 1's [233472, 600] bf16
+     × [600, 41] and at a ragged f32 (1001, 257) × (257, 24) (f32 outputs
+     rtol 1e-4, bf16 outputs one bf16 ulp, + 1e-5·max|ref|; the mask an
+     identity W recovers bit-equal to K1's). Two runs of each are
+     bit-identical. Beside each kernel's time: its plain version's, the
+     unfused pair it replaces (K10), and the one PyTorch call that computes
+     the same function where there is one (``torch.sparse.mm`` for K3/K4);
+  4. profile: the synth-reddit GAT's epoch and the fused GCN's
+     (``ce_impl=pallas fuse_dropout_matmul=true``) under ``torch.profiler``:
+     device time by op and the device's idle share;
   5. reference: a small hybrid int8 graph trains 3 epochs on the card and on
      the CPU (the plain versions), as a GCN and as a GAT with feature and
-     attention dropout; the metrics must agree within 2e-4;
+     attention dropout, and with the fused kernels (a GCN with both knobs
+     and dropouts 0.3/0.3 without pre-aggregation, a GAT with
+     ``ce_impl=pallas``); the metrics must agree within 2e-4;
   6. main paths, each with the launch counts set to 0 just before it:
      ``parallel_gcn_tpu_torch.cli.main(["synth-reddit", "epochs=10"])`` (the
-     GCN) and the same with ``model=gat heads=2 hidden_dims=32
-     dropouts=0.0,0.1 mode=eager`` (the GAT); the losses must be finite and
-     fall, and the kernels of each path must have launched at least as often
-     as its epochs imply.
-Then one JSON line with every kernel's launches, error and times, and last
+     GCN), the same with ``model=gat heads=2 hidden_dims=32
+     dropouts=0.0,0.1 mode=eager`` (the GAT) and with ``ce_impl=pallas
+     fuse_dropout_matmul=true`` (the fused GCN); the losses must be finite
+     and fall, and the kernels of each path must have launched at least as
+     often as its epochs imply.
+Then one JSON line with every kernel's launches, error, times and bound
+(the least time the card could take: the larger of the bytes each input
+read once and each output written once at 3.35 TB/s, and the operations at
+the peak rate of their type, H100 SXM data sheet), and last
 ``{"ok": true, "device": {...}}``. Any failure raises before that line; with
 no CUDA device the script exits 1 and prints no result.
 """
@@ -44,6 +61,33 @@ import time
 EPOCHS = 10
 # the repo's reddit GAT configuration (Makefile run-reddit-gat)
 GAT_ARGS = ["model=gat", "heads=2", "hidden_dims=32", "dropouts=0.0,0.1"]
+# the GCN with both opt-in fused kernels (K9, K10)
+FUSED_ARGS = ["ce_impl=pallas", "fuse_dropout_matmul=true"]
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: int, flops: float = 0.0, kind: str = "bf16") -> dict:
+    """The least time for moving ``nbytes`` and doing ``flops`` of ``kind``."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _pack_bytes(pack) -> int:
+    """Bytes of a tile pack that a kernel over it reads: tiles, block
+    columns, the segment schedule and the int8 pack's scale d."""
+    sched = pack.schedule
+    return _nbytes(pack.tiles, pack.tile_cols, sched.seg_tile_ptr, sched.seg_row,
+                   sched.seg_slot, sched.multi_row, sched.multi_slot_ptr,
+                   *([pack.sym_scale] if pack.sym_scale is not None else []))
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -61,6 +105,27 @@ def _events_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int, *names: str) -> float:
+    """Mean device milliseconds per call of ``fn`` in kernels whose names
+    contain one of ``names``, by ``torch.profiler``, after one warm-up call:
+    a short kernel's own time, which the host's launch cost hides from
+    ``_events_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(evt.device_time_total for evt in prof.events()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and any(name in evt.name for name in names))
+    assert total > 0, f"the profiler saw no {names} kernel"
+    return total / 1e3 / reps
 
 
 def _max_err(got, ref, rtol: float, atol_frac: float = 1e-5) -> float:
@@ -148,9 +213,9 @@ def check_dropout(results: dict) -> None:
               f"bit-equal to plain and to K1(relu), fwd and bwd; "
               f"kernel {ms2:.4f} ms, plain {pms2:.4f} ms")
         if shape[1] == 64:
-            results["K1"] = dict(err=0.0, ms=ms1, plain_ms=pms1)
+            results["K1"] = dict(err=0.0, ms=ms1, plain_ms=pms1, **_bound(2 * _nbytes(x)))
         elif dtype == torch.bfloat16:
-            results["K2"] = dict(err=0.0, ms=ms2, plain_ms=pms2)
+            results["K2"] = dict(err=0.0, ms=ms2, plain_ms=pms2, **_bound(2 * _nbytes(x)))
 
 
 def check_bcsr(results: dict, bcsr_pack, x602) -> None:
@@ -162,6 +227,7 @@ def check_bcsr(results: dict, bcsr_pack, x602) -> None:
 
     gen = torch.Generator().manual_seed(2)
     n = bcsr_pack.n_nodes
+    pack_nnz = int(bcsr_pack.live_entries[0].numel())
     x41 = torch.randn((n, 41), generator=gen).to(torch.bfloat16).cuda()
     g41 = torch.randn((n, 41), generator=gen).cuda()
     # K3: the same tiles as a plain pattern pack (no d scaling)
@@ -177,7 +243,23 @@ def check_bcsr(results: dict, bcsr_pack, x602) -> None:
             print(f"[kernels] {key} bcsr fwd F={x.shape[1]} {x.dtype}: max_abs_err "
                   f"{errs[-1]:.3e} (rtol {rtol}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
             if x is x41:
-                results[key] = dict(ms=ms, plain_ms=pms)
+                out_bytes = x.shape[0] * x.shape[1] * 4
+                flops = 2 * pack_nnz * x.shape[1]  # the live entries' products
+                results[key] = dict(ms=ms, plain_ms=pms, **_bound(
+                    _pack_bytes(pack) + _nbytes(x) + out_bytes, flops))
+                # the one PyTorch call that computes A·x: cuSPARSE SpMM on a
+                # CSR of the same matrix (f32 values and x; the port never
+                # calls it)
+                csr = _pack_csr(pack)
+                x32 = x.float()
+                lib = torch.sparse.mm(csr, x32)
+                rel = float(((lib - got).abs().max() / got.abs().max()))
+                results[key]["library_ms"] = _events_ms(lambda: torch.sparse.mm(csr, x32), 10)
+                print(f"[kernels] {key} library torch.sparse.mm (CSR f32, "
+                      f"{csr.values().numel()} nnz) F={x.shape[1]}: "
+                      f"{results[key]['library_ms']:.4f} ms, max diff to the kernel "
+                      f"{rel:.3e} of max|out| (the kernel rounds the scaled tile to bf16)")
+                del csr, lib, x32
         # backward through autograd: the same kernel on the cotangent
         for x, g in ((x41.float(), g41), (x602, torch.randn(x602.shape, generator=gen).cuda())):
             xr = x.clone().requires_grad_(True)
@@ -186,6 +268,26 @@ def check_bcsr(results: dict, bcsr_pack, x602) -> None:
             print(f"[kernels] {key} bcsr bwd F={x.shape[1]} {x.dtype}: max_abs_err "
                   f"{errs[-1]:.3e} (rtol 1e-4)")
         results[key]["err"] = max(errs)
+
+
+def _pack_csr(pack):
+    """The pack's matrix as a torch sparse CSR (f32 values; the int8 pack's
+    entries scaled by d_r·d_c)."""
+    import torch
+
+    rows, cols, vals = [], [], []
+    for b0 in range(0, pack.n_tiles, 64):
+        blk = pack.tiles[b0 : b0 + 64]
+        t, r, c = (blk != 0).nonzero(as_tuple=True)
+        v = blk[t, r, c].float()
+        rows.append(pack.tile_rows[t + b0].long() * pack.tile_r + r)
+        cols.append(pack.tile_cols[t + b0].long() * pack.tile_c + c)
+        if pack.sym_scale is not None:
+            v = v * pack.sym_scale[cols[-1]] * pack.sym_scale[rows[-1]]
+        vals.append(v)
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    n = pack.n_nodes
+    return torch.sparse_coo_tensor(idx, torch.cat(vals), (n, n)).coalesce().to_sparse_csr()
 
 
 def check_tile_attention(results: dict, pack) -> None:
@@ -234,17 +336,141 @@ def check_tile_attention(results: dict, pack) -> None:
                       f"{e6:.3e} (rtol 1e-3), runs bit-identical; kernel {ms6:.4f} ms, "
                       f"plain {pms6:.4f} ms")
                 if (D, dtype, rate) == (41, torch.bfloat16, 0.0):  # layer 1 of the main path
-                    results["K5"] = dict(ms=ms5, plain_ms=pms5)
-                    results["K6"] = dict(ms=ms6, plain_ms=pms6)
+                    pb = _pack_bytes(pack)
+                    results["K5"] = dict(ms=ms5, plain_ms=pms5,
+                                         **_bound(pb + _nbytes(s, t, v, *fwd)))
+                    results["K6"] = dict(ms=ms6, plain_ms=pms6,
+                                         **_bound(pb + _nbytes(s, t, v, g, m, den, rho, *bwd)))
     for key in errs:
         results[key]["err"] = max(errs[key])
 
 
-def _gat_config(epochs: int):
+def check_ce(results: dict, dds) -> None:
+    """K9 against its plain version at synth-reddit's [n, 41] f32 logits,
+    with the train mask (train variant, as the train step) and the val mask
+    (eval variant, as the val eval)."""
+    import torch
+
+    from parallel_gcn_tpu_torch.data.parser import TRAIN, VAL
+    from parallel_gcn_tpu_torch.ops import cuda_ce as ce
+
+    gen = torch.Generator().manual_seed(4)
+    n = dds.labels.shape[0]
+    logits = (3 * torch.randn((n, 41), generator=gen)).cuda()
+    labels = dds.labels
+    errs = []
+    for split, key in ((TRAIN, "K9 train"), (VAL, "K9 eval")):
+        mask = dds.split == split
+        num = dds.split_counts[split]
+        train = key == "K9 train"
+        got = ce._run(logits, labels, mask, num, train)
+        again = ce._run(logits, labels, mask, num, train)
+        assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None), \
+            f"{key}: two runs differ"
+        ref = ce.masked_softmax_xent_fused_plain(logits, labels, mask, num, train)
+        errs.append(_max_err(got[0], ref[0], 1e-5, atol_frac=0.0))
+        assert float(got[1]) == float(ref[1]), f"{key}: accuracy {got[1]} != {ref[1]}"
+        if train:
+            errs.append(_max_err(got[2], ref[2], 2e-5))
+        kernel = lambda: ce._run(logits, labels, mask, num, train)  # noqa: E731
+        ms = _device_ms(kernel, 20, "ce_kernel", "ce_finalize_kernel")
+        call_ms = _events_ms(kernel, 20)
+        pms = _events_ms(
+            lambda: ce.masked_softmax_xent_fused_plain(logits, labels, mask, num, train), 5)
+        outs = [t for t in got if t is not None]
+        results[key] = dict(err=max(errs), ms=ms, plain_ms=pms,
+                            **_bound(_nbytes(logits, labels, mask, *outs)))
+        print(f"[kernels] {key} masked CE [{n}, 41] f32, {num} masked rows: loss "
+              f"{float(got[0]):.6f} (plain {float(ref[0]):.6f}), accuracy equal, "
+              f"max_abs_err {max(errs):.3e}, runs bit-identical; kernel {ms:.4f} ms "
+              f"device time ({call_ms:.4f} ms a call by CUDA events, host launch "
+              f"included), plain {pms:.4f} ms, bound {results[key]['bound_ms']:.4f} ms")
+    # rows wider than 64 classes take the kernel's looped path
+    n_wide = 1001
+    logits = torch.randn((n_wide, 100), generator=gen).cuda()
+    labels = torch.randint(0, 100, (n_wide,), generator=gen).cuda()
+    mask = (torch.rand(n_wide, generator=gen) < 0.5).cuda()
+    num = int(mask.sum())
+    for train, key in ((True, "K9 train"), (False, "K9 eval")):
+        got = ce._run(logits, labels, mask, num, train)
+        ref = ce.masked_softmax_xent_fused_plain(logits, labels, mask, num, train)
+        errs = [_max_err(got[0], ref[0], 1e-5, atol_frac=0.0)]
+        assert float(got[1]) == float(ref[1]), f"{key} C=100: accuracy differs"
+        if train:
+            errs.append(_max_err(got[2], ref[2], 2e-5))
+        results[key]["err"] = max(results[key]["err"], *errs)
+        print(f"[kernels] {key} masked CE [{n_wide}, 100] f32 (looped path): max_abs_err "
+              f"{max(errs):.3e}, accuracy equal")
+
+
+def check_fused(results: dict) -> None:
+    """K10 forward, dW and dX against their plain versions at layer 1's
+    shapes (bf16) and a ragged f32 shape; the mask an identity W recovers
+    equals K1's bit for bit; beside the kernels, the unfused pair they
+    replace: relu_dropout (K2) then the matmul forward, the matmul's weight
+    gradient, and the matmul's input gradient then K1."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
+    from parallel_gcn_tpu_torch.ops import cuda_fused as cf
+
+    gen = torch.Generator().manual_seed(5)
+    seed = 0x0F1E_2D3C_4B5A_6978
+    for (n, k, m), dtype, rate in (((233472, 600, 41), torch.bfloat16, 0.1),
+                                   ((1001, 257, 24), torch.float32, 0.3)):
+        bf16 = dtype == torch.bfloat16
+        x = torch.randn((n, k), generator=gen).to(dtype).cuda()
+        r = (6.0 / (k + m)) ** 0.5  # Glorot range, as the layer's weight
+        w = ((torch.rand((k, m), generator=gen) * 2 - 1) * r).to(dtype).cuda()
+        g = (torch.randn((n, m), generator=gen) / n).cuda()  # a mean loss's scale
+        rows = min(n, 4096)
+        rec = cf._fwd(x[:rows], torch.eye(k, dtype=dtype, device="cuda"), seed, rate)
+        assert torch.equal(rec, cd.dropout(x, seed, rate)[:rows].float()), \
+            "K10: recovered mask != K1's"
+        rtol_out = 2.0**-7 if bf16 else 1e-4  # one bf16 ulp for bf16 outputs
+        calls = {
+            "K10 fwd": (lambda: cf._fwd(x, w, seed, rate),
+                        lambda: cf.dropout_matmul_plain(x, w, seed, rate), 1e-4),
+            "K10 dW": (lambda: cf._dw(x, g, seed, rate, dtype),
+                       lambda: cf.dropout_matmul_dw_plain(x, g, seed, rate, dtype), rtol_out),
+            "K10 dX": (lambda: cf._dx(g, w, seed, rate, dtype),
+                       lambda: cf.dropout_matmul_dx_plain(g, w, seed, rate, dtype), rtol_out),
+        }
+        hd = cd.relu_dropout(x, seed, rate)
+        gd = g.to(dtype)
+        unfused = {
+            "K10 fwd": lambda: torch.matmul(cd.relu_dropout(x, seed, rate), w),
+            "K10 dW": lambda: torch.matmul(hd.T, gd),
+            "K10 dX": lambda: cd.dropout(torch.matmul(gd, w.T), seed, rate),
+        }
+        flops = 2 * n * k * m
+        for key, (kernel, plain, rtol) in calls.items():
+            got, again = kernel(), kernel()
+            assert torch.equal(got, again), f"{key}: two runs differ"
+            err = _max_err(got, plain(), rtol)
+            ms = _events_ms(kernel, 10)
+            pms = _events_ms(plain, 2)
+            ums = _events_ms(unfused[key], 10)
+            ins = {"K10 fwd": (x, w), "K10 dW": (x, g), "K10 dX": (g, w)}[key]
+            # dX's product is f32 by contract (g is f32); the others run in x's dtype
+            kind = "bf16" if bf16 and key != "K10 dX" else "f32"
+            bound = _bound(_nbytes(*ins, got), flops, kind)
+            print(f"[kernels] {key} [{n}, {k}] x [{k}, {m}] {dtype} rate {rate}: "
+                  f"max_abs_err {err:.3e} (rtol {rtol:.3g}), runs bit-identical, mask = K1's; "
+                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms, unfused pair {ums:.4f} ms, "
+                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            if bf16:
+                results[key] = dict(err=err, ms=ms, plain_ms=pms, unfused_ms=ums, **bound)
+            else:
+                results[key]["err"] = max(results[key]["err"], err)
+        del x, w, g, hd, gd, rec
+
+
+def _config(args: list[str], epochs: int):
     from parallel_gcn_tpu_torch.config import (default_params_path, load_config,
                                                parse_override)
 
-    overrides = dict(a.split("=", 1) for a in GAT_ARGS)
+    overrides = dict(a.split("=", 1) for a in args)
     cfg = load_config(default_params_path("synth-reddit"),
                       {k: parse_override(v) for k, v in overrides.items()})
     cfg.gcn.epochs, cfg.train.verbose = epochs, False
@@ -252,7 +478,15 @@ def _gat_config(epochs: int):
 
 
 def _category(kernel: str) -> str:
-    for key, cat in (("gat_fwd_kernel", "K5 gat_fwd"), ("merge_segments_kernel<true>", "K5 gat_fwd"),
+    for key, cat in (("::ce_kernel", "K9 masked CE"), ("ce_finalize_kernel", "K9 masked CE"),
+                     ("fwd_mma_kernel", "K10 fused fwd"), ("fwd_fma_kernel", "K10 fused fwd"),
+                     ("dw_mma_kernel", "K10 fused dW"), ("dw_fma_kernel", "K10 fused dW"),
+                     ("reduce_splits_kernel", "K10 fused dW"), ("dx_kernel<", "K10 fused dX"),
+                     ("spmm_mma_kernel", "K4 tile SpMM"), ("spmm_fma_kernel", "K4 tile SpMM"),
+                     ("reduce_segments_kernel", "K4 tile SpMM"),
+                     ("dropout_kernel<__nv_bfloat16, true>", "K2 relu_dropout"),
+                     ("dropout_kernel<float, true>", "K2 relu_dropout"),
+                     ("gat_fwd_kernel", "K5 gat_fwd"), ("merge_segments_kernel<true>", "K5 gat_fwd"),
                      ("gat_bwd_kernel", "K6 gat_bwd"), ("merge_segments_kernel<false>", "K6 gat_bwd"),
                      ("dropout_kernel", "K1 dropout"), ("gemm", "GEMMs"), ("gemv", "GEMMs"),
                      ("xmma", "GEMMs"), ("nvjet", "GEMMs"), ("cutlass", "GEMMs"),
@@ -264,34 +498,40 @@ def _category(kernel: str) -> str:
     return "other elementwise"
 
 
-def phase_profile_gat(dds) -> None:
-    """Device time by op over 3 synth-reddit GAT epochs after 2 warm-up
-    epochs (``torch.profiler``), and the device's idle share."""
+def phase_profile(name: str, args: list[str], dds) -> None:
+    """Device time by op over 3 synth-reddit epochs of the configuration
+    ``args`` after 2 warm-up epochs (``torch.profiler``), and the device's
+    idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from parallel_gcn_tpu_torch.models.gat import GATModel
     from parallel_gcn_tpu_torch.optim import init_adam
-    from parallel_gcn_tpu_torch.train import build_model, epoch_seeds, make_epoch_step
+    from parallel_gcn_tpu_torch.train import (build_model, epoch_seeds, make_epoch_step,
+                                              preaggregate_input)
 
-    cfg = _gat_config(5)
+    cfg = _config(args, 5)
     model = build_model(cfg, dds)
+    gat = isinstance(model, GATModel)
+    if cfg.tpu.input_preagg and not gat:
+        dds = preaggregate_input(model, dds)
     opt = init_adam(list(model.weights))
     step = make_epoch_step(model, cfg, dds)
     gen = torch.Generator().manual_seed(cfg.tpu.seed)
     for _ in range(2):
-        step(opt, epoch_seeds(gen, model.n_layers, attention=True)).tolist()
+        step(opt, epoch_seeds(gen, model.n_layers, attention=gat)).tolist()
     reps = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            step(opt, epoch_seeds(gen, model.n_layers, attention=True)).tolist()
+            step(opt, epoch_seeds(gen, model.n_layers, attention=gat)).tolist()
         host_ms = (time.perf_counter() - t0) * 1e3 / reps
     by_kernel: dict = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.device_time_total / 1e3 / reps
     dev_ms = sum(by_kernel.values())
-    print(f"[profile] synth-reddit GAT ({' '.join(GAT_ARGS)}), {reps} epochs after 2 "
+    print(f"[profile] synth-reddit {name} ({' '.join(args)}), {reps} epochs after 2 "
           f"warm-up: {host_ms:.3f} ms/epoch host clock, {dev_ms:.3f} ms/epoch device "
           f"time, device idle {100 * (1 - dev_ms / host_ms):.1f}%")
     if dev_ms == 0:
@@ -309,14 +549,15 @@ def phase_profile_gat(dds) -> None:
 def check_reference() -> None:
     """A small graph through the port's training on the card and on the CPU
     (plain versions), as a GCN and as a GAT on the tile backend with feature
-    and attention dropout: metrics must agree. Both dropout masks (K1's
-    Philox, the attention hash) depend only on seeds and indices."""
+    and attention dropout, and with the fused kernels: metrics must agree.
+    Every dropout mask (K1's Philox, which K10 shares, and the attention
+    hash) depends only on seeds and indices."""
     import torch
 
     from parallel_gcn_tpu_torch.config import Config
     from parallel_gcn_tpu_torch.data.parser import to_device
     from parallel_gcn_tpu_torch.data.synthetic import make_synthetic_dataset
-    from parallel_gcn_tpu_torch.ops import tile_attention
+    from parallel_gcn_tpu_torch.ops import cuda_ce, cuda_fused, tile_attention
     from parallel_gcn_tpu_torch.train import fit
 
     ds = make_synthetic_dataset(
@@ -328,45 +569,65 @@ def check_reference() -> None:
     gat = Config()
     gat.gcn.model, gat.gcn.heads, gat.gcn.hidden_dims = "gat", 2, (8,)
     gat.gcn.dropouts, gat.gcn.attn_dropout = (0.0, 0.3), 0.3
-    for name, cfg in (("GCN", gcn), ("GAT", gat)):
+    gcn_fused = Config()
+    gcn_fused.gcn.hidden_dims, gcn_fused.gcn.dropouts = (32,), (0.3, 0.3)
+    gcn_fused.tpu.ce_impl, gcn_fused.tpu.fuse_dropout_matmul = "pallas", True
+    gcn_fused.tpu.input_preagg = False
+    gat_ce = Config()
+    gat_ce.gcn.model, gat_ce.gcn.heads, gat_ce.gcn.hidden_dims = "gat", 2, (8,)
+    gat_ce.gcn.dropouts, gat_ce.gcn.attn_dropout = (0.0, 0.3), 0.3
+    gat_ce.tpu.ce_impl = "pallas"
+    # the launch counts each run must move on the card and leave alone on the CPU
+    watch = {"GAT": [(tile_attention.launches, "gat_fwd")],
+             "GCN fused": [(cuda_ce.launches, "ce_train"), (cuda_ce.launches, "ce_eval"),
+                           (cuda_fused.launches, "fused_fwd"),
+                           (cuda_fused.launches, "fused_dw"), (cuda_fused.launches, "fused_dx")],
+             "GAT pallas CE": [(tile_attention.launches, "gat_fwd"),
+                               (cuda_ce.launches, "ce_train"), (cuda_ce.launches, "ce_eval")]}
+    for name, cfg in (("GCN", gcn), ("GAT", gat), ("GCN fused", gcn_fused),
+                      ("GAT pallas CE", gat_ce)):
         cfg.gcn.epochs, cfg.train.verbose = 3, False
         hist = {}
         for dev in ("cuda", "cpu"):
             dds = to_device(ds, device=torch.device(dev), hybrid=True, tile_dtype="int8",
                             tile_size=128, tile_cols=256)
-            before = tile_attention.launches["gat_fwd"]
+            before = [d[k] for d, k in watch.get(name, [])]
             hist[dev] = fit(cfg, dds).history
-            if name == "GAT":
-                ran = tile_attention.launches["gat_fwd"] > before
-                assert ran == (dev == "cuda"), f"K5 launched on {dev}: {ran}"
+            for (d, k), b in zip(watch.get(name, []), before):
+                assert (d[k] > b) == (dev == "cuda"), f"{name}: {k} launched on {dev}: {d[k] - b}"
         diff = float(abs(hist["cuda"] - hist["cpu"]).max())
         print(f"[reference] {name}: 2000-node hybrid int8 graph, 3 epochs: card vs "
               f"CPU plain max metric diff {diff:.3e}")
         assert diff < 2e-4, f"{name}: card and CPU trajectories differ by {diff}"
 
 
-def _reset_counts() -> None:
-    from parallel_gcn_tpu_torch.ops import cuda_bcsr, cuda_dropout, tile_attention
+def _launch_dicts() -> list:
+    from parallel_gcn_tpu_torch.ops import (cuda_bcsr, cuda_ce, cuda_dropout, cuda_fused,
+                                            tile_attention)
 
-    for d in (cuda_dropout.launches, cuda_bcsr.launches, tile_attention.launches):
+    return [cuda_dropout.launches, cuda_bcsr.launches, tile_attention.launches,
+            cuda_ce.launches, cuda_fused.launches]
+
+
+def _reset_counts() -> None:
+    for d in _launch_dicts():
         for k in d:
             d[k] = 0
 
 
 def _read_counts() -> dict:
-    from parallel_gcn_tpu_torch.ops import cuda_bcsr, cuda_dropout, tile_attention
-
-    return dict(K1=cuda_dropout.launches["dropout"],
-                K2=cuda_dropout.launches["relu_dropout"],
-                K3=cuda_bcsr.launches["bcsr"],
-                K4=cuda_bcsr.launches["bcsr_scaled"],
-                K5=tile_attention.launches["gat_fwd"],
-                K6=tile_attention.launches["gat_bwd"])
+    drop, bcsr, attn, ce, fused = _launch_dicts()
+    return {"K1": drop["dropout"], "K2": drop["relu_dropout"], "K3": bcsr["bcsr"],
+            "K4": bcsr["bcsr_scaled"], "K5": attn["gat_fwd"], "K6": attn["gat_bwd"],
+            "K9 train": ce["ce_train"], "K9 eval": ce["ce_eval"],
+            "K10 fwd": fused["fused_fwd"], "K10 dW": fused["fused_dw"],
+            "K10 dX": fused["fused_dx"]}
 
 
-def phase_main_path(tag: str, argv: list[str]) -> dict:
+def phase_main_path(tag: str, argv: list[str]) -> tuple[dict, list, float]:
     """``cli.main(argv)`` with every launch count set to 0 just before it;
-    checks the losses and returns the counts read just after."""
+    checks the losses and returns the counts read just after, the train
+    losses and the mean ms/epoch of epochs 2 to the last."""
     from parallel_gcn_tpu_torch import cli
 
     buf = io.StringIO()
@@ -388,10 +649,11 @@ def phase_main_path(tag: str, argv: list[str]) -> dict:
     assert math.isfinite(test_acc), test_acc
     ms = float(re.search(r"avg_epoch_time=(\S+) ms", out).group(1))
     steady = [float(t) * 1e3 for t in re.findall(r"^epoch=\d+ .* time=(\S+)$", out, re.M)][1:]
+    steady_ms = sum(steady) / len(steady)
     print(f"[{tag}] {' '.join(argv)} through cli.main in {secs:.1f} s: {ms:.3f} "
-          f"ms/epoch ({sum(steady) / len(steady):.3f} over epochs 2-{EPOCHS}), train loss "
+          f"ms/epoch ({steady_ms:.3f} over epochs 2-{EPOCHS}), train loss "
           f"{losses[0]:.5f} -> {losses[-1]:.5f}, test_acc {test_acc:.5f}, launches {counts}")
-    return counts
+    return counts, losses, steady_ms
 
 
 def main() -> int:
@@ -428,34 +690,54 @@ def main() -> int:
     check_dropout(results)
     check_bcsr(results, dds.graph.bcsr, dds.x)
     check_tile_attention(results, dds.graph.bcsr)
-    phase_profile_gat(dds)
+    check_ce(results, dds)
+    check_fused(results)
+    phase_profile("GAT", GAT_ARGS, dds)
+    phase_profile("GCN fused", FUSED_ARGS, dds)
     del dds
     torch.cuda.empty_cache()
     check_reference()
 
-    gcn = phase_main_path("main-gcn", ["synth-reddit", f"epochs={EPOCHS}"])
+    gcn, gcn_losses, gcn_ms = phase_main_path("main-gcn", ["synth-reddit", f"epochs={EPOCHS}"])
     # per epoch: K2 once (layer 1's train forward); K4 forward, backward and
     # val eval; plus K4 once for the input pre-aggregation and once for test
     assert gcn["K2"] >= EPOCHS and gcn["K4"] >= 3 * EPOCHS + 2, gcn
-    gat = phase_main_path("main-gat", ["synth-reddit", *GAT_ARGS, f"epochs={EPOCHS}",
-                                       "mode=eager"])
+    gat, _, _ = phase_main_path("main-gat", ["synth-reddit", *GAT_ARGS, f"epochs={EPOCHS}",
+                                             "mode=eager"])
     # per epoch: K5 for both layers in the train forward and the val eval,
     # plus both layers of the test eval; K6 for both layers' backward; K1 on
     # layer 1's train input (its backward reruns it)
     assert gat["K5"] >= 4 * EPOCHS + 2 and gat["K6"] >= 2 * EPOCHS, gat
     assert gat["K1"] >= EPOCHS, gat
-    counts = dict(K1=gat["K1"], K2=gcn["K2"], K3=gcn["K3"] + gat["K3"], K4=gcn["K4"],
-                  K5=gat["K5"], K6=gat["K6"])
+    fused, fused_losses, fused_ms = phase_main_path(
+        "main-fused", ["synth-reddit", *FUSED_ARGS, f"epochs={EPOCHS}"])
+    # per epoch: K9's train variant once and its eval variant for the val
+    # eval (plus the test eval); K10 forward, dW and dX on layer 1; K4 as on
+    # the default path; K2 never (the fused branch replaces it)
+    assert fused["K9 train"] >= EPOCHS and fused["K9 eval"] >= EPOCHS + 1, fused
+    assert min(fused["K10 fwd"], fused["K10 dW"], fused["K10 dX"]) >= EPOCHS, fused
+    assert fused["K2"] == 0 and fused["K4"] >= 3 * EPOCHS + 2, fused
+    diff = max(abs(a - b) for a, b in zip(gcn_losses, fused_losses))
+    print(f"[main-fused] {fused_ms:.3f} ms/epoch against the default GCN path's "
+          f"{gcn_ms:.3f} (epochs 2-{EPOCHS}); train-loss trajectories differ by at most "
+          f"{diff:.5f}")
+    counts = dict(K1=gat["K1"], K2=gcn["K2"], K3=gcn["K3"] + gat["K3"] + fused["K3"],
+                  K4=gcn["K4"], K5=gat["K5"], K6=gat["K6"])
+    counts.update({k: fused[k] for k in ("K9 train", "K9 eval", "K10 fwd", "K10 dW",
+                                         "K10 dX")})
 
     def entry(key, name, source, replaces):
         r = results[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": counts[key], "max_abs_err": r["err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]}
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
 
     drop_src = "parallel_gcn_tpu_torch/csrc/dropout.cu"
     bcsr_src = "parallel_gcn_tpu_torch/csrc/bcsr_spmm.cu"
     attn_src = "parallel_gcn_tpu_torch/csrc/tile_attention.cu"
+    ce_src = "parallel_gcn_tpu_torch/csrc/fused_ce.cu"
+    mm_src = "parallel_gcn_tpu_torch/csrc/dropout_matmul.cu"
     print(json.dumps({
         "kernels": [
             entry("K1", "dropout", drop_src, "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
@@ -463,8 +745,16 @@ def main() -> int:
             entry("K4", "bcsr_spmm_scaled", bcsr_src, "parallel_gcn_tpu/ops/pallas_bcsr.py:254"),
             entry("K5", "gat_fwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:179"),
             entry("K6", "gat_bwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:283"),
+            entry("K9 train", "masked_ce_train", ce_src, "parallel_gcn_tpu/ops/pallas_ce.py:77"),
+            entry("K9 eval", "masked_ce_eval", ce_src, "parallel_gcn_tpu/ops/pallas_ce.py:73"),
+            entry("K10 fwd", "dropout_matmul_fwd", mm_src,
+                  "parallel_gcn_tpu/ops/pallas_fused.py:49"),
+            entry("K10 dW", "dropout_matmul_dw", mm_src,
+                  "parallel_gcn_tpu/ops/pallas_fused.py:70"),
+            entry("K10 dX", "dropout_matmul_dx", mm_src,
+                  "parallel_gcn_tpu/ops/pallas_fused.py:93"),
         ],
-        # ported kernels that neither main path launches
+        # ported kernels that no main path launches
         "off_path_kernels": [
             entry("K3", "bcsr_spmm", bcsr_src, "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),
         ],

@@ -12,6 +12,13 @@ Without residual connections the trailing ReLU is deferred into the next
 layer's entry, where it fuses with that layer's dropout into one kernel
 (``ops.cuda_dropout.relu_dropout``); the result is identical to ReLU then
 dropout.
+
+With ``fuse_dropout_matmul`` a training layer with a nonzero rate runs
+dropout and X·W as one kernel (``ops.cuda_fused.dropout_matmul``, K10)
+instead. Its mask is K1's, so the knob changes a trajectory by matmul
+rounding only. The JAX package takes this branch only with
+``dropout_impl=pallas``; the port has one dropout (Philox), so it always
+does.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from torch import nn
 from parallel_gcn_tpu_torch.data.graph import Graph
 from parallel_gcn_tpu_torch.device import torch_dtype
 from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout, relu_dropout
+from parallel_gcn_tpu_torch.ops.cuda_fused import dropout_matmul
 from parallel_gcn_tpu_torch.ops.graphsum import graphsum
 from parallel_gcn_tpu_torch.ops.sparse_matmul import feature_transform
 
@@ -68,6 +76,7 @@ class GCNModel(nn.Module):
         dense_threshold: int = 8192,
         compute_dtype: str = "float32",
         input_preagg: bool = False,
+        fuse_dropout_matmul: bool = False,
     ):
         super().__init__()
         if len(dropouts) != len(weights):
@@ -84,6 +93,7 @@ class GCNModel(nn.Module):
         # x already holds Â·X and layer 0 skips its aggregation (exact when
         # the input dropout is 0; see train.preaggregate_input)
         self.input_preagg = input_preagg
+        self.fuse_dropout_matmul = fuse_dropout_matmul
 
     @property
     def n_layers(self) -> int:
@@ -98,9 +108,16 @@ class GCNModel(nn.Module):
                   pre_relu: bool = False) -> torch.Tensor:
         """Layer ``layer``'s half before aggregation: [relu →] dropout →
         feature transform. ``pre_relu`` is the previous layer's deferred
-        ReLU, fused with this layer's dropout when both run."""
+        ReLU, fused with this layer's dropout when both run, unless the
+        dropout fuses with the feature transform (``fuse_dropout_matmul``)."""
         rate = self.dropouts[layer]
         drop = training and rate > 0.0
+        if drop and self.fuse_dropout_matmul:
+            if pre_relu:
+                h = torch.relu(h)
+            w = self.weights[layer].to(self.compute_dtype)
+            # layer 0's input is data: no dX kernel
+            return dropout_matmul(h, w, seed, rate, need_dx=layer > 0).to(self.compute_dtype)
         if pre_relu:
             if drop:
                 h = relu_dropout(h, seed, rate)

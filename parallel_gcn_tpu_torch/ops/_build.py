@@ -62,6 +62,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_gat_bwd.argtypes = [*sched, p, p, p, p, i32, i32, i32, p, p, i32, i32, f32,
                                  *drop, p]
     lib.pgcn_gat_bwd.restype = i32
+    lib.pgcn_masked_ce.argtypes = [p, p, i32, p, i64, i32, f32, f32, p, i64, p, p, p, p]
+    lib.pgcn_masked_ce.restype = i32
+    u64 = ctypes.c_uint64
+    lib.pgcn_dropout_matmul_fwd.argtypes = [p, p, p, i32, i64, i32, i32, u64, u32, f32, p]
+    lib.pgcn_dropout_matmul_fwd.restype = i32
+    lib.pgcn_dropout_matmul_dw.argtypes = [p, p, p, p, i32, i64, i32, i32, i32, i64, u64,
+                                           u32, f32, p]
+    lib.pgcn_dropout_matmul_dw.restype = i32
+    lib.pgcn_dropout_matmul_dx.argtypes = [p, p, p, i32, i64, i32, i32, u64, u32, f32, p]
+    lib.pgcn_dropout_matmul_dx.restype = i32
 
 
 def _run_nvcc(sources: list[str], out: str) -> str:

@@ -24,6 +24,7 @@ a CPU tensor. ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -82,6 +83,15 @@ def philox_words(seed: int, n: int, device) -> torch.Tensor:
     return torch.stack(words, dim=1).reshape(-1)[:n]
 
 
+def keep_mask(seed: int, rate: float, shape, device) -> torch.Tensor:
+    """The contract's keep mask of a contiguous tensor of ``shape``: the
+    element with flat index i is kept iff word ``i & 3`` of Philox counter
+    ``i >> 2`` is below ``keep_threshold(rate)``. K1, K2 and the fused
+    dropout⊗matmul kernel (``ops/cuda_fused.py``) all draw this mask."""
+    n = math.prod(shape)
+    return (philox_words(seed, n, device) < keep_threshold(rate)).view(shape)
+
+
 def _inv_keep(rate: float, dtype: torch.dtype) -> float:
     """1/keep rounded to ``dtype`` (as the Pallas kernel multiplies by it),
     as a Python float. A Python scalar keeps the multiply free of a
@@ -93,7 +103,7 @@ def _inv_keep(rate: float, dtype: torch.dtype) -> float:
 def dropout_plain(x: torch.Tensor, seed: int, rate: float,
                   relu: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same bits, same rounding)."""
-    keep = philox_words(seed, x.numel(), x.device).view(x.shape) < keep_threshold(rate)
+    keep = keep_mask(seed, rate, x.shape, x.device)
     if relu:
         keep = keep & (x > 0)
     return torch.where(keep, x * _inv_keep(rate, x.dtype), 0.0)

@@ -5,6 +5,9 @@ reddit-size feature matrix is 0.56 GB), so this is one ``torch.matmul``:
 operands in x's dtype, float32 accumulation, result in ``out_dtype``. TF32
 and reduced-precision bf16 reductions are switched off or on once, at model
 build (``models.gcn.set_matmul_precision``).
+
+``sparse_feature_transform`` is the same product for features given as
+(row, col, val) nonzeros: a gather and an ``index_add``, no kernel.
 """
 
 from __future__ import annotations
@@ -23,3 +26,19 @@ def feature_transform(
         return torch.matmul(x, w)
     # f32 result of narrow operands: the products are exact in f32
     return torch.matmul(x.float(), w.float()).to(out_dtype)
+
+
+def sparse_feature_transform(
+    feat_row: torch.Tensor,  # int [nnz]: row id per nonzero (sorted)
+    feat_col: torch.Tensor,  # int [nnz]: feature id per nonzero
+    feat_val: torch.Tensor,  # float [nnz]: 0 on padding
+    w: torch.Tensor,  # [input_dim, H]
+    n_nodes: int,
+) -> torch.Tensor:
+    """Sparse features times ``w``: out[n] = Σ_j val_j · w[col_j] over row
+    n's nonzeros (``parallel_gcn_tpu/ops/sparse_matmul.py:52``), in w's
+    dtype. Differentiable in ``w`` only (the features are data), as the
+    reference's backward (src/module.cu:136-163)."""
+    gathered = feat_val[:, None].to(w.dtype) * w[feat_col.long()]
+    out = torch.zeros((n_nodes, w.shape[1]), dtype=w.dtype, device=w.device)
+    return out.index_add(0, feat_row.long(), gathered)

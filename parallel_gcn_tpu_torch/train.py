@@ -26,6 +26,7 @@ from parallel_gcn_tpu_torch.config import Config
 from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL, DeviceDataset
 from parallel_gcn_tpu_torch.models.gat import GATModel, init_gat_params
 from parallel_gcn_tpu_torch.models.gcn import GCNModel, init_params, set_matmul_precision
+from parallel_gcn_tpu_torch.ops.cuda_ce import masked_softmax_xent_fused
 from parallel_gcn_tpu_torch.ops.graphsum import resolve_backend
 from parallel_gcn_tpu_torch.ops.loss import l2_penalty, masked_softmax_xent
 from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
@@ -79,8 +80,6 @@ def build_model(cfg: Config, dds: DeviceDataset,
     unported = {
         f"model={cfg.gcn.model}": cfg.gcn.model not in ("gcn", "gat"),
         "remat": cfg.gcn.remat,
-        "ce_impl=pallas": cfg.tpu.ce_impl == "pallas",
-        "fuse_dropout_matmul": cfg.tpu.fuse_dropout_matmul,
         "n_devices/tp": cfg.tpu.n_devices > 1 or cfg.tpu.tp > 1,
         "edge_chunk with model=gat": gat and cfg.tpu.edge_chunk > 0,
     }
@@ -117,7 +116,17 @@ def build_model(cfg: Config, dds: DeviceDataset,
         edge_chunk=cfg.tpu.edge_chunk,
         dense_threshold=cfg.tpu.dense_threshold,
         compute_dtype=cfg.tpu.compute_dtype,
+        fuse_dropout_matmul=cfg.tpu.fuse_dropout_matmul,
     )
+
+
+def _ce_fn(cfg: Config) -> Callable:
+    """The masked softmax-CE of ``cfg.tpu.ce_impl``: ``pallas`` is the fused
+    kernel (K9, ``ops.cuda_ce``); ``auto`` and ``xla`` are the plain torch
+    expression of ``ops.loss``, as ``auto`` resolves in the JAX package."""
+    if cfg.tpu.ce_impl == "pallas":
+        return masked_softmax_xent_fused
+    return masked_softmax_xent
 
 
 def _l2_term(wd: float, w0: torch.Tensor) -> torch.Tensor:
@@ -159,10 +168,11 @@ def make_epoch_step(model: Model, cfg: Config, dds: DeviceDataset) -> Callable:
     val_mask = dds.split == VAL
     x_eval, eval_preagg = _eval_inputs(model, dds)
     weights = list(model.weights)
+    ce_fn = _ce_fn(cfg)
 
     def epoch_step(opt_state: AdamState, seeds: list[int]) -> torch.Tensor:
         logits = model(dds.x, dds.graph, training=True, seeds=seeds)
-        ce, train_acc = masked_softmax_xent(logits, dds.labels, train_mask, n_train)
+        ce, train_acc = ce_fn(logits, dds.labels, train_mask, n_train)
         grads = torch.autograd.grad(ce, weights)
         with torch.no_grad():
             # the L2 term of the PRE-update W0 (src/gcn.cu:314)
@@ -172,7 +182,7 @@ def make_epoch_step(model: Model, cfg: Config, dds: DeviceDataset) -> Callable:
         with torch.no_grad():
             val_logits = model(x_eval, dds.graph, training=False,
                                input_preagg=eval_preagg)
-            val_ce, val_acc = masked_softmax_xent(val_logits, dds.labels, val_mask, n_val)
+            val_ce, val_acc = ce_fn(val_logits, dds.labels, val_mask, n_val)
             val_loss = val_ce + _l2_term(wd, weights[0])
             return torch.stack([train_loss, train_acc, val_loss, val_acc])
 
@@ -186,11 +196,12 @@ def make_eval_fn(model: Model, cfg: Config, dds: DeviceDataset,
     n = dds.split_counts[split]
     wd = cfg.adam.weight_decay
     x_eval, eval_preagg = _eval_inputs(model, dds)
+    ce_fn = _ce_fn(cfg)
 
     def eval_fn():
         with torch.no_grad():
             logits = model(x_eval, dds.graph, training=False, input_preagg=eval_preagg)
-            ce, acc = masked_softmax_xent(logits, dds.labels, mask, n)
+            ce, acc = ce_fn(logits, dds.labels, mask, n)
             return ce + _l2_term(wd, model.weights[0]), acc
 
     return eval_fn
