@@ -31,13 +31,26 @@ Phases, each printed on its own lines:
      attention dropout, and with the fused kernels (a GCN with both knobs
      and dropouts 0.3/0.3 without pre-aggregation, a GAT with
      ``ce_impl=pallas``); the metrics must agree within 2e-4;
-  6. main paths, each with the launch counts set to 0 just before it:
+  6. mesh kernels: K3, K5 and both K7 sweeps over rank 0's slab of
+     synth-reddit's mesh partition at one rank (square) and at 4 ranks with
+     the boundary halo (rectangular, built on the host), against their
+     plain versions with the tolerances of phase 3 (K3 at F 41 and 600 bf16
+     and 602 f32; attention at heads 2, d 32 and 41, bf16, attention
+     dropout 0 and 0.6), two runs bit-identical; then ``fit_parallel`` in a
+     world of one on a small graph, on the card (NCCL) and on the CPU
+     (gloo), as a GCN over flat and over hybrid int8 slabs and as a GAT over
+     ``gat_mesh_pack`` slabs: metrics within 2e-4;
+  7. main paths, each with the launch counts set to 0 just before it:
      ``parallel_gcn_tpu_torch.cli.main(["synth-reddit", "epochs=10"])`` (the
      GCN), the same with ``model=gat heads=2 hidden_dims=32
      dropouts=0.0,0.1 mode=eager`` (the GAT) and with ``ce_impl=pallas
-     fuse_dropout_matmul=true`` (the fused GCN); the losses must be finite
+     fuse_dropout_matmul=true`` (the fused GCN); then the mesh trainer
+     ``parallel.train_parallel.fit_parallel`` at ``n_devices=1`` (a world of
+     one over NCCL) with ``halo=boundary``, as the GCN and as the GAT, each
+     beside its single-card epoch of this run; the losses must be finite
      and fall, and the kernels of each path must have launched at least as
-     often as its epochs imply.
+     often as its epochs imply;
+  8. mesh profiles: both mesh epochs under ``torch.profiler``.
 Then one JSON line with every kernel's launches, error, times and bound
 (the least time the card could take: the larger of the bytes each input
 read once and each output written once at 3.35 TB/s, and the operations at
@@ -63,6 +76,10 @@ EPOCHS = 10
 GAT_ARGS = ["model=gat", "heads=2", "hidden_dims=32", "dropouts=0.0,0.1"]
 # the GCN with both opt-in fused kernels (K9, K10)
 FUSED_ARGS = ["ce_impl=pallas", "fuse_dropout_matmul=true"]
+# the mesh paths (fit_parallel at n_devices=1): the GCN over the params
+# file's hybrid int8 slabs and the GAT over gat_mesh_pack slabs
+MESH_GCN_ARGS = ["halo=boundary", "mode=eager"]
+MESH_GAT_ARGS = [*GAT_ARGS, "halo=boundary", "mode=eager"]
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s by type
 HBM_BYTES_S = 3.35e12
@@ -286,8 +303,8 @@ def _pack_csr(pack):
             v = v * pack.sym_scale[cols[-1]] * pack.sym_scale[rows[-1]]
         vals.append(v)
     idx = torch.stack([torch.cat(rows), torch.cat(cols)])
-    n = pack.n_nodes
-    return torch.sparse_coo_tensor(idx, torch.cat(vals), (n, n)).coalesce().to_sparse_csr()
+    return torch.sparse_coo_tensor(idx, torch.cat(vals), (pack.n_rows, pack.n_nodes)
+                                   ).coalesce().to_sparse_csr()
 
 
 def check_tile_attention(results: dict, pack) -> None:
@@ -466,6 +483,230 @@ def check_fused(results: dict) -> None:
         del x, w, g, hd, gd, rec
 
 
+def mesh_slabs(ds, n_dev: int, args: list[str] = ()):
+    """Rank 0's share of ``ds`` partitioned ``n_dev`` ways as the mesh paths
+    partition it (synth-reddit's hybrid int8 tiles, ``args`` over the params
+    file, the boundary halo; at one rank it falls back to the all_gather
+    layout), on the card: the GCN's slab (K3) and the GAT's packs (K5, K7)."""
+    import torch
+
+    from parallel_gcn_tpu_torch.parallel import partition
+    from parallel_gcn_tpu_torch.parallel import train_parallel as tpl
+
+    t0 = time.perf_counter()
+    cfg = _config(["halo=boundary", *args], 1)
+    hsg = tpl.partition_for(cfg, ds, n_dev, "boundary")
+    gcn = tpl.rank_graph(hsg, 0, torch.device("cuda"))
+    mp = partition.gat_mesh_pack(hsg)
+    attn = tpl.rank_graph(mp, 0, torch.device("cuda")).attn
+    torch.cuda.synchronize()
+    halo = "boundary" if hsg.send_idx is not None else "all_gather (boundary fell back)"
+    print(f"[mesh-kernels] {n_dev}-way partition, rank 0: [{hsg.n_local}, {hsg.n_buf}] "
+          f"slab, halo {halo}; GCN slab {gcn.slab.n_tiles} live of {hsg.tiles.shape[1]} "
+          f"tiles {gcn.slab.tile_r}x{gcn.slab.tile_c}; GAT rows {attn.rows.n_tiles} and "
+          f"transposed columns {attn.cols.n_tiles} live of {mp.tiles_c.shape[1]} tiles "
+          f"{attn.rows.tile_r}x{attn.rows.tile_c}; built in {time.perf_counter() - t0:.1f} s")
+    return gcn.slab, attn
+
+
+def check_bcsr_rect(results: dict, slab, tag: str, record: bool) -> None:
+    """K3 over a mesh rank's slab against its plain version at the mesh GCN's
+    feature widths (41 and 600 bf16, the f32 input pre-aggregation's 602);
+    two runs bit-identical. ``record``: this slab's F=41 numbers go to the
+    JSON line."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+
+    gen = torch.Generator().manual_seed(6)
+    nnz = int(slab.live_entries[0].numel())
+    errs = []
+    for F, dtype, rtol in ((41, torch.bfloat16, 2e-3), (600, torch.bfloat16, 2e-3),
+                           (602, torch.float32, 1e-4)):
+        x = torch.randn((slab.n_nodes, F), generator=gen).to(dtype).cuda()
+        got = cb.bcsr_matmul_rect(slab, x)
+        assert torch.equal(got, cb.bcsr_matmul_rect(slab, x)), "K3 rect: two runs differ"
+        errs.append(_max_err(got, cb.bcsr_matmul_plain(slab, x), rtol))
+        ms = _events_ms(lambda: cb.bcsr_matmul_rect(slab, x), 10)
+        pms = _events_ms(lambda: cb.bcsr_matmul_plain(slab, x), 2)
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        bound = _bound(_pack_bytes(slab) + _nbytes(x, got), 2 * nnz * F, kind)
+        print(f"[mesh-kernels] K3 rect {tag} F={F} {dtype}: max_abs_err {errs[-1]:.3e} "
+              f"(rtol {rtol}), runs bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        if record and F == 41:
+            csr = _pack_csr(slab)
+            x32 = x.float()
+            lib_ms = _events_ms(lambda: torch.sparse.mm(csr, x32), 10)
+            print(f"[mesh-kernels] K3 rect {tag} library torch.sparse.mm (CSR f32, "
+                  f"{csr.values().numel()} nnz) F={F}: {lib_ms:.4f} ms")
+            results["K3 rect"] = dict(ms=ms, plain_ms=pms, library_ms=lib_ms, **bound)
+            del csr, x32
+    r = results.setdefault("K3 rect", {})
+    r["err"] = max(r.get("err", 0.0), *errs)
+
+
+def check_attention_rect(results: dict, attn, tag: str, record: bool) -> None:
+    """Rect K5 and the K7 row and column sweeps against their plain versions
+    on a mesh rank's packs at the GAT's shapes (heads 2; d 32 and 41; bf16;
+    attention dropout 0 and 0.6), the K5/K6 phase's tolerances, two runs
+    bit-identical. ``record``: this slab's d=41, rate-0 numbers go to the
+    JSON line."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import tile_attention as ta
+
+    gen = torch.Generator().manual_seed(7)
+    n, nb, H = attn.n_rows, attn.n_buf, 2
+    nnz = int(attn.rows.live_entries[0].numel())
+    errs = {"K5 rect": [], "K7 row": [], "K7 col": []}
+    for D in (32, 41):
+        s = torch.randn((n, H), generator=gen).to(torch.bfloat16).cuda()
+        t = torch.randn((nb, H), generator=gen).to(torch.bfloat16).cuda()
+        v = torch.randn((nb, H, D), generator=gen).to(torch.bfloat16).cuda()
+        g = torch.randn((n, H, D), generator=gen).cuda()
+        for rate in (0.0, 0.6):
+            kw = dict(slope=0.2, rate=rate, seed=0x2468ACE)
+            fwd = ta.gat_fwd_rect(attn.rows, s, t, v, **kw)
+            assert all(map(torch.equal, fwd, ta.gat_fwd_rect(attn.rows, s, t, v, **kw))), \
+                "K5 rect: two runs differ"
+            acc, m, den = ta.gat_fwd_tiles_plain(attn.rows, s, t, v, **kw)
+            live = den > 0  # rows with entries; the others keep m = -1e9
+            assert torch.equal(fwd[1][~live], m[~live]), "K5 rect: m of empty rows"
+            errs["K5 rect"].append(max(_max_err(fwd[0], acc, 2e-3), _max_err(fwd[2], den, 2e-3),
+                                       _max_err(fwd[1][live], m[live], 1e-6)))
+            rho = (g * acc / den.clamp(min=1e-16)[:, :, None]).sum(-1)
+            bw = (s, t, v, g, m, den, rho)
+            row = ta.gat_bwd_rect_row(attn.rows, *bw, **kw)
+            assert torch.equal(row, ta.gat_bwd_rect_row(attn.rows, *bw, **kw)), \
+                "K7 row: two runs differ"
+            col = ta.gat_bwd_rect_col(attn.cols, *bw, **kw)
+            assert all(map(torch.equal, col, ta.gat_bwd_rect_col(attn.cols, *bw, **kw))), \
+                "K7 col: two runs differ"
+            errs["K7 row"].append(_max_err(
+                row, ta.gat_bwd_rect_row_plain(attn.rows, *bw, **kw), 1e-3, atol_frac=1e-4))
+            errs["K7 col"].append(max(
+                _max_err(a, b, 1e-3, atol_frac=1e-4)
+                for a, b in zip(col, ta.gat_bwd_rect_col_plain(attn.cols, *bw, **kw))))
+            calls = {
+                "K5 rect": (lambda: ta.gat_fwd_rect(attn.rows, s, t, v, **kw),
+                            lambda: ta.gat_fwd_tiles_plain(attn.rows, s, t, v, **kw),
+                            attn.rows, (s, t, v, *fwd), 2),
+                "K7 row": (lambda: ta.gat_bwd_rect_row(attn.rows, *bw, **kw),
+                           lambda: ta.gat_bwd_rect_row_plain(attn.rows, *bw, **kw),
+                           attn.rows, (*bw, row), 2),
+                "K7 col": (lambda: ta.gat_bwd_rect_col(attn.cols, *bw, **kw),
+                           lambda: ta.gat_bwd_rect_col_plain(attn.cols, *bw, **kw),
+                           attn.cols, (*bw, *col), 4),
+            }
+            for key, (kernel, plain, pack, tensors, flops_per) in calls.items():
+                ms = _events_ms(kernel, 10)
+                pms = _events_ms(plain, 2)
+                # f32 FMAs: the products with v (K5), <g, v> (row), <g, v> and
+                # the dv update (column), per live entry and head
+                bound = _bound(_pack_bytes(pack) + _nbytes(*tensors),
+                               flops_per * nnz * H * D, "f32")
+                print(f"[mesh-kernels] {key} {tag} H={H} D={D} bf16 rate {rate}: "
+                      f"max_abs_err {errs[key][-1]:.3e}, runs bit-identical; kernel "
+                      f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                      f"({bound['bound_by']})")
+                if record and (D, rate) == (41, 0.0):  # layer 1 of the main path
+                    results[key] = dict(ms=ms, plain_ms=pms, **bound)
+    for key, e in errs.items():
+        r = results.setdefault(key, {})
+        r["err"] = max(r.get("err", 0.0), *e)
+
+
+def check_reference_mesh() -> None:
+    """``fit_parallel`` in a world of one on a small graph, on the card (NCCL)
+    and on the CPU (gloo, the plain versions): the GCN over flat COO slabs
+    (all_gather halo), over hybrid int8 slabs with the boundary halo kept at
+    one rank (an all_to_all of one), and the GAT over ``gat_mesh_pack``
+    slabs with feature and attention dropout; the metrics must agree within
+    2e-4 and the mesh kernels launch on the card only."""
+    import torch
+
+    from parallel_gcn_tpu_torch.config import Config
+    from parallel_gcn_tpu_torch.data.synthetic import make_synthetic_dataset
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr, tile_attention
+    from parallel_gcn_tpu_torch.parallel.train_parallel import fit_parallel
+
+    ds = make_synthetic_dataset(
+        "smoke", n_nodes=2000, n_edges=40_000, input_dim=64, n_classes=8,
+        n_train=1200, n_val=300, feature_nnz_per_row=16, n_communities=20,
+    )
+
+    def config(backend, halo, gat=False):
+        cfg = Config()
+        cfg.gcn.hidden_dims, cfg.gcn.dropouts, cfg.gcn.epochs = (32,), (0.0, 0.1), 3
+        cfg.train.verbose = False
+        cfg.tpu.backend, cfg.tpu.halo, cfg.tpu.halo_fallback = backend, halo, False
+        cfg.tpu.tile_dtype, cfg.tpu.tile_size, cfg.tpu.tile_cols = "int8", 128, 256
+        if gat:
+            cfg.gcn.model, cfg.gcn.heads, cfg.gcn.hidden_dims = "gat", 2, (8,)
+            cfg.gcn.dropouts, cfg.gcn.attn_dropout = (0.0, 0.3), 0.3
+        return cfg
+
+    runs = {
+        "GCN flat all_gather": (config("segment", "all_gather"), []),
+        "GCN hybrid int8 boundary": (config("hybrid", "boundary"),
+                                     [(cuda_bcsr.launches, "bcsr_rect")]),
+        "GAT mesh pack boundary": (config("hybrid", "boundary", gat=True),
+                                   [(tile_attention.launches, k) for k in
+                                    ("gat_fwd_rect", "gat_bwd_rect_row", "gat_bwd_rect_col")]),
+    }
+    for name, (cfg, watch) in runs.items():
+        hist = {}
+        for dev in ("cuda", "cpu"):
+            before = [d[k] for d, k in watch]
+            hist[dev] = fit_parallel(cfg, ds, n_devices=1, device=dev).history
+            for (d, k), b in zip(watch, before):
+                assert (d[k] > b) == (dev == "cuda"), f"{name}: {k} launched on {dev}: {d[k] - b}"
+        diff = float(abs(hist["cuda"] - hist["cpu"]).max())
+        print(f"[reference-mesh] {name}: fit_parallel, a world of one, 2000-node graph, "
+              f"3 epochs: card (NCCL) vs CPU (gloo, plain) max metric diff {diff:.3e}")
+        assert diff < 2e-4, f"{name}: card and CPU trajectories differ by {diff}"
+
+
+def phase_mesh_path(tag: str, args: list[str], ds, single_ms: float) -> dict:
+    """``fit_parallel`` of synth-reddit with ``args`` over the params file,
+    ``n_devices=1`` (a world of one over NCCL), with every launch count set to
+    0 just before it; checks the losses and returns the counts read just
+    after. Prints the halo used and the mesh epoch beside ``single_ms``, the
+    single-card path's epoch in this run."""
+    import torch
+
+    from parallel_gcn_tpu_torch.parallel.train_parallel import fit_parallel
+
+    cfg = _config(args, EPOCHS)
+    cfg.train.verbose = True
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fit_parallel(cfg, ds, n_devices=1, device="cuda")
+    secs = time.perf_counter() - t0
+    counts = _read_counts()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"[{tag}] {line}")
+    losses = [float(v) for v in res.history[:, 0]]
+    assert len(losses) == EPOCHS, f"expected {EPOCHS} epochs, got {len(losses)}"
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], f"train loss did not fall: {losses}"
+    assert math.isfinite(res.test_acc), res.test_acc
+    halo = re.search(r"halo=(\S+),", out).group(1)
+    steady = [float(t) * 1e3 for t in re.findall(r"^epoch=\d+ .* time=(\S+)$", out, re.M)][1:]
+    mesh_ms = sum(steady) / len(steady)
+    print(f"[{tag}] fit_parallel {' '.join(args)}, n_devices=1 (NCCL world of one) on "
+          f"{torch.cuda.get_device_name(0)} in {secs:.1f} s: halo {halo}, {mesh_ms:.3f} "
+          f"ms/epoch over epochs 2-{EPOCHS} against the single-card path's "
+          f"{single_ms:.3f} in this run (sharding tax {mesh_ms / single_ms:.3f}x), train "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc {res.test_acc:.5f}, "
+          f"launches {counts}")
+    return counts
+
+
 def _config(args: list[str], epochs: int):
     from parallel_gcn_tpu_torch.config import (default_params_path, load_config,
                                                parse_override)
@@ -482,12 +723,17 @@ def _category(kernel: str) -> str:
                      ("fwd_mma_kernel", "K10 fused fwd"), ("fwd_fma_kernel", "K10 fused fwd"),
                      ("dw_mma_kernel", "K10 fused dW"), ("dw_fma_kernel", "K10 fused dW"),
                      ("reduce_splits_kernel", "K10 fused dW"), ("dx_kernel<", "K10 fused dX"),
-                     ("spmm_mma_kernel", "K4 tile SpMM"), ("spmm_fma_kernel", "K4 tile SpMM"),
-                     ("reduce_segments_kernel", "K4 tile SpMM"),
+                     ("spmm_mma_kernel", "K3/K4 tile SpMM"),
+                     ("spmm_fma_kernel", "K3/K4 tile SpMM"),
+                     ("reduce_segments_kernel", "K3/K4 tile SpMM"),
                      ("dropout_kernel<__nv_bfloat16, true>", "K2 relu_dropout"),
                      ("dropout_kernel<float, true>", "K2 relu_dropout"),
                      ("gat_fwd_kernel", "K5 gat_fwd"), ("merge_segments_kernel<true>", "K5 gat_fwd"),
-                     ("gat_bwd_kernel", "K6 gat_bwd"), ("merge_segments_kernel<false>", "K6 gat_bwd"),
+                     ("gat_bwd_kernel", "K6 gat_bwd"),
+                     ("gat_bwd_rect_row_kernel", "K7 row sweep"),
+                     ("gat_bwd_rect_col_kernel", "K7 column sweep"),
+                     ("merge_segments_kernel<false>", "K6/K7 ordered merge"),
+                     ("nccl", "collectives (NCCL)"),
                      ("dropout_kernel", "K1 dropout"), ("gemm", "GEMMs"), ("gemv", "GEMMs"),
                      ("xmma", "GEMMs"), ("nvjet", "GEMMs"), ("cutlass", "GEMMs"),
                      ("scatter", "scatter/index (residual)"),
@@ -498,12 +744,45 @@ def _category(kernel: str) -> str:
     return "other elementwise"
 
 
-def phase_profile(name: str, args: list[str], dds) -> None:
-    """Device time by op over 3 synth-reddit epochs of the configuration
-    ``args`` after 2 warm-up epochs (``torch.profiler``), and the device's
-    idle share."""
+def _profile_epochs(label: str, epoch) -> None:
+    """Device time by op over 3 calls of ``epoch()`` (one training epoch that
+    ends reading its metrics) after 2 warm-up calls (``torch.profiler``),
+    and the device's idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        epoch()
+    reps = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            epoch()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    by_kernel: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.device_time_total / 1e3 / reps
+    dev_ms = sum(by_kernel.values())
+    print(f"[profile] {label}, {reps} epochs after 2 warm-up: {host_ms:.3f} ms/epoch host "
+          f"clock, {dev_ms:.3f} ms/epoch device time, device idle "
+          f"{100 * (1 - dev_ms / host_ms):.1f}%")
+    if dev_ms == 0:
+        print("[profile] the profiler saw no device time")
+        return
+    by_cat: dict = {}
+    for name, ms in by_kernel.items():
+        by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
+    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {cat:28s} {ms:9.3f} ms/epoch {100 * ms / dev_ms:5.1f}%")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[profile]   kernel {ms:9.3f} ms/epoch  {name[:110]}")
+
+
+def phase_profile(name: str, args: list[str], dds) -> None:
+    """The single-card epoch of synth-reddit's configuration ``args`` under
+    the profiler (``_profile_epochs``)."""
+    import torch
 
     from parallel_gcn_tpu_torch.models.gat import GATModel
     from parallel_gcn_tpu_torch.optim import init_adam
@@ -518,32 +797,31 @@ def phase_profile(name: str, args: list[str], dds) -> None:
     opt = init_adam(list(model.weights))
     step = make_epoch_step(model, cfg, dds)
     gen = torch.Generator().manual_seed(cfg.tpu.seed)
-    for _ in range(2):
-        step(opt, epoch_seeds(gen, model.n_layers, attention=gat)).tolist()
-    reps = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step(opt, epoch_seeds(gen, model.n_layers, attention=gat)).tolist()
-        host_ms = (time.perf_counter() - t0) * 1e3 / reps
-    by_kernel: dict = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.device_time_total / 1e3 / reps
-    dev_ms = sum(by_kernel.values())
-    print(f"[profile] synth-reddit {name} ({' '.join(args)}), {reps} epochs after 2 "
-          f"warm-up: {host_ms:.3f} ms/epoch host clock, {dev_ms:.3f} ms/epoch device "
-          f"time, device idle {100 * (1 - dev_ms / host_ms):.1f}%")
-    if dev_ms == 0:
-        print("[profile] the profiler saw no device time")
-        return
-    by_cat: dict = {}
-    for name, ms in by_kernel.items():
-        by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
-    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {cat:28s} {ms:9.3f} ms/epoch {100 * ms / dev_ms:5.1f}%")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[profile]   kernel {ms:9.3f} ms/epoch  {name[:110]}")
+    _profile_epochs(f"synth-reddit {name} ({' '.join(args)})",
+                    lambda: step(opt, epoch_seeds(gen, model.n_layers, attention=gat)).tolist())
+
+
+def phase_profile_mesh(name: str, args: list[str], ds) -> None:
+    """The mesh epoch (``fit_parallel``'s step, a world of one over NCCL) of
+    synth-reddit's configuration ``args`` under the profiler."""
+    import torch
+
+    from parallel_gcn_tpu_torch.optim import init_adam
+    from parallel_gcn_tpu_torch.parallel import collectives
+    from parallel_gcn_tpu_torch.parallel import train_parallel as tpl
+    from parallel_gcn_tpu_torch.train import epoch_seeds
+
+    cfg = _config(args, 5)
+    gat = cfg.gcn.model == "gat"
+    dev = torch.device("cuda", 0)
+    with collectives.world(1, dev):
+        run = tpl.build_rank(cfg, ds, 0, 1, cfg.tpu.halo, dev)
+        step, _ = tpl.make_run_fns(cfg, run)
+        opt = init_adam(list(run.model.weights))
+        gen = torch.Generator().manual_seed(cfg.tpu.seed)
+        n_layers = run.model.n_layers
+        _profile_epochs(f"synth-reddit mesh {name} ({' '.join(args)}), n_devices=1",
+                        lambda: step(opt, epoch_seeds(gen, n_layers, attention=gat)).tolist())
 
 
 def check_reference() -> None:
@@ -619,6 +897,8 @@ def _read_counts() -> dict:
     drop, bcsr, attn, ce, fused = _launch_dicts()
     return {"K1": drop["dropout"], "K2": drop["relu_dropout"], "K3": bcsr["bcsr"],
             "K4": bcsr["bcsr_scaled"], "K5": attn["gat_fwd"], "K6": attn["gat_bwd"],
+            "K3 rect": bcsr["bcsr_rect"], "K5 rect": attn["gat_fwd_rect"],
+            "K7 row": attn["gat_bwd_rect_row"], "K7 col": attn["gat_bwd_rect_col"],
             "K9 train": ce["ce_train"], "K9 eval": ce["ce_eval"],
             "K10 fwd": fused["fused_fwd"], "K10 dW": fused["fused_dw"],
             "K10 dX": fused["fused_dx"]}
@@ -667,7 +947,7 @@ def main() -> int:
     sys.path.insert(0, repo)
     import parallel_gcn_tpu_torch  # noqa: F401  (fails outside a checkout)
     from parallel_gcn_tpu_torch.config import default_params_path, load_config
-    from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset
+    from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset, prepare_host_dataset
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -698,12 +978,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_reference()
 
+    # the mesh kernels on rank 0's slab of synth-reddit at one rank (square)
+    # and of its 4-way partition with the boundary halo kept (rectangular)
+    t0 = time.perf_counter()
+    ds = prepare_host_dataset(cfg, "synth-reddit")
+    print(f"[mesh-kernels] synth-reddit loaded and reordered on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for n_dev, args in ((1, []), (4, ["halo_fallback=false"])):
+        slab, attn = mesh_slabs(ds, n_dev, args)
+        tag = f"{n_dev}-way rank 0 [{attn.n_rows}, {attn.n_buf}]"
+        check_bcsr_rect(results, slab, tag, record=n_dev == 1)
+        check_attention_rect(results, attn, tag, record=n_dev == 1)
+        del slab, attn
+        torch.cuda.empty_cache()
+    check_reference_mesh()
+
     gcn, gcn_losses, gcn_ms = phase_main_path("main-gcn", ["synth-reddit", f"epochs={EPOCHS}"])
     # per epoch: K2 once (layer 1's train forward); K4 forward, backward and
     # val eval; plus K4 once for the input pre-aggregation and once for test
     assert gcn["K2"] >= EPOCHS and gcn["K4"] >= 3 * EPOCHS + 2, gcn
-    gat, _, _ = phase_main_path("main-gat", ["synth-reddit", *GAT_ARGS, f"epochs={EPOCHS}",
-                                             "mode=eager"])
+    gat, _, gat_ms = phase_main_path("main-gat", ["synth-reddit", *GAT_ARGS,
+                                                  f"epochs={EPOCHS}", "mode=eager"])
     # per epoch: K5 for both layers in the train forward and the val eval,
     # plus both layers of the test eval; K6 for both layers' backward; K1 on
     # layer 1's train input (its backward reruns it)
@@ -721,8 +1016,22 @@ def main() -> int:
     print(f"[main-fused] {fused_ms:.3f} ms/epoch against the default GCN path's "
           f"{gcn_ms:.3f} (epochs 2-{EPOCHS}); train-loss trajectories differ by at most "
           f"{diff:.5f}")
+    mesh_gcn = phase_mesh_path("main-mesh-gcn", MESH_GCN_ARGS, ds, gcn_ms)
+    # per epoch: K3 over the slab for both layers' forward, backward and val
+    # eval; K2 on layer 1's train input
+    assert mesh_gcn["K3 rect"] >= 3 * EPOCHS and mesh_gcn["K2"] >= EPOCHS, mesh_gcn
+    mesh_gat = phase_mesh_path("main-mesh-gat", MESH_GAT_ARGS, ds, gat_ms)
+    # per epoch: rect K5 for both layers in the train forward and the val
+    # eval, both K7 sweeps for both layers' backward, K1 on layer 1's input
+    assert mesh_gat["K5 rect"] >= 4 * EPOCHS, mesh_gat
+    assert min(mesh_gat["K7 row"], mesh_gat["K7 col"]) >= 2 * EPOCHS, mesh_gat
+    assert mesh_gat["K1"] >= EPOCHS, mesh_gat
+    phase_profile_mesh("GCN", MESH_GCN_ARGS, ds)
+    phase_profile_mesh("GAT", MESH_GAT_ARGS, ds)
     counts = dict(K1=gat["K1"], K2=gcn["K2"], K3=gcn["K3"] + gat["K3"] + fused["K3"],
                   K4=gcn["K4"], K5=gat["K5"], K6=gat["K6"])
+    counts["K3 rect"] = mesh_gcn["K3 rect"]
+    counts.update({k: mesh_gat[k] for k in ("K5 rect", "K7 row", "K7 col")})
     counts.update({k: fused[k] for k in ("K9 train", "K9 eval", "K10 fwd", "K10 dW",
                                          "K10 dX")})
 
@@ -738,6 +1047,7 @@ def main() -> int:
     attn_src = "parallel_gcn_tpu_torch/csrc/tile_attention.cu"
     ce_src = "parallel_gcn_tpu_torch/csrc/fused_ce.cu"
     mm_src = "parallel_gcn_tpu_torch/csrc/dropout_matmul.cu"
+    rect_src = "parallel_gcn_tpu_torch/csrc/tile_attention_rect.cu"
     print(json.dumps({
         "kernels": [
             entry("K1", "dropout", drop_src, "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
@@ -753,6 +1063,14 @@ def main() -> int:
                   "parallel_gcn_tpu/ops/pallas_fused.py:70"),
             entry("K10 dX", "dropout_matmul_dx", mm_src,
                   "parallel_gcn_tpu/ops/pallas_fused.py:93"),
+            entry("K3 rect", "bcsr_spmm_rect", bcsr_src,
+                  "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),
+            entry("K5 rect", "gat_fwd_rect", attn_src,
+                  "parallel_gcn_tpu/ops/tile_attention.py:179"),
+            entry("K7 row", "gat_bwd_rect_row", rect_src,
+                  "parallel_gcn_tpu/ops/tile_attention.py:439"),
+            entry("K7 col", "gat_bwd_rect_col", rect_src,
+                  "parallel_gcn_tpu/ops/tile_attention.py:475"),
         ],
         # ported kernels that no main path launches
         "off_path_kernels": [

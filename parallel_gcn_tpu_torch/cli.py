@@ -9,12 +9,21 @@ e.g.  python -m parallel_gcn_tpu_torch synth-reddit epochs=10
       python -m parallel_gcn_tpu_torch synth-reddit model=gat heads=2 hidden_dims=32 dropouts=0.0,0.1 epochs=10
       python -m parallel_gcn_tpu_torch cora device=cpu epochs=5
 
+Under torchrun the CLI trains node-partitioned over the world's processes,
+one per GPU (``parallel.train_parallel.fit_parallel``); ``n_devices=N``,
+when given, must equal the world's size, and N > 1 needs such a world:
+
+      torchrun --standalone --nproc_per_node=N -m parallel_gcn_tpu_torch synth-reddit n_devices=N halo=boundary
+      torchrun --standalone --nproc_per_node=2 -m parallel_gcn_tpu_torch synth-medium device=cpu n_devices=2
+
 The device defaults to cuda; the CPU runs only when asked for. Returns 2 on a
-bad argument or a missing dataset, 1 when the device is unavailable.
+bad argument, a missing dataset or ``n_devices`` without its world, 1 when
+the device is unavailable.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import torch
@@ -50,6 +59,20 @@ def main(argv: list[str] | None = None) -> int:
     except (KeyError, ValueError, FileNotFoundError) as e:
         print(f"error: {e}")
         return 2
+    world = os.environ.get("WORLD_SIZE")  # set by torchrun
+    mesh = cfg.tpu.n_devices > 1 or cfg.tpu.tp > 1 or world is not None
+    if mesh:
+        from parallel_gcn_tpu_torch.parallel.collectives import MESH_COMMAND
+
+        if cfg.tpu.tp > 1:
+            print(f"error: tp={cfg.tpu.tp} (tensor parallelism) is not yet ported to "
+                  "parallel_gcn_tpu_torch")
+            return 2
+        n = cfg.tpu.n_devices or int(world)
+        if int(world or 1) != n:
+            print(f"error: n_devices={n} needs a torch.distributed world of {n} "
+                  f"processes, one per GPU: {MESH_COMMAND.format(n=n)}")
+            return 2
     try:
         device = resolve_device(device_arg)
     except ValueError as e:
@@ -58,6 +81,9 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:
         print(f"error: {e}")
         return 1
+
+    if mesh:
+        return _main_mesh(cfg, dataset, device)
 
     from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset
     from parallel_gcn_tpu_torch.train import fit
@@ -82,6 +108,45 @@ def main(argv: list[str] | None = None) -> int:
         f"avg_epoch_time={result.avg_epoch_time_s * 1e3:.3f} ms"
     )
     return 0
+
+
+def _main_mesh(cfg, dataset: str, device: torch.device) -> int:
+    """One rank of ``n_devices``: join the torchrun world (NCCL for CUDA,
+    gloo for the CPU), train with ``fit_parallel``, leave the world."""
+    import torch.distributed as dist
+
+    from parallel_gcn_tpu_torch.data.parser import prepare_host_dataset
+    from parallel_gcn_tpu_torch.parallel.collectives import local_device
+    from parallel_gcn_tpu_torch.parallel.train_parallel import fit_parallel
+
+    device = local_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        rank0 = dist.get_rank() == 0
+        if rank0:
+            print(f"torch {torch.__version__} — {dist.get_world_size()} ranks, rank 0 on "
+                  f"{device}: {device_name(device)}")
+            print()
+            print(f"PARSING {dataset} ...")
+        try:
+            ds = prepare_host_dataset(cfg, dataset)
+        except FileNotFoundError as e:
+            print(f"error: {e}")
+            return 2
+        if rank0:
+            print(f"nodes={ds.n_nodes} edges(nnz incl self-loops)={ds.graph.nnz} "
+                  f"features={ds.input_dim} classes={ds.output_dim} "
+                  f"train/val/test={ds.train_dim}/{ds.val_dim}/{ds.test_dim}")
+            print("TRAINING AND EVALUATION OF GCN:")
+        result = fit_parallel(cfg, ds, device=device)
+        if rank0:
+            print(f"epochs_run={result.epochs_run} "
+                  f"avg_epoch_time={result.avg_epoch_time_s * 1e3:.3f} ms")
+        return 0
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 Each ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
 process, all started together, and the objects are linked into one shared
-library with a plain C interface, named by a hash of the sources and flags,
-kept under ``parallel_gcn_tpu_torch/_build/`` and loaded with ``ctypes``.
+library with a plain C interface, named by a hash of the sources, headers
+(``csrc/*.cuh``) and flags, kept under ``parallel_gcn_tpu_torch/_build/`` and loaded with ``ctypes``.
 The build runs at the first kernel call of a process (seconds), never at
 import. A failed build raises with nvcc's output.
 """
@@ -57,11 +57,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     u32, f32 = ctypes.c_uint32, ctypes.c_float
     sched = [p, i32, p, p, p, i32, p, p, i32, p, i32, i32]
     drop = [i32, u32, u32, f32]
-    lib.pgcn_gat_fwd.argtypes = [*sched, p, p, i32, p, p, i32, i32, f32, *drop, p]
+    lib.pgcn_gat_fwd.argtypes = [*sched, p, p, p, i32, p, p, i32, i32, f32, *drop, p]
     lib.pgcn_gat_fwd.restype = i32
     lib.pgcn_gat_bwd.argtypes = [*sched, p, p, p, p, i32, i32, i32, p, p, i32, i32, f32,
                                  *drop, p]
     lib.pgcn_gat_bwd.restype = i32
+    lib.pgcn_gat_bwd_rect_row.argtypes = [*sched, p, p, p, p, i32, i32, i32, p, p, i32, i32,
+                                          f32, *drop, p]
+    lib.pgcn_gat_bwd_rect_row.restype = i32
+    lib.pgcn_gat_bwd_rect_col.argtypes = [*sched, p, p, p, p, p, i32, i32, i32, p, p, i32,
+                                          i32, f32, *drop, p]
+    lib.pgcn_gat_bwd_rect_col.restype = i32
     lib.pgcn_masked_ce.argtypes = [p, p, i32, p, i64, i32, f32, f32, p, i64, p, p, p, p]
     lib.pgcn_masked_ce.restype = i32
     u64 = ctypes.c_uint64
@@ -116,7 +122,7 @@ def load_library() -> ctypes.CDLL:
         if not sources:
             raise RuntimeError(f"no CUDA sources under {_CSRC_DIR}")
         digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-        for src in sources:
+        for src in sources + sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cuh"))):
             with open(src, "rb") as f:
                 digest.update(f.read())
         path = os.path.join(_BUILD_DIR, f"libpgcn_{digest.hexdigest()[:16]}.so")

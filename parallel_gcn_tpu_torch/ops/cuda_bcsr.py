@@ -14,6 +14,12 @@ symmetric (square tiles of a symmetric Â, or a symmetric edge split for
 rectangular tiles, see ``data.graph.split_dense_tiles``), so the backward is
 the same product on the cotangent.
 
+A mesh rank's slab (``parallel.partition``) is a rectangular pack: its rows
+are the rank's local rows, its columns the source buffer (the gathered
+features or the compact local+halo buffer); ``slab_pack`` builds it on the
+device and ``bcsr_matmul_rect`` is K3 over it, the counterpart of the JAX
+package's ``bcsr_matmul_rect``.
+
 ``bcsr_matmul_impl`` runs the kernel for CUDA tensors and
 ``bcsr_matmul_plain`` for CPU tensors; ``launches`` counts kernel launches.
 """
@@ -33,8 +39,9 @@ from parallel_gcn_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# kernel launches by wrapper: "bcsr" (K3, value tiles), "bcsr_scaled" (K4)
-launches = {"bcsr": 0, "bcsr_scaled": 0}
+# kernel launches by wrapper: "bcsr" (K3, value tiles), "bcsr_scaled" (K4),
+# "bcsr_rect" (K3 over a mesh slab)
+launches = {"bcsr": 0, "bcsr_scaled": 0, "bcsr_rect": 0}
 
 
 # Tiles per segment of a tile-row's work (see tile_schedule): about the mean
@@ -99,13 +106,15 @@ def tile_schedule(tile_rows: np.ndarray, n_tile_rows: int,
 
 @dataclass(frozen=True)
 class BCSR:
-    """Row-sorted pack of the nonempty tile_r×tile_c blocks of Â."""
+    """Row-sorted pack of the nonempty tile_r×tile_c blocks of Â, or of a
+    mesh rank's slab (rows: ``n_rows`` local rows; columns: the
+    ``n_nodes``-row source buffer)."""
 
     tiles: torch.Tensor  # [T, tile_r, tile_c] float32 / bfloat16 / int8
     tile_rows: torch.Tensor  # int32 [T], ascending
     tile_cols: torch.Tensor  # int32 [T]
     schedule: TileSchedule  # the kernel's split of the work
-    n_nodes: int  # padded node count (columns and rows)
+    n_nodes: int  # padded node count (columns; also the rows of a square pack)
     n_tiles_real: int
     # int8 pattern packs: d ([n_nodes] f32) with v_ij = k_ij·d_i·d_j; None
     # for value packs
@@ -129,6 +138,10 @@ class BCSR:
     @property
     def n_tile_rows(self) -> int:
         return self.schedule.n_tile_rows
+
+    @property
+    def n_rows(self) -> int:
+        return self.n_tile_rows * self.tile_r
 
     @cached_property
     def live_entries(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -265,9 +278,34 @@ def bcsr_matmul_plain(bcsr: BCSR, x: torch.Tensor, batch: int = 64) -> torch.Ten
     return out.view(-1, F)
 
 
-def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
-    """out = A·x, f32 [n_nodes, F]: the kernel for a CUDA tensor (K4 for an
-    int8 pattern pack, K3 otherwise), the plain version for a CPU one."""
+def slab_pack(tiles: np.ndarray, tile_rows: np.ndarray, tile_cols: np.ndarray,
+              n_rows: int, n_cols: int, dtype, device) -> BCSR:
+    """A rank's tile slab as a rectangular pack on ``device``: ``tiles``
+    [T, tile_r, tile_c] (host values, converted to ``dtype``), sorted by
+    ``tile_rows`` (local tile-rows), ``tile_cols`` the blocks of the
+    ``n_cols``-row source buffer. All-zero tiles (the partition's padding and
+    coverage tiles) are dropped: a tile-row left without tiles gets an empty
+    segment, whose kernel blocks write zeros."""
+    live = tiles.reshape(tiles.shape[0], -1).any(axis=1)
+    tile_rows = np.ascontiguousarray(tile_rows[live], dtype=np.int32)
+    t = torch.from_numpy(np.ascontiguousarray(tiles[live]))
+    return BCSR(
+        tiles=t.to(device=device, dtype=torch_dtype(dtype)),
+        tile_rows=torch.from_numpy(tile_rows).to(device),
+        tile_cols=torch.from_numpy(
+            np.ascontiguousarray(tile_cols[live], dtype=np.int32)).to(device),
+        schedule=tile_schedule(tile_rows, n_rows // tiles.shape[1]).to(device),
+        n_nodes=n_cols,
+        n_tiles_real=int(live.sum()),
+    )
+
+
+def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None
+                     ) -> torch.Tensor:
+    """out = A·x, f32 [n_rows, F] (x [n_nodes, F]): the kernel for a CUDA
+    tensor (K4 for an int8 pattern pack, K3 otherwise), the plain version for
+    a CPU one. ``launch_key`` names the ``launches`` entry a launch counts
+    under (default: "bcsr_scaled" or "bcsr")."""
     if x.dim() != 2 or x.shape[0] != bcsr.n_nodes:
         raise ValueError(f"x must be [{bcsr.n_nodes}, F], got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -317,7 +355,7 @@ def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
             bcsr.tile_r, bcsr.tile_c, F, ctypes.c_void_p(stream),
         )
     _build.check(rc, "bcsr kernel")
-    launches["bcsr_scaled" if scaled else "bcsr"] += 1
+    launches[launch_key or ("bcsr_scaled" if scaled else "bcsr")] += 1
     return out
 
 
@@ -337,3 +375,13 @@ def bcsr_matmul(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
     """out = Â·x (f32 [n_nodes, F]) with Â in BCSR form, differentiable in
     x; the backward is the same product on the cotangent."""
     return _BcsrMatmul.apply(x, bcsr)
+
+
+def bcsr_matmul_rect(slab: BCSR, x_buf: torch.Tensor) -> torch.Tensor:
+    """K3 over a mesh rank's slab: out [n_rows, F] f32 = slab · x_buf
+    ([n_nodes, F], the source buffer). Not differentiable: the mesh
+    aggregation's backward is the same aggregation of the cotangent
+    (``parallel.train_parallel``)."""
+    if slab.sym_scale is not None:
+        raise ValueError("a mesh slab scales its features outside the kernel (K3)")
+    return bcsr_matmul_impl(slab, x_buf, launch_key="bcsr_rect")

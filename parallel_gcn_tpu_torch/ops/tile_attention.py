@@ -1,22 +1,29 @@
 """Block-sparse tile attention for the GAT: CUDA kernels and plain versions.
 
-Port of the single-chip half of ``parallel_gcn_tpu/ops/tile_attention.py``:
-the softmax-attended aggregation
+Port of ``parallel_gcn_tpu/ops/tile_attention.py``: the softmax-attended
+aggregation
 
     out_i = Σ_j softmax_j(LeakyReLU(s_i + t_j)) · v_j,   j ∈ N(i) ∪ {i}
 
 over a tile-packed graph (the BCSR pattern, plus the COO residual of hybrid
-builds), differentiable in (s, t, v). Two kernels in ``csrc/tile_attention.cu``
-run the tile part:
+builds), differentiable in (s, t, v), in two forms: ``gat_attend_tiles``
+(one card, square symmetric packs) and ``gat_attend_rect`` (a mesh rank's
+slab: local dest rows × the source buffer, ``RectAttention``). The kernels
+in ``csrc/tile_attention.cu`` and ``csrc/tile_attention_rect.cu`` run the
+tile part:
 
-- K5 (``gat_fwd_tiles``, replaces ``_fwd_kernel``): one sweep gives the
-  unnormalized numerator ``acc`` and the online-softmax statistics (m, den)
-  per destination row;
+- K5 (``gat_fwd_tiles``, ``gat_fwd_rect``; replaces ``_fwd_kernel``): one
+  sweep gives the unnormalized numerator ``acc`` and the online-softmax
+  statistics (m, den) per destination row;
 - K6 (``gat_bwd_tiles``, replaces ``_bwd_kernel``): from the saved
   (m, den, ρ = Σ g·out), the forward orientation of each tile entry gives
   ds and the mirrored orientation gives dt and dv. The mirror trick needs a
   symmetric edge set, which ``data.graph.split_dense_tiles`` guarantees for
-  the tiles and the residual alike.
+  the tiles and the residual alike;
+- K7 (``gat_bwd_rect``; replaces ``_bwd_rect_row_kernel`` and
+  ``_bwd_rect_col_kernel``): a slab is not symmetric, so a row sweep over
+  the slab gives ds and a sweep over its transposed column-sorted copy
+  gives dt and dv in buffer space.
 
 The COO residual's statistics merge with the tiles' by the flash rescale
 (``den = den_t·e^{m_t−m} + den_r``) in plain torch, as the JAX package leaves
@@ -29,20 +36,22 @@ the kernels here take whole tiles. The mask hashes global ids, so the result
 is the same either way.
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
-(``gat_fwd_tiles_plain``, ``gat_bwd_tiles_plain``: the same per-edge formulas
-as the residual code, over the pack's live entries) for CPU tensors.
+(``gat_fwd_tiles_plain``, ``gat_bwd_tiles_plain``, ``gat_bwd_rect_row_plain``,
+``gat_bwd_rect_col_plain``: the same per-edge formulas as the residual code,
+over the pack's live entries) for CPU tensors.
 ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from parallel_gcn_tpu_torch.ops import _build
-from parallel_gcn_tpu_torch.ops.cuda_bcsr import _DTYPE_CODE, BCSR
+from parallel_gcn_tpu_torch.ops.cuda_bcsr import _DTYPE_CODE, BCSR, slab_pack
 from parallel_gcn_tpu_torch.ops.cuda_dropout import _mulhilo
 
 _NEG = -1e9  # masked-logit fill (finite: empty rows stay finite, exp -> 0)
@@ -53,8 +62,10 @@ _EDGE_CHUNK = 1 << 22  # edges per step of the plain versions
 MAX_HEADS = 8
 MAX_HD = 256
 
-# kernel launches by wrapper: "gat_fwd" (K5), "gat_bwd" (K6)
-launches = {"gat_fwd": 0, "gat_bwd": 0}
+# kernel launches by wrapper: "gat_fwd" (K5), "gat_bwd" (K6), "gat_fwd_rect"
+# (K5 over a mesh slab), "gat_bwd_rect_row" and "gat_bwd_rect_col" (K7)
+launches = {"gat_fwd": 0, "gat_bwd": 0, "gat_fwd_rect": 0, "gat_bwd_rect_row": 0,
+            "gat_bwd_rect_col": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +192,8 @@ def gat_fwd_tiles_plain(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
                         seed: int = 0):
     """Plain PyTorch version of K5: (acc [n, H, D], m [n, H], den [n, H]),
     all float32, over the pack's edges; rows without edges keep m = _NEG,
-    den = 0, acc = 0."""
+    den = 0, acc = 0. ``s`` is indexed by the pack's rows, ``t`` and ``v``
+    by its columns (the same nodes for a square pack)."""
     n, H = s.shape
     sf, tf, v32 = s.float(), t.float(), v.float()
     dest, src = pack.live_entries
@@ -189,7 +201,7 @@ def gat_fwd_tiles_plain(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
     for d, c in _edge_chunks(dest, src):
         _edge_max(m, d, _edge_logits(sf, tf, d, c, None, slope))
     den = torch.zeros_like(m)
-    acc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    acc = torch.zeros((n, H, v.shape[2]), dtype=torch.float32, device=v.device)
     for d, c in _edge_chunks(dest, src):
         _edge_accumulate(d, c, None, _edge_logits(sf, tf, d, c, None, slope),
                          m, v32, rate, seed, den, acc)
@@ -219,6 +231,7 @@ def gat_bwd_tiles_plain(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
 
 
 def _check_kernel_args(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
+    """``s`` by the pack's rows, ``v`` by its columns."""
     n, H = s.shape
     HD = H * v.shape[2]
     if H > MAX_HEADS or HD > MAX_HD:
@@ -232,9 +245,9 @@ def _check_kernel_args(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
     if pack.tile_r % 64 or pack.tile_c % 128:
         raise ValueError(f"tile attention kernels need tile_r % 64 == 0 and "
                          f"tile_c % 128 == 0, got ({pack.tile_r}, {pack.tile_c})")
-    if pack.n_tile_rows * pack.tile_r != n:
-        raise ValueError(f"pack covers {pack.n_tile_rows * pack.tile_r} rows, "
-                         f"tensors have {n}")
+    if pack.n_rows != n or pack.n_nodes != v.shape[0]:
+        raise ValueError(f"pack is [{pack.n_rows}, {pack.n_nodes}], tensors have "
+                         f"{n} rows and {v.shape[0]} columns")
     sched = pack.schedule
     for x in (pack.tiles, pack.tile_cols, sched.seg_tile_ptr, sched.seg_row,
               sched.seg_slot, sched.multi_row, sched.multi_slot_ptr):
@@ -261,20 +274,19 @@ def _dropout_args(rate: float, seed: int) -> list:
     return [1, int(seed) & _M32, rate_to_threshold(rate), _inv_keep(rate)]
 
 
-def gat_fwd_tiles(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
-                  seed: int = 0):
-    """The pack's part of the attention forward: (acc [n, H, D], m [n, H],
-    den [n, H]) float32. K5 for CUDA tensors, the plain version for CPU
-    ones."""
+def _fwd(pack: BCSR, s, t, v, slope: float, rate: float, seed: int, key: str):
+    """K5 (CUDA tensors) or its plain version (CPU tensors); a launch
+    counts under ``launches[key]``."""
     if s.device.type == "cpu":
         return gat_fwd_tiles_plain(pack, s, t, v, slope=slope, rate=rate, seed=seed)
     if s.device.type != "cuda":
-        raise ValueError(f"gat_fwd_tiles: unsupported device {s.device}")
+        raise ValueError(f"tile attention forward: unsupported device {s.device}")
     _check_kernel_args(pack, s, v)
-    n, H, D = v.shape
+    n, H = s.shape
+    D = v.shape[2]
     HD = H * D
-    st = torch.cat([s, t], dim=1).float().contiguous()  # [n, 2H]: s | t
-    vf = v.reshape(n, HD).contiguous()
+    sf, tf = s.float().contiguous(), t.float().contiguous()
+    vf = v.reshape(v.shape[0], HD).contiguous()
     width = HD + 2 * H  # out rows: acc | m | den
     out = torch.empty((n, width), dtype=torch.float32, device=s.device)
     ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width),
@@ -283,13 +295,21 @@ def gat_fwd_tiles(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgcn_gat_fwd(
-            *_schedule_args(pack), st.data_ptr(), vf.data_ptr(),
+            *_schedule_args(pack), sf.data_ptr(), tf.data_ptr(), vf.data_ptr(),
             _DTYPE_CODE[vf.dtype], out.data_ptr(), ws.data_ptr(), H, D,
             float(slope), *_dropout_args(rate, seed), ctypes.c_void_p(stream),
         )
     _build.check(rc, "tile attention forward kernel")
-    launches["gat_fwd"] += 1
+    launches[key] += 1
     return out[:, :HD].view(n, H, D), out[:, HD : HD + H], out[:, HD + H :]
+
+
+def gat_fwd_tiles(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
+                  seed: int = 0):
+    """The pack's part of the attention forward: (acc [n, H, D], m [n, H],
+    den [n, H]) float32. K5 for CUDA tensors, the plain version for CPU
+    ones."""
+    return _fwd(pack, s, t, v, slope, rate, seed, "gat_fwd")
 
 
 def _padded_width(H: int, D: int) -> tuple[int, int]:
@@ -346,6 +366,207 @@ def gat_bwd_tiles(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
 
 
 # ---------------------------------------------------------------------------
+# mesh slabs: local dest rows × the source buffer (K5 rect, K7)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RectAttention:
+    """A mesh rank's attention packs on its device (from
+    ``parallel.partition.gat_mesh_pack``): ``rows`` is the row-sorted slab
+    (local dest rows × buffer columns); ``cols`` is the column-sorted copy
+    stored TRANSPOSED (rows: buffer rows, columns: local dest rows), so the
+    K7 column sweep reads a buffer row's entries as a contiguous row. Zero
+    tiles are dropped from both. ``residual`` is the COO residual
+    (rrow, rcol, rlive [E, 1]) or None when no rank has one."""
+
+    rows: BCSR
+    cols: BCSR
+    residual: tuple | None
+
+    @property
+    def n_rows(self) -> int:
+        return self.rows.n_rows
+
+    @property
+    def n_buf(self) -> int:
+        return self.rows.n_nodes
+
+
+def rect_attention(tiles_r, trow_r, tcol_r, tiles_c, trow_c, tcol_c, res_row, res_col,
+                   res_val, has_res: bool, n_rows: int, n_buf: int, dtype,
+                   device) -> RectAttention:
+    """One rank's ``RectAttention`` on ``device`` from its host arrays (one
+    rank's slice of a ``GATMeshPack``; tiles converted to ``dtype``)."""
+    rows = slab_pack(tiles_r, trow_r, tcol_r, n_rows, n_buf, dtype, device)
+    live = tiles_c.reshape(tiles_c.shape[0], -1).any(axis=1)
+    cols = slab_pack(np.ascontiguousarray(tiles_c[live].transpose(0, 2, 1)),
+                     tcol_c[live], trow_c[live], n_buf, n_rows, dtype, device)
+    residual = None
+    if has_res:
+        rval = torch.from_numpy(np.asarray(res_val, np.float32)).to(device)
+        residual = (torch.from_numpy(res_row.astype(np.int64)).to(device),
+                    torch.from_numpy(res_col.astype(np.int64)).to(device),
+                    (rval != 0.0)[:, None])
+    return RectAttention(rows=rows, cols=cols, residual=residual)
+
+
+def _edge_rect_bwd(dest, src, live, sf, tf, v32, g, m, den_g, rho, slope, rate, seed,
+                   ds=None, dt=None, dv=None) -> None:
+    """Gradient terms of the edges (dest, src) in the forward orientation
+    only (a slab is not symmetric), in place: ds at ``dest``; dt and dv at
+    ``src`` (buffer space). Logits are masked to _NEG before the exp."""
+    inv = _inv_keep(rate) if rate > 0.0 else 1.0
+    pre = sf[dest] + tf[src]
+    a = _masked(live, torch.exp(_masked(live, _leaky(pre, slope), _NEG) - m[dest])
+                / den_g[dest], 0.0)
+    dot = torch.sum(g[dest] * v32[src], dim=-1)
+    an = a
+    if rate > 0.0:
+        keep = edge_keep(dest, src, a.shape[1], seed, rate)
+        dot = torch.where(keep, dot * inv, 0.0)
+        an = torch.where(keep, a * inv, 0.0)
+    term = a * (dot - rho[dest]) * _leaky_grad(pre, slope)
+    if ds is not None:
+        ds.index_add_(0, dest, term)
+    if dt is not None:
+        dt.index_add_(0, src, term)
+        dv.index_add_(0, src, an[:, :, None] * g[dest])
+
+
+def gat_bwd_rect_row_plain(rows: BCSR, s, t_buf, v_buf, g, m, den, rho, *,
+                           slope: float, rate: float = 0.0, seed: int = 0):
+    """Plain PyTorch version of the K7 row sweep: ds [n_rows, H] float32 of
+    the slab's entries."""
+    ds = torch.zeros_like(m)
+    dest, src = rows.live_entries
+    for d, c in _edge_chunks(dest, src):
+        _edge_rect_bwd(d, c, None, s.float(), t_buf.float(), v_buf.float(), g.float(),
+                       m, torch.clamp(den, min=1e-16), rho, slope, rate, seed, ds=ds)
+    return ds
+
+
+def gat_bwd_rect_col_plain(cols: BCSR, s, t_buf, v_buf, g, m, den, rho, *,
+                           slope: float, rate: float = 0.0, seed: int = 0):
+    """Plain PyTorch version of the K7 column sweep over the transposed copy
+    ``cols``: (dt [n_buf, H], dv [n_buf, H, D]) float32."""
+    v32 = v_buf.float()
+    dt = torch.zeros((v32.shape[0], m.shape[1]), dtype=torch.float32, device=m.device)
+    dv = torch.zeros_like(v32)
+    src, dest = cols.live_entries  # transposed: rows are buffer ids
+    for c, d in _edge_chunks(src, dest):
+        _edge_rect_bwd(d, c, None, s.float(), t_buf.float(), v32, g.float(), m,
+                       torch.clamp(den, min=1e-16), rho, slope, rate, seed, dt=dt, dv=dv)
+    return dt, dv
+
+
+def gat_fwd_rect(rows: BCSR, s, t_buf, v_buf, *, slope: float, rate: float = 0.0,
+                 seed: int = 0):
+    """The slab's part of the mesh attention forward: (acc [n_rows, H, D],
+    m, den [n_rows, H]) float32; s by local row, t_buf and v_buf by buffer
+    row. K5 for CUDA tensors, the plain version for CPU ones."""
+    return _fwd(rows, s, t_buf, v_buf, slope, rate, seed, "gat_fwd_rect")
+
+
+def _rect_bwd_args(s, t_buf, v_buf, g, m, den, rho) -> dict:
+    """K7's inputs: per destination row nd = s | m | max(den, 1e-16) | ρ and
+    g (f32 rows, and padded per head in K6's layout), per buffer row t and
+    v padded per head."""
+    H = s.shape[1]
+    n_buf, _, D = v_buf.shape
+    P, S = _padded_width(H, D)
+    gf = g.reshape(g.shape[0], H * D).float().contiguous()
+    return dict(
+        nd=torch.cat([s.float(), m, torch.clamp(den, min=1e-16), rho], dim=1).contiguous(),
+        tf=t_buf.float().contiguous(), gf=gf, gp=_pad_heads(gf, H, P, S),
+        vp=_pad_heads(v_buf.reshape(n_buf, H * D), H, P, S), H=H, D=D, P=P, S=S)
+
+
+def _launch_rect(sweep: str, pack: BCSR, a: dict, slope: float, rate: float,
+                 seed: int) -> torch.Tensor:
+    """One K7 sweep over ``pack``: "row" writes ds [n_rows, H]; "col" (over
+    the transposed column copy) writes dv | dt [n_buf, H·D + H]."""
+    H, D, P, S = a["H"], a["D"], a["P"], a["S"]
+    width = H if sweep == "row" else H * D + H
+    dev = a["nd"].device
+    out = torch.empty((pack.n_rows, width), dtype=torch.float32, device=dev)
+    ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width), dtype=torch.float32,
+                     device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        head = [*_schedule_args(pack), a["nd"].data_ptr(), a["tf"].data_ptr()]
+        rows_in = [a["gp"].data_ptr(), a["vp"].data_ptr(), _DTYPE_CODE[a["vp"].dtype], P, S,
+                   out.data_ptr(), ws.data_ptr(), H, D, float(slope),
+                   *_dropout_args(rate, seed), stream]
+        if sweep == "row":
+            rc = lib.pgcn_gat_bwd_rect_row(*head, *rows_in)
+        else:  # the dv loop reads g's unpadded rows too
+            rc = lib.pgcn_gat_bwd_rect_col(*head, a["gf"].data_ptr(), *rows_in)
+    _build.check(rc, f"rect attention backward kernel ({sweep} sweep)")
+    launches[f"gat_bwd_rect_{sweep}"] += 1
+    return out
+
+
+def gat_bwd_rect_row(rows: BCSR, s, t_buf, v_buf, g, m, den, rho, *, slope: float,
+                     rate: float = 0.0, seed: int = 0):
+    """The K7 row sweep: ds [n_rows, H] float32 of the slab's entries, from
+    the forward's (m, den) and ρ = Σ_d g·out. The kernel for CUDA tensors,
+    the plain version for CPU ones."""
+    if s.device.type == "cpu":
+        return gat_bwd_rect_row_plain(rows, s, t_buf, v_buf, g, m, den, rho, slope=slope,
+                                      rate=rate, seed=seed)
+    _check_rect_args(rows, None, s, t_buf, v_buf, g)
+    return _launch_rect("row", rows, _rect_bwd_args(s, t_buf, v_buf, g, m, den, rho),
+                        slope, rate, seed)
+
+
+def gat_bwd_rect_col(cols: BCSR, s, t_buf, v_buf, g, m, den, rho, *, slope: float,
+                     rate: float = 0.0, seed: int = 0):
+    """The K7 column sweep over the transposed copy ``cols``: (dt [n_buf, H],
+    dv [n_buf, H, D]) float32. The kernel for CUDA tensors, the plain version
+    for CPU ones."""
+    if s.device.type == "cpu":
+        return gat_bwd_rect_col_plain(cols, s, t_buf, v_buf, g, m, den, rho, slope=slope,
+                                      rate=rate, seed=seed)
+    _check_rect_args(None, cols, s, t_buf, v_buf, g)
+    dvt = _launch_rect("col", cols, _rect_bwd_args(s, t_buf, v_buf, g, m, den, rho),
+                       slope, rate, seed)
+    return _split_dvt(dvt, s.shape[1], v_buf.shape[2])
+
+
+def _split_dvt(dvt: torch.Tensor, H: int, D: int):
+    return dvt[:, H * D :], dvt[:, : H * D].view(-1, H, D)
+
+
+def _check_rect_args(rows: BCSR | None, cols: BCSR | None, s, t_buf, v_buf, g) -> None:
+    if s.device.type != "cuda":
+        raise ValueError(f"rect attention backward: unsupported device {s.device}")
+    if rows is not None:
+        _check_kernel_args(rows, s, v_buf)
+    if cols is not None:
+        _check_kernel_args(cols, t_buf, g)
+
+
+def gat_bwd_rect(attn: RectAttention, s, t_buf, v_buf, g, m, den, rho, *,
+                 slope: float, rate: float = 0.0, seed: int = 0):
+    """The slab's part of the mesh attention backward: ds [n_rows, H],
+    dt [n_buf, H], dv [n_buf, H, D] float32, from the forward's (m, den) and
+    ρ = Σ_d g·out. K7's row and column sweeps for CUDA tensors, their plain
+    versions for CPU ones."""
+    kw = dict(slope=slope, rate=rate, seed=seed)
+    if s.device.type == "cpu":
+        ds = gat_bwd_rect_row_plain(attn.rows, s, t_buf, v_buf, g, m, den, rho, **kw)
+        return (ds, *gat_bwd_rect_col_plain(attn.cols, s, t_buf, v_buf, g, m, den, rho,
+                                            **kw))
+    _check_rect_args(attn.rows, attn.cols, s, t_buf, v_buf, g)
+    a = _rect_bwd_args(s, t_buf, v_buf, g, m, den, rho)
+    ds = _launch_rect("row", attn.rows, a, slope, rate, seed)
+    dvt = _launch_rect("col", attn.cols, a, slope, rate, seed)
+    return (ds, *_split_dvt(dvt, a["H"], a["D"]))
+
+
+# ---------------------------------------------------------------------------
 # the differentiable op: tiles (+ COO residual) -> attended aggregation
 # ---------------------------------------------------------------------------
 
@@ -355,11 +576,13 @@ def _residual(graph):
     return graph.row, graph.col, (graph.val != 0.0)[:, None]
 
 
-def _attend_impl(graph, s, t, v, slope, rate, seed):
-    """Forward evaluation: (out [n, H, D], m, den [n, H]), float32."""
-    acc, m, den = gat_fwd_tiles(graph.bcsr, s, t, v, slope=slope, rate=rate, seed=seed)
-    if graph.is_hybrid:
-        rrow, rcol, rlive = _residual(graph)
+def _attend_impl(fwd, pack, residual, s, t, v, slope, rate, seed):
+    """Forward evaluation: ``fwd`` (K5 square or rect) over ``pack``, then
+    the COO ``residual`` (or None) merged by the flash rescale: (out [n, H,
+    D], m, den [n, H]), float32, n = s's rows."""
+    acc, m, den = fwd(pack, s, t, v, slope=slope, rate=rate, seed=seed)
+    if residual is not None:
+        rrow, rcol, rlive = residual
         sf, tf = s.float(), t.float()
         e_r = _edge_logits(sf, tf, rrow, rcol, rlive, slope)
         m_r = torch.full_like(m, _NEG)
@@ -377,7 +600,9 @@ def _attend_impl(graph, s, t, v, slope, rate, seed):
 class _GatAttend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, s, t, v, graph, slope, rate, seed):
-        out, m, den = _attend_impl(graph, s, t, v, slope, rate, seed)
+        out, m, den = _attend_impl(gat_fwd_tiles, graph.bcsr,
+                                   _residual(graph) if graph.is_hybrid else None,
+                                   s, t, v, slope, rate, seed)
         ctx.save_for_backward(s, t, v, m, den, out)
         ctx.graph, ctx.slope, ctx.rate, ctx.seed = graph, slope, rate, seed
         return out
@@ -426,3 +651,57 @@ def gat_attend_tiles(graph, s: torch.Tensor, t: torch.Tensor, v: torch.Tensor, *
         raise ValueError("attn_dropout > 0 needs a seed")
     return _GatAttend.apply(s, t, v, graph, float(slope), rate,
                             0 if seed is None else int(seed))
+
+
+class _GatAttendRect(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, t_buf, v_buf, attn, slope, rate, seed):
+        out, m, den = _attend_impl(gat_fwd_rect, attn.rows, attn.residual, s, t_buf,
+                                   v_buf, slope, rate, seed)
+        ctx.save_for_backward(s, t_buf, v_buf, m, den, out)
+        ctx.attn, ctx.slope, ctx.rate, ctx.seed = attn, slope, rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        s, t_buf, v_buf, m, den, out = ctx.saved_tensors
+        attn, slope, rate, seed = ctx.attn, ctx.slope, ctx.rate, ctx.seed
+        g = g.float()
+        rho = torch.sum(g * out, dim=-1)  # [n_rows, H]
+        ds, dt, dv = gat_bwd_rect(attn, s, t_buf, v_buf, g, m, den, rho,
+                                  slope=slope, rate=rate, seed=seed)
+        if attn.residual is not None:
+            rrow, rcol, rlive = attn.residual
+            _edge_rect_bwd(rrow, rcol, rlive, s.float(), t_buf.float(), v_buf.float(),
+                           g, m, torch.clamp(den, min=1e-16), rho, slope, rate, seed,
+                           ds=ds, dt=dt, dv=dv)
+        return (ds.to(s.dtype), dt.to(t_buf.dtype), dv.to(v_buf.dtype),
+                None, None, None, None)
+
+
+def gat_attend_rect(s: torch.Tensor, t_buf: torch.Tensor, v_buf: torch.Tensor,
+                    attn: RectAttention, *, slope: float, attn_dropout: float = 0.0,
+                    seed: int | None = None) -> torch.Tensor:
+    """Mesh-slab softmax attention: ``out_i = Σ_j α_ij v_j`` for the local
+    destination rows i over the source buffer (the slab's tiles plus its COO
+    residual hold every edge of i, so the softmax is complete on the rank).
+
+    s: [n_rows, H] by local row; t_buf: [n_buf, H] and v_buf: [n_buf, H, D]
+    by buffer row. Returns [n_rows, H, D] float32, differentiable in (s,
+    t_buf, v_buf); the (dt, dv) gradients are in buffer space and the
+    caller's halo exchange carries them back to their owners. K5 forward and
+    the two K7 sweeps on the card. ``attn_dropout`` > 0 drops numerator
+    terms by the hash of (local dest id, buffer src id, head, ``seed``)."""
+    n, H = s.shape
+    if (t_buf.shape != (attn.n_buf, H) or v_buf.dim() != 3
+            or v_buf.shape[:2] != (attn.n_buf, H) or n != attn.n_rows):
+        raise ValueError(f"shapes s {tuple(s.shape)}, t_buf {tuple(t_buf.shape)}, "
+                         f"v_buf {tuple(v_buf.shape)} do not fit a [{attn.n_rows}, "
+                         f"{attn.n_buf}] slab")
+    rate = float(attn_dropout)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attn_dropout must be in [0, 1), got {rate}")
+    if rate > 0.0 and seed is None:
+        raise ValueError("attn_dropout > 0 needs a seed")
+    return _GatAttendRect.apply(s, t_buf, v_buf, attn, float(slope), rate,
+                                0 if seed is None else int(seed))

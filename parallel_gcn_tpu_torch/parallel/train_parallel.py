@@ -1,0 +1,586 @@
+"""Node-partitioned training over ``torch.distributed``.
+
+Port of ``parallel_gcn_tpu/parallel/train_parallel.py``. The graph's rows are
+partitioned over the ranks of a ``torch.distributed`` world, one process per
+rank, each on its own device (``cuda:<LOCAL_RANK>``, or the CPU when asked
+for). A rank holds its rows of the features, labels and split and its own
+slab of the graph (``RankGraph``), aggregates its rows' edges against a
+source buffer filled by a collective (``parallel.collectives``: all_gather
+of every row, or the boundary all_to_all of only the referenced rows),
+sums the weight gradients and the metrics with ``all_reduce``, and runs the
+same Adam step as every other rank, so the weights stay replicated.
+
+Aggregation layouts (``parallel.partition``):
+- flat COO slabs (``graphsum_dist``): gather, scale, ``index_add_``; the
+  backward through the collectives' autograd;
+- tile slabs plus a COO residual (``graphsum_dist_hybrid``, and
+  ``graphsum_dist_hybrid_scaled`` for int8 pattern slabs): K3 over the
+  rectangular slab (``ops.cuda_bcsr.bcsr_matmul_rect``); self-adjoint, so
+  the backward is the same aggregation of the cotangent;
+- the mesh GAT over ``gat_mesh_pack`` slabs (``ops.tile_attention.
+  gat_attend_rect``: K5 forward, K7 backward) or over flat COO slabs.
+
+Dropout seeds. Every rank draws the epoch's seeds from the same generator
+(``train.epoch_seeds`` seeded with ``cfg.tpu.seed``); ``rank_seeds`` then
+keeps them on rank 0 and replaces each by ``splitmix64(splitmix64(seed) ^
+rank)`` reduced to the seed's range on rank r > 0, so the masks differ
+across ranks (the JAX package folds the axis index into the key) and a
+world of one replays the single-card run's masks.
+
+Not ported (NotImplementedError): the ring and adaptive halos, tensor
+parallelism (``tp`` > 1), SAGE/GIN on the mesh, ``remat``, the GAT's
+``edge_chunk``, the whole-run program (``mode=scan`` runs this eager loop)
+and checkpoints. The mesh CE is the plain masked CE of ``ops.loss`` on every
+rank, as in the JAX package (``ce_impl`` does not apply).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from parallel_gcn_tpu_torch.config import Config
+from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL
+from parallel_gcn_tpu_torch.device import resolve_device
+from parallel_gcn_tpu_torch.models.gat import LEAKY_SLOPE, GATModel, _edge_softmax_segment
+from parallel_gcn_tpu_torch.models.gcn import GCNModel, set_matmul_precision
+from parallel_gcn_tpu_torch.ops.cuda_bcsr import BCSR, bcsr_matmul_rect, slab_pack
+from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout
+from parallel_gcn_tpu_torch.ops.graphsum import _pick_n_chunks, _segment
+from parallel_gcn_tpu_torch.ops.loss import masked_softmax_xent_sums
+from parallel_gcn_tpu_torch.ops.tile_attention import (RectAttention, gat_attend_rect,
+                                                       rect_attention)
+from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
+from parallel_gcn_tpu_torch.parallel import collectives
+from parallel_gcn_tpu_torch.parallel.collectives import (all_reduce_sum, buffer_rows,
+                                                         gather_buffer)
+from parallel_gcn_tpu_torch.parallel.partition import (GATMeshPack, HybridShardedGraph,
+                                                       ShardedGraph, gat_mesh_pack,
+                                                       partition_graph,
+                                                       partition_graph_hybrid)
+from parallel_gcn_tpu_torch.train import (_ATTN_SEED_HIGH, _SEED_HIGH, FitResult, _l2_term,
+                                          _sync, epoch_seeds)
+
+_M64 = (1 << 64) - 1
+
+
+# ---------------------------------------------------------------------------
+# a rank's share of the data and the graph
+# ---------------------------------------------------------------------------
+
+
+def shard_dataset(ds, sgraph):
+    """Host arrays padded to the partition's node count, permuted by its
+    slab-balancing ``node_perm`` when present: (x [n_pad, F] f32, labels
+    [n_pad] int64 with -1 on padding, split [n_pad] int32)."""
+    n_pad = sgraph.n_nodes_pad
+    x = np.zeros((n_pad, ds.input_dim), dtype=np.float32)
+    x[: ds.n_nodes] = ds.features
+    labels = np.full(n_pad, -1, dtype=np.int64)
+    labels[: ds.n_nodes] = ds.labels
+    split = np.zeros(n_pad, dtype=np.int32)
+    split[: ds.n_nodes] = ds.split
+    perm = sgraph.node_perm if isinstance(sgraph, (HybridShardedGraph, GATMeshPack)) else None
+    if perm is not None:
+        x, labels, split = x[perm], labels[perm], split[perm]
+    return x, labels, split
+
+
+@dataclass(frozen=True)
+class RankData:
+    """One rank's rows of the features, labels and split on its device."""
+
+    x: torch.Tensor
+    labels: torch.Tensor
+    split: torch.Tensor
+
+
+def rank_data(ds, sgraph, rank: int, device) -> RankData:
+    """Rank ``rank``'s rows of ``shard_dataset``'s arrays on ``device``."""
+    rows = slice(rank * sgraph.n_local, (rank + 1) * sgraph.n_local)
+    x, labels, split = (torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)
+                        for a in shard_dataset(ds, sgraph))
+    return RankData(x=x, labels=labels, split=split)
+
+
+@dataclass(frozen=True)
+class RankGraph:
+    """Rank ``rank``'s slab of a partition on its device: flat COO
+    (``coo``), a tile slab with its residual (``slab``, ``res`` and the int8
+    slab's ``d``), or the mesh GAT's packs (``attn``, over ``res``'s
+    layout). ``send_idx`` is the boundary halo's schedule (None: the
+    all_gather halo)."""
+
+    n_dev: int
+    rank: int
+    n_local: int
+    n_buf: int
+    send_idx: torch.Tensor | None = None
+    coo: tuple | None = None  # (row_local, col, val)
+    slab: BCSR | None = None
+    res: tuple | None = None  # (rrow, rcol, rval)
+    d: torch.Tensor | None = None
+    attn: RectAttention | None = None
+
+    def aggregate(self, h: torch.Tensor) -> torch.Tensor:
+        """Â·h on this rank's rows, in h's dtype."""
+        if self.coo is not None:
+            return graphsum_dist(h, *self.coo, self.n_local, send_idx=self.send_idx)
+        if self.slab is None:
+            raise ValueError("the mesh GAT's packs carry no GCN aggregation")
+        if self.d is not None:
+            return graphsum_dist_hybrid_scaled(h, self.d, self.send_idx, self.slab,
+                                               *self.res, self.n_local)
+        return graphsum_dist_hybrid(h, self.send_idx, self.slab, *self.res, self.n_local)
+
+
+def rank_graph(sgraph, rank: int, device) -> RankGraph:
+    """Rank ``rank``'s slab of ``sgraph`` (``ShardedGraph``,
+    ``HybridShardedGraph`` or ``GATMeshPack``) on ``device``."""
+    r = rank
+
+    def i64(a):
+        return torch.from_numpy(a[r].astype(np.int64)).to(device)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a[r], np.float32)).to(device)
+
+    base = dict(n_dev=sgraph.n_dev, rank=r, n_local=sgraph.n_local, n_buf=sgraph.n_buf,
+                send_idx=None if sgraph.send_idx is None else i64(sgraph.send_idx))
+    if isinstance(sgraph, GATMeshPack):
+        sg = sgraph
+        attn = rect_attention(sg.tiles_r[r], sg.trow_r[r], sg.tcol_r[r], sg.tiles_c[r],
+                              sg.trow_c[r], sg.tcol_c[r], sg.res_row[r], sg.res_col[r],
+                              sg.res_val[r], sg.has_res, sg.n_local, sg.n_buf,
+                              sg.tile_dtype, device)
+        return RankGraph(**base, attn=attn)
+    if isinstance(sgraph, HybridShardedGraph):
+        sg = sgraph
+        slab = slab_pack(sg.tiles[r], sg.trow[r], sg.tcol[r], sg.n_local, sg.n_buf,
+                         sg.tile_dtype, device)
+        return RankGraph(**base, slab=slab,
+                         res=(i64(sg.res_row), i64(sg.res_col), f32(sg.res_val)),
+                         d=None if sg.sym_scale is None else f32(sg.sym_scale))
+    return RankGraph(**base, coo=(i64(sgraph.row_local), i64(sgraph.col), f32(sgraph.val)))
+
+
+# ---------------------------------------------------------------------------
+# distributed aggregation
+# ---------------------------------------------------------------------------
+
+
+def graphsum_dist(x_local, row_local, col, val, n_local, send_idx=None):
+    """Distributed Â·x over row-sharded features, flat COO slab: the source
+    buffer (all_gather, or the boundary halo with ``send_idx``), then
+    ``val·x_buf[col]`` summed into ``row_local``, in x's dtype. Autograd
+    transposes the gathers, the scatter and the collective."""
+    x_buf = gather_buffer(x_local, send_idx)
+    n_chunks = _pick_n_chunks(row_local.shape[0], x_local.shape[1], 0)
+    return _segment(x_buf, row_local, col, val, n_local, n_chunks)
+
+
+def _hybrid_impl(x_local, d_local, send_idx, slab, rrow, rcol, rval, n_local):
+    if d_local is not None:
+        # int8 pattern slabs: scale before the exchange (one collective),
+        # aggregate the 0/k pattern, scale the local rows: d ⊙ B (d ⊙ x)
+        x_local = (d_local[:, None] * x_local.float()).to(x_local.dtype)
+    x_buf = buffer_rows(x_local, send_idx)
+    out = bcsr_matmul_rect(slab, x_buf).to(x_local.dtype)
+    out = out + _segment(x_buf, rrow, rcol, rval, n_local, 1)
+    if d_local is not None:
+        out = (d_local[:, None] * out).to(out.dtype)
+    return out
+
+
+class _HybridAgg(torch.autograd.Function):
+    """Self-adjoint at the collective level: the global matrix is symmetric,
+    so the gradient on rank d's rows is the same operation applied to the
+    exchanged cotangent (Σ_b A[b,d]ᵀ g_b = Σ_b A[d,b] g_b), for either
+    halo."""
+
+    @staticmethod
+    def forward(ctx, x_local, d_local, send_idx, slab, rrow, rcol, rval, n_local):
+        ctx.args = (d_local, send_idx, slab, rrow, rcol, rval, n_local)
+        return _hybrid_impl(x_local, d_local, send_idx, slab, rrow, rcol, rval, n_local)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_hybrid_impl(g.contiguous(), *ctx.args),) + (None,) * 7
+
+
+def graphsum_dist_hybrid(x_local, send_idx, slab, rrow, rcol, rval, n_local):
+    """Distributed Â·x over a rank's tile slab (K3 rect) plus its COO
+    residual, in x's dtype; ``send_idx`` None for the all_gather halo."""
+    return _HybridAgg.apply(x_local, None, send_idx, slab, rrow, rcol, rval, n_local)
+
+
+def graphsum_dist_hybrid_scaled(x_local, d_local, send_idx, slab, rrow, rcol, rval,
+                                n_local):
+    """``graphsum_dist_hybrid`` for int8 pattern slabs: the slab holds the
+    0/k pattern, the residual the multiplicities, ``d_local`` (deg^{-1/2} of
+    the rank's rows) the normalization."""
+    return _HybridAgg.apply(x_local, d_local, send_idx, slab, rrow, rcol, rval, n_local)
+
+
+# ---------------------------------------------------------------------------
+# the mesh models: the single-card models over a rank's slab
+# ---------------------------------------------------------------------------
+
+
+class MeshGCN(GCNModel):
+    """The GCN forward with every aggregation on the rank's slab (the JAX
+    mesh forward: dropout → X·W → Â·(·) → ReLU, residual as on one card)."""
+
+    def aggregate(self, h: torch.Tensor, graph: RankGraph) -> torch.Tensor:
+        return graph.aggregate(h).to(h.dtype)
+
+
+class MeshGAT(GATModel):
+    """The GAT forward over the rank's slab: per layer one exchange carries
+    [W·h | t] into the source buffer; attention over the ``gat_mesh_pack``
+    tiles (``tile``) or the flat COO slab (``segment``)."""
+
+    def _check_graph(self, graph: RankGraph) -> None:
+        if (graph.attn is None) == (self.backend == "tile"):
+            raise ValueError(f"mesh GAT backend {self.backend!r} does not fit the rank's slab")
+
+    def _source_buffer(self, graph, hw3, t):
+        n, H, D = hw3.shape
+        buf = gather_buffer(torch.cat([hw3.reshape(n, H * D), t], dim=1), graph.send_idx)
+        return buf[:, H * D:], buf[:, : H * D].view(-1, H, D)
+
+    def _attend_tile(self, graph, hw3, s, t, seed, training):
+        t_buf, hw_buf = self._source_buffer(graph, hw3, t)
+        rate = self.attn_dropout if training else 0.0
+        return gat_attend_rect(s, t_buf, hw_buf, graph.attn, slope=LEAKY_SLOPE,
+                               attn_dropout=rate,
+                               seed=seed if rate > 0.0 else None).to(hw3.dtype)
+
+    def _attend_segment(self, graph, hw3, s, t, seed, training):
+        t_buf, hw_buf = self._source_buffer(graph, hw3, t)
+        row, col, val = graph.coo
+        edges = _Edges(row, col, val)
+        alpha = _edge_softmax_segment(edges, s, t_buf, graph.n_local)
+        if training and self.attn_dropout > 0.0:
+            alpha = dropout(alpha.contiguous(), seed, self.attn_dropout)
+        contrib = (alpha[:, :, None] * hw_buf[col]).float()
+        out = torch.zeros(hw3.shape, dtype=torch.float32, device=hw3.device)
+        return out.index_add(0, row, contrib).to(hw3.dtype)
+
+
+@dataclass(frozen=True)
+class _Edges:
+    """COO triplets in the shape ``models.gat._edge_softmax_segment`` reads:
+    ``row`` local dest rows, ``col`` buffer source rows."""
+
+    row: torch.Tensor
+    col: torch.Tensor
+    val: torch.Tensor
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def rank_seeds(seeds: list[int], rank: int, attention: bool = False) -> list[int]:
+    """The epoch's dropout seeds for rank ``rank``: unchanged on rank 0;
+    ``splitmix64(splitmix64(seed) ^ rank)`` reduced to the seed's range on
+    the others. With ``attention`` (GAT) the odd entries are int32 attention
+    seeds."""
+    if rank == 0:
+        return list(seeds)
+    highs = [(_ATTN_SEED_HIGH if attention and i % 2 else _SEED_HIGH)
+             for i in range(len(seeds))]
+    return [_mix64(_mix64(s) ^ rank) % hi for s, hi in zip(seeds, highs)]
+
+
+def build_mesh_model(cfg: Config, sgraph, weights: list[torch.Tensor],
+                     device) -> MeshGCN | MeshGAT:
+    """The mesh model of ``cfg`` with a copy of ``weights`` (float32, a GAT's
+    in JAX leaf order) on ``device``; training leaves the caller's tensors
+    alone."""
+    weights = [w.detach().to(device, torch.float32, copy=True) for w in weights]
+    if cfg.gcn.model == "gat":
+        return MeshGAT(weights, cfg.gcn.dropouts, heads=cfg.gcn.heads,
+                       attn_dropout=cfg.gcn.attn_dropout,
+                       backend="tile" if isinstance(sgraph, GATMeshPack) else "segment",
+                       compute_dtype=cfg.tpu.compute_dtype, residual=cfg.gcn.residual)
+    return MeshGCN(weights, cfg.gcn.dropouts, residual=cfg.gcn.residual,
+                   compute_dtype=cfg.tpu.compute_dtype,
+                   fuse_dropout_matmul=cfg.tpu.fuse_dropout_matmul)
+
+
+# ---------------------------------------------------------------------------
+# epoch step, eval, input pre-aggregation
+# ---------------------------------------------------------------------------
+
+
+def _global_ce(logits, labels, mask, num_samples):
+    """(loss, accuracy) of the whole world from this rank's rows: the local
+    sums of ``ops.loss`` reduced over the ranks, divided by the split's
+    size."""
+    sums = all_reduce_sum(torch.stack(masked_softmax_xent_sums(logits, labels, mask)))
+    return sums[0] / float(num_samples), sums[1] / float(num_samples)
+
+
+def make_parallel_epoch_step(cfg: Config, model, graph: RankGraph, data: RankData,
+                             split_counts: dict, x_train=None, x_eval=None):
+    """One-epoch function ``(opt_state, seeds) -> metrics[4]`` (train_loss,
+    train_acc, val_loss, val_acc; the same on every rank). ``seeds`` are
+    this rank's (``rank_seeds``). The local loss's gradient, its sum over
+    the ranks (one ``all_reduce`` with the train metrics' sums), Adam in
+    place, then the val eval on the updated weights. ``x_train`` /
+    ``x_eval``: the rank's Â·X (``make_preagg_fn``), and layer 0 of the
+    train / val forward skips its aggregation."""
+    adam = cfg.adam
+    wd = adam.weight_decay
+    n_train, n_val = split_counts[TRAIN], split_counts[VAL]
+    train_mask = data.split == TRAIN
+    val_mask = data.split == VAL
+    weights = list(model.weights)
+    x_tr = data.x if x_train is None else x_train
+    x_ev = data.x if x_eval is None else x_eval
+
+    def step(opt_state: AdamState, seeds: list[int]) -> torch.Tensor:
+        logits = model(x_tr, graph, training=True, seeds=seeds,
+                       input_preagg=x_train is not None)
+        loss_sum, correct = masked_softmax_xent_sums(logits, data.labels, train_mask)
+        grads = torch.autograd.grad(loss_sum / float(n_train), weights)
+        flat = all_reduce_sum(torch.cat(
+            [g.reshape(-1).float() for g in grads]
+            + [torch.stack([loss_sum.detach(), correct])]))
+        grads, off = [], 0
+        for w in weights:
+            grads.append(flat[off : off + w.numel()].view(w.shape))
+            off += w.numel()
+        with torch.no_grad():
+            # the L2 term of the PRE-update W0
+            train_loss = flat[-2] / float(n_train) + _l2_term(wd, weights[0])
+            train_acc = flat[-1] / float(n_train)
+        adam_step(weights, grads, opt_state, learning_rate=adam.learning_rate,
+                  weight_decay=wd, beta1=adam.beta1, beta2=adam.beta2, eps=adam.eps)
+        with torch.no_grad():
+            val_ce, val_acc = _global_ce(
+                model(x_ev, graph, training=False, input_preagg=x_eval is not None),
+                data.labels, val_mask, n_val)
+            return torch.stack([train_loss, train_acc,
+                                val_ce + _l2_term(wd, weights[0]), val_acc])
+
+    return step
+
+
+def make_parallel_eval_fn(cfg: Config, model, graph: RankGraph, data: RankData,
+                          split_counts: dict, split: int, x_eval=None,
+                          preagg: bool = False):
+    """``() -> (loss, acc)`` of ``split`` on the current weights, over the
+    whole world. ``preagg``: ``x_eval`` holds Â·X and layer 0 skips its
+    aggregation."""
+    mask = data.split == split
+    x = data.x if x_eval is None else x_eval
+
+    def eval_fn():
+        with torch.no_grad():
+            ce, acc = _global_ce(model(x, graph, training=False, input_preagg=preagg),
+                                 data.labels, mask, split_counts[split])
+            return ce + _l2_term(cfg.adam.weight_decay, model.weights[0]), acc
+
+    return eval_fn
+
+
+def make_preagg_fn(graph: RankGraph):
+    """One distributed Â·X for the input pre-aggregation hoist (exact:
+    Â·(X·W0) = (Â·X)·W0)."""
+
+    def preagg(x_local: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return graph.aggregate(x_local)
+
+    return preagg
+
+
+# ---------------------------------------------------------------------------
+# the run
+# ---------------------------------------------------------------------------
+
+
+def _check_config(cfg: Config, halo: str) -> None:
+    """The JAX package's config errors, and NotImplementedError for what is
+    not ported."""
+    gat = cfg.gcn.model == "gat"
+    unported = {
+        f"halo={halo}": halo in ("ring", "adaptive"),
+        f"tp={cfg.tpu.tp}": cfg.tpu.tp > 1,
+        f"model={cfg.gcn.model} on the mesh": cfg.gcn.model in ("sage", "gin"),
+        "remat": cfg.gcn.remat,
+        "checkpoints": bool(cfg.train.checkpoint_dir),
+        "edge_chunk with model=gat on the mesh": (
+            gat and cfg.tpu.edge_chunk > 0 and cfg.tpu.backend not in ("hybrid", "bcsr")),
+    }
+    missing = [k for k, v in unported.items() if v]
+    if missing:
+        raise NotImplementedError(
+            f"not yet ported to parallel_gcn_tpu_torch: {', '.join(missing)}")
+    if gat and cfg.tpu.backend in ("hybrid", "bcsr") and cfg.tpu.edge_chunk:
+        raise ValueError(
+            "edge_chunk streams the SEGMENT attention; the tile backend already bounds "
+            "memory at O(N·heads) — unset edge_chunk or set backend=segment")
+
+
+def partition_for(cfg: Config, ds, n_devices: int, halo: str):
+    """The partition ``fit_parallel`` trains on: tile slabs for
+    ``backend=hybrid|bcsr`` (and the mesh GAT's packs over them for
+    ``model=gat``), flat COO slabs otherwise; ``halo_fallback`` turns a
+    boundary buffer that would not be smaller into the all_gather layout."""
+    if cfg.tpu.backend in ("hybrid", "bcsr"):
+        tile_dtype = cfg.tpu.tile_dtype
+        if tile_dtype == "auto":
+            tile_dtype = "float32" if cfg.tpu.matmul_precision == "highest" else "bfloat16"
+        sgraph = partition_graph_hybrid(
+            ds.graph, n_devices, node_pad=cfg.tpu.node_pad,
+            tile_r=cfg.tpu.tile_size, tile_c=cfg.tpu.tile_cols, tile_dtype=tile_dtype,
+            tile_budget_bytes=cfg.tpu.tile_budget_mb * 1024 * 1024,
+            min_tile_nnz=cfg.tpu.min_tile_nnz or None,
+            boundary=halo == "boundary", balance=cfg.tpu.balance_slabs,
+            boundary_fallback=cfg.tpu.halo_fallback,
+        )
+        return gat_mesh_pack(sgraph) if cfg.gcn.model == "gat" else sgraph
+    return partition_graph(ds.graph, n_devices, node_pad=cfg.tpu.node_pad,
+                           boundary=halo == "boundary",
+                           boundary_fallback=cfg.tpu.halo_fallback)
+
+
+@dataclass
+class RankRun:
+    """What ``fit_parallel`` trains on one rank: the partition, the rank's
+    slab, rows and model, and the splits' global sizes."""
+
+    sgraph: ShardedGraph | HybridShardedGraph | GATMeshPack
+    graph: RankGraph
+    data: RankData
+    model: MeshGCN | MeshGAT
+    split_counts: dict
+
+
+def build_rank(cfg: Config, ds, rank: int, n_devices: int, halo: str, device,
+               weights: list[torch.Tensor] | None = None) -> RankRun:
+    """Rank ``rank``'s share of a run of ``cfg`` over ``n_devices`` ranks on
+    ``device``; ``weights`` (float32, a GAT's in JAX leaf order) or the
+    Glorot init from ``cfg.tpu.seed``. Sets the matmul precision."""
+    from parallel_gcn_tpu_torch.models.gat import init_gat_params
+    from parallel_gcn_tpu_torch.models.gcn import init_params
+
+    sgraph = partition_for(cfg, ds, n_devices, halo)
+    if weights is None:
+        gen = torch.Generator().manual_seed(cfg.tpu.seed)
+        weights = (init_gat_params(gen, ds.input_dim, cfg.gcn.hidden_dims, ds.output_dim,
+                                   cfg.gcn.heads) if cfg.gcn.model == "gat" else
+                   init_params(gen, ds.input_dim, cfg.gcn.hidden_dims, ds.output_dim))
+    set_matmul_precision(cfg.tpu.matmul_precision)
+    return RankRun(
+        sgraph=sgraph, graph=rank_graph(sgraph, rank, device),
+        data=rank_data(ds, sgraph, rank, device),
+        model=build_mesh_model(cfg, sgraph, weights, device),
+        split_counts={s: int((ds.split == s).sum()) for s in (TRAIN, VAL, TEST)},
+    )
+
+
+def make_run_fns(cfg: Config, run: RankRun):
+    """The epoch step and the test eval of ``run``, with the input
+    pre-aggregation the single-card ``fit`` and the JAX package's whole-run
+    program hoist: the evals always read Â·X, the train forward too at input
+    dropout 0 (exact reassociation; GCN only)."""
+    graph, data, model = run.graph, run.data, run.model
+    x_train = x_eval = None
+    if cfg.tpu.input_preagg and cfg.gcn.model != "gat" and cfg.gcn.n_layers >= 2:
+        x_eval = make_preagg_fn(graph)(data.x).to(model.compute_dtype)
+        if cfg.gcn.dropouts[0] == 0.0:
+            x_train = x_eval
+    step = make_parallel_epoch_step(cfg, model, graph, data, run.split_counts,
+                                    x_train=x_train, x_eval=x_eval)
+    test_fn = make_parallel_eval_fn(cfg, model, graph, data, run.split_counts, TEST,
+                                    x_eval=x_eval, preagg=x_eval is not None)
+    return step, test_fn
+
+
+def fit_parallel(
+    cfg: Config,
+    ds,
+    *,
+    n_devices: int | None = None,
+    halo: str | None = None,
+    device: str | torch.device = "cuda",
+    weights: list[torch.Tensor] | None = None,
+    verbose: bool | None = None,
+) -> FitResult:
+    """The node-partitioned training run, the mesh counterpart of
+    ``train.fit``: partition the host dataset ``ds``, train with per-epoch
+    val metrics and the reference's early-stopping rule, evaluate the test
+    split. Call it on every rank of a world of ``n_devices`` processes
+    (torchrun), or with ``n_devices`` 1 and no world (a world of one is
+    started). ``halo``: ``all_gather`` or ``boundary`` (default
+    ``cfg.tpu.halo``). ``weights`` (float32, a GAT's in JAX leaf order)
+    replace the Glorot init from ``cfg.tpu.seed``. The history, losses and
+    accuracies are the whole world's, equal on every rank; only rank 0
+    prints."""
+    halo = halo or cfg.tpu.halo
+    _check_config(cfg, halo)
+    device = collectives.local_device(
+        device if isinstance(device, torch.device) else resolve_device(device))
+    if n_devices is None:
+        n_devices = cfg.tpu.n_devices or (
+            torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1)
+    verbose = cfg.train.verbose if verbose is None else verbose
+    gat = cfg.gcn.model == "gat"
+    with collectives.world(n_devices, device) as (rank, _):
+        verbose = verbose and rank == 0
+        if cfg.train.mode == "scan" and verbose:
+            print("note: mode=scan (whole-run path) is not yet ported — "
+                  "running the eager epoch loop")
+        run = build_rank(cfg, ds, rank, n_devices, halo, device, weights)
+        sgraph, model = run.sgraph, run.model
+        opt_state = init_adam(list(model.weights))
+        step, test_fn = make_run_fns(cfg, run)
+        if verbose:
+            print(f"mesh: {n_devices} rank(s), halo="
+                  f"{'boundary' if sgraph.send_idx is not None else 'all_gather'}, "
+                  f"n_local={sgraph.n_local}, n_buf={sgraph.n_buf}, device {device}")
+
+        gen = torch.Generator().manual_seed(cfg.tpu.seed)
+        k = cfg.gcn.early_stopping
+        rows = []
+        _sync(device)
+        t0 = time.perf_counter()
+        for epoch in range(1, cfg.gcn.epochs + 1):
+            te = time.perf_counter()
+            seeds = rank_seeds(epoch_seeds(gen, model.n_layers, attention=gat), rank, gat)
+            tl, ta, vl, va = step(opt_state, seeds).tolist()  # waits for the device
+            rows.append((tl, ta, vl, va))
+            if verbose:
+                print(f"epoch={epoch} train_loss={tl:.5f} train_acc={ta:.5f} "
+                      f"val_loss={vl:.5f} val_acc={va:.5f} "
+                      f"time={time.perf_counter() - te:.5f}")
+            if k > 0 and len(rows) >= k and vl > float(np.mean([r[2] for r in rows[-k:]])):
+                if verbose:
+                    print("Early stopping...")
+                break
+        total = time.perf_counter() - t0
+        test_loss, test_acc = (float(v) for v in test_fn())
+        if verbose:
+            print(f"test_loss={test_loss:.5f} test_acc={test_acc:.5f}")
+            print(f"total time: {total:.5f}")
+    return FitResult(
+        weights=[w.detach() for w in model.weights],
+        history=np.asarray(rows, dtype=np.float32).reshape(-1, 4),
+        epochs_run=len(rows),
+        test_loss=test_loss,
+        test_acc=test_acc,
+        avg_epoch_time_s=total / max(len(rows), 1),
+        total_time_s=total,
+    )

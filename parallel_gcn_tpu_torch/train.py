@@ -80,7 +80,7 @@ def build_model(cfg: Config, dds: DeviceDataset,
     unported = {
         f"model={cfg.gcn.model}": cfg.gcn.model not in ("gcn", "gat"),
         "remat": cfg.gcn.remat,
-        "n_devices/tp": cfg.tpu.n_devices > 1 or cfg.tpu.tp > 1,
+        f"tp={cfg.tpu.tp}": cfg.tpu.tp > 1,
         "edge_chunk with model=gat": gat and cfg.tpu.edge_chunk > 0,
     }
     missing = [k for k, v in unported.items() if v]
