@@ -13,6 +13,8 @@ Phases, each printed on its own lines:
      d 32 and 41, bf16 and f32, attention dropout 0 and 0.6, forward within
      rtol 1e-4 (f32) / 2e-3 (bf16) + 1e-5·max|ref|, gradients within rtol
      1e-3 + 1e-4·max|ref|, two runs bit-identical), with CUDA-event times;
+     the tile SpMM K4/K3 also at F=600 bf16 with ``torch.sparse.mm`` at
+     F=600 beside it, two runs of each bit-identical;
      The fused kernels: masked softmax-CE K9 (train and eval variants) at
      synth-reddit's [233472, 41] f32 logits with its train and val masks
      (loss rtol 1e-5, accuracy exact, gradient rtol 2e-5 + 1e-5·max|ref|);
@@ -23,7 +25,7 @@ Phases, each printed on its own lines:
      bit-identical. Beside each kernel's time: its plain version's, the
      unfused pair it replaces (K10), and the one PyTorch call that computes
      the same function where there is one (``torch.sparse.mm`` for K3/K4);
-  4. profile: the synth-reddit GAT's epoch and the fused GCN's
+  4. profile: the synth-reddit GCN's, GAT's and fused GCN's epochs
      (``ce_impl=pallas fuse_dropout_matmul=true``) under ``torch.profiler``:
      device time by op and the device's idle share;
   5. reference: a small hybrid int8 graph trains 3 epochs on the card and on
@@ -31,11 +33,18 @@ Phases, each printed on its own lines:
      attention dropout, and with the fused kernels (a GCN with both knobs
      and dropouts 0.3/0.3 without pre-aggregation, a GAT with
      ``ce_impl=pallas``); the metrics must agree within 2e-4;
-  6. mesh kernels: K3, K5 and both K7 sweeps over rank 0's slab of
+  6. sddmm: K8 on synth-reddit's int8 pack built with square 512×512 tiles,
+     forward at a, b [n, 41] f32 (rtol 1e-5) and bf16 (rtol 2e-3) + 1e-5·
+     max|ref| against its plain version, the backward through autograd with
+     the pack's tiles as loss weights (dA = W·b, dB = W·a within rtol 1e-4
+     in f32, one bf16 ulp in bf16), two runs bit-identical, beside the
+     gathered ``torch.bmm``;
+     mesh kernels: K3, K5 and both K7 sweeps over rank 0's slab of
      synth-reddit's mesh partition at one rank (square) and at 4 ranks with
      the boundary halo (rectangular, built on the host), against their
      plain versions with the tolerances of phase 3 (K3 at F 41 and 600 bf16
-     and 602 f32; attention at heads 2, d 32 and 41, bf16, attention
+     and 602 f32, ``torch.sparse.mm`` at 41 and 600; attention at heads 2,
+     d 32 and 41, bf16, attention
      dropout 0 and 0.6), two runs bit-identical; then ``fit_parallel`` in a
      world of one on a small graph, on the card (NCCL) and on the CPU
      (gloo), as a GCN over flat and over hybrid int8 slabs and as a GAT over
@@ -51,7 +60,8 @@ Phases, each printed on its own lines:
      and fall, and the kernels of each path must have launched at least as
      often as its epochs imply;
   8. mesh profiles: both mesh epochs under ``torch.profiler``.
-Then one JSON line with every kernel's launches, error, times and bound
+Then one JSON line with every kernel's launches (K3 and K8, which no main
+path runs, under ``off_path_kernels``), error, times and bound
 (the least time the card could take: the larger of the bytes each input
 read once and each output written once at 3.35 TB/s, and the operations at
 the peak rate of their type, H100 SXM data sheet), and last
@@ -247,18 +257,31 @@ def check_bcsr(results: dict, bcsr_pack, x602) -> None:
     pack_nnz = int(bcsr_pack.live_entries[0].numel())
     x41 = torch.randn((n, 41), generator=gen).to(torch.bfloat16).cuda()
     g41 = torch.randn((n, 41), generator=gen).cuda()
+    x600 = torch.randn((n, 600), generator=gen).to(torch.bfloat16).cuda()
     # K3: the same tiles as a plain pattern pack (no d scaling)
     pattern = dataclasses.replace(bcsr_pack, sym_scale=None)
     for key, pack in (("K4", bcsr_pack), ("K3", pattern)):
         errs = []
-        for x, rtol in ((x41, 2e-3), (x602, 1e-4)):
+        for x, rtol in ((x41, 2e-3), (x600, 2e-3), (x602, 1e-4)):
             got = cb.bcsr_matmul_impl(pack, x)
+            assert torch.equal(got, cb.bcsr_matmul_impl(pack, x)), f"{key}: two runs differ"
             ref = cb.bcsr_matmul_plain(pack, x)
             errs.append(_max_err(got, ref, rtol))
             ms = _events_ms(lambda: cb.bcsr_matmul_impl(pack, x), 10)
             pms = _events_ms(lambda: cb.bcsr_matmul_plain(pack, x), 2)
+            kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+            bound = _bound(_pack_bytes(pack) + _nbytes(x, got), 2 * pack_nnz * x.shape[1], kind)
             print(f"[kernels] {key} bcsr fwd F={x.shape[1]} {x.dtype}: max_abs_err "
-                  f"{errs[-1]:.3e} (rtol {rtol}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
+                  f"{errs[-1]:.3e} (rtol {rtol}), runs bit-identical; kernel {ms:.4f} ms, "
+                  f"plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            if x is x600:
+                # the library call at the wide width: cuSPARSE on f32 x
+                csr = _pack_csr(pack)
+                x32 = x.float()
+                lib_ms = _events_ms(lambda: torch.sparse.mm(csr, x32), 10)
+                print(f"[kernels] {key} library torch.sparse.mm (CSR f32) F=600: "
+                      f"{lib_ms:.4f} ms")
+                del csr, x32
             if x is x41:
                 out_bytes = x.shape[0] * x.shape[1] * 4
                 flops = 2 * pack_nnz * x.shape[1]  # the live entries' products
@@ -279,11 +302,24 @@ def check_bcsr(results: dict, bcsr_pack, x602) -> None:
                 del csr, lib, x32
         # backward through autograd: the same kernel on the cotangent
         for x, g in ((x41.float(), g41), (x602, torch.randn(x602.shape, generator=gen).cuda())):
-            xr = x.clone().requires_grad_(True)
-            cb.bcsr_matmul(pack, xr).backward(g)
+            grads = []
+            for _ in range(2):
+                xr = x.clone().requires_grad_(True)
+                cb.bcsr_matmul(pack, xr).backward(g)
+                grads.append(xr.grad)
+            assert torch.equal(*grads), f"{key} backward: two runs differ"
             errs.append(_max_err(xr.grad, cb.bcsr_matmul_plain(pack, g), 1e-4))
             print(f"[kernels] {key} bcsr bwd F={x.shape[1]} {x.dtype}: max_abs_err "
-                  f"{errs[-1]:.3e} (rtol 1e-4)")
+                  f"{errs[-1]:.3e} (rtol 1e-4), runs bit-identical")
+        # negative int8 entries take the kernel's general (signed) conversion
+        signed = dataclasses.replace(pack, tiles=pack.tiles.neg())
+        assert not signed.nonneg_tiles
+        got = cb.bcsr_matmul_impl(signed, x41)
+        assert torch.equal(got, cb.bcsr_matmul_impl(signed, x41)), f"{key} signed: runs differ"
+        errs.append(_max_err(got, cb.bcsr_matmul_plain(signed, x41), 2e-3))
+        print(f"[kernels] {key} bcsr fwd F=41 bf16 on the negated pack (signed bytes): "
+              f"max_abs_err {errs[-1]:.3e} (rtol 2e-3), runs bit-identical")
+        del signed, got
         results[key]["err"] = max(errs)
 
 
@@ -483,6 +519,83 @@ def check_fused(results: dict) -> None:
         del x, w, g, hd, gd, rec
 
 
+def check_sddmm(results: dict, ds, cfg) -> None:
+    """K8 on synth-reddit's int8 pack built with square 512×512 tiles: the
+    forward at a, b [n, 41] in f32 (rtol 1e-5) and bf16 (rtol 2e-3), + 1e-5·
+    max|ref|, against ``sddmm_plain``; the backward through autograd with
+    the loss weights set to the pack's tiles (tests/test_sddmm.py), whose
+    gradients are W·b and W·a for the symmetric pattern W (the plain SpMM
+    on the int8 tiles, rtol 1e-4 in f32, one bf16 ulp in bf16); two runs
+    bit-identical. Beside the
+    kernel: its plain version and the gathered batched product ``torch.bmm``
+    (cuBLAS) that computes the same tiles."""
+    import dataclasses
+
+    import torch
+
+    from parallel_gcn_tpu_torch.data.parser import to_device
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+    from parallel_gcn_tpu_torch.ops import cuda_sddmm as cs
+
+    t0 = time.perf_counter()
+    pack = to_device(ds, device=torch.device("cuda"), node_pad=cfg.tpu.node_pad, hybrid=True,
+                     tile_dtype="int8", tile_size=512, tile_cols=512,
+                     tile_budget_mb=cfg.tpu.tile_budget_mb,
+                     min_tile_nnz=cfg.tpu.min_tile_nnz).graph.bcsr
+    assert pack.mirror_perm is not None, "the square pack has no mirror_perm"
+    T, R, n = pack.n_tiles, pack.tile_r, pack.n_nodes
+    print(f"[sddmm] synth-reddit square pack: {T} int8 tiles {R}x{pack.tile_c}, "
+          f"mirror_perm set, built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(8)
+    errs = []
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-3)):
+        a = torch.randn((n, 41), generator=gen).to(dtype).cuda()
+        b = torch.randn((n, 41), generator=gen).to(dtype).cuda()
+        out = cs.sddmm_bcsr(pack, a, b)
+        assert torch.equal(out, cs.sddmm_bcsr(pack, a, b)), "K8: two runs differ"
+        errs.append(_max_err(out, cs.sddmm_plain(pack, a, b), rtol))
+        ms = _events_ms(lambda: cs.sddmm_bcsr(pack, a, b), 10)
+        pms = _events_ms(lambda: cs.sddmm_plain(pack, a, b), 2)
+        a3, b3 = a.view(-1, R, 41), b.view(-1, R, 41)
+        rows, cols = pack.tile_rows.long(), pack.tile_cols.long()
+        lib = lambda: torch.bmm(a3[rows], b3[cols].transpose(1, 2))  # noqa: E731
+        lib_ms = _events_ms(lib, 5)
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        bound = _bound(_nbytes(a, b, pack.tile_rows, pack.tile_cols, out),
+                       2 * T * R * R * 41, kind)
+        print(f"[sddmm] K8 fwd a, b [{n}, 41] {dtype}: max_abs_err {errs[-1]:.3e} (rtol "
+              f"{rtol}), runs bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"torch.bmm of the gathered blocks {lib_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {_nbytes(out)} output bytes)")
+        if dtype == torch.float32:
+            results["K8"] = dict(ms=ms, plain_ms=pms, library_ms=lib_ms, **bound)
+        del out
+        torch.cuda.empty_cache()
+        # backward: L = sum(out ⊙ W), W the pack's tiles; dA = W·b, dB = Wᵀ·a = W·a
+        w = pack.tiles.float()
+        grads = []
+        for _ in range(2):
+            ar, br = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            cs.sddmm_bcsr(pack, ar, br).backward(w)
+            grads.append((ar.grad, br.grad))
+            torch.cuda.empty_cache()
+        assert all(map(torch.equal, *grads)), "K8 backward: two runs differ"
+        # W's entries are small integers, exact in bf16; bf16 gradients are
+        # rounded once more, so they agree within one bf16 ulp
+        pattern = dataclasses.replace(pack, sym_scale=None)
+        rtol = 1e-4 if dtype == torch.float32 else 2.0**-7
+        e = max(_max_err(grads[0][0], cb.bcsr_matmul_plain(pattern, b).to(dtype), rtol),
+                _max_err(grads[0][1], cb.bcsr_matmul_plain(pattern, a).to(dtype), rtol))
+        errs.append(e)
+        print(f"[sddmm] K8 bwd {dtype}: dA = W·b and dB = W·a within rtol {rtol:.3g}, "
+              f"max_abs_err {e:.3e}, runs bit-identical")
+        del w, grads, ar, br
+        torch.cuda.empty_cache()
+    results["K8"]["err"] = max(errs)
+    del pack
+    torch.cuda.empty_cache()
+
+
 def mesh_slabs(ds, n_dev: int, args: list[str] = ()):
     """Rank 0's share of ``ds`` partitioned ``n_dev`` ways as the mesh paths
     partition it (synth-reddit's hybrid int8 tiles, ``args`` over the params
@@ -534,13 +647,14 @@ def check_bcsr_rect(results: dict, slab, tag: str, record: bool) -> None:
         print(f"[mesh-kernels] K3 rect {tag} F={F} {dtype}: max_abs_err {errs[-1]:.3e} "
               f"(rtol {rtol}), runs bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-        if record and F == 41:
+        if record and F in (41, 600):
             csr = _pack_csr(slab)
             x32 = x.float()
             lib_ms = _events_ms(lambda: torch.sparse.mm(csr, x32), 10)
             print(f"[mesh-kernels] K3 rect {tag} library torch.sparse.mm (CSR f32, "
                   f"{csr.values().numel()} nnz) F={F}: {lib_ms:.4f} ms")
-            results["K3 rect"] = dict(ms=ms, plain_ms=pms, library_ms=lib_ms, **bound)
+            if F == 41:
+                results["K3 rect"] = dict(ms=ms, plain_ms=pms, library_ms=lib_ms, **bound)
             del csr, x32
     r = results.setdefault("K3 rect", {})
     r["err"] = max(r.get("err", 0.0), *errs)
@@ -723,7 +837,8 @@ def _category(kernel: str) -> str:
                      ("fwd_mma_kernel", "K10 fused fwd"), ("fwd_fma_kernel", "K10 fused fwd"),
                      ("dw_mma_kernel", "K10 fused dW"), ("dw_fma_kernel", "K10 fused dW"),
                      ("reduce_splits_kernel", "K10 fused dW"), ("dx_kernel<", "K10 fused dX"),
-                     ("spmm_mma_kernel", "K3/K4 tile SpMM"),
+                     ("spmm_pipe_kernel", "K3/K4 tile SpMM"),
+                     ("sddmm_", "K8 sddmm"),
                      ("spmm_fma_kernel", "K3/K4 tile SpMM"),
                      ("reduce_segments_kernel", "K3/K4 tile SpMM"),
                      ("dropout_kernel<__nv_bfloat16, true>", "K2 relu_dropout"),
@@ -881,10 +996,10 @@ def check_reference() -> None:
 
 def _launch_dicts() -> list:
     from parallel_gcn_tpu_torch.ops import (cuda_bcsr, cuda_ce, cuda_dropout, cuda_fused,
-                                            tile_attention)
+                                            cuda_sddmm, tile_attention)
 
     return [cuda_dropout.launches, cuda_bcsr.launches, tile_attention.launches,
-            cuda_ce.launches, cuda_fused.launches]
+            cuda_ce.launches, cuda_fused.launches, cuda_sddmm.launches]
 
 
 def _reset_counts() -> None:
@@ -894,14 +1009,14 @@ def _reset_counts() -> None:
 
 
 def _read_counts() -> dict:
-    drop, bcsr, attn, ce, fused = _launch_dicts()
+    drop, bcsr, attn, ce, fused, sddmm = _launch_dicts()
     return {"K1": drop["dropout"], "K2": drop["relu_dropout"], "K3": bcsr["bcsr"],
             "K4": bcsr["bcsr_scaled"], "K5": attn["gat_fwd"], "K6": attn["gat_bwd"],
             "K3 rect": bcsr["bcsr_rect"], "K5 rect": attn["gat_fwd_rect"],
             "K7 row": attn["gat_bwd_rect_row"], "K7 col": attn["gat_bwd_rect_col"],
             "K9 train": ce["ce_train"], "K9 eval": ce["ce_eval"],
             "K10 fwd": fused["fused_fwd"], "K10 dW": fused["fused_dw"],
-            "K10 dX": fused["fused_dx"]}
+            "K10 dX": fused["fused_dx"], "K8": sddmm["sddmm"]}
 
 
 def phase_main_path(tag: str, argv: list[str]) -> tuple[dict, list, float]:
@@ -972,6 +1087,7 @@ def main() -> int:
     check_tile_attention(results, dds.graph.bcsr)
     check_ce(results, dds)
     check_fused(results)
+    phase_profile("GCN", [], dds)
     phase_profile("GAT", GAT_ARGS, dds)
     phase_profile("GCN fused", FUSED_ARGS, dds)
     del dds
@@ -984,6 +1100,7 @@ def main() -> int:
     ds = prepare_host_dataset(cfg, "synth-reddit")
     print(f"[mesh-kernels] synth-reddit loaded and reordered on the host in "
           f"{time.perf_counter() - t0:.1f} s")
+    check_sddmm(results, ds, cfg)
     for n_dev, args in ((1, []), (4, ["halo_fallback=false"])):
         slab, attn = mesh_slabs(ds, n_dev, args)
         tag = f"{n_dev}-way rank 0 [{attn.n_rows}, {attn.n_buf}]"
@@ -1031,6 +1148,8 @@ def main() -> int:
     counts = dict(K1=gat["K1"], K2=gcn["K2"], K3=gcn["K3"] + gat["K3"] + fused["K3"],
                   K4=gcn["K4"], K5=gat["K5"], K6=gat["K6"])
     counts["K3 rect"] = mesh_gcn["K3 rect"]
+    # K8 runs on no main path: its launches over all five stay 0
+    counts["K8"] = sum(c["K8"] for c in (gcn, gat, fused, mesh_gcn, mesh_gat))
     counts.update({k: mesh_gat[k] for k in ("K5 rect", "K7 row", "K7 col")})
     counts.update({k: fused[k] for k in ("K9 train", "K9 eval", "K10 fwd", "K10 dW",
                                          "K10 dX")})
@@ -1075,6 +1194,8 @@ def main() -> int:
         # ported kernels that no main path launches
         "off_path_kernels": [
             entry("K3", "bcsr_spmm", bcsr_src, "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),
+            entry("K8", "sddmm_bcsr", "parallel_gcn_tpu_torch/csrc/sddmm.cu",
+                  "parallel_gcn_tpu/ops/pallas_sddmm.py:36"),
         ],
     }))
     print(json.dumps({"ok": True, "device": {

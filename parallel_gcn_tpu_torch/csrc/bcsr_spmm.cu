@@ -22,26 +22,49 @@
 // tiles into segments of at most a few tiles (ops/cuda_bcsr.tile_schedule):
 // synth-reddit's community order leaves two hub tile-rows with over 200 of
 // the 2,596 tiles, and one CTA walking all of them would take the whole
-// kernel's time. Each CTA owns one (segment, 64-row sub-block, 64-feature
-// block), accumulates in registers and writes its rows once: straight into
-// out when the segment is its tile-row's only one, else into a workspace
-// slot that a second kernel sums in segment order. No atomics, a
-// deterministic sum, and zeros for a tile-row with no tiles.
-// A 512×1024 int8 tile (512 KB) is larger than a block's 227 KB of shared
-// memory, so a tile is streamed in K-chunks staged in shared memory:
-//   * compute dtype bf16 (int8 tiles with bf16 x, bf16 tiles): each chunk
-//     stages the scaled, rounded 64×64 tile slice and the 64×64 x slice as
-//     bf16, and 4 warps run mma.sync m16n8k16 (bf16 in, f32 accumulate) on
-//     the tensor cores; feature n-tiles past F are skipped;
-//   * compute dtype f32 (the set-up aggregation of f32 features, f32
-//     tiles): 64×32 chunks in f32 and 4×4 FMA register blocks per thread.
+// kernel's time. Each CTA owns one (segment, row block, feature block),
+// accumulates in registers and writes its rows once: straight into out when
+// the segment is its tile-row's only one, else into a workspace slot that a
+// second kernel sums in segment order. No atomics, a deterministic sum, and
+// zeros for a tile-row with no tiles.
+//
+// Compute dtype bf16 (int8 tiles with bf16 x, bf16 tiles): spmm_pipe_kernel.
+//   * x arrives as one contiguous bf16 buffer with F padded to a multiple of
+//     16 (the wrapper's copy), so every x row is 16-byte aligned.
+//   * A CTA covers 256 rows of a tile (8 warps × 32 rows) and 64 features,
+//     two CTAs per SM, so each x chunk is staged twice per 512-row tile, not
+//     8 times; wider F takes one 64-feature block after another, the grid's
+//     fastest index, so the CTAs of one segment run together and read the
+//     tile bytes from L2 after the first.
+//   * A 4-stage cp.async.cg ring in shared memory holds, per 64-byte column
+//     chunk of the tile rows (64 int8 or 32 bf16 columns), the tile chunk,
+//     the matching x rows and, for K4, d of those columns: 16-byte copies in
+//     flight while the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//     accumulate) run the chunk before. Each copy asks L2 for the 256 bytes
+//     around it, so a tile row leaves memory in 256-byte runs.
+//   * A fragments come straight from the staged tile bytes, converted in
+//     registers, no second shared-memory pass: an int8 byte k → bf16 as
+//     (128 + k) − 128 in bf16x2 (K3), or → f32 2^23 + k by a byte permute and
+//     fma((2^23 + k)·d_c − 2^23·d_c) = k·d_c rounded once, × d_r, → bf16
+//     (K4); a pack with negative bytes takes the general signed sequence.
+//     Inside a k16 step the k order is permuted (fragment k 2q+j ↔ column
+//     4q+j, k 8+2q+j ↔ column 4q+2+j) so a thread reads its 4 columns of a
+//     row as one word; B fragments come from ldmatrix.trans with the same
+//     permutation. Both shared layouts are XOR-swizzled by row, so neither
+//     read has bank conflicts.
+//   * The instruction is mma.sync at every F: at F ≤ 64 the kernel is bound
+//     by the tile stream and the conversion, not the tensor cores; at F=600
+//     the products (1.6e12 FLOP) would be 1.7 ms at the wgmma peak, and
+//     wgmma is later work.
+// Compute dtype f32 (the set-up aggregation of f32 features, f32 tiles):
+// spmm_fma_kernel, 64×32 chunks in f32 and 4×4 FMA register blocks per
+// thread, unchanged since its first version (it runs once per run).
 //
 // What bounds it on an H100, per synth-reddit epoch: 3 passes (forward,
 // backward, eval) over 2,596 int8 tiles of 512×1024 (1.36 GB each pass,
-// ~0.4 ms at 3.35 TB/s) and 5.6e10 multiply-adds per pass at F = 41
-// (~0.1 ms of dense bf16 tensor-core time). Staging through shared memory
-// without a copy pipeline (no TMA, no cp.async, no wgmma) keeps this
-// simple version well above both bounds; those are later work.
+// ~0.4 ms at 3.35 TB/s; the ring alone, without compute, streams it in
+// ~0.64 ms); the int8 → bf16 conversion (~0.15 ms of K4) and the products
+// on top. Variants in kernel_variants.py, numbers in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,15 +72,15 @@
 
 namespace {
 
-constexpr int kRows = 64;  // output rows per CTA (both kernels)
-constexpr int kFeat = 64;  // output features per CTA (both kernels)
+constexpr int kRows = 64;  // output rows per CTA (f32 path)
+constexpr int kFeat = 64;  // output features per CTA (f32 path)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
 
-// Where a CTA of segment `seg` writes its 64-row sub-block starting at row
-// r0 of the tile-row: out itself, or its workspace slot.
+// Where a CTA of segment `seg` writes its row block starting at row r0 of
+// the tile-row: out itself, or its workspace slot.
 __device__ __forceinline__ float* segment_dst(float* out, float* ws,
                                               const int* seg_row,
                                               const int* seg_slot, int seg,
@@ -150,10 +173,36 @@ spmm_fma_kernel(const TT* __restrict__ tiles, const int* __restrict__ seg_tile_p
 }
 
 // ---------------------------------------------------------------------------
-// bf16 compute: tensor cores, mma.sync.m16n8k16 (bf16 x bf16 -> f32).
-constexpr int kMmaChunk = 64;
-constexpr int kMmaThreads = 128;      // 4 warps x 16 rows
-constexpr int kPad = kMmaChunk + 8;   // smem row stride (bf16): 144 B, conflict-free fragments
+// bf16 compute: a cp.async ring under mma.sync.m16n8k16 (bf16 x bf16 -> f32).
+constexpr int kStages = 4;       // ring depth
+constexpr int kChunkBytes = 64;  // bytes of each tile row per chunk
+
+// Chunk geometry by tile dtype: columns per 64-byte chunk row, and the row
+// swizzle of the 16-byte pieces of a staged tile row that keeps the
+// fragment reads conflict-free (int8: a word per lane, bf16: 8 bytes).
+template <typename TT> struct Chunk;
+template <> struct Chunk<int8_t> {
+  static constexpr int kCols = 64;
+  __device__ static int swz(int r) { return (r >> 1) & 3; }
+};
+template <> struct Chunk<__nv_bfloat16> {
+  static constexpr int kCols = 32;
+  __device__ static int swz(int r) { return ((r >> 1) & 1) << 1; }
+};
+
+// The CTA shape: m16 tiles per warp, features per CTA (a feature block),
+// warps per CTA (at most) and CTAs per SM (the register budget: 64K /
+// (32·warps·CTAs)). Measured on the H100 (PERF.md): warps of 2 m16
+// tiles (32 rows), 8 warps, 256 rows and 64 features a CTA, two CTAs per
+// SM, for every F (wide F takes one feature block after another).
+template <int kMT, int kFB, int kW, int kPerSM> struct Shape {
+  static constexpr int kMTiles = kMT;
+  static constexpr int kFeatBlock = kFB;
+  static constexpr int kWarpRows = 16 * kMT;
+  static constexpr int kWarps = kW;
+  static constexpr int kCtasPerSM = kPerSM;
+};
+using CtaShape = Shape<2, 64, 8, 2>;
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
@@ -165,121 +214,261 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
 }
 
-__device__ __forceinline__ void load4(const int8_t* p, float (&v)[4]) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  v[0] = (float)c.x; v[1] = (float)c.y; v[2] = (float)c.z; v[3] = (float)c.w;
+// 16 bytes global → shared, around them 256 bytes fetched into L2: the
+// next chunks of a tile row (64 bytes a chunk) then come from L2, and the
+// tile stream reaches the memory as 256-byte runs.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(a), "l"(src));
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  v[0] = __low2float(lo); v[1] = __high2float(lo);
-  v[2] = __low2float(hi); v[3] = __high2float(hi);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <typename TT, typename XT, bool kScaled>
-__global__ void __launch_bounds__(kMmaThreads)
-spmm_mma_kernel(const TT* __restrict__ tiles, const int* __restrict__ seg_tile_ptr,
-                const int* __restrict__ seg_row, const int* __restrict__ seg_slot,
-                const int* __restrict__ tile_cols, const float* __restrict__ d,
-                const XT* __restrict__ x, float* __restrict__ out,
-                float* __restrict__ ws, int tile_r, int tile_c, int n_feat) {
-  __shared__ __align__(16) __nv_bfloat16 a_s[kRows][kPad];   // [row][k]
-  __shared__ __align__(16) __nv_bfloat16 x_s[kFeat][kPad];   // [feature][k]
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  const int subs = tile_r / kRows;
-  const int seg = blockIdx.x / subs;
-  const int r0 = (blockIdx.x % subs) * kRows;
-  const int f0 = blockIdx.y * kFeat;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Signed byte b of w as f32, exactly: u = w ^ 0x80808080 holds b + 128 as an
+// unsigned byte; placed in the mantissa of 2^23 it reads 2^23 + b + 128.
+__device__ __forceinline__ float byte_to_float(uint32_t u, int b) {
+  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b)) - 8388736.0f;
+}
+
+// The staged x row k holds its 16-byte feature pieces p at p ^ x_swz(k): the
+// 8 k rows that one ldmatrix reads under the step's k permutation then sit
+// in 8 distinct bank groups.
+__device__ __forceinline__ int x_swz(int k) { return (((k >> 2) & 3) << 1) | (k & 1); }
+
+// The raw fragment bytes of one row for k16 step s of a staged chunk row
+// (see the k permutation in the header): columns 4q..4q+3 of the step's 16,
+// one word of int8 or two words of bf16.
+template <typename TT> struct Raw;
+template <> struct Raw<int8_t> {
+  uint32_t w;
+  __device__ void load(const uint8_t* row, int swz, int s, int q) {
+    w = *reinterpret_cast<const uint32_t*>(row + ((s ^ swz) << 4) + 4 * q);
+  }
+};
+template <> struct Raw<__nv_bfloat16> {
+  uint2 w;
+  __device__ void load(const uint8_t* row, int swz, int s, int q) {
+    w = *reinterpret_cast<const uint2*>(row + (((2 * s + (q >> 1)) ^ swz) << 4) + 8 * (q & 1));
+  }
+};
+
+__device__ __forceinline__ uint32_t bf16x2_minus_128(uint32_t v) {
+  __nv_bfloat162 x = *reinterpret_cast<__nv_bfloat162*>(&v);
+  x = __hsub2(x, __floats2bfloat162_rn(128.0f, 128.0f));
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Fragment registers {lo | hi} = {a0 | a2} (row g) or {a1 | a3} (row g + 8)
+// from a row's raw bytes: lo holds columns 4q, 4q+1 and hi 4q+2, 4q+3;
+// dc: d of the 4 columns, ndc = -2^23·dc (exact), dr: d of the row.
+// kNonneg: every byte is in 0..127 (a multiplicity pattern), which allows
+// shorter exact sequences than a signed byte needs.
+template <bool kScaled, bool kNonneg>
+__device__ __forceinline__ void a_frag(const Raw<int8_t>& raw, const float4& dc,
+                                       const float4& ndc, float dr, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t w = raw.w;
+  if constexpr (kNonneg && !kScaled) {
+    // bf16 128 + k (exponent byte 0x43, k in the mantissa) minus 128
+    lo = bf16x2_minus_128(__byte_perm(w, 0x43434343u, 0x4140));
+    hi = bf16x2_minus_128(__byte_perm(w, 0x43434343u, 0x4342));
+  } else if constexpr (kNonneg) {
+    // f32 2^23 + k; fma((2^23 + k)·dc − 2^23·dc) rounds k·dc once, as k·dc
+    const float v0 = fmaf(__int_as_float(__byte_perm(w, 0x4B000000u, 0x7540)), dc.x, ndc.x);
+    const float v1 = fmaf(__int_as_float(__byte_perm(w, 0x4B000000u, 0x7541)), dc.y, ndc.y);
+    const float v2 = fmaf(__int_as_float(__byte_perm(w, 0x4B000000u, 0x7542)), dc.z, ndc.z);
+    const float v3 = fmaf(__int_as_float(__byte_perm(w, 0x4B000000u, 0x7543)), dc.w, ndc.w);
+    lo = pack_bf16(v0 * dr, v1 * dr);
+    hi = pack_bf16(v2 * dr, v3 * dr);
+  } else {
+    const uint32_t u = w ^ 0x80808080u;
+    float v0 = byte_to_float(u, 0), v1 = byte_to_float(u, 1);
+    float v2 = byte_to_float(u, 2), v3 = byte_to_float(u, 3);
+    if constexpr (kScaled) {
+      v0 = v0 * dc.x * dr;
+      v1 = v1 * dc.y * dr;
+      v2 = v2 * dc.z * dr;
+      v3 = v3 * dc.w * dr;
+    }
+    lo = pack_bf16(v0, v1);
+    hi = pack_bf16(v2, v3);
+  }
+}
+
+template <bool kScaled, bool kNonneg>
+__device__ __forceinline__ void a_frag(const Raw<__nv_bfloat16>& raw, const float4&,
+                                       const float4&, float, uint32_t& lo, uint32_t& hi) {
+  lo = raw.w.x;
+  hi = raw.w.y;
+}
+
+template <typename TT, bool kScaled, bool kNonneg, typename S>
+__global__ void __launch_bounds__(S::kWarps * 32, S::kCtasPerSM)
+spmm_pipe_kernel(const TT* __restrict__ tiles, const int* __restrict__ seg_tile_ptr,
+                 const int* __restrict__ seg_row, const int* __restrict__ seg_slot,
+                 const int* __restrict__ tile_cols, const float* __restrict__ d,
+                 const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
+                 float* __restrict__ ws, int tile_r, int tile_c, int n_feat,
+                 int f_pad, int n_fb) {
+  constexpr int kCols = Chunk<TT>::kCols;
+  constexpr int kSteps = kCols / 16;  // k16 steps per chunk
+  constexpr int kMT = S::kMTiles;
+  constexpr int kFB = S::kFeatBlock;
+  constexpr int kNT = kFB / 8;
+  extern __shared__ __align__(128) uint8_t smem[];
+
+  const int n_threads = blockDim.x;
+  const int rows_cta = (n_threads / 32) * S::kWarpRows;
+  const int tile_bytes = rows_cta * kChunkBytes;
+  const int x_bytes = kCols * kFB * 2;
+  const int stage_bytes = tile_bytes + x_bytes + (kScaled ? kCols * 4 : 0);
+
+  const int fb = blockIdx.x % n_fb;
+  const int unit = blockIdx.x / n_fb;
+  const int blocks = tile_r / rows_cta;
+  const int seg = unit / blocks;
+  const int r0 = (unit % blocks) * rows_cta;
+  const int f0 = fb * kFB;
+  const int fbw = min(kFB, f_pad - f0);  // a multiple of 16
+  const int pieces = fbw / 8;            // 16-byte x pieces per row
+  const int n_pairs = fbw / 16;          // warp-uniform
+
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane >> 2;  // mma groupID
-  const int q = lane & 3;   // mma threadID_in_group
+  const int g = lane >> 2;
+  const int q = lane & 3;
   const int row_base = seg_row[seg] * tile_r + r0;
-  const int n_active = min(kFeat / 8, (n_feat - f0 + 7) / 8);  // warp-uniform
+  const int t0 = seg_tile_ptr[seg];
+  const int cpt = tile_c / kCols;  // chunks per tile
+  const int n_chunks = (seg_tile_ptr[seg + 1] - t0) * cpt;
+  const size_t tile_row_bytes = (size_t)tile_c * sizeof(TT);
 
-  float acc[kFeat / 8][4];
-#pragma unroll
-  for (int n = 0; n < kFeat / 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.0f;
+  auto issue = [&](int c) {
+    if (c < n_chunks) {
+      uint8_t* st = smem + (c % kStages) * stage_bytes;
+      const int t = t0 + c / cpt;
+      const int kc = c % cpt;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(tiles) +
+                           ((size_t)t * tile_r + r0) * tile_row_bytes + kc * kChunkBytes;
+      for (int e = tid; e < rows_cta * 4; e += n_threads) {
+        const int r = e >> 2;
+        const int p = e & 3;
+        cp_async16(st + r * kChunkBytes + ((p ^ Chunk<TT>::swz(r)) << 4),
+                   src + r * tile_row_bytes + p * 16);
+      }
+      const int node0 = tile_cols[t] * tile_c + kc * kCols;
+      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + tile_bytes);
+      for (int e = tid; e < kCols * pieces; e += n_threads) {
+        const int k = e / pieces;
+        const int p = e % pieces;
+        cp_async16(xs + k * kFB + ((p ^ x_swz(k)) << 3),
+                   x + (size_t)(node0 + k) * f_pad + f0 + p * 8);
+      }
+      if constexpr (kScaled) {
+        float* ds = reinterpret_cast<float*>(st + tile_bytes + x_bytes);
+        for (int e = tid; e < kCols / 4; e += n_threads) cp_async16(ds + 4 * e, d + node0 + 4 * e);
+      }
+    }
+    cp_async_commit();
+  };
 
-  const int t_end = seg_tile_ptr[seg + 1];
-  for (int t = seg_tile_ptr[seg]; t < t_end; ++t) {
-    const TT* tile = tiles + (size_t)t * tile_r * tile_c + (size_t)r0 * tile_c;
-    const int col_base = tile_cols[t] * tile_c;
-    for (int k0 = 0; k0 < tile_c; k0 += kMmaChunk) {
-      // tile slice: 64 rows x 64 columns, 4 consecutive columns per step
+  float acc[kMT][kNT][4];
 #pragma unroll
-      for (int i = 0; i < kRows * kMmaChunk / 4 / kMmaThreads; ++i) {
-        const int e = tid + i * kMmaThreads;
-        const int r = e / (kMmaChunk / 4);
-        const int c = (e % (kMmaChunk / 4)) * 4;
-        float v[4];
-        load4(tile + (size_t)r * tile_c + k0 + c, v);
-        if (kScaled) {
-          const float4 dc = *reinterpret_cast<const float4*>(d + col_base + k0 + c);
-          const float dr = d[row_base + r];
-          v[0] = v[0] * dc.x * dr;
-          v[1] = v[1] * dc.y * dr;
-          v[2] = v[2] * dc.z * dr;
-          v[3] = v[3] * dc.w * dr;
-        }
-        __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-        __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-        uint2 packed;
-        packed.x = *reinterpret_cast<uint32_t*>(&lo);
-        packed.y = *reinterpret_cast<uint32_t*>(&hi);
-        *reinterpret_cast<uint2*>(&a_s[r][c]) = packed;
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.0f;
+
+  // this thread's fragment rows (lo: g, hi: g + 8 of each m16 tile) and d_r
+  float dr[kMT][2];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m) {
+    const int r = warp * S::kWarpRows + m * 16 + g;
+    dr[m][0] = kScaled ? d[row_base + r] : 1.0f;
+    dr[m][1] = kScaled ? d[row_base + r + 8] : 1.0f;
+  }
+
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) issue(c);
+
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(c + kStages - 1);
+    const uint8_t* st = smem + (c % kStages) * stage_bytes;
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st + tile_bytes);
+    const float* ds = reinterpret_cast<const float*>(st + tile_bytes + x_bytes);
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      float4 dc = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+      if constexpr (kScaled) dc = *reinterpret_cast<const float4*>(ds + 16 * s + 4 * q);
+      const float4 ndc = make_float4(-8388608.0f * dc.x, -8388608.0f * dc.y,
+                                     -8388608.0f * dc.z, -8388608.0f * dc.w);
+      uint32_t a[kMT][4];
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        const int r = warp * S::kWarpRows + m * 16 + g;
+        Raw<TT> rlo, rhi;
+        rlo.load(st + r * kChunkBytes, Chunk<TT>::swz(r), s, q);
+        rhi.load(st + (r + 8) * kChunkBytes, Chunk<TT>::swz(r + 8), s, q);
+        a_frag<kScaled, kNonneg>(rlo, dc, ndc, dr[m][0], a[m][0], a[m][2]);
+        a_frag<kScaled, kNonneg>(rhi, dc, ndc, dr[m][1], a[m][1], a[m][3]);
       }
-      // x slice: 64 k-rows x 64 features, stored transposed ([f][k])
-#pragma unroll 4
-      for (int i = 0; i < kMmaChunk * kFeat / kMmaThreads; ++i) {
-        const int e = tid + i * kMmaThreads;
-        const int k = e / kFeat;
-        const int f = e % kFeat;
-        __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
-        if (f0 + f < n_feat)
-          v = __float2bfloat16_rn(to_float(x[(size_t)(col_base + k0 + k) * n_feat + f0 + f]));
-        x_s[f][k] = v;
-      }
-      __syncthreads();
+      // ldmatrix rows: lanes 8j..8j+7 address matrix j (j&1: the step's
+      // second k half, j>>1: the pair's second n tile)
+      const int mj = lane >> 3;
+      const int mr = lane & 7;
+      const int k = 16 * s + 4 * (mr >> 1) + (mr & 1) + ((mj & 1) << 1);
 #pragma unroll
-      for (int kk = 0; kk < kMmaChunk; kk += 16) {
-        const int ar = warp * 16 + g;
-        const uint32_t a0 = lds32(&a_s[ar][kk + q * 2]);
-        const uint32_t a1 = lds32(&a_s[ar + 8][kk + q * 2]);
-        const uint32_t a2 = lds32(&a_s[ar][kk + 8 + q * 2]);
-        const uint32_t a3 = lds32(&a_s[ar + 8][kk + 8 + q * 2]);
+      for (int p = 0; p < kNT / 2; ++p) {
+        if (p < n_pairs) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, xs + k * kFB + (((2 * p + (mj >> 1)) ^ x_swz(k)) << 3));
 #pragma unroll
-        for (int n = 0; n < kFeat / 8; ++n) {
-          if (n < n_active) {
-            const uint32_t b0 = lds32(&x_s[n * 8 + g][kk + q * 2]);
-            const uint32_t b1 = lds32(&x_s[n * 8 + g][kk + 8 + q * 2]);
-            mma_bf16(acc[n], a0, a1, a2, a3, b0, b1);
+          for (int m = 0; m < kMT; ++m) {
+            mma_bf16(acc[m][2 * p], a[m][0], a[m][1], a[m][2], a[m][3], b[0], b[1]);
+            mma_bf16(acc[m][2 * p + 1], a[m][0], a[m][1], a[m][2], a[m][3], b[2], b[3]);
           }
         }
       }
-      __syncthreads();
     }
   }
+  cp_async_wait<0>();
 
   float* dst = segment_dst(out, ws, seg_row, seg_slot, seg, tile_r, r0, n_feat);
-  const size_t ra = (size_t)(warp * 16 + g);
 #pragma unroll
-  for (int n = 0; n < kFeat / 8; ++n) {
+  for (int m = 0; m < kMT; ++m) {
+    const size_t ra = (size_t)(warp * S::kWarpRows + m * 16 + g);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int f = f0 + n * 8 + q * 2 + j;
-      if (f < n_feat) {
-        dst[ra * n_feat + f] = acc[n][j];
-        dst[(ra + 8) * n_feat + f] = acc[n][2 + j];
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int f = f0 + n * 8 + q * 2 + j;
+        if (f < n_feat) {
+          dst[ra * n_feat + f] = acc[m][n][j];
+          dst[(ra + 8) * n_feat + f] = acc[m][n][2 + j];
+        }
       }
     }
   }
@@ -315,52 +504,74 @@ struct Args {
   const void* x;
   float* out;
   float* ws;
-  int tile_r, tile_c, n_feat;
+  int tile_r, tile_c, n_feat, f_pad;
+  bool nonneg;  // int8 tiles known to hold only 0..127
   cudaStream_t stream;
 };
 
-template <typename TT, typename XT, bool kScaled, bool kMma>
-void launch(const Args& a) {
+template <typename TT, typename XT, bool kScaled>
+int launch_fma(const Args& a) {
   const dim3 grid((unsigned)(a.n_seg * (a.tile_r / kRows)),
                   (unsigned)((a.n_feat + kFeat - 1) / kFeat));
-  if constexpr (kMma)
-    spmm_mma_kernel<TT, XT, kScaled><<<grid, kMmaThreads, 0, a.stream>>>(
-        static_cast<const TT*>(a.tiles), a.seg_tile_ptr, a.seg_row, a.seg_slot,
-        a.tile_cols, a.d, static_cast<const XT*>(a.x), a.out, a.ws, a.tile_r,
-        a.tile_c, a.n_feat);
-  else
-    spmm_fma_kernel<TT, XT, kScaled><<<grid, kFmaThreads, 0, a.stream>>>(
-        static_cast<const TT*>(a.tiles), a.seg_tile_ptr, a.seg_row, a.seg_slot,
-        a.tile_cols, a.d, static_cast<const XT*>(a.x), a.out, a.ws, a.tile_r,
-        a.tile_c, a.n_feat);
+  spmm_fma_kernel<TT, XT, kScaled><<<grid, kFmaThreads, 0, a.stream>>>(
+      static_cast<const TT*>(a.tiles), a.seg_tile_ptr, a.seg_row, a.seg_slot,
+      a.tile_cols, a.d, static_cast<const XT*>(a.x), a.out, a.ws, a.tile_r,
+      a.tile_c, a.n_feat);
+  return 0;
+}
+
+template <typename TT, bool kScaled, bool kNonneg>
+int launch_pipe(const Args& a) {
+  using S = CtaShape;
+  // warps: as many of the shape's as fit the tile rows
+  int warps = S::kWarps;
+  while (warps > 1 && a.tile_r % (warps * S::kWarpRows)) warps /= 2;
+  const int rows_cta = warps * S::kWarpRows;
+  if (a.tile_r % rows_cta) return (int)cudaErrorInvalidValue;
+  constexpr int kCols = Chunk<TT>::kCols;
+  const int stage = rows_cta * kChunkBytes + kCols * S::kFeatBlock * 2 + (kScaled ? kCols * 4 : 0);
+  const int smem = kStages * stage;
+  auto kernel = spmm_pipe_kernel<TT, kScaled, kNonneg, S>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_fb = (a.f_pad + S::kFeatBlock - 1) / S::kFeatBlock;
+  const size_t blocks = (size_t)a.n_seg * (a.tile_r / rows_cta) * n_fb;
+  kernel<<<(unsigned)blocks, warps * 32, smem, a.stream>>>(
+      static_cast<const TT*>(a.tiles), a.seg_tile_ptr, a.seg_row, a.seg_slot, a.tile_cols,
+      a.d, static_cast<const __nv_bfloat16*>(a.x), a.out, a.ws, a.tile_r, a.tile_c,
+      a.n_feat, a.f_pad, n_fb);
+  return 0;
+}
+
+template <bool kScaled>
+int launch_pipe_int8(const Args& a) {
+  if (a.nonneg) return launch_pipe<int8_t, kScaled, true>(a);
+  return launch_pipe<int8_t, kScaled, false>(a);
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8. The compute dtype is
-// x's for int8 tiles and the tile's otherwise; bf16 runs on tensor cores.
+// x's for int8 tiles and the tile's otherwise; a bf16 compute dtype takes
+// the pipelined tensor-core kernel, whose x is bf16 with padded rows.
 int dispatch(const Args& a, int tile_dtype, int x_dtype, bool scaled) {
+  const bool bf16 = tile_dtype == 1 || (tile_dtype == 2 && x_dtype == 1);
+  if (bf16 && x_dtype != 1) return (int)cudaErrorInvalidValue;
   if (scaled) {
     if (tile_dtype != 2) return (int)cudaErrorInvalidValue;
-    if (x_dtype == 0) launch<int8_t, float, true, false>(a);
-    else if (x_dtype == 1) launch<int8_t, __nv_bfloat16, true, true>(a);
-    else return (int)cudaErrorInvalidValue;
-    return 0;
-  }
-  if (tile_dtype == 0) {
-    if (x_dtype == 0) launch<float, float, false, false>(a);
-    else if (x_dtype == 1) launch<float, __nv_bfloat16, false, false>(a);
-    else return (int)cudaErrorInvalidValue;
-  } else if (tile_dtype == 1) {
-    if (x_dtype == 0) launch<__nv_bfloat16, float, false, true>(a);
-    else if (x_dtype == 1) launch<__nv_bfloat16, __nv_bfloat16, false, true>(a);
-    else return (int)cudaErrorInvalidValue;
-  } else if (tile_dtype == 2) {
-    if (x_dtype == 0) launch<int8_t, float, false, false>(a);
-    else if (x_dtype == 1) launch<int8_t, __nv_bfloat16, false, true>(a);
-    else return (int)cudaErrorInvalidValue;
-  } else {
+    if (x_dtype == 0) return launch_fma<int8_t, float, true>(a);
+    if (x_dtype == 1) return launch_pipe_int8<true>(a);
     return (int)cudaErrorInvalidValue;
   }
-  return 0;
+  if (tile_dtype == 0) {
+    if (x_dtype == 0) return launch_fma<float, float, false>(a);
+    if (x_dtype == 1) return launch_fma<float, __nv_bfloat16, false>(a);
+  } else if (tile_dtype == 1) {
+    return launch_pipe<__nv_bfloat16, false, false>(a);
+  } else if (tile_dtype == 2) {
+    if (x_dtype == 0) return launch_fma<int8_t, float, false>(a);
+    if (x_dtype == 1) return launch_pipe_int8<false>(a);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -370,19 +581,25 @@ int dispatch(const Args& a, int tile_dtype, int x_dtype, bool scaled) {
 // workspace slot seg_slot[s] (-1: straight into out). Split tile-rows
 // multi_row[m] sum slots multi_slot_ptr[m]..multi_slot_ptr[m+1]. ws holds
 // [n_slots, tile_r, F] floats. d != nullptr selects the scaled form (int8
-// tiles only). tile_r must be a multiple of 64 and tile_c of 64. Returns
-// cudaGetLastError() after the launches (0 on success).
+// tiles only). x is [n, f_pad]: for a bf16 compute dtype bf16 with f_pad a
+// multiple of 16 and 16-byte aligned rows (columns F.. zero), else x's own
+// dtype with f_pad = F. nonneg != 0 promises int8 tiles in 0..127 (shorter
+// exact conversions). tile_r
+// must be a multiple of 64 and tile_c of 64. Returns cudaGetLastError()
+// after the launches (0 on success).
 extern "C" int pgcn_bcsr_spmm(const void* tiles, int tile_dtype,
                               const int* seg_tile_ptr, const int* seg_row,
                               const int* seg_slot, int n_seg,
                               const int* multi_row, const int* multi_slot_ptr,
                               int n_multi, const int* tile_cols, const float* d,
                               const void* x, int x_dtype, float* out, float* ws,
-                              int tile_r, int tile_c, int n_feat, void* stream) {
-  if (n_seg <= 0 || n_feat <= 0 || tile_r % kRows || tile_c % kMmaChunk)
+                              int tile_r, int tile_c, int n_feat, int f_pad,
+                              int nonneg, void* stream) {
+  if (n_seg <= 0 || n_feat <= 0 || tile_r % kRows || tile_c % 64 || f_pad < n_feat)
     return (int)cudaErrorInvalidValue;
-  Args a{tiles, seg_tile_ptr, seg_row, seg_slot, n_seg, tile_cols, d,
-         x, out, ws, tile_r, tile_c, n_feat, static_cast<cudaStream_t>(stream)};
+  Args a{tiles, seg_tile_ptr, seg_row, seg_slot, n_seg, tile_cols, d, x, out, ws,
+         tile_r, tile_c, n_feat, f_pad, nonneg != 0,
+         static_cast<cudaStream_t>(stream)};
   const int rc = dispatch(a, tile_dtype, x_dtype, d != nullptr);
   if (rc) return rc;
   if (n_multi > 0) {

@@ -51,9 +51,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.pgcn_dropout.restype = i32
     lib.pgcn_bcsr_spmm.argtypes = [
-        p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, i32, i32, i32, p,
+        p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, i32, i32, i32, i32, i32, p,
     ]
     lib.pgcn_bcsr_spmm.restype = i32
+    lib.pgcn_sddmm.argtypes = [p, p, i32, p, p, i32, i32, p, i32, i32, p]
+    lib.pgcn_sddmm.restype = i32
     u32, f32 = ctypes.c_uint32, ctypes.c_float
     sched = [p, i32, p, p, p, i32, p, p, i32, p, i32, i32]
     drop = [i32, u32, u32, f32]

@@ -22,6 +22,9 @@ package's ``bcsr_matmul_rect``.
 
 ``bcsr_matmul_impl`` runs the kernel for CUDA tensors and
 ``bcsr_matmul_plain`` for CPU tensors; ``launches`` counts kernel launches.
+For a bf16 compute dtype the kernel reads x as one bf16 buffer whose rows
+are padded to a multiple of 16 features (``pad_features``), so that every
+row is 16-byte aligned for its copy pipeline.
 """
 
 from __future__ import annotations
@@ -44,10 +47,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 launches = {"bcsr": 0, "bcsr_scaled": 0, "bcsr_rect": 0}
 
 
-# Tiles per segment of a tile-row's work (see tile_schedule): about the mean
-# tiles per tile-row of the synth-reddit pack (5.7), so ordinary rows stay
-# one segment and only hub rows are split.
+# Tiles per segment of a tile-row's work (see tile_schedule) for the tile
+# attention kernels: about the mean tiles per tile-row of the synth-reddit
+# pack (5.7), so ordinary rows stay one segment and only hub rows are split.
 SEGMENT_TILES = 8
+# The same for the SpMM kernel, whose CTAs cover 256 tile rows: the grid's
+# balance knob, with the CTA shape (csrc/bcsr_spmm.cu CtaShape), chosen by
+# measurement on the H100 (PERF.md).
+SPMM_SEGMENT_TILES = 4
+# The bf16 kernel's x rows are padded to a multiple of this many features.
+F_ALIGN = 16
 
 
 @dataclass(frozen=True)
@@ -113,7 +122,8 @@ class BCSR:
     tiles: torch.Tensor  # [T, tile_r, tile_c] float32 / bfloat16 / int8
     tile_rows: torch.Tensor  # int32 [T], ascending
     tile_cols: torch.Tensor  # int32 [T]
-    schedule: TileSchedule  # the kernel's split of the work
+    schedule: TileSchedule  # the attention kernels' split of the work
+    spmm_schedule: TileSchedule  # the SpMM kernel's split (SPMM_SEGMENT_TILES)
     n_nodes: int  # padded node count (columns; also the rows of a square pack)
     n_tiles_real: int
     # int8 pattern packs: d ([n_nodes] f32) with v_ij = k_ij·d_i·d_j; None
@@ -155,11 +165,19 @@ class BCSR:
             cols.append(self.tile_cols[t].long() * self.tile_c + c)
         return torch.cat(rows), torch.cat(cols)
 
+    @cached_property
+    def nonneg_tiles(self) -> bool:
+        """Whether every int8 tile entry is ≥ 0 (a multiplicity pattern):
+        the SpMM kernel then converts with shorter exact sequences. One
+        reduction over the tiles, once per pack."""
+        return self.tiles.dtype == torch.int8 and int(self.tiles.min()) >= 0
+
     def to(self, device) -> "BCSR":
         move = lambda t: None if t is None else t.to(device)
         return dataclasses.replace(
             self, tiles=move(self.tiles), tile_rows=move(self.tile_rows),
             tile_cols=move(self.tile_cols), schedule=self.schedule.to(device),
+            spmm_schedule=self.spmm_schedule.to(device),
             sym_scale=move(self.sym_scale), mirror_perm=move(self.mirror_perm),
         )
 
@@ -236,6 +254,7 @@ def build_bcsr(
         tile_rows=torch.from_numpy(tile_rows),
         tile_cols=torch.from_numpy(tile_cols),
         schedule=tile_schedule(tile_rows, n_pad // tile_r),
+        spmm_schedule=tile_schedule(tile_rows, n_pad // tile_r, SPMM_SEGMENT_TILES),
         n_nodes=n_pad,
         n_tiles_real=T,
         sym_scale=(
@@ -278,6 +297,19 @@ def bcsr_matmul_plain(bcsr: BCSR, x: torch.Tensor, batch: int = 64) -> torch.Ten
     return out.view(-1, F)
 
 
+def pad_features(x: torch.Tensor) -> torch.Tensor:
+    """x [n, F] as one contiguous bf16 buffer [n, F_pad], F_pad the next
+    multiple of ``F_ALIGN``, columns F.. zero: x itself when it already is
+    one, else one copy (rounding to bf16 on the way)."""
+    n, F = x.shape
+    f_pad = -(-F // F_ALIGN) * F_ALIGN
+    if f_pad == F and x.dtype == torch.bfloat16 and x.is_contiguous():
+        return x
+    out = torch.zeros((n, f_pad), dtype=torch.bfloat16, device=x.device)
+    out[:, :F] = x
+    return out
+
+
 def slab_pack(tiles: np.ndarray, tile_rows: np.ndarray, tile_cols: np.ndarray,
               n_rows: int, n_cols: int, dtype, device) -> BCSR:
     """A rank's tile slab as a rectangular pack on ``device``: ``tiles``
@@ -295,6 +327,8 @@ def slab_pack(tiles: np.ndarray, tile_rows: np.ndarray, tile_cols: np.ndarray,
         tile_cols=torch.from_numpy(
             np.ascontiguousarray(tile_cols[live], dtype=np.int32)).to(device),
         schedule=tile_schedule(tile_rows, n_rows // tiles.shape[1]).to(device),
+        spmm_schedule=tile_schedule(tile_rows, n_rows // tiles.shape[1],
+                                    SPMM_SEGMENT_TILES).to(device),
         n_nodes=n_cols,
         n_tiles_real=int(live.sum()),
     )
@@ -319,7 +353,7 @@ def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None
     if bcsr.tile_r % 64 or bcsr.tile_c % 64:
         raise ValueError(f"bcsr kernel needs tile_r and tile_c multiples of 64, "
                          f"got ({bcsr.tile_r}, {bcsr.tile_c})")
-    sched = bcsr.schedule
+    sched = bcsr.spmm_schedule
     index = [bcsr.tile_cols, sched.seg_tile_ptr, sched.seg_row, sched.seg_slot,
              sched.multi_row, sched.multi_slot_ptr]
     tensors = [bcsr.tiles, *index]
@@ -333,12 +367,17 @@ def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None
             raise ValueError("bcsr pack must be contiguous and on x's device")
     if any(t.dtype != torch.int32 for t in index):
         raise TypeError("tile_cols and the schedule must be int32")
-    x = x.contiguous()
     F = x.shape[1]
     out = torch.empty((bcsr.n_tile_rows * bcsr.tile_r, F), dtype=torch.float32,
                       device=x.device)
     if F == 0 or bcsr.n_tile_rows == 0:
         return out
+    # a bf16 compute dtype runs the pipelined tensor-core kernel on padded
+    # bf16 rows; f32 runs the FMA kernel on x as it is
+    x = (pad_features(x) if _compute_dtype(bcsr, x) == torch.bfloat16
+         else x.contiguous())
+    if bcsr.tiles.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("bcsr kernel needs 16-byte aligned tiles and x")
     ws = torch.empty((sched.n_slots, bcsr.tile_r, F), dtype=torch.float32,
                      device=x.device)
     lib = _build.load_library()
@@ -352,7 +391,8 @@ def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None
             sched.multi_row.shape[0], bcsr.tile_cols.data_ptr(),
             bcsr.sym_scale.data_ptr() if scaled else None,
             x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(), ws.data_ptr(),
-            bcsr.tile_r, bcsr.tile_c, F, ctypes.c_void_p(stream),
+            bcsr.tile_r, bcsr.tile_c, F, x.shape[1], int(bcsr.nonneg_tiles),
+            ctypes.c_void_p(stream),
         )
     _build.check(rc, "bcsr kernel")
     launches[launch_key or ("bcsr_scaled" if scaled else "bcsr")] += 1

@@ -127,6 +127,49 @@ def test_tile_schedule_splits_long_rows():
     assert s.n_slots == 5 and s.n_seg == 9
 
 
+@pytest.mark.parametrize("f,dtype", [(41, torch.float32), (41, torch.bfloat16),
+                                     (600, torch.bfloat16), (48, torch.float32)])
+def test_pad_features_aligns_rows_with_zero_columns(f, dtype):
+    x = torch.from_numpy(_x(10, f)).to(dtype)
+    xp = cb.pad_features(x)
+    f_pad = -(-f // cb.F_ALIGN) * cb.F_ALIGN
+    assert xp.shape == (10, f_pad) and xp.dtype == torch.bfloat16 and xp.is_contiguous()
+    assert (xp.shape[1] * xp.element_size()) % 16 == 0
+    assert torch.equal(xp[:, :f], x.to(torch.bfloat16))  # x's rounding to bf16, once
+    assert (xp[:, f:] == 0).all()
+
+
+def test_pad_features_keeps_an_aligned_bf16_buffer():
+    x = torch.from_numpy(_x(10, 48)).to(torch.bfloat16)
+    assert cb.pad_features(x) is x
+    assert cb.pad_features(x[:, :32]) is not x  # a strided view is copied
+
+
+@pytest.mark.parametrize("tile_cols", [0, 256])
+def test_packs_carry_an_spmm_schedule_of_short_segments(tile_cols):
+    _, tg, _ = _graphs("int8", tile_cols)
+    for pack in (tg.bcsr, cb.slab_pack(tg.bcsr.tiles.numpy(), tg.bcsr.tile_rows.numpy(),
+                                       tg.bcsr.tile_cols.numpy(), tg.bcsr.n_rows,
+                                       tg.bcsr.n_nodes, "int8", CPU)):
+        s = pack.spmm_schedule
+        ptr = s.seg_tile_ptr.numpy()
+        assert (np.diff(ptr) <= cb.SPMM_SEGMENT_TILES).all() and ptr[-1] == pack.n_tiles
+        rows = pack.tile_rows.numpy()
+        for i, r in enumerate(s.seg_row.tolist()):
+            assert (rows[ptr[i]:ptr[i + 1]] == r).all()
+        assert s.n_tile_rows == pack.schedule.n_tile_rows
+        assert sorted(set(s.seg_row.tolist())) == list(range(s.n_tile_rows))
+        # the attention kernels keep their own, longer segments
+        assert (np.diff(pack.schedule.seg_tile_ptr.numpy()) <= cb.SEGMENT_TILES).all()
+
+
+def test_nonneg_tiles_flags_multiplicity_packs_only():
+    _, tg, _ = _graphs("int8")
+    assert tg.bcsr.nonneg_tiles
+    assert not dataclasses.replace(tg.bcsr, tiles=tg.bcsr.tiles.neg()).nonneg_tiles
+    assert not _graphs("float32")[1].bcsr.nonneg_tiles
+
+
 def test_wrapper_rejects_bad_shapes():
     _, tg, _ = _graphs("int8")
     with pytest.raises(ValueError):
@@ -145,7 +188,9 @@ def test_build_bcsr_refuses_int8_without_scale():
 def test_kernel_matches_plain_on_card(cuda_device):
     _, tg, _ = _graphs("int8", 256)
     pack = tg.bcsr.to(cuda_device)
-    for pk in (pack, dataclasses.replace(pack, sym_scale=None)):
+    negated = dataclasses.replace(pack, tiles=pack.tiles.neg())  # the signed conversion
+    for pk in (pack, dataclasses.replace(pack, sym_scale=None), negated,
+               dataclasses.replace(negated, sym_scale=None)):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(pack.n_nodes, 41, device=cuda_device).to(dtype)
             torch.testing.assert_close(cb.bcsr_matmul_impl(pk, x),
