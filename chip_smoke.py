@@ -12,7 +12,9 @@ Phases, each printed on its own lines:
      x, atol 1e-5·max|ref| for both; GAT tile attention K5/K6 at heads 2,
      d 32 and 41, bf16 and f32, attention dropout 0 and 0.6, forward within
      rtol 1e-4 (f32) / 2e-3 (bf16) + 1e-5·max|ref|, gradients within rtol
-     1e-3 + 1e-4·max|ref|, two runs bit-identical), with CUDA-event times;
+     1e-3 + 1e-4·max|ref|, two runs bit-identical), with CUDA-event times
+     and two bounds each (over the pack's live-column index, which K5/K6
+     read, and over the tile stream of the earlier design);
      the tile SpMM K4/K3 also at F=600 bf16 with ``torch.sparse.mm`` at
      F=600 beside it, two runs of each bit-identical;
      The fused kernels: masked softmax-CE K9 (train and eval variants) at
@@ -24,7 +26,8 @@ Phases, each printed on its own lines:
      identity W recovers bit-equal to K1's). Two runs of each are
      bit-identical. Beside each kernel's time: its plain version's, the
      unfused pair it replaces (K10), and the one PyTorch call that computes
-     the same function where there is one (``torch.sparse.mm`` for K3/K4);
+     the same function where there is one (``torch.sparse.mm`` for K3/K4,
+     ``torch.nn.functional.dropout`` for K1);
   4. profile: the synth-reddit GCN's, GAT's and fused GCN's epochs
      (``ce_impl=pallas fuse_dropout_matmul=true``) under ``torch.profiler``:
      device time by op and the device's idle share;
@@ -115,6 +118,23 @@ def _pack_bytes(pack) -> int:
     return _nbytes(pack.tiles, pack.tile_cols, sched.seg_tile_ptr, sched.seg_row,
                    sched.seg_slot, sched.multi_row, sched.multi_slot_ptr,
                    *([pack.sym_scale] if pack.sym_scale is not None else []))
+
+
+def _index_bytes(pack) -> int:
+    """Bytes of a pack that K5/K6 read: its live-column index and the
+    segment schedule's rows and slots."""
+    idx, sched = pack.attn_index, pack.schedule
+    return _nbytes(idx.ptr, idx.col, sched.seg_row, sched.seg_slot)
+
+
+def _attn_bounds(pack, io: int, fmas_per: int, H: int, D: int) -> dict:
+    """The bound of K5 (``fmas_per`` = 1 f32 FMA per live entry and
+    feature) or K6 (3: both dot products and the dv update) over the pack's
+    index with ``io`` bytes of inputs and outputs, and, as ``pack_bound_ms``,
+    the earlier bound that streams the pack's tiles instead of the index."""
+    nnz = int(pack.attn_index.col.numel())
+    return dict(**_bound(_index_bytes(pack) + io, 2 * fmas_per * nnz * H * D, "f32"),
+                pack_bound_ms=_bound(_pack_bytes(pack) + io)["bound_ms"])
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -239,8 +259,16 @@ def check_dropout(results: dict) -> None:
         print(f"[kernels] K2 relu_dropout {list(shape)} {dtype} rate {rate}: "
               f"bit-equal to plain and to K1(relu), fwd and bwd; "
               f"kernel {ms2:.4f} ms, plain {pms2:.4f} ms")
+        # the one PyTorch call for inverted dropout (another mask, from
+        # PyTorch's generator; never on the port's path)
+        lib_ms = (_events_ms(lambda: torch.nn.functional.dropout(x, rate), 20)
+                  if dtype == torch.bfloat16 else None)
+        if lib_ms is not None:
+            print(f"[kernels] K1 library torch.nn.functional.dropout {list(shape)} {dtype} "
+                  f"rate {rate}: {lib_ms:.4f} ms")
         if shape[1] == 64:
-            results["K1"] = dict(err=0.0, ms=ms1, plain_ms=pms1, **_bound(2 * _nbytes(x)))
+            results["K1"] = dict(err=0.0, ms=ms1, plain_ms=pms1, library_ms=lib_ms,
+                                 **_bound(2 * _nbytes(x)))
         elif dtype == torch.bfloat16:
             results["K2"] = dict(err=0.0, ms=ms2, plain_ms=pms2, **_bound(2 * _nbytes(x)))
 
@@ -382,18 +410,17 @@ def check_tile_attention(results: dict, pack) -> None:
                     lambda: ta.gat_bwd_tiles(pack, s, t, v, g, m, den, rho, **kw), 10)
                 pms6 = _events_ms(
                     lambda: ta.gat_bwd_tiles_plain(pack, s, t, v, g, m, den, rho, **kw), 2)
-                print(f"[kernels] K5 gat_fwd H={H} D={D} {dtype} rate {rate}: max_abs_err "
-                      f"{e5:.3e} (rtol {rtol}), runs bit-identical; kernel {ms5:.4f} ms, "
-                      f"plain {pms5:.4f} ms")
-                print(f"[kernels] K6 gat_bwd H={H} D={D} {dtype} rate {rate}: max_abs_err "
-                      f"{e6:.3e} (rtol 1e-3), runs bit-identical; kernel {ms6:.4f} ms, "
-                      f"plain {pms6:.4f} ms")
+                b5 = _attn_bounds(pack, _nbytes(s, t, v, *fwd), 1, H, D)
+                b6 = _attn_bounds(pack, _nbytes(s, t, v, g, m, den, rho, *bwd), 3, H, D)
+                for key, e, ms, pms, b, tol in (("K5 gat_fwd", e5, ms5, pms5, b5, rtol),
+                                                ("K6 gat_bwd", e6, ms6, pms6, b6, 1e-3)):
+                    print(f"[kernels] {key} H={H} D={D} {dtype} rate {rate}: max_abs_err "
+                          f"{e:.3e} (rtol {tol}), runs bit-identical; kernel {ms:.4f} ms, "
+                          f"plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms over the index "
+                          f"({b['bound_by']}), {b['pack_bound_ms']:.4f} ms streaming the pack")
                 if (D, dtype, rate) == (41, torch.bfloat16, 0.0):  # layer 1 of the main path
-                    pb = _pack_bytes(pack)
-                    results["K5"] = dict(ms=ms5, plain_ms=pms5,
-                                         **_bound(pb + _nbytes(s, t, v, *fwd)))
-                    results["K6"] = dict(ms=ms6, plain_ms=pms6,
-                                         **_bound(pb + _nbytes(s, t, v, g, m, den, rho, *bwd)))
+                    results["K5"] = dict(ms=ms5, plain_ms=pms5, **b5)
+                    results["K6"] = dict(ms=ms6, plain_ms=pms6, **b6)
     for key in errs:
         results[key]["err"] = max(errs[key])
 
@@ -613,12 +640,17 @@ def mesh_slabs(ds, n_dev: int, args: list[str] = ()):
     mp = partition.gat_mesh_pack(hsg)
     attn = tpl.rank_graph(mp, 0, torch.device("cuda")).attn
     torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_idx = attn.rows.attn_index.col.numel()
+    torch.cuda.synchronize()
+    t_idx = time.perf_counter() - t1
     halo = "boundary" if hsg.send_idx is not None else "all_gather (boundary fell back)"
     print(f"[mesh-kernels] {n_dev}-way partition, rank 0: [{hsg.n_local}, {hsg.n_buf}] "
           f"slab, halo {halo}; GCN slab {gcn.slab.n_tiles} live of {hsg.tiles.shape[1]} "
           f"tiles {gcn.slab.tile_r}x{gcn.slab.tile_c}; GAT rows {attn.rows.n_tiles} and "
           f"transposed columns {attn.cols.n_tiles} live of {mp.tiles_c.shape[1]} tiles "
-          f"{attn.rows.tile_r}x{attn.rows.tile_c}; built in {time.perf_counter() - t0:.1f} s")
+          f"{attn.rows.tile_r}x{attn.rows.tile_c}; built in {time.perf_counter() - t0:.1f} s, "
+          f"the GAT rows' live-column index ({n_idx} entries) in {t_idx:.4f} s")
     return gcn.slab, attn
 
 
@@ -717,13 +749,19 @@ def check_attention_rect(results: dict, attn, tag: str, record: bool) -> None:
                 ms = _events_ms(kernel, 10)
                 pms = _events_ms(plain, 2)
                 # f32 FMAs: the products with v (K5), <g, v> (row), <g, v> and
-                # the dv update (column), per live entry and head
-                bound = _bound(_pack_bytes(pack) + _nbytes(*tensors),
-                               flops_per * nnz * H * D, "f32")
+                # the dv update (column), per live entry and head; K5 reads
+                # the slab's live-column index, K7 streams its tiles
+                if key == "K5 rect":
+                    bound = _attn_bounds(pack, _nbytes(*tensors), 1, H, D)
+                    also = f", {bound['pack_bound_ms']:.4f} ms streaming the slab"
+                else:
+                    bound = _bound(_pack_bytes(pack) + _nbytes(*tensors),
+                                   flops_per * nnz * H * D, "f32")
+                    also = ""
                 print(f"[mesh-kernels] {key} {tag} H={H} D={D} bf16 rate {rate}: "
                       f"max_abs_err {errs[key][-1]:.3e}, runs bit-identical; kernel "
                       f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-                      f"({bound['bound_by']})")
+                      f"({bound['bound_by']}){also}")
                 if record and (D, rate) == (41, 0.0):  # layer 1 of the main path
                     results[key] = dict(ms=ms, plain_ms=pms, **bound)
     for key, e in errs.items():
@@ -845,6 +883,8 @@ def _category(kernel: str) -> str:
                      ("dropout_kernel<float, true>", "K2 relu_dropout"),
                      ("gat_fwd_kernel", "K5 gat_fwd"), ("merge_segments_kernel<true>", "K5 gat_fwd"),
                      ("gat_bwd_kernel", "K6 gat_bwd"),
+                     # the padded v / g rows that K5 and K6 copy before their walks
+                     ("pad_heads_kernel", "K5/K6 padded rows"),
                      ("gat_bwd_rect_row_kernel", "K7 row sweep"),
                      ("gat_bwd_rect_col_kernel", "K7 column sweep"),
                      ("merge_segments_kernel<false>", "K6/K7 ordered merge"),
@@ -1080,6 +1120,12 @@ def main() -> int:
           f"{pack.tile_r}x{pack.tile_c} int8 (max {int(per_row.max())} per tile-row, "
           f"{pack.schedule.n_seg} segments, {pack.schedule.multi_row.numel()} split rows), "
           f"{dds.graph.n_edges_pad} padded residual edges, n_pad {dds.graph.n_nodes}")
+    t0 = time.perf_counter()
+    idx = pack.attn_index
+    torch.cuda.synchronize()
+    print(f"[setup] the pack's live-column index (K5/K6): {idx.col.numel()} entries over "
+          f"{idx.ptr.numel() - 1} (segment, row) units, {_nbytes(idx.ptr, idx.col)} bytes, "
+          f"built on the card in {time.perf_counter() - t0:.4f} s")
 
     results: dict = {}
     check_dropout(results)
@@ -1159,7 +1205,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": counts[key], "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+                "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                **({"bound_pack_ms": r["pack_bound_ms"]} if "pack_bound_ms" in r else {})}
 
     drop_src = "parallel_gcn_tpu_torch/csrc/dropout.cu"
     bcsr_src = "parallel_gcn_tpu_torch/csrc/bcsr_spmm.cu"

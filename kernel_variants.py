@@ -2,7 +2,7 @@
 """Time kernels of this checkout, and variants of their sources, on one
 NVIDIA card at synth-reddit's shapes.
 
-    python3 kernel_variants.py                        # both families below
+    python3 kernel_variants.py                        # the spmm and fused families below
     python3 kernel_variants.py fused                  # K9/K10: every variant, base first and last
     python3 kernel_variants.py base no-philox base    # K9/K10: the named ones, in order
     python3 kernel_variants.py spmm [--parent DIR]    # K3/K4: every variant in one process
@@ -31,6 +31,20 @@ of the outputs). The base also sweeps the tiles per segment
 (``SPMM_SEGMENT_TILES``); the CTA shape is a source variant.
 ``--parent DIR`` also times the K3/K4 of another checkout's package (e.g.
 the parent commit unpacked with ``git archive``) in a process of its own.
+
+    python3 kernel_variants.py attention [--parent DIR]   # K5/K6: every variant in one process
+
+K5/K6 (the GAT tile attention, ``csrc/tile_attention.cu``) in the same
+way: every source variant in ``ATTN_VARIANTS`` is an edited copy of that
+file (with its header beside it), all built at once into
+``.smoke/variants/attention/`` and loaded in turn in one process, on
+synth-reddit's own int8 pack at the GAT's shapes (heads 2, d 32 and 41,
+bf16, attention dropout 0): each wrapper call, and for the checkout the
+library call alone (its padded copies, the walk and the merge, without the
+wrapper's torch work), by CUDA events over 10 calls, with hashes of the
+outputs; the base is also checked against the plain versions, and the
+live-column index's build is timed. ``--parent`` times K5/K6 of another
+checkout's package (``--time-attention DIR`` alone) in a process of its own.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "parallel_gcn_tpu_torch"
@@ -96,6 +111,52 @@ SPMM_VARIANTS = {
     "loads-only": [(_STEPS, "for (int s = 0; s < 0; ++s) {")],
     "loads-only-no-l2-prefetch": [(_STEPS, "for (int s = 0; s < 0; ++s) {"),
                                   (_COPY, "cp.async.cg.shared.global [%0], [%1], 16;")],
+}
+
+
+ATTN = "csrc/tile_attention.cu"
+_FWD_V = "x[u][k].load(v + (size_t)c * S + tm.offset(k, P));"
+_BWD_V = "            xv[u][k].load(vp + (size_t)c * S + tm.offset(k, P));\n"
+_BWD_G = "            xg[u][k].load(gp + (size_t)c * S + tm.offset(k, P));\n"
+_NO_ROWS = [(_FWD_V, "x[u][k].zero();"), (_BWD_V, ""), (_BWD_G, "")]
+_NO_EXPS = [("const float w = live ? expf(e - m_new) : 0.0f;", "const float w = live ? 1.0f : 0.0f;"),
+            ("const float a = expf(leaky(pre, slope) - m_i[h]) / den_i[h];",
+             "const float a = 1.0f;"),
+            ("const float a_m = expf(leaky(pre_m, slope) - rec[5 * h + 2]) / rec[5 * h + 3];",
+             "const float a_m = 1.0f;")]
+_NO_NODES = [("load_heads<kH>(t + (size_t)col * H, H, t_j);",
+              "for (int h = 0; h < kH; ++h) t_j[h] = 0.0f;"),
+             ("const float4 a = __ldg(n_j + i);", "const float4 a = make_float4(0.f, 0.f, 0.f, 1.f);")]
+
+
+def _knob(name: str, value: int) -> tuple:
+    old = {"kFwdBlocks": "constexpr int kFwdBlocks = 2;", "kBwdBlocks": "constexpr int kBwdBlocks = 3;",
+           "kFwdUnroll": "constexpr int kFwdUnroll = 4;",
+           "kBwdUnroll": "constexpr int kBwdUnroll = 2;"}[name]
+    return (old, old.rsplit("=", 1)[0] + f"= {value};")
+
+
+# name -> [(text, replacement)] in csrc/tile_attention.cu
+ATTN_VARIANTS = {
+    # min blocks per SM in __launch_bounds__ (register caps 128/85/64/51/42)
+    "fwd-blocks-3": [_knob("kFwdBlocks", 3)],
+    "fwd-blocks-4": [_knob("kFwdBlocks", 4)],
+    "bwd-blocks-2": [_knob("kBwdBlocks", 2)],
+    "bwd-blocks-4": [_knob("kBwdBlocks", 4)],
+    # warp steps whose row gathers are issued together
+    "fwd-unroll-1": [_knob("kFwdUnroll", 1)],
+    "fwd-unroll-2": [_knob("kFwdUnroll", 2)],
+    "fwd-unroll-8": [_knob("kFwdUnroll", 8)],
+    "bwd-unroll-1": [_knob("kBwdUnroll", 1)],
+    "bwd-unroll-4": [_knob("kBwdUnroll", 4)],
+    # the hardware's approximate exp (ex2.approx of a prescaled argument)
+    "fast-exp": [("expf(", "__expf(")],
+    # wrong on purpose, each removes one cost: the v_j / g_j row gathers;
+    # the exps (and K6's divisions); and everything but the index walk
+    # (no row or t_j / node_j gathers, no exps)
+    "no-row-gathers": _NO_ROWS,
+    "no-exps": _NO_EXPS,
+    "index-only": _NO_ROWS + _NO_EXPS + _NO_NODES,
 }
 
 
@@ -309,6 +370,203 @@ def time_spmm_tree(root: str) -> None:
     print(f"[spmm-variant] {root}: {_time_spmm(torch, cb, pack, x41, x600)}", flush=True)
 
 
+def _attention_inputs(torch):
+    """synth-reddit's int8 pack on the card and K5/K6 inputs at heads 2, d
+    32 and 41 (bf16; the backward's m, den and ρ from the plain forward)."""
+    from parallel_gcn_tpu_torch.config import default_params_path, load_config
+    from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset
+    from parallel_gcn_tpu_torch.ops import tile_attention as ta
+
+    cfg = load_config(default_params_path("synth-reddit"))
+    _, dds = prepare_device_dataset(cfg, "synth-reddit", torch.device("cuda"))
+    pack = dds.graph.bcsr
+    gen = torch.Generator().manual_seed(3)
+    n, H = pack.n_nodes, 2
+    shapes = {}
+    for D in (32, 41):
+        s, t = (torch.randn((n, H), generator=gen).to(torch.bfloat16).cuda() for _ in range(2))
+        v = torch.randn((n, H, D), generator=gen).to(torch.bfloat16).cuda()
+        g = torch.randn((n, H, D), generator=gen).cuda()
+        acc, m, den = ta.gat_fwd_tiles_plain(pack, s, t, v, slope=0.2)
+        rho = (g * acc / den.clamp(min=1e-16)[:, :, None]).sum(-1)
+        shapes[D] = (s, t, v, g, m, den, rho)
+    return pack, shapes
+
+
+def _time_attention(torch, ta, pack, shapes, bare: bool) -> str:
+    """Each wrapper call (and with ``bare`` the kernel call alone, its
+    arguments prepared once) at d 32 and 41."""
+    parts = []
+    for D, (s, t, v, g, m, den, rho) in shapes.items():
+        calls = {"K5": lambda: ta.gat_fwd_tiles(pack, s, t, v, slope=0.2),
+                 "K6": lambda: ta.gat_bwd_tiles(pack, s, t, v, g, m, den, rho, slope=0.2)}
+        for key, fn in calls.items():
+            out = fn()
+            part = (f"{key} D={D} {_events_ms(torch, fn):.4f} ms "
+                    f"({_digest(torch.cat([x.reshape(x.shape[0], -1) for x in out], 1))})")
+            if bare:
+                part += f", kernel alone {_events_ms(torch, _bare_call(ta, key, pack, shapes[D])):.4f}"
+            parts.append(part)
+    return "; ".join(parts)
+
+
+def _bare_call(ta, key: str, pack, inputs):
+    """The K5 or K6 library call with the wrapper's arguments built once."""
+    import ctypes
+
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops.cuda_bcsr import _DTYPE_CODE
+
+    s, t, v, g, m, den, rho = inputs
+    n, H, D = v.shape
+    P, S = ta._padded_width(H, D)
+    vf = v.reshape(n, H * D)
+    vp = torch.empty((n, S), dtype=v.dtype, device=v.device)
+    out = torch.empty((n, H * D + 2 * H), dtype=torch.float32, device=v.device)
+    ws = torch.empty((pack.schedule.n_slots, pack.tile_r, H * D + 2 * H),
+                     dtype=torch.float32, device=v.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    tail = [P, S, out.data_ptr(), ws.data_ptr(), H, D, 0.2, *ta._dropout_args(0.0, 0), stream]
+    walk = ta._walk_args(pack)
+    code = _DTYPE_CODE[v.dtype]
+    if key == "K5":
+        held = (s.float(), t.float(), vf, vp, out, ws)  # alive as long as the call
+        head = [held[0].data_ptr(), held[1].data_ptr(), vf.data_ptr(), n, code, vp.data_ptr()]
+        return lambda: (held, _build._lib.pgcn_gat_fwd(*walk, *head, *tail))
+    held = (ta._node_records(s, t, m, den, rho), g.reshape(n, H * D),
+            torch.empty((n, S), dtype=torch.float32, device=v.device), vf, vp, out, ws)
+    head = [held[0].data_ptr(), held[1].data_ptr(), vf.data_ptr(), n, code, held[2].data_ptr(),
+            vp.data_ptr()]
+    return lambda: (held, _build._lib.pgcn_gat_bwd(*walk, *head, *tail))
+
+
+def _ptxas(log: str) -> str:
+    """Registers and spills of the main path's K5/K6 instantiations (heads
+    <= 2, bf16 v) from nvcc's -Xptxas -v output."""
+    parts, name, spill = [], "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            for key, label in (("gat_fwd_kernelILi2ELi1E13__nv_bfloat16", "K5"),
+                               ("gat_bwd_kernelILi2ELi1E13__nv_bfloat16", "K6")):
+                if key in name:
+                    regs = line.split("Used")[1].split(",")[0].strip()
+                    parts.append(f"{label} {regs} ({spill})")
+    return "; ".join(parts)
+
+
+def attention_family(parent: str | None) -> int:
+    """K5/K6 of the checkout and its source variants, and of ``parent``'s
+    package."""
+    import ctypes
+    import threading
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+    from parallel_gcn_tpu_torch.ops import tile_attention as ta
+
+    out_dir = os.path.join(ROOT, ".smoke", "variants", "attention")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    src_dir = os.path.join(ROOT, PKG, "csrc")
+    with open(os.path.join(src_dir, "tile_attention.cu")) as f:
+        text = f.read()
+    libs, errors = {}, {}
+
+    def build(name, edits):
+        vdir = os.path.join(out_dir, name)
+        os.makedirs(vdir)
+        shutil.copy(os.path.join(src_dir, "tile_attention.cuh"), vdir)
+        edited = text
+        for old, new in edits:
+            if old not in edited:
+                errors[name] = f"{ATTN} no longer holds {old!r}"
+                return
+            edited = edited.replace(old, new)
+        src = os.path.join(vdir, "tile_attention.cu")
+        with open(src, "w") as f:
+            f.write(edited)
+        try:
+            log = _build._run_nvcc([src], os.path.join(out_dir, f"lib{name}.so"))
+            libs[name] = (os.path.join(out_dir, f"lib{name}.so"), log)
+        except RuntimeError as e:
+            errors[name] = str(e)
+
+    threads = [threading.Thread(target=build, args=item) for item in ATTN_VARIANTS.items()]
+    for t in threads:
+        t.start()
+    base = _build.load_library()
+    pack, shapes = _attention_inputs(torch)
+    for t in threads:
+        t.join()
+    for name, err in errors.items():
+        print(f"[attn-variant] {name} not built: {err}")
+    print(f"[attn-variant] base ptxas: {_ptxas(_build.build_info['log'])}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = cb.attn_index(pack)
+    torch.cuda.synchronize()
+    print(f"[attn-variant] synth-reddit pack: {pack.n_tiles} tiles {pack.tile_r}x{pack.tile_c} "
+          f"int8, {pack.schedule.n_seg} segments; live-column index of {idx.col.numel()} "
+          f"entries built in {time.perf_counter() - t0:.4f} s", flush=True)
+    # the base against the plain versions (d 41, rate 0)
+    s, t, v, g, m, den, rho = shapes[41]
+    got = ta.gat_fwd_tiles(pack, s, t, v, slope=0.2)
+    ref = ta.gat_fwd_tiles_plain(pack, s, t, v, slope=0.2)
+    e5 = max(float((a - b).abs().max()) for a, b in zip(got, ref) if a.numel())
+    got = ta.gat_bwd_tiles(pack, s, t, v, g, m, den, rho, slope=0.2)
+    ref = ta.gat_bwd_tiles_plain(pack, s, t, v, g, m, den, rho, slope=0.2)
+    e6 = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, ref))
+    print(f"[attn-variant] base vs plain at D=41: K5 max abs err {e5:.3e}, K6 max err "
+          f"{e6:.3e} of max|ref|", flush=True)
+    print(f"[attn-variant] base: {_time_attention(torch, ta, pack, shapes, True)}", flush=True)
+    for D, (s, t, v, g, m, den, rho) in shapes.items():
+        ms = _events_ms(torch, lambda: ta._node_records(s, t, m, den, rho))
+        print(f"[attn-variant] K6's node records (torch, in its wrapper) D={D}: {ms:.4f} ms",
+              flush=True)
+    for name, (path, log) in libs.items():
+        lib = ctypes.CDLL(path)
+        for fn in ("pgcn_gat_fwd", "pgcn_gat_bwd"):
+            getattr(lib, fn).argtypes = getattr(base, fn).argtypes
+            getattr(lib, fn).restype = getattr(base, fn).restype
+        _build._lib = lib
+        print(f"[attn-variant] {name}: {_time_attention(torch, ta, pack, shapes, False)} "
+              f"[ptxas: {_ptxas(log)}]", flush=True)
+    _build._lib = base
+    print(f"[attn-variant] base again: {_time_attention(torch, ta, pack, shapes, False)}",
+          flush=True)
+    if parent:
+        del pack, shapes, idx
+        torch.cuda.empty_cache()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-attention",
+                               os.path.abspath(parent)])
+        return proc.returncode or int(bool(errors))
+    return int(bool(errors))
+
+
+def time_attention_tree(root: str) -> None:
+    """K5/K6 of the package under ``root`` (another checkout)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import tile_attention as ta
+
+    assert os.path.abspath(ta.__file__).startswith(os.path.abspath(root)), ta.__file__
+    _build.load_library()
+    pack, shapes = _attention_inputs(torch)
+    print(f"[attn-variant] {root}: {_time_attention(torch, ta, pack, shapes, False)}",
+          flush=True)
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--time"]:
         time_tree(argv[1], argv[2])
@@ -316,11 +574,17 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--time-spmm"]:
         time_spmm_tree(argv[1])
         return 0
+    if argv[:1] == ["--time-attention"]:
+        time_attention_tree(argv[1])
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"[variant] card: {smi.stdout.strip()}", flush=True)
+    parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     if argv[:1] == ["spmm"]:
-        return spmm_family(argv[argv.index("--parent") + 1] if "--parent" in argv else None)
+        return spmm_family(parent)
+    if argv[:1] == ["attention"]:
+        return attention_family(parent)
     if not argv:
         rc = spmm_family(None)
         if rc:

@@ -15,332 +15,498 @@
 //     with keep' the hash of the mirror edge's own ids (dest j, src i).
 // The ops/tile_attention.py wrappers hold the plain PyTorch versions.
 //
-// Inputs: tiles [T, tile_r, tile_c] (int8, bf16 or f32; read only as != 0),
-// sorted by tile-row, tile t at block column tile_cols[t]; s [n_rows, H] by
-// destination row and t [n_cols, H] by source column (forward; the same n
-// for a square pack, the local rows and the source buffer for a mesh slab)
-// or node [n, 5H] = s | t | m | max(den, 1e-16) | ρ (backward, square
-// only), f32; v [n_cols, H·D] f32 or bf16 (forward); g [n, H·D] f32, and
-// for the backward's dot products gp (f32) and vp (v's dtype) [n, S]: g and
-// v with head h at [h·P, h·P + D) and zeros elsewhere, P = D rounded up to
-// 8, S = H·P or H·P + 8. Output rows are [n, H·D + 2H] f32: acc | m | den
-// (forward), dv | ds | dt (backward).
+// Inputs: the pack's live-column index (ops/cuda_bcsr.AttnIndex: for unit
+// u = seg·tile_r + r, row r of segment seg of the pack's schedule, the global
+// column ids col[ptr[u] : ptr[u+1]] in tile and column order) and the
+// schedule; s [n_rows, H] by destination row and t [n_cols, H] by source
+// column (forward; the same n for a square pack, the local rows and the
+// source buffer for a mesh slab) or node [n, R] (backward, square only):
+// per head h the record s | t | m | max(den, 1e-16) | ρ at [5h, 5h + 5),
+// R = 5H rounded up to 4, all f32; v [n_cols, H·D] f32 or bf16 and, in the
+// backward, g [n, H·D] f32, which the entries first copy into padded rows
+// vp and gp [rows, S]: head h's D features at [h·P, h·P + D), zeros to
+// h·P + P, P = D rounded up to 8, S ≥ H·P a multiple of 8. Output rows are
+// [n, H·D + 2H] f32: acc | m | den (forward), dv | ds | dt (backward).
 //
 // Hopper design. The TPU kernel walks every tile densely on one sequential
 // grid: each tile is a [512, 512] block of logits on the MXU. The synth-reddit
 // pack is 99% zeros (11.7M live entries in 2,596 tiles of 512×1024), so here
-// the work follows the live entries instead:
-//   * a CTA owns one segment of a tile-row (ops/cuda_bcsr.tile_schedule: at
-//     most 8 tiles, so the hub tile-rows of 228 and 207 tiles are split) and
-//     64 rows; each of its 8 warps walks whole rows, one at a time;
-//   * a warp streams its row of each tile in 16-byte loads per lane (512
-//     int8 columns per step), compacts the live columns into a list in
-//     shared memory (ballot-free: popcount and a warp prefix sum), and
-//     processes them in batches of 32, one edge per lane: per-edge scalars
-//     (logits, α, the hash mask, and in K6 the two D-long dot products) are
-//     lane-parallel, and the row's D-wide vector sums (acc, dv) walk the
-//     batch serially with the row's features spread over the lanes;
-//   * in K6 each lane reads its edge's v_j and g_j rows for the dot products
-//     in 16-byte vectors from the padded copies vp and gp: per head 8
-//     features a step, and a row stride (S) that is an odd multiple of 16
-//     bytes, so the 32 rows a warp load touches do not share cache sets as
-//     power-of-two strides (D = 32) would;
+// the work follows the live entries, listed once per pack (the index, 4 bytes
+// an entry) instead of rescanned from the 1.36 GB of tiles on every call:
+//   * one warp owns one unit (a row of a segment: at most 8 tiles, so the
+//     hub tile-rows of 228 and 207 tiles are split) and reads its columns 32
+//     at a time straight from the index, one per lane; no shared list, so
+//     registers set the occupancy (__launch_bounds__ min blocks kFwdBlocks,
+//     kBwdBlocks: 64 and 80 registers, 4 and 3 blocks of 8 warps an SM);
+//   * per batch, lane-parallel over its edge: the logits from one vector
+//     load of t_j and the online-softmax step (K5), or both orientations'
+//     scalars from node_j's 16-byte records (K6: α, α', the hash masks),
+//     kept in shared memory;
+//   * the D-wide rows v_j and g_j are gathered in 16-byte vectors with the
+//     Team layout (tile_attention.cuh): a warp step loads one 8-feature group
+//     per lane for E = 32 / (H·P/8) edges at once (2 at H = 2, D = 41; 4 at
+//     D = 32), several steps' loads in flight (kFwdUnroll, kBwdUnroll);
+//   * K6 reads each g_j group once, from one padded array, and adds it into
+//     two weighted row sums (dv_i and Σ B·keep'·g_j) while v_j goes into a
+//     third (Σ A·keep·v_j); the dot products with g_i and v_i that give ds_i
+//     and dt_i are taken once per row, not once per entry;
 //   * the row's state (m, den, acc; or partial ds, dt, dv) lives in
-//     registers and is written once per segment: straight to the output when
+//     registers and is written once per unit: straight to the output when
 //     the segment is its tile-row's only one, else to a workspace slot that
 //     a second kernel merges in segment order (flash rescale for K5, plain
 //     sums for K6). No atomics: repeated runs are bit-identical.
-// What bounds it on an H100: streaming the pack (1.36 GB per pass, ~0.4 ms at
-// 3.35 TB/s) and, per live entry, the gathers of t_j (K5) or of the node
-// statistics, v_j and g_j (K6, ~0.5 KB per entry at H·D = 82, mostly from
-// L2). No TMA, no copy pipeline and no tensor cores in this first version.
+// What bounds it on an H100: per live entry the gathers of v_j (K5) and of
+// node_j, v_j and g_j (K6, 0.6 KB an entry at H = 2, D = 41), which reach
+// L2 or HBM (the backward's rows are 150 MB, above the 50 MB L2), and the
+// issue of the per-step instructions; the index and the tiles' former
+// 1.36 GB stream are no longer on the path. No tensor cores: each warp's
+// product is a weighted sum of gathered rows.
 
 #include "tile_attention.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// K5: forward sweep -> acc | m | den per row
-template <typename TT, typename VT>
-__global__ void __launch_bounds__(kThreads, 2)
-gat_fwd_kernel(Sched sc, const float* __restrict__ s, const float* __restrict__ t,
-               const VT* __restrict__ v,
-               float* __restrict__ out, float* __restrict__ ws, int H, int D,
-               float slope, Drop dr) {
-  __shared__ int list_s[kWarps][kListCap];
-  __shared__ float coef_s[kWarps][kMaxH][33];
-  __shared__ float scale_s[kWarps][kMaxH];
+constexpr int kFwdBlocks = 2;  // __launch_bounds__ min blocks per SM (registers)
+constexpr int kBwdBlocks = 3;
+constexpr int kFwdUnroll = 4;  // warp steps whose row loads are in flight together
+constexpr int kBwdUnroll = 2;
+constexpr int kEdgeTerms = 3;  // K6's per-edge, per-head scalars in shared memory
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int subs = sc.tile_r / kRows;
-  const int seg = blockIdx.x / subs;
-  const int r0 = (blockIdx.x % subs) * kRows;
-  const int HD = H * D;
-  const int width = HD + 2 * H;
-  const int t0 = sc.seg_tile_ptr[seg];
-  const int t1 = sc.seg_tile_ptr[seg + 1];
-  int* list = list_s[warp];
-  float* dst0 = segment_dst(sc, out, ws, seg, r0, width);
-  int hk[kMaxK];  // head of the lane's k-th feature (lane + 32k)
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) hk[k] = lane + 32 * k < HD ? (lane + 32 * k) / D : 0;
+// The unit this warp walks: its index range, global row and output row.
+struct Unit {
+  int seg, grow, p0, p1;
+  float* dst;
+};
 
-  for (int rr = warp; rr < kRows; rr += kWarps) {
-    const int grow = sc.seg_row[seg] * sc.tile_r + r0 + rr;
-    float s_i[kMaxH], m[kMaxH], den[kMaxH], acc[kMaxK];
+__device__ __forceinline__ Unit unit_of(const Sched& sc, const int* ptr, float* out,
+                                        float* ws, int width) {
+  const int u = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int seg = u / sc.tile_r;
+  const int r = u % sc.tile_r;
+  return Unit{seg, sc.seg_row[seg] * sc.tile_r + r, ptr[u], ptr[u + 1],
+              segment_dst(sc, out, ws, seg, r, width)};
+}
+
+// Sum the Team slots' partial row sums into slot 0, in slot order.
+template <int kG>
+__device__ __forceinline__ void sum_slots(const Team<kG>& tm, float (&x)[kG][8]) {
+  float own[kG][8];
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      s_i[h] = h < H ? s[(size_t)grow * H + h] : 0.0f;
-      m[h] = kNeg;
-      den[h] = 0.0f;
+  for (int k = 0; k < kG; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) own[k][e] = x[k][e];
+  for (int sl = 1; sl < tm.E; ++sl) {
+#pragma unroll
+    for (int k = 0; k < kG; ++k)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[k][e] += __shfl_down_sync(kFull, own[k][e], sl * tm.HQ);
+  }
+}
+
+// Slot 0 writes its groups of a row of H·D features (unpadded).
+template <int kG>
+__device__ __forceinline__ void store_row(const Team<kG>& tm, const float (&x)[kG][8],
+                                          float* dst, int D) {
+#pragma unroll
+  for (int k = 0; k < kG; ++k) {
+    if (tm.on[k] && tm.slot[k] == 0) {
+      const int d0 = 8 * tm.q[k];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (d0 + e < D) dst[tm.h[k] * D + d0 + e] = x[k][e];
     }
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) acc[k] = 0.0f;
-
-    auto batch = [&](int base, int nb) {
-      const bool live = lane < nb;
-      const int col = live ? list[base + lane] : 0;
-#pragma unroll
-      for (int h = 0; h < kMaxH; ++h) {
-        if (h < H) {
-          const float e =
-              live ? leaky(s_i[h] + t[(size_t)col * H + h], slope) : kNeg;
-          const float m_new = fmaxf(m[h], warp_max(e));
-          const float scale = expf(m[h] - m_new);
-          const float w = live ? expf(e - m_new) : 0.0f;
-          den[h] = den[h] * scale + warp_sum(w);
-          m[h] = m_new;
-          float wn = w;
-          if (dr.on)
-            wn = live && hash_keep((uint32_t)grow, (uint32_t)col, h, dr.seed, dr.thr)
-                     ? w * dr.inv_keep : 0.0f;
-          coef_s[warp][h][lane] = wn;
-          if (lane == 0) scale_s[warp][h] = scale;
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-        if (lane + 32 * k < HD) acc[k] *= scale_s[warp][hk[k]];
-      for (int j = 0; j < nb; ++j) {
-        const VT* vr = v + (size_t)list[base + j] * HD;
-#pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-          const int f = lane + 32 * k;
-          if (f < HD) acc[k] = fmaf(coef_s[warp][hk[k]][j], to_float(vr[f]), acc[k]);
-        }
-      }
-      __syncwarp();
-    };
-    const int rem = scan_row<TT>(sc, t0, t1, r0 + rr, list, lane, batch);
-    if (rem) batch(0, rem);
-
-    float* dst = dst0 + (size_t)rr * width;
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (lane + 32 * k < HD) dst[lane + 32 * k] = acc[k];
-    if (lane == 0) {
-#pragma unroll
-      for (int h = 0; h < kMaxH; ++h) {
-        if (h < H) {
-          dst[HD + h] = m[h];
-          dst[HD + H + h] = den[h];
-        }
-      }
-    }
-    __syncwarp();
   }
 }
 
 // ---------------------------------------------------------------------------
-// K6: backward sweep -> dv | ds | dt per row
-template <typename TT, typename VT>
-__global__ void __launch_bounds__(kThreads, 2)
-gat_bwd_kernel(Sched sc, const float* __restrict__ node, const float* __restrict__ g,
-               const float* __restrict__ gp, const VT* __restrict__ vp, int P, int S,
-               float* __restrict__ out, float* __restrict__ ws, int H, int D,
-               float slope, Drop dr) {
-  __shared__ int list_s[kWarps][kListCap];
-  __shared__ float coef_s[kWarps][kMaxH][33];
-  __shared__ __align__(16) float row_s[kWarps][2 * kMaxHP + 5 * kMaxH];  // g_i | v_i | node_i
-
+// K5: forward walk -> acc | m | den per row
+template <int kH, int kG, typename VT>
+__global__ void __launch_bounds__(kThreads, kFwdBlocks)
+gat_fwd_kernel(Sched sc, const int* __restrict__ ptr, const int* __restrict__ icol,
+               const float* __restrict__ s, const float* __restrict__ t,
+               const VT* __restrict__ v, int P, int S, float* __restrict__ out,
+               float* __restrict__ ws, int H, int D, float slope, Drop dr) {
+  __shared__ float coef_s[kWarps][kH][32];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int subs = sc.tile_r / kRows;
-  const int seg = blockIdx.x / subs;
-  const int r0 = (blockIdx.x % subs) * kRows;
   const int HD = H * D;
-  const int width = HD + 2 * H;
-  const int t0 = sc.seg_tile_ptr[seg];
-  const int t1 = sc.seg_tile_ptr[seg + 1];
-  int* list = list_s[warp];
-  float* g_i = row_s[warp];  // padded per head, as gp
-  float* v_i = g_i + H * P;
-  float* n_i = g_i + 2 * kMaxHP;  // s_i | t_i | m_i | den_i | ρ_i
-  float* dst0 = segment_dst(sc, out, ws, seg, r0, width);
-  int hk[kMaxK];
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) hk[k] = lane + 32 * k < HD ? (lane + 32 * k) / D : 0;
+  const Unit un = unit_of(sc, ptr, out, ws, HD + 2 * H);
+  const Team<kG> tm(lane, H, P);
 
-  for (int rr = warp; rr < kRows; rr += kWarps) {
-    const int grow = sc.seg_row[seg] * sc.tile_r + r0 + rr;
-    for (int i = lane; i < H * P; i += 32) {
-      g_i[i] = gp[(size_t)grow * S + i];
-      v_i[i] = to_float(vp[(size_t)grow * S + i]);
+  float s_i[kH], m[kH], den[kH];  // den: this lane's partial sum
+  load_heads<kH>(s + (size_t)un.grow * H, H, s_i);
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    m[h] = kNeg;
+    den[h] = 0.0f;
+  }
+  float acc[kG][8];
+#pragma unroll
+  for (int k = 0; k < kG; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[k][e] = 0.0f;
+
+  for (int base = un.p0; base < un.p1; base += 32) {
+    const int nb = min(32, un.p1 - base);
+    const bool live = lane < nb;
+    const int col = live ? icol[base + lane] : 0;
+    float t_j[kH];
+    load_heads<kH>(t + (size_t)col * H, H, t_j);
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      if (h < H) {
+        const float e = live ? leaky(s_i[h] + t_j[h], slope) : kNeg;
+        const float m_new = fmaxf(m[h], warp_max(e));
+        const float scale = expf(m[h] - m_new);
+        den[h] *= scale;
+#pragma unroll
+        for (int k = 0; k < kG; ++k)
+          if (tm.h[k] == h)
+#pragma unroll
+            for (int f = 0; f < 8; ++f) acc[k][f] *= scale;
+        m[h] = m_new;
+        const float w = live ? expf(e - m_new) : 0.0f;
+        den[h] += w;
+        float wn = w;
+        if (dr.on)
+          wn = live && hash_keep((uint32_t)un.grow, (uint32_t)col, h, dr.seed, dr.thr)
+                   ? w * dr.inv_keep : 0.0f;
+        coef_s[warp][h][lane] = wn;
+      }
     }
-    for (int i = lane; i < 5 * H; i += 32) n_i[i] = node[(size_t)grow * 5 * H + i];
     __syncwarp();
-    float ds_p[kMaxH], dt_p[kMaxH], dv[kMaxK];  // per-lane partial sums
+    for (int j0 = 0; j0 < nb; j0 += kFwdUnroll * tm.E) {
+      Raw8<VT> x[kFwdUnroll][kG];
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) ds_p[h] = dt_p[h] = 0.0f;
+      for (int u = 0; u < kFwdUnroll; ++u)
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) dv[k] = 0.0f;
-
-    auto batch = [&](int base, int nb) {
-      if (lane < nb) {
-        const int col = list[base + lane];
-        const float* n_j = node + (size_t)col * 5 * H;
-        const VT* v_j = vp + (size_t)col * S;
-        const float* g_j = gp + (size_t)col * S;
+        for (int k = 0; k < kG; ++k) {
+          const int j = j0 + u * tm.E + tm.slot[k];
+          const int c = __shfl_sync(kFull, col, j & 31);
+          if (tm.on[k] && j < nb) x[u][k].load(v + (size_t)c * S + tm.offset(k, P));
+          else x[u][k].zero();
+        }
 #pragma unroll
-        for (int h = 0; h < kMaxH; ++h) {
-          if (h < H) {
-            float dot_a = 0.0f, dot_b = 0.0f;
-            for (int d = h * P; d < (h + 1) * P; d += 8) {
-              float vj[8], gj[8];
-              load8(v_j + d, vj);
-              load8(g_j + d, gj);
+      for (int u = 0; u < kFwdUnroll; ++u)
 #pragma unroll
-              for (int e = 0; e < 8; ++e) {
-                dot_a = fmaf(g_i[d + e], vj[e], dot_a);
-                dot_b = fmaf(v_i[d + e], gj[e], dot_b);
-              }
-            }
-            // forward orientation: dest i, src j
-            const float pre = n_i[h] + n_j[H + h];
-            const float a = expf(leaky(pre, slope) - n_i[2 * H + h]) / n_i[3 * H + h];
-            if (dr.on)
-              dot_a = hash_keep((uint32_t)grow, (uint32_t)col, h, dr.seed, dr.thr)
-                          ? dot_a * dr.inv_keep : 0.0f;
-            ds_p[h] += a * (dot_a - n_i[4 * H + h]) * leaky_grad(pre, slope);
-            // mirrored orientation: dest j, src i
-            const float pre_m = n_i[H + h] + n_j[h];
-            const float a_m = expf(leaky(pre_m, slope) - n_j[2 * H + h]) / n_j[3 * H + h];
-            float a_mn = a_m;
-            if (dr.on) {
-              const bool keep_m =
-                  hash_keep((uint32_t)col, (uint32_t)grow, h, dr.seed, dr.thr);
-              dot_b = keep_m ? dot_b * dr.inv_keep : 0.0f;
-              a_mn = keep_m ? a_m * dr.inv_keep : 0.0f;
-            }
-            dt_p[h] += a_m * (dot_b - n_j[4 * H + h]) * leaky_grad(pre_m, slope);
-            coef_s[warp][h][lane] = a_mn;
+        for (int k = 0; k < kG; ++k) {
+          const int j = j0 + u * tm.E + tm.slot[k];
+          if (tm.on[k] && j < nb) {
+            const float w = coef_s[warp][tm.h[k]][j];
+            float f[8];
+            x[u][k].get(f);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[k][e] = fmaf(w, f[e], acc[k][e]);
           }
         }
-      }
-      __syncwarp();
-      for (int j = 0; j < nb; ++j) {
-        const float* gr = g + (size_t)list[base + j] * HD;
-#pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-          const int f = lane + 32 * k;
-          if (f < HD) dv[k] = fmaf(coef_s[warp][hk[k]][j], gr[f], dv[k]);
-        }
-      }
-      __syncwarp();
-    };
-    const int rem = scan_row<TT>(sc, t0, t1, r0 + rr, list, lane, batch);
-    if (rem) batch(0, rem);
-
-    float* dst = dst0 + (size_t)rr * width;
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (lane + 32 * k < HD) dst[lane + 32 * k] = dv[k];
-#pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      if (h < H) {
-        const float ds = warp_sum(ds_p[h]);
-        const float dt = warp_sum(dt_p[h]);
-        if (lane == 0) {
-          dst[HD + h] = ds;
-          dst[HD + H + h] = dt;
-        }
-      }
     }
     __syncwarp();
   }
+
+  sum_slots(tm, acc);
+  store_row(tm, acc, un.dst, D);
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    if (h < H) {
+      const float d = warp_sum(den[h]);
+      if (lane == 0) {
+        un.dst[HD + h] = m[h];
+        un.dst[HD + H + h] = d;
+      }
+    }
+  }
 }
 
-template <typename TT, typename VT>
-void launch_fwd(const Sched& sc, const float* s, const float* t, const void* v,
-                float* out, float* ws, int H, int D, float slope, Drop dr,
-                cudaStream_t stream) {
-  gat_fwd_kernel<TT, VT><<<grid_of(sc), kThreads, 0, stream>>>(
-      sc, s, t, static_cast<const VT*>(v), out, ws, H, D, slope, dr);
+// ---------------------------------------------------------------------------
+// K6: backward walk -> dv | ds | dt per row. Per head, with A = α·leaky'(pre)
+// and B = α'·leaky'(pre') of each entry,
+//   ds_i = ⟨g_i, Σ_j A·keep·v_j⟩ − ρ_i·Σ_j A,
+//   dt_i = ⟨v_i, Σ_j B·keep'·g_j⟩ − Σ_j B·ρ_j,   dv_i = Σ_j α'·keep'·g_j,
+// so a lane sums its groups' weighted rows and the dot products are taken
+// once per row, not once per entry.
+template <int kH, int kG, typename VT>
+__global__ void __launch_bounds__(kThreads, kBwdBlocks)
+gat_bwd_kernel(Sched sc, const int* __restrict__ ptr, const int* __restrict__ icol,
+               const float* __restrict__ node, const float* __restrict__ gp,
+               const VT* __restrict__ vp, int P, int S, float* __restrict__ out,
+               float* __restrict__ ws, int H, int D, float slope, Drop dr) {
+  // per edge of the batch and head: A·keep, B·keep', α'·keep'
+  __shared__ float e_s[kWarps][kEdgeTerms][kH][32];
+  constexpr int kRec = (5 * kH + 3) / 4 * 4;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int HD = H * D;
+  const int R = (5 * H + 3) / 4 * 4;
+  const Unit un = unit_of(sc, ptr, out, ws, HD + 2 * H);
+  const Team<kG> tm(lane, H, P);
+
+  // row i's node record
+  float s_i[kH], t_i[kH], m_i[kH], den_i[kH];
+  const float* n_i = node + (size_t)un.grow * R;
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    s_i[h] = h < H ? n_i[5 * h] : 0.0f;
+    t_i[h] = h < H ? n_i[5 * h + 1] : 0.0f;
+    m_i[h] = h < H ? n_i[5 * h + 2] : 0.0f;
+    den_i[h] = h < H ? n_i[5 * h + 3] : 1.0f;
+  }
+  // this lane's edges: Σ A and Σ B·ρ_j per head; its groups' weighted rows
+  float sum_a[kH], sum_brho[kH];
+#pragma unroll
+  for (int h = 0; h < kH; ++h) sum_a[h] = sum_brho[h] = 0.0f;
+  float sv[kG][8], sg[kG][8], dv[kG][8];
+#pragma unroll
+  for (int k = 0; k < kG; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sv[k][e] = sg[k][e] = dv[k][e] = 0.0f;
+
+  for (int base = un.p0; base < un.p1; base += 32) {
+    const int nb = min(32, un.p1 - base);
+    const bool live = lane < nb;
+    const int col = live ? icol[base + lane] : 0;
+    float rec[kRec];
+    const float4* n_j = reinterpret_cast<const float4*>(node + (size_t)col * R);
+#pragma unroll
+    for (int i = 0; i < kRec / 4; ++i) {
+      if (4 * i < R) {
+        const float4 a = __ldg(n_j + i);
+        rec[4 * i] = a.x; rec[4 * i + 1] = a.y; rec[4 * i + 2] = a.z; rec[4 * i + 3] = a.w;
+      } else {
+        rec[4 * i] = rec[4 * i + 1] = rec[4 * i + 2] = rec[4 * i + 3] = 1.0f;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      if (h < H) {
+        // forward orientation: dest i, src j
+        const float pre = s_i[h] + rec[5 * h + 1];
+        const float a = expf(leaky(pre, slope) - m_i[h]) / den_i[h];
+        // mirrored orientation: dest j, src i
+        const float pre_m = rec[5 * h] + t_i[h];
+        const float a_m = expf(leaky(pre_m, slope) - rec[5 * h + 2]) / rec[5 * h + 3];
+        float ka = 1.0f, kb = 1.0f;
+        if (dr.on) {
+          ka = hash_keep((uint32_t)un.grow, (uint32_t)col, h, dr.seed, dr.thr) ? dr.inv_keep
+                                                                                 : 0.0f;
+          kb = hash_keep((uint32_t)col, (uint32_t)un.grow, h, dr.seed, dr.thr) ? dr.inv_keep
+                                                                                 : 0.0f;
+        }
+        const float A = a * leaky_grad(pre, slope);
+        const float B = a_m * leaky_grad(pre_m, slope);
+        if (live) {
+          sum_a[h] += A;
+          sum_brho[h] += B * rec[5 * h + 4];
+        }
+        e_s[warp][0][h][lane] = A * ka;
+        e_s[warp][1][h][lane] = B * kb;
+        e_s[warp][2][h][lane] = a_m * kb;
+      }
+    }
+    __syncwarp();
+    for (int j0 = 0; j0 < nb; j0 += kBwdUnroll * tm.E) {
+      Raw8<VT> xv[kBwdUnroll][kG];
+      Raw8<float> xg[kBwdUnroll][kG];
+#pragma unroll
+      for (int u = 0; u < kBwdUnroll; ++u)
+#pragma unroll
+        for (int k = 0; k < kG; ++k) {
+          const int j = j0 + u * tm.E + tm.slot[k];
+          const int c = __shfl_sync(kFull, col, j & 31);
+          if (tm.on[k] && j < nb) {
+            xv[u][k].load(vp + (size_t)c * S + tm.offset(k, P));
+            xg[u][k].load(gp + (size_t)c * S + tm.offset(k, P));
+          } else {
+            xv[u][k].zero();
+            xg[u][k].zero();
+          }
+        }
+#pragma unroll
+      for (int u = 0; u < kBwdUnroll; ++u)
+#pragma unroll
+        for (int k = 0; k < kG; ++k) {
+          const int j = j0 + u * tm.E + tm.slot[k];
+          if (tm.on[k] && j < nb) {
+            const int h = tm.h[k];
+            const float ca = e_s[warp][0][h][j], cb = e_s[warp][1][h][j];
+            const float cv = e_s[warp][2][h][j];
+            float v_j[8], g_j[8];
+            xv[u][k].get(v_j);
+            xg[u][k].get(g_j);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              sv[k][e] = fmaf(ca, v_j[e], sv[k][e]);
+              sg[k][e] = fmaf(cb, g_j[e], sg[k][e]);
+              dv[k][e] = fmaf(cv, g_j[e], dv[k][e]);
+            }
+          }
+        }
+    }
+    __syncwarp();
+  }
+
+  // the dot products with the row's own g_i and v_i groups, per head
+  float dot_s[kG], dot_t[kG];
+#pragma unroll
+  for (int k = 0; k < kG; ++k) {
+    Raw8<float> a;
+    Raw8<VT> b;
+    if (tm.on[k]) {
+      a.load(gp + (size_t)un.grow * S + tm.offset(k, P));
+      b.load(vp + (size_t)un.grow * S + tm.offset(k, P));
+    } else {
+      a.zero();
+      b.zero();
+    }
+    float g_i[8], v_i[8];
+    a.get(g_i);
+    b.get(v_i);
+    dot_s[k] = dot_t[k] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      dot_s[k] = fmaf(g_i[e], sv[k][e], dot_s[k]);
+      dot_t[k] = fmaf(v_i[e], sg[k][e], dot_t[k]);
+    }
+  }
+  sum_slots(tm, dv);
+  store_row(tm, dv, un.dst, D);
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    if (h < H) {
+      float xs = 0.0f, xt = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kG; ++k) {
+        if (tm.h[k] == h) {
+          xs += dot_s[k];
+          xt += dot_t[k];
+        }
+      }
+      xs = warp_sum(xs);
+      xt = warp_sum(xt);
+      const float sa = warp_sum(sum_a[h]);
+      const float sb = warp_sum(sum_brho[h]);
+      if (lane == 0) {
+        un.dst[HD + h] = xs - n_i[5 * h + 4] * sa;
+        un.dst[HD + H + h] = xt - sb;
+      }
+    }
+  }
 }
 
-template <typename TT, typename VT>
-void launch_bwd(const Sched& sc, const float* node, const float* g, const float* gp,
-                const void* vp, int P, int S, float* out, float* ws, int H, int D,
-                float slope, Drop dr, cudaStream_t stream) {
-  gat_bwd_kernel<TT, VT><<<grid_of(sc), kThreads, 0, stream>>>(
-      sc, node, g, gp, static_cast<const VT*>(vp), P, S, out, ws, H, D, slope, dr);
+// ---------------------------------------------------------------------------
+// The padded rows the walks read: x [n, H·D] -> xp [n, S], head h's features
+// at [h·P, h·P + D), zeros elsewhere; one thread per 8-value group of xp.
+template <typename T>
+__global__ void pad_heads_kernel(const T* __restrict__ x, T* __restrict__ xp, int n,
+                                 int H, int D, int P, int S) {
+  const int groups = S / 8;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)n * groups) return;
+  const size_t row = i / groups;
+  const int f0 = (int)(i % groups) * 8;
+  const int h = f0 / P;
+  const int d0 = f0 - h * P;
+  __align__(16) T y[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    y[e] = h < H && d0 + e < D ? x[row * (size_t)(H * D) + h * D + d0 + e] : T{};
+#pragma unroll
+  for (int c = 0; c < (int)sizeof(y) / 16; ++c)
+    reinterpret_cast<uint4*>(xp + row * S + f0)[c] = reinterpret_cast<const uint4*>(y)[c];
+}
+
+template <typename T>
+void pad_heads(const void* x, void* xp, int n, int H, int D, int P, int S,
+               cudaStream_t stream) {
+  const size_t threads = (size_t)n * (S / 8);
+  if (threads == 0) return;
+  pad_heads_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(xp), n, H, D, P, S);
+}
+
+// The kernels' limits: heads, the padded layout, whole warps per tile row.
+bool valid_walk(const Sched& sc, int H, int D, int P, int S) {
+  return sc.n_seg > 0 && H >= 1 && H <= kMaxH && D >= 1 && H * D <= kMaxHD &&
+         P % 8 == 0 && P >= D && P < D + 8 && S % 8 == 0 && S >= H * P &&
+         team_pairs(H, P) > 0 && sc.tile_r % kWarps == 0;
+}
+
+// f(kH, kG, VT*) with the kernels' compile-time heads and Team pairs for H
+// and P, and v's element type for v_dtype (0 = float32, 1 = bfloat16).
+template <typename F>
+int by_shape(int H, int P, int v_dtype, F&& f) {
+  auto with_vt = [&](auto kh, auto kg) -> int {
+    if (v_dtype == 0) f(kh, kg, (float*)nullptr);
+    else if (v_dtype == 1) f(kh, kg, (__nv_bfloat16*)nullptr);
+    else return (int)cudaErrorInvalidValue;
+    return 0;
+  };
+  using I2 = std::integral_constant<int, 2>;
+  using I8 = std::integral_constant<int, 8>;
+  using G1 = std::integral_constant<int, 1>;
+  using G2 = std::integral_constant<int, 2>;
+  if (H <= 2) return with_vt(I2{}, G1{});  // H·P/8 <= 32 when H <= 2 and H·D <= 256
+  return team_pairs(H, P) == 1 ? with_vt(I8{}, G1{}) : with_vt(I8{}, G2{});
+}
+
+dim3 walk_grid(const Sched& sc) {
+  return dim3((unsigned)(sc.n_seg * (sc.tile_r / kWarps)));
 }
 
 }  // namespace
 
-// Segment schedule as in csrc/bcsr_spmm.cu (ops/cuda_bcsr.tile_schedule);
-// ws holds [n_slots, tile_r, H·D + 2H] floats. drop != 0 applies the
+// The schedule's segments (ops/cuda_bcsr.tile_schedule) and the pack's
+// AttnIndex (idx_ptr, idx_col); v [n_cols, H·D] and (backward) g [n, H·D]
+// f32 as given, which the entries first copy into the padded workspaces vp
+// and gp ([rows, S], described at the top, 16-byte aligned); ws holds
+// [n_slots, tile_r, H·D + 2H] floats. drop != 0 applies the
 // attention-dropout hash mask with (seed, thr) and multiplies kept terms by
-// inv_keep. Needs 1 <= H <= 8, H·D <= 256, tile_r % 64 == 0,
-// tile_c % 128 == 0 and 16-byte aligned tiles; the backward's gp and vp
-// padded as described at the top, 16-byte aligned. Return
-// cudaGetLastError() after the launches (0 on success).
-extern "C" int pgcn_gat_fwd(const void* tiles, int tile_dtype,
-                            const int* seg_tile_ptr, const int* seg_row,
+// inv_keep. Needs 1 <= H <= 8, H·D <= 256, H·P <= 512 and tile_r % 8 == 0.
+// Return cudaGetLastError() after the launches (0 on success).
+extern "C" int pgcn_gat_fwd(const int* idx_ptr, const int* idx_col, const int* seg_row,
                             const int* seg_slot, int n_seg, const int* multi_row,
-                            const int* multi_slot_ptr, int n_multi,
-                            const int* tile_cols, int tile_r, int tile_c,
-                            const float* s, const float* t, const void* v,
-                            int v_dtype,
-                            float* out, float* ws, int H, int D, float slope,
-                            int drop, uint32_t seed, uint32_t thr,
-                            float inv_keep, void* stream) {
-  const Sched sc{tiles, seg_tile_ptr, seg_row, seg_slot, n_seg, multi_row,
-                 multi_slot_ptr, n_multi, tile_cols, tile_r, tile_c};
-  if (!valid(sc, H, D)) return (int)cudaErrorInvalidValue;
+                            const int* multi_slot_ptr, int n_multi, int tile_r,
+                            const float* s, const float* t, const void* v, int n_cols,
+                            int v_dtype, void* vp, int P, int S, float* out, float* ws,
+                            int H, int D, float slope, int drop, uint32_t seed,
+                            uint32_t thr, float inv_keep, void* stream) {
+  const Sched sc{nullptr, nullptr, seg_row, seg_slot, n_seg, multi_row,
+                 multi_slot_ptr, n_multi, nullptr, tile_r, 0};
+  if (!valid_walk(sc, H, D, P, S)) return (int)cudaErrorInvalidValue;
   const Drop dr{drop, seed, thr, inv_keep};
   const cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  const int rc = by_dtypes(tile_dtype, v_dtype, [&](auto* tt, auto* vt) {
-    using TT = std::remove_pointer_t<decltype(tt)>;
+  const int rc = by_shape(H, P, v_dtype, [&](auto kh, auto kg, auto* vt) {
     using VT = std::remove_pointer_t<decltype(vt)>;
-    launch_fwd<TT, VT>(sc, s, t, v, out, ws, H, D, slope, dr, strm);
+    pad_heads<VT>(v, vp, n_cols, H, D, P, S, strm);
+    gat_fwd_kernel<decltype(kh)::value, decltype(kg)::value, VT>
+        <<<walk_grid(sc), kThreads, 0, strm>>>(sc, idx_ptr, idx_col, s, t,
+                                               static_cast<const VT*>(vp), P, S, out, ws,
+                                               H, D, slope, dr);
   });
   if (rc) return rc;
   merge<true>(sc, ws, out, H * D + 2 * H, H, D, strm);
   return (int)cudaGetLastError();
 }
 
-extern "C" int pgcn_gat_bwd(const void* tiles, int tile_dtype,
-                            const int* seg_tile_ptr, const int* seg_row,
+extern "C" int pgcn_gat_bwd(const int* idx_ptr, const int* idx_col, const int* seg_row,
                             const int* seg_slot, int n_seg, const int* multi_row,
-                            const int* multi_slot_ptr, int n_multi,
-                            const int* tile_cols, int tile_r, int tile_c,
-                            const float* node, const float* g, const float* gp,
-                            const void* vp, int v_dtype, int P, int S, float* out,
-                            float* ws, int H, int D, float slope, int drop,
-                            uint32_t seed, uint32_t thr, float inv_keep,
-                            void* stream) {
-  const Sched sc{tiles, seg_tile_ptr, seg_row, seg_slot, n_seg, multi_row,
-                 multi_slot_ptr, n_multi, tile_cols, tile_r, tile_c};
-  if (!valid(sc, H, D) || !valid_padding(H, D, P, S)) return (int)cudaErrorInvalidValue;
+                            const int* multi_slot_ptr, int n_multi, int tile_r,
+                            const float* node, const float* g, const void* v, int n,
+                            int v_dtype, float* gp, void* vp, int P, int S, float* out,
+                            float* ws, int H, int D, float slope, int drop, uint32_t seed,
+                            uint32_t thr, float inv_keep, void* stream) {
+  const Sched sc{nullptr, nullptr, seg_row, seg_slot, n_seg, multi_row,
+                 multi_slot_ptr, n_multi, nullptr, tile_r, 0};
+  if (!valid_walk(sc, H, D, P, S)) return (int)cudaErrorInvalidValue;
   const Drop dr{drop, seed, thr, inv_keep};
   const cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  const int rc = by_dtypes(tile_dtype, v_dtype, [&](auto* tt, auto* vt) {
-    using TT = std::remove_pointer_t<decltype(tt)>;
+  const int rc = by_shape(H, P, v_dtype, [&](auto kh, auto kg, auto* vt) {
     using VT = std::remove_pointer_t<decltype(vt)>;
-    launch_bwd<TT, VT>(sc, node, g, gp, vp, P, S, out, ws, H, D, slope, dr, strm);
+    pad_heads<float>(g, gp, n, H, D, P, S, strm);
+    pad_heads<VT>(v, vp, n, H, D, P, S, strm);
+    gat_bwd_kernel<decltype(kh)::value, decltype(kg)::value, VT>
+        <<<walk_grid(sc), kThreads, 0, strm>>>(sc, idx_ptr, idx_col, node, gp,
+                                               static_cast<const VT*>(vp), P, S, out, ws,
+                                               H, D, slope, dr);
   });
   if (rc) return rc;
   merge<false>(sc, ws, out, H * D + 2 * H, H, D, strm);

@@ -1,7 +1,8 @@
 // Shared pieces of the GAT tile-attention kernels (tile_attention.cu: K5,
 // K6; tile_attention_rect.cu: K7): the per-warp walk over a tile row's live
-// entries, the segment schedule, the attention-dropout hash and the ordered
-// merge of split tile-rows. See tile_attention.cu for the design.
+// entries (K7), the lane layout of the live-column index walk (K5, K6), the
+// segment schedule, the attention-dropout hash and the ordered merge of split
+// tile-rows. See tile_attention.cu for the design.
 
 #pragma once
 
@@ -65,6 +66,97 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
     x[2 * i] = __low2float(b);
     x[2 * i + 1] = __high2float(b);
   }
+}
+
+// 8 consecutive values held as loaded (16-byte aligned), so that several
+// rows' loads can be in flight before any is converted.
+template <typename VT> struct Raw8;
+
+template <> struct Raw8<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void get(float (&x)[8]) const {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+template <> struct Raw8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void get(float (&x)[8]) const {
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  }
+};
+
+// x[h] = p[h] for h < H (p: one row of an [n, H] f32 array), in one vector
+// load where H allows it.
+template <int kH>
+__device__ __forceinline__ void load_heads(const float* p, int H, float (&x)[kH]) {
+  if (H == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = a.x;
+    x[1] = a.y;
+  } else if (H % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kH / 4; ++i) {
+      if (4 * i < H) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(p) + i);
+        x[4 * i] = a.x; x[4 * i + 1] = a.y; x[4 * i + 2] = a.z; x[4 * i + 3] = a.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < kH; ++h) x[h] = h < H ? __ldg(p + h) : 0.0f;
+  }
+}
+
+// How a warp spreads the rows it gathers over its lanes (K5, K6). A row is H
+// heads of P features (D rounded up to 8), read as Q = P/8 groups a head of
+// 16 bytes (bf16) or 32 (f32); the H·Q lanes of one edge form a slot, and a
+// warp step gathers E = 32 / (H·Q) edges (at least one). Lane pair
+// p = lane + 32k (k < kG; kG = 2 only when H·Q > 32) is slot p / (H·Q), head
+// (p / Q) % H, group p % Q; pairs past the warp's slots are off.
+template <int kG>
+struct Team {
+  int Q, HQ, E;
+  int slot[kG], h[kG], q[kG];
+  bool on[kG];
+
+  __device__ __forceinline__ Team(int lane, int H, int P) {
+    Q = P / 8;
+    HQ = H * Q;
+    E = HQ < 32 ? 32 / HQ : 1;
+#pragma unroll
+    for (int k = 0; k < kG; ++k) {
+      const int p = lane + 32 * k;
+      slot[k] = p / HQ;
+      h[k] = (p / Q) % H;
+      q[k] = p % Q;
+      on[k] = slot[k] < E;
+    }
+  }
+
+  // offset of pair k's group in a padded row
+  __device__ __forceinline__ int offset(int k, int P) const { return h[k] * P + 8 * q[k]; }
+};
+
+// Lane pairs per lane of the Team layout (0: more than the kernels hold).
+inline int team_pairs(int H, int P) {
+  const int hq = H * (P / 8);
+  return hq <= 32 ? 1 : hq <= 64 ? 2 : 0;
 }
 
 // The attention-dropout mask: ops/tile_attention.hash_keep.

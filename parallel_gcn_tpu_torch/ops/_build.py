@@ -59,10 +59,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     u32, f32 = ctypes.c_uint32, ctypes.c_float
     sched = [p, i32, p, p, p, i32, p, p, i32, p, i32, i32]
     drop = [i32, u32, u32, f32]
-    lib.pgcn_gat_fwd.argtypes = [*sched, p, p, p, i32, p, p, i32, i32, f32, *drop, p]
+    walk = [p, p, p, p, i32, p, p, i32, i32]  # AttnIndex and the schedule's segments
+    lib.pgcn_gat_fwd.argtypes = [*walk, p, p, p, i32, i32, p, i32, i32, p, p, i32, i32,
+                                 f32, *drop, p]
     lib.pgcn_gat_fwd.restype = i32
-    lib.pgcn_gat_bwd.argtypes = [*sched, p, p, p, p, i32, i32, i32, p, p, i32, i32, f32,
-                                 *drop, p]
+    lib.pgcn_gat_bwd.argtypes = [*walk, p, p, p, i32, i32, p, p, i32, i32, p, p, i32, i32,
+                                 f32, *drop, p]
     lib.pgcn_gat_bwd.restype = i32
     lib.pgcn_gat_bwd_rect_row.argtypes = [*sched, p, p, p, p, i32, i32, i32, p, p, i32, i32,
                                           f32, *drop, p]

@@ -20,6 +20,10 @@ features or the compact local+halo buffer); ``slab_pack`` builds it on the
 device and ``bcsr_matmul_rect`` is K3 over it, the counterpart of the JAX
 package's ``bcsr_matmul_rect``.
 
+The GAT attention kernels (``ops.tile_attention``) do not read the tiles:
+they walk the pack's ``attn_index``, its live columns listed once per (segment,
+row) of ``schedule``.
+
 ``bcsr_matmul_impl`` runs the kernel for CUDA tensors and
 ``bcsr_matmul_plain`` for CPU tensors; ``launches`` counts kernel launches.
 For a bf16 compute dtype the kernel reads x as one bf16 buffer whose rows
@@ -114,6 +118,43 @@ def tile_schedule(tile_rows: np.ndarray, n_tile_rows: int,
 
 
 @dataclass(frozen=True)
+class AttnIndex:
+    """The live columns of a pack, listed per unit of the attention
+    kernels' work: unit u = seg·tile_r + r is row r (local to the tile) of
+    segment ``seg`` of ``BCSR.schedule``. Its entries are
+    ``col[ptr[u] : ptr[u + 1]]``, global column ids in the order of the
+    segment's tiles and, within a tile, of the column."""
+
+    ptr: torch.Tensor  # int32 [n_seg·tile_r + 1]
+    col: torch.Tensor  # int32 [live entries]
+
+
+def attn_index(pack: "BCSR") -> AttnIndex:
+    """``pack``'s ``AttnIndex``, built on the pack's device from its tiles
+    (nonzero entries; -0.0 is zero), 64 tiles at a time."""
+    sched = pack.schedule
+    dev = pack.tiles.device
+    tile_r, tile_c = pack.tile_r, pack.tile_c
+    seg_len = (sched.seg_tile_ptr[1:] - sched.seg_tile_ptr[:-1]).long()
+    seg_of_tile = torch.repeat_interleave(torch.arange(sched.n_seg, device=dev), seg_len)
+    keys, cols = [], []
+    for b0 in range(0, pack.n_tiles, 64):
+        t, r, c = (pack.tiles[b0 : b0 + 64] != 0).nonzero(as_tuple=True)
+        t = t + b0
+        keys.append(seg_of_tile[t] * tile_r + r)
+        cols.append(pack.tile_cols[t].long() * tile_c + c)
+    key = torch.cat(keys) if keys else torch.zeros(0, dtype=torch.long, device=dev)
+    col = torch.cat(cols) if cols else torch.zeros(0, dtype=torch.long, device=dev)
+    # nonzero lists (tile, row, column) in order and a segment's tiles are
+    # consecutive, so a stable sort by unit leaves (tile, column) within each
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=sched.n_seg * tile_r)
+    ptr = torch.zeros(sched.n_seg * tile_r + 1, dtype=torch.int32, device=dev)
+    ptr[1:] = torch.cumsum(counts, 0)
+    return AttnIndex(ptr=ptr, col=col[order].to(torch.int32))
+
+
+@dataclass(frozen=True)
 class BCSR:
     """Row-sorted pack of the nonempty tile_r×tile_c blocks of Â, or of a
     mesh rank's slab (rows: ``n_rows`` local rows; columns: the
@@ -164,6 +205,12 @@ class BCSR:
             rows.append(self.tile_rows[t].long() * self.tile_r + r)
             cols.append(self.tile_cols[t].long() * self.tile_c + c)
         return torch.cat(rows), torch.cat(cols)
+
+    @cached_property
+    def attn_index(self) -> AttnIndex:
+        """The live columns per (segment, row) that the attention kernels
+        walk (``AttnIndex``); built once per pack on its device and kept."""
+        return attn_index(self)
 
     @cached_property
     def nonneg_tiles(self) -> bool:

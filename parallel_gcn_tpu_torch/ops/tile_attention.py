@@ -13,13 +13,14 @@ in ``csrc/tile_attention.cu`` and ``csrc/tile_attention_rect.cu`` run the
 tile part:
 
 - K5 (``gat_fwd_tiles``, ``gat_fwd_rect``; replaces ``_fwd_kernel``): one
-  sweep gives the unnormalized numerator ``acc`` and the online-softmax
-  statistics (m, den) per destination row;
+  walk over the pack's live entries gives the unnormalized numerator
+  ``acc`` and the online-softmax statistics (m, den) per destination row;
 - K6 (``gat_bwd_tiles``, replaces ``_bwd_kernel``): from the saved
   (m, den, ρ = Σ g·out), the forward orientation of each tile entry gives
   ds and the mirrored orientation gives dt and dv. The mirror trick needs a
   symmetric edge set, which ``data.graph.split_dense_tiles`` guarantees for
-  the tiles and the residual alike;
+  the tiles and the residual alike. K5 and K6 read the live entries from
+  the pack's ``attn_index``, listed once per pack, not from its tiles;
 - K7 (``gat_bwd_rect``; replaces ``_bwd_rect_row_kernel`` and
   ``_bwd_rect_col_kernel``): a slab is not symmetric, so a row sweep over
   the slab gives ds and a sweep over its transposed column-sorted copy
@@ -230,31 +231,59 @@ def gat_bwd_tiles_plain(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
 # ---------------------------------------------------------------------------
 
 
-def _check_kernel_args(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
+def _check_shapes(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
     """``s`` by the pack's rows, ``v`` by its columns."""
     n, H = s.shape
-    HD = H * v.shape[2]
-    if H > MAX_HEADS or HD > MAX_HD:
+    if H > MAX_HEADS or H * v.shape[2] > MAX_HD:
         raise ValueError(f"tile attention kernels take heads <= {MAX_HEADS} and "
                          f"heads·d <= {MAX_HD}, got {H} heads of {v.shape[2]}")
     if v.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tile attention kernels take f32 or bf16 v, got {v.dtype}")
+    if pack.n_rows != n or pack.n_nodes != v.shape[0]:
+        raise ValueError(f"pack is [{pack.n_rows}, {pack.n_nodes}], tensors have "
+                         f"{n} rows and {v.shape[0]} columns")
+
+
+def _check_on_device(tensors, device) -> None:
+    for x in tensors:
+        if x.device != device or not x.is_contiguous():
+            raise ValueError("tile pack must be contiguous and on the inputs' device")
+
+
+def _check_kernel_args(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
+    """The arguments of K7, which walks the pack's tiles."""
+    _check_shapes(pack, s, v)
     if pack.tiles.dtype not in _DTYPE_CODE:
         raise TypeError(f"tile attention kernels take f32/bf16/int8 tiles, "
                         f"got {pack.tiles.dtype}")
     if pack.tile_r % 64 or pack.tile_c % 128:
         raise ValueError(f"tile attention kernels need tile_r % 64 == 0 and "
                          f"tile_c % 128 == 0, got ({pack.tile_r}, {pack.tile_c})")
-    if pack.n_rows != n or pack.n_nodes != v.shape[0]:
-        raise ValueError(f"pack is [{pack.n_rows}, {pack.n_nodes}], tensors have "
-                         f"{n} rows and {v.shape[0]} columns")
     sched = pack.schedule
-    for x in (pack.tiles, pack.tile_cols, sched.seg_tile_ptr, sched.seg_row,
-              sched.seg_slot, sched.multi_row, sched.multi_slot_ptr):
-        if x.device != s.device or not x.is_contiguous():
-            raise ValueError("tile pack must be contiguous and on the inputs' device")
+    _check_on_device((pack.tiles, pack.tile_cols, sched.seg_tile_ptr, sched.seg_row,
+                      sched.seg_slot, sched.multi_row, sched.multi_slot_ptr), s.device)
     if pack.tiles.data_ptr() % 16:
         raise ValueError("tile pack must be 16-byte aligned")
+
+
+def _check_walk_args(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
+    """The arguments of K5/K6, which walk the pack's ``attn_index`` and
+    schedule, not its tiles."""
+    _check_shapes(pack, s, v)
+    if pack.tile_r % 8:
+        raise ValueError(f"tile attention kernels need tile_r % 8 == 0, got {pack.tile_r}")
+    sched = pack.schedule
+    _check_on_device((pack.tiles, sched.seg_row, sched.seg_slot, sched.multi_row,
+                      sched.multi_slot_ptr), s.device)
+
+
+def _walk_args(pack: BCSR) -> list:
+    """The pack's AttnIndex (built on first use) and schedule, as K5/K6 take
+    them."""
+    idx, sched = pack.attn_index, pack.schedule
+    return [idx.ptr.data_ptr(), idx.col.data_ptr(), sched.seg_row.data_ptr(),
+            sched.seg_slot.data_ptr(), sched.n_seg, sched.multi_row.data_ptr(),
+            sched.multi_slot_ptr.data_ptr(), sched.multi_row.shape[0], pack.tile_r]
 
 
 def _schedule_args(pack: BCSR) -> list:
@@ -274,6 +303,33 @@ def _dropout_args(rate: float, seed: int) -> list:
     return [1, int(seed) & _M32, rate_to_threshold(rate), _inv_keep(rate)]
 
 
+def _padded_width(H: int, D: int) -> tuple[int, int]:
+    """The kernels' padded row layout: each head's D features in P (D
+    rounded up to 8) slots, rows S values apart, S an odd multiple of 8
+    (16-byte vectors, no power-of-two row stride)."""
+    P = -(-D // 8) * 8
+    S = H * P
+    return P, S + 8 if (S // 8) % 2 == 0 else S
+
+
+def _pad_heads(x: torch.Tensor, H: int, P: int, S: int) -> torch.Tensor:
+    """[n, H·D] → [n, S] with head h at [h·P, h·P + D), zeros elsewhere."""
+    n = x.shape[0]
+    out = x.new_zeros((n, S))
+    out[:, : H * P].view(n, H, P)[:, :, : x.shape[1] // H] = x.reshape(n, H, -1)
+    return out
+
+
+def _node_records(s, t, m, den, rho) -> torch.Tensor:
+    """K6's per-node records [n, R] f32: head h's s | t | m | max(den, 1e-16)
+    | ρ at [5h, 5h + 5), R = 5H rounded up to 4 (16-byte records)."""
+    n, H = m.shape
+    rec = torch.zeros((n, -(-5 * H // 4) * 4), dtype=torch.float32, device=m.device)
+    rec[:, : 5 * H] = torch.stack(
+        [s.float(), t.float(), m, torch.clamp(den, min=1e-16), rho], dim=2).reshape(n, 5 * H)
+    return rec
+
+
 def _fwd(pack: BCSR, s, t, v, slope: float, rate: float, seed: int, key: str):
     """K5 (CUDA tensors) or its plain version (CPU tensors); a launch
     counts under ``launches[key]``."""
@@ -281,22 +337,25 @@ def _fwd(pack: BCSR, s, t, v, slope: float, rate: float, seed: int, key: str):
         return gat_fwd_tiles_plain(pack, s, t, v, slope=slope, rate=rate, seed=seed)
     if s.device.type != "cuda":
         raise ValueError(f"tile attention forward: unsupported device {s.device}")
-    _check_kernel_args(pack, s, v)
+    _check_walk_args(pack, s, v)
     n, H = s.shape
     D = v.shape[2]
     HD = H * D
+    P, S = _padded_width(H, D)
     sf, tf = s.float().contiguous(), t.float().contiguous()
     vf = v.reshape(v.shape[0], HD).contiguous()
+    vp = torch.empty((v.shape[0], S), dtype=v.dtype, device=v.device)  # the kernel pads v
     width = HD + 2 * H  # out rows: acc | m | den
     out = torch.empty((n, width), dtype=torch.float32, device=s.device)
     ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width),
                      dtype=torch.float32, device=s.device)
+    walk = _walk_args(pack)
     lib = _build.load_library()
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgcn_gat_fwd(
-            *_schedule_args(pack), sf.data_ptr(), tf.data_ptr(), vf.data_ptr(),
-            _DTYPE_CODE[vf.dtype], out.data_ptr(), ws.data_ptr(), H, D,
+            *walk, sf.data_ptr(), tf.data_ptr(), vf.data_ptr(), v.shape[0],
+            _DTYPE_CODE[v.dtype], vp.data_ptr(), P, S, out.data_ptr(), ws.data_ptr(), H, D,
             float(slope), *_dropout_args(rate, seed), ctypes.c_void_p(stream),
         )
     _build.check(rc, "tile attention forward kernel")
@@ -312,23 +371,6 @@ def gat_fwd_tiles(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
     return _fwd(pack, s, t, v, slope, rate, seed, "gat_fwd")
 
 
-def _padded_width(H: int, D: int) -> tuple[int, int]:
-    """K6's padded row layout: each head's D features in P (D rounded up to
-    8) slots, rows S floats apart, S an odd multiple of 8 (16-byte vectors,
-    no power-of-two row stride)."""
-    P = -(-D // 8) * 8
-    S = H * P
-    return P, S + 8 if (S // 8) % 2 == 0 else S
-
-
-def _pad_heads(x: torch.Tensor, H: int, P: int, S: int) -> torch.Tensor:
-    """[n, H·D] → [n, S] with head h at [h·P, h·P + D), zeros elsewhere."""
-    n = x.shape[0]
-    out = x.new_zeros((n, S))
-    out[:, : H * P].view(n, H, P)[:, :, : x.shape[1] // H] = x.reshape(n, H, -1)
-    return out
-
-
 def gat_bwd_tiles(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
                   rate: float = 0.0, seed: int = 0):
     """The pack's part of the attention backward: (ds [n, H], dt [n, H],
@@ -339,26 +381,28 @@ def gat_bwd_tiles(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
                                    rate=rate, seed=seed)
     if s.device.type != "cuda":
         raise ValueError(f"gat_bwd_tiles: unsupported device {s.device}")
-    _check_kernel_args(pack, s, v)
+    _check_walk_args(pack, s, v)
     n, H, D = v.shape
     HD = H * D
-    # per node: s | t | m | max(den, 1e-16) | ρ
-    node = torch.cat([s.float(), t.float(), m, torch.clamp(den, min=1e-16), rho],
-                     dim=1).contiguous()
-    gf = g.reshape(n, HD).float().contiguous()
+    node = _node_records(s, t, m, den, rho)
     P, S = _padded_width(H, D)
-    gp, vp = _pad_heads(gf, H, P, S), _pad_heads(v.reshape(n, HD), H, P, S)
+    gf = g.reshape(n, HD).float().contiguous()
+    vf = v.reshape(n, HD).contiguous()
+    # the kernel pads g and v into these
+    gp = torch.empty((n, S), dtype=torch.float32, device=v.device)
+    vp = torch.empty((n, S), dtype=v.dtype, device=v.device)
     width = HD + 2 * H  # out rows: dv | ds | dt
     out = torch.empty((n, width), dtype=torch.float32, device=s.device)
     ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width),
                      dtype=torch.float32, device=s.device)
+    walk = _walk_args(pack)
     lib = _build.load_library()
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgcn_gat_bwd(
-            *_schedule_args(pack), node.data_ptr(), gf.data_ptr(), gp.data_ptr(),
-            vp.data_ptr(), _DTYPE_CODE[vp.dtype], P, S, out.data_ptr(), ws.data_ptr(),
-            H, D, float(slope), *_dropout_args(rate, seed), ctypes.c_void_p(stream),
+            *walk, node.data_ptr(), gf.data_ptr(), vf.data_ptr(), n, _DTYPE_CODE[v.dtype],
+            gp.data_ptr(), vp.data_ptr(), P, S, out.data_ptr(), ws.data_ptr(), H, D,
+            float(slope), *_dropout_args(rate, seed), ctypes.c_void_p(stream),
         )
     _build.check(rc, "tile attention backward kernel")
     launches["gat_bwd"] += 1

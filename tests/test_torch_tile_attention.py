@@ -198,20 +198,49 @@ def test_gradients_keep_input_dtypes(csr):
     assert s.grad.dtype == t.grad.dtype == v.grad.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("H", [1, 2, 3, 8])
+def test_node_records_layout(H):
+    """K6's per-node records: head h's s | t | m | max(den, 1e-16) | ρ at
+    [5h, 5h + 5), rows padded with zeros to a multiple of 4 floats."""
+    n = 7
+    s, t, m, den, rho = (torch.randn((n, H), generator=torch.Generator().manual_seed(i))
+                         for i in range(5))
+    den[0] = 0.0
+    rec = ta._node_records(s.bfloat16(), t, m, den, rho)
+    R = -(-5 * H // 4) * 4
+    assert rec.shape == (n, R) and rec.dtype == torch.float32
+    for h in range(H):
+        for f, x in enumerate((s.bfloat16().float(), t, m, den.clamp(min=1e-16), rho)):
+            assert torch.equal(rec[:, 5 * h + f], x[:, h])
+    assert not rec[:, 5 * H :].any()
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card(csr, cuda_device):
+@pytest.mark.parametrize("v_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("graph", ["hybrid 128x256", "hub split over segments"])
+def test_kernels_match_plain_on_card(csr, cuda_device, graph, v_dtype):
     """K5/K6 against their plain versions on the card, and bit-identical
-    across two runs."""
-    g = build_graph(csr, device=cuda_device, hybrid=True, tile_size=128, tile_cols=256,
-                    tile_dtype="int8", min_tile_nnz=40)
+    across two runs; the second graph's tile-rows hold more tiles than a
+    segment, so their units are merged by the second pass."""
+    if graph == "hybrid 128x256":
+        g = build_graph(csr, device=cuda_device, hybrid=True, tile_size=128, tile_cols=256,
+                        tile_dtype="int8", min_tile_nnz=40)
+    else:
+        from tests.test_torch_attention_index import hub_graph
+
+        g = build_graph(hub_graph(), device=cuda_device, bcsr=True, tile_size=128,
+                        tile_dtype="int8")
+        assert g.bcsr.schedule.multi_row.numel() > 0
     s, t, v, gr = (torch.from_numpy(x).to(cuda_device) for x in _inputs(g.n_nodes, 2, 41))
+    v = v.to(v_dtype)
+    rtol = 1e-4 if v_dtype == torch.float32 else 2e-3
     for rate in (0.0, 0.6):
         kw = dict(slope=SLOPE, rate=rate, seed=SEED)
         fwd = ta.gat_fwd_tiles(g.bcsr, s, t, v, **kw)
         assert all(map(torch.equal, fwd, ta.gat_fwd_tiles(g.bcsr, s, t, v, **kw)))
         ref = ta.gat_fwd_tiles_plain(g.bcsr, s, t, v, **kw)
         for a, b in zip(fwd, ref):
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(a, b, rtol=rtol, atol=1e-5)
         acc, m, den = ref
         rho = (gr * acc / den.clamp(min=1e-16)[:, :, None]).sum(-1)
         bwd = ta.gat_bwd_tiles(g.bcsr, s, t, v, gr, m, den, rho, **kw)
