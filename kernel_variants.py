@@ -33,6 +33,8 @@ of the outputs). The base also sweeps the tiles per segment
 the parent commit unpacked with ``git archive``) in a process of its own.
 
     python3 kernel_variants.py attention [--parent DIR]   # K5/K6: every variant in one process
+    python3 kernel_variants.py rect [--parent DIR]        # K7: every variant in one process
+    python3 kernel_variants.py dropout [--parent DIR]     # K1/K2: every variant in one process
 
 K5/K6 (the GAT tile attention, ``csrc/tile_attention.cu``) in the same
 way: every source variant in ``ATTN_VARIANTS`` is an edited copy of that
@@ -45,10 +47,31 @@ wrapper's torch work), by CUDA events over 10 calls, with hashes of the
 outputs; the base is also checked against the plain versions, and the
 live-column index's build is timed. ``--parent`` times K5/K6 of another
 checkout's package (``--time-attention DIR`` alone) in a process of its own.
+
+K7 (the mesh GAT backward, ``csrc/tile_attention_rect.cu``) in the same
+way, on rank 0's GAT slabs of synth-reddit's mesh partition at one rank and
+at 4 ranks (boundary halo), heads 2, d 32 and 41, bf16, attention dropout 0:
+each sweep's wrapper call and, for the checkout, the library call alone
+(the records and padded rows prepared once). ``RECT_VARIANTS`` holds the
+knobs (min blocks, warp steps in flight, ``__expf``) and variants that are
+wrong on purpose, each removing one cost. ``--parent`` times K7 of another
+checkout (``--time-rect DIR``).
+
+K1/K2 (``csrc/dropout.cu``) in the same way at the main paths' bf16 shapes
+[233472, 64] and [233472, 600], rate 0.1: CUDA events over 20 wrapper calls
+and the kernel's device time by ``torch.profiler``, beside
+``torch.nn.functional.dropout``, and a K1 call's cost by layer (autograd
+Function, wrapper, library call) at the small shape, where the host's share
+shows. ``DROP_VARIANTS`` are the design steps:
+the vector width (every element through the scalar path), the loads in
+flight, the grid, streaming cache hints, and the Philox rounds removed
+(wrong on purpose). ``--parent`` times another checkout's K1/K2
+(``--time-dropout DIR``).
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import os
 import shutil
@@ -158,6 +181,147 @@ ATTN_VARIANTS = {
     "no-exps": _NO_EXPS,
     "index-only": _NO_ROWS + _NO_EXPS + _NO_NODES,
 }
+
+
+RECT = "csrc/tile_attention_rect.cu"
+_ROW_V = "xv[u][k].load(vp + (size_t)c * S + tm.offset(k, P));"
+_COL_G = "xg[u][k].load(gp + (size_t)c * S + tm.offset(k, P));"
+_RECT_EXP = "const float a = expf(leaky(pre, slope) - m_i[h]) / den_i[h];"
+_RECT_NODES = [("load_heads<kH>(t + (size_t)col * H, H, t_j);",
+                "for (int h = 0; h < kH; ++h) t_j[h] = 0.0f;"),
+               ("load_records<kH>(nd + (size_t)col * 4 * H, H, s_i, m_i, den_i, rho_i);",
+                "for (int h = 0; h < kH; ++h) s_i[h] = m_i[h] = rho_i[h] = 0.0f, den_i[h] = 1.0f;")]
+
+
+def _rect_knob(name: str, value: int) -> tuple:
+    old = {"kRowBlocks": "constexpr int kRowBlocks = 4;",
+           "kColBlocks": "constexpr int kColBlocks = 3;",
+           "kRowUnroll": "constexpr int kRowUnroll = 4;",
+           "kColUnroll": "constexpr int kColUnroll = 2;"}[name]
+    return (old, old.rsplit("=", 1)[0] + f"= {value};")
+
+
+# name -> [(text, replacement)] in csrc/tile_attention_rect.cu
+RECT_VARIANTS = {
+    # min blocks per SM in __launch_bounds__
+    "row-blocks-2": [_rect_knob("kRowBlocks", 2)],
+    "row-blocks-3": [_rect_knob("kRowBlocks", 3)],
+    "row-blocks-5": [_rect_knob("kRowBlocks", 5)],
+    "col-blocks-2": [_rect_knob("kColBlocks", 2)],
+    "col-blocks-4": [_rect_knob("kColBlocks", 4)],
+    # warp steps whose row gathers are issued together
+    "row-unroll-2": [_rect_knob("kRowUnroll", 2)],
+    "row-unroll-8": [_rect_knob("kRowUnroll", 8)],
+    "col-unroll-1": [_rect_knob("kColUnroll", 1)],
+    "col-unroll-4": [_rect_knob("kColUnroll", 4)],
+    "fast-exp": [("expf(", "__expf(")],
+    # wrong on purpose, each removes one cost: the v_j / g_i row gathers; the
+    # exps and divisions; and everything but the index walk (no row, t_j or
+    # record gathers, no exps)
+    "no-row-gathers": [(_ROW_V, "xv[u][k].zero();"), (_COL_G, "xg[u][k].zero();")],
+    "no-exps": [(_RECT_EXP, "const float a = 1.0f;")],
+    "index-only": [(_ROW_V, "xv[u][k].zero();"), (_COL_G, "xg[u][k].zero();"),
+                   (_RECT_EXP, "const float a = 1.0f;"), *_RECT_NODES],
+}
+
+DROP = "csrc/dropout.cu"
+_WAVE = "constexpr int kWaves = 8;"
+_UNROLL = "constexpr int kUnroll = 4;"
+# name -> [(text, replacement)] in csrc/dropout.cu
+DROP_VARIANTS = {
+    # the vector width: every element through the scalar path, one Philox
+    # counter (4 scalar loads and stores) a thread, as the first kernel
+    "scalar": [("  const int64_t n_vec = aligned ? n / kVec : 0;", "  const int64_t n_vec = 0;")],
+    # vectors whose loads a thread issues before their Philox rounds
+    "unroll-1": [(_UNROLL, "constexpr int kUnroll = 1;")],
+    "unroll-2": [(_UNROLL, "constexpr int kUnroll = 2;")],
+    "unroll-8": [(_UNROLL, "constexpr int kUnroll = 8;")],
+    # the grid: 1 to 16 waves of the card's resident blocks, and the first
+    # kernel's literal 132·64
+    "grid-1-wave": [(_WAVE, "constexpr int kWaves = 1;")],
+    "grid-2-waves": [(_WAVE, "constexpr int kWaves = 2;")],
+    "grid-4-waves": [(_WAVE, "constexpr int kWaves = 4;")],
+    "grid-16-waves": [(_WAVE, "constexpr int kWaves = 16;")],
+    "grid-132x64": [("  *blocks = kWaves * sms * (per_sm > 0 ? per_sm : 1);",
+                     "  *blocks = 132 * 64;")],
+    # 8 blocks of 256 threads an SM at most 32 registers
+    "min-blocks-8": [("__global__ void __launch_bounds__(kThreads)\ndropout_kernel",
+                      "__global__ void __launch_bounds__(kThreads, 8)\ndropout_kernel")],
+    # streaming cache hints on the vector loads and stores
+    "streaming": [("raw[u] = __ldg(xv + v);", "raw[u] = __ldcs(xv + v);"),
+                  ("ov[v] = Vec<T>::put(f);", "__stcs(ov + v, Vec<T>::put(f));")],
+    # wrong on purpose: no Philox rounds (a fixed word), to show their share
+    "no-philox": [("const uint4 b = philox4x32_10((uint64_t)v * kCtr + c, k0, k1);",
+                   "const uint4 b = make_uint4(0u, 0u, 0u, 0u);")],
+}
+
+
+def _start_builds(src: str, variants: dict, family: str):
+    """Build every variant of ``src`` (a file under the package, edited as
+    ``variants`` lists, the package's headers beside it) into
+    ``.smoke/variants/<family>/``, each nvcc in a thread of its own, all at
+    once. Returns a function that waits for them and gives ({name: (library,
+    ptxas log)}, {name: error})."""
+    import threading
+
+    from parallel_gcn_tpu_torch.ops import _build
+
+    out_dir = os.path.join(ROOT, ".smoke", "variants", family)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with open(os.path.join(ROOT, PKG, src)) as f:
+        text = f.read()
+    libs, errors = {}, {}
+
+    def build(name, edits):
+        vdir = os.path.join(out_dir, name)
+        os.makedirs(vdir)
+        for header in glob.glob(os.path.join(ROOT, PKG, "csrc", "*.cuh")):
+            shutil.copy(header, vdir)
+        edited = text
+        for old, new in edits:
+            if old not in edited:
+                errors[name] = f"{src} no longer holds {old!r}"
+                return
+            edited = edited.replace(old, new)
+        path = os.path.join(vdir, os.path.basename(src))
+        with open(path, "w") as f:
+            f.write(edited)
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        try:
+            libs[name] = (lib, _build._run_nvcc([path], lib))
+        except RuntimeError as e:
+            errors[name] = str(e)
+
+    threads = [threading.Thread(target=build, args=item) for item in variants.items()]
+    for t in threads:
+        t.start()
+
+    def join():
+        for t in threads:
+            t.join()
+        return libs, errors
+
+    return join
+
+
+def _load_variant(path: str, base, fns) -> None:
+    """Make the variant library at ``path`` the package's kernel library,
+    with ``base``'s ctypes signatures for ``fns``."""
+    import ctypes
+
+    from parallel_gcn_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(path)
+    for fn in fns:
+        getattr(lib, fn).argtypes = getattr(base, fn).argtypes
+        getattr(lib, fn).restype = getattr(base, fn).restype
+    _build._lib = lib
+
+
+def _run_parent(flag: str, parent: str) -> int:
+    return subprocess.run([sys.executable, os.path.abspath(__file__), flag,
+                           os.path.abspath(parent)]).returncode
 
 
 def make_variant(name: str) -> str:
@@ -278,9 +442,7 @@ def _time_spmm(torch, cb, pack, x41, x600) -> str:
 def spmm_family(parent: str | None) -> int:
     """K3/K4 of the checkout, its source variants and knob settings, and of
     ``parent``'s package."""
-    import ctypes
     import dataclasses
-    import threading
 
     import torch
 
@@ -289,37 +451,11 @@ def spmm_family(parent: str | None) -> int:
     from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    out_dir = os.path.join(ROOT, ".smoke", "variants", "spmm")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    with open(os.path.join(ROOT, PKG, SPMM)) as f:
-        text = f.read()
-    libs, errors = {}, {}
-
-    def build(name, edits):
-        src = os.path.join(out_dir, f"{name}.cu")
-        edited = text
-        for old, new in edits:
-            if old not in edited:
-                errors[name] = f"{SPMM} no longer holds {old!r}"
-                return
-            edited = edited.replace(old, new)
-        with open(src, "w") as f:
-            f.write(edited)
-        try:
-            _build._run_nvcc([src], os.path.join(out_dir, f"lib{name}.so"))
-            libs[name] = os.path.join(out_dir, f"lib{name}.so")
-        except RuntimeError as e:
-            errors[name] = str(e)
-
     # every variant's nvcc at once, while the checkout builds and the data loads
-    threads = [threading.Thread(target=build, args=item) for item in SPMM_VARIANTS.items()]
-    for t in threads:
-        t.start()
+    join = _start_builds(SPMM, SPMM_VARIANTS, "spmm")
     base = _build.load_library()
     pack, x41, x600 = _spmm_inputs(torch)
-    for t in threads:
-        t.join()
+    libs, errors = join()
     if errors:
         print(f"[spmm-variant] build failures: {errors}")
         return 1
@@ -339,20 +475,15 @@ def spmm_family(parent: str | None) -> int:
     for tiles in (2, 4, 8):
         print(f"[spmm-variant] base, segments of {tiles}: "
               f"{_time_spmm(torch, cb, with_segments(tiles), x41, x600)}", flush=True)
-    for name, path in libs.items():
-        lib = ctypes.CDLL(path)
-        lib.pgcn_bcsr_spmm.argtypes = base.pgcn_bcsr_spmm.argtypes
-        lib.pgcn_bcsr_spmm.restype = base.pgcn_bcsr_spmm.restype
-        _build._lib = lib
+    for name, (path, _) in libs.items():
+        _load_variant(path, base, ["pgcn_bcsr_spmm"])
         print(f"[spmm-variant] {name}: {_time_spmm(torch, cb, pack, x41, x600)}", flush=True)
     _build._lib = base
     print(f"[spmm-variant] base again: {_time_spmm(torch, cb, pack, x41, x600)}", flush=True)
     if parent:
         del pack, x41, x600
         torch.cuda.empty_cache()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-spmm",
-                               os.path.abspath(parent)])
-        return proc.returncode
+        return _run_parent("--time-spmm", parent)
     return 0
 
 
@@ -442,9 +573,18 @@ def _bare_call(ta, key: str, pack, inputs):
     return lambda: (held, _build._lib.pgcn_gat_bwd(*walk, *head, *tail))
 
 
-def _ptxas(log: str) -> str:
-    """Registers and spills of the main path's K5/K6 instantiations (heads
-    <= 2, bf16 v) from nvcc's -Xptxas -v output."""
+_PTXAS_K56 = (("gat_fwd_kernelILi2ELi1E13__nv_bfloat16", "K5"),
+              ("gat_bwd_kernelILi2ELi1E13__nv_bfloat16", "K6"))
+_PTXAS_K7 = (("gat_bwd_rect_row_kernelILi2ELi1E13__nv_bfloat16", "K7 row"),
+             ("gat_bwd_rect_col_kernelILi2ELi1E13__nv_bfloat16", "K7 col"))
+_PTXAS_K12 = (("dropout_kernelI13__nv_bfloat16Lb0E", "K1 bf16"),
+              ("dropout_kernelI13__nv_bfloat16Lb1E", "K2 bf16"))
+
+
+def _ptxas(log: str, keys=_PTXAS_K56) -> str:
+    """Registers and spills of the main path's instantiations (``keys``:
+    mangled-name part and label; K5/K6 at heads <= 2 and bf16 v by
+    default) from nvcc's -Xptxas -v output."""
     parts, name, spill = [], "", ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -452,8 +592,7 @@ def _ptxas(log: str) -> str:
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
-            for key, label in (("gat_fwd_kernelILi2ELi1E13__nv_bfloat16", "K5"),
-                               ("gat_bwd_kernelILi2ELi1E13__nv_bfloat16", "K6")):
+            for key, label in keys:
                 if key in name:
                     regs = line.split("Used")[1].split(",")[0].strip()
                     parts.append(f"{label} {regs} ({spill})")
@@ -463,9 +602,6 @@ def _ptxas(log: str) -> str:
 def attention_family(parent: str | None) -> int:
     """K5/K6 of the checkout and its source variants, and of ``parent``'s
     package."""
-    import ctypes
-    import threading
-
     import torch
 
     sys.path.insert(0, ROOT)
@@ -473,40 +609,10 @@ def attention_family(parent: str | None) -> int:
     from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
     from parallel_gcn_tpu_torch.ops import tile_attention as ta
 
-    out_dir = os.path.join(ROOT, ".smoke", "variants", "attention")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    src_dir = os.path.join(ROOT, PKG, "csrc")
-    with open(os.path.join(src_dir, "tile_attention.cu")) as f:
-        text = f.read()
-    libs, errors = {}, {}
-
-    def build(name, edits):
-        vdir = os.path.join(out_dir, name)
-        os.makedirs(vdir)
-        shutil.copy(os.path.join(src_dir, "tile_attention.cuh"), vdir)
-        edited = text
-        for old, new in edits:
-            if old not in edited:
-                errors[name] = f"{ATTN} no longer holds {old!r}"
-                return
-            edited = edited.replace(old, new)
-        src = os.path.join(vdir, "tile_attention.cu")
-        with open(src, "w") as f:
-            f.write(edited)
-        try:
-            log = _build._run_nvcc([src], os.path.join(out_dir, f"lib{name}.so"))
-            libs[name] = (os.path.join(out_dir, f"lib{name}.so"), log)
-        except RuntimeError as e:
-            errors[name] = str(e)
-
-    threads = [threading.Thread(target=build, args=item) for item in ATTN_VARIANTS.items()]
-    for t in threads:
-        t.start()
+    join = _start_builds(ATTN, ATTN_VARIANTS, "attention")
     base = _build.load_library()
     pack, shapes = _attention_inputs(torch)
-    for t in threads:
-        t.join()
+    libs, errors = join()
     for name, err in errors.items():
         print(f"[attn-variant] {name} not built: {err}")
     print(f"[attn-variant] base ptxas: {_ptxas(_build.build_info['log'])}")
@@ -533,11 +639,7 @@ def attention_family(parent: str | None) -> int:
         print(f"[attn-variant] K6's node records (torch, in its wrapper) D={D}: {ms:.4f} ms",
               flush=True)
     for name, (path, log) in libs.items():
-        lib = ctypes.CDLL(path)
-        for fn in ("pgcn_gat_fwd", "pgcn_gat_bwd"):
-            getattr(lib, fn).argtypes = getattr(base, fn).argtypes
-            getattr(lib, fn).restype = getattr(base, fn).restype
-        _build._lib = lib
+        _load_variant(path, base, ["pgcn_gat_fwd", "pgcn_gat_bwd"])
         print(f"[attn-variant] {name}: {_time_attention(torch, ta, pack, shapes, False)} "
               f"[ptxas: {_ptxas(log)}]", flush=True)
     _build._lib = base
@@ -546,9 +648,7 @@ def attention_family(parent: str | None) -> int:
     if parent:
         del pack, shapes, idx
         torch.cuda.empty_cache()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-attention",
-                               os.path.abspath(parent)])
-        return proc.returncode or int(bool(errors))
+        return _run_parent("--time-attention", parent) or int(bool(errors))
     return int(bool(errors))
 
 
@@ -567,6 +667,219 @@ def time_attention_tree(root: str) -> None:
           flush=True)
 
 
+def _rect_inputs(torch):
+    """Rank 0's GAT slabs of synth-reddit's mesh partition at one rank and at
+    4 ranks (boundary halo kept), and K7's inputs on each at heads 2, d 32
+    and 41 (bf16; m, den and ρ from the plain forward), with K7's records
+    and padded rows prepared once (``a``)."""
+    from chip_smoke import _config, mesh_slabs
+    from parallel_gcn_tpu_torch.data.parser import prepare_host_dataset
+    from parallel_gcn_tpu_torch.ops import tile_attention as ta
+
+    ds = prepare_host_dataset(_config([], 1), "synth-reddit")
+    gen = torch.Generator().manual_seed(7)
+    slabs = {}
+    for n_dev, args in ((1, []), (4, ["halo_fallback=false"])):
+        _, attn = mesh_slabs(ds, n_dev, args)
+        n, nb, H = attn.n_rows, attn.n_buf, 2
+        shapes = {}
+        for D in (32, 41):
+            s = torch.randn((n, H), generator=gen).to(torch.bfloat16).cuda()
+            t = torch.randn((nb, H), generator=gen).to(torch.bfloat16).cuda()
+            v = torch.randn((nb, H, D), generator=gen).to(torch.bfloat16).cuda()
+            g = torch.randn((n, H, D), generator=gen).cuda()
+            acc, m, den = ta.gat_fwd_tiles_plain(attn.rows, s, t, v, slope=0.2)
+            rho = (g * acc / den.clamp(min=1e-16)[:, :, None]).sum(-1)
+            bw = (s, t, v, g, m, den, rho)
+            shapes[D] = (bw, ta._rect_bwd_args(*bw))
+        slabs[f"{n_dev}-way"] = (attn, shapes)
+    return slabs
+
+
+def _time_rect(torch, ta, slabs, bare: bool) -> str:
+    """Each K7 sweep's wrapper call (and with ``bare`` the library call with
+    its records and padded rows prepared once) on each slab at d 32 and 41."""
+    parts = []
+    for tag, (attn, shapes) in slabs.items():
+        for D, (bw, a) in shapes.items():
+            calls = {"row": (lambda: ta.gat_bwd_rect_row(attn.rows, *bw, slope=0.2),
+                             lambda: ta._launch_rect("row", attn.rows, a, 0.2, 0.0, 0)),
+                     "col": (lambda: ta.gat_bwd_rect_col(attn.cols, *bw, slope=0.2),
+                             lambda: ta._launch_rect("col", attn.cols, a, 0.2, 0.0, 0))}
+            for sweep, (fn, lib_call) in calls.items():
+                out = fn()
+                out = out if sweep == "row" else torch.cat([out[0], out[1].flatten(1)], 1)
+                part = (f"{tag} {sweep} D={D} {_events_ms(torch, fn):.4f} ms "
+                        f"({_digest(out)})")
+                if bare:
+                    part += f", kernel alone {_events_ms(torch, lib_call):.4f}"
+                parts.append(part)
+    return "; ".join(parts)
+
+
+def rect_family(parent: str | None) -> int:
+    """K7 of the checkout and its source variants, and of ``parent``'s
+    package."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import tile_attention as ta
+
+    join = _start_builds(RECT, RECT_VARIANTS, "rect")
+    base = _build.load_library()
+    slabs = _rect_inputs(torch)
+    libs, errors = join()
+    print(f"[rect-variant] base ptxas: {_ptxas(_build.build_info['log'], _PTXAS_K7)}")
+    for name, err in errors.items():
+        print(f"[rect-variant] {name} not built: {err}")
+    # the base against the plain versions (d 41, rate 0)
+    for tag, (attn, shapes) in slabs.items():
+        bw, _ = shapes[41]
+        got = ta.gat_bwd_rect_row(attn.rows, *bw, slope=0.2)
+        ref = ta.gat_bwd_rect_row_plain(attn.rows, *bw, slope=0.2)
+        e_row = float((got - ref).abs().max() / ref.abs().max())
+        got = ta.gat_bwd_rect_col(attn.cols, *bw, slope=0.2)
+        ref = ta.gat_bwd_rect_col_plain(attn.cols, *bw, slope=0.2)
+        e_col = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, ref))
+        print(f"[rect-variant] base vs plain on the {tag} slab [{attn.n_rows}, {attn.n_buf}] "
+              f"at D=41: row max err {e_row:.3e}, column {e_col:.3e} of max|ref|; index "
+              f"entries {attn.rows.attn_index.col.numel()} (rows), "
+              f"{attn.cols.attn_index.col.numel()} (column copy)", flush=True)
+    print(f"[rect-variant] base: {_time_rect(torch, ta, slabs, True)}", flush=True)
+    for tag, (attn, shapes) in slabs.items():
+        bw, _ = shapes[41]
+        ms = _events_ms(torch, lambda: ta._rect_bwd_args(*bw))
+        print(f"[rect-variant] K7's records and padded g, v rows ({tag}, D=41, shared by "
+              f"both sweeps): {ms:.4f} ms", flush=True)
+    for name, (path, log) in libs.items():
+        _load_variant(path, base, ["pgcn_gat_bwd_rect_row", "pgcn_gat_bwd_rect_col",
+                                   "pgcn_pad_heads"])
+        print(f"[rect-variant] {name}: {_time_rect(torch, ta, slabs, False)} "
+              f"[ptxas: {_ptxas(log, _PTXAS_K7)}]", flush=True)
+    _build._lib = base
+    print(f"[rect-variant] base again: {_time_rect(torch, ta, slabs, False)}", flush=True)
+    if parent:
+        del slabs
+        torch.cuda.empty_cache()
+        return _run_parent("--time-rect", parent) or int(bool(errors))
+    return int(bool(errors))
+
+
+def time_rect_tree(root: str) -> None:
+    """K7 of the package under ``root`` (another checkout)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import tile_attention as ta
+
+    assert os.path.abspath(ta.__file__).startswith(os.path.abspath(root)), ta.__file__
+    _build.load_library()
+    slabs = _rect_inputs(torch)
+    print(f"[rect-variant] {root}: {_time_rect(torch, ta, slabs, False)}", flush=True)
+
+
+def _dropout_inputs(torch):
+    gen = torch.Generator().manual_seed(1)
+    return {shape: torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+            for shape in ((233472, 64), (233472, 600))}
+
+
+def _dropout_device_ms(torch, fn, reps=20) -> float:
+    """Device ms per call of ``fn`` in kernels named ``*dropout_kernel*``
+    (K1/K2's, and ``F.dropout``'s ``fused_dropout_kernel_vec``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "dropout_kernel" in e.name) / 1e3 / reps
+
+
+def _time_dropout(torch, cd, inputs) -> str:
+    """K1 and K2 at each input: CUDA events over 20 wrapper calls and the
+    kernel's own device time."""
+    seed, rate = 0x1234_5678_9ABC, 0.1
+    parts = []
+    for shape, x in inputs.items():
+        for key, fn in (("K1", lambda: cd.dropout(x, seed, rate)),
+                        ("K2", lambda: cd.relu_dropout(x, seed, rate))):
+            parts.append(f"{key} {list(shape)} {_events_ms(torch, fn, 20):.4f} ms "
+                         f"(device {_dropout_device_ms(torch, fn):.4f}; {_digest(fn())})")
+    return "; ".join(parts)
+
+
+def dropout_family(parent: str | None) -> int:
+    """K1/K2 of the checkout and its source variants, and of ``parent``'s
+    package, beside ``torch.nn.functional.dropout``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
+
+    join = _start_builds(DROP, DROP_VARIANTS, "dropout")
+    base = _build.load_library()
+    inputs = _dropout_inputs(torch)
+    libs, errors = join()
+    print(f"[drop-variant] base ptxas: {_ptxas(_build.build_info['log'], _PTXAS_K12)}")
+    for name, err in errors.items():
+        print(f"[drop-variant] {name} not built: {err}")
+    for shape, x in inputs.items():
+        fn = lambda: torch.nn.functional.dropout(x, 0.1)  # noqa: E731
+        print(f"[drop-variant] torch.nn.functional.dropout {list(shape)} bf16 rate 0.1: "
+              f"{_events_ms(torch, fn, 20):.4f} ms (device {_dropout_device_ms(torch, fn):.4f})",
+              flush=True)
+    print(f"[drop-variant] base: {_time_dropout(torch, cd, inputs)}", flush=True)
+    # a K1 call's cost by layer at the small shape, where the kernel is short:
+    # 200 calls back to back, so each time is the larger of host and device
+    import ctypes
+
+    x = inputs[(233472, 64)]
+    out = torch.empty_like(x)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    args = (x.data_ptr(), out.data_ptr(), x.numel(), 1, 0, 0x1234_5678_9ABC,
+            cd.keep_threshold(0.1), cd._inv_keep(0.1, x.dtype), stream)
+    layers = {"autograd Function (cd.dropout)": lambda: cd.dropout(x, 0x1234_5678_9ABC, 0.1),
+              "wrapper (cd._run)": lambda: cd._run(x, 0x1234_5678_9ABC, 0.1, False),
+              "library call alone": lambda: base.pgcn_dropout(*args),
+              "torch.empty_like alone": lambda: torch.empty_like(x),
+              "torch.nn.functional.dropout": lambda: torch.nn.functional.dropout(x, 0.1)}
+    print("[drop-variant] K1 [233472, 64] by layer, ms a call over 200: " + "; ".join(
+        f"{k} {_events_ms(torch, fn, 200):.4f}" for k, fn in layers.items()), flush=True)
+    for name, (path, log) in libs.items():
+        _load_variant(path, base, ["pgcn_dropout"])
+        print(f"[drop-variant] {name}: {_time_dropout(torch, cd, inputs)} "
+              f"[ptxas: {_ptxas(log, _PTXAS_K12)}]", flush=True)
+    _build._lib = base
+    print(f"[drop-variant] base again: {_time_dropout(torch, cd, inputs)}", flush=True)
+    if parent:
+        del inputs
+        torch.cuda.empty_cache()
+        return _run_parent("--time-dropout", parent) or int(bool(errors))
+    return int(bool(errors))
+
+
+def time_dropout_tree(root: str) -> None:
+    """K1/K2 of the package under ``root`` (another checkout)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
+
+    assert os.path.abspath(cd.__file__).startswith(os.path.abspath(root)), cd.__file__
+    _build.load_library()
+    inputs = _dropout_inputs(torch)
+    print(f"[drop-variant] {root}: {_time_dropout(torch, cd, inputs)}", flush=True)
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--time"]:
         time_tree(argv[1], argv[2])
@@ -574,8 +887,10 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--time-spmm"]:
         time_spmm_tree(argv[1])
         return 0
-    if argv[:1] == ["--time-attention"]:
-        time_attention_tree(argv[1])
+    trees = {"--time-attention": time_attention_tree, "--time-rect": time_rect_tree,
+             "--time-dropout": time_dropout_tree}
+    if argv[:1] and argv[0] in trees:
+        trees[argv[0]](argv[1])
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -583,8 +898,10 @@ def main(argv: list[str]) -> int:
     parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     if argv[:1] == ["spmm"]:
         return spmm_family(parent)
-    if argv[:1] == ["attention"]:
-        return attention_family(parent)
+    families = {"attention": attention_family, "rect": rect_family,
+                "dropout": dropout_family}
+    if argv[:1] and argv[0] in families:
+        return families[argv[0]](parent)
     if not argv:
         rc = spmm_family(None)
         if rc:

@@ -17,11 +17,25 @@
 //
 // What bounds it on an H100: memory. Layer 1 of synth-reddit is a
 // [233472, 600] bf16 activation: 280 MB read and 280 MB written, about
-// 0.17 ms at 3.35 TB/s. Philox costs ~10 multiply rounds per 4 elements,
-// far below the card's integer rate.
-// Design: one thread per Philox counter (4 consecutive elements), a
-// grid-stride loop, the mask never stored (the K1 backward regenerates it,
-// the K2 backward reads the saved output).
+// 0.17 ms at 3.35 TB/s. Philox costs 10 rounds of two 32×32→64-bit
+// multiplies per 4 elements, about 0.1 ms of integer issue at that size:
+// below the memory time, but only if the two overlap.
+// Design: a stream of 16-byte vectors (8 bf16 elements, two Philox
+// counters; or 4 f32, one counter). Each thread first issues kUnroll
+// vectors' loads, then runs their Philox rounds while the loads are in
+// flight, and stores 16 bytes a vector. The grid is sized from the device:
+// kWaves times the blocks the card holds at once (the SM count times the
+// blocks an SM holds, from the occupancy calculator), each block walking
+// the same number of grid-stride steps. A single wave of persistent blocks
+// measured 14% slower at [233472, 600] (kernel_variants.py dropout),
+// likely because its warps stay in step, so that their load and Philox
+// phases coincide, where blocks that start at different times overlap one
+// block's Philox rounds with another's loads. A tensor whose data or output
+// is not 16-byte aligned (a view with a storage offset), and the
+// n % (16 / sizeof(T)) elements after the last whole vector, take a scalar
+// path in the same kernel: one counter a thread, the same bits. The mask is
+// never stored (the K1 backward regenerates it, the K2 backward reads the
+// saved output).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,7 +48,13 @@ constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
 constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
 constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;  // vectors whose loads a thread has in flight together
+constexpr int kWaves = 8;   // the grid's blocks, in waves of the card's resident blocks
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint64_t ctr, uint32_t k0, uint32_t k1) {
+  uint4 c = make_uint4((uint32_t)ctr, (uint32_t)(ctr >> 32), 0u, 0u);
 #pragma unroll
   for (int round = 0; round < 10; ++round) {
     if (round > 0) {
@@ -50,72 +70,175 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
   return c;
 }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// One element under the mask: the kept value x·inv_keep, or 0.
+template <bool kRelu>
+__device__ __forceinline__ float drop1(float v, uint32_t word, uint32_t thr, float inv_keep) {
+  bool keep = word < thr;
+  if (kRelu) keep = keep && (v > 0.0f);
+  return keep ? v * inv_keep : 0.0f;
 }
 
+// 16 bytes of T as kVec floats, and back (bf16 rounded to nearest even).
+template <typename T> struct Vec;
+
+template <> struct Vec<float> {
+  static constexpr int kVec = 4;
+  static __device__ __forceinline__ void get(uint4 u, float (&x)[4]) {
+    x[0] = __uint_as_float(u.x); x[1] = __uint_as_float(u.y);
+    x[2] = __uint_as_float(u.z); x[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 put(const float (&x)[4]) {
+    return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]), __float_as_uint(x[2]),
+                      __float_as_uint(x[3]));
+  }
+  static __device__ __forceinline__ float load1(const float* p) { return *p; }
+  static __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+};
+
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ void get(uint4 u, float (&x)[8]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+  }
+  static __device__ __forceinline__ uint4 put(const float (&x)[8]) {
+    return make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]),
+                      pack2(x[6], x[7]));
+  }
+  static __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+};
+
 template <typename T, bool kRelu>
-__global__ void dropout_kernel(const T* __restrict__ x, T* __restrict__ out,
-                               int64_t n, uint32_t k0, uint32_t k1,
-                               uint32_t thr, float inv_keep) {
+__global__ void __launch_bounds__(kThreads)
+dropout_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t n_vec,
+               uint32_t k0, uint32_t k1, uint32_t thr, float inv_keep) {
+  constexpr int kVec = Vec<T>::kVec;  // elements per 16-byte vector
+  constexpr int kCtr = kVec / 4;      // Philox counters per vector
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* ov = reinterpret_cast<uint4*>(out);
+  const int64_t step = (int64_t)gridDim.x * kThreads * kUnroll;
+  for (int64_t v0 = (int64_t)blockIdx.x * kThreads * kUnroll + threadIdx.x; v0 < n_vec;
+       v0 += step) {
+    uint4 raw[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = v0 + (int64_t)u * kThreads;
+      if (v < n_vec) raw[u] = __ldg(xv + v);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = v0 + (int64_t)u * kThreads;
+      if (v < n_vec) {
+        uint32_t word[kVec];
+#pragma unroll
+        for (int c = 0; c < kCtr; ++c) {
+          const uint4 b = philox4x32_10((uint64_t)v * kCtr + c, k0, k1);
+          word[4 * c] = b.x; word[4 * c + 1] = b.y;
+          word[4 * c + 2] = b.z; word[4 * c + 3] = b.w;
+        }
+        float f[kVec];
+        Vec<T>::get(raw[u], f);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) f[e] = drop1<kRelu>(f[e], word[e], thr, inv_keep);
+        ov[v] = Vec<T>::put(f);
+      }
+    }
+  }
+  // the scalar path: the elements from n_vec·kVec on (all of them when x or
+  // out is not 16-byte aligned), one Philox counter of 4 elements a thread
   const int64_t n_ctr = (n + 3) >> 2;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t ctr = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; ctr < n_ctr;
-       ctr += stride) {
-    const uint4 bits = philox4x32_10(
-        make_uint4((uint32_t)ctr, (uint32_t)((uint64_t)ctr >> 32), 0u, 0u), k0, k1);
-    const uint32_t word[4] = {bits.x, bits.y, bits.z, bits.w};
-    const int64_t base = ctr << 2;
+  for (int64_t ctr = n_vec * kCtr + (int64_t)blockIdx.x * kThreads + threadIdx.x;
+       ctr < n_ctr; ctr += (int64_t)gridDim.x * kThreads) {
+    const uint4 b = philox4x32_10((uint64_t)ctr, k0, k1);
+    const uint32_t word[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int64_t i = base + j;
-      if (i < n) {
-        const float v = to_float(x[i]);
-        bool keep = word[j] < thr;
-        if (kRelu) keep = keep && (v > 0.0f);
-        out[i] = keep ? from_float<T>(v * inv_keep) : from_float<T>(0.0f);
-      }
+      const int64_t i = (ctr << 2) + j;
+      if (i < n) Vec<T>::store1(out + i, drop1<kRelu>(Vec<T>::load1(x + i), word[j], thr,
+                                                     inv_keep));
     }
   }
 }
 
+// The most blocks a launch takes: kWaves times the blocks of the kernel
+// that the card holds at once, per device.
 template <typename T, bool kRelu>
-void launch(const void* x, void* out, int64_t n, uint64_t seed, uint32_t thr,
-            float inv_keep, cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t n_ctr = (n + 3) >> 2;
-  int64_t blocks = (n_ctr + threads - 1) / threads;
-  if (blocks > 132 * 64) blocks = 132 * 64;
-  dropout_kernel<T, kRelu><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n, (uint32_t)seed,
+int grid_cap(int* blocks) {
+  static int cached[kMaxDevices];  // 0: not yet asked
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev < kMaxDevices && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dropout_kernel<T, kRelu>,
+                                                       kThreads, 0);
+  if (rc != cudaSuccess) return (int)rc;
+  *blocks = kWaves * sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < kMaxDevices) cached[dev] = *blocks;
+  return 0;
+}
+
+template <typename T, bool kRelu>
+int launch(const void* x, void* out, int64_t n, uint64_t seed, uint32_t thr,
+           float inv_keep, cudaStream_t stream) {
+  constexpr int kVec = Vec<T>::kVec;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
+                        15u) == 0;
+  const int64_t n_vec = aligned ? n / kVec : 0;
+  // thread steps the work needs: whole vectors kUnroll at a time, or the
+  // scalar path's counters
+  const int64_t steps = n_vec > 0 ? (n_vec + kUnroll - 1) / kUnroll
+                                  : (((n + 3) >> 2) - n_vec * (kVec / 4));
+  const int64_t need = (steps + kThreads - 1) / kThreads;
+  int cap = 0;
+  const int rc = grid_cap<T, kRelu>(&cap);
+  if (rc) return rc;
+  // as many grid-stride rounds as the cap needs, spread over equal blocks
+  const int64_t rounds = (need + cap - 1) / cap;
+  const int64_t blocks = need > 0 ? (need + rounds - 1) / rounds : 1;
+  dropout_kernel<T, kRelu><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n, n_vec, (uint32_t)seed,
       (uint32_t)(seed >> 32), thr, inv_keep);
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. Any alignment of x and out. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int pgcn_dropout(const void* x, void* out, int64_t n, int dtype,
                             int relu, uint64_t seed, uint32_t thr,
                             float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return (int)cudaErrorInvalidValue;
+  int rc;
   if (dtype == 0) {
-    if (relu) launch<float, true>(x, out, n, seed, thr, inv_keep, s);
-    else launch<float, false>(x, out, n, seed, thr, inv_keep, s);
+    rc = relu ? launch<float, true>(x, out, n, seed, thr, inv_keep, s)
+              : launch<float, false>(x, out, n, seed, thr, inv_keep, s);
   } else if (dtype == 1) {
-    if (relu) launch<__nv_bfloat16, true>(x, out, n, seed, thr, inv_keep, s);
-    else launch<__nv_bfloat16, false>(x, out, n, seed, thr, inv_keep, s);
+    rc = relu ? launch<__nv_bfloat16, true>(x, out, n, seed, thr, inv_keep, s)
+              : launch<__nv_bfloat16, false>(x, out, n, seed, thr, inv_keep, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }

@@ -72,52 +72,6 @@ constexpr int kFwdUnroll = 4;  // warp steps whose row loads are in flight toget
 constexpr int kBwdUnroll = 2;
 constexpr int kEdgeTerms = 3;  // K6's per-edge, per-head scalars in shared memory
 
-// The unit this warp walks: its index range, global row and output row.
-struct Unit {
-  int seg, grow, p0, p1;
-  float* dst;
-};
-
-__device__ __forceinline__ Unit unit_of(const Sched& sc, const int* ptr, float* out,
-                                        float* ws, int width) {
-  const int u = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int seg = u / sc.tile_r;
-  const int r = u % sc.tile_r;
-  return Unit{seg, sc.seg_row[seg] * sc.tile_r + r, ptr[u], ptr[u + 1],
-              segment_dst(sc, out, ws, seg, r, width)};
-}
-
-// Sum the Team slots' partial row sums into slot 0, in slot order.
-template <int kG>
-__device__ __forceinline__ void sum_slots(const Team<kG>& tm, float (&x)[kG][8]) {
-  float own[kG][8];
-#pragma unroll
-  for (int k = 0; k < kG; ++k)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) own[k][e] = x[k][e];
-  for (int sl = 1; sl < tm.E; ++sl) {
-#pragma unroll
-    for (int k = 0; k < kG; ++k)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[k][e] += __shfl_down_sync(kFull, own[k][e], sl * tm.HQ);
-  }
-}
-
-// Slot 0 writes its groups of a row of H·D features (unpadded).
-template <int kG>
-__device__ __forceinline__ void store_row(const Team<kG>& tm, const float (&x)[kG][8],
-                                          float* dst, int D) {
-#pragma unroll
-  for (int k = 0; k < kG; ++k) {
-    if (tm.on[k] && tm.slot[k] == 0) {
-      const int d0 = 8 * tm.q[k];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        if (d0 + e < D) dst[tm.h[k] * D + d0 + e] = x[k][e];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K5: forward walk -> acc | m | den per row
 template <int kH, int kG, typename VT>
@@ -345,111 +299,22 @@ gat_bwd_kernel(Sched sc, const int* __restrict__ ptr, const int* __restrict__ ic
   }
 
   // the dot products with the row's own g_i and v_i groups, per head
-  float dot_s[kG], dot_t[kG];
-#pragma unroll
-  for (int k = 0; k < kG; ++k) {
-    Raw8<float> a;
-    Raw8<VT> b;
-    if (tm.on[k]) {
-      a.load(gp + (size_t)un.grow * S + tm.offset(k, P));
-      b.load(vp + (size_t)un.grow * S + tm.offset(k, P));
-    } else {
-      a.zero();
-      b.zero();
-    }
-    float g_i[8], v_i[8];
-    a.get(g_i);
-    b.get(v_i);
-    dot_s[k] = dot_t[k] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      dot_s[k] = fmaf(g_i[e], sv[k][e], dot_s[k]);
-      dot_t[k] = fmaf(v_i[e], sg[k][e], dot_t[k]);
-    }
-  }
+  float xs[kH], xt[kH];
+  row_dots<kH>(tm, gp, un.grow, S, P, H, sv, xs);
+  row_dots<kH>(tm, vp, un.grow, S, P, H, sg, xt);
   sum_slots(tm, dv);
   store_row(tm, dv, un.dst, D);
 #pragma unroll
   for (int h = 0; h < kH; ++h) {
     if (h < H) {
-      float xs = 0.0f, xt = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kG; ++k) {
-        if (tm.h[k] == h) {
-          xs += dot_s[k];
-          xt += dot_t[k];
-        }
-      }
-      xs = warp_sum(xs);
-      xt = warp_sum(xt);
       const float sa = warp_sum(sum_a[h]);
       const float sb = warp_sum(sum_brho[h]);
       if (lane == 0) {
-        un.dst[HD + h] = xs - n_i[5 * h + 4] * sa;
-        un.dst[HD + H + h] = xt - sb;
+        un.dst[HD + h] = xs[h] - n_i[5 * h + 4] * sa;
+        un.dst[HD + H + h] = xt[h] - sb;
       }
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// The padded rows the walks read: x [n, H·D] -> xp [n, S], head h's features
-// at [h·P, h·P + D), zeros elsewhere; one thread per 8-value group of xp.
-template <typename T>
-__global__ void pad_heads_kernel(const T* __restrict__ x, T* __restrict__ xp, int n,
-                                 int H, int D, int P, int S) {
-  const int groups = S / 8;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)n * groups) return;
-  const size_t row = i / groups;
-  const int f0 = (int)(i % groups) * 8;
-  const int h = f0 / P;
-  const int d0 = f0 - h * P;
-  __align__(16) T y[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    y[e] = h < H && d0 + e < D ? x[row * (size_t)(H * D) + h * D + d0 + e] : T{};
-#pragma unroll
-  for (int c = 0; c < (int)sizeof(y) / 16; ++c)
-    reinterpret_cast<uint4*>(xp + row * S + f0)[c] = reinterpret_cast<const uint4*>(y)[c];
-}
-
-template <typename T>
-void pad_heads(const void* x, void* xp, int n, int H, int D, int P, int S,
-               cudaStream_t stream) {
-  const size_t threads = (size_t)n * (S / 8);
-  if (threads == 0) return;
-  pad_heads_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(xp), n, H, D, P, S);
-}
-
-// The kernels' limits: heads, the padded layout, whole warps per tile row.
-bool valid_walk(const Sched& sc, int H, int D, int P, int S) {
-  return sc.n_seg > 0 && H >= 1 && H <= kMaxH && D >= 1 && H * D <= kMaxHD &&
-         P % 8 == 0 && P >= D && P < D + 8 && S % 8 == 0 && S >= H * P &&
-         team_pairs(H, P) > 0 && sc.tile_r % kWarps == 0;
-}
-
-// f(kH, kG, VT*) with the kernels' compile-time heads and Team pairs for H
-// and P, and v's element type for v_dtype (0 = float32, 1 = bfloat16).
-template <typename F>
-int by_shape(int H, int P, int v_dtype, F&& f) {
-  auto with_vt = [&](auto kh, auto kg) -> int {
-    if (v_dtype == 0) f(kh, kg, (float*)nullptr);
-    else if (v_dtype == 1) f(kh, kg, (__nv_bfloat16*)nullptr);
-    else return (int)cudaErrorInvalidValue;
-    return 0;
-  };
-  using I2 = std::integral_constant<int, 2>;
-  using I8 = std::integral_constant<int, 8>;
-  using G1 = std::integral_constant<int, 1>;
-  using G2 = std::integral_constant<int, 2>;
-  if (H <= 2) return with_vt(I2{}, G1{});  // H·P/8 <= 32 when H <= 2 and H·D <= 256
-  return team_pairs(H, P) == 1 ? with_vt(I8{}, G1{}) : with_vt(I8{}, G2{});
-}
-
-dim3 walk_grid(const Sched& sc) {
-  return dim3((unsigned)(sc.n_seg * (sc.tile_r / kWarps)));
 }
 
 }  // namespace
@@ -469,8 +334,7 @@ extern "C" int pgcn_gat_fwd(const int* idx_ptr, const int* idx_col, const int* s
                             int v_dtype, void* vp, int P, int S, float* out, float* ws,
                             int H, int D, float slope, int drop, uint32_t seed,
                             uint32_t thr, float inv_keep, void* stream) {
-  const Sched sc{nullptr, nullptr, seg_row, seg_slot, n_seg, multi_row,
-                 multi_slot_ptr, n_multi, nullptr, tile_r, 0};
+  const Sched sc{seg_row, seg_slot, n_seg, multi_row, multi_slot_ptr, n_multi, tile_r};
   if (!valid_walk(sc, H, D, P, S)) return (int)cudaErrorInvalidValue;
   const Drop dr{drop, seed, thr, inv_keep};
   const cudaStream_t strm = static_cast<cudaStream_t>(stream);
@@ -494,8 +358,7 @@ extern "C" int pgcn_gat_bwd(const int* idx_ptr, const int* idx_col, const int* s
                             int v_dtype, float* gp, void* vp, int P, int S, float* out,
                             float* ws, int H, int D, float slope, int drop, uint32_t seed,
                             uint32_t thr, float inv_keep, void* stream) {
-  const Sched sc{nullptr, nullptr, seg_row, seg_slot, n_seg, multi_row,
-                 multi_slot_ptr, n_multi, nullptr, tile_r, 0};
+  const Sched sc{seg_row, seg_slot, n_seg, multi_row, multi_slot_ptr, n_multi, tile_r};
   if (!valid_walk(sc, H, D, P, S)) return (int)cudaErrorInvalidValue;
   const Drop dr{drop, seed, thr, inv_keep};
   const cudaStream_t strm = static_cast<cudaStream_t>(stream);

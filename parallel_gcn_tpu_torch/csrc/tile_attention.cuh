@@ -1,8 +1,8 @@
 // Shared pieces of the GAT tile-attention kernels (tile_attention.cu: K5,
-// K6; tile_attention_rect.cu: K7): the per-warp walk over a tile row's live
-// entries (K7), the lane layout of the live-column index walk (K5, K6), the
-// segment schedule, the attention-dropout hash and the ordered merge of split
-// tile-rows. See tile_attention.cu for the design.
+// K6; tile_attention_rect.cu: K7): the walk of a pack's live-column index
+// (one warp per unit, the Team lane layout of the row gathers), the segment
+// schedule, the attention-dropout hash, the ordered merge of split
+// tile-rows and the padded row copies. See tile_attention.cu for the design.
 
 #pragma once
 
@@ -17,16 +17,9 @@ namespace {
 constexpr float kNeg = -1e9f;          // masked-logit fill, as _NEG
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 64;              // rows per CTA
 constexpr int kMaxH = 8;               // heads
-constexpr int kMaxK = 8;               // features per lane: H·D <= 256
-constexpr int kMaxHD = 32 * kMaxK;
-constexpr int kMaxHP = kMaxHD + 8 * (kMaxH - 1) + 8;  // H·P <= H·D + 7H, plus slack
-constexpr int kListCap = 512 + 32;     // one 512-column step plus a partial batch
+constexpr int kMaxHD = 256;            // heads · features
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float warp_sum(float x) {
   // xor butterfly: every lane ends with the same, order-fixed sum
@@ -47,25 +40,6 @@ __device__ __forceinline__ float leaky(float x, float slope) {
 
 __device__ __forceinline__ float leaky_grad(float x, float slope) {
   return x >= 0.0f ? 1.0f : slope;
-}
-
-// 8 consecutive values as floats; p is 16-byte aligned.
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-    x[2 * i] = __low2float(b);
-    x[2 * i + 1] = __high2float(b);
-  }
 }
 
 // 8 consecutive values held as loaded (16-byte aligned), so that several
@@ -123,10 +97,10 @@ __device__ __forceinline__ void load_heads(const float* p, int H, float (&x)[kH]
   }
 }
 
-// How a warp spreads the rows it gathers over its lanes (K5, K6). A row is H
-// heads of P features (D rounded up to 8), read as Q = P/8 groups a head of
-// 16 bytes (bf16) or 32 (f32); the H·Q lanes of one edge form a slot, and a
-// warp step gathers E = 32 / (H·Q) edges (at least one). Lane pair
+// How a warp spreads the rows it gathers over its lanes (K5, K6, K7). A row
+// is H heads of P features (D rounded up to 8), read as Q = P/8 groups a head
+// of 16 bytes (bf16) or 32 (f32); the H·Q lanes of one edge form a slot, and
+// a warp step gathers E = 32 / (H·Q) edges (at least one). Lane pair
 // p = lane + 32k (k < kG; kG = 2 only when H·Q > 32) is slot p / (H·Q), head
 // (p / Q) % H, group p % Q; pairs past the warp's slots are off.
 template <int kG>
@@ -159,6 +133,66 @@ inline int team_pairs(int H, int P) {
   return hq <= 32 ? 1 : hq <= 64 ? 2 : 0;
 }
 
+// Sum the Team slots' partial row sums into slot 0, in slot order.
+template <int kG>
+__device__ __forceinline__ void sum_slots(const Team<kG>& tm, float (&x)[kG][8]) {
+  float own[kG][8];
+#pragma unroll
+  for (int k = 0; k < kG; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) own[k][e] = x[k][e];
+  for (int sl = 1; sl < tm.E; ++sl) {
+#pragma unroll
+    for (int k = 0; k < kG; ++k)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[k][e] += __shfl_down_sync(kFull, own[k][e], sl * tm.HQ);
+  }
+}
+
+// Slot 0 writes its groups of a row of H·D features (unpadded).
+template <int kG>
+__device__ __forceinline__ void store_row(const Team<kG>& tm, const float (&x)[kG][8],
+                                          float* dst, int D) {
+#pragma unroll
+  for (int k = 0; k < kG; ++k) {
+    if (tm.on[k] && tm.slot[k] == 0) {
+      const int d0 = 8 * tm.q[k];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (d0 + e < D) dst[tm.h[k] * D + d0 + e] = x[k][e];
+    }
+  }
+}
+
+// Per head, the dot product of the lanes' groups with a padded row's own
+// groups (gp or vp at row `row`), summed over the warp: every lane ends with
+// the same value for each head h < H.
+template <int kH, int kG, typename RT>
+__device__ __forceinline__ void row_dots(const Team<kG>& tm, const RT* rows, size_t row,
+                                         int S, int P, int H, const float (&x)[kG][8],
+                                         float (&dot)[kH]) {
+  float part[kG];
+#pragma unroll
+  for (int k = 0; k < kG; ++k) {
+    Raw8<RT> a;
+    if (tm.on[k]) a.load(rows + row * S + tm.offset(k, P));
+    else a.zero();
+    float y[8];
+    a.get(y);
+    part[k] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part[k] = fmaf(y[e], x[k][e], part[k]);
+  }
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    float xs = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kG; ++k)
+      if (tm.h[k] == h) xs += part[k];
+    dot[h] = h < H ? warp_sum(xs) : 0.0f;
+  }
+}
+
 // The attention-dropout mask: ops/tile_attention.hash_keep.
 __device__ __forceinline__ bool hash_keep(uint32_t dest, uint32_t src, int h,
                                           uint32_t seed, uint32_t thr) {
@@ -172,47 +206,18 @@ __device__ __forceinline__ bool hash_keep(uint32_t dest, uint32_t src, int h,
   return k < thr;
 }
 
-// Bit e set when element e of 16 loaded bytes is nonzero (-0.0 counts as 0).
-template <typename TT> __device__ __forceinline__ uint32_t live_bits(uint4 u);
-
-template <> __device__ __forceinline__ uint32_t live_bits<int8_t>(uint4 u) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  uint32_t bits = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if ((w[i] >> (8 * b)) & 0xffu) bits |= 1u << (4 * i + b);
-  return bits;
-}
-
-template <> __device__ __forceinline__ uint32_t live_bits<__nv_bfloat16>(uint4 u) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  uint32_t bits = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (w[i] & 0x7fffu) bits |= 1u << (2 * i);
-    if (w[i] & 0x7fff0000u) bits |= 1u << (2 * i + 1);
-  }
-  return bits;
-}
-
-template <> __device__ __forceinline__ uint32_t live_bits<float>(uint4 u) {
-  return (u.x & 0x7fffffffu ? 1u : 0u) | (u.y & 0x7fffffffu ? 2u : 0u) |
-         (u.z & 0x7fffffffu ? 4u : 0u) | (u.w & 0x7fffffffu ? 8u : 0u);
-}
-
+// The segment schedule (ops/cuda_bcsr.tile_schedule): segment s covers
+// tile-row seg_row[s] and writes the output (seg_slot[s] < 0) or a
+// workspace slot; multi_row lists the tile-rows of several segments, whose
+// slots multi_slot_ptr ranges.
 struct Sched {
-  const void* tiles;
-  const int* seg_tile_ptr;
   const int* seg_row;
   const int* seg_slot;
   int n_seg;
   const int* multi_row;
   const int* multi_slot_ptr;
   int n_multi;
-  const int* tile_cols;
-  int tile_r, tile_c;
+  int tile_r;
 };
 
 struct Drop {
@@ -230,51 +235,19 @@ __device__ __forceinline__ float* segment_dst(const Sched& sc, float* out,
   return ws + ((size_t)slot * sc.tile_r + r0) * width;
 }
 
-// Walk row `row` of the segment's tiles [t0, t1): append the global ids of
-// its live columns to the warp's `list` in column order and hand every full
-// batch of 32 to batch(base, 32). Returns the size of the partial batch left
-// at the front of the list.
-template <typename TT, typename Batch>
-__device__ __forceinline__ int scan_row(const Sched& sc, int t0, int t1, int row,
-                                        int* list, int lane, Batch&& batch) {
-  constexpr int kEl = 16 / sizeof(TT);
-  constexpr int kStep = 32 * kEl;
-  const TT* tiles = static_cast<const TT*>(sc.tiles);
-  int count = 0;
-  for (int t = t0; t < t1; ++t) {
-    const TT* rp = tiles + ((size_t)t * sc.tile_r + row) * sc.tile_c;
-    const int col_base = sc.tile_cols[t] * sc.tile_c;
-    for (int c0 = 0; c0 < sc.tile_c; c0 += kStep) {
-      const int c = c0 + lane * kEl;
-      uint32_t bits = 0;
-      if (c < sc.tile_c) bits = live_bits<TT>(*reinterpret_cast<const uint4*>(rp + c));
-      const int cnt = __popc(bits);
-      int incl = cnt;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += y;
-      }
-      int pos = count + incl - cnt;
-      while (bits) {
-        list[pos++] = col_base + c + __ffs(bits) - 1;
-        bits &= bits - 1;
-      }
-      count += __shfl_sync(kFull, incl, 31);
-      __syncwarp();
-      int base = 0;
-      for (; count - base >= 32; base += 32) batch(base, 32);
-      if (base > 0) {  // move the partial batch to the front
-        const int rem = count - base;
-        const int x = lane < rem ? list[base + lane] : 0;
-        __syncwarp();
-        if (lane < rem) list[lane] = x;
-        __syncwarp();
-        count = rem;
-      }
-    }
-  }
-  return count;
+// The unit this warp walks: its index range, global row and output row.
+struct Unit {
+  int seg, grow, p0, p1;
+  float* dst;
+};
+
+__device__ __forceinline__ Unit unit_of(const Sched& sc, const int* ptr, float* out,
+                                        float* ws, int width) {
+  const int u = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int seg = u / sc.tile_r;
+  const int r = u % sc.tile_r;
+  return Unit{seg, sc.seg_row[seg] * sc.tile_r + r, ptr[u], ptr[u + 1],
+              segment_dst(sc, out, ws, seg, r, width)};
 }
 
 // ---------------------------------------------------------------------------
@@ -328,36 +301,65 @@ void merge(const Sched& sc, const float* ws, float* out, int width, int H, int D
       ws, sc.multi_row, sc.multi_slot_ptr, out, sc.tile_r, width, H, D);
 }
 
-bool valid(const Sched& sc, int H, int D) {
+// ---------------------------------------------------------------------------
+// The padded rows the walks read: x [n, H·D] -> xp [n, S], head h's features
+// at [h·P, h·P + D), zeros elsewhere; one thread per 8-value group of xp.
+template <typename T>
+__global__ void pad_heads_kernel(const T* __restrict__ x, T* __restrict__ xp, int n,
+                                 int H, int D, int P, int S) {
+  const int groups = S / 8;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)n * groups) return;
+  const size_t row = i / groups;
+  const int f0 = (int)(i % groups) * 8;
+  const int h = f0 / P;
+  const int d0 = f0 - h * P;
+  __align__(16) T y[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    y[e] = h < H && d0 + e < D ? x[row * (size_t)(H * D) + h * D + d0 + e] : T{};
+#pragma unroll
+  for (int c = 0; c < (int)sizeof(y) / 16; ++c)
+    reinterpret_cast<uint4*>(xp + row * S + f0)[c] = reinterpret_cast<const uint4*>(y)[c];
+}
+
+template <typename T>
+void pad_heads(const void* x, void* xp, int n, int H, int D, int P, int S,
+               cudaStream_t stream) {
+  const size_t threads = (size_t)n * (S / 8);
+  if (threads == 0) return;
+  pad_heads_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(xp), n, H, D, P, S);
+}
+
+// The walks' limits: heads, the padded layout, whole warps per tile row.
+bool valid_walk(const Sched& sc, int H, int D, int P, int S) {
   return sc.n_seg > 0 && H >= 1 && H <= kMaxH && D >= 1 && H * D <= kMaxHD &&
-         sc.tile_r % kRows == 0 && sc.tile_c % 128 == 0;
+         P % 8 == 0 && P >= D && P < D + 8 && S % 8 == 0 && S >= H * P &&
+         team_pairs(H, P) > 0 && sc.tile_r % kWarps == 0;
 }
 
-// The padded layout of gp and vp: P = D rounded up to 8, S >= H·P, S % 8 == 0.
-bool valid_padding(int H, int D, int P, int S) {
-  return P % 8 == 0 && P >= D && P < D + 8 && S % 8 == 0 && S >= H * P &&
-         H * P <= kMaxHP;
-}
-
-dim3 grid_of(const Sched& sc) {
-  return dim3((unsigned)(sc.n_seg * (sc.tile_r / kRows)));
-}
-
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (tiles only).
-template <typename VT, typename F>
-int by_tile_dtype(int tile_dtype, F&& f) {
-  if (tile_dtype == 0) f((float*)nullptr, (VT*)nullptr);
-  else if (tile_dtype == 1) f((__nv_bfloat16*)nullptr, (VT*)nullptr);
-  else if (tile_dtype == 2) f((int8_t*)nullptr, (VT*)nullptr);
-  else return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
+// f(kH, kG, VT*) with the kernels' compile-time heads and Team pairs for H
+// and P, and v's element type for v_dtype (0 = float32, 1 = bfloat16).
 template <typename F>
-int by_dtypes(int tile_dtype, int v_dtype, F&& f) {
-  if (v_dtype == 0) return by_tile_dtype<float>(tile_dtype, f);
-  if (v_dtype == 1) return by_tile_dtype<__nv_bfloat16>(tile_dtype, f);
-  return (int)cudaErrorInvalidValue;
+int by_shape(int H, int P, int v_dtype, F&& f) {
+  auto with_vt = [&](auto kh, auto kg) -> int {
+    if (v_dtype == 0) f(kh, kg, (float*)nullptr);
+    else if (v_dtype == 1) f(kh, kg, (__nv_bfloat16*)nullptr);
+    else return (int)cudaErrorInvalidValue;
+    return 0;
+  };
+  using I2 = std::integral_constant<int, 2>;
+  using I8 = std::integral_constant<int, 8>;
+  using G1 = std::integral_constant<int, 1>;
+  using G2 = std::integral_constant<int, 2>;
+  if (H <= 2) return with_vt(I2{}, G1{});  // H·P/8 <= 32 when H <= 2 and H·D <= 256
+  return team_pairs(H, P) == 1 ? with_vt(I8{}, G1{}) : with_vt(I8{}, G2{});
+}
+
+// One warp per unit (segment, row) of the walk.
+dim3 walk_grid(const Sched& sc) {
+  return dim3((unsigned)(sc.n_seg * (sc.tile_r / kWarps)));
 }
 
 }  // namespace

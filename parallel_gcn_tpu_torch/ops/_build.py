@@ -57,7 +57,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_sddmm.argtypes = [p, p, i32, p, p, i32, i32, p, i32, i32, p]
     lib.pgcn_sddmm.restype = i32
     u32, f32 = ctypes.c_uint32, ctypes.c_float
-    sched = [p, i32, p, p, p, i32, p, p, i32, p, i32, i32]
     drop = [i32, u32, u32, f32]
     walk = [p, p, p, p, i32, p, p, i32, i32]  # AttnIndex and the schedule's segments
     lib.pgcn_gat_fwd.argtypes = [*walk, p, p, p, i32, i32, p, i32, i32, p, p, i32, i32,
@@ -66,12 +65,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_gat_bwd.argtypes = [*walk, p, p, p, i32, i32, p, p, i32, i32, p, p, i32, i32,
                                  f32, *drop, p]
     lib.pgcn_gat_bwd.restype = i32
-    lib.pgcn_gat_bwd_rect_row.argtypes = [*sched, p, p, p, p, i32, i32, i32, p, p, i32, i32,
-                                          f32, *drop, p]
+    rect = [*walk, p, p, p, p, i32, i32, i32, p, p, i32, i32, f32, *drop, p]
+    lib.pgcn_gat_bwd_rect_row.argtypes = rect
     lib.pgcn_gat_bwd_rect_row.restype = i32
-    lib.pgcn_gat_bwd_rect_col.argtypes = [*sched, p, p, p, p, p, i32, i32, i32, p, p, i32,
-                                          i32, f32, *drop, p]
+    lib.pgcn_gat_bwd_rect_col.argtypes = rect
     lib.pgcn_gat_bwd_rect_col.restype = i32
+    lib.pgcn_pad_heads.argtypes = [p, p, i32, i32, i32, i32, i32, i32, p]
+    lib.pgcn_pad_heads.restype = i32
     lib.pgcn_masked_ce.argtypes = [p, p, i32, p, i64, i32, f32, f32, p, i64, p, p, p, p]
     lib.pgcn_masked_ce.restype = i32
     u64 = ctypes.c_uint64

@@ -18,12 +18,16 @@ device reproduces. The port's mask contract: Philox4x32-10 keyed by the
 
 Each wrapper runs the kernel for a CUDA tensor and the plain PyTorch version
 (``dropout_plain``), which computes the same bits with int64 arithmetic, for
-a CPU tensor. ``launches`` counts kernel launches.
+a CPU tensor. The kernel takes any contiguous tensor: one whose data is not
+16-byte aligned (a view with a storage offset) or whose length is not a
+whole number of 16-byte vectors takes the kernel's scalar path for those
+elements, with the same bits. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -92,6 +96,7 @@ def keep_mask(seed: int, rate: float, shape, device) -> torch.Tensor:
     return (philox_words(seed, n, device) < keep_threshold(rate)).view(shape)
 
 
+@functools.lru_cache(maxsize=64)
 def _inv_keep(rate: float, dtype: torch.dtype) -> float:
     """1/keep rounded to ``dtype`` (as the Pallas kernel multiplies by it),
     as a Python float. A Python scalar keeps the multiply free of a

@@ -19,12 +19,14 @@ tile part:
   (m, den, ρ = Σ g·out), the forward orientation of each tile entry gives
   ds and the mirrored orientation gives dt and dv. The mirror trick needs a
   symmetric edge set, which ``data.graph.split_dense_tiles`` guarantees for
-  the tiles and the residual alike. K5 and K6 read the live entries from
-  the pack's ``attn_index``, listed once per pack, not from its tiles;
+  the tiles and the residual alike;
 - K7 (``gat_bwd_rect``; replaces ``_bwd_rect_row_kernel`` and
   ``_bwd_rect_col_kernel``): a slab is not symmetric, so a row sweep over
   the slab gives ds and a sweep over its transposed column-sorted copy
   gives dt and dv in buffer space.
+
+K5, K6 and both K7 sweeps read the live entries from the pack's
+``attn_index``, listed once per pack, not from its tiles.
 
 The COO residual's statistics merge with the tiles' by the flash rescale
 (``den = den_t·e^{m_t−m} + den_r``) in plain torch, as the JAX package leaves
@@ -250,24 +252,8 @@ def _check_on_device(tensors, device) -> None:
             raise ValueError("tile pack must be contiguous and on the inputs' device")
 
 
-def _check_kernel_args(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
-    """The arguments of K7, which walks the pack's tiles."""
-    _check_shapes(pack, s, v)
-    if pack.tiles.dtype not in _DTYPE_CODE:
-        raise TypeError(f"tile attention kernels take f32/bf16/int8 tiles, "
-                        f"got {pack.tiles.dtype}")
-    if pack.tile_r % 64 or pack.tile_c % 128:
-        raise ValueError(f"tile attention kernels need tile_r % 64 == 0 and "
-                         f"tile_c % 128 == 0, got ({pack.tile_r}, {pack.tile_c})")
-    sched = pack.schedule
-    _check_on_device((pack.tiles, pack.tile_cols, sched.seg_tile_ptr, sched.seg_row,
-                      sched.seg_slot, sched.multi_row, sched.multi_slot_ptr), s.device)
-    if pack.tiles.data_ptr() % 16:
-        raise ValueError("tile pack must be 16-byte aligned")
-
-
 def _check_walk_args(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
-    """The arguments of K5/K6, which walk the pack's ``attn_index`` and
+    """The arguments of K5/K6/K7, which walk the pack's ``attn_index`` and
     schedule, not its tiles."""
     _check_shapes(pack, s, v)
     if pack.tile_r % 8:
@@ -278,23 +264,12 @@ def _check_walk_args(pack: BCSR, s: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _walk_args(pack: BCSR) -> list:
-    """The pack's AttnIndex (built on first use) and schedule, as K5/K6 take
-    them."""
+    """The pack's AttnIndex (built on first use) and schedule, as K5/K6/K7
+    take them."""
     idx, sched = pack.attn_index, pack.schedule
     return [idx.ptr.data_ptr(), idx.col.data_ptr(), sched.seg_row.data_ptr(),
             sched.seg_slot.data_ptr(), sched.n_seg, sched.multi_row.data_ptr(),
             sched.multi_slot_ptr.data_ptr(), sched.multi_row.shape[0], pack.tile_r]
-
-
-def _schedule_args(pack: BCSR) -> list:
-    sched = pack.schedule
-    return [
-        pack.tiles.data_ptr(), _DTYPE_CODE[pack.tiles.dtype],
-        sched.seg_tile_ptr.data_ptr(), sched.seg_row.data_ptr(),
-        sched.seg_slot.data_ptr(), sched.n_seg, sched.multi_row.data_ptr(),
-        sched.multi_slot_ptr.data_ptr(), sched.multi_row.shape[0],
-        pack.tile_cols.data_ptr(), pack.tile_r, pack.tile_c,
-    ]
 
 
 def _dropout_args(rate: float, seed: int) -> list:
@@ -310,14 +285,6 @@ def _padded_width(H: int, D: int) -> tuple[int, int]:
     P = -(-D // 8) * 8
     S = H * P
     return P, S + 8 if (S // 8) % 2 == 0 else S
-
-
-def _pad_heads(x: torch.Tensor, H: int, P: int, S: int) -> torch.Tensor:
-    """[n, H·D] → [n, S] with head h at [h·P, h·P + D), zeros elsewhere."""
-    n = x.shape[0]
-    out = x.new_zeros((n, S))
-    out[:, : H * P].view(n, H, P)[:, :, : x.shape[1] // H] = x.reshape(n, H, -1)
-    return out
 
 
 def _node_records(s, t, m, den, rho) -> torch.Tensor:
@@ -420,9 +387,9 @@ class RectAttention:
     ``parallel.partition.gat_mesh_pack``): ``rows`` is the row-sorted slab
     (local dest rows × buffer columns); ``cols`` is the column-sorted copy
     stored TRANSPOSED (rows: buffer rows, columns: local dest rows), so the
-    K7 column sweep reads a buffer row's entries as a contiguous row. Zero
-    tiles are dropped from both. ``residual`` is the COO residual
-    (rrow, rcol, rlive [E, 1]) or None when no rank has one."""
+    K7 column sweep walks a buffer row's entries as one unit of its
+    ``attn_index``. Zero tiles are dropped from both. ``residual`` is the
+    COO residual (rrow, rcol, rlive [E, 1]) or None when no rank has one."""
 
     rows: BCSR
     cols: BCSR
@@ -512,41 +479,58 @@ def gat_fwd_rect(rows: BCSR, s, t_buf, v_buf, *, slope: float, rate: float = 0.0
     return _fwd(rows, s, t_buf, v_buf, slope, rate, seed, "gat_fwd_rect")
 
 
+def _rect_records(s, m, den, rho) -> torch.Tensor:
+    """K7's per-destination-row records [n, 4H] f32: head h's s | m |
+    max(den, 1e-16) | ρ at [4h, 4h + 4) (16-byte records)."""
+    n, H = m.shape
+    return torch.stack([s.float(), m, torch.clamp(den, min=1e-16), rho],
+                       dim=2).reshape(n, 4 * H).contiguous()
+
+
+def _pad_rows(lib, x: torch.Tensor, H: int, D: int, P: int, S: int) -> torch.Tensor:
+    """[n, H·D] → [n, S] in K6's padded layout, by the library's pad kernel."""
+    x = x.contiguous()
+    xp = torch.empty((x.shape[0], S), dtype=x.dtype, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    _build.check(lib.pgcn_pad_heads(x.data_ptr(), xp.data_ptr(), _DTYPE_CODE[x.dtype],
+                                    x.shape[0], H, D, P, S, stream), "pad_heads kernel")
+    return xp
+
+
 def _rect_bwd_args(s, t_buf, v_buf, g, m, den, rho) -> dict:
-    """K7's inputs: per destination row nd = s | m | max(den, 1e-16) | ρ and
-    g (f32 rows, and padded per head in K6's layout), per buffer row t and
-    v padded per head."""
+    """K7's inputs, shared by both sweeps: per destination row the records
+    (``_rect_records``) and g padded per head (f32), per buffer row t (f32)
+    and v padded per head (v's dtype)."""
     H = s.shape[1]
     n_buf, _, D = v_buf.shape
     P, S = _padded_width(H, D)
-    gf = g.reshape(g.shape[0], H * D).float().contiguous()
-    return dict(
-        nd=torch.cat([s.float(), m, torch.clamp(den, min=1e-16), rho], dim=1).contiguous(),
-        tf=t_buf.float().contiguous(), gf=gf, gp=_pad_heads(gf, H, P, S),
-        vp=_pad_heads(v_buf.reshape(n_buf, H * D), H, P, S), H=H, D=D, P=P, S=S)
+    lib = _build.load_library()
+    with torch.cuda.device(s.device):
+        return dict(
+            nd=_rect_records(s, m, den, rho), tf=t_buf.float().contiguous(),
+            gp=_pad_rows(lib, g.reshape(g.shape[0], H * D).float(), H, D, P, S),
+            vp=_pad_rows(lib, v_buf.reshape(n_buf, H * D), H, D, P, S), H=H, D=D, P=P, S=S)
 
 
 def _launch_rect(sweep: str, pack: BCSR, a: dict, slope: float, rate: float,
                  seed: int) -> torch.Tensor:
-    """One K7 sweep over ``pack``: "row" writes ds [n_rows, H]; "col" (over
-    the transposed column copy) writes dv | dt [n_buf, H·D + H]."""
+    """One K7 sweep over ``pack``'s live-column index: "row" writes ds
+    [n_rows, H]; "col" (over the transposed column copy) writes dv | dt
+    [n_buf, H·D + H]."""
     H, D, P, S = a["H"], a["D"], a["P"], a["S"]
     width = H if sweep == "row" else H * D + H
     dev = a["nd"].device
     out = torch.empty((pack.n_rows, width), dtype=torch.float32, device=dev)
     ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width), dtype=torch.float32,
                      device=dev)
+    walk = _walk_args(pack)
     lib = _build.load_library()
+    fn = lib.pgcn_gat_bwd_rect_row if sweep == "row" else lib.pgcn_gat_bwd_rect_col
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        head = [*_schedule_args(pack), a["nd"].data_ptr(), a["tf"].data_ptr()]
-        rows_in = [a["gp"].data_ptr(), a["vp"].data_ptr(), _DTYPE_CODE[a["vp"].dtype], P, S,
-                   out.data_ptr(), ws.data_ptr(), H, D, float(slope),
-                   *_dropout_args(rate, seed), stream]
-        if sweep == "row":
-            rc = lib.pgcn_gat_bwd_rect_row(*head, *rows_in)
-        else:  # the dv loop reads g's unpadded rows too
-            rc = lib.pgcn_gat_bwd_rect_col(*head, a["gf"].data_ptr(), *rows_in)
+        rc = fn(*walk, a["nd"].data_ptr(), a["tf"].data_ptr(), a["gp"].data_ptr(),
+                a["vp"].data_ptr(), _DTYPE_CODE[a["vp"].dtype], P, S, out.data_ptr(),
+                ws.data_ptr(), H, D, float(slope), *_dropout_args(rate, seed), stream)
     _build.check(rc, f"rect attention backward kernel ({sweep} sweep)")
     launches[f"gat_bwd_rect_{sweep}"] += 1
     return out
@@ -587,9 +571,9 @@ def _check_rect_args(rows: BCSR | None, cols: BCSR | None, s, t_buf, v_buf, g) -
     if s.device.type != "cuda":
         raise ValueError(f"rect attention backward: unsupported device {s.device}")
     if rows is not None:
-        _check_kernel_args(rows, s, v_buf)
+        _check_walk_args(rows, s, v_buf)
     if cols is not None:
-        _check_kernel_args(cols, t_buf, g)
+        _check_walk_args(cols, t_buf, g)
 
 
 def gat_bwd_rect(attn: RectAttention, s, t_buf, v_buf, g, m, den, rho, *,

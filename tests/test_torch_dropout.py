@@ -102,6 +102,49 @@ def test_dropout_equals_numpy_contract(dtype, relu):
     assert out.dtype == dtype
 
 
+def _contract(x, seed, rate, relu):
+    """The mask contract by the numpy Philox, on x's own flat index."""
+    keep = words_np(seed, x.numel()).reshape(x.shape) < cd.keep_threshold(rate)
+    if relu:
+        keep &= x.float().numpy() > 0
+    inv = torch.tensor(1 / (1 - rate), dtype=x.dtype)
+    return torch.where(torch.from_numpy(keep), x * inv, torch.zeros((), dtype=x.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", range(1, 8))
+def test_contract_on_lengths_off_the_vector_width(dtype, r):
+    """n ≡ r (mod 8): the last n % 8 (bf16) or n % 4 (f32) elements are the
+    kernel's scalar tail; K1, K2 and K1's backward keep the contract."""
+    n = 8 * 129 + r
+    rng = np.random.default_rng(r)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dtype)
+    seed, rate = 0xFEDC_BA98_7654_3210, 0.4
+    assert torch.equal(cd.dropout(x, seed, rate), _contract(x, seed, rate, False))
+    assert torch.equal(cd.relu_dropout(x, seed, rate), _contract(x, seed, rate, True))
+    xr = x.clone().requires_grad_()
+    cd.dropout(xr, seed, rate).backward(g)
+    assert torch.equal(xr.grad, _contract(g, seed, rate, False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 3, 6])
+def test_contract_on_a_view_with_storage_offset(dtype, offset):
+    """A contiguous view whose data does not start on a 16-byte boundary:
+    the mask follows the view's own flat index, as for a fresh tensor."""
+    rng = np.random.default_rng(offset)
+    base = torch.from_numpy(rng.standard_normal(offset + 63 * 17).astype(np.float32)).to(dtype)
+    x = base[offset:].view(63, 17)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    seed, rate = 0x0BAD_5EED, 0.3
+    for relu in (False, True):
+        fn = cd.relu_dropout if relu else cd.dropout
+        want = _contract(x, seed, rate, relu)
+        assert torch.equal(fn(x, seed, rate), want)
+        assert torch.equal(fn(x.clone(), seed, rate), want)
+
+
 def test_keep_threshold_matches_pallas():
     assert cd.keep_threshold(0.1) == min(int(round(0.9 * 2.0**32)), 2**32 - 1)
     assert cd.keep_threshold(0.0) == 2**32 - 1
@@ -182,3 +225,24 @@ def test_kernel_matches_plain_on_card(cuda_device):
     for relu in (False, True):
         fn = cd.relu_dropout if relu else cd.dropout
         assert torch.equal(fn(x, 77, 0.3), cd.dropout_plain(x, 77, 0.3, relu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_bit_equal_on_ragged_and_misaligned_views(cuda_device, dtype):
+    """K1, K2 and K1's backward on the card, bit for bit against the plain
+    version: lengths n ≡ 0…7 (mod 8) and views whose data starts 0…3
+    elements past a 16-byte boundary (the kernel's scalar path)."""
+    gen = torch.Generator().manual_seed(12)
+    seed, rate = 0x1234_5678_9ABC, 0.1
+    for r in range(8):
+        for offset in range(4):
+            n = 8 * 40_001 + r
+            x = torch.randn(offset + n, generator=gen).to(dtype).to(cuda_device)[offset:]
+            g = torch.randn(offset + n, generator=gen).to(dtype).to(cuda_device)[offset:]
+            for relu in (False, True):
+                fn = cd.relu_dropout if relu else cd.dropout
+                assert torch.equal(fn(x, seed, rate), cd.dropout_plain(x, seed, rate, relu))
+            xr = x.clone().requires_grad_()
+            cd.dropout(xr, seed, rate).backward(g)
+            assert torch.equal(xr.grad, cd.dropout_plain(g, seed, rate))
