@@ -20,11 +20,16 @@ Phases, each printed on its own lines:
      F=600 beside it, two runs of each bit-identical;
      The fused kernels: masked softmax-CE K9 (train and eval variants) at
      synth-reddit's [233472, 41] f32 logits with its train and val masks
-     (loss rtol 1e-5, accuracy exact, gradient rtol 2e-5 + 1e-5·max|ref|);
-     dropout⊗matmul K10 forward, dW and dX at layer 1's [233472, 600] bf16
-     × [600, 41] and at a ragged f32 (1001, 257) × (257, 24) (f32 outputs
-     rtol 1e-4, bf16 outputs one bf16 ulp, + 1e-5·max|ref|; the mask an
-     identity W recovers bit-equal to K1's). Two runs of each are
+     and at ``CE_SHAPES`` (C 7 to 100, int32 and int64 labels, unaligned
+     views; loss rtol 1e-5, accuracy exact, gradient rtol 2e-5 + 1e-5·
+     max|ref|); dropout⊗matmul K10 forward, dW and dX at layer 1's
+     [233472, 600] bf16 × [600, 41] and at ``FUSED_SHAPES`` (ragged n, k
+     and m, the configs' other fused layers, f32 and bf16, rates 0.1 to
+     0.6; f32 outputs rtol 1e-4, bf16 outputs one bf16 ulp, + 1e-5·
+     max|ref|; the mask an identity W recovers bit-equal to K1's; dX's
+     byte bound beside the f32-operation bound of a CUDA-core product; K9
+     and K10 timed by their device time, ``torch.profiler``).
+     Two runs of each are
      bit-identical. Beside each kernel's time: its plain version's, the
      unfused pair it replaces (K10), and the one PyTorch call that computes
      the same function where there is one (``torch.sparse.mm`` for K3/K4,
@@ -482,7 +487,7 @@ def check_ce(results: dict, dds) -> None:
         if train:
             errs.append(_max_err(got[2], ref[2], 2e-5))
         kernel = lambda: ce._run(logits, labels, mask, num, train)  # noqa: E731
-        ms = _device_ms(kernel, 20, "ce_kernel", "ce_finalize_kernel")
+        ms = _device_ms(kernel, 20, "ce_kernel")
         call_ms = _events_ms(kernel, 20)
         pms = _events_ms(
             lambda: ce.masked_softmax_xent_fused_plain(logits, labels, mask, num, train), 5)
@@ -494,85 +499,178 @@ def check_ce(results: dict, dds) -> None:
               f"max_abs_err {max(errs):.3e}, runs bit-identical; kernel {ms:.4f} ms "
               f"device time ({call_ms:.4f} ms a call by CUDA events, host launch "
               f"included), plain {pms:.4f} ms, bound {results[key]['bound_ms']:.4f} ms")
-    # rows wider than 64 classes take the kernel's looped path
-    n_wide = 1001
-    logits = torch.randn((n_wide, 100), generator=gen).cuda()
-    labels = torch.randint(0, 100, (n_wide,), generator=gen).cuda()
-    mask = (torch.rand(n_wide, generator=gen) < 0.5).cuda()
-    num = int(mask.sum())
-    for train, key in ((True, "K9 train"), (False, "K9 eval")):
-        got = ce._run(logits, labels, mask, num, train)
-        ref = ce.masked_softmax_xent_fused_plain(logits, labels, mask, num, train)
-        errs = [_max_err(got[0], ref[0], 1e-5, atol_frac=0.0)]
-        assert float(got[1]) == float(ref[1]), f"{key} C=100: accuracy differs"
-        if train:
-            errs.append(_max_err(got[2], ref[2], 2e-5))
-        results[key]["err"] = max(results[key]["err"], *errs)
-        print(f"[kernels] {key} masked CE [{n_wide}, 100] f32 (looped path): max_abs_err "
-              f"{max(errs):.3e}, accuracy equal")
+    check_ce_shapes(results, gen)
 
 
-def check_fused(results: dict) -> None:
-    """K10 forward, dW and dX against their plain versions at layer 1's
-    shapes (bf16) and a ragged f32 shape; the mask an identity W recovers
-    equals K1's bit for bit; beside the kernels, the unfused pair they
-    replace: relu_dropout (K2) then the matmul forward, the matmul's weight
-    gradient, and the matmul's input gradient then K1."""
+# K9's odd shapes: classes (staged rows up to 64, the looped path past
+# them), label dtypes, and a logits view that is not 16-byte aligned
+CE_SHAPES = ((1001, 7, "int64", False), (1001, 16, "int32", False),
+             (777, 41, "int64", True), (1001, 47, "int32", False),
+             (513, 72, "int64", False), (1001, 100, "int32", True))
+
+
+def check_ce_shapes(results: dict, gen) -> None:
+    """K9 train and eval against the plain version at CE_SHAPES: loss rtol
+    1e-5, accuracy exact, gradient rtol 2e-5 + 1e-5·max|ref|, two runs
+    bit-identical."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_ce as ce
+
+    for n, c, label_dtype, unaligned in CE_SHAPES:
+        base = torch.randn((n * c + 1,), generator=gen).cuda()
+        logits = (base[1:] if unaligned else base[:-1]).view(n, c)
+        labels = torch.randint(0, c, (n,), generator=gen).to(getattr(torch, label_dtype)).cuda()
+        mask = (torch.rand(n, generator=gen) < 0.5).cuda()
+        num = max(int(mask.sum()), 1)
+        errs = []
+        for train, key in ((True, "K9 train"), (False, "K9 eval")):
+            got = ce._run(logits, labels, mask, num, train)
+            again = ce._run(logits, labels, mask, num, train)
+            assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None), \
+                f"{key} C={c}: two runs differ"
+            ref = ce.masked_softmax_xent_fused_plain(logits, labels, mask, num, train)
+            errs.append(_max_err(got[0], ref[0], 1e-5, atol_frac=0.0))
+            assert float(got[1]) == float(ref[1]), f"{key} C={c}: accuracy differs"
+            if train:
+                errs.append(_max_err(got[2], ref[2], 2e-5))
+            results[key]["err"] = max(results[key]["err"], *errs)
+        print(f"[kernels] K9 masked CE [{n}, {c}] f32 {label_dtype} labels"
+              f"{', unaligned view' if unaligned else ''} "
+              f"({'staged rows' if c <= 64 else 'looped path'}): max_abs_err {max(errs):.3e}, "
+              f"accuracy equal, runs bit-identical")
+
+
+# K10's odd shapes (n, k, m, dtype, rate): ragged rows, columns not a
+# multiple of 4 or 8, W chunked (citeseer's layer 0: [3327, 3703] x [3703,
+# 16]; m > 64), m on either side of 16, 48 and 64, and the configs' other
+# fused layers (synth-products' [., 256] x [256, 47], pubmed's k = 8,
+# citeseer's layer 1, cora's f32 layer 0)
+FUSED_SHAPES = (
+    (1001, 600, 41, "bfloat16", 0.1), (517, 602, 7, "bfloat16", 0.6),
+    (777, 257, 16, "bfloat16", 0.1), (333, 1433, 47, "bfloat16", 0.6),
+    (1001, 600, 72, "bfloat16", 0.1), (3327, 3703, 16, "bfloat16", 0.6),
+    (5003, 256, 47, "bfloat16", 0.1), (700, 8, 3, "bfloat16", 0.2),
+    (3327, 16, 6, "bfloat16", 0.6), (1001, 257, 24, "float32", 0.3),
+    (2708, 1433, 72, "float32", 0.4), (517, 602, 41, "float32", 0.1),
+    (333, 600, 7, "float32", 0.6),
+)
+
+
+def _fused_inputs(gen, n, k, m, dtype):
+    import torch
+
+    x = torch.randn((n, k), generator=gen).to(dtype).cuda()
+    r = (6.0 / (k + m)) ** 0.5  # Glorot range, as the layer's weight
+    w = ((torch.rand((k, m), generator=gen) * 2 - 1) * r).to(dtype).cuda()
+    g = (torch.randn((n, m), generator=gen) / n).cuda()  # a mean loss's scale
+    return x, w, g
+
+
+def _fused_calls(x, w, g, seed, rate):
+    """K10's three kernels and their plain versions, with the output's
+    tolerance: rtol 1e-4 for f32 outputs, one bf16 ulp for bf16 ones."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_fused as cf
+
+    dtype = x.dtype
+    rtol_out = 2.0**-7 if dtype == torch.bfloat16 else 1e-4
+    return {
+        "K10 fwd": (lambda: cf._fwd(x, w, seed, rate),
+                    lambda: cf.dropout_matmul_plain(x, w, seed, rate), 1e-4),
+        "K10 dW": (lambda: cf._dw(x, g, seed, rate, dtype),
+                   lambda: cf.dropout_matmul_dw_plain(x, g, seed, rate, dtype), rtol_out),
+        "K10 dX": (lambda: cf._dx(g, w, seed, rate, dtype),
+                   lambda: cf.dropout_matmul_dx_plain(g, w, seed, rate, dtype), rtol_out),
+    }
+
+
+def _check_mask(x, seed, rate) -> None:
+    """The mask an identity W recovers from the forward equals K1's."""
     import torch
 
     from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
     from parallel_gcn_tpu_torch.ops import cuda_fused as cf
 
+    rows = min(x.shape[0], 4096)
+    eye = torch.eye(x.shape[1], dtype=x.dtype, device="cuda")
+    rec = cf._fwd(x[:rows], eye, seed, rate)
+    assert torch.equal(rec, cd.dropout(x, seed, rate)[:rows].float()), \
+        f"K10 {tuple(x.shape)}: recovered mask != K1's"
+
+
+def check_fused(results: dict) -> None:
+    """K10 forward, dW and dX against their plain versions at layer 1's
+    shapes (bf16) and at FUSED_SHAPES; the mask an identity W recovers
+    equals K1's bit for bit; two runs bit-identical; beside the kernels,
+    the unfused pair they replace: relu_dropout (K2) then the matmul
+    forward, the matmul's weight gradient, and the matmul's input gradient
+    then K1."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
+
     gen = torch.Generator().manual_seed(5)
     seed = 0x0F1E_2D3C_4B5A_6978
-    for (n, k, m), dtype, rate in (((233472, 600, 41), torch.bfloat16, 0.1),
-                                   ((1001, 257, 24), torch.float32, 0.3)):
-        bf16 = dtype == torch.bfloat16
-        x = torch.randn((n, k), generator=gen).to(dtype).cuda()
-        r = (6.0 / (k + m)) ** 0.5  # Glorot range, as the layer's weight
-        w = ((torch.rand((k, m), generator=gen) * 2 - 1) * r).to(dtype).cuda()
-        g = (torch.randn((n, m), generator=gen) / n).cuda()  # a mean loss's scale
-        rows = min(n, 4096)
-        rec = cf._fwd(x[:rows], torch.eye(k, dtype=dtype, device="cuda"), seed, rate)
-        assert torch.equal(rec, cd.dropout(x, seed, rate)[:rows].float()), \
-            "K10: recovered mask != K1's"
-        rtol_out = 2.0**-7 if bf16 else 1e-4  # one bf16 ulp for bf16 outputs
-        calls = {
-            "K10 fwd": (lambda: cf._fwd(x, w, seed, rate),
-                        lambda: cf.dropout_matmul_plain(x, w, seed, rate), 1e-4),
-            "K10 dW": (lambda: cf._dw(x, g, seed, rate, dtype),
-                       lambda: cf.dropout_matmul_dw_plain(x, g, seed, rate, dtype), rtol_out),
-            "K10 dX": (lambda: cf._dx(g, w, seed, rate, dtype),
-                       lambda: cf.dropout_matmul_dx_plain(g, w, seed, rate, dtype), rtol_out),
-        }
-        hd = cd.relu_dropout(x, seed, rate)
-        gd = g.to(dtype)
-        unfused = {
-            "K10 fwd": lambda: torch.matmul(cd.relu_dropout(x, seed, rate), w),
-            "K10 dW": lambda: torch.matmul(hd.T, gd),
-            "K10 dX": lambda: cd.dropout(torch.matmul(gd, w.T), seed, rate),
-        }
-        flops = 2 * n * k * m
-        for key, (kernel, plain, rtol) in calls.items():
+    n, k, m, rate = 233472, 600, 41, 0.1
+    x, w, g = _fused_inputs(gen, n, k, m, torch.bfloat16)
+    _check_mask(x, seed, rate)
+    hd = cd.relu_dropout(x, seed, rate)
+    gd = g.to(torch.bfloat16)
+    unfused = {
+        "K10 fwd": lambda: torch.matmul(cd.relu_dropout(x, seed, rate), w),
+        "K10 dW": lambda: torch.matmul(hd.T, gd),
+        "K10 dX": lambda: cd.dropout(torch.matmul(gd, w.T), seed, rate),
+    }
+    flops = 2 * n * k * m
+    names = {"K10 fwd": ("fwd_mma_kernel",), "K10 dW": ("dw_mma_kernel", "reduce_splits_kernel"),
+             "K10 dX": ("dx_mma_kernel",)}
+    for key, (kernel, plain, rtol) in _fused_calls(x, w, g, seed, rate).items():
+        got, again = kernel(), kernel()
+        assert torch.equal(got, again), f"{key}: two runs differ"
+        err = _max_err(got, plain(), rtol)
+        # device time, as the [profile] lines and K9 read it; a call's time
+        # by CUDA events beside it
+        ms = _device_ms(kernel, 20, *names[key])
+        call_ms = _events_ms(kernel, 20)
+        pms = _events_ms(plain, 2)
+        ums = _device_ms(unfused[key], 20, "")  # every kernel of the pair
+        ins = {"K10 fwd": (x, w), "K10 dW": (x, g), "K10 dX": (g, w)}[key]
+        # dX's f32 product runs as three bf16 passes (g split into exact terms)
+        bound = _bound(_nbytes(*ins, got), 3 * flops if key == "K10 dX" else flops)
+        extra = ""
+        if key == "K10 dX":
+            bound["f32_ops_bound_ms"] = flops / PEAK_FLOPS["f32"] * 1e3
+            extra = (f"; the f32 product on CUDA cores would be bound by its operations at "
+                     f"{bound['f32_ops_bound_ms']:.4f} ms")
+        print(f"[kernels] {key} [{n}, {k}] x [{k}, {m}] bf16 rate {rate}: "
+              f"max_abs_err {err:.3e} (rtol {rtol:.3g}), runs bit-identical, mask = K1's; "
+              f"kernel {ms:.4f} ms device time ({call_ms:.4f} ms a call by CUDA events), "
+              f"plain {pms:.4f} ms, unfused pair {ums:.4f} ms device time, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}){extra}")
+        results[key] = dict(err=err, ms=ms, plain_ms=pms, unfused_ms=ums, **bound)
+    del x, w, g, hd, gd
+    check_fused_shapes(results, gen, seed)
+
+
+def check_fused_shapes(results: dict, gen, seed: int) -> None:
+    """K10 at FUSED_SHAPES with the tolerances of check_fused."""
+    import torch
+
+    for n, k, m, dtype_name, rate in FUSED_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        x, w, g = _fused_inputs(gen, n, k, m, dtype)
+        _check_mask(x, seed, rate)
+        errs = []
+        for key, (kernel, plain, rtol) in _fused_calls(x, w, g, seed, rate).items():
             got, again = kernel(), kernel()
-            assert torch.equal(got, again), f"{key}: two runs differ"
-            err = _max_err(got, plain(), rtol)
-            ms = _events_ms(kernel, 10)
-            pms = _events_ms(plain, 2)
-            ums = _events_ms(unfused[key], 10)
-            ins = {"K10 fwd": (x, w), "K10 dW": (x, g), "K10 dX": (g, w)}[key]
-            # dX's product is f32 by contract (g is f32); the others run in x's dtype
-            kind = "bf16" if bf16 and key != "K10 dX" else "f32"
-            bound = _bound(_nbytes(*ins, got), flops, kind)
-            print(f"[kernels] {key} [{n}, {k}] x [{k}, {m}] {dtype} rate {rate}: "
-                  f"max_abs_err {err:.3e} (rtol {rtol:.3g}), runs bit-identical, mask = K1's; "
-                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms, unfused pair {ums:.4f} ms, "
-                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-            if bf16:
-                results[key] = dict(err=err, ms=ms, plain_ms=pms, unfused_ms=ums, **bound)
-            else:
-                results[key]["err"] = max(results[key]["err"], err)
-        del x, w, g, hd, gd, rec
+            assert torch.equal(got, again), f"{key} {(n, k, m)} {dtype_name}: two runs differ"
+            errs.append(_max_err(got, plain(), rtol))
+            results[key]["err"] = max(results[key]["err"], errs[-1])
+        print(f"[kernels] K10 [{n}, {k}] x [{k}, {m}] {dtype_name} rate {rate}: fwd, dW, dX "
+              f"max_abs_err {', '.join(f'{e:.3e}' for e in errs)}, mask = K1's, "
+              f"runs bit-identical")
 
 
 def check_sddmm(results: dict, ds, cfg) -> None:
@@ -899,10 +997,11 @@ def _config(args: list[str], epochs: int):
 
 
 def _category(kernel: str) -> str:
-    for key, cat in (("::ce_kernel", "K9 masked CE"), ("ce_finalize_kernel", "K9 masked CE"),
+    for key, cat in (("::ce_kernel", "K9 masked CE"),
                      ("fwd_mma_kernel", "K10 fused fwd"), ("fwd_fma_kernel", "K10 fused fwd"),
                      ("dw_mma_kernel", "K10 fused dW"), ("dw_fma_kernel", "K10 fused dW"),
                      ("reduce_splits_kernel", "K10 fused dW"), ("dx_kernel<", "K10 fused dX"),
+                     ("dx_mma_kernel", "K10 fused dX"),
                      ("spmm_pipe_kernel", "K3/K4 tile SpMM"),
                      ("sddmm_", "K8 sddmm"),
                      ("spmm_fma_kernel", "K3/K4 tile SpMM"),
@@ -1234,7 +1333,9 @@ def main() -> int:
                 "launches": counts[key], "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                **({"bound_pack_ms": r["pack_bound_ms"]} if "pack_bound_ms" in r else {})}
+                **({"bound_pack_ms": r["pack_bound_ms"]} if "pack_bound_ms" in r else {}),
+                **({"bound_f32_ops_ms": r["f32_ops_bound_ms"]} if "f32_ops_bound_ms" in r
+                   else {})}
 
     drop_src = "parallel_gcn_tpu_torch/csrc/dropout.cu"
     bcsr_src = "parallel_gcn_tpu_torch/csrc/bcsr_spmm.cu"

@@ -3,24 +3,25 @@
 NVIDIA card at synth-reddit's shapes.
 
     python3 kernel_variants.py                        # the spmm and fused families below
-    python3 kernel_variants.py fused                  # K9/K10: every variant, base first and last
-    python3 kernel_variants.py base no-philox base    # K9/K10: the named ones, in order
+    python3 kernel_variants.py fused [--parent DIR]   # K9/K10: every variant in one process
     python3 kernel_variants.py spmm [--parent DIR]    # K3/K4: every variant in one process
 
-K9/K10. Each variant is a copy of ``parallel_gcn_tpu_torch/`` under
-``.smoke/variants/<name>/`` with the source edits listed in ``VARIANTS``,
-built there by the package's own build and timed in a process of its own:
-K9 (masked CE, train and eval variants, [233472, 41] f32 logits) and K10
-(dropout⊗matmul forward, dW, dX, [233472, 600] bf16 × [600, 41], rate 0.1).
-Times are CUDA events over 20 calls; K9's also by ``torch.profiler``
-device time, which its short kernels need (the host's launch cost hides
-them from events). Each line carries a hash of every output, so variants
-that change only speed show the base's hashes.
-
-``base`` is the checkout. The ``no-*`` and ``w-staged-once`` variants give
-wrong results on purpose: each removes one cost from K10 to show its share.
-``dw-splits-53`` is the first dW split count, ``k9-looped`` the first K9
-(every row read from memory, as for C > 64).
+K9/K10 (``csrc/fused_ce.cu``, ``csrc/dropout_matmul.cu``). Every source
+variant in ``FUSED_VARIANTS`` is an edited copy of the two files, built
+together (nvcc in parallel, all variants at once) into
+``.smoke/variants/fused/`` and loaded in turn in one process under the
+checkout's wrappers: K9 (masked CE, train and eval variants, [233472, 41]
+f32 logits) and K10 (dropout⊗matmul forward, dW, dX, [233472, 600] bf16 ×
+[600, 41], rate 0.1), CUDA events over 20 wrapper calls and the device
+time of every kernel a call launches (``torch.profiler``), with hashes of
+the outputs, so variants that change only speed show the base's hashes.
+``FUSED_KNOBS`` are settings of the checkout's wrapper (dW's slab width).
+The design steps are the forward's ring depth and row tile, dW's ring
+depth and slab width, K9's staged rows against its looped path; the
+wrong-on-purpose variants each remove one cost (Philox, the products, the
+X stream, dX's split terms) to show its share. ``--parent DIR`` times the
+K9/K10 of another checkout's package (``--time-fused DIR``) in a process
+of its own.
 
 K3/K4 (the tile SpMM, ``csrc/bcsr_spmm.cu``). Every source variant in
 ``SPMM_VARIANTS`` is an edited copy of that one file, all built at once
@@ -82,27 +83,84 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "parallel_gcn_tpu_torch"
 MM = "csrc/dropout_matmul.cu"
-_W_LOOP = ("    for (int e = tid; e < kTN * kMmaK; e += kMmaThreads) {"
-           "  // W rows read coalesced")
-_X_LOAD = """  if (len == 4 && aligned4(x + b)) {
-    load4(x + b, xv);
-  } else {
-    for (int q = 0; q < len; ++q) xv[q] = to_float(x[b + q]);
-  }"""
-_NO_LOAD = "  xv[0] = xv[1] = xv[2] = xv[3] = 1.0f;"
-_PHILOX = "const unsigned keep = mk.keep4(b);"
-_NO_PHILOX = "const unsigned keep = 0xFu;"
+CE = "csrc/fused_ce.cu"
+_ALL = "make_uint2(0xFFFFFFFFu, 0xFFFFFFFFu)"
+_FWD_KEEP = [(MM, "keep_masks<kAl4>(mk, b0 + 16 * s)", _ALL),
+             (MM, "keep_masks<kAl4>(mk, b0 + 8 * (int64_t)k + 16 * s)", _ALL)]
+_DW_KEEP = [(MM, "mask4(make_uint2(v.x, v.y), keep_masks<kAl4>(mk, b), ik2);",
+             f"mask4(make_uint2(v.x, v.y), {_ALL}, ik2);"),
+            (MM, "mask4(make_uint2(v.z, v.w), keep_masks<kAl4>(mk, b + 4), ik2);",
+             f"mask4(make_uint2(v.z, v.w), {_ALL}, ik2);")]
+_DX_KEEP = [(MM, "const unsigned bits = keep4<kAl4>(mk, bidx);", "const unsigned bits = 0xFu;")]
+_NO_MMA = [(MM, """  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));""",
+            "  c[0] += __uint_as_float(a0 ^ a1 ^ a2 ^ a3 ^ b0 ^ b1);")]
+_NO_X = [(MM, "      cp_async16(dst, ok ? x + row * k + col : x, ok ? 16 : 0);\n    } else {", "    } else {")]
 
-# name -> [(file under the package, text, replacement)]
-VARIANTS = {
-    "base": [],
-    "dw-splits-53": [("ops/cuda_fused.py", "_DW_BLOCKS = 16 * 132", "_DW_BLOCKS = 4 * 132")],
-    "k9-looped": [("csrc/fused_ce.cu", "if (c <= kCachedCols) {", "if (false) {")],
-    "no-philox": [(MM, _PHILOX, _NO_PHILOX)],
-    "w-staged-once": [(MM, _W_LOOP, "    if (k0 == 0) " + _W_LOOP.lstrip())],
-    "no-x-loads": [(MM, _X_LOAD, _NO_LOAD)],
-    "no-x-loads-no-philox": [(MM, _X_LOAD, _NO_LOAD), (MM, _PHILOX, _NO_PHILOX)],
+
+def _const(name: str, value: int) -> tuple:
+    """An edit of ``constexpr int name = ...;`` in csrc/dropout_matmul.cu."""
+    import re
+
+    with open(os.path.join(ROOT, PKG, MM)) as f:
+        line = re.search(rf"constexpr int {name} = [^;]*;", f.read()).group(0)
+    return (MM, line, f"constexpr int {name} = {value};")
+
+
+# name -> [(file under the package, text, replacement)]: K9/K10 source
+# variants, built together with the checkout's other source and loaded in
+# turn under the checkout's wrappers
+FUSED_VARIANTS = {
+    # design steps: the forward's ring depth (stages a warp) and warps a
+    # block (8: 128 rows of X a block, half the warps an SM); dW's ring
+    # depth and row tile (32-row stages, 4 deep); dX's stores (plain, not
+    # evict-first), its pair loop not unrolled (one pair's mma chains in
+    # flight, not two), each column half's pairs contiguous rather than
+    # interleaved;
+    # K9 with every C on the looped (warp-per-row, from memory) path
+    "fwd-stages-2": lambda: [_const("kFwdStages", 2)],
+    "fwd-stages-3": lambda: [_const("kFwdStages", 3)],
+    "fwd-stages-5": lambda: [_const("kFwdStages", 5)],
+    "fwd-8-warps": lambda: [_const("kFwdWarps", 8)],
+    "dw-stages-3": lambda: [_const("kDwStages", 3)],
+    "dw-rows-32": lambda: [_const("kDwRows", 32), _const("kDwStages", 4)],
+    "dx-plain-stores": lambda: [(MM, "__stcs(reinterpret_cast<uint2*>(dx + bidx),\n"
+                                 "                     make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])));",
+                                 "*reinterpret_cast<uint2*>(dx + bidx) =\n"
+                                 "                  make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));")],
+    "dx-no-unroll": lambda: [(MM, "#pragma unroll 2  // two pairs' mma chains in flight\n", "")],
+    "dx-halves-contiguous": lambda: [(MM, "for (int pr = half; pr < pairs; pr += 2) {",
+                                      "for (int pr = half * ((pairs + 1) / 2); "
+                                      "pr < min(pairs, (half + 1) * ((pairs + 1) / 2)); ++pr) {")],
+    "k9-looped": lambda: [(CE, "if (c <= kStagedCols) {", "if (false) {")],
+    # wrong on purpose, each removes one cost: Philox (every element kept),
+    # the products (a cheap stand-in keeps the fragments live), both; the
+    # forward's X stream (no copies: the ring holds stale bytes) and its W
+    # staging; dX's stores, its products and Philox (the stores alone), its
+    # whole pair loop (the g ring and fragment build alone), its second and
+    # third split terms
+    "no-philox": lambda: _FWD_KEEP + _DW_KEEP + _DX_KEEP,
+    "no-mma": lambda: list(_NO_MMA),
+    "no-philox-no-mma": lambda: _FWD_KEEP + _DW_KEEP + _DX_KEEP + _NO_MMA,
+    "no-x-stream": lambda: list(_NO_X),
+    "no-w-staging": lambda: [(MM, "        wf32[e] = v;\n", "")],
+    "dx-no-stores": lambda: [(MM, "            if (kAl4) {\n              __stcs(",
+                              "            if (v[0] == 1234.5f) {\n              __stcs("),
+                             (MM, "                if (col + t < k) dx[bidx + t]",
+                              "                if (v[t] == 1234.5f) dx[bidx + t]")],
+    "dx-stores-only": lambda: _DX_KEEP + [(MM, "for (int t = 0; t < 3; ++t) {",
+                                           "for (int t = 0; t < 0; ++t) {")],
+    "dx-no-pairs": lambda: [(MM, "for (int pr = half; pr < pairs; pr += 2) {",
+                             "for (int pr = half; pr < 0; pr += 2) {")],
+    "dx-one-term": lambda: [(MM, "for (int t = 0; t < 3; ++t) {", "for (int t = 2; t < 3; ++t) {")],
 }
+# name -> {attribute of ops/cuda_fused.py: value}: knobs of the checkout's
+# wrapper, timed with the checkout's library (dW's slab width at most)
+FUSED_KNOBS = {"dw-slab-128": {"_DW_MAX_SLAB": 128}, "dw-slab-192": {"_DW_MAX_SLAB": 192},
+               "dw-slab-256": {"_DW_MAX_SLAB": 256}}
 
 
 SPMM = "csrc/bcsr_spmm.cu"
@@ -256,21 +314,25 @@ DROP_VARIANTS = {
 }
 
 
-def _start_builds(src: str, variants: dict, family: str):
-    """Build every variant of ``src`` (a file under the package, edited as
-    ``variants`` lists, the package's headers beside it) into
-    ``.smoke/variants/<family>/``, each nvcc in a thread of its own, all at
-    once. Returns a function that waits for them and gives ({name: (library,
-    ptxas log)}, {name: error})."""
+def _start_builds(src, variants: dict, family: str):
+    """Build every variant of ``src`` (a file under the package, or a tuple
+    of them, edited as ``variants`` lists: (text, replacement) pairs in the
+    one file, or (file, text, replacement) triples; the package's headers
+    beside them) into ``.smoke/variants/<family>/``, each nvcc in a thread
+    of its own, all at once. Returns a function that waits for them and
+    gives ({name: (library, ptxas log)}, {name: error})."""
     import threading
 
     from parallel_gcn_tpu_torch.ops import _build
 
+    srcs = (src,) if isinstance(src, str) else tuple(src)
     out_dir = os.path.join(ROOT, ".smoke", "variants", family)
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    with open(os.path.join(ROOT, PKG, src)) as f:
-        text = f.read()
+    texts = {}
+    for rel in srcs:
+        with open(os.path.join(ROOT, PKG, rel)) as f:
+            texts[rel] = f.read()
     libs, errors = {}, {}
 
     def build(name, edits):
@@ -278,18 +340,21 @@ def _start_builds(src: str, variants: dict, family: str):
         os.makedirs(vdir)
         for header in glob.glob(os.path.join(ROOT, PKG, "csrc", "*.cuh")):
             shutil.copy(header, vdir)
-        edited = text
-        for old, new in edits:
-            if old not in edited:
-                errors[name] = f"{src} no longer holds {old!r}"
+        edited = dict(texts)
+        for edit in edits:
+            rel, old, new = edit if len(edit) == 3 else (srcs[0], *edit)
+            if old not in edited[rel]:
+                errors[name] = f"{rel} no longer holds {old!r}"
                 return
-            edited = edited.replace(old, new)
-        path = os.path.join(vdir, os.path.basename(src))
-        with open(path, "w") as f:
-            f.write(edited)
+            edited[rel] = edited[rel].replace(old, new)
+        paths = []
+        for rel, text in edited.items():
+            paths.append(os.path.join(vdir, os.path.basename(rel)))
+            with open(paths[-1], "w") as f:
+                f.write(text)
         lib = os.path.join(out_dir, f"lib{name}.so")
         try:
-            libs[name] = (lib, _build._run_nvcc([path], lib))
+            libs[name] = (lib, _build._run_nvcc(paths, lib))
         except RuntimeError as e:
             errors[name] = str(e)
 
@@ -324,49 +389,9 @@ def _run_parent(flag: str, parent: str) -> int:
                            os.path.abspath(parent)]).returncode
 
 
-def make_variant(name: str) -> str:
-    """The variant's package root (a copy of the checkout's, edited)."""
-    if name == "base":
-        return ROOT
-    dst = os.path.join(ROOT, ".smoke", "variants", name)
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, PKG), os.path.join(dst, PKG),
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for rel, old, new in VARIANTS[name]:
-        path = os.path.join(dst, PKG, rel)
-        with open(path) as f:
-            text = f.read()
-        if old not in text:
-            raise ValueError(f"variant {name}: {rel} no longer holds {old!r}")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
-    return dst
-
-
-def time_tree(root: str, name: str) -> None:
-    """Import the package under ``root``, build it, time K9 and K10."""
-    sys.path.insert(0, root)
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from parallel_gcn_tpu_torch.ops import _build
-    from parallel_gcn_tpu_torch.ops import cuda_ce as ce
-    from parallel_gcn_tpu_torch.ops import cuda_fused as cf
-
-    assert os.path.abspath(ce.__file__).startswith(os.path.abspath(root)), ce.__file__
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _build.load_library()
-
-    def device_ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.device_time_total for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
-
+def _fused_inputs(torch):
+    """K9's logits, labels and split masks and K10's x, w and g at
+    synth-reddit's shapes."""
     gen = torch.Generator().manual_seed(0)
     n = 233472
     logits = (3 * torch.randn((n, 41), generator=gen)).cuda()
@@ -374,25 +399,109 @@ def time_tree(root: str, name: str) -> None:
     labels[232965:] = -1
     split = torch.randint(1, 4, (n,), generator=gen)
     split[232965:] = 0
-    labels, split = labels.cuda(), split.cuda()
     x = torch.randn((n, 600), generator=gen).bfloat16().cuda()
     w = ((torch.rand((600, 41), generator=gen) * 2 - 1) * 0.0988).bfloat16().cuda()
     g = (torch.randn((n, 41), generator=gen) / n).cuda()
+    return dict(logits=logits, labels=labels.cuda(), split=split.cuda(), x=x, w=w, g=g)
+
+
+def _device_total_ms(torch, fn, reps=20) -> float:
+    """Device ms per call of ``fn``, every kernel it launches, by
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
+def _time_fused(torch, ce, cf, t) -> str:
+    """K9 (train, eval) and K10 (fwd, dW, dX) at synth-reddit's shapes:
+    CUDA events over 20 wrapper calls and device time by the profiler, with
+    hashes of the outputs."""
     seed, rate = 0x0F1E_2D3C_4B5A_6978, 0.1
     calls = {}
     for key, s, train, out in (("K9 train", 1, True, 2), ("K9 eval", 2, False, 0)):
-        mask = split == s
+        mask = t["split"] == s
         num = int(mask.sum())
-        calls[key] = ((lambda m=mask, c=num, t=train: ce._run(logits, labels, m, c, t)), out)
+        calls[key] = ((lambda m=mask, c=num, tr=train: ce._run(t["logits"], t["labels"], m, c, tr)),
+                      out)
+    x, w, g = t["x"], t["w"], t["g"]
     calls["K10 fwd"] = (lambda: cf._fwd(x, w, seed, rate), None)
     calls["K10 dW"] = (lambda: cf._dw(x, g, seed, rate, torch.bfloat16), None)
     calls["K10 dX"] = (lambda: cf._dx(g, w, seed, rate, torch.bfloat16), None)
     parts = []
     for key, (fn, out) in calls.items():
         result = fn() if out is None else fn()[out]
-        extra = f", device {device_ms(fn):.4f}" if key.startswith("K9") else ""
-        parts.append(f"{key} {_events_ms(torch, fn, 20):.4f} ms{extra} ({_digest(result)})")
-    print(f"[variant] {name}: " + "; ".join(parts), flush=True)
+        parts.append(f"{key} {_events_ms(torch, fn, 20):.4f} ms (device "
+                     f"{_device_total_ms(torch, fn):.4f}; {_digest(result)})")
+    return "; ".join(parts)
+
+
+_PTXAS_FUSED = (("fwd_mma_kernelILb1E", "fwd"), ("dw_mma_kernelILb1E", "dW"),
+                ("dx_mma_kernelILi3ELb1E", "dX m<=48"), ("ce_kernelILb1El", "K9 train"))
+
+
+def fused_family(parent: str | None) -> int:
+    """K9/K10 of the checkout, its source variants and wrapper knobs, and of
+    ``parent``'s package."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_ce as ce
+    from parallel_gcn_tpu_torch.ops import cuda_fused as cf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    join = _start_builds((MM, CE), {k: v() for k, v in FUSED_VARIANTS.items()}, "fused")
+    base = _build.load_library()
+    inputs = _fused_inputs(torch)
+    libs, errors = join()
+    print(f"[fused-variant] base ptxas: {_ptxas(_build.build_info['log'], _PTXAS_FUSED)}")
+    for name, err in errors.items():
+        print(f"[fused-variant] {name} not built: {err}")
+    fns = ["pgcn_masked_ce", "pgcn_dropout_matmul_fwd", "pgcn_dropout_matmul_dw",
+           "pgcn_dropout_matmul_dw_blocks", "pgcn_dropout_matmul_dx"]
+    print(f"[fused-variant] base: {_time_fused(torch, ce, cf, inputs)}", flush=True)
+    for name, knobs in FUSED_KNOBS.items():
+        old = {k: getattr(cf, k) for k in knobs}
+        for k, v in knobs.items():
+            setattr(cf, k, v)
+        print(f"[fused-variant] {name}: {_time_fused(torch, ce, cf, inputs)}", flush=True)
+        for k, v in old.items():
+            setattr(cf, k, v)
+    for name, (path, log) in libs.items():
+        _load_variant(path, base, fns)
+        print(f"[fused-variant] {name}: {_time_fused(torch, ce, cf, inputs)} "
+              f"[ptxas: {_ptxas(log, _PTXAS_FUSED)}]", flush=True)
+    _build._lib = base
+    print(f"[fused-variant] base again: {_time_fused(torch, ce, cf, inputs)}", flush=True)
+    if parent:
+        del inputs
+        torch.cuda.empty_cache()
+        return _run_parent("--time-fused", parent) or int(bool(errors))
+    return int(bool(errors))
+
+
+def time_fused_tree(root: str) -> None:
+    """K9/K10 of the package under ``root`` (another checkout)."""
+    sys.path.insert(0, root)
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_ce as ce
+    from parallel_gcn_tpu_torch.ops import cuda_fused as cf
+
+    assert os.path.abspath(cf.__file__).startswith(os.path.abspath(root)), cf.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load_library()
+    inputs = _fused_inputs(torch)
+    print(f"[fused-variant] {root}: {_time_fused(torch, ce, cf, inputs)}", flush=True)
 
 
 def _spmm_inputs(torch):
@@ -881,14 +990,11 @@ def time_dropout_tree(root: str) -> None:
 
 
 def main(argv: list[str]) -> int:
-    if argv[:1] == ["--time"]:
-        time_tree(argv[1], argv[2])
-        return 0
     if argv[:1] == ["--time-spmm"]:
         time_spmm_tree(argv[1])
         return 0
     trees = {"--time-attention": time_attention_tree, "--time-rect": time_rect_tree,
-             "--time-dropout": time_dropout_tree}
+             "--time-dropout": time_dropout_tree, "--time-fused": time_fused_tree}
     if argv[:1] and argv[0] in trees:
         trees[argv[0]](argv[1])
         return 0
@@ -896,29 +1002,14 @@ def main(argv: list[str]) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"[variant] card: {smi.stdout.strip()}", flush=True)
     parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
-    if argv[:1] == ["spmm"]:
-        return spmm_family(parent)
-    families = {"attention": attention_family, "rect": rect_family,
-                "dropout": dropout_family}
+    families = {"spmm": spmm_family, "attention": attention_family, "rect": rect_family,
+                "dropout": dropout_family, "fused": fused_family}
     if argv[:1] and argv[0] in families:
         return families[argv[0]](parent)
-    if not argv:
-        rc = spmm_family(None)
-        if rc:
-            return rc
-    elif argv[0] == "fused":
-        argv = argv[1:]
-    names = argv or ["base", *[v for v in VARIANTS if v != "base"], "base"]
-    unknown = [v for v in names if v not in VARIANTS]
-    if unknown:
-        print(f"error: unknown variants {unknown}; known: {list(VARIANTS)}")
+    if argv:
+        print(f"error: unknown family {argv[0]}; known: {list(families)}")
         return 2
-    for name in names:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time",
-                               make_variant(name), name])
-        if proc.returncode != 0:
-            return proc.returncode
-    return 0
+    return spmm_family(None) or fused_family(None)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@
 // Replaces the Pallas kernels of parallel_gcn_tpu/ops/pallas_fused.py (K10):
 //   fwd_*_kernel: _fwd_kernel  Y  = xm · W,  xm = where(mask, x·inv_keep, 0)
 //   dw_*_kernel:  _dw_kernel   dW = xmᵀ · g   (g rounded to x's dtype)
-//   dx_kernel:    _dx_kernel   dX = where(mask, (g · Wᵀ)·(1/keep), 0)
+//   dx_*kernel:   _dx_kernel   dX = where(mask, (g · Wᵀ)·(1/keep), 0)
 // X is [n, k] contiguous, W [k, m], Y and g [n, m] float32. The mask is
 // regenerated in every kernel and never stored.
 //
@@ -16,40 +16,45 @@
 // (the JAX package keeps the same invariant between its own kernels,
 // pallas_fused.py:106-116). A counter covers 4 flat elements, which can
 // straddle a row end when k % 4 != 0: a group of 4 columns then draws two
-// counters.
+// counters (the kernels' kAl4 = false instantiations).
 //
 // Rounding points, as pallas_fused.py:49-104 and 226-238: xm in x's dtype
 // with inv_keep rounded to x's dtype (the wrapper rounds it); f32
 // accumulation; the forward returns f32; dW contracts xm with g rounded to
 // x's dtype and is returned in W's dtype (= x's dtype here) after the split
 // sum; dX computes g·Wᵀ in f32 with the f32 1/keep, then rounds to x's
-// dtype. bf16 products run on the tensor cores (mma.sync m16n8k16, f32
-// accumulate); f32 products on CUDA-core FMAs, never TF32.
+// dtype. f32 products run on CUDA-core FMAs, never TF32 (cora's f32 layer
+// 0; fwd_fma_kernel, dw_fma_kernel, dx_kernel, unchanged since their first
+// version).
 //
-// Hopper design. The TPU kernels walk (row block, column block) grids in
-// order and accumulate into a resident output block. Here:
-//   * forward: a block owns 64 rows of X and 48 output columns, walks the
-//     contraction in chunks, and applies the mask while it stages X in
-//     shared memory (one Philox call per 4 elements);
-//   * dW contracts over all n rows into a [k, m] result: a block owns a
-//     64 x 48 slab of dW and one of `splits` row ranges, and writes an f32
-//     partial; a second kernel sums the partials in split order (no
-//     atomics, so runs are bit-identical, as K4's split rows);
-//   * dX: a block owns 64 rows, keeps their g in shared memory and walks
-//     the k columns in tiles of 64, masking in the epilogue.
+// What bounds the bf16 kernels on an H100, at synth-reddit's layer 1 (X
+// [233472, 600] bf16, W [600, 41], rate 0.1): each moves X once (280.2 MB)
+// and g or Y once (38.3 MB): ~0.095 ms at 3.35 TB/s. Each draws one Philox
+// counter per 4 elements of X, 35M counters of 10 rounds (~0.1 ms of
+// integer issue, which has to hide under the stream, as in K2). The
+// products, 11.5 GFLOP (dX: three times that, below), are ~0.012 ms at the
+// bf16 tensor-core peak; on f32 CUDA cores dX's product would be ~0.17 ms.
+// The design (each kernel's section below says more):
+//   * forward: a persistent grid sized from the device; a block stages W
+//     once in mma fragment order and walks 128-row tiles of X through a
+//     3-stage cp.async ring; the mask is applied in registers on the A
+//     fragments, whose k order is permuted so that a thread holds 4
+//     consecutive columns of a row: one Philox call per 4 elements;
+//   * dW: a block owns a slab of up to 320 x columns and one row split
+//     (split counts from the device); a 4-stage ring of x and g, one
+//     in-place 16-byte masking pass, fragments by ldmatrix.trans; the f32
+//     partials are summed in split order by reduce_splits_kernel;
+//   * dX: the product on the tensor cores at f32 accuracy (g split into
+//     three exact bf16 terms), W staged once, output columns permuted so a
+//     thread writes 4 consecutive columns under one Philox counter.
 // Ragged n, k and m are masked in the kernels; the host pads nothing.
-//
-// What bounds it on an H100, at synth-reddit's layer 1 (X [233472, 600]
-// bf16, W [600, 41]): the forward reads X (280.2 MB) and writes Y (38.3 MB),
-// ~0.095 ms at 3.35 TB/s; dW reads X and g, about the same; dX reads g and
-// writes 280.2 MB, ~0.095 ms. Each pass is 11.5 GFLOP: ~0.012 ms on the
-// bf16 tensor cores, ~0.17 ms on f32 CUDA cores (dX's product is f32).
-// This first version stages through shared memory without a copy pipeline
-// and wastes 7 of 48 output columns at m = 41; it sits above those bounds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace {
 
@@ -280,12 +285,8 @@ dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, mma.sync.m16n8k16 (bf16 x bf16 -> f32), 4 warps x 16
-// rows of output, kTN / 8 = 6 n-tiles of 8 columns.
-constexpr int kMmaK = 64;              // contraction chunk
-constexpr int kPad = kMmaK + 8;        // smem row stride (bf16) of [.][k] operands
-constexpr int kGPad = kTN + 8;         // smem row stride (bf16) of dW's g
-constexpr int kMmaThreads = 128;
+// bf16: tensor cores, mma.sync.m16n8k16 (bf16 x bf16 -> f32), fed by
+// cp.async rings of 16-byte copies.
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
@@ -297,146 +298,624 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
 }
 
-// two bf16 in one register, `lo` in the low half (the lower k index)
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+// 16 bytes global → shared, of which the first src_bytes are read and the
+// rest zero-filled (0: a zero piece past the data); around them 256 bytes
+// are fetched into L2, so a strided stream reaches memory in 256-byte runs.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(a),
+               "l"(src), "r"(src_bytes));
 }
 
-// bf16 forward: out[r0.., n0..] = xm · W
-__global__ void __launch_bounds__(kMmaThreads)
+// 4 bytes global → shared, zero-filled when src_bytes is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(const __nv_bfloat16* p) {
+  return (uint32_t)__bfloat16_as_ushort(*p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Keep bits of the 4 flat elements b .. b+3 (bit q for b + q): one Philox
+// counter when b is a multiple of 4 (kAl4: k % 4 == 0 and the column a
+// multiple of 4), else the two counters the group straddles.
+template <bool kAl4>
+__device__ __forceinline__ unsigned keep4(const Mask& mk, int64_t b) {
+  return kAl4 ? mk.keep_bits((uint64_t)b >> 2) : mk.keep4(b);
+}
+
+// 0xFFFF over each 16-bit half (bf16 element) that is kept: the AND masks
+// of the 2 words holding the 4 bf16 of flat elements b .. b+3. With kAl4
+// the 4 Philox words are compared straight (no bit packing).
+template <bool kAl4>
+__device__ __forceinline__ uint2 keep_masks(const Mask& mk, int64_t b) {
+  if (kAl4) {
+    const uint64_t ctr = (uint64_t)b >> 2;
+    const uint4 w = philox4x32_10(make_uint4((uint32_t)ctr, (uint32_t)(ctr >> 32), 0u, 0u),
+                                  mk.k0, mk.k1);
+    return make_uint2((w.x < mk.thr ? 0x0000FFFFu : 0u) | (w.y < mk.thr ? 0xFFFF0000u : 0u),
+                      (w.z < mk.thr ? 0x0000FFFFu : 0u) | (w.w < mk.thr ? 0xFFFF0000u : 0u));
+  }
+  const unsigned bits = mk.keep4(b);
+  return make_uint2((bits & 1u ? 0x0000FFFFu : 0u) | (bits & 2u ? 0xFFFF0000u : 0u),
+                    (bits & 4u ? 0x0000FFFFu : 0u) | (bits & 8u ? 0xFFFF0000u : 0u));
+}
+
+// The 4 staged bf16 (2 words) of flat elements b .. b+3 times inv_keep
+// (bf16x2 ik2), each rounded once to bf16, under their keep masks.
+__device__ __forceinline__ uint2 mask4(uint2 v, uint2 keep, uint32_t ik2) {
+  uint32_t p0, p1;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(p0) : "r"(v.x), "r"(ik2));
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(p1) : "r"(v.y), "r"(ik2));
+  return make_uint2(p0 & keep.x, p1 & keep.y);
+}
+
+// ---- forward ---------------------------------------------------------------
+// A persistent grid of one 16-warp block per SM (from the occupancy
+// calculator). W is staged once per block in mma fragment order (a lane's
+// B registers of two n-tiles are one 16-byte read). Each warp then streams
+// 16-row tiles of X on its own, tiles gw, gw + W, ... (gw the warp's index
+// in the grid, W the grid's warps, so the warps read one band of rows at a
+// time), through a 4-stage ring of its own of [16 rows × 64 columns]
+// pieces (cp.async, 16 bytes a copy, row-swizzled so the fragment reads
+// are conflict-free), synchronised by __syncwarp only: warps drift apart,
+// and one warp's Philox rounds overlap another's loads (a block-wide ring
+// kept the warps in step and measured the Philox rounds on top of the
+// stream). Inside a k16 step the k order is permuted (fragment k 2q+j ↔
+// column 4q+j, k 8+2q+j ↔ column 4q+2+j), so a thread's A registers of a
+// row are its columns 4q..4q+3: one 8-byte read and, when k % 4 == 0, one
+// Philox counter, masked in registers. W larger than kWBytes (or m > kNB)
+// is taken in chunks of columns of X (or of W); a later k chunk adds into
+// out, which the same thread wrote for the earlier chunk (the tile→warp
+// map is fixed).
+constexpr int kFwdWarps = 16;
+constexpr int kKC = 64;                         // X columns a ring stage
+constexpr int kFwdStages = 4;                   // ring stages a warp
+constexpr int kFwdStageBytes = 16 * kKC * 2;    // 2 KB: 16 rows × 64 columns
+constexpr int kNB = 64;                         // output columns a W chunk
+constexpr int kWBytes = 64 * 1024;              // shared bytes of a W chunk
+
+// the 16-byte piece p of staged row r sits at p ^ xswz(r)
+__device__ __forceinline__ int xswz(int r) { return (r & 3) << 1; }
+
+// Lane `lane` of a warp copies its share of the [16 rows × 64 columns]
+// bf16 block of x at (row0, col0) into a ring stage (rows of 128 bytes,
+// piece p of row r at p ^ xswz(r)): 16-byte cp.async copies when vec (k % 8
+// == 0 and x 16-byte aligned), else element by element. Zeros past row n or
+// column k.
+__device__ __forceinline__ void stage_x(uint8_t* st, const __nv_bfloat16* __restrict__ x,
+                                        int64_t row0, int64_t n, int col0, int k, bool vec,
+                                        int lane) {
+#pragma unroll
+  for (int e = lane; e < 16 * (kKC / 8); e += 32) {
+    const int r = e / (kKC / 8);
+    const int p = e % (kKC / 8);
+    const int64_t row = row0 + r;
+    const int col = col0 + 8 * p;
+    uint8_t* dst = st + r * (kKC * 2) + ((p ^ xswz(r)) << 4);
+    const bool ok = row < n && col < k;
+    if (vec) {
+      cp_async16(dst, ok ? x + row * k + col : x, ok ? 16 : 0);
+    } else {
+      uint32_t h[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        h[t] = (row < n && col + t < k) ? bf16_bits(x + row * k + col + t) : 0u;
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16, h[6] | h[7] << 16);
+    }
+  }
+}
+
+template <bool kAl4>
+__global__ void __launch_bounds__(kFwdWarps * 32, 1)
 fwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-               float* __restrict__ out, int64_t n, int k, int m, Mask mk,
-               float inv_keep) {
-  __shared__ __align__(16) __nv_bfloat16 a_s[kRows][kPad];  // xm [row][kcol]
-  __shared__ __align__(16) __nv_bfloat16 b_s[kTN][kPad];    // W  [out col][kcol]
-  const int64_t r0 = (int64_t)blockIdx.x * kRows;
-  const int n0 = blockIdx.y * kTN;
+               float* __restrict__ out, int64_t n, int k, int m, int kw_max, int vec,
+               Mask mk, uint32_t ik2) {
+  extern __shared__ __align__(128) uint8_t smem[];
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int gq = lane >> 2;  // mma groupID
-  const int q = lane & 3;    // mma threadID_in_group
-  const int n_active = min(kTN / 8, (m - n0 + 7) / 8);  // block-uniform
-  float acc[kTN / 8][4] = {};
-  for (int k0 = 0; k0 < k; k0 += kMmaK) {
-    for (int e = tid; e < kRows * kMmaK / 4; e += kMmaThreads) {
-      const int r = e / (kMmaK / 4);
-      const int c = (e % (kMmaK / 4)) * 4;
-      float v[4];
-      masked4(x, n, k, r0 + r, k0 + c, mk, inv_keep, v);
-      store4(&a_s[r][c], v);  // exact: v is already bf16
-    }
-    for (int e = tid; e < kTN * kMmaK; e += kMmaThreads) {  // W rows read coalesced
-      const int c = e / kTN;
-      const int j = e % kTN;
-      b_s[j][c] = (k0 + c < k && n0 + j < m) ? w[(int64_t)(k0 + c) * m + n0 + j]
-                                             : __float2bfloat16_rn(0.0f);
-    }
-    __syncthreads();
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  uint8_t* ring = smem + warp * kFwdStages * kFwdStageBytes;
+  const uint4* wf = reinterpret_cast<const uint4*>(smem + kFwdWarps * kFwdStages * kFwdStageBytes);
+  uint32_t* wf32 = reinterpret_cast<uint32_t*>(smem + kFwdWarps * kFwdStages * kFwdStageBytes);
+  const int64_t n_tiles = (n + 15) / 16;
+  const int64_t gw = (int64_t)blockIdx.x * kFwdWarps + warp;
+  const int64_t n_warps = (int64_t)gridDim.x * kFwdWarps;
+  const int my_tiles = gw < n_tiles ? (int)((n_tiles - 1 - gw) / n_warps + 1) : 0;
+  // this thread's A reads of step s: rows g and g + 8 of a stage
+  int a_off[kKC / 16];
 #pragma unroll
-    for (int kk = 0; kk < kMmaK; kk += 16) {
-      const int ar = warp * 16 + gq;
-      const uint32_t a0 = lds32(&a_s[ar][kk + q * 2]);
-      const uint32_t a1 = lds32(&a_s[ar + 8][kk + q * 2]);
-      const uint32_t a2 = lds32(&a_s[ar][kk + 8 + q * 2]);
-      const uint32_t a3 = lds32(&a_s[ar + 8][kk + 8 + q * 2]);
+  for (int s = 0; s < kKC / 16; ++s)
+    a_off[s] = g * (kKC * 2) + (((2 * s + (q >> 1)) ^ xswz(g)) << 4) + 8 * (q & 1);
+
+  for (int n0 = 0; n0 < m; n0 += kNB) {
+    const int np = (min(kNB, m - n0) + 15) / 16;  // pairs of n-tiles (block-uniform)
+    for (int k0w = 0; k0w < k; k0w += kw_max) {
+      const int kcs = min(kw_max, k - k0w + kKC - 1) / kKC;  // ring stages a tile
+      const int n_items = my_tiles * kcs;
+      // the next stage to fill: item i_next = (tile it_tile, chunk it_kc)
+      int i_next = 0, it_kc = 0;
+      int64_t it_tile = gw;
+      auto issue = [&]() {
+        if (i_next < n_items) {
+          stage_x(ring + (i_next % kFwdStages) * kFwdStageBytes, x, it_tile * 16, n,
+                  k0w + it_kc * kKC, k, vec, lane);
+          if (++it_kc == kcs) {
+            it_kc = 0;
+            it_tile += n_warps;
+          }
+        }
+        ++i_next;
+        cp_async_commit();
+      };
+      cp_async_wait<0>();
+      __syncthreads();  // the W chunk before is free
+      // W's rows k0w .. k0w + kcs·64 first land in the (still idle) ring as
+      // one flat run of 16-byte copies, when they fit and are aligned, so
+      // the fragment build below reads shared memory, not 2-byte global
+      // loads one L2 trip after another
+      const int w_rows = min(kcs * kKC, k - k0w);
+      const int w_len = w_rows * m;  // bf16
+      const bool w_ring = w_len <= kFwdWarps * kFwdStages * kFwdStageBytes / 2 &&
+                          ((reinterpret_cast<uintptr_t>(w + (int64_t)k0w * m)) & 15u) == 0;
+      const __nv_bfloat16* w_src = w + (int64_t)k0w * m;  // row kk at (kk - k0w)·m
+      if (w_ring) {
+        const __nv_bfloat16* wg = w_src;
+        w_src = reinterpret_cast<const __nv_bfloat16*>(smem);
+        for (int e = tid; e < (w_len + 7) / 8; e += blockDim.x) {
+          const int left = w_len - 8 * e;
+          cp_async16(smem + 16 * e, wg + 8 * e, left >= 8 ? 16 : 2 * left);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      // W in fragment order: word e = ((s·np + pp)·32 + lane)·4 + reg holds
+      // b0, b1 of n-tile 2pp (reg 0, 1) and of 2pp+1 (reg 2, 3) of k16 step s
+      const int words = kcs * (kKC / 16) * np * 128;
+#pragma unroll 4
+      for (int e = tid; e < words; e += blockDim.x) {
+        const int reg = e & 3;
+        const int ln = (e >> 2) & 31;
+        const int sp = e >> 7;
+        const int kr = 16 * (sp / np) + 4 * (ln & 3) + 2 * (reg & 1);  // row - k0w
+        const int nn = n0 + (2 * (sp % np) + (reg >> 1)) * 8 + (ln >> 2);
+        uint32_t v = 0;
+        if (nn < m) {
+          if (kr < w_rows) v = bf16_bits(w_src + kr * m + nn);
+          if (kr + 1 < w_rows) v |= bf16_bits(w_src + (kr + 1) * m + nn) << 16;
+        }
+        wf32[e] = v;
+      }
+      __syncthreads();  // the ring is free again
 #pragma unroll
-      for (int nt = 0; nt < kTN / 8; ++nt) {
-        if (nt < n_active) {
-          const uint32_t b0 = lds32(&b_s[nt * 8 + gq][kk + q * 2]);
-          const uint32_t b1 = lds32(&b_s[nt * 8 + gq][kk + 8 + q * 2]);
-          mma_bf16(acc[nt], a0, a1, a2, a3, b0, b1);
+      for (int c = 0; c < kFwdStages - 1; ++c) issue();
+      __syncthreads();  // W staged
+
+      float acc[kNB / 8][4];
+#pragma unroll
+      for (int t = 0; t < kNB / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+      int64_t tile = gw;
+      int kc = 0;
+      for (int i = 0; i < n_items; ++i) {
+        cp_async_wait<kFwdStages - 2>();
+        __syncwarp();
+        issue();
+        const uint8_t* st = ring + (i % kFwdStages) * kFwdStageBytes;
+        const int64_t row = tile * 16 + g;
+        const int col0 = k0w + kc * kKC + 4 * q;
+        // flat index of (row, col0); all 16 rows and 64 columns inside X?
+        const int64_t b0 = row * k + col0;
+        const bool full = (tile + 1) * 16 <= n && k0w + (kc + 1) * kKC <= k;
+#pragma unroll
+        for (int s = 0; s < kKC / 16; ++s) {
+          uint2 lo = *reinterpret_cast<const uint2*>(st + a_off[s]);
+          uint2 hi = *reinterpret_cast<const uint2*>(st + a_off[s] + 8 * (kKC * 2));
+          if (full) {
+            lo = mask4(lo, keep_masks<kAl4>(mk, b0 + 16 * s), ik2);
+            hi = mask4(hi, keep_masks<kAl4>(mk, b0 + 8 * (int64_t)k + 16 * s), ik2);
+          } else if (col0 + 16 * s < k) {
+            if (row < n) lo = mask4(lo, keep_masks<kAl4>(mk, b0 + 16 * s), ik2);
+            if (row + 8 < n) hi = mask4(hi, keep_masks<kAl4>(mk, b0 + 8 * (int64_t)k + 16 * s), ik2);
+          }
+          // lo.x: row g, fragment k 2q, 2q+1 (a0); hi.x: row g+8 (a1); .y: k+8 (a2, a3)
+          const uint4* wfs = wf + ((kc * (kKC / 16) + s) * np) * 32 + lane;
+#pragma unroll
+          for (int pp = 0; pp < kNB / 16; ++pp) {
+            if (pp < np) {
+              const uint4 b = wfs[pp * 32];
+              mma_bf16(acc[2 * pp], lo.x, hi.x, lo.y, hi.y, b.x, b.y);
+              mma_bf16(acc[2 * pp + 1], lo.x, hi.x, lo.y, hi.y, b.z, b.w);
+            }
+          }
+        }
+        if (kc + 1 == kcs) {  // the tile's last stage: write its rows
+#pragma unroll
+          for (int t = 0; t < kNB / 8; ++t) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int64_t orow = row + 8 * h;
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                const int col = n0 + t * 8 + 2 * q + jj;
+                if (t < 2 * np && orow < n && col < m) {
+                  float* o = out + orow * m + col;
+                  *o = k0w > 0 ? *o + acc[t][2 * h + jj] : acc[t][2 * h + jj];
+                }
+              }
+              acc[t][2 * h] = acc[t][2 * h + 1] = 0.0f;
+            }
+          }
+        }
+        if (++kc == kcs) {
+          kc = 0;
+          tile += n_warps;
         }
       }
     }
-    __syncthreads();
   }
-#pragma unroll
-  for (int nt = 0; nt < kTN / 8; ++nt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t row = r0 + warp * 16 + gq + h * 8;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int col = n0 + nt * 8 + q * 2 + jj;
-        if (row < n && col < m) out[row * m + col] = acc[nt][h * 2 + jj];
-      }
-    }
-  }
+  cp_async_wait<0>();
 }
 
-// bf16 dW partial of row range [rs0, rs0 + rows_per_split):
-// ws[split][kc0.., n0..] = xmᵀ · bf16(g). The contraction runs over rows,
-// so the mma fragments pair two rows of the [row][.] tiles.
-__global__ void __launch_bounds__(kMmaThreads)
+// ---- dW --------------------------------------------------------------------
+// Block (slab, n-block, split) contracts rows [rs0, rs1) of xm's columns
+// [cs0, cs0 + slab) with g's columns [n0, n0 + 48) into an f32 partial
+// ws[split][cs0.., n0..]; reduce_splits_kernel sums the partials in split
+// order (no atomics, bit-identical runs). A slab is up to 320 columns (2
+// m16 tiles a warp), so g is read and rounded once per slab: twice at
+// k = 600, not ten times. A 4-stage ring brings 32 rows of x (16-byte
+// pieces, swizzled by row) and of g (4-byte copies) per stage; one pass
+// over the staged x applies the mask, 8 elements (two Philox counters) a
+// thread, in place, and rounds g to bf16 beside it; then A fragments (xmᵀ)
+// and B fragments (g) come from ldmatrix.trans.
+constexpr int kDwRows = 64;      // rows (the contraction) a ring stage
+constexpr int kDwStages = 2;     // 64-row stages, 2 blocks an SM (32-row stages ×4: 3% slower)
+constexpr int kDwNB = 48;        // g columns a block
+constexpr int kDwMaxSlab = 320;  // x columns a block at most (10 warps)
+constexpr int kGbStride = 56;    // bf16 row stride of the rounded g (conflict-free ldmatrix)
+
+__host__ __device__ constexpr int dw_stage_bytes(int slab) {
+  return kDwRows * slab * 2 + kDwRows * kDwNB * 4;
+}
+
+__host__ __device__ constexpr int dw_smem_bytes(int slab) {
+  return kDwStages * dw_stage_bytes(slab) + kDwRows * kGbStride * 2;
+}
+
+template <bool kAl4>
+__global__ void __launch_bounds__(kDwMaxSlab, 2)
 dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
-              float* __restrict__ ws, int64_t n, int k, int m,
-              int64_t rows_per_split, Mask mk, float inv_keep) {
-  __shared__ __align__(16) __nv_bfloat16 x_s[kMmaK][kPad];   // xm [row][kcol]
-  __shared__ __align__(16) __nv_bfloat16 g_s[kMmaK][kGPad];  // g  [row][out col]
-  const int kc0 = blockIdx.x * kRows;
-  const int n0 = blockIdx.y * kTN;
+              float* __restrict__ ws, int64_t n, int k, int m, int slab,
+              int64_t rows_per_split, int vec, int gflat, Mask mk, uint32_t ik2) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int stage_bytes = dw_stage_bytes(slab);
+  const int x_bytes = kDwRows * slab * 2;
+  __nv_bfloat16* gb = reinterpret_cast<__nv_bfloat16*>(smem + kDwStages * stage_bytes);
+  const int cs0 = blockIdx.x * slab;
+  const int n0 = blockIdx.y * kDwNB;
   const int64_t rs0 = (int64_t)blockIdx.z * rows_per_split;
   const int64_t rs1 = rs0 + rows_per_split < n ? rs0 + rows_per_split : n;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int gq = lane >> 2;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g8 = lane >> 2;
   const int q = lane & 3;
-  const int n_active = min(kTN / 8, (m - n0 + 7) / 8);
-  float acc[kTN / 8][4] = {};
-  for (int64_t r0 = rs0; r0 < rs1; r0 += kMmaK) {
-    for (int e = tid; e < kMmaK * kRows / 4; e += kMmaThreads) {
-      const int r = e / (kRows / 4);
-      const int c = (e % (kRows / 4)) * 4;
-      float v[4];
-      masked4(x, n, k, r0 + r, kc0 + c, mk, inv_keep, v);
-      store4(&x_s[r][c], v);
-    }
-    for (int e = tid; e < kMmaK * kTN; e += kMmaThreads) {
-      const int r = e / kTN;
-      const int j = e % kTN;
-      g_s[r][j] = __float2bfloat16_rn(
-          (r0 + r < n && n0 + j < m) ? g[(r0 + r) * m + n0 + j] : 0.0f);
-    }
-    __syncthreads();
+  const int pieces = slab / 8;  // 16-byte pieces of a staged x row
+  const int np = (min(kDwNB, m - n0) + 15) / 16;
+  const int n_chunks = (int)((rs1 - rs0 + kDwRows - 1) / kDwRows);
+  // this thread's x pieces of a stage: piece xp of rows xr + 8i, i < 4
+  // (blockDim.x = slab = 8·pieces), at xoff + i·16·slab bytes
+  const int xp = tid % pieces;
+  const int xr = tid / pieces;
+  const int xoff = xr * slab * 2 + ((xp ^ xr) << 4);
+  const int xcol = cs0 + 8 * xp;
+  const int64_t gend = rs1 * m;  // g's flat end of this split
+
+  auto issue = [&](int c) {
+    if (c < n_chunks) {
+      uint8_t* st = smem + (c % kDwStages) * stage_bytes;
+      const int64_t r0 = rs0 + (int64_t)c * kDwRows;
 #pragma unroll
-    for (int kk = 0; kk < kMmaK; kk += 16) {
-      const int ac = warp * 16 + gq;  // dW row (x column) of fragment row gq
-      const int ka = kk + q * 2;      // contraction rows ka, ka + 1 (+ 8)
-      const uint32_t a0 = pack2(x_s[ka][ac], x_s[ka + 1][ac]);
-      const uint32_t a1 = pack2(x_s[ka][ac + 8], x_s[ka + 1][ac + 8]);
-      const uint32_t a2 = pack2(x_s[ka + 8][ac], x_s[ka + 9][ac]);
-      const uint32_t a3 = pack2(x_s[ka + 8][ac + 8], x_s[ka + 9][ac + 8]);
+      for (int i = 0; i < kDwRows / 8; ++i) {
+        const int64_t row = r0 + xr + 8 * i;
+        uint8_t* dst = st + xoff + i * 16 * slab;
+        const bool ok = row < rs1 && xcol < k;
+        if (vec) {
+          cp_async16(dst, ok ? x + row * k + xcol : x, ok ? 16 : 0);
+        } else {
+          uint32_t h[8];
 #pragma unroll
-      for (int nt = 0; nt < kTN / 8; ++nt) {
-        if (nt < n_active) {
-          const int bc = nt * 8 + gq;
-          const uint32_t b0 = pack2(g_s[ka][bc], g_s[ka + 1][bc]);
-          const uint32_t b1 = pack2(g_s[ka + 8][bc], g_s[ka + 9][bc]);
-          mma_bf16(acc[nt], a0, a1, a2, a3, b0, b1);
+          for (int t = 0; t < 8; ++t)
+            h[t] = (row < rs1 && xcol + t < k) ? bf16_bits(x + row * k + xcol + t) : 0u;
+          *reinterpret_cast<uint4*>(dst) = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
+                                                      h[4] | h[5] << 16, h[6] | h[7] << 16);
+        }
+      }
+      float* gr = reinterpret_cast<float*>(st + x_bytes);
+      if (gflat) {  // the chunk's rows of g as one flat run of 32·m floats
+        const int64_t e0 = r0 * m;
+        for (int e = tid; e < kDwRows * m / 4; e += blockDim.x) {
+          const int64_t left = gend - (e0 + 4 * e);
+          const int bytes = left >= 4 ? 16 : (left > 0 ? (int)left * 4 : 0);
+          cp_async16(gr + 4 * e, bytes ? g + e0 + 4 * e : g, bytes);
+        }
+      } else {
+        for (int e = tid; e < kDwRows * kDwNB; e += blockDim.x) {
+          const int64_t row = r0 + e / kDwNB;
+          const int col = n0 + e % kDwNB;
+          const bool ok = row < rs1 && col < m;
+          cp_async4(gr + e, ok ? g + row * m + col : g, ok ? 4 : 0);
         }
       }
     }
+    cp_async_commit();
+  };
+
+  float acc[2][kDwNB / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int t = 0; t < kDwNB / 8; ++t) acc[mt][t][0] = acc[mt][t][1] = acc[mt][t][2] = acc[mt][t][3] = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < kDwStages - 1; ++c) issue(c);
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kDwStages - 2>();
     __syncthreads();
-  }
-  float* dst = ws + (int64_t)blockIdx.z * k * m;
+    issue(c + kDwStages - 1);
+    uint8_t* st = smem + (c % kDwStages) * stage_bytes;
+    const int64_t r0 = rs0 + (int64_t)c * kDwRows;
+    // mask the staged x in place: 8 elements (two Philox counters) a piece
+    if (xcol < k) {
 #pragma unroll
-  for (int nt = 0; nt < kTN / 8; ++nt) {
+      for (int i = 0; i < kDwRows / 8; ++i) {
+        const int64_t row = r0 + xr + 8 * i;
+        if (row < rs1) {
+          uint4* ptr = reinterpret_cast<uint4*>(st + xoff + i * 16 * slab);
+          const uint4 v = *ptr;
+          const int64_t b = row * k + xcol;
+          const uint2 a = mask4(make_uint2(v.x, v.y), keep_masks<kAl4>(mk, b), ik2);
+          const uint2 z = mask4(make_uint2(v.z, v.w), keep_masks<kAl4>(mk, b + 4), ik2);
+          *ptr = make_uint4(a.x, a.y, z.x, z.y);
+        }
+      }
+    }
+    // g rounded to bf16 (x's dtype), [row][col] at stride kGbStride, zero
+    // past column m
+    const float* gr = reinterpret_cast<const float*>(st + x_bytes);
+    for (int e = tid; e < kDwRows * kDwNB / 2; e += blockDim.x) {
+      const int r = e / (kDwNB / 2);
+      const int j = 2 * (e % (kDwNB / 2));
+      float v0, v1;
+      if (gflat) {
+        v0 = j < m ? gr[r * m + j] : 0.0f;
+        v1 = j + 1 < m ? gr[r * m + j + 1] : 0.0f;
+      } else {
+        v0 = gr[r * kDwNB + j];
+        v1 = gr[r * kDwNB + j + 1];
+      }
+      *reinterpret_cast<uint32_t*>(gb + r * kGbStride + j) = pack_bf16(v0, v1);
+    }
+    __syncthreads();
+    const int mj = lane >> 3;
+    const int mr = lane & 7;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kc = kc0 + warp * 16 + gq + h * 8;
+    for (int s = 0; s < kDwRows / 16; ++s) {
+      // A (xmᵀ, rows = x columns): matrices (rows 16s.., cols cm..), (16s.., cm+8..),
+      // (16s+8.., cm..), (16s+8.., cm+8..)
+      const int ra = 16 * s + mr + 8 * (mj >> 1);
+      uint32_t a[2][4];
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int col = n0 + nt * 8 + q * 2 + jj;
-        if (kc < k && col < m) dst[(int64_t)kc * m + col] = acc[nt][h * 2 + jj];
+      for (int mt = 0; mt < 2; ++mt) {
+        const int pa = (warp * 32 + mt * 16) / 8 + (mj & 1);
+        ldmatrix_x4_trans(a[mt], st + ra * slab * 2 + ((pa ^ (ra & 7)) << 4));
+      }
+      const int rb = 16 * s + mr + 8 * (mj & 1);
+#pragma unroll
+      for (int pp = 0; pp < kDwNB / 16; ++pp) {
+        if (pp < np) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, gb + rb * kGbStride + (2 * pp + (mj >> 1)) * 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(acc[mt][2 * pp], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[0], b[1]);
+            mma_bf16(acc[mt][2 * pp + 1], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[2], b[3]);
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();
+  float* dst = ws + (int64_t)blockIdx.z * k * m;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int t = 0; t < kDwNB / 8; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kc = cs0 + warp * 32 + mt * 16 + g8 + 8 * h;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int col = n0 + t * 8 + 2 * q + jj;
+          if (t < 2 * np && kc < k && col < m) dst[(int64_t)kc * m + col] = acc[mt][t][2 * h + jj];
+        }
+      }
+    }
+  }
+}
+
+// ---- dX --------------------------------------------------------------------
+// dX = where(keep, (g·Wᵀ)·(1/keep), 0) on the tensor cores at f32 accuracy:
+// g (f32) splits exactly into three bf16 terms hi + mid + lo (8 + 8 + 8
+// mantissa bits) and W is bf16, so three mma passes with f32 accumulation
+// give the f32 product up to summation order. A persistent grid walks
+// 64-row tiles; 8 warps = 4 row groups of 16 rows × 2 column halves. W is
+// staged once per block in fragment order, g's tile comes through a
+// 2-stage ring of flat 16-byte copies (the tile's rows are contiguous).
+// The B columns of an n-tile pair are permuted (tile A: columns
+// 4(g'>>1) + (g'&1), tile B: that + 2) so a thread's outputs are columns
+// 4q..4q+3 of its rows: one Philox counter (k % 4 == 0) and one 8-byte
+// streaming (evict-first) store each. The store stream is what bounds the
+// kernel (the stores alone take longer than the whole kernel); evict-first
+// stores measured 9% faster than plain ones, and staging a 32-row tile's
+// rows in shared memory to write them out 16 bytes a lane measured slower
+// (kernel_variants.py, PERF.md). The pair loop is unrolled by 2, so two
+// pairs' mma chains are in flight (5% faster).
+// m ≤ 64 (kKS k16 steps held in registers); wider m and f32 take
+// dx_kernel.
+constexpr int kDxWarps = 8;
+constexpr int kDxRows = 64;
+
+template <int kKS, bool kAl4>
+__global__ void __launch_bounds__(kDxWarps * 32, 2)
+dx_mma_kernel(const float* __restrict__ g, const __nv_bfloat16* __restrict__ w,
+              __nv_bfloat16* __restrict__ dx, int64_t n, int k, int m, int cw_max, Mask mk,
+              float inv_keep) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* gring = reinterpret_cast<float*>(smem);  // [2][kDxRows·m]
+  const int gstage = kDxRows * m;                 // floats, a multiple of 4
+  const uint4* wf = reinterpret_cast<const uint4*>(smem + 2 * gstage * 4);
+  uint32_t* wf32 = reinterpret_cast<uint32_t*>(smem + 2 * gstage * 4);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g8 = lane >> 2;
+  const int q = lane & 3;
+  const int64_t n_tiles = (n + kDxRows - 1) / kDxRows;
+  if ((int64_t)blockIdx.x >= n_tiles) return;
+  const int my_tiles = (int)((n_tiles - 1 - blockIdx.x) / gridDim.x + 1);
+  const int lr = (warp & 3) * 16 + g8;  // fragment rows lr, lr + 8 of the tile
+  const int half = warp >> 2;           // this warp's column pairs: half, half + 2, ...
+  const int64_t nm = n * m;
+
+  auto issue = [&](int j) {
+    if (j < my_tiles) {
+      const int64_t e0 = (blockIdx.x + (int64_t)j * gridDim.x) * gstage;
+      float* dst = gring + (j & 1) * gstage;
+      for (int e = tid; e < gstage / 4; e += blockDim.x) {
+        const int64_t left = nm - (e0 + 4 * e);
+        const int bytes = left >= 4 ? 16 : (left > 0 ? (int)left * 4 : 0);
+        cp_async16(dst + 4 * e, bytes ? g + e0 + 4 * e : g, bytes);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int c0w = 0; c0w < k; c0w += cw_max) {
+    const int pairs = (min(cw_max, k - c0w) + 15) / 16;
+    cp_async_wait<0>();
+    __syncthreads();  // W and the g ring of the chunk before are free
+    issue(0);
+    // W in fragment order: word ((pair·kKS + s)·32 + lane)·4 + reg, reg 0, 1:
+    // b0, b1 of n-tile A, 2, 3: of n-tile B
+    const int words = pairs * kKS * 128;
+#pragma unroll 4
+    for (int e = tid; e < words; e += blockDim.x) {
+      const int reg = e & 3;
+      const int ln = (e >> 2) & 31;
+      const int ps = e >> 7;
+      const int gg = ln >> 2;
+      const int col = c0w + 16 * (ps / kKS) + 4 * (gg >> 1) + (gg & 1) + 2 * (reg >> 1);
+      const int j = 16 * (ps % kKS) + 8 * (reg & 1) + 2 * (ln & 3);
+      uint32_t v = 0;
+      if (col < k) {
+        if (j < m) v = bf16_bits(w + (int64_t)col * m + j);
+        if (j + 1 < m) v |= bf16_bits(w + (int64_t)col * m + j + 1) << 16;
+      }
+      wf32[e] = v;
+    }
+    for (int jt = 0; jt < my_tiles; ++jt) {
+      __syncthreads();  // every warp has read its fragments of the tile before
+      issue(jt + 1);
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* gs = gring + (jt & 1) * gstage;
+      const int64_t row = (blockIdx.x + (int64_t)jt * gridDim.x) * kDxRows + lr;
+      // A = g split into three bf16 terms: a[term][s][reg], term 0 = lo
+      uint32_t a[3][kKS][4];
+#pragma unroll
+      for (int s = 0; s < kKS; ++s) {
+#pragma unroll
+        for (int reg = 0; reg < 4; ++reg) {
+          const int r = lr + 8 * (reg & 1);
+          const int j = 16 * s + 2 * q + 8 * (reg >> 1);
+          const float v0 = j < m ? gs[r * m + j] : 0.0f;
+          const float v1 = j + 1 < m ? gs[r * m + j + 1] : 0.0f;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+          const float r0 = v0 - __low2float(hi);
+          const float r1 = v1 - __high2float(hi);
+          const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+          a[2][s][reg] = *reinterpret_cast<const uint32_t*>(&hi);
+          a[1][s][reg] = *reinterpret_cast<const uint32_t*>(&mid);
+          a[0][s][reg] = pack_bf16(r0 - __low2float(mid), r1 - __high2float(mid));
+        }
+      }
+#pragma unroll 2  // two pairs' mma chains in flight
+      for (int pr = half; pr < pairs; pr += 2) {
+        float ca[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float cb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        uint4 b[kKS];
+#pragma unroll
+        for (int s = 0; s < kKS; ++s) b[s] = wf[(pr * kKS + s) * 32 + lane];
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+#pragma unroll
+          for (int s = 0; s < kKS; ++s) {
+            mma_bf16(ca, a[t][s][0], a[t][s][1], a[t][s][2], a[t][s][3], b[s].x, b[s].y);
+            mma_bf16(cb, a[t][s][0], a[t][s][1], a[t][s][2], a[t][s][3], b[s].z, b[s].w);
+          }
+        }
+        const int col = c0w + 16 * pr + 4 * q;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int64_t orow = row + 8 * h;
+          if (orow < n && col < k) {
+            const int64_t bidx = orow * k + col;
+            const unsigned bits = keep4<kAl4>(mk, bidx);
+            const float v[4] = {(bits & 1u) ? ca[2 * h] * inv_keep : 0.0f,
+                                (bits & 2u) ? ca[2 * h + 1] * inv_keep : 0.0f,
+                                (bits & 4u) ? cb[2 * h] * inv_keep : 0.0f,
+                                (bits & 8u) ? cb[2 * h + 1] * inv_keep : 0.0f};
+            if (kAl4) {
+              __stcs(reinterpret_cast<uint2*>(dx + bidx),
+                     make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])));
+            } else {
+#pragma unroll
+              for (int t = 0; t < 4; ++t)
+                if (col + t < k) dx[bidx + t] = __float2bfloat16_rn(v[t]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 // dW = Σ_split ws[split], in split order, rounded to T.
@@ -515,6 +994,104 @@ Mask make_mask(uint64_t seed, uint32_t thr) {
 
 unsigned cdiv(int64_t a, int64_t b) { return (unsigned)((a + b - 1) / b); }
 
+constexpr int kSplitRows = 64;  // a dW split's rows are a multiple of this
+
+// inv_keep (already a bf16 value, so its top 16 bits) as a bf16x2 word
+uint32_t bf16x2_of(float v) {
+  uint32_t u;
+  memcpy(&u, &v, sizeof(u));
+  return (u >> 16) | (u & 0xFFFF0000u);
+}
+
+// The blocks of `kernel` (threads, dynamic shared bytes smem) that the
+// current card holds at once: the SM count times the occupancy calculator's
+// blocks an SM. The kernel's dynamic shared memory limit is raised once per
+// card to what a block may opt in to beside its static shared memory.
+// Answers are cached by (kernel, card, threads, smem): a launch costs no
+// driver call beyond the launch itself.
+template <typename K>
+int resident_blocks(K kernel, int threads, int smem, int* blocks) {
+  struct Entry {
+    const void* fn;
+    int dev, threads, smem, blocks;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int n_cache = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  bool raised = false;
+  for (int i = 0; i < n_cache; ++i) {
+    const Entry& e = cache[i];
+    if (e.fn != fn || e.dev != dev) continue;
+    raised = true;
+    if (e.threads == threads && e.smem == smem) {
+      *blocks = e.blocks;
+      return 0;
+    }
+  }
+  int sms = 0, per_sm = 0, optin = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && !raised) {  // all the opt-in memory beside the static
+    cudaFuncAttributes attr;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin - (int)attr.sharedSizeBytes);
+  }
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (n_cache < 64) cache[n_cache++] = Entry{fn, dev, threads, smem, *blocks};
+  return 0;
+}
+
+template <typename K, typename... Args>
+int launch_persistent(K kernel, int64_t tiles, int threads, int smem, cudaStream_t s,
+                      Args... args) {
+  int blocks = 0;
+  const int rc = resident_blocks(kernel, threads, smem, &blocks);
+  if (rc) return rc;
+  const unsigned grid = (unsigned)(tiles < blocks ? tiles : blocks);
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return 0;
+}
+
+int fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, float* out, int64_t n, int k,
+             int m, Mask mk, float inv_keep, cudaStream_t s) {
+  const int np = (min(kNB, m) + 15) / 16;  // n-tile pairs of the widest W chunk
+  const int kw_max = kWBytes / (np * 32) / kKC * kKC;
+  const int kw = min(kw_max, (k + kKC - 1) / kKC * kKC);
+  const int smem = kFwdWarps * kFwdStages * kFwdStageBytes + kw * np * 32;
+  const int vec = k % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+  const int64_t tiles = (n + 16 * kFwdWarps - 1) / (16 * kFwdWarps);
+  const uint32_t ik2 = bf16x2_of(inv_keep);
+  if (k % 4 == 0)
+    return launch_persistent(fwd_mma_kernel<true>, tiles, kFwdWarps * 32, smem, s, x, w, out,
+                             n, k, m, kw_max, vec, mk, ik2);
+  return launch_persistent(fwd_mma_kernel<false>, tiles, kFwdWarps * 32, smem, s, x, w, out,
+                           n, k, m, kw_max, vec, mk, ik2);
+}
+
+template <int kKS>
+int dx_bf16(const float* g, const __nv_bfloat16* w, __nv_bfloat16* dx, int64_t n, int k,
+            int m, Mask mk, float inv_keep, cudaStream_t s) {
+  const int cw_max = kWBytes / (kKS * 512) * 16;  // output columns a W chunk (a multiple of 16)
+  const int cw = min(cw_max, (k + 15) / 16 * 16);
+  const int smem = 2 * kDxRows * m * 4 + cw / 16 * kKS * 512;
+  const int64_t tiles = (n + kDxRows - 1) / kDxRows;
+  if (k % 4 == 0)
+    return launch_persistent(dx_mma_kernel<kKS, true>, tiles, kDxWarps * 32, smem, s, g, w,
+                             dx, n, k, m, cw_max, mk, inv_keep);
+  return launch_persistent(dx_mma_kernel<kKS, false>, tiles, kDxWarps * 32, smem, s, g, w,
+                           dx, n, k, m, cw_max, mk, inv_keep);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for x and w alike. x: [n, k], w: [k, m],
@@ -526,45 +1103,69 @@ extern "C" int pgcn_dropout_matmul_fwd(const void* x, const void* w, float* out,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || k <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(cdiv(n, kRows), cdiv(m, kTN));
   const Mask mk = make_mask(seed, thr);
-  if (dtype == 0)
+  if (dtype == 0) {
+    const dim3 grid(cdiv(n, kRows), cdiv(m, kTN));
     fwd_fma_kernel<<<grid, kFmaThreads, 0, s>>>(static_cast<const float*>(x),
                                                 static_cast<const float*>(w), out, n,
                                                 k, m, mk, inv_keep);
-  else if (dtype == 1)
-    fwd_mma_kernel<<<grid, kMmaThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                                static_cast<const __nv_bfloat16*>(w),
-                                                out, n, k, m, mk, inv_keep);
-  else
+  } else if (dtype == 1) {
+    const int rc = fwd_bf16(static_cast<const __nv_bfloat16*>(x),
+                            static_cast<const __nv_bfloat16*>(w), out, n, k, m, mk, inv_keep, s);
+    if (rc) return rc;
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
+}
+
+// The blocks of the dW kernel for x's dtype (and, for bf16, x-column slab
+// width `slab`) that the card holds at once: the wrapper sizes the row
+// splits from it.
+extern "C" int pgcn_dropout_matmul_dw_blocks(int dtype, int slab, int* blocks) {
+  if (dtype == 0) return resident_blocks(dw_fma_kernel, kFmaThreads, 0, blocks);
+  if (dtype != 1 || slab % 64 || slab < 64 || slab > kDwMaxSlab)
+    return (int)cudaErrorInvalidValue;
+  return resident_blocks(dw_mma_kernel<true>, slab, dw_smem_bytes(slab), blocks);
 }
 
 // g: [n, m] f32; ws: [splits, k, m] f32 scratch; dw: [k, m] in x's dtype.
 // Split i covers rows [i·rows_per_split, (i+1)·rows_per_split); rows_per_split
-// is a multiple of 64 and splits the least count that covers n.
+// is a multiple of 64 and splits the least count that covers n. bf16 blocks
+// own `slab` columns of x (a multiple of 64, at most 320; f32 ignores it).
 extern "C" int pgcn_dropout_matmul_dw(const void* x, const float* g, float* ws,
                                       void* dw, int dtype, int64_t n, int k, int m,
-                                      int splits, int64_t rows_per_split,
+                                      int slab, int splits, int64_t rows_per_split,
                                       uint64_t seed, uint32_t thr, float inv_keep,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || k <= 0 || m <= 0 || splits <= 0 || rows_per_split <= 0 ||
-      rows_per_split % kMmaK || (int64_t)splits != (n + rows_per_split - 1) / rows_per_split)
+      rows_per_split % kSplitRows ||
+      (int64_t)splits != (n + rows_per_split - 1) / rows_per_split)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(cdiv(k, kRows), cdiv(m, kTN), (unsigned)splits);
   const Mask mk = make_mask(seed, thr);
   const int64_t km = (int64_t)k * m;
   const unsigned rblocks = cdiv(km, 256) < 1024u ? cdiv(km, 256) : 1024u;
   if (dtype == 0) {
+    const dim3 grid(cdiv(k, kRows), cdiv(m, kTN), (unsigned)splits);
     dw_fma_kernel<<<grid, kFmaThreads, 0, s>>>(static_cast<const float*>(x), g, ws, n, k,
                                                m, rows_per_split, mk, inv_keep);
     reduce_splits_kernel<float><<<rblocks, 256, 0, s>>>(ws, splits, km,
                                                        static_cast<float*>(dw));
   } else if (dtype == 1) {
-    dw_mma_kernel<<<grid, kMmaThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(x), g,
-                                               ws, n, k, m, rows_per_split, mk, inv_keep);
+    if (slab % 64 || slab < 64 || slab > kDwMaxSlab) return (int)cudaErrorInvalidValue;
+    const int smem = dw_smem_bytes(slab);
+    const int vec = k % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+    const uint32_t ik2 = bf16x2_of(inv_keep);
+    const dim3 grid(cdiv(k, slab), cdiv(m, kDwNB), (unsigned)splits);
+    auto kernel = k % 4 == 0 ? dw_mma_kernel<true> : dw_mma_kernel<false>;
+    int resident = 0;  // raises the kernel's shared memory limit, once
+    const int rc = resident_blocks(kernel, slab, smem, &resident);
+    if (rc) return rc;
+    // g's rows as flat 16-byte runs when one column block covers them
+    const int gflat = m <= kDwNB && (reinterpret_cast<uintptr_t>(g) & 15u) == 0;
+    kernel<<<grid, slab, smem, s>>>(static_cast<const __nv_bfloat16*>(x), g, ws, n, k, m,
+                                    slab, rows_per_split, vec, gflat, mk, ik2);
     reduce_splits_kernel<__nv_bfloat16><<<rblocks, 256, 0, s>>>(
         ws, splits, km, static_cast<__nv_bfloat16*>(dw));
   } else {
@@ -573,22 +1174,34 @@ extern "C" int pgcn_dropout_matmul_dw(const void* x, const float* g, float* ws,
   return (int)cudaGetLastError();
 }
 
-// g: [n, m] f32; w: [k, m] in x's dtype; dx: [n, k] in x's dtype.
-// inv_keep here is the f32 1/keep (not rounded to x's dtype).
+// g: [n, m] f32 (16-byte aligned for bf16); w: [k, m] in x's dtype; dx:
+// [n, k] in x's dtype. inv_keep here is the f32 1/keep (not rounded to x's
+// dtype). bf16 with m <= 64 takes the tensor-core kernel, the rest dx_kernel.
 extern "C" int pgcn_dropout_matmul_dx(const float* g, const void* w, void* dx, int dtype,
                                       int64_t n, int k, int m, uint64_t seed,
                                       uint32_t thr, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || k <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
   const Mask mk = make_mask(seed, thr);
-  if (dtype == 0)
+  if (dtype == 0) {
     dx_kernel<float><<<cdiv(n, kRows), kDxThreads, 0, s>>>(
         g, static_cast<const float*>(w), static_cast<float*>(dx), n, k, m, mk, inv_keep);
-  else if (dtype == 1)
+  } else if (dtype == 1 && m <= 64) {
+    if (reinterpret_cast<uintptr_t>(g) & 15u) return (int)cudaErrorMisalignedAddress;
+    const auto* wb = static_cast<const __nv_bfloat16*>(w);
+    auto* out = static_cast<__nv_bfloat16*>(dx);
+    const int ks = (m + 15) / 16;
+    const int rc = ks == 1   ? dx_bf16<1>(g, wb, out, n, k, m, mk, inv_keep, s)
+                   : ks == 2 ? dx_bf16<2>(g, wb, out, n, k, m, mk, inv_keep, s)
+                   : ks == 3 ? dx_bf16<3>(g, wb, out, n, k, m, mk, inv_keep, s)
+                             : dx_bf16<4>(g, wb, out, n, k, m, mk, inv_keep, s);
+    if (rc) return rc;
+  } else if (dtype == 1) {
     dx_kernel<__nv_bfloat16><<<cdiv(n, kRows), kDxThreads, 0, s>>>(
         g, static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx), n, k,
         m, mk, inv_keep);
-  else
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

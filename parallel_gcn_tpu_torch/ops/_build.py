@@ -77,8 +77,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     u64 = ctypes.c_uint64
     lib.pgcn_dropout_matmul_fwd.argtypes = [p, p, p, i32, i64, i32, i32, u64, u32, f32, p]
     lib.pgcn_dropout_matmul_fwd.restype = i32
-    lib.pgcn_dropout_matmul_dw.argtypes = [p, p, p, p, i32, i64, i32, i32, i32, i64, u64,
-                                           u32, f32, p]
+    lib.pgcn_dropout_matmul_dw.argtypes = [p, p, p, p, i32, i64, i32, i32, i32, i32, i64,
+                                           u64, u32, f32, p]
+    lib.pgcn_dropout_matmul_dw_blocks.argtypes = [i32, i32, p]
+    lib.pgcn_dropout_matmul_dw_blocks.restype = i32
     lib.pgcn_dropout_matmul_dw.restype = i32
     lib.pgcn_dropout_matmul_dx.argtypes = [p, p, p, i32, i64, i32, i32, u64, u32, f32, p]
     lib.pgcn_dropout_matmul_dx.restype = i32

@@ -26,7 +26,7 @@ import torch
 
 from parallel_gcn_tpu_torch.ops import _build
 
-_ROWS_PER_BLOCK = 64  # kRowsPerBlock in csrc/fused_ce.cu
+_ROWS_PER_BLOCK = 128  # kRowsPerBlock in csrc/fused_ce.cu
 _LABEL_CODE = {torch.int32: 0, torch.int64: 1}
 
 # kernel launches by variant: "ce_eval", "ce_train"

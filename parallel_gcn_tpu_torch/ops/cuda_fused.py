@@ -26,14 +26,16 @@ for CPU tensors; ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from parallel_gcn_tpu_torch.ops import _build, cuda_dropout
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_DW_CHUNK = 64  # rows of a dW split are a multiple of this (csrc/dropout_matmul.cu kMmaK)
-_DW_BLOCKS = 16 * 132  # dW blocks to aim for: two waves of 8 per SM of an H100
+_DW_CHUNK = 64  # rows of a dW split are a multiple of this (csrc/dropout_matmul.cu kSplitRows)
+_DW_MAX_SLAB = 320  # x columns a bf16 dW block owns at most (kDwMaxSlab)
+_DW_NB = 48  # g columns a bf16 dW block owns (kDwNB); the f32 kernel's blocks are 64 x 48
 
 # kernel launches by kernel: "fused_fwd", "fused_dw", "fused_dx"
 launches = {"fused_fwd": 0, "fused_dw": 0, "fused_dx": 0}
@@ -114,15 +116,37 @@ def _fwd(x: torch.Tensor, w: torch.Tensor, seed: int, rate: float) -> torch.Tens
     return out
 
 
-def dw_splits(n: int, k: int, m: int) -> tuple[int, int]:
+def dw_slab(k: int) -> int:
+    """x columns a bf16 dW block owns: k in the fewest slabs of at most 320
+    columns, each rounded up to a multiple of 64 (g is read once a slab)."""
+    cols = -(-k // -(-k // _DW_MAX_SLAB))
+    return -(-cols // 64) * 64
+
+
+def dw_splits(n: int, k: int, m: int, blocks: int,
+              dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
     """(splits, rows_per_split) of the dW kernel: row ranges of a multiple
-    of 64 rows, enough of them that the dW slabs times the splits make
-    about ``_DW_BLOCKS`` blocks."""
-    slabs = -(-k // 64) * -(-m // 48)
-    want = max(1, min(-(-n // _DW_CHUNK), -(-_DW_BLOCKS // slabs)))
+    of 64 rows, enough of them that the blocks of one pass (slabs × column
+    blocks × splits) fill ``blocks``, the blocks the card holds at once."""
+    if dtype == torch.bfloat16:
+        slabs = -(-k // dw_slab(k)) * -(-m // _DW_NB)
+    else:
+        slabs = -(-k // 64) * -(-m // 48)
+    want = max(1, min(-(-n // _DW_CHUNK), -(-blocks // slabs)))
     rows = -(-n // want)
     rows = -(-rows // _DW_CHUNK) * _DW_CHUNK
     return -(-n // rows), rows
+
+
+@functools.lru_cache(maxsize=64)
+def _dw_blocks(device: int, dtype: torch.dtype, slab: int) -> int:
+    """The dW kernel's blocks that card ``device`` holds at once."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.load_library().pgcn_dropout_matmul_dw_blocks(
+            _DTYPE_CODE[dtype], slab, ctypes.byref(blocks))
+    _build.check(rc, "dropout_matmul dW occupancy")
+    return blocks.value
 
 
 def _dw(x: torch.Tensor, g: torch.Tensor, seed: int, rate: float,
@@ -135,14 +159,15 @@ def _dw(x: torch.Tensor, g: torch.Tensor, seed: int, rate: float,
     if g.dtype != torch.float32 or g.shape[0] != n or w_dtype != x.dtype:
         raise ValueError(f"dropout_matmul dW: g must be float32 [{n}, M] and w of "
                          f"x's dtype, got g {tuple(g.shape)} {g.dtype}, w {w_dtype}")
-    splits, rows = dw_splits(n, k, m)
-    ws = torch.empty((splits, k, m), dtype=torch.float32, device=x.device)
-    dw = torch.empty((k, m), dtype=w_dtype, device=x.device)
     lib = _build.load_library()
+    slab = dw_slab(k)
     with torch.cuda.device(x.device):
+        splits, rows = dw_splits(n, k, m, _dw_blocks(x.device.index, x.dtype, slab), x.dtype)
+        ws = torch.empty((splits, k, m), dtype=torch.float32, device=x.device)
+        dw = torch.empty((k, m), dtype=w_dtype, device=x.device)
         rc = lib.pgcn_dropout_matmul_dw(
             x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-            _DTYPE_CODE[x.dtype], n, k, m, splits, rows, seed,
+            _DTYPE_CODE[x.dtype], n, k, m, slab, splits, rows, seed,
             cuda_dropout.keep_threshold(rate), cuda_dropout._inv_keep(rate, x.dtype),
             _stream(x.device))
     _build.check(rc, "dropout_matmul dW kernel")
@@ -160,6 +185,8 @@ def _dx(g: torch.Tensor, w: torch.Tensor, seed: int, rate: float,
     if g.dtype != torch.float32 or w.dtype != x_dtype or w.shape[1] != m:
         raise ValueError(f"dropout_matmul dX: g must be float32 [N, {w.shape[1]}] and w "
                          f"of x's dtype, got g {tuple(g.shape)} {g.dtype}, w {w.dtype}")
+    if g.data_ptr() % 16:  # the bf16 kernel copies g's rows in 16-byte pieces
+        g = g.clone()
     dx = torch.empty((n, k), dtype=x_dtype, device=g.device)
     lib = _build.load_library()
     with torch.cuda.device(g.device):

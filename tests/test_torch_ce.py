@@ -147,7 +147,7 @@ def test_non_cpu_non_cuda_tensor_raises():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [41, 100])  # registers, and the looped path past 64
+@pytest.mark.parametrize("c", [41, 100, 7, 16, 47, 64, 72])  # staged rows; the looped path past 64
 def test_kernel_matches_plain_on_card(cuda_device, c):
     logits, labels, mask, num = _case(1001, c, seed=4)
     t, tlab, tm = (v.to(cuda_device) for v in _torch(logits, labels, mask))
@@ -160,3 +160,67 @@ def test_kernel_matches_plain_on_card(cuda_device, c):
         assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
         if write_grad:
             torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=1e-7)
+
+
+def _butterfly(vals):
+    """A warp's xor-shuffle sum (offsets 16, 8, 4, 2, 1) in f32: lane 0's."""
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        vals = (vals + vals[lanes ^ o]).astype(np.float32)
+    return vals[0]
+
+
+def _block_sum(thread_vals):
+    """ce_kernel's block_sum2: a butterfly in each of the 8 warps, then the
+    warps' sums in warp order (f32)."""
+    total = np.float32(0)
+    for w in range(8):
+        total = np.float32(total + _butterfly(thread_vals[32 * w:32 * w + 32]))
+    return total
+
+
+def _kernel_order_sums(terms):
+    """The one-launch sum of ce_kernel over per-row f32 terms [n]: block b
+    owns rows 128b .. 128b + 127; its row r is worked by warp (r // 4) % 8
+    at lane 8·(r % 4), which adds it to its running sum; the block sums its
+    threads (_block_sum) into a partial; the last block's thread t adds
+    partials t, t + 256, ... in order, then _block_sum."""
+    n = terms.shape[0]
+    partials = []
+    for b in range(-(-n // 128)):
+        acc = np.zeros(256, np.float32)
+        for r in range(min(128, n - b * 128)):
+            t = ((r // 4) % 8) * 32 + 8 * (r % 4)
+            acc[t] = np.float32(acc[t] + terms[b * 128 + r])
+        partials.append(_block_sum(acc))
+    acc = np.zeros(256, np.float32)
+    for i, p in enumerate(partials):
+        acc[i % 256] = np.float32(acc[i % 256] + p)
+    return _block_sum(acc)
+
+
+@pytest.mark.parametrize("n", [100, 1001, 40000])
+def test_one_launch_block_order_sum_matches_plain_and_jax(n):
+    """K9 sums its rows' loss and correct terms in one launch, in a fixed
+    order of blocks (a ticket counter picks the last block to finish; the
+    order of the sum does not depend on which). That order, modelled in f32
+    for 1, 8 and 313 blocks (more than the last block's 256 threads),
+    reproduces the plain version and JAX's interpret-mode kernel: loss
+    within rtol 1e-5, accuracy exact."""
+    logits, labels, mask, num = _case(n, 41, seed=11)
+    t = torch.from_numpy(logits)
+    lmax = t.amax(1, keepdim=True)
+    lse = torch.log(torch.exp(t - lmax).sum(1))
+    truth = (t - lmax).gather(1, torch.from_numpy(labels.astype(np.int64))[:, None])[:, 0]
+    maskf = torch.from_numpy(mask).float()
+    loss_terms = (maskf * (lse - truth)).numpy()
+    correct_terms = (maskf * (truth >= 0).float()).numpy()
+    loss = np.float32(_kernel_order_sums(loss_terms) / np.float32(num))
+    acc = np.float32(_kernel_order_sums(correct_terms) / np.float32(num))
+    assert loss == np.float32(_kernel_order_sums(loss_terms) / np.float32(num))
+    pl, pa, _ = cuda_ce.masked_softmax_xent_fused_plain(*_torch(logits, labels, mask), num)
+    jl, ja = pce.masked_softmax_xent_fused(jnp.asarray(logits), jnp.asarray(labels),
+                                           jnp.asarray(mask), num)
+    np.testing.assert_allclose(loss, float(pl), rtol=1e-5)
+    np.testing.assert_allclose(loss, float(jl), rtol=1e-5)
+    assert acc == float(pa) == float(ja)
