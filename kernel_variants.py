@@ -33,6 +33,7 @@ of the outputs). The base also sweeps the tiles per segment
 ``--parent DIR`` also times the K3/K4 of another checkout's package (e.g.
 the parent commit unpacked with ``git archive``) in a process of its own.
 
+    python3 kernel_variants.py rowsum                     # the COO residual's row sums
     python3 kernel_variants.py attention [--parent DIR]   # K5/K6: every variant in one process
     python3 kernel_variants.py rect [--parent DIR]        # K7: every variant in one process
     python3 kernel_variants.py dropout [--parent DIR]     # K1/K2: every variant in one process
@@ -989,6 +990,60 @@ def time_dropout_tree(root: str) -> None:
     print(f"[drop-variant] {root}: {_time_dropout(torch, cd, inputs)}", flush=True)
 
 
+def rowsum_family(parent: str | None) -> int:
+    """The COO residual's row sums on synth-reddit's residual (its
+    row-sorted destinations), at the widths the main paths add: the GCN's
+    [E, 41] bf16 and the deferred eval's [E, 82], the GAT's denominators
+    [E, 2] and numerators [E, 82] f32. Three ways: ``index_add_`` (the
+    port's, atomics), ``index_put_`` with accumulate (sorted) and
+    ``torch.segment_reduce`` over the rows: CUDA events over 50 calls,
+    whether two calls give the same bits, whether the call captures in a
+    CUDA graph."""
+    import torch
+
+    from parallel_gcn_tpu_torch.config import default_params_path, load_config
+    from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset
+
+    if parent:
+        print("[variant] rowsum takes no --parent")
+        return 2
+    _, dds = prepare_device_dataset(load_config(default_params_path("synth-reddit")),
+                                    "synth-reddit", torch.device("cuda"))
+    row, n = dds.graph.row, dds.graph.n_nodes
+    assert bool((row[1:] >= row[:-1]).all()), "the residual's rows are not sorted"
+    lengths = torch.bincount(row, minlength=n)
+    gen = torch.Generator().manual_seed(9)
+    for width, dtype in ((41, torch.bfloat16), (82, torch.bfloat16), (2, torch.float32),
+                         (82, torch.float32)):
+        src = torch.randn((row.numel(), width), generator=gen).to(dtype).cuda()
+        ways = {
+            "index_add_": lambda: torch.zeros((n, width), dtype=dtype,
+                                              device="cuda").index_add_(0, row, src),
+            "index_put_ accumulate": lambda: torch.zeros((n, width), dtype=dtype,
+                                                         device="cuda").index_put_(
+                (row,), src, accumulate=True),
+            "segment_reduce": lambda: torch.segment_reduce(src, "sum", lengths=lengths,
+                                                           axis=0, unsafe=True),
+        }
+        for name, fn in ways.items():
+            same = torch.equal(fn(), fn())
+            ms = _events_ms(torch, fn, reps=50)
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(graph):
+                fn()
+            graph.replay()
+            torch.cuda.synchronize()
+            print(f"[variant] rowsum {row.numel()} residual edges into {n} rows, [E, {width}] "
+                  f"{dtype}: {name} {ms:.4f} ms, two calls bit-identical {same}, captures "
+                  f"in a CUDA graph", flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--time-spmm"]:
         time_spmm_tree(argv[1])
@@ -1003,7 +1058,7 @@ def main(argv: list[str]) -> int:
     print(f"[variant] card: {smi.stdout.strip()}", flush=True)
     parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     families = {"spmm": spmm_family, "attention": attention_family, "rect": rect_family,
-                "dropout": dropout_family, "fused": fused_family}
+                "dropout": dropout_family, "fused": fused_family, "rowsum": rowsum_family}
     if argv[:1] and argv[0] in families:
         return families[argv[0]](parent)
     if argv:

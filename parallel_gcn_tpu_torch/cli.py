@@ -102,12 +102,18 @@ def main(argv: list[str] | None = None) -> int:
         f"train/val/test={ds.train_dim}/{ds.val_dim}/{ds.test_dim}"
     )
     print("TRAINING AND EVALUATION OF GCN:")
-    result = fit(cfg, dds)
-    print(
-        f"epochs_run={result.epochs_run} "
-        f"avg_epoch_time={result.avg_epoch_time_s * 1e3:.3f} ms"
-    )
+    print(_summary(fit(cfg, dds)))
     return 0
+
+
+def _summary(result) -> str:
+    """The run's last line: epochs, the mean epoch (in scan mode on CUDA the
+    replays of epochs 2..N) and the scan's set-up seconds."""
+    line = (f"epochs_run={result.epochs_run} "
+            f"avg_epoch_time={result.avg_epoch_time_s * 1e3:.3f} ms")
+    if result.replays:
+        line += f" setup={result.setup_time_s:.3f} s"
+    return line
 
 
 def _main_mesh(cfg, dataset: str, device: torch.device) -> int:
@@ -142,8 +148,7 @@ def _main_mesh(cfg, dataset: str, device: torch.device) -> int:
             print("TRAINING AND EVALUATION OF GCN:")
         result = fit_parallel(cfg, ds, device=device)
         if rank0:
-            print(f"epochs_run={result.epochs_run} "
-                  f"avg_epoch_time={result.avg_epoch_time_s * 1e3:.3f} ms")
+            print(_summary(result))
         return 0
     finally:
         dist.destroy_process_group()

@@ -141,6 +141,8 @@ class TPUConfig:
     tile_budget_mb: int = 3072
     min_tile_nnz: int = 0
     n_devices: int = 0
+    # the JAX package's guard of its whole-run GAT program; accepted, and
+    # nothing to do in the port (a captured epoch holds the eager epoch's memory)
     gat_scan_check: bool = True
     halo: str = "all_gather"
     halo_fallback: bool = True
@@ -196,7 +198,7 @@ class TPUConfig:
 @dataclass
 class TrainConfig:
     verbose: bool = True
-    mode: str = "scan"  # scan (whole-run path, not yet ported) | eager
+    mode: str = "scan"  # scan (whole-run path, one CUDA graph an epoch) | eager
     checkpoint_dir: str = ""
     checkpoint_every: int = 0
 

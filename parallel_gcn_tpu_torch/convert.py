@@ -45,5 +45,5 @@ def gat_params_from_numpy(params: list[dict], device="cpu") -> list[torch.Tensor
 def adam_state_from_numpy(step, m: list, v: list, device) -> AdamState:
     """The port's ``AdamState`` from a step count and the moments, shaped
     like the params (arrays, or per-layer dicts for a GAT), in leaf order."""
-    return AdamState(step=int(np.asarray(step)), m=_tensors(m, device),
-                     v=_tensors(v, device))
+    return AdamState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+                     m=_tensors(m, device), v=_tensors(v, device))

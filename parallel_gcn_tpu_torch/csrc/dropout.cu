@@ -14,6 +14,9 @@
 // only, so it is independent of the launch geometry: the backward of K1 is
 // K1 on the cotangent with the same seed, and K2 == K1(relu(x)) bit for bit.
 // The plain PyTorch version in ops/cuda_dropout.py computes the same bits.
+// The seed is read from device memory (one uint64 that the caller writes
+// before the launch), so that a launch captured in a CUDA graph draws a
+// new mask each replay.
 //
 // What bounds it on an H100: memory. Layer 1 of synth-reddit is a
 // [233472, 600] bf16 activation: 280 MB read and 280 MB written, about
@@ -124,7 +127,9 @@ template <> struct Vec<__nv_bfloat16> {
 template <typename T, bool kRelu>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t n_vec,
-               uint32_t k0, uint32_t k1, uint32_t thr, float inv_keep) {
+               const unsigned long long* __restrict__ seed, uint32_t thr, float inv_keep) {
+  const unsigned long long key = __ldg(seed);
+  const uint32_t k0 = (uint32_t)key, k1 = (uint32_t)(key >> 32);
   constexpr int kVec = Vec<T>::kVec;  // elements per 16-byte vector
   constexpr int kCtr = kVec / 4;      // Philox counters per vector
   const uint4* xv = reinterpret_cast<const uint4*>(x);
@@ -197,8 +202,8 @@ int grid_cap(int* blocks) {
 }
 
 template <typename T, bool kRelu>
-int launch(const void* x, void* out, int64_t n, uint64_t seed, uint32_t thr,
-           float inv_keep, cudaStream_t stream) {
+int launch(const void* x, void* out, int64_t n, const unsigned long long* seed,
+           uint32_t thr, float inv_keep, cudaStream_t stream) {
   constexpr int kVec = Vec<T>::kVec;
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
                         15u) == 0;
@@ -215,17 +220,17 @@ int launch(const void* x, void* out, int64_t n, uint64_t seed, uint32_t thr,
   const int64_t rounds = (need + cap - 1) / cap;
   const int64_t blocks = need > 0 ? (need + rounds - 1) / rounds : 1;
   dropout_kernel<T, kRelu><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n, n_vec, (uint32_t)seed,
-      (uint32_t)(seed >> 32), thr, inv_keep);
+      static_cast<const T*>(x), static_cast<T*>(out), n, n_vec, seed, thr, inv_keep);
   return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Any alignment of x and out. Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. Any alignment of x and out. seed points
+// to the uint64 seed in device memory. Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int pgcn_dropout(const void* x, void* out, int64_t n, int dtype,
-                            int relu, uint64_t seed, uint32_t thr,
+                            int relu, const unsigned long long* seed, uint32_t thr,
                             float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return (int)cudaErrorInvalidValue;

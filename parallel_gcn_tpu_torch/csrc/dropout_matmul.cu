@@ -99,6 +99,20 @@ struct Mask {
   }
 };
 
+// The mask as the entry points take it: the uint64 seed lives in device
+// memory, written by the caller before the launch, so that a launch
+// captured in a CUDA graph draws a new mask each replay. Each kernel reads
+// it once per thread into its Mask.
+struct MaskArgs {
+  const unsigned long long* seed;
+  uint32_t thr;
+
+  __device__ __forceinline__ Mask load() const {
+    const unsigned long long key = __ldg(seed);
+    return Mask{(uint32_t)key, (uint32_t)(key >> 32), thr};
+  }
+};
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -199,8 +213,9 @@ constexpr int kFmaThreads = 16 * (kTN / 4);    // 192
 // f32 forward: out[r0.., n0..] = xm · W
 __global__ void __launch_bounds__(kFmaThreads)
 fwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               float* __restrict__ out, int64_t n, int k, int m, Mask mk,
+               float* __restrict__ out, int64_t n, int k, int m, MaskArgs ma,
                float inv_keep) {
+  const Mask mk = ma.load();
   __shared__ float a_s[kRows][kFmaChunk + 1];              // xm [row][kcol]
   __shared__ __align__(16) float b_s[kFmaChunk][kTN];      // W [kcol][out col]
   const int64_t r0 = (int64_t)blockIdx.x * kRows;
@@ -243,7 +258,8 @@ fwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 __global__ void __launch_bounds__(kFmaThreads)
 dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
               float* __restrict__ ws, int64_t n, int k, int m,
-              int64_t rows_per_split, Mask mk, float inv_keep) {
+              int64_t rows_per_split, MaskArgs ma, float inv_keep) {
+  const Mask mk = ma.load();
   __shared__ float a_s[kRows][kFmaChunk + 1];              // xm [kcol][row]
   __shared__ __align__(16) float b_s[kFmaChunk][kTN];      // g [row][out col]
   const int kc0 = blockIdx.x * kRows;
@@ -434,7 +450,8 @@ template <bool kAl4>
 __global__ void __launch_bounds__(kFwdWarps * 32, 1)
 fwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                float* __restrict__ out, int64_t n, int k, int m, int kw_max, int vec,
-               Mask mk, uint32_t ik2) {
+               MaskArgs ma, uint32_t ik2) {
+  const Mask mk = ma.load();
   extern __shared__ __align__(128) uint8_t smem[];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -612,7 +629,8 @@ template <bool kAl4>
 __global__ void __launch_bounds__(kDwMaxSlab, 2)
 dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
               float* __restrict__ ws, int64_t n, int k, int m, int slab,
-              int64_t rows_per_split, int vec, int gflat, Mask mk, uint32_t ik2) {
+              int64_t rows_per_split, int vec, int gflat, MaskArgs ma, uint32_t ik2) {
+  const Mask mk = ma.load();
   extern __shared__ __align__(128) uint8_t smem[];
   const int stage_bytes = dw_stage_bytes(slab);
   const int x_bytes = kDwRows * slab * 2;
@@ -795,8 +813,9 @@ constexpr int kDxRows = 64;
 template <int kKS, bool kAl4>
 __global__ void __launch_bounds__(kDxWarps * 32, 2)
 dx_mma_kernel(const float* __restrict__ g, const __nv_bfloat16* __restrict__ w,
-              __nv_bfloat16* __restrict__ dx, int64_t n, int k, int m, int cw_max, Mask mk,
-              float inv_keep) {
+              __nv_bfloat16* __restrict__ dx, int64_t n, int k, int m, int cw_max,
+              MaskArgs ma, float inv_keep) {
+  const Mask mk = ma.load();
   extern __shared__ __align__(128) uint8_t smem[];
   float* gring = reinterpret_cast<float*>(smem);  // [2][kDxRows·m]
   const int gstage = kDxRows * m;                 // floats, a multiple of 4
@@ -940,7 +959,8 @@ constexpr int kDxThreads = 16 * (kDxTN / 4);   // 256
 template <typename T>
 __global__ void __launch_bounds__(kDxThreads)
 dx_kernel(const float* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx,
-          int64_t n, int k, int m, Mask mk, float inv_keep) {
+          int64_t n, int k, int m, MaskArgs ma, float inv_keep) {
+  const Mask mk = ma.load();
   __shared__ float a_s[kRows][kDxChunk + 1];            // g [row][m]
   __shared__ __align__(16) float b_s[kDxChunk][kDxTN];  // W [m][kcol]
   const int64_t r0 = (int64_t)blockIdx.x * kRows;
@@ -986,10 +1006,6 @@ dx_kernel(const float* __restrict__ g, const T* __restrict__ w, T* __restrict__ 
       }
     }
   }
-}
-
-Mask make_mask(uint64_t seed, uint32_t thr) {
-  return Mask{(uint32_t)seed, (uint32_t)(seed >> 32), thr};
 }
 
 unsigned cdiv(int64_t a, int64_t b) { return (unsigned)((a + b - 1) / b); }
@@ -1063,7 +1079,7 @@ int launch_persistent(K kernel, int64_t tiles, int threads, int smem, cudaStream
 }
 
 int fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, float* out, int64_t n, int k,
-             int m, Mask mk, float inv_keep, cudaStream_t s) {
+             int m, MaskArgs mk, float inv_keep, cudaStream_t s) {
   const int np = (min(kNB, m) + 15) / 16;  // n-tile pairs of the widest W chunk
   const int kw_max = kWBytes / (np * 32) / kKC * kKC;
   const int kw = min(kw_max, (k + kKC - 1) / kKC * kKC);
@@ -1080,7 +1096,7 @@ int fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, float* out, int64_t
 
 template <int kKS>
 int dx_bf16(const float* g, const __nv_bfloat16* w, __nv_bfloat16* dx, int64_t n, int k,
-            int m, Mask mk, float inv_keep, cudaStream_t s) {
+            int m, MaskArgs mk, float inv_keep, cudaStream_t s) {
   const int cw_max = kWBytes / (kKS * 512) * 16;  // output columns a W chunk (a multiple of 16)
   const int cw = min(cw_max, (k + 15) / 16 * 16);
   const int smem = 2 * kDxRows * m * 4 + cw / 16 * kKS * 512;
@@ -1095,15 +1111,16 @@ int dx_bf16(const float* g, const __nv_bfloat16* w, __nv_bfloat16* dx, int64_t n
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for x and w alike. x: [n, k], w: [k, m],
-// out: [n, m] f32, all contiguous. inv_keep is 1/keep rounded to x's dtype.
+// out: [n, m] f32, all contiguous. seed points to the uint64 seed in device
+// memory. inv_keep is 1/keep rounded to x's dtype.
 // Each entry point returns cudaGetLastError() after its launches.
 extern "C" int pgcn_dropout_matmul_fwd(const void* x, const void* w, float* out,
                                        int dtype, int64_t n, int k, int m,
-                                       uint64_t seed, uint32_t thr, float inv_keep,
-                                       void* stream) {
+                                       const unsigned long long* seed, uint32_t thr,
+                                       float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || k <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  const Mask mk = make_mask(seed, thr);
+  const MaskArgs mk{seed, thr};
   if (dtype == 0) {
     const dim3 grid(cdiv(n, kRows), cdiv(m, kTN));
     fwd_fma_kernel<<<grid, kFmaThreads, 0, s>>>(static_cast<const float*>(x),
@@ -1136,14 +1153,14 @@ extern "C" int pgcn_dropout_matmul_dw_blocks(int dtype, int slab, int* blocks) {
 extern "C" int pgcn_dropout_matmul_dw(const void* x, const float* g, float* ws,
                                       void* dw, int dtype, int64_t n, int k, int m,
                                       int slab, int splits, int64_t rows_per_split,
-                                      uint64_t seed, uint32_t thr, float inv_keep,
-                                      void* stream) {
+                                      const unsigned long long* seed, uint32_t thr,
+                                      float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || k <= 0 || m <= 0 || splits <= 0 || rows_per_split <= 0 ||
       rows_per_split % kSplitRows ||
       (int64_t)splits != (n + rows_per_split - 1) / rows_per_split)
     return (int)cudaErrorInvalidValue;
-  const Mask mk = make_mask(seed, thr);
+  const MaskArgs mk{seed, thr};
   const int64_t km = (int64_t)k * m;
   const unsigned rblocks = cdiv(km, 256) < 1024u ? cdiv(km, 256) : 1024u;
   if (dtype == 0) {
@@ -1178,11 +1195,12 @@ extern "C" int pgcn_dropout_matmul_dw(const void* x, const float* g, float* ws,
 // [n, k] in x's dtype. inv_keep here is the f32 1/keep (not rounded to x's
 // dtype). bf16 with m <= 64 takes the tensor-core kernel, the rest dx_kernel.
 extern "C" int pgcn_dropout_matmul_dx(const float* g, const void* w, void* dx, int dtype,
-                                      int64_t n, int k, int m, uint64_t seed,
-                                      uint32_t thr, float inv_keep, void* stream) {
+                                      int64_t n, int k, int m,
+                                      const unsigned long long* seed, uint32_t thr,
+                                      float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || k <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  const Mask mk = make_mask(seed, thr);
+  const MaskArgs mk{seed, thr};
   if (dtype == 0) {
     dx_kernel<float><<<cdiv(n, kRows), kDxThreads, 0, s>>>(
         g, static_cast<const float*>(w), static_cast<float*>(dx), n, k, m, mk, inv_keep);

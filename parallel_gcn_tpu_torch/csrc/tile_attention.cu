@@ -79,7 +79,8 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks)
 gat_fwd_kernel(Sched sc, const int* __restrict__ ptr, const int* __restrict__ icol,
                const float* __restrict__ s, const float* __restrict__ t,
                const VT* __restrict__ v, int P, int S, float* __restrict__ out,
-               float* __restrict__ ws, int H, int D, float slope, Drop dr) {
+               float* __restrict__ ws, int H, int D, float slope, DropArgs da) {
+  const Drop dr = load_drop(da);
   __shared__ float coef_s[kWarps][kH][32];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -183,7 +184,8 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks)
 gat_bwd_kernel(Sched sc, const int* __restrict__ ptr, const int* __restrict__ icol,
                const float* __restrict__ node, const float* __restrict__ gp,
                const VT* __restrict__ vp, int P, int S, float* __restrict__ out,
-               float* __restrict__ ws, int H, int D, float slope, Drop dr) {
+               float* __restrict__ ws, int H, int D, float slope, DropArgs da) {
+  const Drop dr = load_drop(da);
   // per edge of the batch and head: A·keep, B·keep', α'·keep'
   __shared__ float e_s[kWarps][kEdgeTerms][kH][32];
   constexpr int kRec = (5 * kH + 3) / 4 * 4;
@@ -324,19 +326,20 @@ gat_bwd_kernel(Sched sc, const int* __restrict__ ptr, const int* __restrict__ ic
 // f32 as given, which the entries first copy into the padded workspaces vp
 // and gp ([rows, S], described at the top, 16-byte aligned); ws holds
 // [n_slots, tile_r, H·D + 2H] floats. drop != 0 applies the
-// attention-dropout hash mask with (seed, thr) and multiplies kept terms by
-// inv_keep. Needs 1 <= H <= 8, H·D <= 256, H·P <= 512 and tile_r % 8 == 0.
+// attention-dropout hash mask with (*seed, thr), seed pointing to an int32
+// in device memory, and multiplies kept terms by inv_keep. Needs 1 <= H <= 8,
+// H·D <= 256, H·P <= 512 and tile_r % 8 == 0.
 // Return cudaGetLastError() after the launches (0 on success).
 extern "C" int pgcn_gat_fwd(const int* idx_ptr, const int* idx_col, const int* seg_row,
                             const int* seg_slot, int n_seg, const int* multi_row,
                             const int* multi_slot_ptr, int n_multi, int tile_r,
                             const float* s, const float* t, const void* v, int n_cols,
                             int v_dtype, void* vp, int P, int S, float* out, float* ws,
-                            int H, int D, float slope, int drop, uint32_t seed,
+                            int H, int D, float slope, int drop, const int* seed,
                             uint32_t thr, float inv_keep, void* stream) {
   const Sched sc{seg_row, seg_slot, n_seg, multi_row, multi_slot_ptr, n_multi, tile_r};
   if (!valid_walk(sc, H, D, P, S)) return (int)cudaErrorInvalidValue;
-  const Drop dr{drop, seed, thr, inv_keep};
+  const DropArgs dr{drop, seed, thr, inv_keep};
   const cudaStream_t strm = static_cast<cudaStream_t>(stream);
   const int rc = by_shape(H, P, v_dtype, [&](auto kh, auto kg, auto* vt) {
     using VT = std::remove_pointer_t<decltype(vt)>;
@@ -356,11 +359,11 @@ extern "C" int pgcn_gat_bwd(const int* idx_ptr, const int* idx_col, const int* s
                             const int* multi_slot_ptr, int n_multi, int tile_r,
                             const float* node, const float* g, const void* v, int n,
                             int v_dtype, float* gp, void* vp, int P, int S, float* out,
-                            float* ws, int H, int D, float slope, int drop, uint32_t seed,
+                            float* ws, int H, int D, float slope, int drop, const int* seed,
                             uint32_t thr, float inv_keep, void* stream) {
   const Sched sc{seg_row, seg_slot, n_seg, multi_row, multi_slot_ptr, n_multi, tile_r};
   if (!valid_walk(sc, H, D, P, S)) return (int)cudaErrorInvalidValue;
-  const Drop dr{drop, seed, thr, inv_keep};
+  const DropArgs dr{drop, seed, thr, inv_keep};
   const cudaStream_t strm = static_cast<cudaStream_t>(stream);
   const int rc = by_shape(H, P, v_dtype, [&](auto kh, auto kg, auto* vt) {
     using VT = std::remove_pointer_t<decltype(vt)>;

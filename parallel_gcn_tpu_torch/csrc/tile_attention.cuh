@@ -220,11 +220,26 @@ struct Sched {
   int tile_r;
 };
 
+// The attention dropout as the entry points take it: the int32 seed lives
+// in device memory, written by the caller before the launch, so that a
+// launch captured in a CUDA graph draws a new mask each replay.
+struct DropArgs {
+  int on;
+  const int* seed;
+  uint32_t thr;
+  float inv_keep;
+};
+
+// ... and as the kernels use it, the seed read once per thread.
 struct Drop {
   int on;
   uint32_t seed, thr;
   float inv_keep;
 };
+
+__device__ __forceinline__ Drop load_drop(const DropArgs& a) {
+  return Drop{a.on, a.on ? (uint32_t)__ldg(a.seed) : 0u, a.thr, a.inv_keep};
+}
 
 // Where segment `seg` writes its row r0: the output or its workspace slot.
 __device__ __forceinline__ float* segment_dst(const Sched& sc, float* out,

@@ -90,7 +90,8 @@ gat_bwd_rect_row_kernel(Sched sc, const int* __restrict__ ptr, const int* __rest
                         const float* __restrict__ nd, const float* __restrict__ t,
                         const float* __restrict__ gp, const VT* __restrict__ vp, int P,
                         int S, float* __restrict__ out, float* __restrict__ ws, int H,
-                        float slope, Drop dr) {
+                        float slope, DropArgs da) {
+  const Drop dr = load_drop(da);
   __shared__ float c_s[kWarps][kH][32];  // A·keep per edge of the batch and head
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -179,7 +180,8 @@ gat_bwd_rect_col_kernel(Sched sc, const int* __restrict__ ptr, const int* __rest
                         const float* __restrict__ nd, const float* __restrict__ t,
                         const float* __restrict__ gp, const VT* __restrict__ vp, int P,
                         int S, float* __restrict__ out, float* __restrict__ ws, int H, int D,
-                        float slope, Drop dr) {
+                        float slope, DropArgs da) {
+  const Drop dr = load_drop(da);
   __shared__ float e_s[kWarps][2][kH][32];  // an and C per edge of the batch and head
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -267,7 +269,7 @@ gat_bwd_rect_col_kernel(Sched sc, const int* __restrict__ ptr, const int* __rest
 template <bool kCol>
 int launch_rect(const int* idx_ptr, const int* idx_col, const Sched& sc, const float* nd,
                 const float* t, const float* gp, const void* vp, int v_dtype, int P, int S,
-                float* out, float* ws, int H, int D, float slope, const Drop& dr,
+                float* out, float* ws, int H, int D, float slope, const DropArgs& dr,
                 cudaStream_t strm) {
   if (!valid_walk(sc, H, D, P, S)) return (int)cudaErrorInvalidValue;
   const int rc = by_shape(H, P, v_dtype, [&](auto kh, auto kg, auto* vt) {
@@ -304,7 +306,8 @@ extern "C" int pgcn_pad_heads(const void* x, void* xp, int dtype, int n, int H, 
 // row-sorted slab (row sweep) or of its transposed column-sorted copy
 // (column sweep); ws holds [n_slots, tile_r, width] floats, width = H (row)
 // or H·D + H (column). drop != 0 applies the attention-dropout hash mask
-// with (seed, thr) and multiplies kept terms by inv_keep. Needs 1 <= H <= 8,
+// with (*seed, thr), seed pointing to an int32 in device memory, and
+// multiplies kept terms by inv_keep. Needs 1 <= H <= 8,
 // H·D <= 256, H·P <= 512, tile_r % 8 == 0 and nd, gp, vp as described at the
 // top, 16-byte aligned. Return cudaGetLastError() after the launches (0 on
 // success).
@@ -314,11 +317,11 @@ extern "C" int pgcn_gat_bwd_rect_row(const int* idx_ptr, const int* idx_col,
                                      int n_multi, int tile_r, const float* nd,
                                      const float* t, const float* gp, const void* vp,
                                      int v_dtype, int P, int S, float* out, float* ws,
-                                     int H, int D, float slope, int drop, uint32_t seed,
+                                     int H, int D, float slope, int drop, const int* seed,
                                      uint32_t thr, float inv_keep, void* stream) {
   const Sched sc{seg_row, seg_slot, n_seg, multi_row, multi_slot_ptr, n_multi, tile_r};
   return launch_rect<false>(idx_ptr, idx_col, sc, nd, t, gp, vp, v_dtype, P, S, out, ws,
-                            H, D, slope, Drop{drop, seed, thr, inv_keep},
+                            H, D, slope, DropArgs{drop, seed, thr, inv_keep},
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -328,10 +331,10 @@ extern "C" int pgcn_gat_bwd_rect_col(const int* idx_ptr, const int* idx_col,
                                      int n_multi, int tile_r, const float* nd,
                                      const float* t, const float* gp, const void* vp,
                                      int v_dtype, int P, int S, float* out, float* ws,
-                                     int H, int D, float slope, int drop, uint32_t seed,
+                                     int H, int D, float slope, int drop, const int* seed,
                                      uint32_t thr, float inv_keep, void* stream) {
   const Sched sc{seg_row, seg_slot, n_seg, multi_row, multi_slot_ptr, n_multi, tile_r};
   return launch_rect<true>(idx_ptr, idx_col, sc, nd, t, gp, vp, v_dtype, P, S, out, ws,
-                           H, D, slope, Drop{drop, seed, thr, inv_keep},
+                           H, D, slope, DropArgs{drop, seed, thr, inv_keep},
                            static_cast<cudaStream_t>(stream));
 }

@@ -85,6 +85,9 @@ class GATModel(nn.Module):
     leaf order). ``backend`` ∈ {dense, segment, tile}."""
 
     input_preagg = False  # the trainer's contract: GAT has no Â·X rewrite
+    # attention weights differ between the train and the val forward, so the
+    # two cannot share one last aggregation (train.fused_deferred_forward)
+    supports_deferred_eval = False
 
     def __init__(
         self,

@@ -65,6 +65,10 @@ def init_params(
 class GCNModel(nn.Module):
     """The GCN forward with its weights (``self.weights``, float32)."""
 
+    # the last layer's aggregation can carry the deferred val forward beside
+    # the train forward (train.fused_deferred_forward)
+    supports_deferred_eval = True
+
     def __init__(
         self,
         weights: list[torch.Tensor],
@@ -146,22 +150,34 @@ class GCNModel(nn.Module):
         if preagg and training and self.dropouts[0] != 0.0:
             raise ValueError("input_preagg is only exact with zero input dropout")
         seeds = list(seeds) if seeds is not None else [None] * self.n_layers
+        last = self.n_layers - 1
+        h = self.prefix(x, graph, training=training, seeds=seeds, preagg=preagg)
+        h = self.layer_pre(h, last, seeds[last], training, pre_relu=self.defers_relu(last))
+        if not (last == 0 and preagg):
+            h = self.aggregate(h, graph)
+        return h.float()
+
+    def defers_relu(self, layer: int) -> bool:
+        """Whether ``layer`` applies the previous layer's ReLU at its entry
+        (fused with its dropout): every layer after the first, without
+        residual connections."""
+        return layer > 0 and not self.residual
+
+    def prefix(self, x: torch.Tensor, graph, *, training: bool, seeds: Sequence,
+               preagg: bool) -> torch.Tensor:
+        """Layers 0..L-2 of the forward on ``x`` (cast to the compute dtype),
+        with one seed per layer: their output, before the ReLU when the last
+        layer applies it at its entry (``defers_relu``)."""
         h = x.to(self.compute_dtype)
-        defer_relu = not self.residual
         prev = None
-        pending_relu = False
-        for layer in range(self.n_layers):
-            h = self.layer_pre(h, layer, seeds[layer], training, pre_relu=pending_relu)
+        for layer in range(self.n_layers - 1):
+            h = self.layer_pre(h, layer, seeds[layer], training,
+                               pre_relu=self.defers_relu(layer))
             if not (layer == 0 and preagg):
                 h = self.aggregate(h, graph)
-            pending_relu = False
-            if (self.residual and 0 < layer < self.n_layers - 1
-                    and prev is not None and prev.shape == h.shape):
-                h = h + prev
-            if layer < self.n_layers - 1:
-                if defer_relu:
-                    pending_relu = True
-                else:
-                    h = torch.relu(h)
-                    prev = h
-        return h.float()
+            if self.residual:
+                if layer > 0 and prev is not None and prev.shape == h.shape:
+                    h = h + prev
+                h = torch.relu(h)
+                prev = h
+        return h

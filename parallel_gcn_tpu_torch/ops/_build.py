@@ -46,9 +46,8 @@ def _find_nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.pgcn_dropout.argtypes = [
-        p, p, i64, i32, i32, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float, p,
-    ]
+    # seeds are device pointers: K1/K2 and K10 read a uint64, K5-K7 an int32
+    lib.pgcn_dropout.argtypes = [p, p, i64, i32, i32, p, ctypes.c_uint32, ctypes.c_float, p]
     lib.pgcn_dropout.restype = i32
     lib.pgcn_bcsr_spmm.argtypes = [
         p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, i32, i32, i32, i32, i32, p,
@@ -57,7 +56,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_sddmm.argtypes = [p, p, i32, p, p, i32, i32, p, i32, i32, p]
     lib.pgcn_sddmm.restype = i32
     u32, f32 = ctypes.c_uint32, ctypes.c_float
-    drop = [i32, u32, u32, f32]
+    drop = [i32, p, u32, f32]
     walk = [p, p, p, p, i32, p, p, i32, i32]  # AttnIndex and the schedule's segments
     lib.pgcn_gat_fwd.argtypes = [*walk, p, p, p, i32, i32, p, i32, i32, p, p, i32, i32,
                                  f32, *drop, p]
@@ -74,15 +73,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_pad_heads.restype = i32
     lib.pgcn_masked_ce.argtypes = [p, p, i32, p, i64, i32, f32, f32, p, i64, p, p, p, p]
     lib.pgcn_masked_ce.restype = i32
-    u64 = ctypes.c_uint64
-    lib.pgcn_dropout_matmul_fwd.argtypes = [p, p, p, i32, i64, i32, i32, u64, u32, f32, p]
+    lib.pgcn_dropout_matmul_fwd.argtypes = [p, p, p, i32, i64, i32, i32, p, u32, f32, p]
     lib.pgcn_dropout_matmul_fwd.restype = i32
     lib.pgcn_dropout_matmul_dw.argtypes = [p, p, p, p, i32, i64, i32, i32, i32, i32, i64,
-                                           u64, u32, f32, p]
+                                           p, u32, f32, p]
     lib.pgcn_dropout_matmul_dw_blocks.argtypes = [i32, i32, p]
     lib.pgcn_dropout_matmul_dw_blocks.restype = i32
     lib.pgcn_dropout_matmul_dw.restype = i32
-    lib.pgcn_dropout_matmul_dx.argtypes = [p, p, p, i32, i64, i32, i32, u64, u32, f32, p]
+    lib.pgcn_dropout_matmul_dx.argtypes = [p, p, p, i32, i64, i32, i32, p, u32, f32, p]
     lib.pgcn_dropout_matmul_dx.restype = i32
 
 

@@ -16,6 +16,14 @@ device reproduces. The port's mask contract: Philox4x32-10 keyed by the
   ``g·1[out>0]/keep`` needs only the saved output (plain elementwise torch,
   as the JAX package leaves it to XLA).
 
+Seeds. The kernel reads its seed from device memory, so that a launch
+captured in a CUDA graph draws a new mask each replay: a wrapper takes a
+seed slot (a one-element integer tensor on x's device, which the trainer
+rewrites before each epoch, ``train.SeedSlots``) or a Python int (unit
+tests, kernel checks), which ``seed_tensor`` writes to the device with a
+fill kernel. The plain version takes either, without reading a slot on the
+host.
+
 Each wrapper runs the kernel for a CUDA tensor and the plain PyTorch version
 (``dropout_plain``), which computes the same bits with int64 arithmetic, for
 a CPU tensor. The kernel takes any contiguous tensor: one whose data is not
@@ -45,6 +53,34 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches by wrapper: "dropout" (K1), "relu_dropout" (K2)
 launches = {"dropout": 0, "relu_dropout": 0}
 
+Seed = int | torch.Tensor  # a Python int, or a slot the kernels read on the device
+
+
+def seed_tensor(seed: Seed, device, dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """``seed`` as the one-element tensor on ``device`` that a kernel reads:
+    a slot as it is (cast to ``dtype`` if it holds another integer type), an
+    int (a uint64, or for ``torch.int32`` a uint32) as its bits in
+    ``dtype``, written by a fill kernel (no host-to-device copy)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.is_floating_point() or seed.device != torch.device(device):
+            raise ValueError(f"a seed slot is one integer element on {device}, got "
+                             f"{tuple(seed.shape)} {seed.dtype} on {seed.device}")
+        return seed if seed.dtype == dtype else seed.to(dtype)
+    bits = 64 if dtype == torch.int64 else 32
+    if not 0 <= seed < 2**bits:
+        raise ValueError(f"seed must be a uint{bits}, got {seed}")
+    signed = seed - 2**bits if seed >= 2 ** (bits - 1) else seed
+    return torch.full((1,), signed, dtype=dtype, device=device)
+
+
+def _seed_halves(seed: Seed, device):
+    """(low, high) 32-bit words of a uint64 seed: ints, or int64 0-d
+    tensors on ``device`` for a slot (never read on the host)."""
+    if isinstance(seed, torch.Tensor):
+        key = seed.reshape(()).to(device=device, dtype=torch.int64)
+        return key & _M32, (key >> 32) & _M32
+    return seed & _M32, (seed >> 32) & _M32
+
 
 def keep_threshold(rate: float) -> int:
     """uint32 threshold with P(word < thr) = 1 - rate
@@ -64,9 +100,10 @@ def _mulhilo(m: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def philox4x32_10(
     c0: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor, c3: torch.Tensor,
-    k0: int, k1: int,
+    k0: int | torch.Tensor, k1: int | torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
-    """Philox4x32-10 on int64 tensors holding uint32 words."""
+    """Philox4x32-10 on int64 tensors holding uint32 words; the key words are
+    ints or int64 0-d tensors."""
     for rnd in range(10):
         if rnd:
             k0 = (k0 + _PHILOX_W0) & _M32
@@ -77,17 +114,16 @@ def philox4x32_10(
     return c0, c1, c2, c3
 
 
-def philox_words(seed: int, n: int, device) -> torch.Tensor:
+def philox_words(seed: Seed, n: int, device) -> torch.Tensor:
     """The n uint32 words (as int64) the mask contract assigns to elements
-    0..n-1 for ``seed``."""
+    0..n-1 for ``seed`` (an int or a slot)."""
     ctr = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
     zero = torch.zeros_like(ctr)
-    words = philox4x32_10(ctr & _M32, ctr >> 32, zero, zero,
-                          seed & _M32, (seed >> 32) & _M32)
+    words = philox4x32_10(ctr & _M32, ctr >> 32, zero, zero, *_seed_halves(seed, device))
     return torch.stack(words, dim=1).reshape(-1)[:n]
 
 
-def keep_mask(seed: int, rate: float, shape, device) -> torch.Tensor:
+def keep_mask(seed: Seed, rate: float, shape, device) -> torch.Tensor:
     """The contract's keep mask of a contiguous tensor of ``shape``: the
     element with flat index i is kept iff word ``i & 3`` of Philox counter
     ``i >> 2`` is below ``keep_threshold(rate)``. K1, K2 and the fused
@@ -105,7 +141,7 @@ def _inv_keep(rate: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
 
 
-def dropout_plain(x: torch.Tensor, seed: int, rate: float,
+def dropout_plain(x: torch.Tensor, seed: Seed, rate: float,
                   relu: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same bits, same rounding)."""
     keep = keep_mask(seed, rate, x.shape, x.device)
@@ -114,7 +150,7 @@ def dropout_plain(x: torch.Tensor, seed: int, rate: float,
     return torch.where(keep, x * _inv_keep(rate, x.dtype), 0.0)
 
 
-def _run(x: torch.Tensor, seed: int, rate: float, relu: bool) -> torch.Tensor:
+def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return dropout_plain(x, seed, rate, relu)
     if x.device.type != "cuda":
@@ -123,8 +159,7 @@ def _run(x: torch.Tensor, seed: int, rate: float, relu: bool) -> torch.Tensor:
         raise TypeError(f"dropout kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("dropout kernel needs a contiguous tensor")
-    if not 0 <= seed < 2**64:
-        raise ValueError(f"seed must be a uint64, got {seed}")
+    slot = seed_tensor(seed, x.device)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -133,7 +168,7 @@ def _run(x: torch.Tensor, seed: int, rate: float, relu: bool) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgcn_dropout(
             x.data_ptr(), out.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype],
-            int(relu), seed, keep_threshold(rate),
+            int(relu), slot.data_ptr(), keep_threshold(rate),
             _inv_keep(rate, x.dtype), ctypes.c_void_p(stream),
         )
     _build.check(rc, "dropout kernel")
@@ -167,15 +202,17 @@ class _ReluDropout(torch.autograd.Function):
         return torch.where(out > 0, g * _inv_keep(ctx.rate, g.dtype), 0.0), None, None
 
 
-def dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Inverted dropout of ``x`` (K1). Rate 0 is the identity."""
+def dropout(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
+    """Inverted dropout of ``x`` (K1) with ``seed`` (an int or a slot). Rate
+    0 is the identity."""
     if rate <= 0.0:
         return x
     return _Dropout.apply(x, seed, rate)
 
 
-def relu_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """``dropout(relu(x))`` in one pass (K2). Rate 0 is a plain ReLU."""
+def relu_dropout(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
+    """``dropout(relu(x))`` in one pass (K2) with ``seed`` (an int or a
+    slot). Rate 0 is a plain ReLU."""
     if rate <= 0.0:
         return torch.relu(x)
     return _ReluDropout.apply(x, seed, rate)

@@ -19,8 +19,10 @@ Rounding points (pallas_fused.py:49-104, 226-238):
            in W's dtype;
   dX       where(mask, (g @ Wᵀ in f32) · (1/keep as f32), 0) in x's dtype.
 
-Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
-for CPU tensors; ``launches`` counts kernel launches.
+The seed is an int or a slot the kernels read on the device, as for K1
+(``cuda_dropout.seed_tensor``). Each wrapper runs the kernel for CUDA
+tensors and the plain PyTorch version for CPU tensors; ``launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import functools
 import torch
 
 from parallel_gcn_tpu_torch.ops import _build, cuda_dropout
+from parallel_gcn_tpu_torch.ops.cuda_dropout import Seed, seed_tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _DW_CHUNK = 64  # rows of a dW split are a multiple of this (csrc/dropout_matmul.cu kSplitRows)
@@ -41,26 +44,26 @@ _DW_NB = 48  # g columns a bf16 dW block owns (kDwNB); the f32 kernel's blocks a
 launches = {"fused_fwd": 0, "fused_dw": 0, "fused_dx": 0}
 
 
-def _masked_x(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _masked_x(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     keep = cuda_dropout.keep_mask(seed, rate, x.shape, x.device)
     return torch.where(keep, x * cuda_dropout._inv_keep(rate, x.dtype), 0.0)
 
 
-def dropout_matmul_plain(x: torch.Tensor, w: torch.Tensor, seed: int,
+def dropout_matmul_plain(x: torch.Tensor, w: torch.Tensor, seed: Seed,
                          rate: float) -> torch.Tensor:
     """Plain forward: ``xm @ w.to(x.dtype)`` in f32, [N, M] float32."""
     xm = _masked_x(x, seed, rate)
     return torch.matmul(xm.float(), w.to(x.dtype).float())
 
 
-def dropout_matmul_dw_plain(x: torch.Tensor, g: torch.Tensor, seed: int, rate: float,
+def dropout_matmul_dw_plain(x: torch.Tensor, g: torch.Tensor, seed: Seed, rate: float,
                             w_dtype: torch.dtype) -> torch.Tensor:
     """Plain dW: ``xmᵀ @ g.to(x.dtype)`` in f32, returned in ``w_dtype``."""
     xm = _masked_x(x, seed, rate)
     return torch.matmul(xm.float().T, g.float().to(x.dtype).float()).to(w_dtype)
 
 
-def dropout_matmul_dx_plain(g: torch.Tensor, w: torch.Tensor, seed: int, rate: float,
+def dropout_matmul_dx_plain(g: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float,
                             x_dtype: torch.dtype) -> torch.Tensor:
     """Plain dX: ``where(mask, (g @ wᵀ)·(1/keep), 0)`` in f32, returned in
     ``x_dtype``."""
@@ -69,14 +72,12 @@ def dropout_matmul_dx_plain(g: torch.Tensor, w: torch.Tensor, seed: int, rate: f
     return torch.where(keep, gw * (1.0 / (1.0 - rate)), 0.0).to(x_dtype)
 
 
-def _check(what: str, seed: int, x_dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+def _check(what: str, x_dtype: torch.dtype, *tensors: torch.Tensor) -> None:
     """Raise on what the kernels do not take: a dtype other than f32/bf16,
-    a seed outside uint64, an operand that is not 2-D, nonempty, contiguous
-    and on the first operand's device."""
+    an operand that is not 2-D, nonempty, contiguous and on the first
+    operand's device (``seed_tensor`` checks the seed)."""
     if x_dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: the kernel takes float32 or bfloat16 x, got {x_dtype}")
-    if not 0 <= seed < 2**64:
-        raise ValueError(f"seed must be a uint64, got {seed}")
     for t in tensors:
         if t.dim() != 2 or 0 in t.shape:
             raise ValueError(f"{what}: operands must be 2-D and nonempty, got "
@@ -95,21 +96,22 @@ def _on_cpu(t: torch.Tensor, what: str) -> bool:
     return t.device.type == "cpu"
 
 
-def _fwd(x: torch.Tensor, w: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _fwd(x: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     if _on_cpu(x, "dropout_matmul"):
         return dropout_matmul_plain(x, w, seed, rate)
-    _check("dropout_matmul", seed, x.dtype, x, w)
+    _check("dropout_matmul", x.dtype, x, w)
     n, k = x.shape
     m = w.shape[1]
     if w.dtype != x.dtype or w.shape[0] != k:
         raise ValueError(f"dropout_matmul: w must be [{k}, M] in x's dtype {x.dtype}, "
                          f"got {tuple(w.shape)} {w.dtype}")
+    slot = seed_tensor(seed, x.device)
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         rc = lib.pgcn_dropout_matmul_fwd(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], n, k, m,
-            seed, cuda_dropout.keep_threshold(rate),
+            slot.data_ptr(), cuda_dropout.keep_threshold(rate),
             cuda_dropout._inv_keep(rate, x.dtype), _stream(x.device))
     _build.check(rc, "dropout_matmul forward kernel")
     launches["fused_fwd"] += 1
@@ -149,16 +151,17 @@ def _dw_blocks(device: int, dtype: torch.dtype, slab: int) -> int:
     return blocks.value
 
 
-def _dw(x: torch.Tensor, g: torch.Tensor, seed: int, rate: float,
+def _dw(x: torch.Tensor, g: torch.Tensor, seed: Seed, rate: float,
         w_dtype: torch.dtype) -> torch.Tensor:
     if _on_cpu(x, "dropout_matmul dW"):
         return dropout_matmul_dw_plain(x, g, seed, rate, w_dtype)
-    _check("dropout_matmul dW", seed, x.dtype, x, g)
+    _check("dropout_matmul dW", x.dtype, x, g)
     n, k = x.shape
     m = g.shape[1]
     if g.dtype != torch.float32 or g.shape[0] != n or w_dtype != x.dtype:
         raise ValueError(f"dropout_matmul dW: g must be float32 [{n}, M] and w of "
                          f"x's dtype, got g {tuple(g.shape)} {g.dtype}, w {w_dtype}")
+    slot = seed_tensor(seed, x.device)
     lib = _build.load_library()
     slab = dw_slab(k)
     with torch.cuda.device(x.device):
@@ -167,7 +170,7 @@ def _dw(x: torch.Tensor, g: torch.Tensor, seed: int, rate: float,
         dw = torch.empty((k, m), dtype=w_dtype, device=x.device)
         rc = lib.pgcn_dropout_matmul_dw(
             x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-            _DTYPE_CODE[x.dtype], n, k, m, slab, splits, rows, seed,
+            _DTYPE_CODE[x.dtype], n, k, m, slab, splits, rows, slot.data_ptr(),
             cuda_dropout.keep_threshold(rate), cuda_dropout._inv_keep(rate, x.dtype),
             _stream(x.device))
     _build.check(rc, "dropout_matmul dW kernel")
@@ -175,11 +178,11 @@ def _dw(x: torch.Tensor, g: torch.Tensor, seed: int, rate: float,
     return dw
 
 
-def _dx(g: torch.Tensor, w: torch.Tensor, seed: int, rate: float,
+def _dx(g: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float,
         x_dtype: torch.dtype) -> torch.Tensor:
     if _on_cpu(g, "dropout_matmul dX"):
         return dropout_matmul_dx_plain(g, w, seed, rate, x_dtype)
-    _check("dropout_matmul dX", seed, x_dtype, g, w)
+    _check("dropout_matmul dX", x_dtype, g, w)
     n, m = g.shape
     k = w.shape[0]
     if g.dtype != torch.float32 or w.dtype != x_dtype or w.shape[1] != m:
@@ -187,12 +190,13 @@ def _dx(g: torch.Tensor, w: torch.Tensor, seed: int, rate: float,
                          f"of x's dtype, got g {tuple(g.shape)} {g.dtype}, w {w.dtype}")
     if g.data_ptr() % 16:  # the bf16 kernel copies g's rows in 16-byte pieces
         g = g.clone()
+    slot = seed_tensor(seed, g.device)
     dx = torch.empty((n, k), dtype=x_dtype, device=g.device)
     lib = _build.load_library()
     with torch.cuda.device(g.device):
         rc = lib.pgcn_dropout_matmul_dx(
             g.data_ptr(), w.data_ptr(), dx.data_ptr(), _DTYPE_CODE[x_dtype], n, k, m,
-            seed, cuda_dropout.keep_threshold(rate), 1.0 / (1.0 - rate),
+            slot.data_ptr(), cuda_dropout.keep_threshold(rate), 1.0 / (1.0 - rate),
             _stream(g.device))
     _build.check(rc, "dropout_matmul dX kernel")
     launches["fused_dx"] += 1
@@ -218,7 +222,7 @@ class _DropoutMatmul(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
-def dropout_matmul(x: torch.Tensor, w: torch.Tensor, seed: int, rate: float,
+def dropout_matmul(x: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float,
                    need_dx: bool = True) -> torch.Tensor:
     """``dropout(x, seed, rate) @ w`` as float32 [N, M], with the mask made
     inside the kernels. ``rate`` in (0, 1): rate-0 callers take a plain

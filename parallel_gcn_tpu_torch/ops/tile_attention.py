@@ -33,6 +33,9 @@ The COO residual's statistics merge with the tiles' by the flash rescale
 them to XLA. Attention dropout (``rate`` > 0) drops the numerator terms with
 the undropped denominator; the mask is ``hash_keep`` of (dest, src, head,
 int32 seed), bit-identical to the JAX package's, so no mask is ever stored.
+The kernels read the seed from device memory (a slot the trainer rewrites
+each epoch, or an int the wrapper writes there), so a captured launch draws
+a new mask each replay.
 
 The JAX package view-splits tiles wider than 512 columns (a TPU VMEM limit);
 the kernels here take whole tiles. The mask hashes global ids, so the result
@@ -55,7 +58,7 @@ import torch
 
 from parallel_gcn_tpu_torch.ops import _build
 from parallel_gcn_tpu_torch.ops.cuda_bcsr import _DTYPE_CODE, BCSR, slab_pack
-from parallel_gcn_tpu_torch.ops.cuda_dropout import _mulhilo
+from parallel_gcn_tpu_torch.ops.cuda_dropout import Seed, _mulhilo, seed_tensor
 
 _NEG = -1e9  # masked-logit fill (finite: empty rows stay finite, exp -> 0)
 _M32 = 0xFFFFFFFF
@@ -87,16 +90,21 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return _mulhilo(c, x)[1]
 
 
-def hash_keep(dest: torch.Tensor, src: torch.Tensor, h: int, seed: int,
+def hash_keep(dest: torch.Tensor, src: torch.Tensor, h: int, seed: Seed,
               threshold: int) -> torch.Tensor:
     """Boolean keep-mask of the murmur3-style mix of (dest, src, head, seed),
     bit-identical to the JAX package's ``_hash_keep``; ``dest``/``src`` are
-    integer id tensors (broadcastable), ``seed`` an int32."""
+    integer id tensors (broadcastable), ``seed`` an int32 or a slot holding
+    one (not read on the host)."""
+    if isinstance(seed, torch.Tensor):
+        seed_word = seed.reshape(()).to(device=dest.device, dtype=torch.int64) & _M32
+    else:
+        seed_word = int(seed) & _M32
     k = (
         _mul32(dest.long() & _M32, 0x9E3779B1)
         + _mul32(src.long() & _M32, 0x85EBCA6B)
         + ((h * 0xC2B2AE35) & _M32)
-        + (int(seed) & _M32)
+        + seed_word
     ) & _M32
     k = k ^ (k >> 16)
     k = _mul32(k, 0x7FEB352D)
@@ -106,7 +114,7 @@ def hash_keep(dest: torch.Tensor, src: torch.Tensor, h: int, seed: int,
     return k < threshold
 
 
-def edge_keep(rrow: torch.Tensor, rcol: torch.Tensor, H: int, seed: int,
+def edge_keep(rrow: torch.Tensor, rcol: torch.Tensor, H: int, seed: Seed,
               rate: float) -> torch.Tensor:
     """[E, H] keep-mask for edges with dest ``rrow`` and src ``rcol``."""
     thr = rate_to_threshold(rate)
@@ -192,7 +200,7 @@ def _edge_chunks(dest: torch.Tensor, src: torch.Tensor):
 
 
 def gat_fwd_tiles_plain(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
-                        seed: int = 0):
+                        seed: Seed = 0):
     """Plain PyTorch version of K5: (acc [n, H, D], m [n, H], den [n, H]),
     all float32, over the pack's edges; rows without edges keep m = _NEG,
     den = 0, acc = 0. ``s`` is indexed by the pack's rows, ``t`` and ``v``
@@ -212,7 +220,7 @@ def gat_fwd_tiles_plain(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
 
 
 def gat_bwd_tiles_plain(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
-                        rate: float = 0.0, seed: int = 0):
+                        rate: float = 0.0, seed: Seed = 0):
     """Plain PyTorch version of K6: (ds [n, H], dt [n, H], dv [n, H, D]),
     float32, the pack's part of the gradient from the forward's (m, den) and
     ρ = Σ_d g·out."""
@@ -272,10 +280,15 @@ def _walk_args(pack: BCSR) -> list:
             sched.multi_slot_ptr.data_ptr(), sched.multi_row.shape[0], pack.tile_r]
 
 
-def _dropout_args(rate: float, seed: int) -> list:
+def _dropout_args(rate: float, seed: Seed, device) -> tuple[list, torch.Tensor | None]:
+    """The kernels' attention-dropout arguments (on, seed pointer, threshold,
+    1/keep) and the int32 seed tensor the pointer points into (keep it alive
+    until the launch); an int seed is reduced to 32 bits."""
     if rate <= 0.0:
-        return [0, 0, 0, 1.0]
-    return [1, int(seed) & _M32, rate_to_threshold(rate), _inv_keep(rate)]
+        return [0, None, 0, 1.0], None
+    slot = seed_tensor(seed if isinstance(seed, torch.Tensor) else int(seed) & _M32, device,
+                       torch.int32)
+    return [1, slot.data_ptr(), rate_to_threshold(rate), _inv_keep(rate)], slot
 
 
 def _padded_width(H: int, D: int) -> tuple[int, int]:
@@ -297,7 +310,7 @@ def _node_records(s, t, m, den, rho) -> torch.Tensor:
     return rec
 
 
-def _fwd(pack: BCSR, s, t, v, slope: float, rate: float, seed: int, key: str):
+def _fwd(pack: BCSR, s, t, v, slope: float, rate: float, seed: Seed, key: str):
     """K5 (CUDA tensors) or its plain version (CPU tensors); a launch
     counts under ``launches[key]``."""
     if s.device.type == "cpu":
@@ -317,13 +330,14 @@ def _fwd(pack: BCSR, s, t, v, slope: float, rate: float, seed: int, key: str):
     ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width),
                      dtype=torch.float32, device=s.device)
     walk = _walk_args(pack)
+    drop, _slot = _dropout_args(rate, seed, s.device)
     lib = _build.load_library()
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgcn_gat_fwd(
             *walk, sf.data_ptr(), tf.data_ptr(), vf.data_ptr(), v.shape[0],
             _DTYPE_CODE[v.dtype], vp.data_ptr(), P, S, out.data_ptr(), ws.data_ptr(), H, D,
-            float(slope), *_dropout_args(rate, seed), ctypes.c_void_p(stream),
+            float(slope), *drop, ctypes.c_void_p(stream),
         )
     _build.check(rc, "tile attention forward kernel")
     launches[key] += 1
@@ -331,7 +345,7 @@ def _fwd(pack: BCSR, s, t, v, slope: float, rate: float, seed: int, key: str):
 
 
 def gat_fwd_tiles(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
-                  seed: int = 0):
+                  seed: Seed = 0):
     """The pack's part of the attention forward: (acc [n, H, D], m [n, H],
     den [n, H]) float32. K5 for CUDA tensors, the plain version for CPU
     ones."""
@@ -339,7 +353,7 @@ def gat_fwd_tiles(pack: BCSR, s, t, v, *, slope: float, rate: float = 0.0,
 
 
 def gat_bwd_tiles(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
-                  rate: float = 0.0, seed: int = 0):
+                  rate: float = 0.0, seed: Seed = 0):
     """The pack's part of the attention backward: (ds [n, H], dt [n, H],
     dv [n, H, D]) float32 from the forward's (m, den) and ρ = Σ_d g·out. K6
     for CUDA tensors, the plain version for CPU ones."""
@@ -363,13 +377,14 @@ def gat_bwd_tiles(pack: BCSR, s, t, v, g, m, den, rho, *, slope: float,
     ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width),
                      dtype=torch.float32, device=s.device)
     walk = _walk_args(pack)
+    drop, _slot = _dropout_args(rate, seed, s.device)
     lib = _build.load_library()
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgcn_gat_bwd(
             *walk, node.data_ptr(), gf.data_ptr(), vf.data_ptr(), n, _DTYPE_CODE[v.dtype],
             gp.data_ptr(), vp.data_ptr(), P, S, out.data_ptr(), ws.data_ptr(), H, D,
-            float(slope), *_dropout_args(rate, seed), ctypes.c_void_p(stream),
+            float(slope), *drop, ctypes.c_void_p(stream),
         )
     _build.check(rc, "tile attention backward kernel")
     launches["gat_bwd"] += 1
@@ -446,7 +461,7 @@ def _edge_rect_bwd(dest, src, live, sf, tf, v32, g, m, den_g, rho, slope, rate, 
 
 
 def gat_bwd_rect_row_plain(rows: BCSR, s, t_buf, v_buf, g, m, den, rho, *,
-                           slope: float, rate: float = 0.0, seed: int = 0):
+                           slope: float, rate: float = 0.0, seed: Seed = 0):
     """Plain PyTorch version of the K7 row sweep: ds [n_rows, H] float32 of
     the slab's entries."""
     ds = torch.zeros_like(m)
@@ -458,7 +473,7 @@ def gat_bwd_rect_row_plain(rows: BCSR, s, t_buf, v_buf, g, m, den, rho, *,
 
 
 def gat_bwd_rect_col_plain(cols: BCSR, s, t_buf, v_buf, g, m, den, rho, *,
-                           slope: float, rate: float = 0.0, seed: int = 0):
+                           slope: float, rate: float = 0.0, seed: Seed = 0):
     """Plain PyTorch version of the K7 column sweep over the transposed copy
     ``cols``: (dt [n_buf, H], dv [n_buf, H, D]) float32."""
     v32 = v_buf.float()
@@ -472,7 +487,7 @@ def gat_bwd_rect_col_plain(cols: BCSR, s, t_buf, v_buf, g, m, den, rho, *,
 
 
 def gat_fwd_rect(rows: BCSR, s, t_buf, v_buf, *, slope: float, rate: float = 0.0,
-                 seed: int = 0):
+                 seed: Seed = 0):
     """The slab's part of the mesh attention forward: (acc [n_rows, H, D],
     m, den [n_rows, H]) float32; s by local row, t_buf and v_buf by buffer
     row. K5 for CUDA tensors, the plain version for CPU ones."""
@@ -513,7 +528,7 @@ def _rect_bwd_args(s, t_buf, v_buf, g, m, den, rho) -> dict:
 
 
 def _launch_rect(sweep: str, pack: BCSR, a: dict, slope: float, rate: float,
-                 seed: int) -> torch.Tensor:
+                 seed: Seed) -> torch.Tensor:
     """One K7 sweep over ``pack``'s live-column index: "row" writes ds
     [n_rows, H]; "col" (over the transposed column copy) writes dv | dt
     [n_buf, H·D + H]."""
@@ -524,20 +539,21 @@ def _launch_rect(sweep: str, pack: BCSR, a: dict, slope: float, rate: float,
     ws = torch.empty((pack.schedule.n_slots, pack.tile_r, width), dtype=torch.float32,
                      device=dev)
     walk = _walk_args(pack)
+    drop, _slot = _dropout_args(rate, seed, dev)
     lib = _build.load_library()
     fn = lib.pgcn_gat_bwd_rect_row if sweep == "row" else lib.pgcn_gat_bwd_rect_col
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         rc = fn(*walk, a["nd"].data_ptr(), a["tf"].data_ptr(), a["gp"].data_ptr(),
                 a["vp"].data_ptr(), _DTYPE_CODE[a["vp"].dtype], P, S, out.data_ptr(),
-                ws.data_ptr(), H, D, float(slope), *_dropout_args(rate, seed), stream)
+                ws.data_ptr(), H, D, float(slope), *drop, stream)
     _build.check(rc, f"rect attention backward kernel ({sweep} sweep)")
     launches[f"gat_bwd_rect_{sweep}"] += 1
     return out
 
 
 def gat_bwd_rect_row(rows: BCSR, s, t_buf, v_buf, g, m, den, rho, *, slope: float,
-                     rate: float = 0.0, seed: int = 0):
+                     rate: float = 0.0, seed: Seed = 0):
     """The K7 row sweep: ds [n_rows, H] float32 of the slab's entries, from
     the forward's (m, den) and ρ = Σ_d g·out. The kernel for CUDA tensors,
     the plain version for CPU ones."""
@@ -550,7 +566,7 @@ def gat_bwd_rect_row(rows: BCSR, s, t_buf, v_buf, g, m, den, rho, *, slope: floa
 
 
 def gat_bwd_rect_col(cols: BCSR, s, t_buf, v_buf, g, m, den, rho, *, slope: float,
-                     rate: float = 0.0, seed: int = 0):
+                     rate: float = 0.0, seed: Seed = 0):
     """The K7 column sweep over the transposed copy ``cols``: (dt [n_buf, H],
     dv [n_buf, H, D]) float32. The kernel for CUDA tensors, the plain version
     for CPU ones."""
@@ -577,7 +593,7 @@ def _check_rect_args(rows: BCSR | None, cols: BCSR | None, s, t_buf, v_buf, g) -
 
 
 def gat_bwd_rect(attn: RectAttention, s, t_buf, v_buf, g, m, den, rho, *,
-                 slope: float, rate: float = 0.0, seed: int = 0):
+                 slope: float, rate: float = 0.0, seed: Seed = 0):
     """The slab's part of the mesh attention backward: ds [n_rows, H],
     dt [n_buf, H], dv [n_buf, H, D] float32, from the forward's (m, den) and
     ρ = Σ_d g·out. K7's row and column sweeps for CUDA tensors, their plain
@@ -652,7 +668,7 @@ class _GatAttend(torch.autograd.Function):
 
 def gat_attend_tiles(graph, s: torch.Tensor, t: torch.Tensor, v: torch.Tensor, *,
                      slope: float, attn_dropout: float = 0.0,
-                     seed: int | None = None) -> torch.Tensor:
+                     seed: Seed | None = None) -> torch.Tensor:
     """Softmax attention aggregation over a tile-packed graph:
     ``out_i = Σ_j softmax_j(LeakyReLU(s_i + t_j)) · v_j`` over the BCSR
     pattern plus (hybrid builds) the COO residual.
@@ -678,7 +694,7 @@ def gat_attend_tiles(graph, s: torch.Tensor, t: torch.Tensor, v: torch.Tensor, *
     if rate > 0.0 and seed is None:
         raise ValueError("attn_dropout > 0 needs a seed")
     return _GatAttend.apply(s, t, v, graph, float(slope), rate,
-                            0 if seed is None else int(seed))
+                            0 if seed is None else seed)
 
 
 class _GatAttendRect(torch.autograd.Function):
@@ -709,7 +725,7 @@ class _GatAttendRect(torch.autograd.Function):
 
 def gat_attend_rect(s: torch.Tensor, t_buf: torch.Tensor, v_buf: torch.Tensor,
                     attn: RectAttention, *, slope: float, attn_dropout: float = 0.0,
-                    seed: int | None = None) -> torch.Tensor:
+                    seed: Seed | None = None) -> torch.Tensor:
     """Mesh-slab softmax attention: ``out_i = Σ_j α_ij v_j`` for the local
     destination rows i over the source buffer (the slab's tiles plus its COO
     residual hold every edge of i, so the softmax is complete on the rank).
@@ -732,4 +748,4 @@ def gat_attend_rect(s: torch.Tensor, t_buf: torch.Tensor, v_buf: torch.Tensor,
     if rate > 0.0 and seed is None:
         raise ValueError("attn_dropout > 0 needs a seed")
     return _GatAttendRect.apply(s, t_buf, v_buf, attn, float(slope), rate,
-                                0 if seed is None else int(seed))
+                                0 if seed is None else seed)

@@ -27,11 +27,20 @@ rank)`` reduced to the seed's range on rank r > 0, so the masks differ
 across ranks (the JAX package folds the axis index into the key) and a
 world of one replays the single-card run's masks.
 
+``mode=scan`` (the default) runs the whole-run path of ``scan.ScanLoop``
+on every rank, the counterpart of the JAX package's ``make_parallel_run``:
+the same schedules as the single-card ``fit`` (the deferred-eval epoch of
+the mesh GCN stacks the train and val halves into one last-layer
+aggregation and one collective), each rank's epoch one CUDA graph with its
+NCCL collectives captured in it, the seeds from a table of the epochs'
+``rank_seeds``. Every rank reads the same stop flag (the metrics are
+all-reduced), so all ranks queue the same epochs.
+
 Not ported (NotImplementedError): the ring and adaptive halos, tensor
 parallelism (``tp`` > 1), SAGE/GIN on the mesh, ``remat``, the GAT's
-``edge_chunk``, the whole-run program (``mode=scan`` runs this eager loop)
-and checkpoints. The mesh CE is the plain masked CE of ``ops.loss`` on every
-rank, as in the JAX package (``ce_impl`` does not apply).
+``edge_chunk`` and checkpoints. The mesh CE is the plain masked CE of
+``ops.loss`` on every rank, as in the JAX package (``ce_impl`` does not
+apply).
 """
 
 from __future__ import annotations
@@ -61,8 +70,10 @@ from parallel_gcn_tpu_torch.parallel.partition import (GATMeshPack, HybridSharde
                                                        ShardedGraph, gat_mesh_pack,
                                                        partition_graph,
                                                        partition_graph_hybrid)
+from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table
 from parallel_gcn_tpu_torch.train import (_ATTN_SEED_HIGH, _SEED_HIGH, FitResult, _l2_term,
-                                          _sync, epoch_seeds)
+                                          _sync, eager_loop, epoch_seeds, fit_result,
+                                          fused_deferred_forward, print_scan, scan_schedule)
 
 _M64 = (1 << 64) - 1
 
@@ -353,17 +364,11 @@ def make_parallel_epoch_step(cfg: Config, model, graph: RankGraph, data: RankDat
                        input_preagg=x_train is not None)
         loss_sum, correct = masked_softmax_xent_sums(logits, data.labels, train_mask)
         grads = torch.autograd.grad(loss_sum / float(n_train), weights)
-        flat = all_reduce_sum(torch.cat(
-            [g.reshape(-1).float() for g in grads]
-            + [torch.stack([loss_sum.detach(), correct])]))
-        grads, off = [], 0
-        for w in weights:
-            grads.append(flat[off : off + w.numel()].view(w.shape))
-            off += w.numel()
+        grads, sums = _reduce_grads(weights, grads, torch.stack([loss_sum.detach(), correct]))
         with torch.no_grad():
             # the L2 term of the PRE-update W0
-            train_loss = flat[-2] / float(n_train) + _l2_term(wd, weights[0])
-            train_acc = flat[-1] / float(n_train)
+            train_loss = sums[0] / float(n_train) + _l2_term(wd, weights[0])
+            train_acc = sums[1] / float(n_train)
         adam_step(weights, grads, opt_state, learning_rate=adam.learning_rate,
                   weight_decay=wd, beta1=adam.beta1, beta2=adam.beta2, eps=adam.eps)
         with torch.no_grad():
@@ -374,6 +379,57 @@ def make_parallel_epoch_step(cfg: Config, model, graph: RankGraph, data: RankDat
                                 val_ce + _l2_term(wd, weights[0]), val_acc])
 
     return step
+
+
+def make_parallel_deferred_step(cfg: Config, model: MeshGCN, graph: RankGraph,
+                                data: RankData, split_counts: dict, x_train=None,
+                                x_eval=None):
+    """The mesh GCN's deferred-eval epoch (``train.fused_deferred_forward``
+    over the rank's slab: one last-layer aggregation, one collective, for
+    the train and the val halves): ``(opt_state, seeds) -> metrics[4]``,
+    this epoch's train loss and accuracy and the val loss and accuracy of
+    the weights it started from. One ``all_reduce`` carries the local
+    gradients and both halves' sums."""
+    adam = cfg.adam
+    wd = adam.weight_decay
+    n_train, n_val = split_counts[TRAIN], split_counts[VAL]
+    train_mask = data.split == TRAIN
+    val_mask = data.split == VAL
+    weights = list(model.weights)
+    x_tr = data.x if x_train is None else x_train
+    x_ev = data.x if x_eval is None else x_eval
+
+    def step(opt_state: AdamState, seeds) -> torch.Tensor:
+        lt, le = fused_deferred_forward(model, x_tr, x_ev, graph, seeds,
+                                        train_preagg=x_train is not None,
+                                        eval_preagg=x_eval is not None)
+        loss_sum, correct = masked_softmax_xent_sums(lt, data.labels, train_mask)
+        grads = torch.autograd.grad(loss_sum / float(n_train), weights)
+        with torch.no_grad():
+            val_sums = masked_softmax_xent_sums(le, data.labels, val_mask)
+            sums = torch.stack([loss_sum.detach(), correct, *val_sums])
+        grads, sums = _reduce_grads(weights, grads, sums)
+        with torch.no_grad():
+            # the L2 term of the PRE-update W0, which the val half also ran on
+            pen = _l2_term(wd, weights[0])
+            metrics = torch.stack([sums[0] / float(n_train) + pen, sums[1] / float(n_train),
+                                   sums[2] / float(n_val) + pen, sums[3] / float(n_val)])
+        adam_step(weights, grads, opt_state, learning_rate=adam.learning_rate,
+                  weight_decay=wd, beta1=adam.beta1, beta2=adam.beta2, eps=adam.eps)
+        return metrics
+
+    return step
+
+
+def _reduce_grads(weights, grads, sums):
+    """One ``all_reduce`` of the local gradients and the metric ``sums``:
+    (the world's gradients shaped like ``weights``, the world's sums)."""
+    flat = all_reduce_sum(torch.cat([g.reshape(-1).float() for g in grads] + [sums]))
+    out, off = [], 0
+    for w in weights:
+        out.append(flat[off : off + w.numel()].view(w.shape))
+        off += w.numel()
+    return out, flat[off:]
 
 
 def make_parallel_eval_fn(cfg: Config, model, graph: RankGraph, data: RankData,
@@ -491,22 +547,42 @@ def build_rank(cfg: Config, ds, rank: int, n_devices: int, halo: str, device,
     )
 
 
-def make_run_fns(cfg: Config, run: RankRun):
-    """The epoch step and the test eval of ``run``, with the input
-    pre-aggregation the single-card ``fit`` and the JAX package's whole-run
-    program hoist: the evals always read Â·X, the train forward too at input
-    dropout 0 (exact reassociation; GCN only)."""
-    graph, data, model = run.graph, run.data, run.model
+def preagg_inputs(cfg: Config, run: RankRun):
+    """(x_train, x_eval) of ``run``: the input pre-aggregation the
+    single-card ``fit`` and the JAX package's whole-run program hoist. The
+    evals always read Â·X, the train forward too at input dropout 0 (exact
+    reassociation; GCN only); None where the forward reads X."""
     x_train = x_eval = None
     if cfg.tpu.input_preagg and cfg.gcn.model != "gat" and cfg.gcn.n_layers >= 2:
-        x_eval = make_preagg_fn(graph)(data.x).to(model.compute_dtype)
+        x_eval = make_preagg_fn(run.graph)(run.data.x).to(run.model.compute_dtype)
         if cfg.gcn.dropouts[0] == 0.0:
             x_train = x_eval
-    step = make_parallel_epoch_step(cfg, model, graph, data, run.split_counts,
-                                    x_train=x_train, x_eval=x_eval)
-    test_fn = make_parallel_eval_fn(cfg, model, graph, data, run.split_counts, TEST,
-                                    x_eval=x_eval, preagg=x_eval is not None)
-    return step, test_fn
+    return x_train, x_eval
+
+
+def make_parallel_scan_loop(cfg: Config, run: RankRun, opt_state: AdamState,
+                            gen: torch.Generator, x_train=None, x_eval=None) -> ScanLoop:
+    """The whole-run loop of ``run`` on its rank (``scan.ScanLoop``): the
+    schedule of ``train.scan_schedule``, every epoch's ``rank_seeds`` drawn
+    from ``gen`` now; ``x_train``, ``x_eval`` as ``preagg_inputs`` gives
+    them."""
+    model, graph, data, counts = run.model, run.graph, run.data, run.split_counts
+    gat = isinstance(model, MeshGAT)
+    k, deferred = scan_schedule(model, cfg)
+    if deferred:
+        step = make_parallel_deferred_step(cfg, model, graph, data, counts, x_train, x_eval)
+        final_val = make_parallel_eval_fn(cfg, model, graph, data, counts, VAL,
+                                          x_eval=x_eval, preagg=x_eval is not None)
+    else:
+        step = make_parallel_epoch_step(cfg, model, graph, data, counts, x_train, x_eval)
+        final_val = None
+    table = seed_table([rank_seeds(epoch_seeds(gen, model.n_layers, attention=gat),
+                                   graph.rank, gat) for _ in range(cfg.gcn.epochs)],
+                       data.x.device)
+    return ScanLoop(lambda slots: step(opt_state, slots),
+                    state=[*model.weights, *opt_state.m, *opt_state.v, opt_state.step],
+                    seeds=SeedSlots(model.n_layers, gat, data.x.device), table=table, k=k,
+                    final_val=final_val, device=data.x.device)
 
 
 def fit_parallel(
@@ -540,47 +616,37 @@ def fit_parallel(
     gat = cfg.gcn.model == "gat"
     with collectives.world(n_devices, device) as (rank, _):
         verbose = verbose and rank == 0
-        if cfg.train.mode == "scan" and verbose:
-            print("note: mode=scan (whole-run path) is not yet ported — "
-                  "running the eager epoch loop")
         run = build_rank(cfg, ds, rank, n_devices, halo, device, weights)
         sgraph, model = run.sgraph, run.model
         opt_state = init_adam(list(model.weights))
-        step, test_fn = make_run_fns(cfg, run)
         if verbose:
             print(f"mesh: {n_devices} rank(s), halo="
                   f"{'boundary' if sgraph.send_idx is not None else 'all_gather'}, "
                   f"n_local={sgraph.n_local}, n_buf={sgraph.n_buf}, device {device}")
 
+        x_train, x_eval = preagg_inputs(cfg, run)
+        test_fn = make_parallel_eval_fn(cfg, model, run.graph, run.data, run.split_counts,
+                                        TEST, x_eval=x_eval, preagg=x_eval is not None)
         gen = torch.Generator().manual_seed(cfg.tpu.seed)
-        k = cfg.gcn.early_stopping
-        rows = []
+        scan = None
         _sync(device)
         t0 = time.perf_counter()
-        for epoch in range(1, cfg.gcn.epochs + 1):
-            te = time.perf_counter()
-            seeds = rank_seeds(epoch_seeds(gen, model.n_layers, attention=gat), rank, gat)
-            tl, ta, vl, va = step(opt_state, seeds).tolist()  # waits for the device
-            rows.append((tl, ta, vl, va))
+        if cfg.train.mode == "scan":
+            scan = make_parallel_scan_loop(cfg, run, opt_state, gen, x_train, x_eval).run()
+            total = time.perf_counter() - t0
+            history, epochs_run = scan.history, scan.epochs_run
             if verbose:
-                print(f"epoch={epoch} train_loss={tl:.5f} train_acc={ta:.5f} "
-                      f"val_loss={vl:.5f} val_acc={va:.5f} "
-                      f"time={time.perf_counter() - te:.5f}")
-            if k > 0 and len(rows) >= k and vl > float(np.mean([r[2] for r in rows[-k:]])):
-                if verbose:
-                    print("Early stopping...")
-                break
-        total = time.perf_counter() - t0
+                print_scan(scan, cfg.gcn.epochs)
+        else:
+            step = make_parallel_epoch_step(cfg, model, run.graph, run.data,
+                                            run.split_counts, x_train, x_eval)
+            history, epochs_run = eager_loop(
+                step, opt_state, cfg, SeedSlots(model.n_layers, gat, device),
+                lambda: rank_seeds(epoch_seeds(gen, model.n_layers, attention=gat), rank, gat),
+                device, verbose)
+            total = time.perf_counter() - t0
         test_loss, test_acc = (float(v) for v in test_fn())
         if verbose:
             print(f"test_loss={test_loss:.5f} test_acc={test_acc:.5f}")
             print(f"total time: {total:.5f}")
-    return FitResult(
-        weights=[w.detach() for w in model.weights],
-        history=np.asarray(rows, dtype=np.float32).reshape(-1, 4),
-        epochs_run=len(rows),
-        test_loss=test_loss,
-        test_acc=test_acc,
-        avg_epoch_time_s=total / max(len(rows), 1),
-        total_time_s=total,
-    )
+    return fit_result(model, history, epochs_run, test_loss, test_acc, total, scan)

@@ -1,6 +1,6 @@
 """Training loop — counterpart of GCN::run / train_epoch / eval.
 
-Port of ``parallel_gcn_tpu/train.py`` (eager path). Reference semantics
+Port of ``parallel_gcn_tpu/train.py``. Reference semantics
 (src/gcn.cu:293-455):
   * per epoch: forward(train) → metrics → backward → Adam → eval(val) on the
     updated weights;
@@ -8,15 +8,25 @@ Port of ``parallel_gcn_tpu/train.py`` (eager path). Reference semantics
   * early stopping: after epoch e ≥ k, stop if val_loss > mean of the last k
     val losses (window includes the current epoch).
 
+Two modes, as in the JAX package. ``mode=scan`` (the default) is the
+whole-run path (``scan.ScanLoop``): the epochs stay on the device, one CUDA
+graph replayed per epoch, early stopping decided on the device, and with
+early stopping off the deferred-eval schedule of ``fused_deferred_forward``
+for a GCN of two or more layers. ``mode=eager`` reads each epoch's metrics
+on the host before the next epoch starts.
+
 Dropout seeds come from one ``torch.Generator`` seeded with ``cfg.tpu.seed``:
 per epoch, one 62-bit seed per layer, and for a GAT also one int32
-attention-dropout seed per layer (``epoch_seeds``).
+attention-dropout seed per layer (``epoch_seeds``). Both modes draw them in
+the same order and hand them to the kernels through device slots
+(``scan.SeedSlots``), so they draw the same masks.
 """
 
 from __future__ import annotations
 
+import json
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Callable
 
 import numpy as np
@@ -30,6 +40,7 @@ from parallel_gcn_tpu_torch.ops.cuda_ce import masked_softmax_xent_fused
 from parallel_gcn_tpu_torch.ops.graphsum import resolve_backend
 from parallel_gcn_tpu_torch.ops.loss import l2_penalty, masked_softmax_xent
 from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
+from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table, upload_seeds
 
 Model = GCNModel | GATModel
 
@@ -44,8 +55,13 @@ class FitResult:
     epochs_run: int
     test_loss: float
     test_acc: float
+    # eager: the loop's time over its epochs; scan: the host time of epochs
+    # 2..N (on CUDA the graph's replays), ended by one sync, per epoch
     avg_epoch_time_s: float
     total_time_s: float
+    setup_time_s: float = 0.0  # scan on CUDA: epoch 1 (eager) and the capture
+    replays: int = 0  # scan on CUDA: replays of the captured epoch
+    graph_launches: dict = field(default_factory=dict)  # kernels, collectives a replay
 
 
 def _gat_backend(cfg: Config, graph, backend: str) -> str:
@@ -207,6 +223,141 @@ def make_eval_fn(model: Model, cfg: Config, dds: DeviceDataset,
     return eval_fn
 
 
+class _StackedAggregate(torch.autograd.Function):
+    """``Â·[a_t | a_e]`` as one aggregation of the two halves side by side;
+    the gradient flows to the train half ``a_t`` only, as the aggregation of
+    its cotangent (Â is symmetric). ``aggregate`` runs Â·h without
+    autograd."""
+
+    @staticmethod
+    def forward(ctx, a_t, a_e, aggregate):
+        ctx.aggregate = aggregate
+        n_cols = a_t.shape[1]
+        out = aggregate(torch.cat([a_t, a_e], dim=1))
+        lt, le = out[:, :n_cols].contiguous(), out[:, n_cols:].contiguous()
+        ctx.mark_non_differentiable(le)
+        return lt, le
+
+    @staticmethod
+    def backward(ctx, g_t, g_e):
+        return ctx.aggregate(g_t.contiguous()), None, None
+
+
+def fused_deferred_forward(model: GCNModel, x_train, x_eval, graph, seeds, *,
+                           train_preagg: bool, eval_preagg: bool):
+    """Train forward and DEFERRED val forward, with the last layer's
+    aggregation stacked along the feature dimension (JAX
+    ``train._fused_deferred_forward``): (train logits, val logits), f32.
+
+    The val forward the reference runs after epoch e's Adam step uses the
+    weights epoch e+1's train forward starts from, so epoch e+1 runs both
+    on the same weights, and the two last-layer products [n, C] ride one
+    aggregation at 2·C columns instead of two at C (one K4 call, or on the
+    mesh one K3 call and one collective; the backward aggregates the train
+    half only). The caller moves the val metrics back one epoch and runs one
+    standalone val eval after the last epoch. The layers before the last
+    are shared outright when all their dropouts are 0 and both forwards read
+    the same input (both pre-aggregated or neither). Gradients flow through
+    the train logits only. ``model.aggregate`` must be self-adjoint (the GCN
+    and mesh GCN aggregations are)."""
+    L = model.n_layers
+    if L < 2:
+        raise ValueError("deferred-eval fusion needs the last layer's aggregation")
+    seeds = list(seeds) if seeds is not None else [None] * L
+    share = all(d == 0 for d in model.dropouts[: L - 1]) and train_preagg == eval_preagg
+    ht = model.prefix(x_train, graph, training=True, seeds=seeds, preagg=train_preagg)
+    pre_relu = model.defers_relu(L - 1)
+    at = model.layer_pre(ht, L - 1, seeds[L - 1], True, pre_relu=pre_relu)
+    with torch.no_grad():
+        he = ht if share else model.prefix(x_eval, graph, training=False,
+                                            seeds=[None] * L, preagg=eval_preagg)
+        ae = model.layer_pre(he, L - 1, None, False, pre_relu=pre_relu)
+    lt, le = _StackedAggregate.apply(at, ae, lambda h: model.aggregate(h, graph))
+    return lt.float(), le.float()
+
+
+def make_deferred_step(model: GCNModel, cfg: Config, dds: DeviceDataset) -> Callable:
+    """The deferred-eval epoch (``fused_deferred_forward``): ``(opt_state,
+    seeds) -> metrics[4]``, this epoch's train loss and accuracy and the val
+    loss and accuracy of the weights it started from. Updates
+    ``model.weights`` and ``opt_state`` in place."""
+    adam = cfg.adam
+    wd = adam.weight_decay
+    n_train = dds.split_counts[TRAIN]
+    n_val = dds.split_counts[VAL]
+    train_mask = dds.split == TRAIN
+    val_mask = dds.split == VAL
+    x_eval, eval_preagg = _eval_inputs(model, dds)
+    weights = list(model.weights)
+    ce_fn = _ce_fn(cfg)
+
+    def step(opt_state: AdamState, seeds) -> torch.Tensor:
+        lt, le = fused_deferred_forward(model, dds.x, x_eval, dds.graph, seeds,
+                                        train_preagg=model.input_preagg,
+                                        eval_preagg=eval_preagg)
+        ce, train_acc = ce_fn(lt, dds.labels, train_mask, n_train)
+        with torch.no_grad():
+            val_ce, val_acc = ce_fn(le, dds.labels, val_mask, n_val)
+        grads = torch.autograd.grad(ce, weights)
+        with torch.no_grad():
+            # the L2 term of the PRE-update W0: the reference's for the train
+            # loss, and the weights the deferred val forward ran on
+            pen = _l2_term(wd, weights[0])
+            metrics = torch.stack([ce.detach() + pen, train_acc, val_ce + pen, val_acc])
+        adam_step(weights, grads, opt_state, learning_rate=adam.learning_rate,
+                  weight_decay=wd, beta1=adam.beta1, beta2=adam.beta2, eps=adam.eps)
+        return metrics
+
+    return step
+
+
+def scan_schedule(model: Model, cfg: Config) -> tuple[int, bool]:
+    """(k, deferred) of the whole-run path: the early-stopping window k (0
+    when it exceeds the epochs, where the rule can never fire) and whether
+    the epochs run the deferred-eval schedule (k = 0, a GCN with a last
+    aggregation to stack), as the JAX package's ``_make_scan_run`` decides."""
+    epochs = cfg.gcn.epochs
+    k = cfg.gcn.early_stopping
+    if k > epochs:
+        k = 0
+    deferred = (k == 0 and epochs > 0 and model.n_layers >= 2
+                and model.supports_deferred_eval)
+    return k, deferred
+
+
+def make_scan_loop(model: Model, cfg: Config, dds: DeviceDataset, opt_state: AdamState,
+                   gen: torch.Generator) -> ScanLoop:
+    """The whole-run loop of ``cfg.gcn.epochs`` epochs (``scan.ScanLoop``),
+    with every epoch's seeds drawn from ``gen`` now."""
+    k, deferred = scan_schedule(model, cfg)
+    gat = isinstance(model, GATModel)
+    if deferred:
+        step, final_val = make_deferred_step(model, cfg, dds), make_eval_fn(model, cfg, dds, VAL)
+    else:
+        step, final_val = make_epoch_step(model, cfg, dds), None
+    table = seed_table([epoch_seeds(gen, model.n_layers, attention=gat)
+                        for _ in range(cfg.gcn.epochs)], dds.device)
+    return ScanLoop(lambda slots: step(opt_state, slots),
+                    state=[*model.weights, *opt_state.m, *opt_state.v, opt_state.step],
+                    seeds=SeedSlots(model.n_layers, gat, dds.device), table=table, k=k,
+                    final_val=final_val, device=dds.device)
+
+
+def print_scan(result, epochs: int) -> None:
+    """The whole-run path's report: the epoch lines after the run, as the
+    JAX package's scan prints them (no per-epoch time), then "Early
+    stopping..." when it fired and the loop's timing."""
+    for e, (tl, ta, vl, va) in enumerate(result.history):
+        print(f"epoch={e + 1} train_loss={tl:.5f} train_acc={ta:.5f} "
+              f"val_loss={vl:.5f} val_acc={va:.5f}")
+    if result.epochs_run < epochs:
+        print("Early stopping...")
+    if result.replays:
+        print(f"scan: epoch 1 and the capture in {result.setup_s:.3f} s, {result.replays} "
+              f"replays of one CUDA graph, {result.epoch_s * 1e3:.3f} ms/epoch; launches a "
+              f"replay: {json.dumps(result.graph_launches, sort_keys=True)}")
+
+
 def epoch_seeds(gen: torch.Generator, n_layers: int, attention: bool = False) -> list[int]:
     """One dropout seed per layer for the next epoch; with ``attention``
     (GAT) two per layer, ``[feature_0, attention_0, feature_1, ...]``, the
@@ -230,18 +381,18 @@ def fit(
     weights: list[torch.Tensor] | None = None,
     verbose: bool | None = None,
 ) -> FitResult:
-    """Full training run: init → epoch loop (+ early stopping) → test eval.
+    """Full training run: init → epochs (+ early stopping) → test eval.
 
-    ``mode=scan`` runs this eager loop too (the whole-run path is not yet
-    ported); ``checkpoint_dir`` raises NotImplementedError."""
+    ``mode=scan`` runs the whole-run path (``make_scan_loop``), ``mode=eager``
+    the per-epoch loop; ``checkpoint_dir`` raises NotImplementedError.
+    ``gat_scan_check`` is accepted and does nothing: the JAX package's guard
+    contains failures of XLA's whole-run program on the TPU, and a captured
+    epoch holds the eager epoch's memory."""
     verbose = cfg.train.verbose if verbose is None else verbose
     if cfg.train.checkpoint_dir:
         raise NotImplementedError(
             "checkpoints are not yet ported to parallel_gcn_tpu_torch"
         )
-    if cfg.train.mode == "scan" and verbose:
-        print("note: mode=scan (whole-run path) is not yet ported — "
-              "running the eager epoch loop")
     model = build_model(cfg, dds, weights)
     gat = isinstance(model, GATModel)
     if cfg.tpu.input_preagg and gat:
@@ -253,18 +404,42 @@ def fit(
         dds = preaggregate_input(model, dds)
     opt_state = init_adam(list(model.weights))
     gen = torch.Generator().manual_seed(cfg.tpu.seed)
-    epoch_step = make_epoch_step(model, cfg, dds)
     test_fn = make_eval_fn(model, cfg, dds, TEST)
+    scan = None
 
-    k = cfg.gcn.early_stopping
-    rows = []
-    loss_history: list[float] = []
     _sync(dds.device)
     t0 = time.perf_counter()
+    if cfg.train.mode == "scan":
+        scan = make_scan_loop(model, cfg, dds, opt_state, gen).run()
+        total_time = time.perf_counter() - t0
+        history, epochs_run = scan.history, scan.epochs_run
+        if verbose:
+            print_scan(scan, cfg.gcn.epochs)
+    else:
+        history, epochs_run = eager_loop(make_epoch_step(model, cfg, dds), opt_state, cfg,
+                                         SeedSlots(model.n_layers, gat, dds.device),
+                                         lambda: epoch_seeds(gen, model.n_layers, gat),
+                                         dds.device, verbose)
+        total_time = time.perf_counter() - t0
+
+    test_loss, test_acc = (float(v) for v in test_fn())
+    if verbose:
+        print(f"test_loss={test_loss:.5f} test_acc={test_acc:.5f}")
+        print(f"total time: {total_time:.5f}")
+    return fit_result(model, history, epochs_run, test_loss, test_acc, total_time, scan)
+
+
+def eager_loop(epoch_step: Callable, opt_state: AdamState, cfg: Config, seeds: SeedSlots,
+               draw: Callable, device, verbose: bool) -> tuple[np.ndarray, int]:
+    """The per-epoch loop: each epoch's seeds (``draw()``) uploaded in one
+    non-blocking copy into ``seeds``, its metrics read on the host, the
+    stopping rule applied there. Returns (history, epochs run)."""
+    k = cfg.gcn.early_stopping
+    rows = []
     for epoch in range(1, cfg.gcn.epochs + 1):
         te = time.perf_counter()
-        metrics = epoch_step(opt_state, epoch_seeds(gen, model.n_layers, attention=gat))
-        tl, ta, vl, va = metrics.tolist()  # waits for the device
+        seeds.load(upload_seeds(draw(), device))
+        tl, ta, vl, va = epoch_step(opt_state, seeds.slots).tolist()  # waits for the device
         rows.append((tl, ta, vl, va))
         if verbose:
             print(
@@ -272,26 +447,27 @@ def fit(
                 f"val_loss={vl:.5f} val_acc={va:.5f} "
                 f"time={time.perf_counter() - te:.5f}"
             )
-        if k > 0:
-            loss_history.append(vl)
-            if len(loss_history) >= k and vl > float(np.mean(loss_history[-k:])):
-                if verbose:
-                    print("Early stopping...")
-                break
-    total_time = time.perf_counter() - t0
-    history = np.asarray(rows, dtype=np.float32).reshape(-1, 4)
-    epochs_run = len(rows)
+        if k > 0 and len(rows) >= k and vl > float(np.mean([r[2] for r in rows[-k:]])):
+            if verbose:
+                print("Early stopping...")
+            break
+    return np.asarray(rows, dtype=np.float32).reshape(-1, 4), len(rows)
 
-    test_loss, test_acc = (float(v) for v in test_fn())
-    if verbose:
-        print(f"test_loss={test_loss:.5f} test_acc={test_acc:.5f}")
-        print(f"total time: {total_time:.5f}")
+
+def fit_result(model, history, epochs_run, test_loss, test_acc, total_time,
+               scan=None) -> FitResult:
+    """The run's ``FitResult``; with ``scan`` (a ``scan.ScanResult``) its
+    epoch time, set-up and captured epoch."""
+    avg = scan.epoch_s if scan is not None else total_time / max(epochs_run, 1)
+    extra = {} if scan is None else dict(setup_time_s=scan.setup_s, replays=scan.replays,
+                                         graph_launches=scan.graph_launches)
     return FitResult(
         weights=[w.detach() for w in model.weights],
         history=history,
         epochs_run=epochs_run,
         test_loss=test_loss,
         test_acc=test_acc,
-        avg_epoch_time_s=total_time / max(epochs_run, 1),
+        avg_epoch_time_s=avg,
         total_time_s=total_time,
+        **extra,
     )

@@ -15,6 +15,8 @@ rank imports only torch, numpy and the port). Checks:
   the all_gather halo 4 gathers and 2 reduce-scatters, the boundary halo
   6 all_to_alls, for the GCN and the GAT tile path; plus 2 all_reduces
   (gradients with the train sums, the val sums);
+- the collectives of the mesh GCN's deferred-eval epoch (``mode=scan``):
+  one exchange for the stacked last layer, one all_reduce;
 - per-rank dropout seeds, the config and CLI error paths, and the CLI in a
   torchrun world of 2.
 """
@@ -103,16 +105,23 @@ def mesh_dataset(n=2048, f=16, c=4, seed=0):
 
 
 def mesh_config(route: str, epochs: int = 1, dropouts=(0.0, 0.0),
-                weight_decay: float | None = None) -> Config:
+                weight_decay: float | None = None, mode: str = "eager",
+                early_stopping: int = 0, learning_rate: float | None = None,
+                eps: float | None = None) -> Config:
     """A 2-layer, 8-wide configuration of one of the ported routes:
     ``gcn-flat``, ``gcn-hybrid`` (int8 slabs), ``gat-tiles`` (int8 packs),
     with ``-boundary`` or ``-all_gather`` appended."""
     model, layout, halo = route.split("-")
     cfg = Config()
     cfg.gcn.hidden_dims, cfg.gcn.dropouts, cfg.gcn.epochs = (8,), dropouts, epochs
+    cfg.gcn.early_stopping = early_stopping
     if weight_decay is not None:
         cfg.adam.weight_decay = weight_decay
-    cfg.train.verbose, cfg.train.mode = False, "eager"
+    if learning_rate is not None:
+        cfg.adam.learning_rate = learning_rate
+    if eps is not None:
+        cfg.adam.eps = eps
+    cfg.train.verbose, cfg.train.mode = False, mode
     cfg.tpu.halo, cfg.tpu.halo_fallback = halo, False
     cfg.tpu.backend = "segment" if layout == "flat" else "hybrid"
     cfg.tpu.tile_size, cfg.tpu.tile_dtype, cfg.tpu.min_tile_nnz = 128, "int8", 40
@@ -191,14 +200,41 @@ def _collective_structure(rank, world):
     return got
 
 
+# the collectives of the mesh GCN's deferred-eval epoch: the shared layer 0
+# and the stacked last layer once each forward, each layer's backward once
+DEFERRED_STRUCTURE = {
+    "gcn-flat-all_gather": dict(all_gather=3, reduce_scatter=1, all_to_all=0, all_reduce=1),
+    "gcn-flat-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=4, all_reduce=1),
+    "gcn-hybrid-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=4, all_reduce=1),
+}
+
+
+def _deferred_structure(rank, world):
+    """The collectives one deferred-eval epoch calls, per route."""
+    ds = mesh_dataset()
+    got = {}
+    for route in DEFERRED_STRUCTURE:
+        cfg = mesh_config(route)
+        run = tpl.build_rank(cfg, ds, rank, world, cfg.tpu.halo, CPU)
+        step = tpl.make_parallel_deferred_step(cfg, run.model, run.graph, run.data,
+                                               run.split_counts)
+        opt = init_adam(list(run.model.weights))
+        for k in collectives.counts:
+            collectives.counts[k] = 0
+        assert torch.isfinite(step(opt, [0] * run.model.n_layers)).all(), route
+        got[route] = dict(collectives.counts)
+    return got
+
+
 def fit_routes(rank, world, runs, epochs):
     """``fit_parallel`` of each run in ``runs`` (name -> (route, weight decay,
-    initial weights as numpy arrays)) on this rank: (history, test_acc) per
-    run."""
+    initial weights as numpy arrays[, ``mesh_config`` keywords])) on this
+    rank: (history, test_acc) per run."""
     ds = mesh_dataset()
     out = {}
-    for name, (route, wd, w) in runs.items():
-        res = tpl.fit_parallel(mesh_config(route, epochs=epochs, weight_decay=wd), ds,
+    for name, (route, wd, w, *opts) in runs.items():
+        kw = {"epochs": epochs, **(opts[0] if opts else {})}
+        res = tpl.fit_parallel(mesh_config(route, weight_decay=wd, **kw), ds,
                                n_devices=world, device="cpu",
                                weights=[torch.from_numpy(a) for a in w])
         out[name] = (res.history, res.test_acc)
@@ -234,6 +270,15 @@ def test_epoch_step_collective_structure(tmp_path):
                 assert got[route][op] == n, f"{route} rank {rank}: {op} {got[route]}"
             # the gradients with the train sums, then the val sums
             assert got[route]["all_reduce"] == 2, got[route]
+
+
+def test_deferred_epoch_collective_structure(tmp_path):
+    """The deferred-eval epoch stacks the train and val halves into one
+    last-layer exchange and one all_reduce (the eager step: 4 forward
+    exchanges and 2 all_reduces, ``STRUCTURE``)."""
+    for got in run_world(_deferred_structure, 2, tmp_path):
+        for route, expect in DEFERRED_STRUCTURE.items():
+            assert got[route] == expect, f"{route}: {got[route]}"
 
 
 def test_dropout_masks_differ_across_ranks(tmp_path):

@@ -8,9 +8,10 @@ mesh (Pallas in interpret mode) at weight decay 0, and against the port's
 single-card ``fit`` with the default decay, for three routes: the GCN over
 flat COO slabs with the all_gather halo, the GCN over int8 tile slabs with
 the boundary halo, and the GAT over ``gat_mesh_pack`` slabs with the
-boundary halo. The histories agree within 1e-4 and test_acc is equal. Plus
-a world of one against the port's own single-card ``fit``, with dropout
-on.
+boundary halo. The histories agree within 1e-4 and test_acc is equal. The
+same for ``mode=scan`` against JAX's whole-run program (deferred eval on
+the GCN routes, and the early-stopping loop where it fires). Plus a world
+of one against the port's own single-card ``fit``, with dropout on.
 """
 
 import warnings
@@ -77,11 +78,11 @@ def _to_port(weights, gat):
     return [w.numpy() for w in leaves(jax.tree.map(np.asarray, weights))]
 
 
-def _single_card_fit(route, weights):
+def _single_card_fit(route, weights, **kw):
     """The port's single-card ``fit`` of ``route``'s configuration (with its
-    default weight decay) from ``weights``."""
+    default weight decay, ``mesh_config`` keywords ``kw``) from ``weights``."""
     ds = mesh_dataset()
-    cfg = mesh_config(route, epochs=EPOCHS)
+    cfg = mesh_config(route, **{"epochs": EPOCHS, **kw})
     dds = to_device(ds, device=torch.device("cpu"), hybrid=cfg.tpu.backend == "hybrid",
                     tile_dtype="int8", tile_size=128, min_tile_nnz=40)
     return fit(cfg, dds, weights=[torch.from_numpy(a.copy()) for a in weights])
@@ -115,6 +116,52 @@ def test_fit_parallel_world_2_matches_jax(tmp_path):
                                        err_msg=f"{name} rank {rank}")
             assert test_acc == pytest.approx(ref.test_acc, abs=1e-7), name
         assert hist[-1, 0] < hist[0, 0], name
+
+
+# name -> (route, mesh_config keywords): the whole-run path's schedules on
+# the mesh (deferred eval for the GCN routes, the plain scan for the GAT, the
+# early-stopping loop where it fires). The early-stopping run takes Adam's
+# eps at 1e-12: F2's factor n_dev reaches Adam's update through eps,
+# m/(sqrt(v) + eps), and at learning rate 0.1 JAX's own 1- and 2-device
+# histories then part by 4e-3 within 14 epochs at weight decay 0 (1e-7 at
+# eps 1e-12).
+SCAN_RUNS = {
+    "gcn-flat-all_gather scan": ("gcn-flat-all_gather", dict(mode="scan")),
+    "gcn-hybrid-boundary scan": ("gcn-hybrid-boundary", dict(mode="scan")),
+    "gat-tiles-boundary scan": ("gat-tiles-boundary", dict(mode="scan")),
+    "gcn-hybrid-boundary early stopping": (
+        "gcn-hybrid-boundary",
+        dict(mode="scan", epochs=30, early_stopping=3, learning_rate=0.1, eps=1e-12)),
+}
+
+
+def test_fit_parallel_scan_world_2_matches_jax_scan(tmp_path):
+    """``mode=scan`` at world 2 against JAX's whole-run program on 2 devices
+    at weight decay 0 (F2, as above), and against the port's single-card
+    scan at the default decay, for k = 0 and k > 0."""
+    ds = mesh_dataset()
+    jds = _jax_dataset(ds)
+    refs, runs = {}, {}
+    for name, (route, opts) in SCAN_RUNS.items():
+        kw = {"epochs": EPOCHS, **opts}
+        jcfg = _jax_config(mesh_config(route, weight_decay=0.0, **kw))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            refs[name] = jax_fit_parallel(jcfg, jds, n_devices=2)
+        w = _to_port(_jax_init(jcfg, ds), jcfg.gcn.model == "gat")
+        runs[name] = (route, 0.0, w, opts)
+        runs[f"{name} decayed"] = (route, None, w, opts)
+        refs[f"{name} decayed"] = _single_card_fit(route, w, **kw)
+    results = run_world(fit_routes, 2, tmp_path, runs, EPOCHS)
+    for name, ref in refs.items():
+        for rank, got in enumerate(results):
+            hist, test_acc = got[name]
+            assert hist.shape == np.asarray(ref.history).shape, f"{name} rank {rank}"
+            np.testing.assert_allclose(hist, np.asarray(ref.history), rtol=0, atol=1e-4,
+                                       err_msg=f"{name} rank {rank}")
+            assert test_acc == pytest.approx(ref.test_acc, abs=1e-7), name
+    early = refs["gcn-hybrid-boundary early stopping"]
+    assert len(early.history) < 30
 
 
 @pytest.mark.parametrize("route", ["gcn-hybrid-boundary", "gat-tiles-boundary"])

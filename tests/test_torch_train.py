@@ -111,10 +111,15 @@ def test_fit_runs_and_reports(capsys):
                     tile_size=128, min_tile_nnz=520)
     res = ttrain.fit(cfg, dds)
     out = capsys.readouterr().out
-    assert "mode=scan (whole-run path) is not yet ported" in out
+    # mode=scan is the whole-run path now, with the eager loop's trajectory
+    assert "not yet ported" not in out
     assert "epoch=4 " in out and "test_acc=" in out
     assert res.epochs_run == 4 and res.history.shape == (4, 4)
     assert np.isfinite(res.history).all()
+    cfg.train.verbose, cfg.train.mode = False, "eager"
+    eager = ttrain.fit(cfg, dds)
+    np.testing.assert_allclose(res.history, eager.history, rtol=0, atol=1e-5)
+    assert res.test_acc == pytest.approx(eager.test_acc, abs=1e-7)
     cfg.train.checkpoint_dir = "ck"
     with pytest.raises(NotImplementedError):
         ttrain.fit(cfg, dds)
