@@ -33,7 +33,14 @@ Phases, each printed on its own lines:
      bit-identical. The seeded kernels (K1, K2, K5, K6, K7, K10) read their
      seed from a slot on the card, as the trainer passes it; their plain
      versions take the int; K1's and K2's output digests at fixed inputs
-     must be the recorded ones (the mask contract's bits). Beside each
+     must be the recorded ones (the mask contract's bits). The ordered
+     segment sums (``csrc/segment_sum.cu``) at synth-reddit's residual: the
+     gather-sum of the GCN's residual at 41 and 82 columns (bf16) and the
+     sums of the GAT's per-edge terms [E, 2] and [E, 2, 41] (f32), bit-equal
+     to their plain version in f32 on the CPU (the kernels' order and
+     accumulation; within rtol 1e-5 + 1e-5·max|ref| as the stated
+     tolerance), two runs bit-identical, beside ``index_add_`` on the card
+     and ``torch.sparse.mm`` / ``torch.segment_reduce``. Beside each
      kernel's time: its plain version's, the
      unfused pair it replaces (K10), and the one PyTorch call that computes
      the same function where there is one (``torch.sparse.mm`` for K3/K4,
@@ -60,7 +67,9 @@ Phases, each printed on its own lines:
      and 602 f32, ``torch.sparse.mm`` at 41 and 600; attention at heads 2,
      d 32 and 41, bf16, attention dropout 0 and 0.6, with bounds over the
      slab's live-column index and streaming the slab), two runs
-     bit-identical; then ``fit_parallel`` in a
+     bit-identical; the ordered sums over the one-rank slab's residual (by
+     local row, and the GAT's by source through its permutation); then
+     ``fit_parallel`` in a
      world of one on a small graph, on the card (NCCL) and on the CPU
      (gloo), as a GCN over flat and over hybrid int8 slabs and as a GAT over
      ``gat_mesh_pack`` slabs: metrics within 2e-4;
@@ -77,13 +86,19 @@ Phases, each printed on its own lines:
      and fall; each path's launches a replay (the wrappers count a captured
      epoch once, at its capture) must be its schedule's, and its launches
      (counted plus the replays' beyond the first) the epochs' and the
-     evals'. Beside each, the same configuration in ``mode=eager``: its
-     ms/epoch and train losses (reported: ``index_add_``'s atomics make two
-     eager runs differ by up to 1e-4 in ten GAT epochs), then both modes
-     again with PyTorch's deterministic algorithms, whose train losses must
-     agree within 1e-4;
+     evals'. Beside each, without PyTorch's deterministic algorithms, the
+     same configuration twice in ``mode=scan`` and once in ``mode=eager``
+     (its ms/epoch): the three runs must be one run bit for bit (history,
+     test metrics, weights); then both modes again with deterministic
+     algorithms, whose train losses must agree within 1e-4;
   8. mesh profiles: both mesh epochs under ``torch.profiler``, eager and
-     as the scan's replay (phase 4 profiles the single-card replays too).
+     as the scan's replay (phase 4 profiles the single-card replays too);
+  9. resume, after the GCN's, the GAT's and the mesh GCN's main path:
+     through ``cli.main`` (the mesh GCN in a torchrun world of one), 10
+     epochs with ``early_stopping=0 checkpoint_every=5 checkpoint_dir=``, bit-equal
+     to the unchunked scan of phase 7, then ``resume_from=`` its
+     ckpt_000005.npz: epochs 6-10, test metrics and final weights bit-equal;
+     the seconds to write and load a checkpoint, the chunked ms/epoch.
 Then one JSON line with every kernel's launches (K3 and K8, which no main
 path runs, under ``off_path_kernels``), error, times and bound
 (the least time the card could take: the larger of the bytes each input
@@ -463,6 +478,123 @@ def check_bcsr(results: dict, bcsr_pack, x602) -> None:
         if key == "K4":
             _check_stacked("K4", lambda x: cb.bcsr_matmul_impl(pack, x), x41,
                            torch.randn((n, 41), generator=gen).to(torch.bfloat16).cuda())
+
+
+def _segment_case(results: dict, key: str, label: str, fn, ref, plain, library,
+                  nbytes: int, flops: float, kind: str) -> None:
+    """One ordered-sum shape: ``fn()`` (the kernel) twice bit-identical and
+    bit-equal to ``ref`` (its plain version in float32 on the CPU, in item
+    order: the kernel's order and accumulation), within f32 rtol 1e-5 +
+    1e-5·max|ref| of it; beside it ``plain()`` (the plain version on the
+    card: ``index_add_``'s atomics) and ``library()`` (the one PyTorch call
+    for the same sum), timed by CUDA events; the bound from ``nbytes`` and
+    ``flops``."""
+    import torch
+
+    got = fn()
+    assert torch.equal(got, fn()), f"{label}: two runs differ"
+    got_cpu = got.cpu()
+    assert torch.equal(got_cpu, ref.to(got.dtype)), f"{label}: not bit-equal to the CPU order"
+    err = _max_err(got_cpu, ref.to(got.dtype), 1e-5)
+    card = plain()
+    card_diff = float((card.float() - got.float()).abs().max())
+    ms = _events_ms(fn, 20)
+    plain_ms = _events_ms(plain, 20)
+    library_ms = _events_ms(library, 20)
+    bound = _bound(nbytes, flops, kind)
+    print(f"[kernels] ordered sum {label}: bit-equal to the plain version on the CPU (max_abs_err "
+          f"{err:.3e}), runs bit-identical; the plain version on the card (index_add_) differs "
+          f"by {card_diff:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    if key:
+        results[key] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+
+
+def check_segment_gather(results: dict, key: str, label: str, x, seg, src, val) -> None:
+    """Kernel (a) ``gather_sum`` against its plain version; library call:
+    ``torch.sparse.mm`` of the same rows as a CSR (f32 values and x)."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_segment as cs
+
+    n, F = seg.n, x.shape[1]
+    vx = val.to(x.dtype).float().cpu()  # the products of bf16 operands are exact in f32
+    ref = cs.gather_sum_plain(x.float().cpu(), seg.index.cpu(), src.cpu(), vx, n)
+    order = seg.perm.long() if seg.perm is not None else slice(None)
+    csr = torch.sparse_csr_tensor(seg.ptr.long(), src[order], val[order].float(),
+                                  size=(n, x.shape[0]))
+    x32 = x.float()
+    nbytes = (_nbytes(seg.ptr, src, val, *([seg.perm] if seg.perm is not None else []))
+              + seg.index.numel() * F * x.element_size() + n * F * x.element_size())
+    _segment_case(results, key, f"(a) gather_sum {label} [E={seg.index.numel()}, {F}] "
+                  f"{x.dtype}", lambda: cs.gather_sum(x, seg, src, val), ref,
+                  lambda: cs.gather_sum_plain(x, seg.index, src, val, n),
+                  lambda: torch.sparse.mm(csr, x32), nbytes, 2.0 * seg.index.numel() * F,
+                  "f32")
+
+
+def check_segment_sum(results: dict, key: str, label: str, values, seg) -> None:
+    """Kernel (b) ``segment_sum_`` into zeros against its plain version;
+    library call: ``torch.segment_reduce`` over the same offsets (the items
+    taken in segment order beforehand where the index is not sorted)."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_segment as cs
+
+    n, shape = seg.n, values.shape[1:]
+    ref = cs.segment_sum_(torch.zeros((n, *shape)), seg.index.cpu(), values.float().cpu())
+    ordered = values if seg.perm is None else values.index_select(0, seg.perm.long())
+    offsets = seg.ptr.long()
+    # the rows of the segments with items are read and written
+    nbytes = (_nbytes(seg.ptr, values, *([seg.perm] if seg.perm is not None else []))
+              + 2 * seg.live.numel() * values[0].numel() * values.element_size())
+    _segment_case(results, key, f"(b) segment_sum {label} [E={values.shape[0]}, "
+                  f"{', '.join(map(str, shape))}] {values.dtype}",
+                  lambda: cs.segment_sum_(values.new_zeros((n, *shape)), seg, values), ref,
+                  lambda: values.new_zeros((n, *shape)).index_add_(0, seg.index, values),
+                  lambda: torch.segment_reduce(ordered, "sum", offsets=offsets, axis=0),
+                  nbytes, float(values.numel()), "f32")
+
+
+def check_segment(results: dict, graph) -> None:
+    """The ordered sums at synth-reddit's residual shapes: the GCN's
+    hybrid residual at 41 columns and stacked at 82 (bf16, kernel (a)), the
+    GAT's per-edge denominators [E, 2] and numerators [E, 2, 41] (f32,
+    kernel (b)), all by destination over the graph's row segments."""
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    n, seg = graph.n_nodes, graph.row_seg
+    e = seg.index.numel()
+    print(f"[kernels] synth-reddit's COO residual: {e} padded edges over {n} rows, "
+          f"{seg.live.numel()} rows with edges, at most "
+          f"{int((seg.ptr[1:] - seg.ptr[:-1]).max())} in a row")
+    for F, key in ((41, "ordered gather_sum"), (82, None)):
+        x = torch.randn((n, F), generator=gen).to(torch.bfloat16).cuda()
+        check_segment_gather(results, key, "GCN residual", x, seg, graph.col, graph.val)
+    for shape, key in (((e, 2), None), ((e, 2, 41), "ordered segment_sum")):
+        values = torch.randn(shape, generator=gen).cuda()
+        check_segment_sum(results, key, "GAT residual", values, seg)
+
+
+def check_segment_slab(gcn, attn) -> None:
+    """The ordered sums over rank 0's slab: the mesh GCN's residual by
+    local row (kernel (a), bf16 at 41 columns) and the mesh GAT's dt [E, 2]
+    and dv [E, 2, 41] by source through the slab's source-sorted
+    permutation (kernel (b))."""
+    import torch
+
+    gen = torch.Generator().manual_seed(4)
+    rrow, rcol, rval, res_seg = gcn.res
+    x = torch.randn((gcn.n_buf, 41), generator=gen).to(torch.bfloat16).cuda()
+    check_segment_gather({}, None, "mesh GCN slab residual", x, res_seg, rcol, rval)
+    if attn.residual is None:
+        print("[mesh-kernels] the GAT slab has no residual: no ordered sum by source")
+        return
+    col_seg = attn.residual[4]
+    for shape in ((col_seg.index.numel(), 2), (col_seg.index.numel(), 2, 41)):
+        check_segment_sum({}, None, "mesh GAT slab residual by source (permuted)",
+                          torch.randn(shape, generator=gen).cuda(), col_seg)
 
 
 def _pack_csr(pack):
@@ -868,7 +1000,7 @@ def mesh_slabs(ds, n_dev: int, args: list[str] = ()):
           f"{attn.rows.tile_r}x{attn.rows.tile_c}; built in {time.perf_counter() - t0:.1f} s, "
           f"the GAT rows' live-column index ({n_idx} entries) in {t_idx:.4f} s, the "
           f"column copy's ({n_cidx} entries) in {t_cidx:.4f} s")
-    return gcn.slab, attn
+    return gcn, attn
 
 
 def check_bcsr_rect(results: dict, slab, tag: str, record: bool) -> None:
@@ -1074,7 +1206,7 @@ def phase_mesh_path(tag: str, args: list[str], ds, single: dict) -> dict:
         cfg.train.verbose = verbose
         return fit_parallel(cfg, ds, n_devices=1, device="cuda")
 
-    eager_ms = _compare_modes(tag, run, losses, ms)
+    eager_ms, scan_run = _compare_modes(tag, run, losses, ms)
     per_replay = _per_replay(res.graph_launches)
     calls = {k: v for k, v in res.graph_launches.items() if k not in KERNEL_KEYS.values()}
     print(f"[{tag}] fit_parallel {' '.join(args)}, n_devices=1 (NCCL world of one) on "
@@ -1086,7 +1218,8 @@ def phase_mesh_path(tag: str, args: list[str], ds, single: dict) -> dict:
           f"train loss {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc {res.test_acc:.5f}; "
           f"a replay launches {per_replay} and calls the collectives {calls}; launches "
           f"{counts}")
-    return dict(counts=counts, ms=ms, per_replay=per_replay, collectives=calls)
+    return dict(counts=counts, ms=ms, per_replay=per_replay, collectives=calls,
+                scan_run=scan_run)
 
 
 def _config(args: list[str], epochs: int):
@@ -1120,6 +1253,9 @@ def _category(kernel: str) -> str:
                      ("gat_bwd_rect_col_kernel", "K7 column sweep"),
                      ("merge_segments_kernel<false>", "K6/K7 ordered merge"),
                      ("nccl", "collectives (NCCL)"),
+                     # the ordered sums of the COO residual (and the halo's cotangent)
+                     ("gather_sum_kernel", "scatter/index (residual)"),
+                     ("segment_sum_kernel", "scatter/index (residual)"),
                      ("dropout_kernel", "K1 dropout"), ("gemm", "GEMMs"), ("gemv", "GEMMs"),
                      ("xmma", "GEMMs"), ("nvjet", "GEMMs"), ("cutlass", "GEMMs"),
                      ("scatter", "scatter/index (residual)"),
@@ -1351,15 +1487,17 @@ KERNEL_KEYS = {"K1": "dropout", "K2": "relu_dropout", "K3": "bcsr", "K4": "bcsr_
                "K5 rect": "gat_fwd_rect", "K7 row": "gat_bwd_rect_row",
                "K7 col": "gat_bwd_rect_col", "K9 train": "ce_train", "K9 eval": "ce_eval",
                "K10 fwd": "fused_fwd", "K10 dW": "fused_dw", "K10 dX": "fused_dx",
-               "K8": "sddmm"}
+               "K8": "sddmm", "ordered gather_sum": "gather_sum",
+               "ordered segment_sum": "segment_sum"}
 
 
 def _reset_counts() -> None:
     from parallel_gcn_tpu_torch.ops import (cuda_bcsr, cuda_ce, cuda_dropout, cuda_fused,
-                                            cuda_sddmm, tile_attention)
+                                            cuda_sddmm, cuda_segment, tile_attention)
 
     for d in (cuda_dropout.launches, cuda_bcsr.launches, tile_attention.launches,
-              cuda_ce.launches, cuda_fused.launches, cuda_sddmm.launches):
+              cuda_ce.launches, cuda_fused.launches, cuda_sddmm.launches,
+              cuda_segment.launches):
         for k in d:
             d[k] = 0
 
@@ -1430,12 +1568,9 @@ def _steady_ms(out: str) -> float:
 
 
 def _deterministic(fn):
-    """``fn()`` with ``torch.use_deterministic_algorithms`` on (warn only):
-    PyTorch's ``index_add_`` on the card adds in the order its atomics land,
-    so two runs of the same training differ in the last bits of the COO
-    residual's sums, which ten synth-reddit GAT epochs grow to 6e-5–1.2e-4
-    in train loss. Returns (fn's result, the ops PyTorch warned have no
-    deterministic kernel)."""
+    """``fn()`` with ``torch.use_deterministic_algorithms`` on (warn only),
+    PyTorch's deterministic kernels where it has them. Returns (fn's result,
+    the ops PyTorch warned have no deterministic kernel)."""
     import warnings
 
     import torch
@@ -1452,35 +1587,58 @@ def _deterministic(fn):
     return out, ops
 
 
-def _compare_modes(tag: str, run, scan_losses, scan_ms: float) -> float:
-    """``run(mode)`` (a training run's ``FitResult``) in ``mode=eager``: its
-    ms/epoch (epochs 2 to the last, from its lines) and its train losses
-    beside the scan's (reported; two eager runs differ as much); then both
-    modes again under ``_deterministic``, whose train-loss histories must
-    agree within 1e-4. Returns the eager ms/epoch."""
+def _same_run(a, b) -> bool:
+    """Two ``FitResult``s bit for bit: history, test metrics, weights."""
+    import numpy as np
+    import torch
+
+    return (np.array_equal(a.history, b.history)
+            and (a.test_loss, a.test_acc) == (b.test_loss, b.test_acc)
+            and all(torch.equal(x, y) for x, y in zip(a.weights, b.weights)))
+
+
+def _compare_modes(tag: str, run, scan_losses, scan_ms: float):
+    """``run(mode, verbose)`` (a training run's ``FitResult``) twice in
+    ``mode=scan`` and once in ``mode=eager``, without PyTorch's
+    deterministic algorithms: the two scans and the eager run must be the
+    same run bit for bit (the ordered residual sums leave no atomics in an
+    epoch), and the scan's train losses those ``cli.main`` printed (5
+    decimals). Then both modes again under ``_deterministic``, whose
+    train-loss histories must agree within 1e-4. Returns (the eager ms/epoch,
+    epochs 2 to the last, from its lines; the first scan run)."""
+    import numpy as np
+
+    scan_a, scan_b = run("scan", False), run("scan", False)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         eager = run("eager", True)
     ms = _steady_ms(buf.getvalue())
-    noise = max(abs(a - b) for a, b in zip(scan_losses, eager.history[:, 0]))
+    scans_equal, eager_equal = _same_run(scan_a, scan_b), _same_run(scan_a, eager)
+    eager_diff = float(abs(scan_a.history - eager.history).max())
+    printed = float(np.abs(np.asarray(scan_losses) - scan_a.history[:, 0]).max())
     (det_scan, det_eager), ops = _deterministic(lambda: (run("scan", False),
                                                          run("eager", False)))
     diff = float(abs(det_scan.history - det_eager.history).max())
     loss_diff = float(abs(det_scan.history[:, 0] - det_eager.history[:, 0]).max())
     print(f"[{tag}] mode=eager: {ms:.3f} ms/epoch over epochs 2-{EPOCHS} against the scan's "
-          f"{scan_ms:.3f}; train losses {noise:.3e} from the scan's (both runs with "
-          f"index_add_'s atomics); with deterministic algorithms (the ops without a "
+          f"{scan_ms:.3f}; without deterministic algorithms two scan runs are bit-equal: "
+          f"{scans_equal}, scan and eager bit-equal: {eager_equal} (histories differ by "
+          f"{eager_diff:.3e}); with deterministic algorithms (the ops without a "
           f"deterministic kernel: {ops or 'none'}) scan and eager histories differ by "
-          f"{diff:.3e}, train losses by {loss_diff:.3e} (scan replays {det_scan.replays})")
+          f"{diff:.3e}, train losses by {loss_diff:.3e} (scan replays {det_scan.replays}), "
+          f"the scan bit-equal to the one without them: {_same_run(det_scan, scan_a)}")
     assert len(eager.history) == EPOCHS and len(det_eager.history) == EPOCHS
-    assert det_scan.replays == EPOCHS - 1, det_scan.replays
+    assert det_scan.replays == EPOCHS - 1 and scan_a.replays == EPOCHS - 1, det_scan.replays
+    assert printed <= 6e-6, f"the cli's scan and this scan differ by {printed} in train loss"
+    assert scans_equal, "two scan runs differ"
+    assert eager_equal, f"scan and eager differ (histories by {eager_diff})"
     assert loss_diff <= 1e-4, f"scan and eager train losses differ by {loss_diff}"
-    return ms
+    return ms, scan_a
 
 
-def phase_eager_compare(tag: str, args: list[str], dds, scan: dict) -> float:
-    """The scan main path's configuration through ``train.fit`` on ``dds`` in
-    ``mode=eager`` (``_compare_modes``). Returns the eager ms/epoch."""
+def phase_eager_compare(tag: str, args: list[str], dds, scan: dict):
+    """The scan main path's configuration through ``train.fit`` on ``dds``
+    (``_compare_modes``). Returns (the eager ms/epoch, the scan run)."""
     from parallel_gcn_tpu_torch.train import fit
 
     def run(mode, verbose):
@@ -1489,6 +1647,111 @@ def phase_eager_compare(tag: str, args: list[str], dds, scan: dict) -> float:
         return fit(cfg, dds)
 
     return _compare_modes(tag, run, scan["losses"], scan["ms"])
+
+
+@contextlib.contextmanager
+def _recorded(module, name: str):
+    """Record what ``module.name`` returns while the block runs (the
+    ``FitResult`` of each run the CLI starts), in the yielded list."""
+    results: list = []
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        results.append(orig(*args, **kwargs))
+        return results[-1]
+
+    setattr(module, name, wrapped)
+    try:
+        yield results
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def _torchrun_world_of_one():
+    """The environment torchrun gives a world of one (a free port on
+    localhost), so that ``cli.main`` takes the mesh path at
+    ``n_devices=1``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _cli(tag: str, argv: list[str]) -> str:
+    from parallel_gcn_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if not line.startswith("epoch="):
+            print(f"[{tag}] {line}")
+    assert rc == 0, f"cli.main returned {rc}"
+    return out
+
+
+def phase_resume(tag: str, args: list[str], unchunked, unchunked_ms: float,
+                 mesh: bool = False) -> dict:
+    """Through ``cli.main``: synth-reddit with ``args`` for 10 epochs with
+    early stopping off and a checkpoint every 5 epochs, then resumed from
+    ckpt_000005.npz. The whole run must be ``unchunked`` (the same
+    configuration's scan without checkpoints, ``_compare_modes``) bit for
+    bit, and the resumed run its epochs 6-10, test metrics and final
+    weights. ``mesh``: the mesh trainer at ``n_devices=1`` (a torchrun
+    world of one). Prints the seconds to write and to load a checkpoint and
+    both runs' ms/epoch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from parallel_gcn_tpu_torch import train
+    from parallel_gcn_tpu_torch.parallel import train_parallel
+
+    module, name = (train_parallel, "fit_parallel") if mesh else (train, "fit")
+    argv = ["synth-reddit", *args, f"epochs={EPOCHS}", "early_stopping=0"]
+    world = _torchrun_world_of_one if mesh else contextlib.nullcontext
+    with tempfile.TemporaryDirectory() as tmp, _recorded(module, name) as runs:
+        ck = os.path.join(tmp, "ck")
+        with world():
+            _cli(tag, [*argv, "checkpoint_every=5", f"checkpoint_dir={ck}"])
+        files = sorted(os.listdir(ck))
+        assert files == ["ckpt_000005.npz", "ckpt_final.npz"], files
+        with world():
+            out = _cli(tag, [*argv, f"resume_from={os.path.join(ck, 'ckpt_000005.npz')}"])
+    whole, resumed = runs
+    load_s = float(re.search(r"^resumed from \S+ at epoch 5 \(loaded in (\S+) s\)$", out,
+                             re.M).group(1))
+    assert resumed.start_epoch == 5 and resumed.epochs_run == EPOCHS - 5, resumed.epochs_run
+    assert _same_run(whole, unchunked), f"{tag}: the chunked run differs from the unchunked"
+    tail = np.array_equal(resumed.history, whole.history[5:])
+    final = ((resumed.test_loss, resumed.test_acc) == (whole.test_loss, whole.test_acc)
+             and all(torch.equal(a, b) for a, b in zip(resumed.weights, whole.weights)))
+    print(f"[{tag}] {' '.join(args) or 'GCN'} through cli.main{' (a world of one)' if mesh else ''}:"
+          f" 10 epochs with checkpoint_every=5 bit-equal to the unchunked scan; resumed from "
+          f"ckpt_000005.npz, epochs 6-10 bit-equal: {tail}, test metrics and final weights "
+          f"bit-equal: {final}; checkpoint written in {whole.checkpoint_s[0]:.3f} s (ckpt_final "
+          f"{whole.checkpoint_s[-1]:.3f} s), loaded in {load_s:.3f} s; the chunked run "
+          f"{whole.avg_epoch_time_s * 1e3:.3f} ms/epoch against the unchunked "
+          f"{unchunked_ms:.3f}, the resumed {resumed.avg_epoch_time_s * 1e3:.3f}")
+    assert tail and final, f"{tag}: the resumed run differs from the uninterrupted one"
+    return dict(write_s=whole.checkpoint_s[0], load_s=load_s,
+                chunked_ms=whole.avg_epoch_time_s * 1e3)
 
 
 def main() -> int:
@@ -1529,6 +1792,7 @@ def main() -> int:
 
     results: dict = {}
     check_dropout(results)
+    check_segment(results, dds.graph)
     check_bcsr(results, dds.graph.bcsr, dds.x)
     check_tile_attention(results, dds.graph.bcsr)
     check_ce(results, dds)
@@ -1547,40 +1811,51 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     check_sddmm(results, ds, cfg)
     for n_dev, args in ((1, []), (4, ["halo_fallback=false"])):
-        slab, attn = mesh_slabs(ds, n_dev, args)
+        gcn_slab, attn = mesh_slabs(ds, n_dev, args)
         tag = f"{n_dev}-way rank 0 [{attn.n_rows}, {attn.n_buf}]"
-        check_bcsr_rect(results, slab, tag, record=n_dev == 1)
+        check_bcsr_rect(results, gcn_slab.slab, tag, record=n_dev == 1)
         check_attention_rect(results, attn, tag, record=n_dev == 1)
-        del slab, attn
+        if n_dev == 1:
+            check_segment_slab(gcn_slab, attn)
+        del gcn_slab, attn
         torch.cuda.empty_cache()
     check_reference_mesh()
 
     # the main paths: mode=scan (the default) through cli.main, each beside
     # mode=eager through train.fit on this script's copy of the dataset
     gcn = phase_main_path("main-gcn", ["synth-reddit", f"epochs={EPOCHS}"])
-    gcn["eager_ms"] = phase_eager_compare("main-gcn", [], dds, gcn)
+    gcn["eager_ms"], gcn["scan_run"] = phase_eager_compare("main-gcn", [], dds, gcn)
     # a replay (the deferred-eval schedule): K2 once (layer 1's train
     # forward), K4 for the stacked train and val forward and for the
-    # backward; plus K4 once each for the input pre-aggregation, the final
+    # backward, each with the ordered gather-sum of its residual; plus K4
+    # and the gather-sum once each for the input pre-aggregation, the final
     # val eval and the test eval
-    assert gcn["per_replay"] == {"K2": 1, "K4": 2}, gcn["per_replay"]
+    assert gcn["per_replay"] == {"K2": 1, "K4": 2, "ordered gather_sum": 2}, gcn["per_replay"]
     assert gcn["counts"]["K2"] == EPOCHS and gcn["counts"]["K4"] == 2 * EPOCHS + 3, gcn
+    assert gcn["counts"]["ordered gather_sum"] == 2 * EPOCHS + 3, gcn
+    resume = {"GCN": phase_resume("resume-gcn", [], gcn["scan_run"], gcn["ms"])}
     gat = phase_main_path("main-gat", ["synth-reddit", *GAT_ARGS, f"epochs={EPOCHS}"])
-    gat["eager_ms"] = phase_eager_compare("main-gat", GAT_ARGS, dds, gat)
+    gat["eager_ms"], gat["scan_run"] = phase_eager_compare("main-gat", GAT_ARGS, dds, gat)
     # a replay (the plain scan: the GAT has no deferred eval): K5 for both
     # layers of the train forward and of the val eval, K6 for both layers'
-    # backward, K1 on layer 1's train input and in its backward; plus both
-    # layers of the test eval
-    assert gat["per_replay"] == {"K1": 2, "K5": 4, "K6": 2}, gat["per_replay"]
-    assert (gat["counts"]["K5"], gat["counts"]["K6"], gat["counts"]["K1"]) == (
-        4 * EPOCHS + 2, 2 * EPOCHS, 2 * EPOCHS), gat
+    # backward, K1 on layer 1's train input and in its backward; the
+    # residual's ordered sums, 2 a forward (den, acc) and 3 a backward (ds,
+    # dt, dv); plus both layers of the test eval
+    assert gat["per_replay"] == {"K1": 2, "K5": 4, "K6": 2, "ordered segment_sum": 14}, \
+        gat["per_replay"]
+    assert (gat["counts"]["K5"], gat["counts"]["K6"], gat["counts"]["K1"],
+            gat["counts"]["ordered segment_sum"]) == (
+        4 * EPOCHS + 2, 2 * EPOCHS, 2 * EPOCHS, 14 * EPOCHS + 4), gat
+    resume["GAT"] = phase_resume("resume-gat", GAT_ARGS, gat["scan_run"], gat["ms"])
     fused = phase_main_path("main-fused", ["synth-reddit", *FUSED_ARGS, f"epochs={EPOCHS}"])
-    fused["eager_ms"] = phase_eager_compare("main-fused", FUSED_ARGS, dds, fused)
+    fused["eager_ms"], _ = phase_eager_compare("main-fused", FUSED_ARGS, dds, fused)
     # a replay: K9's train variant on the train half and its eval variant on
     # the val half (plus the final val eval and the test eval); K10 forward,
-    # dW and dX on layer 1; K4 as on the default path; K2 never
+    # dW and dX on layer 1; K4 and the gather-sum as on the default path; K2
+    # never
     assert fused["per_replay"] == {"K4": 2, "K9 train": 1, "K9 eval": 1, "K10 fwd": 1,
-                                   "K10 dW": 1, "K10 dX": 1}, fused["per_replay"]
+                                   "K10 dW": 1, "K10 dX": 1, "ordered gather_sum": 2}, \
+        fused["per_replay"]
     assert (fused["counts"]["K9 train"], fused["counts"]["K9 eval"], fused["counts"]["K4"],
             fused["counts"]["K2"]) == (EPOCHS, EPOCHS + 2, 2 * EPOCHS + 3, 0), fused
     diff = max(abs(a - b) for a, b in zip(gcn["losses"], fused["losses"]))
@@ -1591,20 +1866,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_gcn = phase_mesh_path("main-mesh-gcn", MESH_GCN_ARGS, ds, gcn)
     # a replay (deferred eval on the mesh): K3 over the slab for the stacked
-    # forward and for the backward (layer 0 pre-aggregated), K2 on layer 1's
-    # train input; plus K3 for the pre-aggregation, the final val and the test
-    assert mesh_gcn["per_replay"] == {"K2": 1, "K3 rect": 2}, mesh_gcn["per_replay"]
-    assert (mesh_gcn["counts"]["K3 rect"], mesh_gcn["counts"]["K2"]) == (
-        2 * EPOCHS + 3, EPOCHS), mesh_gcn
+    # forward and for the backward (layer 0 pre-aggregated), each with the
+    # gather-sum of the slab's residual, K2 on layer 1's train input; plus
+    # K3 and the gather-sum for the pre-aggregation, the final val and the
+    # test
+    assert mesh_gcn["per_replay"] == {"K2": 1, "K3 rect": 2, "ordered gather_sum": 2}, \
+        mesh_gcn["per_replay"]
+    assert (mesh_gcn["counts"]["K3 rect"], mesh_gcn["counts"]["K2"],
+            mesh_gcn["counts"]["ordered gather_sum"]) == (
+        2 * EPOCHS + 3, EPOCHS, 2 * EPOCHS + 3), mesh_gcn
+    resume["mesh GCN"] = phase_resume("resume-mesh-gcn", MESH_GCN_ARGS, mesh_gcn["scan_run"],
+                                      mesh_gcn["ms"], mesh=True)
     mesh_gat = phase_mesh_path("main-mesh-gat", MESH_GAT_ARGS, ds, gat)
     # a replay: rect K5 for both layers in the train forward and the val
     # eval, both K7 sweeps for both layers' backward, K1 on layer 1's input
-    # and in its backward; plus both layers of the test eval
-    assert mesh_gat["per_replay"] == {"K1": 2, "K5 rect": 4, "K7 row": 2, "K7 col": 2}, \
-        mesh_gat["per_replay"]
+    # and in its backward, the residual's ordered sums as on the GAT path
+    # (dt and dv by source); plus both layers of the test eval
+    assert mesh_gat["per_replay"] == {"K1": 2, "K5 rect": 4, "K7 row": 2, "K7 col": 2,
+                                      "ordered segment_sum": 14}, mesh_gat["per_replay"]
     assert (mesh_gat["counts"]["K5 rect"], mesh_gat["counts"]["K7 row"],
-            mesh_gat["counts"]["K7 col"], mesh_gat["counts"]["K1"]) == (
-        4 * EPOCHS + 2, 2 * EPOCHS, 2 * EPOCHS, 2 * EPOCHS), mesh_gat
+            mesh_gat["counts"]["K7 col"], mesh_gat["counts"]["K1"],
+            mesh_gat["counts"]["ordered segment_sum"]) == (
+        4 * EPOCHS + 2, 2 * EPOCHS, 2 * EPOCHS, 2 * EPOCHS, 14 * EPOCHS + 4), mesh_gat
     phase_profile_mesh("GCN", MESH_GCN_ARGS, ds)
     phase_profile_mesh("GAT", MESH_GAT_ARGS, ds)
     gcn, gat, fused = gcn["counts"], gat["counts"], fused["counts"]
@@ -1617,6 +1900,10 @@ def main() -> int:
     counts.update({k: mesh_gat[k] for k in ("K5 rect", "K7 row", "K7 col")})
     counts.update({k: fused[k] for k in ("K9 train", "K9 eval", "K10 fwd", "K10 dW",
                                          "K10 dX")})
+    for key in ("ordered gather_sum", "ordered segment_sum"):
+        counts[key] = sum(c[key] for c in (gcn, gat, fused, mesh_gcn, mesh_gat))
+    print(f"[resume] checkpoints through cli.main, seconds to write / load and ms/epoch "
+          f"chunked: {json.dumps(resume, sort_keys=True)}")
 
     def entry(key, name, source, replaces):
         r = results[key]
@@ -1634,6 +1921,9 @@ def main() -> int:
     ce_src = "parallel_gcn_tpu_torch/csrc/fused_ce.cu"
     mm_src = "parallel_gcn_tpu_torch/csrc/dropout_matmul.cu"
     rect_src = "parallel_gcn_tpu_torch/csrc/tile_attention_rect.cu"
+    seg_src = "parallel_gcn_tpu_torch/csrc/segment_sum.cu"
+    # no Pallas kernel: the JAX package sums its residual with XLA's segment_sum
+    seg_replaces = "parallel_gcn_tpu/ops/graphsum.py:45 (jax.ops.segment_sum, no Pallas kernel)"
     print(json.dumps({
         "kernels": [
             entry("K1", "dropout", drop_src, "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
@@ -1657,6 +1947,8 @@ def main() -> int:
                   "parallel_gcn_tpu/ops/tile_attention.py:439"),
             entry("K7 col", "gat_bwd_rect_col", rect_src,
                   "parallel_gcn_tpu/ops/tile_attention.py:475"),
+            entry("ordered gather_sum", "ordered_gather_sum", seg_src, seg_replaces),
+            entry("ordered segment_sum", "ordered_segment_sum", seg_src, seg_replaces),
         ],
         # ported kernels that no main path launches
         "off_path_kernels": [

@@ -11,7 +11,8 @@ so each file's counterpart is easy to find:
   dropout, the feature transform and the masked softmax-CE. The tile SpMM
   and the dropout are CUDA kernels (``csrc/``) with a plain PyTorch version
   beside each, used for CPU tensors.
-- ``models.gcn``: the N-layer GCN; ``optim``: Adam; ``train``: ``fit``.
+- ``models.gcn``: the N-layer GCN; ``optim``: Adam; ``train``: ``fit``;
+  ``utils.checkpoint``: checkpoints in the JAX package's format.
 
 The package imports torch and numpy only: never jax, never
 ``parallel_gcn_tpu``.

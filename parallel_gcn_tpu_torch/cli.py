@@ -3,11 +3,17 @@
 Usage (mirrors the reference binary ``./exec/gcn-par <dataset> [file=...]``,
 src/main.cpp:24-32, plus key=value overrides):
 
-    python -m parallel_gcn_tpu_torch <dataset> [file=<params.txt>] [device=cuda|cpu] [key=value ...]
+    python -m parallel_gcn_tpu_torch <dataset> [file=<params.txt>] [device=cuda|cpu] [resume_from=<ckpt.npz>] [key=value ...]
 
 e.g.  python -m parallel_gcn_tpu_torch synth-reddit epochs=10
       python -m parallel_gcn_tpu_torch synth-reddit model=gat heads=2 hidden_dims=32 dropouts=0.0,0.1 epochs=10
       python -m parallel_gcn_tpu_torch cora device=cpu epochs=5
+      python -m parallel_gcn_tpu_torch synth-reddit epochs=10 checkpoint_dir=ck checkpoint_every=5
+      python -m parallel_gcn_tpu_torch synth-reddit epochs=10 resume_from=ck/ckpt_000005.npz
+
+``checkpoint_dir=`` / ``checkpoint_every=`` write checkpoints in the JAX
+package's format (``ckpt_{epoch:06d}.npz``, ``ckpt_final.npz``);
+``resume_from=`` continues a run from one written by either package.
 
 Under torchrun the CLI trains node-partitioned over the world's processes,
 one per GPU (``parallel.train_parallel.fit_parallel``); ``n_devices=N``,
@@ -17,8 +23,8 @@ when given, must equal the world's size, and N > 1 needs such a world:
       torchrun --standalone --nproc_per_node=2 -m parallel_gcn_tpu_torch synth-medium device=cpu n_devices=2
 
 The device defaults to cuda; the CPU runs only when asked for. Returns 2 on a
-bad argument, a missing dataset or ``n_devices`` without its world, 1 when
-the device is unavailable.
+bad argument, a missing dataset or checkpoint, or ``n_devices`` without its
+world, 1 when the device is unavailable.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ def main(argv: list[str] | None = None) -> int:
     overrides = {}
     params_file = None
     device_arg = "cuda"
+    resume_from = None
     for arg in argv[1:]:
         if "=" not in arg:
             print(f"error: malformed argument {arg!r} (expected key=value)")
@@ -51,6 +58,8 @@ def main(argv: list[str] | None = None) -> int:
             params_file = val
         elif key == "device":
             device_arg = val
+        elif key == "resume_from":
+            resume_from = val
         else:
             overrides[key] = parse_override(val)
 
@@ -58,6 +67,9 @@ def main(argv: list[str] | None = None) -> int:
         cfg = load_config(params_file or default_params_path(dataset), overrides)
     except (KeyError, ValueError, FileNotFoundError) as e:
         print(f"error: {e}")
+        return 2
+    if resume_from and not os.path.isfile(resume_from):
+        print(f"error: no checkpoint at {resume_from!r}")
         return 2
     world = os.environ.get("WORLD_SIZE")  # set by torchrun
     mesh = cfg.tpu.n_devices > 1 or cfg.tpu.tp > 1 or world is not None
@@ -83,7 +95,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     if mesh:
-        return _main_mesh(cfg, dataset, device)
+        return _main_mesh(cfg, dataset, device, resume_from)
 
     from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset
     from parallel_gcn_tpu_torch.train import fit
@@ -102,7 +114,7 @@ def main(argv: list[str] | None = None) -> int:
         f"train/val/test={ds.train_dim}/{ds.val_dim}/{ds.test_dim}"
     )
     print("TRAINING AND EVALUATION OF GCN:")
-    print(_summary(fit(cfg, dds)))
+    print(_summary(fit(cfg, dds, resume_from=resume_from)))
     return 0
 
 
@@ -116,7 +128,7 @@ def _summary(result) -> str:
     return line
 
 
-def _main_mesh(cfg, dataset: str, device: torch.device) -> int:
+def _main_mesh(cfg, dataset: str, device: torch.device, resume_from: str | None) -> int:
     """One rank of ``n_devices``: join the torchrun world (NCCL for CUDA,
     gloo for the CPU), train with ``fit_parallel``, leave the world."""
     import torch.distributed as dist
@@ -146,7 +158,7 @@ def _main_mesh(cfg, dataset: str, device: torch.device) -> int:
                   f"features={ds.input_dim} classes={ds.output_dim} "
                   f"train/val/test={ds.train_dim}/{ds.val_dim}/{ds.test_dim}")
             print("TRAINING AND EVALUATION OF GCN:")
-        result = fit_parallel(cfg, ds, device=device)
+        result = fit_parallel(cfg, ds, device=device, resume_from=resume_from)
         if rank0:
             print(_summary(result))
         return 0

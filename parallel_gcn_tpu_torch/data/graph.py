@@ -53,6 +53,10 @@ class Graph:
     sqrt_deg: torch.Tensor | None = None
     # adj_dtype=int8: d (= deg^{-1/2}, [n_nodes] f32) with adj_ij = adj8_ij·d_i·d_j
     adj_scale: torch.Tensor | None = None
+    # ``ops.cuda_segment.Segments`` of row and of col over the nodes: the
+    # ordered sums by destination and (the segment GAT's gradients) by source
+    row_seg: "object | None" = None
+    col_seg: "object | None" = None
 
     @property
     def n_edges_pad(self) -> int:
@@ -272,6 +276,7 @@ def build_graph(
     (``split_dense_tiles``) and keeps the other edges as the COO residual.
     """
     from parallel_gcn_tpu_torch.ops.cuda_bcsr import build_bcsr
+    from parallel_gcn_tpu_torch.ops.cuda_segment import segments
 
     tile_dtype = torch_dtype(tile_dtype)
     adj_dtype = torch_dtype(adj_dtype)
@@ -351,9 +356,11 @@ def build_graph(
         np.diff(csr.indptr).astype(np.float32)
     )
 
+    row_t = torch.from_numpy(row).to(device)
+    col_t = torch.from_numpy(col).to(device)
     return Graph(
-        row=torch.from_numpy(row).to(device),
-        col=torch.from_numpy(col).to(device),
+        row=row_t,
+        col=col_t,
         val=torch.from_numpy(val).to(device),
         adj=adj,
         bcsr=None if bcsr_pack is None else bcsr_pack.to(device),
@@ -364,6 +371,8 @@ def build_graph(
         coo_complete=coo_complete,
         sqrt_deg=torch.from_numpy(sqrt_deg_np).to(device),
         adj_scale=adj_scale,
+        row_seg=segments(row_t, n_pad),
+        col_seg=segments(col_t, n_pad),
     )
 
 

@@ -12,7 +12,9 @@ Three aggregation backends, as in the JAX package:
 - ``dense``: the masked [heads, N, N] softmax and one batched product
   (citation-scale graphs with a dense adjacency);
 - ``segment``: per-edge logits on the padded COO triplets with a
-  scatter-max / exp / index-add softmax (unchunked);
+  scatter-max / exp / segment-sum softmax (unchunked); the sums by
+  destination, and the gathers' gradients by source, are the ordered sums
+  of ``ops.cuda_segment`` over the graph's ``row_seg`` and ``col_seg``;
 - ``tile``: the block-sparse tile attention of ``ops.tile_attention`` over
   the graph's tile pack plus its COO residual (K5 forward, K6 backward on
   the card): the reddit-scale path.
@@ -38,6 +40,7 @@ from parallel_gcn_tpu_torch.data.graph import Graph
 from parallel_gcn_tpu_torch.device import torch_dtype
 from parallel_gcn_tpu_torch.models.gcn import glorot
 from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout
+from parallel_gcn_tpu_torch.ops.cuda_segment import gather, segment_sum
 from parallel_gcn_tpu_torch.ops.sparse_matmul import feature_transform
 from parallel_gcn_tpu_torch.ops.tile_attention import gat_attend_tiles
 
@@ -67,17 +70,19 @@ def init_gat_params(
 def _edge_softmax_segment(graph: Graph, s, t, n_nodes: int) -> torch.Tensor:
     """Attention weights α [E, heads] over the padded COO triplets; padding
     edges (val == 0) get weight 0. The max is detached: softmax does not
-    depend on it, so its gradient contributions cancel."""
+    depend on it, so its gradient contributions cancel. ``graph`` carries
+    ``row_seg`` (over s's n_nodes rows) and ``col_seg`` (over t's)."""
     live = (graph.val != 0.0)[:, None]
-    e = torch.where(live, F.leaky_relu(s[graph.row] + t[graph.col], LEAKY_SLOPE), _NEG)
+    e = torch.where(live, F.leaky_relu(gather(s, graph.row_seg) + gather(t, graph.col_seg),
+                                       LEAKY_SLOPE), _NEG)
     m = torch.full((n_nodes, e.shape[1]), _NEG, dtype=e.dtype, device=e.device)
+    # a max is exact in any order
     m = m.scatter_reduce(0, graph.row[:, None].expand_as(e), e.detach(), "amax",
                          include_self=True)
     w = torch.where(live, torch.exp(e - m[graph.row]), 0.0)
     # f32 denominator: a bf16 sum loses per-edge increments on hub rows
-    den = torch.zeros((n_nodes, e.shape[1]), dtype=torch.float32, device=e.device)
-    den = den.index_add(0, graph.row, w.float())
-    return w / torch.clamp(den, min=1e-16)[graph.row].to(w.dtype)
+    den = segment_sum(w.float(), graph.row_seg)
+    return w / gather(torch.clamp(den, min=1e-16), graph.row_seg).to(w.dtype)
 
 
 class GATModel(nn.Module):
@@ -132,9 +137,8 @@ class GATModel(nn.Module):
         alpha = _edge_softmax_segment(graph, s, t, hw3.shape[0])
         if training and self.attn_dropout > 0.0:
             alpha = dropout(alpha.contiguous(), seed, self.attn_dropout)
-        contrib = (alpha[:, :, None] * hw3[graph.col]).float()
-        out = torch.zeros(hw3.shape, dtype=torch.float32, device=hw3.device)
-        return out.index_add(0, graph.row, contrib).to(hw3.dtype)
+        contrib = (alpha[:, :, None] * gather(hw3, graph.col_seg)).float()
+        return segment_sum(contrib, graph.row_seg).to(hw3.dtype)
 
     def _attend_tile(self, graph, hw3, s, t, seed, training):
         rate = self.attn_dropout if training else 0.0

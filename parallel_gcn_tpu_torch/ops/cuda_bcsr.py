@@ -340,6 +340,8 @@ def bcsr_matmul_plain(bcsr: BCSR, x: torch.Tensor, batch: int = 64) -> torch.Ten
             dr = d.view(-1, tr)[rows]  # [B, tr]
             a = (a * dc[:, None, :]) * dr[:, :, None]
         a = a.to(cd).float()
+        # a plain version: the CPU's path, and on the card only beside K3/K4
+        # in a comparison (its tile rows repeat; the tolerance covers the order)
         out.index_add_(0, rows, torch.bmm(a, xb[cols]))
     return out.view(-1, F)
 

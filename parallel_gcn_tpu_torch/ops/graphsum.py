@@ -4,9 +4,12 @@ Port of ``parallel_gcn_tpu/ops/graphsum.py`` (reference GraphSum,
 src/module.cu:165-210). Backends:
 
 * ``dense``   — ``torch.matmul`` with the dense Â (small graphs).
-* ``segment`` — row-sorted COO: gather ``x[col]``, scale by ``val`` and
-                ``index_add_`` by ``row``, in edge chunks when the gathered
-                intermediate would exceed the memory budget.
+* ``segment`` — row-sorted COO: ``Σ val·x[col]`` by ``row``, the ordered
+                gather-sum of ``ops.cuda_segment`` over the graph's
+                ``row_seg`` (kernel (a) on the card, every row's edges in
+                edge order; on the CPU gather, scale and ``index_add_``, in
+                edge chunks when the gathered intermediate would exceed the
+                memory budget).
 * ``bcsr``    — the tile SpMM kernel (``ops.cuda_bcsr``).
 * ``hybrid``  — dense-enough tiles through the kernel plus the COO residual
                 through the segment path, summed in x's dtype.
@@ -23,23 +26,17 @@ import torch
 
 from parallel_gcn_tpu_torch.data.graph import Graph
 from parallel_gcn_tpu_torch.ops.cuda_bcsr import bcsr_matmul_impl
+from parallel_gcn_tpu_torch.ops.cuda_segment import gather_sum
 
-# gathered-intermediate budget for the segment backend, in elements
+# gathered-intermediate budget for the segment backend's plain version, in
+# elements
 _DEFAULT_EDGE_ELEM_BUDGET = 256 * 1024 * 1024
 
 
-def _segment(x, row, col, val, n_nodes, n_chunks):
-    """Σ_e val[e]·x[col[e]] into row[e], in x's dtype, ``n_chunks`` edge
-    chunks at a time (the last chunk takes the remainder)."""
-    out = torch.zeros((n_nodes, x.shape[1]), dtype=x.dtype, device=x.device)
-    e_pad = row.shape[0]
-    chunk = e_pad // n_chunks
-    for c in range(n_chunks):
-        lo = c * chunk
-        hi = e_pad if c == n_chunks - 1 else lo + chunk
-        gathered = val[lo:hi, None].to(x.dtype) * x[col[lo:hi]]
-        out.index_add_(0, row[lo:hi], gathered)
-    return out
+def _segment(x, graph: Graph, n_chunks):
+    """Σ_e val[e]·x[col[e]] into row[e] in edge order, in x's dtype: the
+    ordered gather-sum (``n_chunks`` edge chunks in its plain version)."""
+    return gather_sum(x, graph.row_seg, graph.col, graph.val, n_chunks=n_chunks)
 
 
 def _pick_n_chunks(n_edges_pad: int, n_feat: int, edge_chunk: int) -> int:
@@ -71,9 +68,8 @@ def _graphsum_impl(x: torch.Tensor, graph: Graph, backend: str,
         # tile part in f32, rounded to x's dtype, plus the residual in
         # x's dtype (graphsum.py:123-126 order)
         out = bcsr_matmul_impl(graph.bcsr, x).to(x.dtype)
-        return out + _segment(x, graph.row, graph.col, graph.val,
-                              graph.n_nodes, n_chunks)
-    return _segment(x, graph.row, graph.col, graph.val, graph.n_nodes, n_chunks)
+        return out + _segment(x, graph, n_chunks)
+    return _segment(x, graph, n_chunks)
 
 
 class _GraphSum(torch.autograd.Function):

@@ -7,12 +7,14 @@ and reduced-precision bf16 reductions are switched off or on once, at model
 build (``models.gcn.set_matmul_precision``).
 
 ``sparse_feature_transform`` is the same product for features given as
-(row, col, val) nonzeros: a gather and an ``index_add``, no kernel.
+(row, col, val) nonzeros: the ordered gather-sum of ``ops.cuda_segment``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from parallel_gcn_tpu_torch.ops.cuda_segment import gather_sum_t, segments
 
 
 def feature_transform(
@@ -38,7 +40,9 @@ def sparse_feature_transform(
     """Sparse features times ``w``: out[n] = Σ_j val_j · w[col_j] over row
     n's nonzeros (``parallel_gcn_tpu/ops/sparse_matmul.py:52``), in w's
     dtype. Differentiable in ``w`` only (the features are data), as the
-    reference's backward (src/module.cu:136-163)."""
-    gathered = feat_val[:, None].to(w.dtype) * w[feat_col.long()]
-    out = torch.zeros((n_nodes, w.shape[1]), dtype=w.dtype, device=w.device)
-    return out.index_add(0, feat_row.long(), gathered)
+    reference's backward (src/module.cu:136-163), whose sums by feature run
+    in nonzero order too. Builds the index's segments per call (a host
+    sync)."""
+    row, col = feat_row.long(), feat_col.long()
+    return gather_sum_t(w, segments(row, n_nodes), col, feat_val,
+                        segments(col, w.shape[0]))

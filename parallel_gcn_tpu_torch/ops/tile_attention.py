@@ -30,7 +30,9 @@ K5, K6 and both K7 sweeps read the live entries from the pack's
 
 The COO residual's statistics merge with the tiles' by the flash rescale
 (``den = den_t·e^{m_t−m} + den_r``) in plain torch, as the JAX package leaves
-them to XLA. Attention dropout (``rate`` > 0) drops the numerator terms with
+them to XLA; its per-edge terms are summed in edge order by the ordered
+segment sums of ``ops.cuda_segment`` (by destination; on a slab dt and dv
+by source, through a source-sorted permutation built with the slab). Attention dropout (``rate`` > 0) drops the numerator terms with
 the undropped denominator; the mask is ``hash_keep`` of (dest, src, head,
 int32 seed), bit-identical to the JAX package's, so no mask is ever stored.
 The kernels read the seed from device memory (a slot the trainer rewrites
@@ -59,6 +61,7 @@ import torch
 from parallel_gcn_tpu_torch.ops import _build
 from parallel_gcn_tpu_torch.ops.cuda_bcsr import _DTYPE_CODE, BCSR, slab_pack
 from parallel_gcn_tpu_torch.ops.cuda_dropout import Seed, _mulhilo, seed_tensor
+from parallel_gcn_tpu_torch.ops.cuda_segment import Segments, segment_sum_, segments
 
 _NEG = -1e9  # masked-logit fill (finite: empty rows stay finite, exp -> 0)
 _M32 = 0xFFFFFFFF
@@ -149,28 +152,42 @@ def _edge_logits(sf, tf, dest, src, live, slope):
 
 
 def _edge_max(m: torch.Tensor, dest: torch.Tensor, e: torch.Tensor) -> None:
-    """m[dest] = max(m[dest], e), in place."""
+    """m[dest] = max(m[dest], e), in place (a max is exact in any order)."""
     m.scatter_reduce_(0, dest[:, None].expand_as(e), e, "amax", include_self=True)
 
 
-def _edge_accumulate(dest, src, live, e, m, v32, rate, seed, den, acc) -> None:
+def _sums(seg: Segments | None, index: torch.Tensor, n: int):
+    """What ``segment_sum_`` sums ``index``'s terms by: ``seg`` where the
+    caller built it (the residual's, with its graph); else the raw index on
+    the CPU, or its segments built here (a host sync: the plain versions)."""
+    if seg is not None:
+        return seg
+    return index if index.device.type == "cpu" else segments(index, n)
+
+
+def _edge_accumulate(dest, src, live, e, m, v32, rate, seed, den, acc,
+                     seg: Segments | None = None) -> None:
     """den += Σ w, acc += Σ w̃·v over the edges, w = exp(e − m_dest) (masked
-    before the exp via e = _NEG, re-masked after), w̃ = w·keep/(1 − rate)."""
+    before the exp via e = _NEG, re-masked after), w̃ = w·keep/(1 − rate),
+    summed by ``dest`` in edge order (``seg``: dest's segments)."""
+    by = _sums(seg, dest, den.shape[0])
     w = _masked(live, torch.exp(e - m[dest]), 0.0)
-    den.index_add_(0, dest, w)
+    segment_sum_(den, by, w)
     if rate > 0.0:
         keep = edge_keep(dest, src, w.shape[1], seed, rate)
         w = torch.where(keep, w * _inv_keep(rate), 0.0)
-    acc.index_add_(0, dest, w[:, :, None] * v32[src])
+    segment_sum_(acc, by, w[:, :, None] * v32[src])
 
 
 def _edge_bwd(dest, src, live, sf, tf, v32, g, m, den_g, rho, slope, rate,
-              seed, ds, dt, dv) -> None:
+              seed, ds, dt, dv, seg: Segments | None = None) -> None:
     """Gradient contributions of the edges (dest, src), in place. The forward
     orientation gives ds[dest]; the mirrored orientation (the edge (src, dest),
     present by symmetry) gives dt[dest] and dv[dest], so every sum is over
-    ``dest``. Logits are masked to _NEG before the exp: padding edges point at
-    padding rows whose m is _NEG."""
+    ``dest``, in edge order (``seg``: dest's segments). Logits are masked to
+    _NEG before the exp: padding edges point at padding rows whose m is
+    _NEG."""
+    by = _sums(seg, dest, ds.shape[0])
     inv = _inv_keep(rate) if rate > 0.0 else 1.0
     pre = sf[dest] + tf[src]
     a = _masked(live, torch.exp(_masked(live, _leaky(pre, slope), _NEG) - m[dest])
@@ -178,7 +195,7 @@ def _edge_bwd(dest, src, live, sf, tf, v32, g, m, den_g, rho, slope, rate,
     dot_a = torch.sum(g[dest] * v32[src], dim=-1)
     if rate > 0.0:
         dot_a = torch.where(edge_keep(dest, src, a.shape[1], seed, rate), dot_a * inv, 0.0)
-    ds.index_add_(0, dest, a * (dot_a - rho[dest]) * _leaky_grad(pre, slope))
+    segment_sum_(ds, by, a * (dot_a - rho[dest]) * _leaky_grad(pre, slope))
 
     pre_m = sf[src] + tf[dest]
     a_m = _masked(live, torch.exp(_masked(live, _leaky(pre_m, slope), _NEG) - m[src])
@@ -190,8 +207,8 @@ def _edge_bwd(dest, src, live, sf, tf, v32, g, m, den_g, rho, slope, rate,
         keep_m = edge_keep(src, dest, a.shape[1], seed, rate)
         dot_b = torch.where(keep_m, dot_b * inv, 0.0)
         a_mn = torch.where(keep_m, a_m * inv, 0.0)
-    dt.index_add_(0, dest, a_m * (dot_b - rho[src]) * _leaky_grad(pre_m, slope))
-    dv.index_add_(0, dest, a_mn[:, :, None] * g[src])
+    segment_sum_(dt, by, a_m * (dot_b - rho[src]) * _leaky_grad(pre_m, slope))
+    segment_sum_(dv, by, a_mn[:, :, None] * g[src])
 
 
 def _edge_chunks(dest: torch.Tensor, src: torch.Tensor):
@@ -404,7 +421,8 @@ class RectAttention:
     stored TRANSPOSED (rows: buffer rows, columns: local dest rows), so the
     K7 column sweep walks a buffer row's entries as one unit of its
     ``attn_index``. Zero tiles are dropped from both. ``residual`` is the
-    COO residual (rrow, rcol, rlive [E, 1]) or None when no rank has one."""
+    COO residual (rrow, rcol, rlive [E, 1], the ``Segments`` of rrow over the
+    rows and of rcol over the buffer) or None when no rank has one."""
 
     rows: BCSR
     cols: BCSR
@@ -431,17 +449,21 @@ def rect_attention(tiles_r, trow_r, tcol_r, tiles_c, trow_c, tcol_c, res_row, re
     residual = None
     if has_res:
         rval = torch.from_numpy(np.asarray(res_val, np.float32)).to(device)
-        residual = (torch.from_numpy(res_row.astype(np.int64)).to(device),
-                    torch.from_numpy(res_col.astype(np.int64)).to(device),
-                    (rval != 0.0)[:, None])
+        rrow = torch.from_numpy(res_row.astype(np.int64)).to(device)
+        rcol = torch.from_numpy(res_col.astype(np.int64)).to(device)
+        residual = (rrow, rcol, (rval != 0.0)[:, None], segments(rrow, n_rows),
+                    segments(rcol, n_buf))
     return RectAttention(rows=rows, cols=cols, residual=residual)
 
 
 def _edge_rect_bwd(dest, src, live, sf, tf, v32, g, m, den_g, rho, slope, rate, seed,
-                   ds=None, dt=None, dv=None) -> None:
+                   ds=None, dt=None, dv=None, dest_seg: Segments | None = None,
+                   src_seg: Segments | None = None) -> None:
     """Gradient terms of the edges (dest, src) in the forward orientation
     only (a slab is not symmetric), in place: ds at ``dest``; dt and dv at
-    ``src`` (buffer space). Logits are masked to _NEG before the exp."""
+    ``src`` (buffer space), each summed in edge order (``dest_seg``,
+    ``src_seg``: their segments). Logits are masked to _NEG before the
+    exp."""
     inv = _inv_keep(rate) if rate > 0.0 else 1.0
     pre = sf[dest] + tf[src]
     a = _masked(live, torch.exp(_masked(live, _leaky(pre, slope), _NEG) - m[dest])
@@ -454,10 +476,11 @@ def _edge_rect_bwd(dest, src, live, sf, tf, v32, g, m, den_g, rho, slope, rate, 
         an = torch.where(keep, a * inv, 0.0)
     term = a * (dot - rho[dest]) * _leaky_grad(pre, slope)
     if ds is not None:
-        ds.index_add_(0, dest, term)
+        segment_sum_(ds, _sums(dest_seg, dest, ds.shape[0]), term)
     if dt is not None:
-        dt.index_add_(0, src, term)
-        dv.index_add_(0, src, an[:, :, None] * g[dest])
+        by_src = _sums(src_seg, src, dt.shape[0])
+        segment_sum_(dt, by_src, term)
+        segment_sum_(dv, by_src, an[:, :, None] * g[dest])
 
 
 def gat_bwd_rect_row_plain(rows: BCSR, s, t_buf, v_buf, g, m, den, rho, *,
@@ -616,8 +639,9 @@ def gat_bwd_rect(attn: RectAttention, s, t_buf, v_buf, g, m, den, rho, *,
 
 
 def _residual(graph):
-    """(rrow, rcol, rlive [E, 1]) of a hybrid graph's COO residual."""
-    return graph.row, graph.col, (graph.val != 0.0)[:, None]
+    """(rrow, rcol, rlive [E, 1], rrow's segments, None) of a hybrid graph's
+    COO residual: on a square pack every sum is by destination."""
+    return graph.row, graph.col, (graph.val != 0.0)[:, None], graph.row_seg, None
 
 
 def _attend_impl(fwd, pack, residual, s, t, v, slope, rate, seed):
@@ -626,7 +650,7 @@ def _attend_impl(fwd, pack, residual, s, t, v, slope, rate, seed):
     D], m, den [n, H]), float32, n = s's rows."""
     acc, m, den = fwd(pack, s, t, v, slope=slope, rate=rate, seed=seed)
     if residual is not None:
-        rrow, rcol, rlive = residual
+        rrow, rcol, rlive, row_seg, _ = residual
         sf, tf = s.float(), t.float()
         e_r = _edge_logits(sf, tf, rrow, rcol, rlive, slope)
         m_r = torch.full_like(m, _NEG)
@@ -635,7 +659,8 @@ def _attend_impl(fwd, pack, residual, s, t, v, slope, rate, seed):
         scale = torch.exp(m - m_all)
         den = den * scale
         acc = acc * scale[:, :, None]
-        _edge_accumulate(rrow, rcol, rlive, e_r, m_all, v.float(), rate, seed, den, acc)
+        _edge_accumulate(rrow, rcol, rlive, e_r, m_all, v.float(), rate, seed, den, acc,
+                         seg=row_seg)
         m = m_all
     out = acc / torch.clamp(den, min=1e-16)[:, :, None]
     return out, m, den
@@ -660,9 +685,10 @@ class _GatAttend(torch.autograd.Function):
         ds, dt, dv = gat_bwd_tiles(graph.bcsr, s, t, v, g, m, den, rho,
                                    slope=slope, rate=rate, seed=seed)
         if graph.is_hybrid:
-            rrow, rcol, rlive = _residual(graph)
+            rrow, rcol, rlive, row_seg, _ = _residual(graph)
             _edge_bwd(rrow, rcol, rlive, s.float(), t.float(), v.float(), g, m,
-                      torch.clamp(den, min=1e-16), rho, slope, rate, seed, ds, dt, dv)
+                      torch.clamp(den, min=1e-16), rho, slope, rate, seed, ds, dt, dv,
+                      seg=row_seg)
         return ds.to(s.dtype), dt.to(t.dtype), dv.to(v.dtype), None, None, None, None
 
 
@@ -715,10 +741,10 @@ class _GatAttendRect(torch.autograd.Function):
         ds, dt, dv = gat_bwd_rect(attn, s, t_buf, v_buf, g, m, den, rho,
                                   slope=slope, rate=rate, seed=seed)
         if attn.residual is not None:
-            rrow, rcol, rlive = attn.residual
+            rrow, rcol, rlive, row_seg, col_seg = attn.residual
             _edge_rect_bwd(rrow, rcol, rlive, s.float(), t_buf.float(), v_buf.float(),
                            g, m, torch.clamp(den, min=1e-16), rho, slope, rate, seed,
-                           ds=ds, dt=dt, dv=dv)
+                           ds=ds, dt=dt, dv=dv, dest_seg=row_seg, src_seg=col_seg)
         return (ds.to(s.dtype), dt.to(t_buf.dtype), dv.to(v_buf.dtype),
                 None, None, None, None)
 

@@ -8,10 +8,12 @@ Functions with those transposes written out:
 
 - ``gather_buffer(x_local, None)``: the all_gather halo, ``all_gather`` of
   every rank's rows; backward: a sum reduce-scatter;
-- ``gather_buffer(x_local, send_idx)``: the boundary halo, ``index_select``
-  of the rows each peer needs, one ``all_to_all_single`` and a concatenation
-  ``[x_local ; halo]``; backward: the reverse ``all_to_all_single`` of the
-  halo's cotangent, then ``index_add_`` into the sent rows.
+- ``gather_buffer(x_local, send)``: the boundary halo, ``index_select``
+  of the rows each peer needs (``send``, the ``Segments`` of the sent local
+  rows), one ``all_to_all_single`` and a concatenation ``[x_local ; halo]``;
+  backward: the reverse ``all_to_all_single`` of the halo's cotangent, then
+  its rows summed into the sent rows in order (``ops.cuda_segment``; a row
+  sent to several peers repeats).
 
 ``all_reduce_sum`` reduces gradients and metrics. ``counts`` counts every
 collective call by kind, so tests can pin an epoch step's structure.
@@ -30,6 +32,8 @@ import tempfile
 
 import torch
 import torch.distributed as dist
+
+from parallel_gcn_tpu_torch.ops.cuda_segment import Segments, segment_sum_
 
 # collective calls by kind
 counts = {"all_gather": 0, "reduce_scatter": 0, "all_to_all": 0, "all_reduce": 0}
@@ -120,15 +124,15 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def halo_rows(x_local: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
+def halo_rows(x_local: torch.Tensor, send: Segments) -> torch.Tensor:
     """The boundary exchange without autograd: ``[x_local ; rows received
     from each peer]``."""
-    return torch.cat([x_local, all_to_all_rows(x_local.index_select(0, send_idx))])
+    return torch.cat([x_local, all_to_all_rows(x_local.index_select(0, send.index))])
 
 
-def buffer_rows(x_local: torch.Tensor, send_idx: torch.Tensor | None) -> torch.Tensor:
+def buffer_rows(x_local: torch.Tensor, send: Segments | None) -> torch.Tensor:
     """The source buffer without autograd: all_gather or boundary halo."""
-    return all_gather_rows(x_local) if send_idx is None else halo_rows(x_local, send_idx)
+    return all_gather_rows(x_local) if send is None else halo_rows(x_local, send)
 
 
 class _AllGather(torch.autograd.Function):
@@ -143,23 +147,23 @@ class _AllGather(torch.autograd.Function):
 
 class _Halo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, send_idx):
-        ctx.save_for_backward(send_idx)
+    def forward(ctx, x, send):
+        ctx.send = send
         ctx.n_local = x.shape[0]
-        return halo_rows(x, send_idx)
+        return halo_rows(x, send)
 
     @staticmethod
     def backward(ctx, g):
-        (send_idx,) = ctx.saved_tensors
         n = ctx.n_local
         back = all_to_all_rows(g[n:])  # each halo row's cotangent to its owner
-        return g[:n].index_add(0, send_idx, back), None
+        return segment_sum_(g[:n].clone(), ctx.send, back), None
 
 
-def gather_buffer(x_local: torch.Tensor, send_idx: torch.Tensor | None) -> torch.Tensor:
+def gather_buffer(x_local: torch.Tensor, send: Segments | None) -> torch.Tensor:
     """The source buffer of this rank's aggregation, differentiable in
-    ``x_local``: the gathered matrix (all_gather halo, ``send_idx`` None) or
-    the compact ``[x_local ; halo]`` buffer (boundary halo)."""
-    if send_idx is None:
+    ``x_local``: the gathered matrix (all_gather halo, ``send`` None) or
+    the compact ``[x_local ; halo]`` buffer (boundary halo; ``send`` the
+    ``Segments`` of the sent local rows)."""
+    if send is None:
         return _AllGather.apply(x_local)
-    return _Halo.apply(x_local, send_idx)
+    return _Halo.apply(x_local, send)

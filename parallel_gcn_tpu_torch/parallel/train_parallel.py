@@ -11,8 +11,9 @@ sums the weight gradients and the metrics with ``all_reduce``, and runs the
 same Adam step as every other rank, so the weights stay replicated.
 
 Aggregation layouts (``parallel.partition``):
-- flat COO slabs (``graphsum_dist``): gather, scale, ``index_add_``; the
-  backward through the collectives' autograd;
+- flat COO slabs (``graphsum_dist``): the ordered gather-sum of
+  ``ops.cuda_segment`` by local row, its backward the same sum transposed
+  (by buffer row), then the collectives' autograd;
 - tile slabs plus a COO residual (``graphsum_dist_hybrid``, and
   ``graphsum_dist_hybrid_scaled`` for int8 pattern slabs): K3 over the
   rectangular slab (``ops.cuda_bcsr.bcsr_matmul_rect``); self-adjoint, so
@@ -36,11 +37,14 @@ NCCL collectives captured in it, the seeds from a table of the epochs'
 ``rank_seeds``. Every rank reads the same stop flag (the metrics are
 all-reduced), so all ranks queue the same epochs.
 
+Checkpoints are the single-card ``fit``'s (``train``'s module docstring):
+every rank loads the same ``resume_from`` file; rank 0 writes each
+checkpoint while the others wait at a barrier.
+
 Not ported (NotImplementedError): the ring and adaptive halos, tensor
-parallelism (``tp`` > 1), SAGE/GIN on the mesh, ``remat``, the GAT's
-``edge_chunk`` and checkpoints. The mesh CE is the plain masked CE of
-``ops.loss`` on every rank, as in the JAX package (``ce_impl`` does not
-apply).
+parallelism (``tp`` > 1), SAGE/GIN on the mesh, ``remat`` and the GAT's
+``edge_chunk``. The mesh CE is the plain masked CE of ``ops.loss`` on every
+rank, as in the JAX package (``ce_impl`` does not apply).
 """
 
 from __future__ import annotations
@@ -58,11 +62,12 @@ from parallel_gcn_tpu_torch.models.gat import LEAKY_SLOPE, GATModel, _edge_softm
 from parallel_gcn_tpu_torch.models.gcn import GCNModel, set_matmul_precision
 from parallel_gcn_tpu_torch.ops.cuda_bcsr import BCSR, bcsr_matmul_rect, slab_pack
 from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout
-from parallel_gcn_tpu_torch.ops.graphsum import _pick_n_chunks, _segment
+from parallel_gcn_tpu_torch.ops.cuda_segment import (Segments, gather, gather_sum,
+                                                     gather_sum_t, segment_sum, segments)
 from parallel_gcn_tpu_torch.ops.loss import masked_softmax_xent_sums
 from parallel_gcn_tpu_torch.ops.tile_attention import (RectAttention, gat_attend_rect,
                                                        rect_attention)
-from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
+from parallel_gcn_tpu_torch.optim import AdamState, adam_step
 from parallel_gcn_tpu_torch.parallel import collectives
 from parallel_gcn_tpu_torch.parallel.collectives import (all_reduce_sum, buffer_rows,
                                                          gather_buffer)
@@ -72,8 +77,10 @@ from parallel_gcn_tpu_torch.parallel.partition import (GATMeshPack, HybridSharde
                                                        partition_graph_hybrid)
 from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table
 from parallel_gcn_tpu_torch.train import (_ATTN_SEED_HIGH, _SEED_HIGH, FitResult, _l2_term,
-                                          _sync, eager_loop, epoch_seeds, fit_result,
-                                          fused_deferred_forward, print_scan, scan_schedule)
+                                          _sync, checkpoint_writer, eager_loop, epoch_seeds,
+                                          fit_result, fused_deferred_forward, print_scan,
+                                          resume_state, resumed_adam, scan_checkpoints,
+                                          scan_schedule, skip_epochs)
 
 _M64 = (1 << 64) - 1
 
@@ -120,32 +127,33 @@ def rank_data(ds, sgraph, rank: int, device) -> RankData:
 @dataclass(frozen=True)
 class RankGraph:
     """Rank ``rank``'s slab of a partition on its device: flat COO
-    (``coo``), a tile slab with its residual (``slab``, ``res`` and the int8
-    slab's ``d``), or the mesh GAT's packs (``attn``, over ``res``'s
-    layout). ``send_idx`` is the boundary halo's schedule (None: the
-    all_gather halo)."""
+    (``coo``, with the ``Segments`` of its rows and of its buffer columns),
+    a tile slab with its residual (``slab``, ``res`` with its rows'
+    ``Segments``, and the int8 slab's ``d``), or the mesh GAT's packs
+    (``attn``, over ``res``'s layout). ``send`` is the boundary halo's
+    schedule, the ``Segments`` of its sent rows (None: the all_gather
+    halo)."""
 
     n_dev: int
     rank: int
     n_local: int
     n_buf: int
-    send_idx: torch.Tensor | None = None
-    coo: tuple | None = None  # (row_local, col, val)
+    send: Segments | None = None
+    coo: tuple | None = None  # (row_local, col, val, row segments, col segments)
     slab: BCSR | None = None
-    res: tuple | None = None  # (rrow, rcol, rval)
+    res: tuple | None = None  # (rrow, rcol, rval, row segments)
     d: torch.Tensor | None = None
     attn: RectAttention | None = None
 
     def aggregate(self, h: torch.Tensor) -> torch.Tensor:
         """Â·h on this rank's rows, in h's dtype."""
         if self.coo is not None:
-            return graphsum_dist(h, *self.coo, self.n_local, send_idx=self.send_idx)
+            return graphsum_dist(h, *self.coo, send=self.send)
         if self.slab is None:
             raise ValueError("the mesh GAT's packs carry no GCN aggregation")
         if self.d is not None:
-            return graphsum_dist_hybrid_scaled(h, self.d, self.send_idx, self.slab,
-                                               *self.res, self.n_local)
-        return graphsum_dist_hybrid(h, self.send_idx, self.slab, *self.res, self.n_local)
+            return graphsum_dist_hybrid_scaled(h, self.d, self.send, self.slab, *self.res)
+        return graphsum_dist_hybrid(h, self.send, self.slab, *self.res)
 
 
 def rank_graph(sgraph, rank: int, device) -> RankGraph:
@@ -160,7 +168,8 @@ def rank_graph(sgraph, rank: int, device) -> RankGraph:
         return torch.from_numpy(np.asarray(a[r], np.float32)).to(device)
 
     base = dict(n_dev=sgraph.n_dev, rank=r, n_local=sgraph.n_local, n_buf=sgraph.n_buf,
-                send_idx=None if sgraph.send_idx is None else i64(sgraph.send_idx))
+                send=None if sgraph.send_idx is None else segments(i64(sgraph.send_idx),
+                                                                    sgraph.n_local))
     if isinstance(sgraph, GATMeshPack):
         sg = sgraph
         attn = rect_attention(sg.tiles_r[r], sg.trow_r[r], sg.tcol_r[r], sg.tiles_c[r],
@@ -172,10 +181,14 @@ def rank_graph(sgraph, rank: int, device) -> RankGraph:
         sg = sgraph
         slab = slab_pack(sg.tiles[r], sg.trow[r], sg.tcol[r], sg.n_local, sg.n_buf,
                          sg.tile_dtype, device)
+        rrow = i64(sg.res_row)
         return RankGraph(**base, slab=slab,
-                         res=(i64(sg.res_row), i64(sg.res_col), f32(sg.res_val)),
+                         res=(rrow, i64(sg.res_col), f32(sg.res_val),
+                              segments(rrow, sg.n_local)),
                          d=None if sg.sym_scale is None else f32(sg.sym_scale))
-    return RankGraph(**base, coo=(i64(sgraph.row_local), i64(sgraph.col), f32(sgraph.val)))
+    row, col = i64(sgraph.row_local), i64(sgraph.col)
+    return RankGraph(**base, coo=(row, col, f32(sgraph.val), segments(row, sgraph.n_local),
+                                  segments(col, sgraph.n_buf)))
 
 
 # ---------------------------------------------------------------------------
@@ -183,24 +196,25 @@ def rank_graph(sgraph, rank: int, device) -> RankGraph:
 # ---------------------------------------------------------------------------
 
 
-def graphsum_dist(x_local, row_local, col, val, n_local, send_idx=None):
+def graphsum_dist(x_local, row_local, col, val, row_seg: Segments, col_seg: Segments,
+                  send: Segments | None = None):
     """Distributed Â·x over row-sharded features, flat COO slab: the source
-    buffer (all_gather, or the boundary halo with ``send_idx``), then
-    ``val·x_buf[col]`` summed into ``row_local``, in x's dtype. Autograd
-    transposes the gathers, the scatter and the collective."""
-    x_buf = gather_buffer(x_local, send_idx)
-    n_chunks = _pick_n_chunks(row_local.shape[0], x_local.shape[1], 0)
-    return _segment(x_buf, row_local, col, val, n_local, n_chunks)
+    buffer (all_gather, or the boundary halo with ``send``), then
+    ``val·x_buf[col]`` summed into ``row_local`` in edge order (``row_seg``),
+    in x's dtype. The backward sums the cotangent by buffer row
+    (``col_seg``), then transposes the collective."""
+    x_buf = gather_buffer(x_local, send)
+    return gather_sum_t(x_buf, row_seg, col, val, col_seg)
 
 
-def _hybrid_impl(x_local, d_local, send_idx, slab, rrow, rcol, rval, n_local):
+def _hybrid_impl(x_local, d_local, send, slab, rrow, rcol, rval, res_seg):
     if d_local is not None:
         # int8 pattern slabs: scale before the exchange (one collective),
         # aggregate the 0/k pattern, scale the local rows: d ⊙ B (d ⊙ x)
         x_local = (d_local[:, None] * x_local.float()).to(x_local.dtype)
-    x_buf = buffer_rows(x_local, send_idx)
+    x_buf = buffer_rows(x_local, send)
     out = bcsr_matmul_rect(slab, x_buf).to(x_local.dtype)
-    out = out + _segment(x_buf, rrow, rcol, rval, n_local, 1)
+    out = out + gather_sum(x_buf, res_seg, rcol, rval)
     if d_local is not None:
         out = (d_local[:, None] * out).to(out.dtype)
     return out
@@ -213,27 +227,27 @@ class _HybridAgg(torch.autograd.Function):
     halo."""
 
     @staticmethod
-    def forward(ctx, x_local, d_local, send_idx, slab, rrow, rcol, rval, n_local):
-        ctx.args = (d_local, send_idx, slab, rrow, rcol, rval, n_local)
-        return _hybrid_impl(x_local, d_local, send_idx, slab, rrow, rcol, rval, n_local)
+    def forward(ctx, x_local, d_local, send, slab, rrow, rcol, rval, res_seg):
+        ctx.args = (d_local, send, slab, rrow, rcol, rval, res_seg)
+        return _hybrid_impl(x_local, d_local, send, slab, rrow, rcol, rval, res_seg)
 
     @staticmethod
     def backward(ctx, g):
         return (_hybrid_impl(g.contiguous(), *ctx.args),) + (None,) * 7
 
 
-def graphsum_dist_hybrid(x_local, send_idx, slab, rrow, rcol, rval, n_local):
+def graphsum_dist_hybrid(x_local, send, slab, rrow, rcol, rval, res_seg):
     """Distributed Â·x over a rank's tile slab (K3 rect) plus its COO
-    residual, in x's dtype; ``send_idx`` None for the all_gather halo."""
-    return _HybridAgg.apply(x_local, None, send_idx, slab, rrow, rcol, rval, n_local)
+    residual summed in edge order (``res_seg``: rrow's segments over the
+    rank's rows), in x's dtype; ``send`` None for the all_gather halo."""
+    return _HybridAgg.apply(x_local, None, send, slab, rrow, rcol, rval, res_seg)
 
 
-def graphsum_dist_hybrid_scaled(x_local, d_local, send_idx, slab, rrow, rcol, rval,
-                                n_local):
+def graphsum_dist_hybrid_scaled(x_local, d_local, send, slab, rrow, rcol, rval, res_seg):
     """``graphsum_dist_hybrid`` for int8 pattern slabs: the slab holds the
     0/k pattern, the residual the multiplicities, ``d_local`` (deg^{-1/2} of
     the rank's rows) the normalization."""
-    return _HybridAgg.apply(x_local, d_local, send_idx, slab, rrow, rcol, rval, n_local)
+    return _HybridAgg.apply(x_local, d_local, send, slab, rrow, rcol, rval, res_seg)
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +274,7 @@ class MeshGAT(GATModel):
 
     def _source_buffer(self, graph, hw3, t):
         n, H, D = hw3.shape
-        buf = gather_buffer(torch.cat([hw3.reshape(n, H * D), t], dim=1), graph.send_idx)
+        buf = gather_buffer(torch.cat([hw3.reshape(n, H * D), t], dim=1), graph.send)
         return buf[:, H * D:], buf[:, : H * D].view(-1, H, D)
 
     def _attend_tile(self, graph, hw3, s, t, seed, training):
@@ -272,24 +286,25 @@ class MeshGAT(GATModel):
 
     def _attend_segment(self, graph, hw3, s, t, seed, training):
         t_buf, hw_buf = self._source_buffer(graph, hw3, t)
-        row, col, val = graph.coo
-        edges = _Edges(row, col, val)
+        edges = _Edges(*graph.coo)
         alpha = _edge_softmax_segment(edges, s, t_buf, graph.n_local)
         if training and self.attn_dropout > 0.0:
             alpha = dropout(alpha.contiguous(), seed, self.attn_dropout)
-        contrib = (alpha[:, :, None] * hw_buf[col]).float()
-        out = torch.zeros(hw3.shape, dtype=torch.float32, device=hw3.device)
-        return out.index_add(0, row, contrib).to(hw3.dtype)
+        contrib = (alpha[:, :, None] * gather(hw_buf, edges.col_seg)).float()
+        return segment_sum(contrib, edges.row_seg).to(hw3.dtype)
 
 
 @dataclass(frozen=True)
 class _Edges:
     """COO triplets in the shape ``models.gat._edge_softmax_segment`` reads:
-    ``row`` local dest rows, ``col`` buffer source rows."""
+    ``row`` local dest rows, ``col`` buffer source rows, with their
+    ``Segments`` over the rank's rows and over the buffer."""
 
     row: torch.Tensor
     col: torch.Tensor
     val: torch.Tensor
+    row_seg: Segments
+    col_seg: Segments
 
 
 def _mix64(x: int) -> int:
@@ -475,7 +490,6 @@ def _check_config(cfg: Config, halo: str) -> None:
         f"tp={cfg.tpu.tp}": cfg.tpu.tp > 1,
         f"model={cfg.gcn.model} on the mesh": cfg.gcn.model in ("sage", "gin"),
         "remat": cfg.gcn.remat,
-        "checkpoints": bool(cfg.train.checkpoint_dir),
         "edge_chunk with model=gat on the mesh": (
             gat and cfg.tpu.edge_chunk > 0 and cfg.tpu.backend not in ("hybrid", "bcsr")),
     }
@@ -561,14 +575,17 @@ def preagg_inputs(cfg: Config, run: RankRun):
 
 
 def make_parallel_scan_loop(cfg: Config, run: RankRun, opt_state: AdamState,
-                            gen: torch.Generator, x_train=None, x_eval=None) -> ScanLoop:
-    """The whole-run loop of ``run`` on its rank (``scan.ScanLoop``): the
-    schedule of ``train.scan_schedule``, every epoch's ``rank_seeds`` drawn
-    from ``gen`` now; ``x_train``, ``x_eval`` as ``preagg_inputs`` gives
-    them."""
+                            gen: torch.Generator, x_train=None, x_eval=None, start: int = 0,
+                            checkpoint=None) -> ScanLoop:
+    """The whole-run loop of ``run`` on its rank (``scan.ScanLoop``) over the
+    epochs after ``start``: the schedule of ``train.scan_schedule``, every
+    epoch's ``rank_seeds`` drawn from ``gen`` now; ``x_train``, ``x_eval`` as
+    ``preagg_inputs`` gives them; ``checkpoint`` as ``train.make_scan_loop``
+    takes it."""
     model, graph, data, counts = run.model, run.graph, run.data, run.split_counts
     gat = isinstance(model, MeshGAT)
-    k, deferred = scan_schedule(model, cfg)
+    epochs = max(cfg.gcn.epochs - start, 0)
+    k, deferred = scan_schedule(model, cfg, epochs)
     if deferred:
         step = make_parallel_deferred_step(cfg, model, graph, data, counts, x_train, x_eval)
         final_val = make_parallel_eval_fn(cfg, model, graph, data, counts, VAL,
@@ -577,12 +594,14 @@ def make_parallel_scan_loop(cfg: Config, run: RankRun, opt_state: AdamState,
         step = make_parallel_epoch_step(cfg, model, graph, data, counts, x_train, x_eval)
         final_val = None
     table = seed_table([rank_seeds(epoch_seeds(gen, model.n_layers, attention=gat),
-                                   graph.rank, gat) for _ in range(cfg.gcn.epochs)],
+                                   graph.rank, gat) for _ in range(epochs)],
                        data.x.device)
     return ScanLoop(lambda slots: step(opt_state, slots),
                     state=[*model.weights, *opt_state.m, *opt_state.v, opt_state.step],
                     seeds=SeedSlots(model.n_layers, gat, data.x.device), table=table, k=k,
-                    final_val=final_val, device=data.x.device)
+                    final_val=final_val, device=data.x.device,
+                    every=cfg.train.checkpoint_every if checkpoint else 0,
+                    checkpoint=checkpoint)
 
 
 def fit_parallel(
@@ -594,6 +613,7 @@ def fit_parallel(
     device: str | torch.device = "cuda",
     weights: list[torch.Tensor] | None = None,
     verbose: bool | None = None,
+    resume_from: str | None = None,
 ) -> FitResult:
     """The node-partitioned training run, the mesh counterpart of
     ``train.fit``: partition the host dataset ``ds``, train with per-epoch
@@ -602,7 +622,8 @@ def fit_parallel(
     (torchrun), or with ``n_devices`` 1 and no world (a world of one is
     started). ``halo``: ``all_gather`` or ``boundary`` (default
     ``cfg.tpu.halo``). ``weights`` (float32, a GAT's in JAX leaf order)
-    replace the Glorot init from ``cfg.tpu.seed``. The history, losses and
+    replace the Glorot init from ``cfg.tpu.seed``; ``resume_from`` and the
+    checkpoint options as ``train.fit`` takes them. The history, losses and
     accuracies are the whole world's, equal on every rank; only rank 0
     prints."""
     halo = halo or cfg.tpu.halo
@@ -616,9 +637,11 @@ def fit_parallel(
     gat = cfg.gcn.model == "gat"
     with collectives.world(n_devices, device) as (rank, _):
         verbose = verbose and rank == 0
+        ck, weights, start, seed = resume_state(resume_from, weights, cfg.tpu.seed, "cpu",
+                                                verbose)
         run = build_rank(cfg, ds, rank, n_devices, halo, device, weights)
         sgraph, model = run.sgraph, run.model
-        opt_state = init_adam(list(model.weights))
+        opt_state = resumed_adam(ck, list(model.weights))
         if verbose:
             print(f"mesh: {n_devices} rank(s), halo="
                   f"{'boundary' if sgraph.send_idx is not None else 'all_gather'}, "
@@ -627,26 +650,34 @@ def fit_parallel(
         x_train, x_eval = preagg_inputs(cfg, run)
         test_fn = make_parallel_eval_fn(cfg, model, run.graph, run.data, run.split_counts,
                                         TEST, x_eval=x_eval, preagg=x_eval is not None)
-        gen = torch.Generator().manual_seed(cfg.tpu.seed)
+        gen = torch.Generator().manual_seed(seed)
+        skip_epochs(gen, start, model.n_layers, gat)
+        ckpt_s: list = []
+        save = checkpoint_writer(cfg, model, opt_state, seed, ckpt_s, write=rank == 0,
+                                 barrier=torch.distributed.barrier, verbose=verbose)
         scan = None
         _sync(device)
         t0 = time.perf_counter()
         if cfg.train.mode == "scan":
-            scan = make_parallel_scan_loop(cfg, run, opt_state, gen, x_train, x_eval).run()
+            scan = make_parallel_scan_loop(cfg, run, opt_state, gen, x_train, x_eval, start,
+                                           scan_checkpoints(cfg, start, save, verbose)).run()
             total = time.perf_counter() - t0
             history, epochs_run = scan.history, scan.epochs_run
             if verbose:
-                print_scan(scan, cfg.gcn.epochs)
+                print_scan(scan, cfg.gcn.epochs, start)
         else:
             step = make_parallel_epoch_step(cfg, model, run.graph, run.data,
                                             run.split_counts, x_train, x_eval)
             history, epochs_run = eager_loop(
                 step, opt_state, cfg, SeedSlots(model.n_layers, gat, device),
                 lambda: rank_seeds(epoch_seeds(gen, model.n_layers, attention=gat), rank, gat),
-                device, verbose)
+                device, verbose, start, save)
             total = time.perf_counter() - t0
+        if save is not None:
+            save("ckpt_final.npz", start + epochs_run)
         test_loss, test_acc = (float(v) for v in test_fn())
         if verbose:
             print(f"test_loss={test_loss:.5f} test_acc={test_acc:.5f}")
             print(f"total time: {total:.5f}")
-    return fit_result(model, history, epochs_run, test_loss, test_acc, total, scan)
+    return fit_result(model, history, epochs_run, test_loss, test_acc, total, scan,
+                      start_epoch=start, checkpoint_s=ckpt_s)

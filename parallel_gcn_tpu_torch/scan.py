@@ -21,7 +21,10 @@ host reads nothing from the device until the run ends; with k > 0 it copies
 the stop flag to pinned memory once every ``POLL_EPOCHS`` epochs and stops
 queueing epochs once it reads the flag set, one chunk later. Epochs after
 the stop are frozen no-ops, as the JAX loop's ``where(stopped, ...)`` body
-makes them. On the CPU the same epoch function runs uncaptured.
+makes them. With periodic checkpoints (early stopping off) the host pauses
+after every ``every`` epochs, syncs and writes one; the same graph then
+replays on, so the history is the unchunked run's. On the CPU the same
+epoch function runs uncaptured.
 
 The kernel wrappers count a launch where they enqueue it, so a captured
 epoch counts once, at its capture: ``graph_launches`` of the result holds
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from parallel_gcn_tpu_torch.ops import (cuda_bcsr, cuda_ce, cuda_dropout, cuda_fused,
-                                        cuda_sddmm, tile_attention)
+                                        cuda_sddmm, cuda_segment, tile_attention)
 from parallel_gcn_tpu_torch.parallel import collectives
 
 # epochs queued between two reads of the stop flag (early stopping only)
@@ -92,7 +95,7 @@ def launch_counts() -> dict:
     out: dict = {}
     for counts in (cuda_dropout.launches, cuda_bcsr.launches, tile_attention.launches,
                    cuda_ce.launches, cuda_fused.launches, cuda_sddmm.launches,
-                   collectives.counts):
+                   cuda_segment.launches, collectives.counts):
         out.update(counts)
     return out
 
@@ -119,16 +122,23 @@ class ScanLoop:
     the current weights, run once after the last epoch, and the val columns
     move up one row. ``state`` lists every tensor ``step`` updates in place;
     with early stopping (``k`` > 0) an epoch after the stop puts them back.
-    ``table`` holds every epoch's seeds (``seed_table``)."""
+    ``table`` holds every epoch's seeds (``seed_table``). With ``every`` > 0
+    (and k = 0), ``checkpoint(n)`` runs on the host after every ``every``
+    epochs but the last, the device synced: the state after epoch n of the
+    run."""
 
     def __init__(self, step: Callable, *, state: Sequence[torch.Tensor], seeds: SeedSlots,
-                 table: torch.Tensor, k: int, final_val: Callable | None = None, device):
+                 table: torch.Tensor, k: int, final_val: Callable | None = None, device,
+                 every: int = 0, checkpoint: Callable[[int], None] | None = None):
         if final_val is not None and k:
             raise ValueError("the deferred-eval schedule has no early stopping")
+        if every and (k or checkpoint is None):
+            raise ValueError("periodic checkpoints of a scan need k = 0 and a writer")
         self.device = torch.device(device)
         self.epochs = table.shape[0]
         self.step, self.state, self.seeds, self.table = step, list(state), seeds, table
         self.k, self.final_val = k, final_val
+        self.every, self.checkpoint = every, checkpoint
         dev = self.device
         self.epoch_idx = torch.zeros(1, dtype=torch.int64, device=dev)  # epochs run
         self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
@@ -196,6 +206,14 @@ class ScanLoop:
             self._epoch()
         self.queued += 1
 
+    def _pause(self) -> None:
+        """Write a checkpoint where one is due after the queued epochs (the
+        run's last is left to the caller's final one)."""
+        if self.every and 0 < self.queued < self.epochs and self.queued % self.every == 0:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.checkpoint(self.queued)
+
     def _stop_flag(self) -> Callable[[], bool]:
         """The stop flag as it stands after the queued epochs, read later:
         a pinned non-blocking copy on CUDA."""
@@ -221,13 +239,17 @@ class ScanLoop:
         setup = time.perf_counter() - t0
         first = self.queued
         t1 = time.perf_counter()
+        self._pause()
         pending = None
         while self.queued < self.epochs:
             n = self.epochs - self.queued
             if self.k:
                 n = min(n, POLL_EPOCHS)
+            if self.every:
+                n = min(n, self.every - self.queued % self.every)
             for _ in range(n):
                 self.epoch()
+            self._pause()
             if self.k:
                 # read the flag of the previous chunk while this one runs
                 flag = self._stop_flag()

@@ -20,12 +20,23 @@ per epoch, one 62-bit seed per layer, and for a GAT also one int32
 attention-dropout seed per layer (``epoch_seeds``). Both modes draw them in
 the same order and hand them to the kernels through device slots
 (``scan.SeedSlots``), so they draw the same masks.
+
+Checkpoints (``utils.checkpoint``, the JAX package's format and file names):
+with ``checkpoint_dir`` a run writes ``ckpt_final.npz`` at its end and, every
+``checkpoint_every`` epochs, ``ckpt_{epoch:06d}.npz`` (``mode=eager``: at
+epochs that are multiples of it; ``mode=scan``: every that many epochs of
+this run, with early stopping off). ``resume_from`` loads weights, Adam
+state and epoch, trains the epochs after it, and continues the seed stream
+there (``skip_epochs``), so a resumed run repeats the uninterrupted one's
+last epochs.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
+import warnings
 from dataclasses import dataclass, field, replace
 from typing import Callable
 
@@ -33,6 +44,7 @@ import numpy as np
 import torch
 
 from parallel_gcn_tpu_torch.config import Config
+from parallel_gcn_tpu_torch.convert import adam_state_from_numpy
 from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL, DeviceDataset
 from parallel_gcn_tpu_torch.models.gat import GATModel, init_gat_params
 from parallel_gcn_tpu_torch.models.gcn import GCNModel, init_params, set_matmul_precision
@@ -41,6 +53,7 @@ from parallel_gcn_tpu_torch.ops.graphsum import resolve_backend
 from parallel_gcn_tpu_torch.ops.loss import l2_penalty, masked_softmax_xent
 from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
 from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table, upload_seeds
+from parallel_gcn_tpu_torch.utils.checkpoint import Checkpoint, load_checkpoint, save_checkpoint
 
 Model = GCNModel | GATModel
 
@@ -51,7 +64,9 @@ _ATTN_SEED_HIGH = 2**31 - 1
 @dataclass
 class FitResult:
     weights: list  # float32 tensors, one per layer
-    history: np.ndarray  # [epochs_run, 4]: train_loss, train_acc, val_loss, val_acc
+    # [epochs_run, 4]: train_loss, train_acc, val_loss, val_acc; a resumed
+    # run's epochs after its checkpoint
+    history: np.ndarray
     epochs_run: int
     test_loss: float
     test_acc: float
@@ -62,6 +77,8 @@ class FitResult:
     setup_time_s: float = 0.0  # scan on CUDA: epoch 1 (eager) and the capture
     replays: int = 0  # scan on CUDA: replays of the captured epoch
     graph_launches: dict = field(default_factory=dict)  # kernels, collectives a replay
+    start_epoch: int = 0  # epochs of the checkpoint a resumed run started from
+    checkpoint_s: list = field(default_factory=list)  # seconds of each checkpoint written
 
 
 def _gat_backend(cfg: Config, graph, backend: str) -> str:
@@ -311,12 +328,14 @@ def make_deferred_step(model: GCNModel, cfg: Config, dds: DeviceDataset) -> Call
     return step
 
 
-def scan_schedule(model: Model, cfg: Config) -> tuple[int, bool]:
-    """(k, deferred) of the whole-run path: the early-stopping window k (0
-    when it exceeds the epochs, where the rule can never fire) and whether
-    the epochs run the deferred-eval schedule (k = 0, a GCN with a last
-    aggregation to stack), as the JAX package's ``_make_scan_run`` decides."""
-    epochs = cfg.gcn.epochs
+def scan_schedule(model: Model, cfg: Config, epochs: int | None = None) -> tuple[int, bool]:
+    """(k, deferred) of a whole-run path of ``epochs`` epochs (default
+    ``cfg.gcn.epochs``; a resumed run's are the ones after its checkpoint):
+    the early-stopping window k (0 when it exceeds the epochs, where the
+    rule can never fire) and whether the epochs run the deferred-eval
+    schedule (k = 0, a GCN with a last aggregation to stack), as the JAX
+    package's ``_make_scan_run`` decides."""
+    epochs = cfg.gcn.epochs if epochs is None else epochs
     k = cfg.gcn.early_stopping
     if k > epochs:
         k = 0
@@ -326,31 +345,122 @@ def scan_schedule(model: Model, cfg: Config) -> tuple[int, bool]:
 
 
 def make_scan_loop(model: Model, cfg: Config, dds: DeviceDataset, opt_state: AdamState,
-                   gen: torch.Generator) -> ScanLoop:
-    """The whole-run loop of ``cfg.gcn.epochs`` epochs (``scan.ScanLoop``),
-    with every epoch's seeds drawn from ``gen`` now."""
-    k, deferred = scan_schedule(model, cfg)
+                   gen: torch.Generator, start: int = 0,
+                   checkpoint: Callable[[int], None] | None = None) -> ScanLoop:
+    """The whole-run loop of the epochs after ``start`` (``scan.ScanLoop``),
+    with every epoch's seeds drawn from ``gen`` now; ``checkpoint``, when
+    given, every ``checkpoint_every`` epochs (``scan_checkpoints``)."""
+    epochs = max(cfg.gcn.epochs - start, 0)
+    k, deferred = scan_schedule(model, cfg, epochs)
     gat = isinstance(model, GATModel)
     if deferred:
         step, final_val = make_deferred_step(model, cfg, dds), make_eval_fn(model, cfg, dds, VAL)
     else:
         step, final_val = make_epoch_step(model, cfg, dds), None
     table = seed_table([epoch_seeds(gen, model.n_layers, attention=gat)
-                        for _ in range(cfg.gcn.epochs)], dds.device)
+                        for _ in range(epochs)], dds.device)
     return ScanLoop(lambda slots: step(opt_state, slots),
                     state=[*model.weights, *opt_state.m, *opt_state.v, opt_state.step],
                     seeds=SeedSlots(model.n_layers, gat, dds.device), table=table, k=k,
-                    final_val=final_val, device=dds.device)
+                    final_val=final_val, device=dds.device,
+                    every=cfg.train.checkpoint_every if checkpoint else 0,
+                    checkpoint=checkpoint)
 
 
-def print_scan(result, epochs: int) -> None:
+def scan_checkpoints(cfg: Config, start: int, save: Callable | None,
+                     verbose: bool) -> Callable[[int], None] | None:
+    """The whole-run path's periodic checkpoint writer ``(n) -> None`` (the
+    state after epoch ``start + n``) or None, with the JAX package's
+    warnings (``train._drive_scan_run``): a resumed tail shorter than the
+    early-stopping window, and periodic checkpoints refused with early
+    stopping on (only ``ckpt_final.npz`` is written then)."""
+    k, every = cfg.gcn.early_stopping, cfg.train.checkpoint_every
+    remaining = max(cfg.gcn.epochs - start, 0)
+    if start and 0 < remaining < k and verbose:
+        print(f"warning: {remaining} epochs remain after resume but the early_stopping "
+              f"window needs {k} post-resume val losses — the stopping rule cannot fire "
+              "on this tail")
+    if save is None or not every:
+        return None
+    if k:
+        # a long run silently losing its periodic checkpoints must be heard
+        warnings.warn("scan-mode periodic checkpoints require early_stopping=0 (fused "
+                      "chunks would reset the stopping window); only ckpt_final.npz will be "
+                      "written — use mode=eager for periodic checkpoints with early "
+                      "stopping", stacklevel=3)
+        return None
+    return lambda n: save(f"ckpt_{start + n:06d}.npz", start + n)
+
+
+def checkpoint_writer(cfg: Config, model: Model, opt_state: AdamState, seed: int,
+                      times: list, *, write: bool = True,
+                      barrier: Callable[[], None] | None = None,
+                      verbose: bool = False) -> Callable[[str, int], None] | None:
+    """``save(name, epoch)``: the run's weights, Adam state and generator
+    seed as ``cfg.train.checkpoint_dir``/name, its seconds appended to
+    ``times``; None without a checkpoint_dir. Only a process with ``write``
+    writes (the mesh's rank 0); every process then waits at ``barrier``."""
+    ckpt_dir = cfg.train.checkpoint_dir
+    if not ckpt_dir:
+        return None
+    gat = isinstance(model, GATModel)
+
+    def save(name: str, epoch: int) -> None:
+        t0 = time.perf_counter()
+        if write:
+            save_checkpoint(os.path.join(ckpt_dir, name), list(model.weights), opt_state,
+                            epoch, gat=gat, seed=seed)
+        if barrier is not None:
+            barrier()
+        times.append(time.perf_counter() - t0)
+        if verbose:
+            print(f"checkpoint {name} (epoch {epoch}) written in {times[-1]:.3f} s")
+
+    return save
+
+
+def resume_state(resume_from: str | None, weights, seed: int, device, verbose: bool):
+    """(checkpoint or None, weights, start epoch, generator seed) of a run:
+    the file's at ``resume_from`` (its weights as float32 tensors on
+    ``device``, its seed where it stored one; prints the JAX package's
+    "resumed from" line), else ``weights``, epoch 0 and ``seed``."""
+    if not resume_from:
+        return None, weights, 0, seed
+    if weights is not None:
+        raise ValueError("a run takes weights or resume_from, not both")
+    t0 = time.perf_counter()
+    ck = load_checkpoint(resume_from)
+    weights = [torch.from_numpy(w).to(device) for w in ck.weights]
+    if verbose:
+        print(f"resumed from {resume_from} at epoch {ck.epoch} (loaded in "
+              f"{time.perf_counter() - t0:.3f} s)")
+    return ck, weights, ck.epoch, seed if ck.seed is None else ck.seed
+
+
+def resumed_adam(ck: Checkpoint | None, weights: list[torch.Tensor]) -> AdamState:
+    """Adam's state from the checkpoint ``ck``, or a fresh one for
+    ``weights``."""
+    if ck is None:
+        return init_adam(weights)
+    return adam_state_from_numpy(ck.step, ck.m, ck.v, weights[0].device)
+
+
+def skip_epochs(gen: torch.Generator, epochs: int, n_layers: int, attention: bool) -> None:
+    """Advance ``gen`` past the seeds of ``epochs`` epochs (``epoch_seeds``):
+    a resumed run draws epoch ``epochs + 1``'s seeds next, the counterpart
+    of the JAX package's ``_advance_key``."""
+    for _ in range(epochs):
+        epoch_seeds(gen, n_layers, attention)
+
+
+def print_scan(result, epochs: int, start: int = 0) -> None:
     """The whole-run path's report: the epoch lines after the run, as the
     JAX package's scan prints them (no per-epoch time), then "Early
     stopping..." when it fired and the loop's timing."""
     for e, (tl, ta, vl, va) in enumerate(result.history):
-        print(f"epoch={e + 1} train_loss={tl:.5f} train_acc={ta:.5f} "
+        print(f"epoch={start + e + 1} train_loss={tl:.5f} train_acc={ta:.5f} "
               f"val_loss={vl:.5f} val_acc={va:.5f}")
-    if result.epochs_run < epochs:
+    if start + result.epochs_run < epochs:
         print("Early stopping...")
     if result.replays:
         print(f"scan: epoch 1 and the capture in {result.setup_s:.3f} s, {result.replays} "
@@ -380,19 +490,21 @@ def fit(
     *,
     weights: list[torch.Tensor] | None = None,
     verbose: bool | None = None,
+    resume_from: str | None = None,
 ) -> FitResult:
     """Full training run: init → epochs (+ early stopping) → test eval.
 
     ``mode=scan`` runs the whole-run path (``make_scan_loop``), ``mode=eager``
-    the per-epoch loop; ``checkpoint_dir`` raises NotImplementedError.
-    ``gat_scan_check`` is accepted and does nothing: the JAX package's guard
-    contains failures of XLA's whole-run program on the TPU, and a captured
-    epoch holds the eager epoch's memory."""
+    the per-epoch loop. ``resume_from`` (a checkpoint of either package)
+    replaces the init and the fresh Adam state with the file's and trains
+    the epochs after its epoch; ``checkpoint_dir`` / ``checkpoint_every``
+    write checkpoints (module docstring). ``gat_scan_check`` is accepted and
+    does nothing: the JAX package's guard contains failures of XLA's
+    whole-run program on the TPU, and a captured epoch holds the eager
+    epoch's memory."""
     verbose = cfg.train.verbose if verbose is None else verbose
-    if cfg.train.checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoints are not yet ported to parallel_gcn_tpu_torch"
-        )
+    ck, weights, start, seed = resume_state(resume_from, weights, cfg.tpu.seed, dds.device,
+                                            verbose)
     model = build_model(cfg, dds, weights)
     gat = isinstance(model, GATModel)
     if cfg.tpu.input_preagg and gat:
@@ -402,45 +514,58 @@ def fit(
             print("note: input_preagg has no GAT analog — ignored")
     elif cfg.tpu.input_preagg:
         dds = preaggregate_input(model, dds)
-    opt_state = init_adam(list(model.weights))
-    gen = torch.Generator().manual_seed(cfg.tpu.seed)
+    opt_state = resumed_adam(ck, list(model.weights))
+    gen = torch.Generator().manual_seed(seed)
+    skip_epochs(gen, start, model.n_layers, gat)
     test_fn = make_eval_fn(model, cfg, dds, TEST)
+    ckpt_s: list = []
+    save = checkpoint_writer(cfg, model, opt_state, seed, ckpt_s, verbose=verbose)
     scan = None
 
     _sync(dds.device)
     t0 = time.perf_counter()
     if cfg.train.mode == "scan":
-        scan = make_scan_loop(model, cfg, dds, opt_state, gen).run()
+        scan = make_scan_loop(model, cfg, dds, opt_state, gen, start,
+                              scan_checkpoints(cfg, start, save, verbose)).run()
         total_time = time.perf_counter() - t0
         history, epochs_run = scan.history, scan.epochs_run
         if verbose:
-            print_scan(scan, cfg.gcn.epochs)
+            print_scan(scan, cfg.gcn.epochs, start)
     else:
         history, epochs_run = eager_loop(make_epoch_step(model, cfg, dds), opt_state, cfg,
                                          SeedSlots(model.n_layers, gat, dds.device),
                                          lambda: epoch_seeds(gen, model.n_layers, gat),
-                                         dds.device, verbose)
+                                         dds.device, verbose, start, save)
         total_time = time.perf_counter() - t0
+    if save is not None:
+        save("ckpt_final.npz", start + epochs_run)
 
     test_loss, test_acc = (float(v) for v in test_fn())
     if verbose:
         print(f"test_loss={test_loss:.5f} test_acc={test_acc:.5f}")
         print(f"total time: {total_time:.5f}")
-    return fit_result(model, history, epochs_run, test_loss, test_acc, total_time, scan)
+    return fit_result(model, history, epochs_run, test_loss, test_acc, total_time, scan,
+                      start_epoch=start, checkpoint_s=ckpt_s)
 
 
 def eager_loop(epoch_step: Callable, opt_state: AdamState, cfg: Config, seeds: SeedSlots,
-               draw: Callable, device, verbose: bool) -> tuple[np.ndarray, int]:
-    """The per-epoch loop: each epoch's seeds (``draw()``) uploaded in one
-    non-blocking copy into ``seeds``, its metrics read on the host, the
-    stopping rule applied there. Returns (history, epochs run)."""
+               draw: Callable, device, verbose: bool, start: int = 0,
+               save: Callable[[str, int], None] | None = None) -> tuple[np.ndarray, int]:
+    """The per-epoch loop over the epochs after ``start``: each epoch's
+    seeds (``draw()``) uploaded in one non-blocking copy into ``seeds``, its
+    metrics read on the host, a checkpoint written by ``save`` at epochs that
+    are multiples of ``checkpoint_every``, the stopping rule applied over
+    this run's epochs. Returns (history, epochs run)."""
     k = cfg.gcn.early_stopping
+    every = cfg.train.checkpoint_every if save is not None else 0
     rows = []
-    for epoch in range(1, cfg.gcn.epochs + 1):
+    for epoch in range(start + 1, cfg.gcn.epochs + 1):
         te = time.perf_counter()
         seeds.load(upload_seeds(draw(), device))
         tl, ta, vl, va = epoch_step(opt_state, seeds.slots).tolist()  # waits for the device
         rows.append((tl, ta, vl, va))
+        if every and epoch % every == 0:
+            save(f"ckpt_{epoch:06d}.npz", epoch)
         if verbose:
             print(
                 f"epoch={epoch} train_loss={tl:.5f} train_acc={ta:.5f} "
@@ -455,12 +580,14 @@ def eager_loop(epoch_step: Callable, opt_state: AdamState, cfg: Config, seeds: S
 
 
 def fit_result(model, history, epochs_run, test_loss, test_acc, total_time,
-               scan=None) -> FitResult:
+               scan=None, **extra) -> FitResult:
     """The run's ``FitResult``; with ``scan`` (a ``scan.ScanResult``) its
-    epoch time, set-up and captured epoch."""
+    epoch time, set-up and captured epoch; ``extra`` the resume's start
+    epoch and the checkpoints' seconds."""
     avg = scan.epoch_s if scan is not None else total_time / max(epochs_run, 1)
-    extra = {} if scan is None else dict(setup_time_s=scan.setup_s, replays=scan.replays,
-                                         graph_launches=scan.graph_launches)
+    if scan is not None:
+        extra.update(setup_time_s=scan.setup_s, replays=scan.replays,
+                     graph_launches=scan.graph_launches)
     return FitResult(
         weights=[w.detach() for w in model.weights],
         history=history,

@@ -241,6 +241,28 @@ def fit_routes(rank, world, runs, epochs):
     return out
 
 
+def resume_routes(rank, world, runs, epochs, at, ck_root):
+    """``fit_parallel`` of each run in ``runs`` (name -> (route, ``mesh_config``
+    keywords, initial weights as numpy arrays)) in ``mode=scan`` on this
+    rank, writing a checkpoint every ``at`` epochs under ``ck_root``, then
+    resumed from the one at epoch ``at``: (the whole run's history, the
+    resumed run's, the files written) per run."""
+    ds = mesh_dataset()
+    out = {}
+    for name, (route, kw, w) in runs.items():
+        ck = os.path.join(ck_root, name.replace(" ", "_"))
+        cfg = mesh_config(route, epochs=epochs, mode="scan", **kw)
+        cfg.train.checkpoint_dir, cfg.train.checkpoint_every = ck, at
+        whole = tpl.fit_parallel(cfg, ds, n_devices=world, device="cpu",
+                                 weights=[torch.from_numpy(a) for a in w])
+        files = sorted(os.listdir(ck))
+        cfg.train.checkpoint_dir = ""
+        resumed = tpl.fit_parallel(cfg, ds, n_devices=world, device="cpu",
+                                   resume_from=os.path.join(ck, f"ckpt_{at:06d}.npz"))
+        out[name] = (whole.history, resumed.history, files)
+    return out
+
+
 def _seeded_masks(rank, world):
     """The K1 mask a GCN layer draws on this rank's rows for one epoch's
     seeds (dropout 0.5)."""

@@ -1,0 +1,333 @@
+"""The ordered segment sums of parallel_gcn_tpu_torch (``ops.cuda_segment``).
+
+On the CPU the wrappers run their plain versions (``index_add_``, which the
+CPU runs in item order). Checked here: the CSR offsets and the stable
+permutation against numpy; the GCN's hybrid residual against the JAX
+package's ``graphsum`` segment backend on ``random_graph``; the GAT
+residual's forward merge and backward, on a square pack and on a mesh slab
+(whose dt and dv are summed by source), bit-equal to the ``index_add_`` code
+the port ran before and within rtol 1e-5 (+ 1e-6·max|ref|) of JAX's
+``gat_attend_tiles`` / ``gat_attend_rect`` at f32; the boundary halo's
+backward with a row sent to several peers; and a numpy model of both
+kernels' thread layout and item order (csrc/segment_sum.cu), bit-equal to
+the plain versions in f32. The kernels themselves run on the card in
+``chip_smoke.py`` and in the ``cuda`` test below.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import parallel_gcn_tpu.ops.pallas_bcsr as pb
+from parallel_gcn_tpu.data.graph import build_graph as jax_build_graph
+from parallel_gcn_tpu.ops import tile_attention as jta
+from parallel_gcn_tpu_torch.data.graph import build_graph, random_graph
+from parallel_gcn_tpu_torch.ops import cuda_segment as cs
+from parallel_gcn_tpu_torch.ops import graphsum as tgs
+from parallel_gcn_tpu_torch.ops import tile_attention as ta
+from parallel_gcn_tpu_torch.parallel import collectives
+from test_torch_attention_rect import _attn, _packs
+
+# the module (``parallel_gcn_tpu.ops`` exports the function under its name)
+jgs = importlib.import_module("parallel_gcn_tpu.ops.graphsum")
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+SLOPE, SEED = 0.2, 77
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode():
+    from jax.experimental.pallas import tpu as pltpu
+
+    old = pb._INTERPRET[0]
+    pb._INTERPRET[0] = pltpu.InterpretParams()
+    yield
+    pb._INTERPRET[0] = old
+
+
+@pytest.fixture(scope="module")
+def csr():
+    return random_graph(300, 8, seed=5)[0]
+
+
+def _hybrid(csr):
+    kw = dict(hybrid=True, min_tile_nnz=120, tile_size=128, tile_cols=128)
+    return build_graph(csr, device=CPU, **kw), jax_build_graph(csr, **kw)
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_offsets_and_permutation_match_numpy(sort):
+    rng = np.random.default_rng(1)
+    n = 37
+    idx = rng.integers(0, n - 3, 500)  # the last rows stay empty
+    if sort:
+        idx = np.sort(idx)
+    seg = cs.segments(torch.from_numpy(idx), n)
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(idx, minlength=n))])
+    np.testing.assert_array_equal(seg.ptr.numpy(), ptr)
+    np.testing.assert_array_equal(seg.live.numpy(), np.flatnonzero(np.bincount(idx, minlength=n)))
+    assert seg.ptr.dtype == torch.int32 and seg.live.dtype == torch.int32 and seg.n == n
+    if sort:
+        assert seg.perm is None
+    else:
+        assert seg.perm.dtype == torch.int32
+        np.testing.assert_array_equal(seg.perm.numpy(), np.argsort(idx, kind="stable"))
+    with pytest.raises(ValueError, match="outside"):
+        cs.segments(torch.from_numpy(idx), n - 4)
+
+
+def test_graph_and_slab_segments(csr):
+    """The graph's residual rows are sorted (no permutation); a slab's
+    residual sources take the stable source-sorted permutation."""
+    tg, jg = _hybrid(csr)
+    assert tg.is_hybrid and tg.row_seg.perm is None
+    rows = tg.row.numpy()
+    np.testing.assert_array_equal(
+        tg.row_seg.ptr.numpy(),
+        np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=tg.n_nodes))]))
+    np.testing.assert_array_equal(tg.col_seg.perm.numpy(),
+                                  np.argsort(tg.col.numpy(), kind="stable"))
+    port, _ = _packs(random_graph(2048, 8, seed=9)[0], 128, 50)
+    rrow, rcol, _, row_seg, col_seg = _attn(port, True).residual
+    assert row_seg.n == port.n_local and col_seg.n == port.n_buf
+    np.testing.assert_array_equal(col_seg.perm.numpy(),
+                                  np.argsort(rcol.numpy(), kind="stable"))
+    np.testing.assert_array_equal(
+        col_seg.ptr.numpy(),
+        np.concatenate([[0], np.cumsum(np.bincount(rcol.numpy(), minlength=port.n_buf))]))
+
+
+def test_gcn_residual_matches_jax_segment_backend(csr):
+    tg, jg = _hybrid(csr)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((tg.n_nodes, 41)).astype(np.float32)
+    got = tgs._segment(torch.from_numpy(x), tg, 1).numpy()
+    want = np.asarray(jgs._segment_once(jnp.asarray(x), jg.row, jg.col, jg.val, jg.n_nodes))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+
+    full = build_graph(csr, device=CPU)
+    jfull = jax_build_graph(csr)
+    cot = rng.standard_normal((full.n_nodes, 41)).astype(np.float32)
+    tx = torch.from_numpy(x[: full.n_nodes]).requires_grad_()
+    out = tgs.graphsum(tx, full, backend="segment")
+    out.backward(torch.from_numpy(cot))
+    jout, vjp = jax.vjp(lambda v: jgs.graphsum(v, jfull, backend="segment"),
+                        jnp.asarray(x[: full.n_nodes]))
+    for a, b in ((out.detach().numpy(), jout), (tx.grad.numpy(), vjp(jnp.asarray(cot))[0])):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6 * np.abs(b).max())
+
+
+def _index_add_(out, index, values):
+    """The residual sums as the port ran them before the ordered sums."""
+    return out.index_add_(0, index.index if isinstance(index, cs.Segments) else index, values)
+
+
+def _close(got, ref):
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6 * float(np.abs(ref).max()))
+
+
+def _inputs(n_rows, n_buf, H=2, D=5, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((n_rows, H), (n_buf, H), (n_buf, H, D), (n_rows, H, D))]
+
+
+def _port_attend(fn, s, t, v, cot):
+    ts, tt, tv = (torch.from_numpy(a).requires_grad_() for a in (s, t, v))
+    out = fn(ts, tt, tv)
+    out.backward(torch.from_numpy(cot))
+    return [a.detach().numpy() for a in (out, ts.grad, tt.grad, tv.grad)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_gat_square_residual(csr, monkeypatch, rate):
+    tg, jg = _hybrid(csr)
+    s, t, v, cot = _inputs(tg.n_nodes, tg.n_nodes)
+    seed = SEED if rate else None
+
+    def attend(a, b, c):
+        return ta.gat_attend_tiles(tg, a, b, c, slope=SLOPE, attn_dropout=rate, seed=seed)
+
+    got = _port_attend(attend, s, t, v, cot)
+    with monkeypatch.context() as m:
+        m.setattr(ta, "segment_sum_", _index_add_)
+        before = _port_attend(attend, s, t, v, cot)
+    for a, b in zip(got, before):
+        np.testing.assert_array_equal(a, b)
+
+    def f(a, b, c):
+        return jta.gat_attend_tiles(jg, a, b, c, slope=SLOPE, attn_dropout=rate,
+                                    seed=jnp.int32(SEED) if rate else None)
+
+    jout, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (s, t, v)))
+    for a, b in zip(got, (jout, *vjp(jnp.asarray(cot)))):
+        _close(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_gat_rect_residual(monkeypatch, rate):
+    """A 4-way boundary slab with a residual: dt and dv of its residual
+    edges are summed by source through the slab's permutation."""
+    port, ref = _packs(random_graph(2048, 8, seed=9)[0], 128, 50)
+    attn = _attn(port, True)
+    s, t, v, cot = _inputs(port.n_local, port.n_buf)
+    seed = SEED if rate else None
+
+    def attend(a, b, c):
+        return ta.gat_attend_rect(a, b, c, attn, slope=SLOPE, attn_dropout=rate, seed=seed)
+
+    got = _port_attend(attend, s, t, v, cot)
+    with monkeypatch.context() as m:
+        m.setattr(ta, "segment_sum_", _index_add_)
+        before = _port_attend(attend, s, t, v, cot)
+    for a, b in zip(got, before):
+        np.testing.assert_array_equal(a, b)
+
+    packs = (ref.tiles_r[0], ref.trow_r[0], ref.tcol_r[0], ref.tiles_c[0], ref.trow_c[0],
+             ref.tcol_c[0], ref.res_row[0], ref.res_col[0], ref.res_val[0])
+
+    def f(a, b, c):
+        return jta.gat_attend_rect(a, b, c, *map(jnp.asarray, packs), slope=SLOPE,
+                                   has_res=True, attn_dropout=rate, seed=seed)
+
+    jout, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (s, t, v)))
+    for a, b in zip(got, (jout, *vjp(jnp.asarray(cot)))):
+        _close(a, np.asarray(b))
+
+
+def test_halo_backward_with_repeated_rows():
+    """A row sent to several peers (here: listed thrice) gets the sum of its
+    copies' cotangents, in the order the schedule lists them."""
+    n = 10
+    send = np.array([3, 1, 3, 7, 1, 3, 0])
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32)).requires_grad_()
+    g = rng.standard_normal((n + len(send), 4)).astype(np.float32)
+    with collectives.world(1, CPU):  # an all_to_all of one rank is the identity
+        buf = collectives.gather_buffer(x, cs.segments(torch.from_numpy(send), n))
+        np.testing.assert_array_equal(buf[n:].detach().numpy(), x.detach().numpy()[send])
+        buf.backward(torch.from_numpy(g))
+    want = g[:n].copy()
+    for i, row in enumerate(send):
+        want[row] += g[n + i]
+    np.testing.assert_array_equal(x.grad.numpy(), want)
+
+
+def test_adjoints():
+    """``gather`` and ``segment_sum`` are each other's backward, and
+    ``gather_sum_t``'s backward is the transposed sum."""
+    rng = np.random.default_rng(3)
+    n, m, e = 12, 9, 70
+    row, col = rng.integers(0, n, e), rng.integers(0, m, e)
+    val = rng.standard_normal(e).astype(np.float32)
+    rs, ct = cs.segments(torch.from_numpy(row), n), cs.segments(torch.from_numpy(col), m)
+    x = torch.from_numpy(rng.standard_normal((m, 3)).astype(np.float32)).requires_grad_()
+    a = np.zeros((n, m), np.float32)
+    np.add.at(a, (row, col), val)
+    out = cs.gather_sum_t(x, rs, torch.from_numpy(col), torch.from_numpy(val), ct)
+    g = rng.standard_normal((n, 3)).astype(np.float32)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), a @ x.detach().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), a.T @ g, rtol=1e-5, atol=1e-5)
+
+    y = torch.from_numpy(rng.standard_normal((m, 2)).astype(np.float32)).requires_grad_()
+    summed = cs.segment_sum(cs.gather(y, ct), rs)  # Σ over edges of y[col] into row
+    summed.backward(torch.from_numpy(g[:, :2]))
+    ones = np.zeros((n, m), np.float32)
+    np.add.at(ones, (row, col), 1.0)
+    np.testing.assert_allclose(summed.detach().numpy(), ones @ y.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(y.grad.numpy(), ones.T @ g[:, :2], rtol=1e-5, atol=1e-5)
+
+
+def _kernel_model(seg, width, term, base=None):
+    """csrc/segment_sum.cu in numpy: thread ``tid`` of group ``tid // G``
+    (lane ``tid % G``) owns live segment ``live[group // chunks]`` and
+    columns ``chunk·2G + lane`` and ``+ G``; it adds its segment's items in
+    sorted order (``perm``), one f32 rounding a product and a sum, from 0 or
+    from ``base``. Also checks that every (segment with items, column) has
+    one owner and the other rows none."""
+    G, chunks = cs.group_layout(width)
+    ptr, live = seg.ptr.numpy(), seg.live.numpy()
+    perm = None if seg.perm is None else seg.perm.numpy()
+    out = np.zeros((seg.n, width), np.float32) if base is None else base.copy()
+    owners = np.zeros((seg.n, width), np.int64)
+    for tid in range(len(live) * chunks * G):
+        group, lane = divmod(tid, G)
+        i, chunk = live[group // chunks], group % chunks
+        for c in (chunk * 2 * G + lane, chunk * 2 * G + lane + G):
+            if c >= width:
+                continue
+            owners[i, c] += 1
+            acc = out[i, c]
+            for k in range(ptr[i], ptr[i + 1]):
+                e = k if perm is None else perm[k]
+                acc = np.float32(acc + term(e, c))
+            out[i, c] = acc
+    np.testing.assert_array_equal(owners, np.repeat((np.diff(ptr) > 0)[:, None], width, 1))
+    return out
+
+
+@pytest.mark.parametrize("width", [1, 2, 5, 41, 64, 82, 130])
+@pytest.mark.parametrize("sort", [False, True])
+def test_kernel_model_is_bit_equal_to_plain(width, sort):
+    rng = np.random.default_rng(width)
+    n, n_src, e = 23, 31, 160
+    idx = rng.integers(0, n - 2, e)
+    if sort:
+        idx = np.sort(idx)
+    src = rng.integers(0, n_src, e)
+    val = rng.standard_normal(e).astype(np.float32)
+    x = rng.standard_normal((n_src, width)).astype(np.float32)
+    seg = cs.segments(torch.from_numpy(idx), n)
+    want = cs.gather_sum(torch.from_numpy(x), seg, torch.from_numpy(src),
+                         torch.from_numpy(val)).numpy()
+    got = _kernel_model(seg, width, lambda k, c: np.float32(val[k] * x[src[k], c]))
+    np.testing.assert_array_equal(got, want)
+
+    values = rng.standard_normal((e, width)).astype(np.float32)
+    base = rng.standard_normal((n, width)).astype(np.float32)
+    want = cs.segment_sum_(torch.from_numpy(base.copy()), seg,
+                           torch.from_numpy(values)).numpy()
+    got = _kernel_model(seg, width, lambda k, c: values[k, c], base)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 41, 82])
+def test_kernels_match_plain_on_card(cuda_device, width):
+    """Both kernels against their plain versions on the CPU: f32 bit-equal,
+    two launches bit-identical."""
+    rng = np.random.default_rng(width)
+    n, e = 5000, 60000
+    idx = rng.integers(0, n, e)
+    src = rng.integers(0, n, e)
+    val = rng.standard_normal(e).astype(np.float32)
+    x = rng.standard_normal((n, width)).astype(np.float32)
+    values = rng.standard_normal((e, width)).astype(np.float32)
+    for dev in (CPU, cuda_device):
+        seg = cs.segments(torch.from_numpy(idx).to(dev), n)
+        args = (torch.from_numpy(x).to(dev), seg, torch.from_numpy(src).to(dev),
+                torch.from_numpy(val).to(dev))
+        a = cs.gather_sum(*args).cpu().numpy()
+        np.testing.assert_array_equal(a, cs.gather_sum(*args).cpu().numpy())
+        b = cs.segment_sum_(torch.zeros(n, width, device=dev), seg,
+                            torch.from_numpy(values).to(dev)).cpu().numpy()
+        if dev == CPU:
+            want = (a, b)
+    np.testing.assert_array_equal(a, want[0])
+    np.testing.assert_array_equal(b, want[1])

@@ -103,7 +103,7 @@ def test_epoch_trajectory_matches_jax():
     assert abs(float(ttest[1]) - float(jtest[1])) * ds.test_dim <= 1.01
 
 
-def test_fit_runs_and_reports(capsys):
+def test_fit_runs_and_reports(capsys, tmp_path):
     cfg = _configure(Config(), 4)
     cfg.gcn.dropouts = (0.2, 0.3)
     cfg.train.verbose, cfg.train.mode = True, "scan"
@@ -120,9 +120,9 @@ def test_fit_runs_and_reports(capsys):
     eager = ttrain.fit(cfg, dds)
     np.testing.assert_allclose(res.history, eager.history, rtol=0, atol=1e-5)
     assert res.test_acc == pytest.approx(eager.test_acc, abs=1e-7)
-    cfg.train.checkpoint_dir = "ck"
-    with pytest.raises(NotImplementedError):
-        ttrain.fit(cfg, dds)
+    cfg.train.checkpoint_dir = str(tmp_path / "ck")
+    ttrain.fit(cfg, dds)
+    assert os.listdir(tmp_path / "ck") == ["ckpt_final.npz"]
 
 
 def test_early_stopping_mean_of_last_k():
