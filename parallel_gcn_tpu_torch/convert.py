@@ -1,13 +1,15 @@
 """Parameters of the JAX package as the port's tensors.
 
-The JAX package's GCN params are a list of arrays, its GAT params a list of
-per-layer ``{W, a_src, a_dst}`` dicts, and its Adam state a (step, m, v)
-tuple shaped like the params. Taken as numpy leaves (``np.asarray``), these
-functions turn them into the port's flat lists of float32 tensors in JAX's
-leaf order (``jax.tree.leaves`` sorts dict keys: ``W, a_dst, a_src``), so
-both packages can run from identical weights and optimizer state;
-``gat_params_to_numpy`` maps the port's flat GAT leaves back to JAX's
-per-layer dicts (``utils.checkpoint`` writes them so).
+The JAX package's GCN params are a list of arrays; its GAT, SAGE and GIN
+params are lists of per-layer dicts (``{W, a_src, a_dst}``, ``{neigh,
+self}``, ``{w1, w2}`` with ``{w1}`` for GIN's last layer); its Adam state is
+a (step, m, v) tuple shaped like the params. Taken as numpy leaves
+(``np.asarray``), these functions turn them into the port's flat lists of
+float32 tensors in JAX's leaf order (``jax.tree.leaves`` sorts each dict's
+keys), so both packages can run from identical weights and optimizer state.
+``params_to_numpy`` maps the port's flat leaves back to JAX's layers with
+a model's per-layer keys (``model.layer_keys``, ``models.layer_keys``;
+``utils.checkpoint`` writes them so).
 """
 
 from __future__ import annotations
@@ -16,10 +18,6 @@ import numpy as np
 import torch
 
 from parallel_gcn_tpu_torch.optim import AdamState
-
-# a GAT layer's keys in JAX's leaf order (sorted), the port's leaves a layer
-_GAT_LEAF_KEYS = ("W", "a_dst", "a_src")
-
 
 def _leaves(params) -> list:
     """Flatten a list of arrays or of per-layer dicts in JAX's leaf order."""
@@ -36,27 +34,31 @@ def _tensors(leaves, device) -> list[torch.Tensor]:
     ]
 
 
-def weights_from_numpy(weights: list[np.ndarray], device) -> list[torch.Tensor]:
-    """One float32 tensor on ``device`` per layer weight."""
-    return _tensors(weights, device)
-
-
-def gat_params_from_numpy(params: list[dict], device="cpu") -> list[torch.Tensor]:
-    """A GAT's per-layer ``{W, a_src, a_dst}`` arrays as the port's flat
-    parameter list ``[W_0, a_dst_0, a_src_0, W_1, ...]``."""
+def params_from_numpy(params: list, device="cpu") -> list[torch.Tensor]:
+    """Any family's per-layer arrays or dicts (a GCN's arrays, a GAT's
+    ``{W, a_src, a_dst}``, SAGE's ``{neigh, self}``, GIN's ``{w1[, w2]}``) as
+    the port's flat parameter list of float32 tensors on ``device`` in leaf
+    order, e.g. ``[W_0, a_dst_0, a_src_0, W_1, ...]``."""
     return _tensors(params, device)
 
 
-def gat_params_to_numpy(leaves: list) -> list[dict]:
-    """The port's flat GAT leaves ``[W_0, a_dst_0, a_src_0, W_1, ...]``
-    (tensors or arrays) as JAX's per-layer ``{W, a_dst, a_src}`` float32
-    arrays: the inverse of ``gat_params_from_numpy``."""
-    if len(leaves) % len(_GAT_LEAF_KEYS):
-        raise ValueError(f"{len(leaves)} GAT leaves: not {len(_GAT_LEAF_KEYS)} per layer")
+def params_to_numpy(leaves: list, keys: list[tuple[str, ...] | None]) -> list:
+    """The port's flat leaves (tensors or arrays) as JAX's layers, float32:
+    layer i an array where ``keys[i]`` is None, else the dict of its keys
+    (a model's ``layer_keys``); the inverse of ``params_from_numpy``."""
     arrays = [np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t, np.float32)
               for t in leaves]
-    k = len(_GAT_LEAF_KEYS)
-    return [dict(zip(_GAT_LEAF_KEYS, arrays[i : i + k])) for i in range(0, len(arrays), k)]
+    if len(arrays) != sum(1 if k is None else len(k) for k in keys):
+        raise ValueError(f"{len(arrays)} leaves do not fit the layers' keys {keys}")
+    out, i = [], 0
+    for k in keys:
+        if k is None:
+            out.append(arrays[i])
+            i += 1
+        else:
+            out.append(dict(zip(k, arrays[i : i + len(k)])))
+            i += len(k)
+    return out
 
 
 def adam_state_from_numpy(step, m: list, v: list, device) -> AdamState:

@@ -26,6 +26,9 @@ on ``weights[0]`` apply to W_0 unchanged. Feature dropout is K1
 (``ops.cuda_dropout.dropout``, the port's Philox stream; the JAX package
 uses threefry). Attention dropout takes its own seed per layer: on the tile
 backend an int32 for the hash mask, elsewhere K1 on the attention weights.
+With ``remat`` each training layer is recomputed in the backward
+(``torch.utils.checkpoint``, JAX's ``jax.checkpoint``), its masks redrawn
+from the same seed slots, no RNG state stashed.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from parallel_gcn_tpu_torch.data.graph import Graph
 from parallel_gcn_tpu_torch.device import torch_dtype
@@ -46,7 +50,9 @@ from parallel_gcn_tpu_torch.ops.tile_attention import gat_attend_tiles
 
 LEAKY_SLOPE = 0.2  # paper §2.1
 _NEG = -1e9  # masked-logit fill; finite so empty softmax rows stay finite
-LEAVES_PER_LAYER = 3  # W, a_dst, a_src
+# a layer's keys in JAX's leaf order (sorted): the port's leaves a layer
+LAYER_KEYS = ("W", "a_dst", "a_src")
+LEAVES_PER_LAYER = len(LAYER_KEYS)
 
 
 def init_gat_params(
@@ -104,6 +110,7 @@ class GATModel(nn.Module):
         backend: str = "dense",
         compute_dtype: str = "float32",
         residual: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         if len(params) % LEAVES_PER_LAYER or len(dropouts) * LEAVES_PER_LAYER != len(params):
@@ -120,6 +127,8 @@ class GATModel(nn.Module):
         self.backend = backend
         self.compute_dtype = torch_dtype(compute_dtype)
         self.residual = residual
+        self.remat = remat
+        self.layer_keys = [LAYER_KEYS] * len(dropouts)
 
     @property
     def n_layers(self) -> int:
@@ -177,28 +186,39 @@ class GATModel(nn.Module):
             if seeds is None or len(seeds) != 2 * L:
                 raise ValueError(f"a training forward with dropout needs {2 * L} seeds")
         seeds = list(seeds) if seeds is not None else [None] * (2 * L)
-        attend = {"dense": self._attend_dense, "segment": self._attend_segment,
-                  "tile": self._attend_tile}[self.backend]
-        dtype = self.compute_dtype
-        h = x.to(dtype)
+        h = x.to(self.compute_dtype)
         prev = None
         for layer in range(L):
-            w, a_dst, a_src = self.weights[LEAVES_PER_LAYER * layer:
-                                           LEAVES_PER_LAYER * (layer + 1)]
-            rate = self.dropouts[layer]
-            if training and rate > 0.0:
-                h = dropout(h.contiguous(), seeds[2 * layer], rate)
-            hw = feature_transform(h, w, dtype)
-            hw3 = hw.view(hw.shape[0], self.heads, a_src.shape[1])
-            s = torch.einsum("nhd,hd->nh", hw3, a_src.to(dtype))
-            t = torch.einsum("nhd,hd->nh", hw3, a_dst.to(dtype))
-            out = attend(graph, hw3, s, t, seeds[2 * layer + 1], training)
+            args = (h, graph, layer, seeds[2 * layer], seeds[2 * layer + 1], training)
+            if self.remat and training:
+                h = checkpoint(self._layer, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                h = self._layer(*args)
             if layer == L - 1:
-                h = out.mean(dim=1)  # average heads (paper eq. 6)
                 break
-            h = out.reshape(out.shape[0], -1)
             if self.residual and prev is not None and prev.shape == h.shape:
                 h = h + prev
             h = F.elu(h)
             prev = h
         return h.float()
+
+    def _layer(self, h, graph, layer: int, seed, attn_seed, training: bool):
+        """One layer before its residual and ELU: dropout, transform,
+        attention; heads concatenated, or averaged on the last layer."""
+        dtype = self.compute_dtype
+        w, a_dst, a_src = self.weights[LEAVES_PER_LAYER * layer:
+                                       LEAVES_PER_LAYER * (layer + 1)]
+        rate = self.dropouts[layer]
+        if training and rate > 0.0:
+            h = dropout(h.contiguous(), seed, rate)
+        hw = feature_transform(h, w, dtype)
+        hw3 = hw.view(hw.shape[0], self.heads, a_src.shape[1])
+        s = torch.einsum("nhd,hd->nh", hw3, a_src.to(dtype))
+        t = torch.einsum("nhd,hd->nh", hw3, a_dst.to(dtype))
+        attend = {"dense": self._attend_dense, "segment": self._attend_segment,
+                  "tile": self._attend_tile}[self.backend]
+        out = attend(graph, hw3, s, t, attn_seed, training)
+        if layer == self.n_layers - 1:
+            return out.mean(dim=1)  # average heads (paper eq. 6)
+        return out.reshape(out.shape[0], -1)

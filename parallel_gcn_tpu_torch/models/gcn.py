@@ -19,6 +19,14 @@ instead. Its mask is K1's, so the knob changes a trajectory by matmul
 rounding only. The JAX package takes this branch only with
 ``dropout_impl=pallas``; the port has one dropout (Philox), so it always
 does.
+
+With ``remat`` each training layer (its dropout, transform and aggregation)
+is recomputed in the backward instead of keeping its intermediates
+(``torch.utils.checkpoint``, as the JAX package wraps it in
+``jax.checkpoint``), in ``forward`` and in ``prefix``, which the deferred
+schedule shares. The recompute reads the layer's dropout seed from the same
+device slot, so it redraws the same mask; it stashes no RNG state (the
+kernels draw none, and a captured epoch forbids it).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from parallel_gcn_tpu_torch.data.graph import Graph
 from parallel_gcn_tpu_torch.device import torch_dtype
@@ -81,6 +90,7 @@ class GCNModel(nn.Module):
         compute_dtype: str = "float32",
         input_preagg: bool = False,
         fuse_dropout_matmul: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         if len(dropouts) != len(weights):
@@ -98,6 +108,9 @@ class GCNModel(nn.Module):
         # the input dropout is 0; see train.preaggregate_input)
         self.input_preagg = input_preagg
         self.fuse_dropout_matmul = fuse_dropout_matmul
+        self.remat = remat
+        # a layer is one array, with no keys (the checkpoint's grouping)
+        self.layer_keys = [None] * len(weights)
 
     @property
     def n_layers(self) -> int:
@@ -152,10 +165,21 @@ class GCNModel(nn.Module):
         seeds = list(seeds) if seeds is not None else [None] * self.n_layers
         last = self.n_layers - 1
         h = self.prefix(x, graph, training=training, seeds=seeds, preagg=preagg)
-        h = self.layer_pre(h, last, seeds[last], training, pre_relu=self.defers_relu(last))
-        if not (last == 0 and preagg):
-            h = self.aggregate(h, graph)
-        return h.float()
+        return self.layer(h, graph, last, seeds[last], training, last == 0 and preagg).float()
+
+    def _layer(self, h, graph, layer: int, seed, training: bool, skip_agg: bool):
+        h = self.layer_pre(h, layer, seed, training, pre_relu=self.defers_relu(layer))
+        return h if skip_agg else self.aggregate(h, graph)
+
+    def layer(self, h, graph, layer: int, seed, training: bool, skip_agg: bool):
+        """Layer ``layer`` before its residual and ReLU: ``layer_pre`` then
+        the aggregation (none with ``skip_agg``), recomputed in the backward
+        when training with ``remat``."""
+        args = (h, graph, layer, seed, training, skip_agg)
+        if self.remat and training:
+            return checkpoint(self._layer, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self._layer(*args)
 
     def defers_relu(self, layer: int) -> bool:
         """Whether ``layer`` applies the previous layer's ReLU at its entry
@@ -171,10 +195,7 @@ class GCNModel(nn.Module):
         h = x.to(self.compute_dtype)
         prev = None
         for layer in range(self.n_layers - 1):
-            h = self.layer_pre(h, layer, seeds[layer], training,
-                               pre_relu=self.defers_relu(layer))
-            if not (layer == 0 and preagg):
-                h = self.aggregate(h, graph)
+            h = self.layer(h, graph, layer, seeds[layer], training, layer == 0 and preagg)
             if self.residual:
                 if layer > 0 and prev is not None and prev.shape == h.shape:
                     h = h + prev

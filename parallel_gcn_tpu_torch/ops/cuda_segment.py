@@ -17,11 +17,14 @@ Both run over ``Segments``: the CSR of an index vector, built once with the
 graph on its device (a host sync, never inside a captured epoch). Items
 whose index is not sorted are walked through a stable permutation, so each
 segment's items are added in item order. Both accumulate in float32 and
-store once in the output's type; in float32 that equals the plain version,
-``index_add_`` on the CPU (which adds in item order), bit for bit. In bf16
-the kernel rounds once where ``index_add_`` rounds every product and partial
-sum. ``gather`` and ``segment_sum`` are the two differentiable adjoints:
-each one's backward is the other.
+store once in the output's type. The plain versions compute the same
+function: the terms in float32 (for bf16, (a)'s products of bf16 operands
+are exact in f32), ``index_add_`` into a float32 accumulator on the CPU
+(which adds in item order), one rounding to the output's type. So kernel
+and plain version are one function bit for bit, in float32 and in bf16.
+The JAX package rounds every bf16 product and partial sum instead
+(``ops.graphsum`` states the distance). ``gather`` and ``segment_sum`` are
+the two differentiable adjoints: each one's backward is the other.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors. ``launches`` counts kernel launches.
@@ -102,20 +105,22 @@ def _check_dtype(t: torch.Tensor, what: str) -> None:
 
 def gather_sum_plain(x: torch.Tensor, index: torch.Tensor, src: torch.Tensor,
                      val: torch.Tensor, n: int, n_chunks: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of ``gather_sum``: ``val[e]·x[src[e]]`` in x's
-    dtype, ``index_add_`` by ``index``, ``n_chunks`` item chunks at a time
-    (the last takes the remainder)."""
-    out = torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    """Plain PyTorch version of ``gather_sum``: the products of ``val[e]``
+    (rounded to x's dtype, as the JAX package casts it) and ``x[src[e]]`` in
+    float32, ``index_add_`` by ``index`` into a float32 accumulator,
+    ``n_chunks`` item chunks at a time (the last takes the remainder), then
+    one rounding to x's dtype: kernel (a)'s numeric."""
+    acc = torch.zeros((n, x.shape[1]), dtype=torch.float32, device=x.device)
     e_pad = index.shape[0]
     chunk = e_pad // n_chunks
     for c in range(n_chunks):
         lo = c * chunk
         hi = e_pad if c == n_chunks - 1 else lo + chunk
-        gathered = val[lo:hi, None].to(x.dtype) * x[src[lo:hi]]
+        gathered = val[lo:hi, None].to(x.dtype).float() * x[src[lo:hi]].float()
         # the CPU adds in item order; on the card this plain version runs only
         # beside the kernel, as its yardstick
-        out.index_add_(0, index[lo:hi], gathered)
-    return out
+        acc.index_add_(0, index[lo:hi], gathered)
+    return acc.to(x.dtype)
 
 
 def gather_sum(x: torch.Tensor, seg: Segments, src: torch.Tensor, val: torch.Tensor,
@@ -156,10 +161,13 @@ def segment_sum_(out: torch.Tensor, index: Segments | torch.Tensor,
     (f32 or bf16); out's rows may lie apart (a column slice), each row
     contiguous. Kernel (b) for CUDA tensors (float32 sums from out's
     value, one store), ``index_add_`` for CPU ones (the CPU adds in item
-    order). ``index`` is ``Segments``; on the CPU a raw index does too."""
+    order; bf16 sums in a float32 copy of out, stored once, as the kernel
+    does). ``index`` is ``Segments``; on the CPU a raw index does too."""
     if out.device.type == "cpu":
-        return out.index_add_(0, index.index if isinstance(index, Segments) else index,
-                              values)
+        index = index.index if isinstance(index, Segments) else index
+        if out.dtype == torch.float32:
+            return out.index_add_(0, index, values)
+        return out.copy_(out.float().index_add_(0, index, values.float()))
     if out.device.type != "cuda":
         raise ValueError(f"segment_sum_: unsupported device {out.device}")
     if not isinstance(index, Segments):

@@ -16,6 +16,17 @@ src/module.cu:165-210). Backends:
 
 Backward: Â is symmetric, so the gradient re-runs the same aggregation on
 the cotangent (one ``torch.autograd.Function`` for every backend).
+
+Dtypes. The output is in x's dtype (the bcsr backend's in f32). In bf16
+the segment sum departs from the JAX package's on purpose: the port
+multiplies each bf16-rounded ``val`` by bf16 x exactly in f32, sums in f32
+in edge order and rounds once (kernel (a) on the card, the same function on
+the CPU), where JAX's ``_segment_once`` rounds every product and partial
+sum to bf16. Against an f64 sum, on rows of up to 409 edges (synth-reddit's
+residual), the port's error is at most 0.0039 of the row's Σ|term| (one
+rounding) and JAX's 0.021, so the two agree within 0.025 of Σ|term|
+(``tests/test_torch_segment.py``, ``PORT_VS_JAX_BF16``). In f32 both are one
+rounding a product and a sum apart from the order.
 """
 
 from __future__ import annotations

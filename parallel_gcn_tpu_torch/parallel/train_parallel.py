@@ -21,6 +21,12 @@ Aggregation layouts (``parallel.partition``):
 - the mesh GAT over ``gat_mesh_pack`` slabs (``ops.tile_attention.
   gat_attend_rect``: K5 forward, K7 backward) or over flat COO slabs.
 
+SAGE and GIN (``MeshSAGE``, ``MeshGIN``: the JAX ``forward_agg_variant``)
+run the single-card layers with every aggregation on the rank's slab. Their
+diagonal rewrites scale the rank's own rows by its slice of sqrt(deg)
+(``RankGraph.sqrt_deg``, from ``sharded_sqrt_deg``) before the exchange, so
+the scaled rows are what either halo ships.
+
 Dropout seeds. Every rank draws the epoch's seeds from the same generator
 (``train.epoch_seeds`` seeded with ``cfg.tpu.seed``); ``rank_seeds`` then
 keeps them on rank 0 and replaces each by ``splitmix64(splitmix64(seed) ^
@@ -41,9 +47,12 @@ Checkpoints are the single-card ``fit``'s (``train``'s module docstring):
 every rank loads the same ``resume_from`` file; rank 0 writes each
 checkpoint while the others wait at a barrier.
 
+``remat`` recomputes each layer in the backward, as on one card; the
+recompute issues the layer's collectives again, in the same order on every
+rank, inside the captured epoch.
+
 Not ported (NotImplementedError): the ring and adaptive halos, tensor
-parallelism (``tp`` > 1), SAGE/GIN on the mesh, ``remat`` and the GAT's
-``edge_chunk``. The mesh CE is the plain masked CE of ``ops.loss`` on every
+parallelism (``tp`` > 1) and the GAT's ``edge_chunk``. The mesh CE is the plain masked CE of ``ops.loss`` on every
 rank, as in the JAX package (``ce_impl`` does not apply).
 """
 
@@ -60,6 +69,7 @@ from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL
 from parallel_gcn_tpu_torch.device import resolve_device
 from parallel_gcn_tpu_torch.models.gat import LEAKY_SLOPE, GATModel, _edge_softmax_segment
 from parallel_gcn_tpu_torch.models.gcn import GCNModel, set_matmul_precision
+from parallel_gcn_tpu_torch.models.sage import GINModel, SAGEModel
 from parallel_gcn_tpu_torch.ops.cuda_bcsr import BCSR, bcsr_matmul_rect, slab_pack
 from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout
 from parallel_gcn_tpu_torch.ops.cuda_segment import (Segments, gather, gather_sum,
@@ -79,8 +89,8 @@ from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table
 from parallel_gcn_tpu_torch.train import (_ATTN_SEED_HIGH, _SEED_HIGH, FitResult, _l2_term,
                                           _sync, checkpoint_writer, eager_loop, epoch_seeds,
                                           fit_result, fused_deferred_forward, print_scan,
-                                          resume_state, resumed_adam, scan_checkpoints,
-                                          scan_schedule, skip_epochs)
+                                          init_weights, resume_state, resumed_adam,
+                                          scan_checkpoints, scan_schedule, skip_epochs)
 
 _M64 = (1 << 64) - 1
 
@@ -124,6 +134,19 @@ def rank_data(ds, sgraph, rank: int, device) -> RankData:
     return RankData(x=x, labels=labels, split=split)
 
 
+def sharded_sqrt_deg(ds, sgraph) -> np.ndarray:
+    """The self-loop-inclusive sqrt(deg) of every partition row, f32
+    [n_dev, n_local], 1 on padding rows, in ``shard_dataset``'s row order
+    (JAX ``sharded_sqrt_deg``): the diagonal of the SAGE/GIN rewrites, as
+    ``Graph.sqrt_deg`` is on one card."""
+    s = np.ones(sgraph.n_nodes_pad, np.float32)
+    s[: ds.n_nodes] = np.sqrt(np.diff(ds.graph.indptr).astype(np.float32))
+    perm = getattr(sgraph, "node_perm", None)
+    if perm is not None:
+        s = s[perm]
+    return s.reshape(sgraph.n_dev, sgraph.n_local)
+
+
 @dataclass(frozen=True)
 class RankGraph:
     """Rank ``rank``'s slab of a partition on its device: flat COO
@@ -132,7 +155,7 @@ class RankGraph:
     ``Segments``, and the int8 slab's ``d``), or the mesh GAT's packs
     (``attn``, over ``res``'s layout). ``send`` is the boundary halo's
     schedule, the ``Segments`` of its sent rows (None: the all_gather
-    halo)."""
+    halo). ``sqrt_deg``: the rank's rows' sqrt(deg) (SAGE/GIN only)."""
 
     n_dev: int
     rank: int
@@ -144,6 +167,7 @@ class RankGraph:
     res: tuple | None = None  # (rrow, rcol, rval, row segments)
     d: torch.Tensor | None = None
     attn: RectAttention | None = None
+    sqrt_deg: torch.Tensor | None = None
 
     def aggregate(self, h: torch.Tensor) -> torch.Tensor:
         """Â·h on this rank's rows, in h's dtype."""
@@ -156,9 +180,10 @@ class RankGraph:
         return graphsum_dist_hybrid(h, self.send, self.slab, *self.res)
 
 
-def rank_graph(sgraph, rank: int, device) -> RankGraph:
+def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None) -> RankGraph:
     """Rank ``rank``'s slab of ``sgraph`` (``ShardedGraph``,
-    ``HybridShardedGraph`` or ``GATMeshPack``) on ``device``."""
+    ``HybridShardedGraph`` or ``GATMeshPack``) on ``device``, with its rows
+    of ``sqrt_deg`` (``sharded_sqrt_deg``) when given."""
     r = rank
 
     def i64(a):
@@ -169,7 +194,8 @@ def rank_graph(sgraph, rank: int, device) -> RankGraph:
 
     base = dict(n_dev=sgraph.n_dev, rank=r, n_local=sgraph.n_local, n_buf=sgraph.n_buf,
                 send=None if sgraph.send_idx is None else segments(i64(sgraph.send_idx),
-                                                                    sgraph.n_local))
+                                                                    sgraph.n_local),
+                sqrt_deg=None if sqrt_deg is None else f32(sqrt_deg))
     if isinstance(sgraph, GATMeshPack):
         sg = sgraph
         attn = rect_attention(sg.tiles_r[r], sg.trow_r[r], sg.tcol_r[r], sg.tiles_c[r],
@@ -255,12 +281,26 @@ def graphsum_dist_hybrid_scaled(x_local, d_local, send, slab, rrow, rcol, rval, 
 # ---------------------------------------------------------------------------
 
 
-class MeshGCN(GCNModel):
-    """The GCN forward with every aggregation on the rank's slab (the JAX
-    mesh forward: dropout → X·W → Â·(·) → ReLU, residual as on one card)."""
+class _OnSlab:
+    """A single-card model's aggregation on the rank's slab, in h's dtype."""
 
     def aggregate(self, h: torch.Tensor, graph: RankGraph) -> torch.Tensor:
         return graph.aggregate(h).to(h.dtype)
+
+
+class MeshGCN(_OnSlab, GCNModel):
+    """The GCN forward with every aggregation on the rank's slab (the JAX
+    mesh forward: dropout → X·W → Â·(·) → ReLU, residual as on one card)."""
+
+
+class MeshSAGE(_OnSlab, SAGEModel):
+    """SAGE over the rank's slab (JAX ``forward_agg_variant``): the mean
+    rewrite scales the rank's rows by ``RankGraph.sqrt_deg`` before the
+    exchange."""
+
+
+class MeshGIN(_OnSlab, GINModel):
+    """GIN over the rank's slab, as ``MeshSAGE``, with the sum rewrite."""
 
 
 class MeshGAT(GATModel):
@@ -328,19 +368,24 @@ def rank_seeds(seeds: list[int], rank: int, attention: bool = False) -> list[int
 
 
 def build_mesh_model(cfg: Config, sgraph, weights: list[torch.Tensor],
-                     device) -> MeshGCN | MeshGAT:
-    """The mesh model of ``cfg`` with a copy of ``weights`` (float32, a GAT's
-    in JAX leaf order) on ``device``; training leaves the caller's tensors
-    alone."""
+                     device) -> MeshGCN | MeshGAT | MeshSAGE | MeshGIN:
+    """The mesh model of ``cfg`` with a copy of ``weights`` (float32, the
+    family's leaves in JAX leaf order) on ``device``; training leaves the
+    caller's tensors alone."""
     weights = [w.detach().to(device, torch.float32, copy=True) for w in weights]
+    common = dict(compute_dtype=cfg.tpu.compute_dtype, residual=cfg.gcn.residual,
+                  remat=cfg.gcn.remat)
     if cfg.gcn.model == "gat":
         return MeshGAT(weights, cfg.gcn.dropouts, heads=cfg.gcn.heads,
                        attn_dropout=cfg.gcn.attn_dropout,
                        backend="tile" if isinstance(sgraph, GATMeshPack) else "segment",
-                       compute_dtype=cfg.tpu.compute_dtype, residual=cfg.gcn.residual)
-    return MeshGCN(weights, cfg.gcn.dropouts, residual=cfg.gcn.residual,
-                   compute_dtype=cfg.tpu.compute_dtype,
-                   fuse_dropout_matmul=cfg.tpu.fuse_dropout_matmul)
+                       **common)
+    if cfg.gcn.model == "sage":
+        return MeshSAGE(weights, cfg.gcn.dropouts, **common)
+    if cfg.gcn.model == "gin":
+        return MeshGIN(weights, cfg.gcn.dropouts, gin_eps=cfg.gcn.gin_eps, **common)
+    return MeshGCN(weights, cfg.gcn.dropouts, fuse_dropout_matmul=cfg.tpu.fuse_dropout_matmul,
+                   **common)
 
 
 # ---------------------------------------------------------------------------
@@ -488,8 +533,6 @@ def _check_config(cfg: Config, halo: str) -> None:
     unported = {
         f"halo={halo}": halo in ("ring", "adaptive"),
         f"tp={cfg.tpu.tp}": cfg.tpu.tp > 1,
-        f"model={cfg.gcn.model} on the mesh": cfg.gcn.model in ("sage", "gin"),
-        "remat": cfg.gcn.remat,
         "edge_chunk with model=gat on the mesh": (
             gat and cfg.tpu.edge_chunk > 0 and cfg.tpu.backend not in ("hybrid", "bcsr")),
     }
@@ -534,27 +577,22 @@ class RankRun:
     sgraph: ShardedGraph | HybridShardedGraph | GATMeshPack
     graph: RankGraph
     data: RankData
-    model: MeshGCN | MeshGAT
+    model: MeshGCN | MeshGAT | MeshSAGE | MeshGIN
     split_counts: dict
 
 
 def build_rank(cfg: Config, ds, rank: int, n_devices: int, halo: str, device,
                weights: list[torch.Tensor] | None = None) -> RankRun:
     """Rank ``rank``'s share of a run of ``cfg`` over ``n_devices`` ranks on
-    ``device``; ``weights`` (float32, a GAT's in JAX leaf order) or the
-    Glorot init from ``cfg.tpu.seed``. Sets the matmul precision."""
-    from parallel_gcn_tpu_torch.models.gat import init_gat_params
-    from parallel_gcn_tpu_torch.models.gcn import init_params
-
+    ``device``; ``weights`` (float32, the family's leaves in JAX leaf order)
+    or the Glorot init from ``cfg.tpu.seed``. Sets the matmul precision."""
     sgraph = partition_for(cfg, ds, n_devices, halo)
     if weights is None:
-        gen = torch.Generator().manual_seed(cfg.tpu.seed)
-        weights = (init_gat_params(gen, ds.input_dim, cfg.gcn.hidden_dims, ds.output_dim,
-                                   cfg.gcn.heads) if cfg.gcn.model == "gat" else
-                   init_params(gen, ds.input_dim, cfg.gcn.hidden_dims, ds.output_dim))
+        weights = init_weights(cfg, ds.input_dim, ds.output_dim)
     set_matmul_precision(cfg.tpu.matmul_precision)
+    sdeg = sharded_sqrt_deg(ds, sgraph) if cfg.gcn.model in ("sage", "gin") else None
     return RankRun(
-        sgraph=sgraph, graph=rank_graph(sgraph, rank, device),
+        sgraph=sgraph, graph=rank_graph(sgraph, rank, device, sdeg),
         data=rank_data(ds, sgraph, rank, device),
         model=build_mesh_model(cfg, sgraph, weights, device),
         split_counts={s: int((ds.split == s).sum()) for s in (TRAIN, VAL, TEST)},
@@ -565,9 +603,10 @@ def preagg_inputs(cfg: Config, run: RankRun):
     """(x_train, x_eval) of ``run``: the input pre-aggregation the
     single-card ``fit`` and the JAX package's whole-run program hoist. The
     evals always read Â·X, the train forward too at input dropout 0 (exact
-    reassociation; GCN only); None where the forward reads X."""
+    reassociation; GCN only, as the JAX mesh ignores the knob for the GAT,
+    SAGE and GIN); None where the forward reads X."""
     x_train = x_eval = None
-    if cfg.tpu.input_preagg and cfg.gcn.model != "gat" and cfg.gcn.n_layers >= 2:
+    if cfg.tpu.input_preagg and cfg.gcn.model == "gcn" and cfg.gcn.n_layers >= 2:
         x_eval = make_preagg_fn(run.graph)(run.data.x).to(run.model.compute_dtype)
         if cfg.gcn.dropouts[0] == 0.0:
             x_train = x_eval

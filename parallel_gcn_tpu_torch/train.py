@@ -48,6 +48,8 @@ from parallel_gcn_tpu_torch.convert import adam_state_from_numpy
 from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL, DeviceDataset
 from parallel_gcn_tpu_torch.models.gat import GATModel, init_gat_params
 from parallel_gcn_tpu_torch.models.gcn import GCNModel, init_params, set_matmul_precision
+from parallel_gcn_tpu_torch.models.sage import (GINModel, SAGEModel, init_gin_params,
+                                                init_sage_params)
 from parallel_gcn_tpu_torch.ops.cuda_ce import masked_softmax_xent_fused
 from parallel_gcn_tpu_torch.ops.graphsum import resolve_backend
 from parallel_gcn_tpu_torch.ops.loss import l2_penalty, masked_softmax_xent
@@ -55,7 +57,7 @@ from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
 from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table, upload_seeds
 from parallel_gcn_tpu_torch.utils.checkpoint import Checkpoint, load_checkpoint, save_checkpoint
 
-Model = GCNModel | GATModel
+Model = GCNModel | GATModel | SAGEModel | GINModel
 
 _SEED_HIGH = 2**62
 _ATTN_SEED_HIGH = 2**31 - 1
@@ -102,17 +104,26 @@ def _gat_backend(cfg: Config, graph, backend: str) -> str:
     return "dense" if backend == "dense" else "segment"
 
 
+def init_weights(cfg: Config, input_dim: int, output_dim: int) -> list[torch.Tensor]:
+    """The Glorot init of ``cfg.gcn.model``'s leaves from ``cfg.tpu.seed``,
+    float32 on the CPU, in JAX's leaf order."""
+    gen = torch.Generator().manual_seed(cfg.tpu.seed)
+    init = {"gat": lambda *a: init_gat_params(*a, cfg.gcn.heads), "sage": init_sage_params,
+            "gin": init_gin_params}.get(cfg.gcn.model, init_params)
+    return init(gen, input_dim, cfg.gcn.hidden_dims, output_dim)
+
+
 def build_model(cfg: Config, dds: DeviceDataset,
                 weights: list[torch.Tensor] | None = None) -> Model:
-    """The configured model (``model=gcn`` or ``gat``) on ``dds``'s device,
-    with ``weights`` (a GAT's in JAX leaf order) or a Glorot init from
-    ``cfg.tpu.seed``. Sets the matmul precision (process-wide)."""
-    gat = cfg.gcn.model == "gat"
+    """The configured model (``model=gcn|gat|sage|gin``) on ``dds``'s
+    device, with ``weights`` (the family's leaves in JAX leaf order) or a
+    Glorot init from ``cfg.tpu.seed``. Sets the matmul precision
+    (process-wide)."""
+    family = cfg.gcn.model
+    gat = family == "gat"
     backend = resolve_backend(dds.graph, cfg.tpu.backend, cfg.tpu.dense_threshold)
     gat_backend = _gat_backend(cfg, dds.graph, backend) if gat else None
     unported = {
-        f"model={cfg.gcn.model}": cfg.gcn.model not in ("gcn", "gat"),
-        "remat": cfg.gcn.remat,
         f"tp={cfg.tpu.tp}": cfg.tpu.tp > 1,
         "edge_chunk with model=gat": gat and cfg.tpu.edge_chunk > 0,
     }
@@ -123,13 +134,7 @@ def build_model(cfg: Config, dds: DeviceDataset,
         )
     set_matmul_precision(cfg.tpu.matmul_precision)
     if weights is None:
-        gen = torch.Generator().manual_seed(cfg.tpu.seed)
-        if gat:
-            weights = init_gat_params(gen, dds.input_dim, cfg.gcn.hidden_dims,
-                                      dds.output_dim, cfg.gcn.heads)
-        else:
-            weights = init_params(gen, dds.input_dim, cfg.gcn.hidden_dims,
-                                  dds.output_dim)
+        weights = init_weights(cfg, dds.input_dim, dds.output_dim)
     weights = [w.to(dds.device) for w in weights]
     if gat:
         return GATModel(
@@ -140,17 +145,17 @@ def build_model(cfg: Config, dds: DeviceDataset,
             backend=gat_backend,
             compute_dtype=cfg.tpu.compute_dtype,
             residual=cfg.gcn.residual,
+            remat=cfg.gcn.remat,
         )
-    return GCNModel(
-        weights,
-        cfg.gcn.dropouts,
-        residual=cfg.gcn.residual,
-        backend=backend,
-        edge_chunk=cfg.tpu.edge_chunk,
-        dense_threshold=cfg.tpu.dense_threshold,
-        compute_dtype=cfg.tpu.compute_dtype,
-        fuse_dropout_matmul=cfg.tpu.fuse_dropout_matmul,
-    )
+    common = dict(residual=cfg.gcn.residual, backend=backend, edge_chunk=cfg.tpu.edge_chunk,
+                  dense_threshold=cfg.tpu.dense_threshold,
+                  compute_dtype=cfg.tpu.compute_dtype, remat=cfg.gcn.remat)
+    if family == "sage":
+        return SAGEModel(weights, cfg.gcn.dropouts, **common)
+    if family == "gin":
+        return GINModel(weights, cfg.gcn.dropouts, gin_eps=cfg.gcn.gin_eps, **common)
+    return GCNModel(weights, cfg.gcn.dropouts,
+                    fuse_dropout_matmul=cfg.tpu.fuse_dropout_matmul, **common)
 
 
 def _ce_fn(cfg: Config) -> Callable:
@@ -403,13 +408,12 @@ def checkpoint_writer(cfg: Config, model: Model, opt_state: AdamState, seed: int
     ckpt_dir = cfg.train.checkpoint_dir
     if not ckpt_dir:
         return None
-    gat = isinstance(model, GATModel)
 
     def save(name: str, epoch: int) -> None:
         t0 = time.perf_counter()
         if write:
             save_checkpoint(os.path.join(ckpt_dir, name), list(model.weights), opt_state,
-                            epoch, gat=gat, seed=seed)
+                            epoch, keys=model.layer_keys, seed=seed)
         if barrier is not None:
             barrier()
         times.append(time.perf_counter() - t0)
@@ -507,11 +511,12 @@ def fit(
                                             verbose)
     model = build_model(cfg, dds, weights)
     gat = isinstance(model, GATModel)
-    if cfg.tpu.input_preagg and gat:
+    if cfg.tpu.input_preagg and not isinstance(model, GCNModel):
         # Â·(X·W0) == (Â·X)·W0 is a GCN identity; GAT's aggregation is
-        # data-dependent, so the knob (on by default) has nothing to hoist
+        # data-dependent and SAGE/GIN interleave transforms and sums, so the
+        # knob (on by default) has nothing to hoist
         if verbose:
-            print("note: input_preagg has no GAT analog — ignored")
+            print(f"note: input_preagg has no {cfg.gcn.model.upper()} analog — ignored")
     elif cfg.tpu.input_preagg:
         dds = preaggregate_input(model, dds)
     opt_state = resumed_adam(ck, list(model.weights))

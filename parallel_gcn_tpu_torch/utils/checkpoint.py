@@ -5,9 +5,10 @@ between the two packages both ways. A checkpoint holds the whole training
 state as plain numeric arrays (no pickling):
 
 - ``w{i}``, ``m{i}``, ``v{i}``: layer i's weights and Adam moments. A GCN
-  layer is one array. A GAT layer is JAX's ``{W, a_dst, a_src}`` dict,
-  saved as ``w{i}_<key>`` plus the ``w{i}__keys`` manifest, so
-  ``n_weights`` counts layers, not the port's three leaves a layer;
+  layer is one array. A GAT, SAGE or GIN layer is JAX's dict (``{W, a_dst,
+  a_src}``, ``{neigh, self}``, ``{w1[, w2]}``), saved as ``w{i}_<key>`` plus
+  the ``w{i}__keys`` manifest, so ``n_weights`` counts layers, not the
+  port's leaves (a model's ``layer_keys`` gives each layer's);
 - ``step`` (Adam's count), ``epoch`` (epochs trained), ``n_weights``.
 
 The JAX package also stores its threefry ``key``, which the port cannot
@@ -26,7 +27,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from parallel_gcn_tpu_torch.convert import gat_params_to_numpy
+from parallel_gcn_tpu_torch.convert import params_to_numpy
 
 _SEED_KEY = "torch_seed"
 # a GAT layer's keys in a pre-manifest file (the JAX loader's fallback)
@@ -35,8 +36,8 @@ _GAT_KEYS = ("W", "a_src", "a_dst")
 
 @dataclass
 class Checkpoint:
-    """A loaded checkpoint: flat float32 leaves in JAX's leaf order (a GAT
-    layer's dict by sorted key: ``W, a_dst, a_src``), Adam's count, the
+    """A loaded checkpoint: flat float32 leaves in JAX's leaf order (a
+    layer's dict by sorted key, e.g. ``W, a_dst, a_src``), Adam's count, the
     epochs trained and the port's generator seed (None in a JAX file)."""
 
     weights: list[np.ndarray]
@@ -68,24 +69,19 @@ def _get(data, name: str) -> list[np.ndarray]:
     return [np.asarray(data[f"{name}_{k}"], np.float32) for k in sorted(keys)]
 
 
-def _layers(leaves: list, gat: bool) -> list:
-    """The port's flat leaves (tensors) as JAX's layers: arrays, or GAT
-    dicts."""
-    arrays = [t.detach().float().cpu().numpy() for t in leaves]
-    return gat_params_to_numpy(arrays) if gat else arrays
-
-
-def save_checkpoint(path: str, weights: list, opt_state, epoch: int, *, gat: bool,
-                    seed: int | None = None) -> None:
+def save_checkpoint(path: str, weights: list, opt_state, epoch: int, *,
+                    keys: list[tuple[str, ...] | None], seed: int | None = None) -> None:
     """Write the run's state to ``path`` (``.npz``): ``weights`` and the
-    ``optim.AdamState`` ``opt_state`` (tensors, the port's flat leaves; a
-    GAT's in groups of three), ``epoch``, and the generator ``seed``."""
+    ``optim.AdamState`` ``opt_state`` (tensors, the port's flat leaves),
+    grouped into JAX's layers by ``keys`` (the model's ``layer_keys``: None for
+    a GCN layer's array, else the layer dict's keys), ``epoch``, and the
+    generator ``seed``."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     flat = {"epoch": np.asarray(epoch),
             "step": np.asarray(int(opt_state.step), dtype=np.int32)}
     if seed is not None:
         flat[_SEED_KEY] = np.asarray(seed, dtype=np.int64)
-    ws, ms, vs = (_layers(list(t), gat) for t in (weights, opt_state.m, opt_state.v))
+    ws, ms, vs = (params_to_numpy(list(t), keys) for t in (weights, opt_state.m, opt_state.v))
     for i, (w, m, v) in enumerate(zip(ws, ms, vs)):
         _put(flat, f"w{i}", w)
         _put(flat, f"m{i}", m)

@@ -34,10 +34,10 @@ from parallel_gcn_tpu.utils.checkpoint import save_checkpoint as jax_save_checkp
 from parallel_gcn_tpu_torch import train as ttrain
 from parallel_gcn_tpu_torch.cli import main as cli_main
 from parallel_gcn_tpu_torch.config import Config
-from parallel_gcn_tpu_torch.convert import (gat_params_from_numpy, gat_params_to_numpy,
-                                            weights_from_numpy)
+from parallel_gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
 from parallel_gcn_tpu_torch.data.parser import to_device
 from parallel_gcn_tpu_torch.data.synthetic import make_synthetic_dataset
+from parallel_gcn_tpu_torch.models.gat import LAYER_KEYS
 from parallel_gcn_tpu_torch.optim import AdamState
 from parallel_gcn_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from test_torch_parallel import mesh_config, mesh_dataset, resume_routes, run_world
@@ -91,12 +91,17 @@ def _layouts(model):
     return TILES if model == "gcn" else {}
 
 
-def _jax_weights(jcfg, ds, gat):
+def _jax_weights(jcfg, ds):
     """JAX fit's initial weights (its key schedule) as the port's tensors."""
     _, init_key = jax.random.split(jax.random.PRNGKey(jcfg.tpu.seed))
     w = jax.tree.map(np.asarray, jtrain.init_model_params(jcfg, init_key, ds.input_dim,
                                                           ds.output_dim))
-    return gat_params_from_numpy(w) if gat else weights_from_numpy(w, CPU)
+    return params_from_numpy(w, CPU)
+
+
+def _keys(model):
+    """The port's per-layer keys of a 2-layer ``model`` (its ``layer_keys``)."""
+    return [LAYER_KEYS] * 2 if model == "gat" else [None] * 2
 
 
 def _port_state(gat, seed=0):
@@ -115,7 +120,7 @@ def test_format_round_trips(tmp_path, model):
     gat = model == "gat"
     w, opt = _port_state(gat)
     path = str(tmp_path / "ck.npz")
-    save_checkpoint(path, w, opt, 11, gat=gat, seed=1234)
+    save_checkpoint(path, w, opt, 11, keys=_keys(model), seed=1234)
     ck = load_checkpoint(path)
     assert (ck.epoch, ck.step, ck.seed) == (11, 7, 1234)
     for got, want in zip((ck.weights, ck.m, ck.v), (w, opt.m, opt.v)):
@@ -134,10 +139,10 @@ def test_files_move_between_the_packages(tmp_path, model):
     gat = model == "gat"
     w, opt = _port_state(gat)
     port_file = str(tmp_path / "port.npz")
-    save_checkpoint(port_file, w, opt, 5, gat=gat, seed=3)
+    save_checkpoint(port_file, w, opt, 5, keys=_keys(model), seed=3)
     jw, jopt, epoch, key = jax_load_checkpoint(port_file)
     assert epoch == 5 and int(jopt.step) == 7 and key is None
-    layers = gat_params_to_numpy(w) if gat else [t.numpy() for t in w]
+    layers = params_to_numpy(w, _keys(model))
     for got, want in zip(jw, layers):
         if gat:
             assert set(got) == {"W", "a_src", "a_dst"}
@@ -177,12 +182,11 @@ def test_jax_resumes_a_port_checkpoint(tmp_path, model):
     """The port (from JAX's initial weights) writes ckpt_000004.npz; JAX's
     ``fit`` resumed from it repeats the port's epochs 5-8 within 1e-5."""
     ds = _dataset()
-    gat = model == "gat"
     ck = str(tmp_path / "ck")
     jcfg = _config(JaxConfig(), model=model)
     tres = ttrain.fit(_config(Config(), model=model, ckpt_dir=ck, every=AT),
                       to_device(ds, device=CPU, **_layouts(model)),
-                      weights=_jax_weights(jcfg, ds, gat))
+                      weights=_jax_weights(jcfg, ds))
     jres = jtrain.fit(jcfg, jax_to_device(ds, **_layouts(model)),
                       resume_from=os.path.join(ck, f"ckpt_{AT:06d}.npz"))
     assert jres.epochs_run == EPOCHS - AT
@@ -241,7 +245,7 @@ def test_file_names_are_jax_names(tmp_path, mode, start):
                         AdamState(step=torch.tensor(start, dtype=torch.int32),
                                   m=[torch.zeros(24, 16), torch.zeros(16, 6)],
                                   v=[torch.zeros(24, 16), torch.zeros(16, 6)]),
-                        start, gat=False)
+                        start, keys=_keys("gcn"))
     names = {}
     for pkg, cfg_cls, fit, to_dev in (
             ("jax", JaxConfig, jtrain.fit, lambda: jax_to_device(ds, **TILES)),
@@ -279,7 +283,7 @@ def test_fit_parallel_world_2_resumes(tmp_path):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             refs[route] = jax_fit_parallel(jcfg, jds, n_devices=2)
-        w = _to_port(_jax_init(jcfg, ds), jcfg.gcn.model == "gat")
+        w = _to_port(_jax_init(jcfg, ds))
         runs[route] = (route, dict(weight_decay=0.0, eps=1e-12), w)
         runs[f"{route} decayed"] = (route, {}, w)
         refs[f"{route} decayed"] = _single_card_fit(route, w, epochs=EPOCHS, mode="scan")

@@ -28,7 +28,7 @@ from parallel_gcn_tpu.optim import init_adam as jax_init_adam
 from parallel_gcn_tpu_torch import train as ttrain
 from parallel_gcn_tpu_torch.cli import main as cli_main
 from parallel_gcn_tpu_torch.config import Config
-from parallel_gcn_tpu_torch.convert import weights_from_numpy
+from parallel_gcn_tpu_torch.convert import params_from_numpy
 from parallel_gcn_tpu_torch.data.parser import TEST, to_device
 from parallel_gcn_tpu_torch.data.synthetic import make_synthetic_dataset
 from parallel_gcn_tpu_torch.ops import cuda_ce, cuda_dropout, cuda_fused
@@ -90,7 +90,7 @@ def test_pallas_ce_trajectory_matches_jax():
         jhist.append(np.asarray(m))
 
     tdds = to_device(ds, device=CPU, **LAYOUT)
-    tmodel = ttrain.build_model(tcfg, tdds, weights_from_numpy(w_np, CPU))
+    tmodel = ttrain.build_model(tcfg, tdds, params_from_numpy(w_np, CPU))
     tdds = ttrain.preaggregate_input(tmodel, tdds)
     assert ttrain._ce_fn(tcfg) is masked_softmax_xent_fused
     topt = init_adam(list(tmodel.weights))
@@ -139,7 +139,7 @@ def test_fused_and_unfused_trajectories_agree(dropouts, preagg, monkeypatch):
         cfg = _configure(Config(), 5, dropouts)
         cfg.tpu.fuse_dropout_matmul, cfg.tpu.input_preagg = fuse, preagg
         res = ttrain.fit(cfg, to_device(ds, device=CPU, **LAYOUT),
-                         weights=weights_from_numpy(w_np, CPU))
+                         weights=params_from_numpy(w_np, CPU))
         hist[fuse] = res.history
     np.testing.assert_allclose(hist[True], hist[False], atol=1e-5, rtol=0)
     assert hist[True][-1, 0] < hist[True][0, 0]

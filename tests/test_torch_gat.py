@@ -1,6 +1,6 @@
 """parallel_gcn_tpu_torch GAT model and trainer against the JAX package.
 
-Both packages start from the same parameters (``convert.gat_params_from_numpy``
+Both packages start from the same parameters (``convert.params_from_numpy``
 of a JAX ``init_gat_params`` draw). At dropout 0 the port's forward on each
 backend (dense, segment, tile) must match ``golden.golden_gat_forward`` and
 JAX ``GATModel.apply`` (rtol 2e-5, atol 2e-5), and its loss gradients must
@@ -22,7 +22,7 @@ from parallel_gcn_tpu.models.gat import GATModel as JaxGAT
 from parallel_gcn_tpu.models.gat import init_gat_params as jax_init_gat_params
 from parallel_gcn_tpu.ops.loss import masked_softmax_xent as jax_xent
 from parallel_gcn_tpu.optim import init_adam as jax_init_adam
-from parallel_gcn_tpu_torch.convert import adam_state_from_numpy, gat_params_from_numpy
+from parallel_gcn_tpu_torch.convert import adam_state_from_numpy, params_from_numpy
 from parallel_gcn_tpu_torch.data.graph import build_graph, random_graph
 from parallel_gcn_tpu_torch.models.gat import GATModel, init_gat_params
 from parallel_gcn_tpu_torch.ops.loss import masked_softmax_xent
@@ -79,7 +79,7 @@ def test_forward_matches_golden_and_jax(data, L, H, backend):
     tg, jg = graphs[backend]
     jp, pnp = _params(L, H)
     xp = _pad(x, tg.n_nodes)
-    model = GATModel(gat_params_from_numpy(pnp), (0.0,) * L, heads=H, backend=backend)
+    model = GATModel(params_from_numpy(pnp), (0.0,) * L, heads=H, backend=backend)
     out = model(torch.from_numpy(xp), tg, training=False).detach().numpy()[:N]
     np.testing.assert_allclose(out, golden_gat_forward(pnp, x, csr, H), rtol=2e-5, atol=2e-5)
     jm = JaxGAT(n_layers=L, dropouts=(0.0,) * L, heads=H, backend=backend)
@@ -88,7 +88,7 @@ def test_forward_matches_golden_and_jax(data, L, H, backend):
 
 
 def _port_loss_grads(pnp, graph, backend, x, labels, mask, H):
-    model = GATModel(gat_params_from_numpy(pnp), (0.0, 0.0), heads=H, backend=backend)
+    model = GATModel(params_from_numpy(pnp), (0.0, 0.0), heads=H, backend=backend)
     n = graph.n_nodes
     logits = model(torch.from_numpy(_pad(x, n)), graph, training=True)
     loss, _ = masked_softmax_xent(logits, torch.from_numpy(_pad(labels, n, -1)),
@@ -126,7 +126,7 @@ def test_params_round_trip_from_jax_init(data):
     forwards, and the Adam moments in the same order."""
     csr, graphs, x, _, _ = data
     jp, pnp = _params(3, 2, seed=7)
-    flat = gat_params_from_numpy(pnp)
+    flat = params_from_numpy(pnp)
     leaves = jax.tree.leaves(jp)
     assert [tuple(p.shape) for p in flat] == [tuple(a.shape) for a in leaves]
     for p, a in zip(flat, leaves):
@@ -164,7 +164,7 @@ def test_attention_dropout_keeps_the_rate_and_is_seeded(data):
     _, graphs, x, _, _ = data
     _, pnp = _params(2, 2, seed=2)
     for backend, (tg, _) in graphs.items():
-        model = GATModel(gat_params_from_numpy(pnp), (0.2, 0.3), heads=2,
+        model = GATModel(params_from_numpy(pnp), (0.2, 0.3), heads=2,
                          attn_dropout=0.5, backend=backend)
         xp = torch.from_numpy(_pad(x, tg.n_nodes))
         a = model(xp, tg, training=True, seeds=[1, 11, 2, 22])

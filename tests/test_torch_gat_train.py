@@ -2,9 +2,10 @@
 
 A 10-epoch dropout-0 trajectory of the port's ``make_epoch_step`` with
 ``model=gat backend=hybrid`` (the tile backend) against JAX's, from the
-parameters of a JAX draw carried by ``convert.gat_params_from_numpy``:
+parameters of a JAX draw carried by ``convert.params_from_numpy``:
 losses agree to atol 1e-4, accuracies to one node per split. Plus the GAT
-seeds, ``build_model``'s config errors, ``fit``'s input_preagg note, the
+seeds, ``build_model``'s config errors (and the options it builds since
+they were ported), ``fit``'s input_preagg note, the
 package's import hygiene after a GAT fit and the CLI on the CPU.
 """
 
@@ -25,10 +26,11 @@ from parallel_gcn_tpu.optim import init_adam as jax_init_adam
 from parallel_gcn_tpu_torch import train as ttrain
 from parallel_gcn_tpu_torch.cli import main as cli_main
 from parallel_gcn_tpu_torch.config import Config
-from parallel_gcn_tpu_torch.convert import gat_params_from_numpy
+from parallel_gcn_tpu_torch.convert import params_from_numpy
 from parallel_gcn_tpu_torch.data.parser import TEST, to_device
 from parallel_gcn_tpu_torch.data.synthetic import make_synthetic_dataset
 from parallel_gcn_tpu_torch.models.gat import GATModel
+from parallel_gcn_tpu_torch.models.sage import GINModel, SAGEModel
 from parallel_gcn_tpu_torch.ops import tile_attention
 from parallel_gcn_tpu_torch.optim import init_adam
 
@@ -87,7 +89,7 @@ def test_epoch_trajectory_matches_jax():
 
     tdds = to_device(ds, device=CPU, **layout)
     assert tdds.graph.is_hybrid
-    tmodel = ttrain.build_model(tcfg, tdds, gat_params_from_numpy(w_np))
+    tmodel = ttrain.build_model(tcfg, tdds, params_from_numpy(w_np))
     assert isinstance(tmodel, GATModel) and tmodel.backend == "tile"
     topt = init_adam(list(tmodel.weights))
     tstep = ttrain.make_epoch_step(tmodel, tcfg, tdds)
@@ -133,15 +135,14 @@ def test_build_model_config_errors():
     cfg.tpu.edge_chunk = 1024
     with pytest.raises(NotImplementedError, match="edge_chunk"):
         ttrain.build_model(cfg, coo)
+    # remat and the SAGE/GIN families are ported: they build
     cfg = _configure(Config(), 1)
     cfg.gcn.remat = True
-    with pytest.raises(NotImplementedError, match="remat"):
-        ttrain.build_model(cfg, hybrid)
-    for family in ("sage", "gin"):
+    assert ttrain.build_model(cfg, hybrid).remat
+    for family, cls in (("sage", SAGEModel), ("gin", GINModel)):
         cfg = _configure(Config(), 1)
         cfg.gcn.model = family
-        with pytest.raises(NotImplementedError, match=f"model={family}"):
-            ttrain.build_model(cfg, coo)
+        assert isinstance(ttrain.build_model(cfg, coo), cls)
 
 
 def test_gat_fit_notes_preagg_and_never_imports_jax():

@@ -1,6 +1,6 @@
 """parallel_gcn_tpu_torch GCN model, loss and Adam against the JAX package.
 
-Both packages start from the same weights (``convert.weights_from_numpy``).
+Both packages start from the same weights (``convert.params_from_numpy``).
 With dropouts 0 the port's forward and weight gradients must match JAX
 ``GCNModel.apply``; with dropout > 0 they must match ``golden_forward`` /
 ``golden_grads`` given the port's own Philox masks. Tolerance rtol 1e-4,
@@ -26,7 +26,7 @@ from parallel_gcn_tpu.models.gcn import GCNModel as JaxGCN
 from parallel_gcn_tpu.ops.loss import masked_softmax_xent as jax_xent
 from parallel_gcn_tpu.optim import adam_step as jax_adam_step
 from parallel_gcn_tpu.optim import init_adam as jax_init_adam
-from parallel_gcn_tpu_torch.convert import adam_state_from_numpy, weights_from_numpy
+from parallel_gcn_tpu_torch.convert import adam_state_from_numpy, params_from_numpy
 from parallel_gcn_tpu_torch.data.graph import build_graph
 from parallel_gcn_tpu_torch.data.synthetic import synthetic_csr
 from parallel_gcn_tpu_torch.models.gcn import GCNModel, init_params
@@ -94,7 +94,7 @@ def test_forward_and_grads_match_jax_at_dropout_zero(backend, residual):
 
     (jl, jacc), jgrads = jax.value_and_grad(jloss, has_aux=True)(
         [jnp.asarray(w) for w in w_np])
-    tm = GCNModel(weights_from_numpy(w_np, CPU), (0.0, 0.0, 0.0), residual=residual)
+    tm = GCNModel(params_from_numpy(w_np, CPU), (0.0, 0.0, 0.0), residual=residual)
     logits = tm(torch.from_numpy(x), tg, training=True)
     tl, tacc = masked_softmax_xent(logits, torch.from_numpy(labels),
                                    torch.from_numpy(mask), n_train)
@@ -121,7 +121,7 @@ def test_dropout_forward_and_grads_match_golden(dropouts):
     csr, tg, _, x, labels, mask = _data(BACKENDS["hybrid_int8"])
     w_np = _weights([F_IN, 16, C], seed=2)
     seeds = [11, 2**50 + 7]
-    tm = GCNModel(weights_from_numpy(w_np, CPU), dropouts)
+    tm = GCNModel(params_from_numpy(w_np, CPU), dropouts)
     logits = tm(torch.from_numpy(x), tg, training=True, seeds=seeds)
     n_train = int(mask.sum())
     ce, _ = masked_softmax_xent(logits, torch.from_numpy(labels),
@@ -140,7 +140,7 @@ def test_dropout_forward_and_grads_match_golden(dropouts):
 
 def test_input_preagg_is_exact():
     _, tg, _, x, _, _ = _data(BACKENDS["segment"])
-    w = weights_from_numpy(_weights([F_IN, 16, C]), CPU)
+    w = params_from_numpy(_weights([F_IN, 16, C]), CPU)
     tm = GCNModel(w, (0.0, 0.3))
     xt = torch.from_numpy(x)
     plain = tm(xt, tg, training=True, seeds=[1, 2])
@@ -182,7 +182,7 @@ def test_adam_matches_jax_and_golden():
     w_np = _weights([8, 6, 3], seed=6)
     rng = np.random.default_rng(7)
     kw = dict(learning_rate=0.01, weight_decay=5e-4, beta1=0.9, beta2=0.999, eps=1e-8)
-    tw = weights_from_numpy(w_np, CPU)
+    tw = params_from_numpy(w_np, CPU)
     ts = init_adam(tw)
     jw = [jnp.asarray(w) for w in w_np]
     js = jax_init_adam(jw)

@@ -27,7 +27,7 @@ from parallel_gcn_tpu.data.graph import HostCSR as JaxHostCSR
 from parallel_gcn_tpu.data.parser import Dataset as JaxDataset
 from parallel_gcn_tpu.parallel.train_parallel import fit_parallel as jax_fit_parallel
 from parallel_gcn_tpu.train import init_model_params
-from parallel_gcn_tpu_torch.convert import gat_params_from_numpy, weights_from_numpy
+from parallel_gcn_tpu_torch.convert import params_from_numpy
 from parallel_gcn_tpu_torch.data.parser import to_device
 from parallel_gcn_tpu_torch.parallel.train_parallel import fit_parallel
 from parallel_gcn_tpu_torch.train import fit
@@ -73,9 +73,8 @@ def _jax_init(jcfg, ds):
     return init_model_params(jcfg, init_key, ds.input_dim, ds.output_dim)
 
 
-def _to_port(weights, gat):
-    leaves = gat_params_from_numpy if gat else lambda w: weights_from_numpy(w, "cpu")
-    return [w.numpy() for w in leaves(jax.tree.map(np.asarray, weights))]
+def _to_port(weights):
+    return [w.numpy() for w in params_from_numpy(jax.tree.map(np.asarray, weights))]
 
 
 def _single_card_fit(route, weights, **kw):
@@ -104,7 +103,7 @@ def test_fit_parallel_world_2_matches_jax(tmp_path):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             refs[route] = jax_fit_parallel(jcfg, jds, n_devices=2)
-        w = _to_port(_jax_init(jcfg, ds), jcfg.gcn.model == "gat")
+        w = _to_port(_jax_init(jcfg, ds))
         runs[route] = (route, 0.0, w)
         runs[f"{route} decayed"] = (route, None, w)
         refs[f"{route} decayed"] = _single_card_fit(route, w)
@@ -148,7 +147,7 @@ def test_fit_parallel_scan_world_2_matches_jax_scan(tmp_path):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             refs[name] = jax_fit_parallel(jcfg, jds, n_devices=2)
-        w = _to_port(_jax_init(jcfg, ds), jcfg.gcn.model == "gat")
+        w = _to_port(_jax_init(jcfg, ds))
         runs[name] = (route, 0.0, w, opts)
         runs[f"{name} decayed"] = (route, None, w, opts)
         refs[f"{name} decayed"] = _single_card_fit(route, w, **kw)

@@ -32,7 +32,7 @@ from parallel_gcn_tpu.optim import adam_step as jax_adam_step
 from parallel_gcn_tpu.optim import init_adam as jax_init_adam
 from parallel_gcn_tpu_torch import train as ttrain
 from parallel_gcn_tpu_torch.config import Config
-from parallel_gcn_tpu_torch.convert import gat_params_from_numpy, weights_from_numpy
+from parallel_gcn_tpu_torch.convert import params_from_numpy
 from parallel_gcn_tpu_torch.data.parser import to_device
 from parallel_gcn_tpu_torch.data.synthetic import make_synthetic_dataset
 from parallel_gcn_tpu_torch.ops import cuda_dropout, cuda_fused, tile_attention
@@ -97,7 +97,7 @@ def test_scan_matches_jax_scan(case):
     _, init_key = jax.random.split(jax.random.PRNGKey(jcfg.tpu.seed))
     w = jax.tree.map(np.asarray, jtrain.init_model_params(jcfg, init_key, ds.input_dim,
                                                           ds.output_dim))
-    weights = gat_params_from_numpy(w) if kw.get("gat") else weights_from_numpy(w, CPU)
+    weights = params_from_numpy(w, CPU)
     tres = ttrain.fit(_config(Config(), **kw), to_device(ds, device=CPU, **layout),
                       weights=weights)
     assert tres.epochs_run == jres.epochs_run

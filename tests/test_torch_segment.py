@@ -10,7 +10,12 @@ the port ran before and within rtol 1e-5 (+ 1e-6·max|ref|) of JAX's
 ``gat_attend_tiles`` / ``gat_attend_rect`` at f32; the boundary halo's
 backward with a row sent to several peers; and a numpy model of both
 kernels' thread layout and item order (csrc/segment_sum.cu), bit-equal to
-the plain versions in f32. The kernels themselves run on the card in
+the plain versions in f32. In bf16 (the F4 case): a numpy model of kernel
+(a)'s numeric (f32 products of bf16 operands, an f32 sum in item order, one
+rounding) bit-equal to the port's CPU path, both plain versions' float32
+accumulation, and the port's and JAX's ``_segment_once``'s errors against
+an f64 sum on rows of up to 409 items, from which the port-against-JAX bf16
+tolerance is derived. The kernels themselves run on the card in
 ``chip_smoke.py`` and in the ``cuda`` test below.
 """
 
@@ -298,6 +303,97 @@ def test_kernel_model_is_bit_equal_to_plain(width, sort):
                            torch.from_numpy(values)).numpy()
     got = _kernel_model(seg, width, lambda k, c: values[k, c], base)
     np.testing.assert_array_equal(got, want)
+
+
+# The bf16 residual's error relative to each row's Σ|term|, on
+# ``_bf16_residual`` (44,808 items on 1,500 rows, up to 409 a row, as
+# synth-reddit's residual has): measured 0.003861 for the port (one
+# rounding) and 0.020899 for JAX's ``_segment_once`` (every product and
+# partial sum rounded to bf16), rounded up here. The port's bound is
+# analytic: one bf16 rounding (2^-8) of a sum at most Σ|term|, plus at most
+# 409 float32 roundings (2^-24 each).
+PORT_BF16_ERR = 2.0**-8 + 409 * 2.0**-24
+JAX_BF16_ERR = 0.022
+# port against JAX: within the sum of both errors (triangle inequality
+# through the f64 sum)
+PORT_VS_JAX_BF16 = PORT_BF16_ERR + JAX_BF16_ERR
+
+
+def _bf16_residual(seed=11, n=1500, n_src=4000, width=41, max_len=409):
+    """A residual in item order by row (sorted, as the GCN's is): Zipf row
+    lengths up to ``max_len`` (every 300th row at it), Â-like values
+    1/sqrt(d_i·d_j), bf16 features. Returns (index, src, val, x as bf16,
+    row lengths)."""
+    rng = np.random.default_rng(seed)
+    lens = np.minimum(rng.zipf(1.5, n), max_len)
+    lens[::300] = max_len
+    index = np.repeat(np.arange(n), lens)
+    src = rng.integers(0, n_src, index.size)
+    val = (1.0 / np.sqrt(rng.integers(1, 60, index.size)
+                         * rng.integers(1, 60, index.size))).astype(np.float32)
+    x = rng.standard_normal((n_src, width)).astype(np.float32).astype(jnp.bfloat16)
+    return index, src, val, x, lens
+
+
+def test_bf16_gather_sum_rounds_once_and_its_distance_from_jax():
+    index, src, val, x, lens = _bf16_residual()
+    n, width = lens.size, x.shape[1]
+    # kernel (a) in numpy: val rounded to bf16 (as JAX casts it), each
+    # product of two bf16 values exact in f32, summed in f32 in item order,
+    # one rounding to bf16 at the store
+    terms = val.astype(jnp.bfloat16).astype(np.float32)[:, None] * x[src].astype(np.float32)
+    ptr = np.concatenate([[0], np.cumsum(lens)])[:-1]
+    acc = np.zeros((n, width), np.float32)
+    for k in range(lens.max()):
+        live = lens > k
+        acc[live] = acc[live] + terms[ptr[live] + k]
+    model = acc.astype(jnp.bfloat16).astype(np.float32)
+
+    seg = cs.segments(torch.from_numpy(index), n)
+    xt = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    port = cs.gather_sum(xt, seg, torch.from_numpy(src), torch.from_numpy(val))
+    assert port.dtype == torch.bfloat16
+    port = port.float().numpy()
+    np.testing.assert_array_equal(port, model)
+    # the chunked plain version accumulates across chunks in f32: the same bits
+    chunked = cs.gather_sum_plain(xt, seg.index, torch.from_numpy(src), torch.from_numpy(val),
+                                  n, n_chunks=7)
+    np.testing.assert_array_equal(chunked.float().numpy(), model)
+
+    jax_out = np.asarray(jgs._segment_once(jnp.asarray(x), jnp.asarray(index), jnp.asarray(src),
+                                           jnp.asarray(val), n).astype(jnp.float32))
+    t64 = terms.astype(np.float64)
+    exact, scale = np.zeros((n, width)), np.zeros((n, width))
+    np.add.at(exact, index, t64)
+    np.add.at(scale, index, np.abs(t64))
+    port_err = float((np.abs(port - exact) / scale).max())
+    jax_err = float((np.abs(jax_out - exact) / scale).max())
+    assert port_err <= PORT_BF16_ERR, port_err
+    assert jax_err <= JAX_BF16_ERR, jax_err
+    assert port_err < jax_err / 4  # one rounding against one a product and a sum
+    assert (np.abs(port - jax_out) <= PORT_VS_JAX_BF16 * scale).all()
+
+
+def test_bf16_segment_sum_plain_accumulates_in_f32():
+    """Kernel (b)'s numeric in bf16: out's value and the terms summed in f32
+    in item order, one rounding; rows without items keep their value."""
+    rng = np.random.default_rng(5)
+    n, e, width = 40, 900, 6
+    idx = rng.integers(0, n - 3, e)
+    values = rng.standard_normal((e, width)).astype(np.float32).astype(jnp.bfloat16)
+    base = rng.standard_normal((n, width)).astype(np.float32).astype(jnp.bfloat16)
+    seg = cs.segments(torch.from_numpy(idx), n)
+    order = seg.perm.numpy()
+    acc = base.astype(np.float32)
+    for k in order:  # the stable sorted order is each row's item order
+        acc[idx[k]] = acc[idx[k]] + values[k].astype(np.float32)
+    want = acc.astype(jnp.bfloat16).astype(np.float32)
+    for index in (seg, seg.index):
+        out = torch.from_numpy(base.astype(np.float32)).to(torch.bfloat16)
+        got = cs.segment_sum_(out, index, torch.from_numpy(values.astype(np.float32))
+                              .to(torch.bfloat16))
+        assert got is out and got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 @pytest.fixture

@@ -23,7 +23,7 @@ from parallel_gcn_tpu.optim import init_adam as jax_init_adam
 from parallel_gcn_tpu_torch import train as ttrain
 from parallel_gcn_tpu_torch.cli import main as cli_main
 from parallel_gcn_tpu_torch.config import Config
-from parallel_gcn_tpu_torch.convert import weights_from_numpy
+from parallel_gcn_tpu_torch.convert import params_from_numpy
 from parallel_gcn_tpu_torch.data.parser import TEST, to_device
 from parallel_gcn_tpu_torch.data.synthetic import make_synthetic_dataset
 from parallel_gcn_tpu_torch.optim import init_adam
@@ -82,7 +82,7 @@ def test_epoch_trajectory_matches_jax():
 
     tdds = to_device(ds, device=CPU, **layout)
     assert tdds.graph.is_hybrid
-    tmodel = ttrain.build_model(tcfg, tdds, weights_from_numpy(w_np, CPU))
+    tmodel = ttrain.build_model(tcfg, tdds, params_from_numpy(w_np, CPU))
     tdds = ttrain.preaggregate_input(tmodel, tdds)
     assert tmodel.input_preagg
     topt = init_adam(list(tmodel.weights))
