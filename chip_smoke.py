@@ -34,7 +34,9 @@ Phases, each printed on its own lines:
      bit-identical. The seeded kernels (K1, K2, K5, K6, K7, K10) read their
      seed from a slot on the card, as the trainer passes it; their plain
      versions take the int; K1's and K2's output digests at fixed inputs
-     must be the recorded ones (the mask contract's bits). The ordered
+     must be the recorded ones (the mask contract's bits); K1 at an element
+     offset (the streaming GAT's chunks) bit-equal to the matching slice of
+     K1 without one and to its plain version. The ordered
      segment sums (``csrc/segment_sum.cu``) at synth-reddit's residual: the
      gather-sum of the GCN's residual at 41 and 82 columns (bf16) and at 41
      (f32), of SAGE's and GIN's at 600 columns and of GIN's layer-0 input at
@@ -84,7 +86,17 @@ Phases, each printed on its own lines:
      ``fit_parallel`` in a
      world of one on a small graph, on the card (NCCL) and on the CPU
      (gloo), as a GCN over flat and over hybrid int8 slabs and as a GAT over
-     ``gat_mesh_pack`` slabs: metrics within 2e-4;
+     ``gat_mesh_pack`` slabs: metrics within 2e-4; halo kernels
+     (``[halo-kernels]``): 4 ranks of synth-reddit's flat adaptive and ring
+     partitions and of the hub graph's int8 tile adaptive partition
+     (233,472 nodes, synth-reddit's tiles) emulated on the card, each rank's
+     ring steps, pulled sums, push partials (K3 over the push tiles) and
+     ordered receive-adds, the exchanged rows moved by indexing: Â·x at F=41
+     and 600 bf16 and 602 f32 against the single-card aggregation
+     (``check_halo_case`` states the tolerances), at F=41 against the plain
+     versions on the CPU, the gradient through the self-adjoint route, two
+     runs bit-identical, each piece's time beside the buffer rows of the
+     boundary and all_gather layouts;
   7. main paths, each in ``mode=scan`` (the whole-run path: epoch 1, the
      capture of the epoch as one CUDA graph, 9 replays) with the launch
      counts set to 0 just before it:
@@ -98,7 +110,15 @@ Phases, each printed on its own lines:
      ``max_memory_allocated`` of each); then the mesh trainer
      ``parallel.train_parallel.fit_parallel`` at ``n_devices=1`` (a world of
      one over NCCL) with ``halo=boundary``, as the GCN, the GAT, SAGE and
-     GIN, each beside the single-card epoch of this run; the losses must be
+     GIN, each beside the single-card epoch of this run; then the mesh GCN
+     and SAGE over flat COO slabs with ``halo=ring`` and the mesh GCN with
+     ``halo=adaptive`` over flat and over int8 tile slabs (one rank: the
+     ring is one slab, the adaptive halo falls back to all_gather); the
+     segment GAT with attention dropout 0.1 through ``cli.main`` without and
+     with ``edge_chunk=1048576`` (train losses within 1e-3, the chunked
+     run's peak ``max_memory_allocated`` lower; one layer's chunked
+     attention against the unchunked one, ``check_attention_chunked``) and
+     the mesh GAT with the same ``edge_chunk``; the losses must be
      finite and fall, except GIN's (at the file's rate its loss rises, as in
      the JAX package: ``GIN_ARGS``); each path's launches a replay (the
      wrappers count a captured epoch once, at its capture) must be its
@@ -420,11 +440,54 @@ def check_dropout(results: dict) -> None:
             results["K2"] = dict(err=0.0, ms=ms2, plain_ms=pms2, **bound)
 
 
-def _check_stacked(tag: str, spmm, a, b) -> None:
+def check_dropout_offset() -> None:
+    """K1 at an element offset (the streaming GAT's chunks): each slice,
+    taken at a multiple of 4 elements, bit-equal to the matching slice of K1
+    over the whole tensor without an offset, and to the plain version at
+    that offset, through a view (the scalar path where the view is not
+    16-byte aligned) and through a copy (the vector path), bf16 and f32;
+    K1's backward at the offset too. Offsets that are not multiples of 4
+    are refused."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
+
+    gen = torch.Generator().manual_seed(11)
+    seed, rate = 0x0DDB_A11C_0FFE, 0.1
+    slot = _slot(seed)
+    E, H = 2_500_003, 2  # [E, heads] attention weights, as a chunk slices them
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((E, H), generator=gen).to(dtype).cuda()
+        whole = cd.dropout(x, slot, rate)
+        for start in (4, 1_048_576, 1_048_576 * 2 - 4, E - 7):
+            o = start * H
+            want = whole[start:]
+            for part in (x[start:], x[start:].clone()):
+                got = cd.dropout(part, slot, rate, offset=o)
+                assert torch.equal(got, want), f"K1 at offset {o} != the whole call's slice"
+                assert torch.equal(got.cpu(), cd.dropout_plain(part.cpu(), seed, rate,
+                                                                offset=o)), \
+                    f"K1 at offset {o} != plain"
+            xr = x[start:].clone().requires_grad_(True)
+            cd.dropout(xr, slot, rate, offset=o).backward(torch.ones_like(xr))
+            assert torch.equal(xr.grad, cd.dropout(torch.ones_like(x), slot, rate)[start:]), \
+                f"K1 backward at offset {o}"
+    try:
+        cd.dropout(x[1:], slot, rate, offset=2)
+        raise AssertionError("K1 took an offset that is not a multiple of 4")
+    except ValueError:
+        pass
+    print(f"[kernels] K1 with an element offset ([{E}, {H}] bf16 and f32, chunks from edges 4, "
+          f"1048576, 2097148 and {E - 7}): bit-equal to the slice of K1 without one and to "
+          f"its plain version, through views and copies, backward included; an offset not "
+          f"a multiple of 4 is refused")
+
+
+def _check_stacked(tag: str, spmm, a, b, bound: dict | None = None) -> None:
     """The deferred-eval schedule's call: ``spmm`` of ``[a | b]`` at twice
     the width against two calls at the width of one. Prints whether each
     column's sums are bitwise those of the narrow call, else the largest
-    difference, and the times."""
+    difference, and the times, with the wide call's ``bound`` when given."""
     import torch
 
     c = a.shape[1]
@@ -436,7 +499,9 @@ def _check_stacked(tag: str, spmm, a, b) -> None:
     narrow = _events_ms(lambda: spmm(a), 10)
     print(f"[kernels] {tag} stacked F={2 * c} (the deferred eval's train | val halves): "
           f"columns bitwise those of two F={c} calls: {same} (max difference {diff:.3e}); "
-          f"{wide:.4f} ms with the concatenation, against 2 x {narrow:.4f} ms")
+          f"{wide:.4f} ms with the concatenation, against 2 x {narrow:.4f} ms"
+          + (f"; bound of the wide call {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
+             if bound else ""))
 
 
 def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
@@ -519,8 +584,10 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
         del signed, got
         results[key]["err"] = max(errs)
         if key == "K4":
+            # the wide call's bound: the pack, x [n, 82] bf16 in, [n, 82] f32 out
             _check_stacked("K4", lambda x: cb.bcsr_matmul_impl(pack, x), x41,
-                           torch.randn((n, 41), generator=gen).to(torch.bfloat16).cuda())
+                           torch.randn((n, 41), generator=gen).to(torch.bfloat16).cuda(),
+                           _bound(_pack_bytes(pack) + n * 82 * (2 + 4), 2 * pack_nnz * 82))
 
 
 def _segment_case(results: dict, key: str, label: str, fn, ref, plain, library,
@@ -1222,6 +1289,337 @@ def check_reference_mesh() -> None:
         assert diff < 2e-4, f"{name}: card and CPU trajectories differ by {diff}"
 
 
+HALO_RANKS = 4
+
+
+def hub_csr(n: int, w: int = 2, n_hubs: int = 3):
+    """The JAX package's power-law test fixture (``tests/test_parallel.py``
+    ``_hub_csr``) at ``n`` nodes: a band of width ``w`` plus ``n_hubs`` nodes
+    adjacent to every node, with self-loops, built with the port's CSR
+    builder."""
+    import numpy as np
+
+    from parallel_gcn_tpu_torch.data.graph import add_self_loops_csr
+
+    band, hubs, every = np.arange(-w, w + 1), np.arange(n_hubs), np.arange(n)
+    lists = []
+    for i in range(n):
+        nb = np.delete(every, i) if i < n_hubs else np.union1d(hubs, np.clip(i + band, 0, n - 1))
+        lists.append(nb[nb != i].astype(np.int32))
+    return add_self_loops_csr(lists)
+
+
+def _emulate(sg, graphs, xs):
+    """Â·x of a partition's ranks, each rank's half on the card
+    (``parallel.train_parallel``'s ``ring_step``, ``pull_sum``,
+    ``push_partials``, ``receive_add``, the ordered sums) and the rows the
+    collectives carry moved between the ranks by indexing, with no NCCL.
+    ``xs``: each rank's rows. Returns each rank's output rows."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops.cuda_segment import gather_sum
+    from parallel_gcn_tpu_torch.parallel import train_parallel as tpl
+
+    n = sg.n_dev
+
+    def all_to_all(slabs):  # chunk d of rank b's rows goes to rank d, in rank order
+        s = slabs[0].shape[0] // n
+        return [torch.cat([slabs[b][d * s:(d + 1) * s] for b in range(n)]) for d in range(n)]
+
+    if graphs[0].ring is not None:
+        accs, blks = [None] * n, list(xs)
+        for s in range(n):
+            accs = [tpl.ring_step(accs[d], blks[d], graphs[d].ring[s]) for d in range(n)]
+            blks = [blks[(d - 1) % n] for d in range(n)]  # rank d gets rank d − 1's block
+        return accs
+    scale = [g.d for g in graphs]
+    if scale[0] is not None:  # int8 pattern slabs: d before any exchange
+        xs = [(d[:, None] * x.float()).to(x.dtype) for d, x in zip(scale, xs)]
+    if sg.send_idx is None:
+        bufs = [torch.cat(xs)] * n
+    else:
+        recv = all_to_all([x.index_select(0, g.send.index) for x, g in zip(xs, graphs)])
+        bufs = [torch.cat([x, r]) for x, r in zip(xs, recv)]
+    outs = []
+    for g, buf in zip(graphs, bufs):
+        if g.coo is not None:
+            row, col, val, row_seg, _ = g.coo
+            outs.append(gather_sum(buf, row_seg, col, val))
+        else:
+            outs.append(tpl.pull_sum(buf, g.slab, *g.res[1:]))
+    if graphs[0].push is not None:
+        recv = all_to_all([tpl.push_partials(x, g.push) for x, g in zip(xs, graphs)])
+        outs = [tpl.receive_add(o, r, g.push) for o, r, g in zip(outs, recv, graphs)]
+    if scale[0] is not None:
+        outs = [(d[:, None] * o).to(o.dtype) for d, o in zip(scale, outs)]
+    return outs
+
+
+def phase_halo_kernels(ds) -> dict:
+    """The ring and adaptive halos' rank-local halves on the card, 4 ranks
+    emulated on one card (``_emulate``): synth-reddit's flat adaptive
+    partition (push pairs, from its community reorder), its ring, and the
+    hybrid int8 adaptive partition of the hub fixture at synth-reddit's node
+    count and tile settings (push pairs), each checked by
+    ``check_halo_case``. Returns each case's buffer rows and piece times."""
+    cfg = _config([], 1)
+    n = HALO_RANKS
+    t0 = time.perf_counter()
+    hub = hub_csr(232_965 + 507)  # 233,472 nodes: the padded synth-reddit count
+    t_hub = time.perf_counter() - t0
+    tiles = dict(tile_r=cfg.tpu.tile_size, tile_c=cfg.tpu.tile_cols, tile_dtype="int8",
+                 tile_budget_bytes=cfg.tpu.tile_budget_mb * 1024 * 1024,
+                 min_tile_nnz=cfg.tpu.min_tile_nnz or None, node_pad=cfg.tpu.node_pad)
+    t0 = time.perf_counter()
+    cases = halo_cases(ds.graph, hub, n, tiles)
+    print(f"[halo-kernels] the hub graph ({hub.n_rows} nodes, {hub.nnz} entries) built in "
+          f"{t_hub:.1f} s; the {n}-way adaptive, ring and boundary partitions in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {name: check_halo_case(name, *case, "cuda") for name, case in cases.items()}
+
+
+def halo_cases(graph, hub, n: int, tiles: dict) -> dict:
+    """name -> (CSR, partition, the boundary layout's partition or None):
+    ``graph``'s flat adaptive and ring partitions, ``hub``'s int8 tile
+    adaptive one (``tiles``: partition_graph_hybrid's tile settings); both
+    adaptive ones must push."""
+    from parallel_gcn_tpu_torch.parallel import partition
+
+    with warnings_ignored():
+        cases = {
+            "flat adaptive, synth-reddit": (
+                graph, partition.partition_graph(graph, n, adaptive=True),
+                partition.partition_graph(graph, n, boundary=True)),
+            "ring, synth-reddit": (graph, partition.partition_graph_ring(graph, n), None),
+            "hybrid int8 adaptive, hub graph": (
+                hub, partition.partition_graph_hybrid(hub, n, adaptive=True, **tiles),
+                partition.partition_graph_hybrid(hub, n, boundary=True, **tiles)),
+        }
+    assert cases["flat adaptive, synth-reddit"][1].push_slab > 0
+    assert cases["hybrid int8 adaptive, hub graph"][1].push_slab > 0
+    return cases
+
+
+def check_halo_case(name: str, csr, sg, sgb, device: str) -> dict:
+    """One partition's ranks emulated on ``device`` (``_emulate``): Â·x at
+    F=41 and F=600 bf16 and F=602 f32 against the single-card ``graphsum``
+    of the same graph on the device (f32: rtol 1e-4 + 1e-5·max|ref|, phase
+    3's; bf16: 2^-6 of each row's Σ|Â_ij x_j| + 1e-5·max|ref|, since the
+    pipeline rounds each ring step's and each push partial's sum to bf16
+    where the single-card path rounds once: the bound of those roundings)
+    and at F=41 bf16 against the same pipeline's plain versions on the CPU
+    (phase 3's bf16 tolerance; the plain gather-sum's [E, F] f32 products at
+    F=600 would take 28 GB of host memory); the gradient through the
+    self-adjoint route (the pipeline on a cotangent) against the single
+    card's autograd at F=41 f32; two runs bit-identical. Prints each
+    piece's time on the first rank that pushes tiles (else rank 0) beside
+    the buffer rows of the boundary and all_gather layouts."""
+    import torch
+
+    from parallel_gcn_tpu_torch.data.graph import build_graph
+    from parallel_gcn_tpu_torch.ops.cuda_segment import gather_sum
+    from parallel_gcn_tpu_torch.ops.graphsum import graphsum
+    from parallel_gcn_tpu_torch.parallel import train_parallel as tpl
+
+    n = sg.n_dev
+    dev, cpu = torch.device(device), torch.device("cpu")
+    gen = torch.Generator().manual_seed(12)
+    graphs = [tpl.rank_graph(sg, r, dev) for r in range(n)]
+    single = build_graph(csr, device=dev, n_nodes_pad=sg.n_nodes_pad)
+    perm = getattr(sg, "node_perm", None)
+    perm = None if perm is None else torch.from_numpy(perm).to(dev)
+    n_real = csr.n_rows
+
+    def split(x):
+        x = x if perm is None else x[perm]
+        return list(x.split(sg.n_local))
+
+    def reference(x):  # the single-card Â·x in the partition's row order
+        y = graphsum(x, single, backend="segment")
+        return y if perm is None else y[perm]
+
+    errs = []
+    for F, dtype in ((41, torch.bfloat16), (600, torch.bfloat16), (602, torch.float32)):
+        x = torch.zeros((sg.n_nodes_pad, F), dtype=dtype, device=dev)
+        x[:n_real] = torch.randn((n_real, F), generator=gen).to(dtype).to(dev)
+        got = torch.cat(_emulate(sg, graphs, split(x)))
+        assert torch.equal(got, torch.cat(_emulate(sg, graphs, split(x)))), \
+            f"{name}: two runs differ"
+        ref = reference(x)
+        if dtype == torch.float32:
+            errs.append(_max_err(got, ref, 1e-4))
+        else:
+            scale = reference(x.abs().float())
+            err = (got.float() - ref.float()).abs()
+            assert bool((err <= 2.0**-6 * scale + 1e-5 * ref.abs().max()).all()), \
+                f"{name} F={F}: beyond the bf16 rounding bound"
+            errs.append(float(err.max()))
+        if F == 41:
+            cgraphs = [tpl.rank_graph(sg, r, cpu) for r in range(n)]
+            plain = torch.cat(_emulate(sg, cgraphs, [t.cpu() for t in split(x)]))
+            cpu_err = _max_err(got, plain.to(dev), 2e-3)
+            del cgraphs, plain
+        del x, got, ref
+    # the gradient: the same pipeline on the cotangent (self-adjoint)
+    g = torch.zeros((sg.n_nodes_pad, 41), device=dev)
+    g[:n_real] = torch.randn((n_real, 41), generator=gen).to(dev)
+    xr = torch.zeros_like(g).requires_grad_(True)
+    graphsum(xr, single, backend="segment").backward(g)
+    want = xr.grad if perm is None else xr.grad[perm]
+    grad_err = _max_err(torch.cat(_emulate(sg, graphs, split(g))), want, 1e-4)
+    del g, xr, want
+
+    # each piece's time on one rank, at 41 and 600 bf16
+    r = next((r for r, g in enumerate(graphs) if g.push is not None and g.push.tiles is not None),
+             0)
+    g0 = graphs[r]
+    pieces = {}
+    for F in (41, 600):
+        x0 = torch.randn((sg.n_local, F), generator=gen).to(torch.bfloat16).to(dev)
+        if g0.ring is not None:
+            pieces[f"ring step 0 (local slab) F={F}"] = _events_ms(
+                lambda: tpl.ring_step(None, x0, g0.ring[0]), 5)
+            pieces[f"ring steps 1-{n - 1} F={F}"] = sum(_events_ms(
+                lambda s=s: tpl.ring_step(None, x0, g0.ring[s]), 5) for s in range(1, n))
+            continue
+        buf = torch.randn((sg.n_buf, F), generator=gen).to(torch.bfloat16).to(dev)
+        if g0.coo is not None:
+            row, col, val, row_seg, _ = g0.coo
+            pieces[f"pull gather-sum F={F}"] = _events_ms(
+                lambda: gather_sum(buf, row_seg, col, val), 5)
+        else:
+            pieces[f"pull K3 + residual F={F}"] = _events_ms(
+                lambda: tpl.pull_sum(buf, g0.slab, *g0.res[1:]), 5)
+        if g0.push.tiles is not None:
+            pieces[f"push K3 alone F={F}"] = _events_ms(
+                lambda: tpl.bcsr_matmul_rect(g0.push.tiles, x0), 5)
+        part = tpl.push_partials(x0, g0.push)
+        pieces[f"push partial slab F={F}"] = _events_ms(
+            lambda: tpl.push_partials(x0, g0.push), 5)
+        out = torch.zeros((sg.n_local, F), dtype=torch.bfloat16, device=dev)
+        pieces[f"receive-add F={F}"] = _events_ms(
+            lambda: tpl.receive_add(out, part, g0.push), 5)
+        del buf, part, out
+    rows = {"this layout": sg.n_local if getattr(sg, "ring", False) else sg.n_buf,
+            "boundary": None if sgb is None else sgb.n_buf, "all_gather": sg.n_nodes_pad}
+    push = f"push_slab {sg.push_slab}, pull halo {sg.halo_size}, " if sg.push_slab else ""
+    if hasattr(sg, "ptiles") and sg.push_slab:
+        push += (f"tiles a rank {sg.tiles.shape[1]} pulled + {sg.ptiles.shape[1]} pushed "
+                 f"(boundary layout {sgb.tiles.shape[1]}), ")
+    print(f"[halo-kernels] {name}, {n} ranks emulated on the card: {push}buffer rows a rank "
+          f"{json.dumps(rows)}; Â·x at F=41/600 bf16 and F=602 f32 against the single-card "
+          f"graphsum, max_abs_err {', '.join(f'{e:.3e}' for e in errs)}; F=41 bf16 against "
+          f"the plain versions on the CPU {cpu_err:.3e}; gradient (the pipeline on the "
+          f"cotangent) against the single card's autograd {grad_err:.3e}; two runs "
+          f"bit-identical; rank {r}'s pieces, ms: "
+          f"{json.dumps({k: round(v, 4) for k, v in pieces.items()})}")
+    return dict(rows=rows, push_slab=sg.push_slab, ms=pieces)
+
+
+GAT_CHUNK = 1_048_576  # edges a chunk of the streaming attention
+GAT_SEGMENT_ARGS = ["model=gat", "backend=segment", "heads=2", "hidden_dims=32",
+                    "dropouts=0.0,0.1", "attn_dropout=0.1"]
+
+
+def check_attention_chunked(ds) -> int:
+    """One GAT layer's attention on synth-reddit's whole COO (2 heads of 32,
+    attention dropout 0.1 through a seed slot) streamed in chunks of
+    ``GAT_CHUNK`` edges against the unchunked segment softmax with the same
+    mask: f32 within rtol 1e-5 + 1e-5·max|ref|; bf16 within 2^-5 of each
+    output's Σ_j α_ij·|hw_j| (the same attention in f32 over |hw|) +
+    1e-5·max|ref|, because the two paths round at different points in bf16:
+    the unchunked one rounds the denominator, α = w/den, α/keep and each
+    α·hw to bf16, the chunked one w/keep and each w·hw, then divides its
+    f32 sums; six roundings of at most 2^-9 of the terms, not of their sum
+    (2^-5 leaves room for the exp's own bf16 rounding; a 3000-node CPU run
+    reaches 0.0141); two runs bit-identical. Returns the number of chunks."""
+    import torch
+
+    from parallel_gcn_tpu_torch.data.graph import build_graph
+    from parallel_gcn_tpu_torch.models.gat import GATModel, attend_chunked, edge_chunks
+
+    graph = build_graph(ds.graph, device=torch.device("cuda"))
+    n = graph.n_nodes
+    t0 = time.perf_counter()
+    chunks = edge_chunks(graph.row, graph.col, graph.val, n, n, GAT_CHUNK)
+    torch.cuda.synchronize()
+    t_chunks = time.perf_counter() - t0
+    model = GATModel([torch.zeros(1)] * 6, (0.0, 0.0), heads=2, attn_dropout=0.1,
+                     backend="segment")
+    gen = torch.Generator().manual_seed(13)
+    slot = _slot(0x5EED, torch.int32)  # an attention seed slot, as the trainer's
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, None)):
+        s, t = (torch.randn((n, 2), generator=gen).to(dtype).cuda() for _ in range(2))
+        hw = torch.randn((n, 2, 32), generator=gen).to(dtype).cuda()
+        ref = model._attend_segment(graph, hw, s, t, slot, training=True)
+        got = attend_chunked(chunks, s, t, hw, slot, 0.1)
+        assert torch.equal(got, attend_chunked(chunks, s, t, hw, slot, 0.1)), "two runs differ"
+        if dtype == torch.float32:
+            err = _max_err(got, ref, rtol)
+            tol = f"rtol {rtol}"
+        else:
+            scale = model._attend_segment(graph, hw.abs().float(), s.float(), t.float(), slot,
+                                          training=True)
+            diff = (got.float() - ref.float()).abs()
+            assert bool((diff <= 2.0**-5 * scale + 1e-5 * ref.abs().max()).all()), \
+                "bf16 chunked attention beyond the rounding bound"
+            err = float(diff.max())
+            tol = (f"within 2^-5 of Σα|hw|, at most "
+                   f"{float((diff / scale.clamp(min=1e-30)).max()):.3e} of it")
+            del scale, diff
+        ms = _events_ms(lambda: attend_chunked(chunks, s, t, hw, slot, 0.1), 3)
+        ref_ms = _events_ms(lambda: model._attend_segment(graph, hw, s, t, slot, True), 3)
+        print(f"[main-gat-chunk] one layer's attention over {graph.n_edges_pad} edges in "
+              f"{len(chunks)} chunks of {GAT_CHUNK} (their Segments built in {t_chunks:.2f} s), "
+              f"{dtype}, attention dropout 0.1: against the unchunked softmax max_abs_err "
+              f"{err:.3e} ({tol}), runs bit-identical; {ms:.3f} ms against {ref_ms:.3f}")
+        del s, t, hw, ref, got
+    n_chunks = len(chunks)
+    del graph, chunks
+    torch.cuda.empty_cache()
+    return n_chunks
+
+
+def phase_gat_chunk(ds) -> dict:
+    """[main-gat-chunk]: ``cli.main`` of the segment GAT on synth-reddit with
+    attention dropout, in ``mode=scan``, without and with
+    ``edge_chunk=GAT_CHUNK``, each with the peak ``max_memory_allocated``
+    above what this process held before it: the 10 train losses within
+    1e-3 (the chunked sums round in another order; the masks are the same,
+    K1's offset) and the chunked peak below the unchunked one. Returns the
+    two runs' main-path records."""
+    import torch
+
+    argv = ["synth-reddit", *GAT_SEGMENT_ARGS, f"epochs={EPOCHS}"]
+    runs = {}
+    for tag, extra in (("main-gat-segment", []), ("main-gat-chunk", [f"edge_chunk={GAT_CHUNK}"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        runs[tag] = phase_main_path(tag, [*argv, *extra])
+        runs[tag]["peak"] = torch.cuda.max_memory_allocated() - held
+    plain, chunked = runs["main-gat-segment"], runs["main-gat-chunk"]
+    diff = max(abs(a - b) for a, b in zip(plain["losses"], chunked["losses"]))
+    print(f"[main-gat-chunk] segment GAT, attention dropout 0.1: train losses of the chunked "
+          f"run within {diff:.3e} of the unchunked; peak max_memory_allocated above the "
+          f"resident {chunked['peak']} bytes chunked against {plain['peak']} unchunked; "
+          f"{chunked['ms']:.3f} ms/epoch against {plain['ms']:.3f}")
+    assert diff <= 1e-3, f"chunked and unchunked train losses differ by {diff}"
+    assert chunked["peak"] < plain["peak"], "the chunked run's peak memory is not lower"
+    return runs
+
+
+@contextlib.contextmanager
+def warnings_ignored():
+    """The partitions' UserWarnings (imbalance, a buffer that does not pay
+    off) are expected here: the lines this script prints carry the sizes."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        yield
+
+
 def phase_mesh_path(tag: str, args: list[str], ds, single: dict,
                     deterministic: bool = True, falls: bool = True) -> dict:
     """``fit_parallel`` of synth-reddit with ``args`` over the params file,
@@ -1265,12 +1663,14 @@ def phase_mesh_path(tag: str, args: list[str], ds, single: dict,
     eager_ms, scan_run = _compare_modes(tag, run, losses, ms, deterministic)
     per_replay = _per_replay(res.graph_launches)
     calls = {k: v for k, v in res.graph_launches.items() if k not in KERNEL_KEYS.values()}
+    single_eager = single.get("eager_ms")
+    eager_tax = (f" against the single card's {single_eager:.3f} "
+                 f"({eager_ms / single_eager:.3f}x)" if single_eager else "")
     print(f"[{tag}] fit_parallel {' '.join(args)}, n_devices=1 (NCCL world of one) on "
           f"{torch.cuda.get_device_name(0)} in {secs:.1f} s: halo {halo}; mode=scan "
           f"{ms:.3f} ms/epoch over the {res.replays} replays of epochs 2-{EPOCHS} (set-up "
           f"{res.setup_time_s:.3f} s) against the single-card scan's {single['ms']:.3f} "
-          f"(sharding tax {ms / single['ms']:.3f}x); mode=eager {eager_ms:.3f} against the "
-          f"single card's {single['eager_ms']:.3f} ({eager_ms / single['eager_ms']:.3f}x); "
+          f"(sharding tax {ms / single['ms']:.3f}x); mode=eager {eager_ms:.3f}{eager_tax}; "
           f"train loss {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc {res.test_acc:.5f}; "
           f"a replay launches {per_replay} and calls the collectives {calls}; launches "
           f"{counts}")
@@ -1928,6 +2328,13 @@ def check_dense() -> dict:
     return launches
 
 
+_T0 = time.perf_counter()
+
+
+def _stamp(label: str) -> None:
+    print(f"[time] {label} done at {time.perf_counter() - _T0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1966,6 +2373,7 @@ def main() -> int:
 
     results: dict = {}
     check_dropout(results)
+    check_dropout_offset()
     # GIN's layer-0 aggregation input: s ⊙ x in bf16 (models/sage.py sum_agg)
     gin602 = dds.graph.sqrt_deg.to(torch.bfloat16)[:, None] * dds.x.to(torch.bfloat16)
     check_segment(results, dds.graph, gin602)
@@ -1974,14 +2382,17 @@ def main() -> int:
     check_tile_attention(results, dds.graph.bcsr)
     check_ce(results, dds)
     check_fused(results)
+    _stamp("kernel checks")
     phase_profile("GCN", [], dds)
     phase_profile("GAT", GAT_ARGS, dds)
     phase_profile("GCN fused", FUSED_ARGS, dds)
     phase_profile("SAGE", SAGE_ARGS, dds)
     phase_profile("GIN", GIN_ARGS, dds)
     torch.cuda.empty_cache()
+    _stamp("profiles")
     check_reference()
     dense = check_dense()
+    _stamp("reference and dense")
 
     # the mesh kernels on rank 0's slab of synth-reddit at one rank (square)
     # and of its 4-way partition with the boundary halo kept (rectangular)
@@ -2000,6 +2411,9 @@ def main() -> int:
         del gcn_slab, attn
         torch.cuda.empty_cache()
     check_reference_mesh()
+    _stamp("mesh kernels")
+    halo = phase_halo_kernels(ds)
+    _stamp("halo kernels")
 
     # the main paths: mode=scan (the default) through cli.main, each beside
     # mode=eager through train.fit on this script's copy of the dataset
@@ -2013,7 +2427,9 @@ def main() -> int:
     assert gcn["per_replay"] == {"K2": 1, "K4": 2, "ordered gather_sum": 2}, gcn["per_replay"]
     assert gcn["counts"]["K2"] == EPOCHS and gcn["counts"]["K4"] == 2 * EPOCHS + 3, gcn
     assert gcn["counts"]["ordered gather_sum"] == 2 * EPOCHS + 3, gcn
+    _stamp("main-gcn")
     resume = {"GCN": phase_resume("resume-gcn", [], gcn["scan_run"], gcn["ms"])}
+    _stamp("resume-gcn")
     gat = phase_main_path("main-gat", ["synth-reddit", *GAT_ARGS, f"epochs={EPOCHS}"])
     gat["eager_ms"], gat["scan_run"] = phase_eager_compare("main-gat", GAT_ARGS, dds, gat)
     # a replay (the plain scan: the GAT has no deferred eval): K5 for both
@@ -2026,7 +2442,9 @@ def main() -> int:
     assert (gat["counts"]["K5"], gat["counts"]["K6"], gat["counts"]["K1"],
             gat["counts"]["ordered segment_sum"]) == (
         4 * EPOCHS + 2, 2 * EPOCHS, 2 * EPOCHS, 14 * EPOCHS + 4), gat
+    _stamp("main-gat")
     resume["GAT"] = phase_resume("resume-gat", GAT_ARGS, gat["scan_run"], gat["ms"])
+    _stamp("resume-gat")
     fused = phase_main_path("main-fused", ["synth-reddit", *FUSED_ARGS, f"epochs={EPOCHS}"])
     fused["eager_ms"], _ = phase_eager_compare("main-fused", FUSED_ARGS, dds, fused)
     # a replay: K9's train variant on the train half and its eval variant on
@@ -2042,6 +2460,7 @@ def main() -> int:
     print(f"[main-fused] {fused['ms']:.3f} ms/epoch (scan) against the default GCN path's "
           f"{gcn['ms']:.3f} (epochs 2-{EPOCHS}); train-loss trajectories differ by at most "
           f"{diff:.5f}")
+    _stamp("main-fused")
     sage = phase_main_path("main-sage", ["synth-reddit", *SAGE_ARGS, f"epochs={EPOCHS}"])
     sage["eager_ms"], sage["scan_run"] = phase_eager_compare("main-sage", SAGE_ARGS, dds, sage)
     # a replay (the plain scan: no deferred eval, no pre-aggregation): K4
@@ -2053,6 +2472,7 @@ def main() -> int:
         sage["per_replay"]
     assert (sage["counts"]["K4"], sage["counts"]["ordered gather_sum"],
             sage["counts"]["K2"]) == (6 * EPOCHS + 2, 6 * EPOCHS + 2, EPOCHS), sage
+    _stamp("main-sage")
     gin = phase_main_path("main-gin", ["synth-reddit", *GIN_ARGS, f"epochs={EPOCHS}"],
                           falls=False)
     gin["eager_ms"], gin["scan_run"] = phase_eager_compare("main-gin", GIN_ARGS, dds, gin)
@@ -2063,6 +2483,7 @@ def main() -> int:
     assert gin["per_replay"] == {"K2": 1, "K4": 5, "ordered gather_sum": 5}, gin["per_replay"]
     assert (gin["counts"]["K4"], gin["counts"]["ordered gather_sum"],
             gin["counts"]["K2"]) == (5 * EPOCHS + 2, 5 * EPOCHS + 2, EPOCHS), gin
+    _stamp("main-gin")
     remat = {"GCN": phase_remat("remat-gcn", [], dds, gcn["scan_run"]),
              "GAT": phase_remat("remat-gat", GAT_ARGS, dds, gat["scan_run"])}
     # the GCN's deferred schedule recomputes layer 0's transform only (its
@@ -2074,6 +2495,7 @@ def main() -> int:
         remat["GAT"]
     del dds
     torch.cuda.empty_cache()
+    _stamp("single-card paths")
     mesh_gcn = phase_mesh_path("main-mesh-gcn", MESH_GCN_ARGS, ds, gcn)
     # a replay (deferred eval on the mesh): K3 over the slab for the stacked
     # forward and for the backward (layer 0 pre-aggregated), each with the
@@ -2085,8 +2507,10 @@ def main() -> int:
     assert (mesh_gcn["counts"]["K3 rect"], mesh_gcn["counts"]["K2"],
             mesh_gcn["counts"]["ordered gather_sum"]) == (
         2 * EPOCHS + 3, EPOCHS, 2 * EPOCHS + 3), mesh_gcn
+    _stamp("main-mesh-gcn")
     resume["mesh GCN"] = phase_resume("resume-mesh-gcn", MESH_GCN_ARGS, mesh_gcn["scan_run"],
                                       mesh_gcn["ms"], mesh=True)
+    _stamp("resume-mesh-gcn")
     mesh_gat = phase_mesh_path("main-mesh-gat", MESH_GAT_ARGS, ds, gat)
     # a replay: rect K5 for both layers in the train forward and the val
     # eval, both K7 sweeps for both layers' backward, K1 on layer 1's input
@@ -2098,6 +2522,7 @@ def main() -> int:
             mesh_gat["counts"]["K7 col"], mesh_gat["counts"]["K1"],
             mesh_gat["counts"]["ordered segment_sum"]) == (
         4 * EPOCHS + 2, 2 * EPOCHS, 2 * EPOCHS, 2 * EPOCHS, 14 * EPOCHS + 4), mesh_gat
+    _stamp("main-mesh-gat")
     mesh_sage = phase_mesh_path("main-mesh-sage", MESH_SAGE_ARGS, ds, sage, deterministic=False)
     # a replay: the single-card SAGE schedule with K3 over the rank's slab
     assert mesh_sage["per_replay"] == {"K2": 1, "K3 rect": 6, "ordered gather_sum": 6}, \
@@ -2106,13 +2531,63 @@ def main() -> int:
                                falls=False)
     assert mesh_gin["per_replay"] == {"K2": 1, "K3 rect": 5, "ordered gather_sum": 5}, \
         mesh_gin["per_replay"]
+    _stamp("mesh paths")
+    # the ring and adaptive halos at one rank: the ring is one slab and no
+    # rotation; the adaptive halo has no push pair and falls back to the
+    # all_gather layout (halo_fallback), over flat COO or int8 tile slabs.
+    # A replay: the single-card schedules, the flat ones' aggregation one
+    # ordered gather-sum (forward, self-adjoint or transposed backward)
+    ring = phase_mesh_path("main-ring", ["backend=segment", "halo=ring"], ds, gcn,
+                           deterministic=False)
+    assert ring["per_replay"] == {"K2": 1, "ordered gather_sum": 2}, ring["per_replay"]
+    assert ring["collectives"] == {"all_reduce": 1}, ring["collectives"]
+    ring_sage = phase_mesh_path("main-ring-sage", [*SAGE_ARGS, "backend=segment", "halo=ring"],
+                                ds, sage, deterministic=False)
+    assert ring_sage["per_replay"] == {"K2": 1, "ordered gather_sum": 6}, \
+        ring_sage["per_replay"]
+    adaptive = phase_mesh_path("main-adaptive", ["backend=segment", "halo=adaptive"], ds, gcn,
+                               deterministic=False)
+    assert adaptive["per_replay"] == {"K2": 1, "ordered gather_sum": 2}, adaptive["per_replay"]
+    hyb_adaptive = phase_mesh_path("main-hybrid-adaptive", ["halo=adaptive"], ds, gcn,
+                                   deterministic=False)
+    assert hyb_adaptive["per_replay"] == mesh_gcn["per_replay"], hyb_adaptive["per_replay"]
+    _stamp("ring and adaptive paths")
+    n_chunks = check_attention_chunked(ds)
+    gat_chunk = phase_gat_chunk(ds)
+    # a replay of the segment GAT: K1 on layer 1's input and on both layers'
+    # attention weights, forward and backward; the ordered sums 2 a layer
+    # forward (train and val: the denominator, the aggregation) and 4 a
+    # layer backward (the gathers of s, t, hw and the denominator)
+    assert gat_chunk["main-gat-segment"]["per_replay"] == {
+        "K1": 6, "ordered segment_sum": 16}, gat_chunk["main-gat-segment"]["per_replay"]
+    # chunked (12 chunks): K1 a chunk and layer in the forward, in the
+    # backward's recompute and in the backward; the sums 2 a chunk and layer
+    # forward (train and val), the recompute's denominator (it stops at the
+    # last tensor the backward needs) and the 3 gathers' sums a chunk and layer
+    assert gat_chunk["main-gat-chunk"]["per_replay"] == {
+        "K1": 2 + 3 * 2 * n_chunks, "ordered segment_sum": (2 + 2 + 1 + 3) * 2 * n_chunks}, \
+        gat_chunk["main-gat-chunk"]["per_replay"]
+    mesh_gat_chunk = phase_mesh_path(
+        "main-mesh-gat-chunk", [*GAT_SEGMENT_ARGS, "halo=boundary", f"edge_chunk={GAT_CHUNK}"],
+        ds, gat_chunk["main-gat-chunk"], deterministic=False)
+    # K1 draws every chunk's mask at its offset: on both layers' attention
+    # weights, in the forward, the recompute and the backward
+    assert mesh_gat_chunk["per_replay"] == gat_chunk["main-gat-chunk"]["per_replay"], \
+        mesh_gat_chunk["per_replay"]
+    _stamp("streaming GAT paths")
     phase_profile_mesh("GCN", MESH_GCN_ARGS, ds)
     phase_profile_mesh("GAT", MESH_GAT_ARGS, ds)
     phase_profile_mesh("SAGE", MESH_SAGE_ARGS, ds)
     phase_profile_mesh("GIN", MESH_GIN_ARGS, ds)
+    _stamp("mesh profiles")
     paths = {"GCN": gcn, "GAT": gat, "GCN fused": fused, "SAGE": sage, "GIN": gin,
              "mesh GCN": mesh_gcn, "mesh GAT": mesh_gat, "mesh SAGE": mesh_sage,
-             "mesh GIN": mesh_gin, "GCN remat": remat["GCN"], "GAT remat": remat["GAT"]}
+             "mesh GIN": mesh_gin, "GCN remat": remat["GCN"], "GAT remat": remat["GAT"],
+             "mesh GCN ring": ring, "mesh SAGE ring": ring_sage, "mesh GCN adaptive": adaptive,
+             "mesh GCN hybrid adaptive": hyb_adaptive,
+             "GAT segment": gat_chunk["main-gat-segment"],
+             "GAT segment chunked": gat_chunk["main-gat-chunk"],
+             "mesh GAT segment chunked": mesh_gat_chunk}
     # each kernel's launches over every main path (K3 and K8 run on none: 0)
     counts = {key: sum(p["counts"][key] for p in paths.values()) for key in KERNEL_KEYS}
     print(f"[main] launches by path: {json.dumps({k: p['counts'] for k, p in paths.items()})}")
@@ -2121,6 +2596,7 @@ def main() -> int:
     print(f"[remat] peak max_memory_allocated bytes (remat, without): "
           f"{json.dumps({k: [r['peak'], r['peak_plain']] for k, r in remat.items()})}")
     print(f"[dense] launches on the card: {json.dumps(dense, sort_keys=True)}")
+    print(f"[halo-kernels] buffer rows and rank 0's pieces: {json.dumps(halo)}")
     print(f"[resume] checkpoints through cli.main, seconds to write / load and ms/epoch "
           f"chunked: {json.dumps(resume, sort_keys=True)}")
 

@@ -310,7 +310,7 @@ DROP_VARIANTS = {
     "streaming": [("raw[u] = __ldg(xv + v);", "raw[u] = __ldcs(xv + v);"),
                   ("ov[v] = Vec<T>::put(f);", "__stcs(ov + v, Vec<T>::put(f));")],
     # wrong on purpose: no Philox rounds (a fixed word), to show their share
-    "no-philox": [("const uint4 b = philox4x32_10((uint64_t)v * kCtr + c, k0, k1);",
+    "no-philox": [("const uint4 b = philox4x32_10(ctr0 + (uint64_t)v * kCtr + c, k0, k1);",
                    "const uint4 b = make_uint4(0u, 0u, 0u, 0u);")],
 }
 
@@ -954,7 +954,8 @@ def dropout_family(parent: str | None) -> int:
     x = inputs[(233472, 64)]
     out = torch.empty_like(x)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    args = (x.data_ptr(), out.data_ptr(), x.numel(), 1, 0, 0x1234_5678_9ABC,
+    slot = cd.seed_tensor(0x1234_5678_9ABC, x.device)
+    args = (x.data_ptr(), out.data_ptr(), x.numel(), 1, 0, slot.data_ptr(), 0,
             cd.keep_threshold(0.1), cd._inv_keep(0.1, x.dtype), stream)
     layers = {"autograd Function (cd.dropout)": lambda: cd.dropout(x, 0x1234_5678_9ABC, 0.1),
               "wrapper (cd._run)": lambda: cd._run(x, 0x1234_5678_9ABC, 0.1, False),

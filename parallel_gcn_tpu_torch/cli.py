@@ -10,6 +10,7 @@ e.g.  python -m parallel_gcn_tpu_torch synth-reddit epochs=10
       python -m parallel_gcn_tpu_torch synth-reddit model=sage epochs=10
       python -m parallel_gcn_tpu_torch synth-reddit model=gin gin_eps=0 epochs=10
       python -m parallel_gcn_tpu_torch synth-reddit remat=true epochs=10
+      python -m parallel_gcn_tpu_torch synth-reddit model=gat backend=segment heads=2 hidden_dims=32 edge_chunk=1048576 epochs=10
       python -m parallel_gcn_tpu_torch cora device=cpu epochs=5
       python -m parallel_gcn_tpu_torch synth-reddit epochs=10 checkpoint_dir=ck checkpoint_every=5
       python -m parallel_gcn_tpu_torch synth-reddit epochs=10 resume_from=ck/ckpt_000005.npz
@@ -25,6 +26,8 @@ when given, must equal the world's size, and N > 1 needs such a world:
       torchrun --standalone --nproc_per_node=N -m parallel_gcn_tpu_torch synth-reddit n_devices=N halo=boundary
       torchrun --standalone --nproc_per_node=2 -m parallel_gcn_tpu_torch synth-medium device=cpu n_devices=2
       torchrun --standalone --nproc_per_node=N -m parallel_gcn_tpu_torch synth-reddit n_devices=N model=sage halo=boundary
+      torchrun --standalone --nproc_per_node=N -m parallel_gcn_tpu_torch synth-reddit n_devices=N backend=segment halo=ring
+      torchrun --standalone --nproc_per_node=N -m parallel_gcn_tpu_torch synth-reddit n_devices=N halo=adaptive
 
 The device defaults to cuda; the CPU runs only when asked for. Returns 2 on a
 bad argument, a missing dataset or checkpoint, or ``n_devices`` without its

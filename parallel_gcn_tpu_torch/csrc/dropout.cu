@@ -6,8 +6,12 @@
 //
 // Mask contract (the TPU's hardware PRNG bits cannot be reproduced):
 // Philox4x32-10 keyed by the 64-bit seed (key = {lo32, hi32}); element i of
-// the flattened tensor uses counter {lo32(i >> 2), hi32(i >> 2), 0, 0} and
-// output word i & 3. It is kept iff that word < thr, with
+// the flattened tensor, at the element offset o the caller gives (0 for a
+// whole tensor; a slice of a longer masked tensor passes its first
+// element's index there), uses counter {lo32(c), hi32(c), 0, 0} with
+// c = (i + o) >> 2, and output word (i + o) & 3. The kernel takes o as the
+// counter offset o >> 2 and needs o % 4 == 0, so that its vectors stay on
+// whole counters. It is kept iff that word < thr, with
 // thr = min(round(keep * 2^32), 2^32 - 1) as in pallas_dropout.py:61, and
 // written as x * inv_keep in x's dtype (inv_keep rounded to x's dtype by the
 // wrapper, as pallas_dropout.py:37 does). The mask depends on (seed, i)
@@ -127,7 +131,8 @@ template <> struct Vec<__nv_bfloat16> {
 template <typename T, bool kRelu>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t n_vec,
-               const unsigned long long* __restrict__ seed, uint32_t thr, float inv_keep) {
+               const unsigned long long* __restrict__ seed, uint64_t ctr0, uint32_t thr,
+               float inv_keep) {
   const unsigned long long key = __ldg(seed);
   const uint32_t k0 = (uint32_t)key, k1 = (uint32_t)(key >> 32);
   constexpr int kVec = Vec<T>::kVec;  // elements per 16-byte vector
@@ -150,7 +155,7 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t 
         uint32_t word[kVec];
 #pragma unroll
         for (int c = 0; c < kCtr; ++c) {
-          const uint4 b = philox4x32_10((uint64_t)v * kCtr + c, k0, k1);
+          const uint4 b = philox4x32_10(ctr0 + (uint64_t)v * kCtr + c, k0, k1);
           word[4 * c] = b.x; word[4 * c + 1] = b.y;
           word[4 * c + 2] = b.z; word[4 * c + 3] = b.w;
         }
@@ -167,7 +172,7 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n, int64_t 
   const int64_t n_ctr = (n + 3) >> 2;
   for (int64_t ctr = n_vec * kCtr + (int64_t)blockIdx.x * kThreads + threadIdx.x;
        ctr < n_ctr; ctr += (int64_t)gridDim.x * kThreads) {
-    const uint4 b = philox4x32_10((uint64_t)ctr, k0, k1);
+    const uint4 b = philox4x32_10(ctr0 + (uint64_t)ctr, k0, k1);
     const uint32_t word[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -203,7 +208,7 @@ int grid_cap(int* blocks) {
 
 template <typename T, bool kRelu>
 int launch(const void* x, void* out, int64_t n, const unsigned long long* seed,
-           uint32_t thr, float inv_keep, cudaStream_t stream) {
+           uint64_t ctr0, uint32_t thr, float inv_keep, cudaStream_t stream) {
   constexpr int kVec = Vec<T>::kVec;
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
                         15u) == 0;
@@ -220,27 +225,28 @@ int launch(const void* x, void* out, int64_t n, const unsigned long long* seed,
   const int64_t rounds = (need + cap - 1) / cap;
   const int64_t blocks = need > 0 ? (need + rounds - 1) / rounds : 1;
   dropout_kernel<T, kRelu><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n, n_vec, seed, thr, inv_keep);
+      static_cast<const T*>(x), static_cast<T*>(out), n, n_vec, seed, ctr0, thr, inv_keep);
   return 0;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Any alignment of x and out. seed points
-// to the uint64 seed in device memory. Returns cudaGetLastError() after the
-// launch (0 on success).
+// to the uint64 seed in device memory; ctr0 is the counter offset (the
+// element offset / 4). Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int pgcn_dropout(const void* x, void* out, int64_t n, int dtype,
-                            int relu, const unsigned long long* seed, uint32_t thr,
-                            float inv_keep, void* stream) {
+                            int relu, const unsigned long long* seed, uint64_t ctr0,
+                            uint32_t thr, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return (int)cudaErrorInvalidValue;
   int rc;
   if (dtype == 0) {
-    rc = relu ? launch<float, true>(x, out, n, seed, thr, inv_keep, s)
-              : launch<float, false>(x, out, n, seed, thr, inv_keep, s);
+    rc = relu ? launch<float, true>(x, out, n, seed, ctr0, thr, inv_keep, s)
+              : launch<float, false>(x, out, n, seed, ctr0, thr, inv_keep, s);
   } else if (dtype == 1) {
-    rc = relu ? launch<__nv_bfloat16, true>(x, out, n, seed, thr, inv_keep, s)
-              : launch<__nv_bfloat16, false>(x, out, n, seed, thr, inv_keep, s);
+    rc = relu ? launch<__nv_bfloat16, true>(x, out, n, seed, ctr0, thr, inv_keep, s)
+              : launch<__nv_bfloat16, false>(x, out, n, seed, ctr0, thr, inv_keep, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -12,9 +12,12 @@ Three aggregation backends, as in the JAX package:
 - ``dense``: the masked [heads, N, N] softmax and one batched product
   (citation-scale graphs with a dense adjacency);
 - ``segment``: per-edge logits on the padded COO triplets with a
-  scatter-max / exp / segment-sum softmax (unchunked); the sums by
-  destination, and the gathers' gradients by source, are the ordered sums
-  of ``ops.cuda_segment`` over the graph's ``row_seg`` and ``col_seg``;
+  scatter-max / exp / segment-sum softmax; the sums by destination, and
+  the gathers' gradients by source, are the ordered sums of
+  ``ops.cuda_segment`` over the graph's ``row_seg`` and ``col_seg``. With
+  ``edge_chunk`` the softmax streams over chunks of edges
+  (``attend_chunked``, JAX ``_attend_segment_chunked``), so no per-edge
+  tensor of more than one chunk exists;
 - ``tile``: the block-sparse tile attention of ``ops.tile_attention`` over
   the graph's tile pack plus its COO residual (K5 forward, K6 backward on
   the card): the reddit-scale path.
@@ -33,6 +36,7 @@ from the same seed slots, no RNG state stashed.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -40,11 +44,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from parallel_gcn_tpu_torch.data.graph import Graph
+from parallel_gcn_tpu_torch.data.graph import Graph, pad_to_multiple
 from parallel_gcn_tpu_torch.device import torch_dtype
 from parallel_gcn_tpu_torch.models.gcn import glorot
 from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout
-from parallel_gcn_tpu_torch.ops.cuda_segment import gather, segment_sum
+from parallel_gcn_tpu_torch.ops.cuda_segment import Segments, gather, segment_sum, segments
 from parallel_gcn_tpu_torch.ops.sparse_matmul import feature_transform
 from parallel_gcn_tpu_torch.ops.tile_attention import gat_attend_tiles
 
@@ -91,6 +95,79 @@ def _edge_softmax_segment(graph: Graph, s, t, n_nodes: int) -> torch.Tensor:
     return w / gather(torch.clamp(den, min=1e-16), graph.row_seg).to(w.dtype)
 
 
+@dataclass(frozen=True)
+class EdgeChunk:
+    """Edges ``start`` to ``start + len(row)`` of a COO slab: destination
+    rows, source rows, the live mask [c, 1] (val ≠ 0), and the ordered
+    sums' ``Segments`` of each over its rows."""
+
+    start: int
+    row: torch.Tensor
+    live: torch.Tensor
+    row_seg: Segments
+    col_seg: Segments
+
+
+def edge_chunks(row, col, val, n_dst: int, n_src: int, chunk: int) -> tuple:
+    """The ``EdgeChunk`` s of a COO slab, ``chunk`` edges each rounded up to
+    a multiple of 4 (so that each chunk's attention-dropout offset, start ×
+    heads, lies on a whole Philox counter); the last takes the rest. Builds
+    ``Segments`` (host reads): call it with the graph, not in an epoch."""
+    chunk = pad_to_multiple(chunk, 4)
+    out = []
+    for start in range(0, row.shape[0], chunk):
+        r, c = row[start : start + chunk], col[start : start + chunk]
+        out.append(EdgeChunk(start=start, row=r.long(),
+                             live=(val[start : start + chunk] != 0.0)[:, None],
+                             row_seg=segments(r, n_dst), col_seg=segments(c, n_src)))
+    return tuple(out)
+
+
+def _chunk_logits(ch: EdgeChunk, s, t):
+    e = F.leaky_relu(gather(s, ch.row_seg) + gather(t, ch.col_seg), LEAKY_SLOPE)
+    return torch.where(ch.live, e, _NEG)
+
+
+def _chunk_step(num, den, s, t, hw, m, ch: EdgeChunk, seed, rate: float):
+    """(num, den) plus one chunk's terms: the exp weights' sum by
+    destination and their (dropped) products with the source rows, f32."""
+    w = torch.where(ch.live, torch.exp(_chunk_logits(ch, s, t) - m[ch.row]), 0.0)
+    den = den + segment_sum(w.float(), ch.row_seg)
+    if rate > 0.0:
+        # this chunk's slice of the unchunked [E, heads] mask
+        w = dropout(w.contiguous(), seed, rate, offset=ch.start * w.shape[1])
+    contrib = (w[:, :, None] * gather(hw, ch.col_seg)).float()
+    return num + segment_sum(contrib, ch.row_seg), den
+
+
+def attend_chunked(chunks: tuple, s, t, hw, seed=None, rate: float = 0.0):
+    """Streaming edge softmax and aggregation over ``chunks``
+    (``edge_chunks``), the JAX ``_attend_segment_chunked``: pass 1 takes the
+    running segment max (``scatter_reduce`` amax, exact in any order,
+    detached: softmax does not depend on it); pass 2 adds each chunk's
+    exp weights into the f32 denominator [n, heads] and their products with
+    the gathered sources into the f32 numerator [n, heads, d] with the
+    ordered sums, and divides once. Attention dropout drops the
+    numerator's terms with each chunk's slice of the unchunked path's mask
+    (K1's element offset), so the result is the unchunked attention's at
+    any rate. Each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``, no RNG state): only the O(n) carries are
+    kept. ``s`` [n, heads] destination terms, ``t`` and ``hw`` [n_src, heads(, d)]
+    source terms; returns [n, heads, d] in hw's dtype."""
+    n, heads = s.shape
+    with torch.no_grad():
+        m = torch.full((n, heads), _NEG, dtype=s.dtype, device=s.device)
+        for ch in chunks:
+            e = _chunk_logits(ch, s, t)
+            m.scatter_reduce_(0, ch.row[:, None].expand_as(e), e, "amax", include_self=True)
+    num = torch.zeros((n, heads, hw.shape[2]), dtype=torch.float32, device=s.device)
+    den = torch.zeros((n, heads), dtype=torch.float32, device=s.device)
+    for ch in chunks:
+        num, den = checkpoint(_chunk_step, num, den, s, t, hw, m, ch, seed, rate,
+                              use_reentrant=False, preserve_rng_state=False)
+    return (num / torch.clamp(den, min=1e-16)[:, :, None]).to(hw.dtype)
+
+
 class GATModel(nn.Module):
     """The GAT forward with its parameters (``self.weights``, float32, JAX
     leaf order). ``backend`` ∈ {dense, segment, tile}."""
@@ -111,6 +188,7 @@ class GATModel(nn.Module):
         compute_dtype: str = "float32",
         residual: bool = False,
         remat: bool = False,
+        edge_chunk: int = 0,
     ):
         super().__init__()
         if len(params) % LEAVES_PER_LAYER or len(dropouts) * LEAVES_PER_LAYER != len(params):
@@ -128,6 +206,8 @@ class GATModel(nn.Module):
         self.compute_dtype = torch_dtype(compute_dtype)
         self.residual = residual
         self.remat = remat
+        self.edge_chunk = int(edge_chunk)
+        self._chunks: dict = {}  # the edge chunks of each slab seen, built once
         self.layer_keys = [LAYER_KEYS] * len(dropouts)
 
     @property
@@ -142,7 +222,23 @@ class GATModel(nn.Module):
             a = dropout(a.contiguous(), seed, self.attn_dropout)
         return torch.einsum("hij,jhd->ihd", a, hw3)
 
+    def chunks_of(self, row, col, val, n_dst: int, n_src: int):
+        """The ``edge_chunks`` of a COO slab when ``edge_chunk`` is set and
+        shorter than the slab, else None; built at the first call with
+        that slab (the first epoch runs eagerly, before any capture)."""
+        if not self.edge_chunk or self.edge_chunk >= row.shape[0]:
+            return None
+        key = (row.data_ptr(), row.shape[0], n_dst, n_src)
+        if key not in self._chunks:
+            self._chunks[key] = edge_chunks(row, col, val, n_dst, n_src, self.edge_chunk)
+        return self._chunks[key]
+
     def _attend_segment(self, graph, hw3, s, t, seed, training):
+        n = hw3.shape[0]
+        chunks = self.chunks_of(graph.row, graph.col, graph.val, n, n)
+        if chunks is not None:
+            rate = self.attn_dropout if training else 0.0
+            return attend_chunked(chunks, s, t, hw3, seed, rate)
         alpha = _edge_softmax_segment(graph, s, t, hw3.shape[0])
         if training and self.attn_dropout > 0.0:
             alpha = dropout(alpha.contiguous(), seed, self.attn_dropout)

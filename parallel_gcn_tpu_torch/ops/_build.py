@@ -47,7 +47,8 @@ def _find_nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     # seeds are device pointers: K1/K2 and K10 read a uint64, K5-K7 an int32
-    lib.pgcn_dropout.argtypes = [p, p, i64, i32, i32, p, ctypes.c_uint32, ctypes.c_float, p]
+    lib.pgcn_dropout.argtypes = [p, p, i64, i32, i32, p, ctypes.c_uint64, ctypes.c_uint32,
+                                 ctypes.c_float, p]
     lib.pgcn_dropout.restype = i32
     lib.pgcn_bcsr_spmm.argtypes = [
         p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, i32, i32, i32, i32, i32, p,

@@ -6,8 +6,12 @@ K2 ``relu_dropout_pallas``); the kernel is ``csrc/dropout.cu``.
 The TPU kernels draw their mask from the TPU's hardware PRNG, which no other
 device reproduces. The port's mask contract: Philox4x32-10 keyed by the
 64-bit ``seed``; element i of the flattened tensor uses counter
-``i >> 2`` and output word ``i & 3``, and is kept iff that word is below
-``thr = min(round(keep·2³²), 2³²−1)``. Kept elements become
+``(i + o) >> 2`` and output word ``(i + o) & 3``, and is kept iff that word
+is below ``thr = min(round(keep·2³²), 2³²−1)``. The element offset ``o`` is
+0 for a whole tensor; a slice of a longer masked tensor passes the index of
+its first element, and draws the matching slice of that tensor's mask (the
+streaming GAT attention masks its edge chunks so). The kernel takes
+offsets that are multiples of 4 (whole counters). Kept elements become
 ``x · (1/keep)`` in x's dtype. The mask depends only on (seed, i), so
 
 - the backward of ``dropout`` is ``dropout`` of the cotangent with the same
@@ -114,22 +118,25 @@ def philox4x32_10(
     return c0, c1, c2, c3
 
 
-def philox_words(seed: Seed, n: int, device) -> torch.Tensor:
+def philox_words(seed: Seed, n: int, device, offset: int = 0) -> torch.Tensor:
     """The n uint32 words (as int64) the mask contract assigns to elements
-    0..n-1 for ``seed`` (an int or a slot)."""
-    ctr = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    0..n-1 at element offset ``offset`` for ``seed`` (an int or a slot)."""
+    lo = offset >> 2
+    ctr = torch.arange(lo, (offset + n + 3) // 4, dtype=torch.int64, device=device)
     zero = torch.zeros_like(ctr)
     words = philox4x32_10(ctr & _M32, ctr >> 32, zero, zero, *_seed_halves(seed, device))
-    return torch.stack(words, dim=1).reshape(-1)[:n]
+    skip = offset & 3
+    return torch.stack(words, dim=1).reshape(-1)[skip : skip + n]
 
 
-def keep_mask(seed: Seed, rate: float, shape, device) -> torch.Tensor:
-    """The contract's keep mask of a contiguous tensor of ``shape``: the
-    element with flat index i is kept iff word ``i & 3`` of Philox counter
-    ``i >> 2`` is below ``keep_threshold(rate)``. K1, K2 and the fused
-    dropout⊗matmul kernel (``ops/cuda_fused.py``) all draw this mask."""
+def keep_mask(seed: Seed, rate: float, shape, device, offset: int = 0) -> torch.Tensor:
+    """The contract's keep mask of a contiguous tensor of ``shape`` at
+    element offset ``offset``: the element with flat index i is kept iff
+    word ``(i + offset) & 3`` of Philox counter ``(i + offset) >> 2`` is
+    below ``keep_threshold(rate)``. K1, K2 and the fused dropout⊗matmul
+    kernel (``ops/cuda_fused.py``) all draw this mask."""
     n = math.prod(shape)
-    return (philox_words(seed, n, device) < keep_threshold(rate)).view(shape)
+    return (philox_words(seed, n, device, offset) < keep_threshold(rate)).view(shape)
 
 
 @functools.lru_cache(maxsize=64)
@@ -142,19 +149,24 @@ def _inv_keep(rate: float, dtype: torch.dtype) -> float:
 
 
 def dropout_plain(x: torch.Tensor, seed: Seed, rate: float,
-                  relu: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same bits, same rounding)."""
-    keep = keep_mask(seed, rate, x.shape, x.device)
+                  relu: bool = False, offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (same bits, same rounding), at
+    any element offset."""
+    keep = keep_mask(seed, rate, x.shape, x.device, offset)
     if relu:
         keep = keep & (x > 0)
     return torch.where(keep, x * _inv_keep(rate, x.dtype), 0.0)
 
 
-def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool) -> torch.Tensor:
+def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool,
+         offset: int = 0) -> torch.Tensor:
     if x.device.type == "cpu":
-        return dropout_plain(x, seed, rate, relu)
+        return dropout_plain(x, seed, rate, relu, offset)
     if x.device.type != "cuda":
         raise ValueError(f"dropout: unsupported device {x.device}")
+    if offset < 0 or offset % 4:
+        raise ValueError(f"the dropout kernel takes element offsets that are multiples of 4, "
+                         f"got {offset}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"dropout kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
@@ -168,7 +180,7 @@ def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgcn_dropout(
             x.data_ptr(), out.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype],
-            int(relu), slot.data_ptr(), keep_threshold(rate),
+            int(relu), slot.data_ptr(), offset >> 2, keep_threshold(rate),
             _inv_keep(rate, x.dtype), ctypes.c_void_p(stream),
         )
     _build.check(rc, "dropout kernel")
@@ -178,14 +190,15 @@ def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool) -> torch.Tensor:
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, rate):
-        ctx.seed, ctx.rate = seed, rate
-        return _run(x, seed, rate, relu=False)
+    def forward(ctx, x, seed, rate, offset):
+        ctx.seed, ctx.rate, ctx.offset = seed, rate, offset
+        return _run(x, seed, rate, relu=False, offset=offset)
 
     @staticmethod
     def backward(ctx, g):
         # same (seed, index) → same mask, applied to the cotangent
-        return _run(g.contiguous(), ctx.seed, ctx.rate, relu=False), None, None
+        return (_run(g.contiguous(), ctx.seed, ctx.rate, relu=False, offset=ctx.offset),
+                None, None, None)
 
 
 class _ReluDropout(torch.autograd.Function):
@@ -202,12 +215,13 @@ class _ReluDropout(torch.autograd.Function):
         return torch.where(out > 0, g * _inv_keep(ctx.rate, g.dtype), 0.0), None, None
 
 
-def dropout(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
-    """Inverted dropout of ``x`` (K1) with ``seed`` (an int or a slot). Rate
+def dropout(x: torch.Tensor, seed: Seed, rate: float, offset: int = 0) -> torch.Tensor:
+    """Inverted dropout of ``x`` (K1) with ``seed`` (an int or a slot), its
+    elements at ``offset`` in the mask's index (the module docstring). Rate
     0 is the identity."""
     if rate <= 0.0:
         return x
-    return _Dropout.apply(x, seed, rate)
+    return _Dropout.apply(x, seed, rate, offset)
 
 
 def relu_dropout(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:

@@ -15,6 +15,13 @@ Functions with those transposes written out:
   its rows summed into the sent rows in order (``ops.cuda_segment``; a row
   sent to several peers repeats).
 
+The ring and adaptive halos call two more without autograd (their
+aggregations are self-adjoint, ``parallel.train_parallel``):
+``ppermute_rows``, the ring's rotation (this rank's rows to rank + 1, rank
+− 1's rows back: one ``all_to_all_single`` with one live split, which NCCL
+runs as one send and one receive and a CUDA graph captures), and
+``all_to_all_rows`` for the push slabs.
+
 ``all_reduce_sum`` reduces gradients and metrics. ``counts`` counts every
 collective call by kind, so tests can pin an epoch step's structure.
 
@@ -36,7 +43,8 @@ import torch.distributed as dist
 from parallel_gcn_tpu_torch.ops.cuda_segment import Segments, segment_sum_
 
 # collective calls by kind
-counts = {"all_gather": 0, "reduce_scatter": 0, "all_to_all": 0, "all_reduce": 0}
+counts = {"all_gather": 0, "reduce_scatter": 0, "all_to_all": 0, "all_reduce": 0,
+          "ppermute": 0}
 
 # all_gather_single / reduce_scatter_single are the newer names
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -114,6 +122,25 @@ def all_to_all_rows(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x)
     counts["all_to_all"] += 1
+    return out
+
+
+def ppermute_rows(x: torch.Tensor) -> torch.Tensor:
+    """The ring's rotation: this rank's rows go to rank + 1 and the result
+    holds rank − 1's (mod the world size). A world of one returns ``x``
+    and calls no backend."""
+    world = dist.get_world_size()
+    if world == 1:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    rank, n = dist.get_rank(), x.shape[0]
+    send = [0] * world
+    recv = [0] * world
+    send[(rank + 1) % world] = n
+    recv[(rank - 1) % world] = n
+    dist.all_to_all_single(out, x, output_split_sizes=recv, input_split_sizes=send)
+    counts["ppermute"] += 1
     return out
 
 

@@ -8,11 +8,11 @@ remote source features fetched by a collective during aggregation
 padded to the largest rank's, and the arrays equal the JAX package's array
 for array (``tests/test_torch_partition.py``).
 
-Ported: the flat COO partition with the all_gather or boundary halo
-(``partition_graph``), the tile-slab partition (``partition_graph_hybrid``,
-with slab balancing and int8 pattern slabs) and the mesh GAT's rect packs
-(``gat_mesh_pack``). Not ported: the ring (``partition_graph_ring``) and the
-adaptive push/pull halo (``adaptive=True`` raises NotImplementedError).
+Layouts: the flat COO partition with the all_gather, boundary or adaptive
+push/pull halo (``partition_graph``), the ring of the ``ppermute`` rotation
+(``partition_graph_ring``), the tile-slab partition
+(``partition_graph_hybrid``, with slab balancing, int8 pattern slabs and
+the adaptive halo) and the mesh GAT's rect packs (``gat_mesh_pack``).
 """
 
 from __future__ import annotations
@@ -28,13 +28,6 @@ from parallel_gcn_tpu_torch.data.graph import HostCSR, pad_to_multiple
 from parallel_gcn_tpu_torch.device import torch_dtype
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to parallel_gcn_tpu_torch (use halo=all_gather "
-        "or halo=boundary)"
-    )
-
-
 @dataclass(frozen=True)
 class ShardedGraph:
     """Per-rank COO slabs, stacked on a leading rank axis.
@@ -45,17 +38,37 @@ class ShardedGraph:
     halo), the row of the compact ``[x_local ; received halo rows]`` buffer.
     ``send_idx[d]`` lists, in ``n_dev`` chunks of ``halo_size``, the local
     rows rank d sends to each peer. Padding entries carry val 0 and
-    in-bounds indices."""
+    in-bounds indices.
 
-    row_local: np.ndarray  # int32 [n_dev, e_local]
-    col: np.ndarray  # int32 [n_dev, e_local]
-    val: np.ndarray  # float32 [n_dev, e_local]
+    Ring layout (``ring``, ``partition_graph_ring``): the arrays are
+    [n_dev, n_dev, e_slab]; slab s of rank d holds the edges whose source
+    lies in the block of rank (d − s) mod n_dev, the block d holds after s
+    rotations, with ``col`` the source's row within that block.
+
+    Adaptive halo (``push_*``, ``partition_graph(adaptive=True)``): each
+    off-diagonal rank pair moves its edges in the direction that ships
+    fewer rows. Pull pairs stay in row_local/col/val against the boundary
+    buffer; push pairs live on the SOURCE rank: ``push_col`` its local
+    source row, ``push_row`` the slot d·push_slab + k of the partial-sum
+    slab for destination rank d (slot-sorted), and the receiver adds slot k
+    of the slab from rank s at local row ``push_recv[s·push_slab + k]``
+    (n_local: an unused slot)."""
+
+    row_local: np.ndarray  # int32 [n_dev, e_local] | [n_dev, n_dev, e_slab]
+    col: np.ndarray  # int32, as row_local
+    val: np.ndarray  # float32, as row_local
     n_dev: int
     n_local: int  # rows per rank
     n_real_nodes: int
     n_real_edges: int
+    ring: bool = False
     send_idx: np.ndarray | None = None  # int32 [n_dev, n_dev*halo_size]
     halo_size: int = 0  # rows per (src-rank, dst-rank) exchange slab
+    push_row: np.ndarray | None = None  # int32 [n_dev, e_push]
+    push_col: np.ndarray | None = None  # int32 [n_dev, e_push]
+    push_val: np.ndarray | None = None  # float32 [n_dev, e_push]
+    push_recv: np.ndarray | None = None  # int32 [n_dev, n_dev*push_slab]
+    push_slab: int = 0
 
     @property
     def n_nodes_pad(self) -> int:
@@ -141,6 +154,78 @@ def _remap_cols_boundary(col_s, val_s, n_dev, n_local):
     return col_new, send_idx, H
 
 
+def _adaptive_pair_modes(rows, cols, n_dev, n_local):
+    """Push or pull per off-diagonal (source rank s, destination rank d)
+    pair: pull ships the pair's unique source rows, push its unique
+    destination rows (partial sums); push where strictly fewer. The
+    all_to_all pads every pair to its category's largest, so the split is
+    kept only when max(pull pairs) + max(push pairs) beats the pure-pull
+    max. Returns ``mode_push`` [n_dev, n_dev]."""
+    n_pad = n_dev * n_local
+    dev_r = rows // n_local
+    dev_c = cols // n_local
+    off = dev_r != dev_c
+    pair = (dev_c[off] * n_dev + dev_r[off]).astype(np.int64)
+    pull_cnt = np.bincount(
+        np.unique(pair * n_pad + cols[off]) // n_pad, minlength=n_dev * n_dev
+    )
+    push_cnt = np.bincount(
+        np.unique(pair * n_pad + rows[off]) // n_pad, minlength=n_dev * n_dev
+    )
+    mode_push = (push_cnt < pull_cnt) & (push_cnt > 0)
+    mixed = (
+        int(pull_cnt[~mode_push].max(initial=0))
+        + int(push_cnt[mode_push].max(initial=0))
+    )
+    if mixed >= int(pull_cnt.max(initial=0)):
+        mode_push[:] = False
+    return mode_push.reshape(n_dev, n_dev)
+
+
+def _build_push_slabs(rows, cols, vals, n_dev, n_local):
+    """The push edges' per-source-rank slabs, sorted by (source rank,
+    destination rank, destination row) so ``push_row`` ascends on each rank.
+    Returns (push_row, push_col, push_val, push_recv, push_slab)."""
+    n_pad = n_dev * n_local
+    dev_r = (rows // n_local).astype(np.int64)
+    dev_c = (cols // n_local).astype(np.int64)
+    pair = dev_c * n_dev + dev_r
+    key = pair * n_pad + rows
+    uniq, inv = np.unique(key, return_inverse=True)
+    upair = uniq // n_pad
+    pair_start = np.searchsorted(upair, np.arange(n_dev * n_dev))
+    slot = np.arange(len(uniq)) - pair_start[upair]
+    per_pair = np.bincount(upair, minlength=n_dev * n_dev)
+    push_slab = pad_to_multiple(max(int(per_pair.max()), 1), 8)
+
+    order = np.argsort(key, kind="stable")
+    src_dev = dev_c[order]
+    e_cnt = np.bincount(src_dev, minlength=n_dev)
+    e_push = pad_to_multiple(max(int(e_cnt.max()), 1), 128)
+    starts = np.zeros(n_dev, np.int64)
+    np.cumsum(e_cnt[:-1], out=starts[1:])
+    pos = np.arange(len(order)) - starts[src_dev]
+
+    # padding: val 0 into the last slot, so push_row stays ascending
+    push_row = np.full((n_dev, e_push), n_dev * push_slab - 1, np.int32)
+    push_col = np.zeros((n_dev, e_push), np.int32)
+    push_val = np.zeros((n_dev, e_push), np.float32)
+    push_row[src_dev, pos] = (
+        dev_r[order] * push_slab + slot[inv[order]]
+    ).astype(np.int32)
+    push_col[src_dev, pos] = (cols[order] - src_dev * n_local).astype(np.int32)
+    push_val[src_dev, pos] = vals[order]
+
+    # slot k of the slab from rank s lands at push_recv[d, s*push_slab + k];
+    # unused slots name the n_local dump row
+    push_recv = np.full((n_dev, n_dev * push_slab), n_local, np.int32)
+    s_u, d_u = upair // n_dev, upair % n_dev
+    push_recv[d_u, s_u * push_slab + slot] = (
+        uniq % n_pad - d_u * n_local
+    ).astype(np.int32)
+    return push_row, push_col, push_val, push_recv, int(push_slab)
+
+
 def _boundary_pays_off(n_local, n_dev, halo, n_pad, kind: str,
                        fallback: bool) -> bool:
     """True when the compact halo buffer is strictly smaller than the
@@ -171,25 +256,38 @@ def partition_graph(
     Rows are padded so every rank owns the same number (a multiple of
     ``node_pad``); edge slabs are padded to the largest rank's count rounded
     to 128. ``boundary=True`` rewrites columns against the compact
-    local+halo buffer and builds the all_to_all schedule;
-    ``boundary_fallback=True`` returns the all_gather layout instead when
-    that buffer would not be smaller (``_boundary_pays_off``)."""
-    if adaptive:
-        raise _not_ported("the adaptive (push/pull) halo")
+    local+halo buffer and builds the all_to_all schedule; ``adaptive=True``
+    (implies boundary) also moves each rank pair's edges to the push slabs
+    where pushing partial sums ships fewer rows (the ``ShardedGraph``
+    docstring). ``boundary_fallback=True`` returns the all_gather layout
+    instead when the buffer would not be smaller (``_boundary_pays_off``);
+    for the adaptive halo it rebuilds the plain partition from the CSR."""
     n_local = pad_to_multiple(-(-csr.n_rows // n_dev), node_pad)
     n_pad = n_local * n_dev
 
     rows = csr.row_ids().astype(np.int64)
     cols = csr.indices.astype(np.int64)
-    row_local, col, val = _slice_coo_by_dest(rows, cols, csr.values, n_dev,
-                                             n_local, n_pad)
+    vals = csr.values
+    push = (None, None, None, None, 0)
+    if adaptive:
+        boundary = True
+        mode_push = _adaptive_pair_modes(rows, cols, n_dev, n_local)
+        is_push = mode_push[cols // n_local, rows // n_local]
+        if is_push.any():
+            push = _build_push_slabs(rows[is_push], cols[is_push], vals[is_push],
+                                     n_dev, n_local)
+            rows, cols, vals = rows[~is_push], cols[~is_push], vals[~is_push]
+    row_local, col, val = _slice_coo_by_dest(rows, cols, vals, n_dev, n_local, n_pad)
     send_idx, halo = None, 0
     if boundary:
         col_b, send_idx, halo = _remap_cols_boundary(col, val, n_dev, n_local)
-        if _boundary_pays_off(n_local, n_dev, halo, n_pad, "boundary",
-                              boundary_fallback):
+        if _boundary_pays_off(n_local, n_dev, halo, n_pad,
+                              "adaptive" if adaptive else "boundary", boundary_fallback):
             col = col_b
         elif boundary_fallback:
+            if adaptive:
+                # the push split already took edges out of rows/cols/vals
+                return partition_graph(csr, n_dev, node_pad=node_pad)
             send_idx, halo = None, 0
         else:
             col = col_b
@@ -197,6 +295,44 @@ def partition_graph(
         row_local=row_local, col=col, val=val, n_dev=n_dev, n_local=n_local,
         n_real_nodes=csr.n_rows, n_real_edges=csr.nnz,
         send_idx=send_idx, halo_size=halo,
+        push_row=push[0], push_col=push[1], push_val=push[2], push_recv=push[3],
+        push_slab=push[4],
+    )
+
+
+def partition_graph_ring(csr: HostCSR, n_dev: int, node_pad: int = 8) -> ShardedGraph:
+    """The ring layout of the ``ppermute`` rotation: each rank's edges
+    bucketed by source block in ring order (slab s: sources of rank
+    (d − s) mod n_dev), row-sorted within a slab, padded to the largest
+    (rank, step) count rounded to 128 (padding: row n_local − 1, col 0,
+    val 0, last)."""
+    n_local = pad_to_multiple(-(-csr.n_rows // n_dev), node_pad)
+    rows = csr.row_ids().astype(np.int64)
+    cols = csr.indices.astype(np.int64)
+    vals = csr.values
+    d = rows // n_local
+    b = cols // n_local
+    s = (d - b) % n_dev
+
+    order = np.lexsort((rows, s, d))
+    group = (d[order] * n_dev + s[order]).astype(np.int64)
+    counts = np.bincount(group, minlength=n_dev * n_dev)
+    e_slab = pad_to_multiple(max(int(counts.max()), 1), 128)
+    starts = np.zeros(n_dev * n_dev, dtype=np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    pos = np.arange(len(order), dtype=np.int64) - starts[group]
+
+    row_s = np.full((n_dev * n_dev, e_slab), n_local - 1, dtype=np.int32)
+    col_s = np.zeros((n_dev * n_dev, e_slab), dtype=np.int32)
+    val_s = np.zeros((n_dev * n_dev, e_slab), dtype=np.float32)
+    row_s[group, pos] = (rows[order] - d[order] * n_local).astype(np.int32)
+    col_s[group, pos] = (cols[order] % n_local).astype(np.int32)
+    val_s[group, pos] = vals[order]
+    shape = (n_dev, n_dev, e_slab)
+    return ShardedGraph(
+        row_local=row_s.reshape(shape), col=col_s.reshape(shape),
+        val=val_s.reshape(shape), n_dev=n_dev, n_local=n_local,
+        n_real_nodes=csr.n_rows, n_real_edges=csr.nnz, ring=True,
     )
 
 
@@ -229,6 +365,23 @@ class HybridShardedGraph:
     # blocks; node-keyed arrays must be permuted the same way
     node_perm: np.ndarray | None = None
     tile_dtype: str = "float32"
+    # adaptive halo (partition_graph_hybrid(adaptive=True)): the push pairs'
+    # tiles and residual edges live on the SOURCE rank. The push tiles are a
+    # rect pack over LOCAL column blocks with a compact output row space
+    # (ptrow: compact block ids, ascending, every block covered); pt_dst
+    # maps each compact row to its slot of the all_to_all slab (≥
+    # n_dev·push_slab: padding, dropped). The push residual sums straight
+    # into slab slots (prow, slot-sorted; n_dev·push_slab: padding). The
+    # receiver adds the exchanged rows at push_recv (n_local: unused).
+    ptiles: np.ndarray | None = None  # [n_dev, Tp, tile_r, tile_c]
+    ptrow: np.ndarray | None = None  # int32 [n_dev, Tp] compact block ids
+    ptcol: np.ndarray | None = None  # int32 [n_dev, Tp] LOCAL col blocks
+    pt_dst: np.ndarray | None = None  # int32 [n_dev, Bp·tile_r] slab slots
+    prow: np.ndarray | None = None  # int32 [n_dev, e_push] slab slots
+    pcol: np.ndarray | None = None  # int32 [n_dev, e_push] local source rows
+    pval: np.ndarray | None = None  # float32 [n_dev, e_push]
+    push_recv: np.ndarray | None = None  # int32 [n_dev, n_dev·push_slab]
+    push_slab: int = 0
 
     @property
     def n_nodes_pad(self) -> int:
@@ -336,6 +489,174 @@ def _hybrid_boundary(tiles, trow, tcol, res_col, res_val, n_dev, n_local,
     return send_idx, H
 
 
+def _hybrid_adaptive_split(g_trow, g_tcol, g_tiles, r_rows, r_cols, r_vals,
+                           n_dev, n_local, tile_r, tile_c):
+    """Push or pull per off-diagonal (source rank s, destination rank d)
+    pair of a tile partition: pull ships the source column blocks the
+    pair's tiles touch (tile_c rows each) plus its residual source rows
+    outside them; push one partial row per destination row (tile_r per
+    touched tile-row block, plus residual destination rows outside them).
+    Pairs where push is strictly cheaper move their tiles and residual
+    edges to the source rank.
+
+    Returns None when no pair pushes (or the mix does not beat pure pull),
+    else (keep_tiles, keep_res, (ptiles, ptrow, ptcol, pt_dst),
+    (prow, pcol, pval), push_recv, push_slab), padded to equal shapes."""
+    rows_per_dev = n_local // tile_r
+    Bl = n_local // tile_c
+    nz = g_tiles.reshape(g_tiles.shape[0], -1).any(axis=1)
+    t_dst = (g_trow // rows_per_dev).astype(np.int64)
+    t_src = (g_tcol // Bl).astype(np.int64)
+    live_r = r_vals != 0
+    r_dst = (r_rows // n_local).astype(np.int64)
+    r_src = (r_cols // n_local).astype(np.int64)
+
+    pull = np.zeros((n_dev, n_dev), np.int64)
+    push = np.zeros((n_dev, n_dev), np.int64)
+    pair_tiles = {}
+    pair_res = {}
+    for s in range(n_dev):
+        for d in range(n_dev):
+            if s == d:
+                continue
+            tm = np.flatnonzero(nz & (t_dst == d) & (t_src == s))
+            rm = np.flatnonzero(live_r & (r_dst == d) & (r_src == s))
+            pair_tiles[s, d] = tm
+            pair_res[s, d] = rm
+            blk = np.unique(g_tcol[tm].astype(np.int64))
+            rr = np.unique(r_cols[rm].astype(np.int64))
+            rr = rr[~np.isin(rr // tile_c, blk)]
+            pull[s, d] = tile_c * len(blk) + len(rr)
+            rb = np.unique(g_trow[tm].astype(np.int64))
+            rd = np.unique(r_rows[rm].astype(np.int64))
+            rd = rd[~np.isin(rd // tile_r, rb)]
+            push[s, d] = tile_r * len(rb) + len(rd)
+    mode_push = (push < pull) & (push > 0)
+    mixed = (
+        int(pull[~mode_push].max(initial=0))
+        + int(push[mode_push].max(initial=0))
+    )
+    if not mode_push.any() or mixed >= int(pull.max(initial=0)):
+        return None
+
+    # slot spaces, per pair: tile-row blocks first (tile_r rows each, shared
+    # by the tiles and the residual edges inside them), then the residual's
+    # other destination rows
+    H = 1
+    pair_blocks = {}
+    pair_extra = {}
+    for (s, d), tm in pair_tiles.items():
+        if not mode_push[s, d]:
+            continue
+        rb = np.unique(g_trow[tm].astype(np.int64))
+        rd = np.unique(r_rows[pair_res[s, d]].astype(np.int64))
+        extra = rd[~np.isin(rd // tile_r, rb)]
+        pair_blocks[s, d] = rb
+        pair_extra[s, d] = extra
+        H = max(H, tile_r * len(rb) + len(extra))
+    H = pad_to_multiple(H, 8)
+
+    keep_t = np.ones(len(g_trow), bool)
+    keep_r = np.ones(len(r_rows), bool)
+    push_recv = np.full((n_dev, n_dev * H), n_local, np.int32)
+    dev_blocks = [[] for _ in range(n_dev)]  # (compact block id, tile index)
+    dev_res = [[] for _ in range(n_dev)]  # (slot, local col, val)
+    dev_nblocks = np.zeros(n_dev, np.int64)
+    for s in range(n_dev):
+        for d in range(n_dev):
+            if (s, d) not in pair_blocks:
+                continue
+            tm, rm = pair_tiles[s, d], pair_res[s, d]
+            keep_t[tm] = False
+            keep_r[rm] = False
+            rb, extra = pair_blocks[s, d], pair_extra[s, d]
+            blk_pos = {int(b): i for i, b in enumerate(rb)}
+            for i, b in enumerate(rb):
+                rows_g = b * tile_r + np.arange(tile_r)
+                push_recv[d, s * H + i * tile_r : s * H + (i + 1) * tile_r] = (
+                    rows_g - d * n_local
+                ).astype(np.int32)
+            base_extra = tile_r * len(rb)
+            push_recv[d, s * H + base_extra : s * H + base_extra + len(extra)] = (
+                extra - d * n_local
+            ).astype(np.int32)
+            for tix in tm:
+                b = int(g_trow[tix])
+                dev_blocks[s].append((dev_nblocks[s] + blk_pos[b], int(tix)))
+            rrow_pair = r_rows[rm].astype(np.int64)
+            rcol_pair = r_cols[rm].astype(np.int64)
+            rval_pair = r_vals[rm]
+            in_blk = np.isin(rrow_pair // tile_r, rb)
+            slot = np.empty(len(rrow_pair), np.int64)
+            bp = np.searchsorted(rb, rrow_pair[in_blk] // tile_r)
+            slot[in_blk] = bp * tile_r + rrow_pair[in_blk] % tile_r
+            slot[~in_blk] = base_extra + np.searchsorted(extra, rrow_pair[~in_blk])
+            dev_res[s].append((d * H + slot, rcol_pair - s * n_local, rval_pair))
+            dev_nblocks[s] += len(rb)
+
+    tile_shape = g_tiles.shape[1:]
+    Bp = max(int(dev_nblocks.max()), 1)
+    Tp = max([1] + [len(dev_blocks[s]) for s in range(n_dev)])
+    ptiles = np.zeros((n_dev, Tp) + tile_shape, dtype=g_tiles.dtype)
+    ptrow = np.full((n_dev, Tp), Bp - 1, np.int32)
+    ptcol = np.zeros((n_dev, Tp), np.int32)
+    pt_dst = np.full((n_dev, Bp * tile_r), n_dev * H, np.int32)  # padding: dropped
+    e_push = max([1] + [sum(len(x[0]) for x in dev_res[s]) for s in range(n_dev)])
+    e_push = pad_to_multiple(e_push, 128)
+    prow = np.full((n_dev, e_push), n_dev * H, np.int32)  # padding: dropped
+    pcol = np.zeros((n_dev, e_push), np.int32)
+    pval = np.zeros((n_dev, e_push), np.float32)
+    for s in range(n_dev):
+        entries = sorted(dev_blocks[s], key=lambda x: x[0])
+        for k, (cblk, tix) in enumerate(entries):
+            ptiles[s, k] = g_tiles[tix]
+            ptrow[s, k] = cblk
+            ptcol[s, k] = int(g_tcol[tix]) - s * Bl
+        base = 0
+        for d in range(n_dev):
+            if (s, d) not in pair_blocks:
+                continue
+            nb = len(pair_blocks[s, d])
+            pt_dst[s, base * tile_r : (base + nb) * tile_r] = (
+                d * H + np.arange(nb * tile_r)
+            ).astype(np.int32)
+            base += nb
+        if dev_res[s]:
+            slots = np.concatenate([x[0] for x in dev_res[s]])
+            cols_l = np.concatenate([x[1] for x in dev_res[s]])
+            vals_l = np.concatenate([x[2] for x in dev_res[s]])
+            o = np.argsort(slots, kind="stable")
+            k = len(slots)
+            prow[s, :k] = slots[o].astype(np.int32)
+            pcol[s, :k] = cols_l[o].astype(np.int32)
+            pval[s, :k] = vals_l[o]
+
+    # every compact block 0..Bp-1 gets a tile on every rank (zero tiles for
+    # the blocks a rank does not use; pt_dst drops those rows)
+    for s in range(n_dev):
+        covered = set(ptrow[s, : len(dev_blocks[s])].tolist())
+        missing = [b for b in range(Bp) if b not in covered]
+        free = len(dev_blocks[s])
+        need = len(missing)
+        if need > Tp - free:
+            pad_t = need - (Tp - free)
+            ptiles = np.concatenate(
+                [ptiles, np.zeros((n_dev, pad_t) + tile_shape, dtype=g_tiles.dtype)],
+                axis=1)
+            ptrow = np.concatenate([ptrow, np.full((n_dev, pad_t), Bp - 1, np.int32)],
+                                   axis=1)
+            ptcol = np.concatenate([ptcol, np.zeros((n_dev, pad_t), np.int32)], axis=1)
+            Tp += pad_t
+        ptrow[s, free : free + need] = np.asarray(missing, np.int32)
+        o = np.argsort(ptrow[s], kind="stable")
+        ptiles[s] = ptiles[s][o]
+        ptrow[s] = ptrow[s][o]
+        ptcol[s] = ptcol[s][o]
+
+    return (keep_t, keep_r, (ptiles, ptrow, ptcol, pt_dst), (prow, pcol, pval),
+            push_recv, int(H))
+
+
 @dataclass(frozen=True)
 class GATMeshPack:
     """Per-rank rect tile packs of the mesh GAT's attention
@@ -382,6 +703,9 @@ def gat_mesh_pack(hsg: HybridShardedGraph, max_tile_c: int = 512) -> GATMeshPack
     JAX package's), and the column-sorted copy with a zero tile for every
     buffer block no tile touches, padded with zero tiles at the last
     block."""
+    if hsg.push_slab:
+        raise ValueError("gat_mesh_pack needs a pull-only partition: the adaptive halo's "
+                         "push pairs move a destination row's edges off its rank")
     tiles = np.asarray(hsg.tiles)
     trow = np.asarray(hsg.trow)
     tcol = np.asarray(hsg.tcol)
@@ -472,14 +796,15 @@ def partition_graph_hybrid(
     every rank to the same count. The residual COO is sliced per dest rank.
     ``balance=True`` permutes whole tile_c node blocks when the natural
     order concentrates tiles on few ranks (``node_perm``). ``boundary=True``
-    builds the boundary exchange of remote blocks and rows. int8
+    builds the boundary exchange of remote blocks and rows;
+    ``adaptive=True`` (implies boundary at more than one rank) moves each
+    rank pair's tiles and residual edges to the push slabs where pushing
+    partial sums ships fewer rows (``_hybrid_adaptive_split``). int8
     ``tile_dtype`` keeps the 0/k pattern and ``sym_scale`` = d, with
     residual values the edge multiplicity."""
     from parallel_gcn_tpu_torch.data.graph import split_dense_tiles, sym_scale_for
     from parallel_gcn_tpu_torch.ops.cuda_bcsr import build_bcsr
 
-    if adaptive:
-        raise _not_ported("the adaptive (push/pull) halo")
     dtype_name = _dtype_name(tile_dtype)
     tdtype = torch_dtype(dtype_name)
     tile_c = tile_c or tile_r
@@ -541,6 +866,29 @@ def partition_graph_hybrid(
             if sym_scale is not None:
                 sym_scale = np.asarray(sym_scale)[node_perm]
 
+    push = None
+    if adaptive and n_dev > 1:
+        boundary = True
+        split = _hybrid_adaptive_split(g_trow, g_tcol, g_tiles, r_rows, r_cols, r_vals,
+                                       n_dev, n_local, tile_r, tile_c)
+        if split is not None:
+            keep_t, keep_r, push_pack, push_res, push_recv, push_slab = split
+            g_trow, g_tcol, g_tiles = g_trow[keep_t], g_tcol[keep_t], g_tiles[keep_t]
+            r_rows, r_cols, r_vals = r_rows[keep_r], r_cols[keep_r], r_vals[keep_r]
+            # a tile-row whose tiles all moved to push gets a zero tile on its
+            # owner's first block (no halo), so every tile-row stays covered
+            missing = np.setdiff1d(np.arange(n_pad // tile_r, dtype=np.int64),
+                                   np.unique(g_trow.astype(np.int64)))
+            if len(missing):
+                own_blk = (missing * tile_r) // n_local * (n_local // tile_c)
+                g_trow = np.concatenate([g_trow, missing]).astype(np.int32)
+                g_tcol = np.concatenate([g_tcol, own_blk]).astype(np.int32)
+                g_tiles = np.concatenate(
+                    [g_tiles, np.zeros((len(missing), tile_r, tile_c), g_tiles.dtype)])
+                o = np.argsort(g_trow, kind="stable")
+                g_trow, g_tcol, g_tiles = g_trow[o], g_tcol[o], g_tiles[o]
+            push = (push_pack, push_res, push_recv, push_slab)
+
     rows_per_dev = n_local // tile_r
     dev_of_tile = g_trow // rows_per_dev
     counts = np.bincount(dev_of_tile, minlength=n_dev)
@@ -573,13 +921,22 @@ def partition_graph_hybrid(
         send_idx, halo = _hybrid_boundary(
             tiles, trow, tcol, res_col, res_val, n_dev, n_local, tile_c
         )
-        if not _boundary_pays_off(n_local, n_dev, halo, n_pad, "hybrid-boundary",
-                                  boundary_fallback) and boundary_fallback:
+        # with push pairs the pull buffer is not the whole exchange: warn only
+        fallback = boundary_fallback and push is None
+        if not _boundary_pays_off(n_local, n_dev, halo, n_pad,
+                                  "hybrid-boundary" if push is None else "hybrid-adaptive",
+                                  fallback) and fallback:
             # _hybrid_boundary rewrote tcol/res_col in place: restore the
             # global layout (= the all_gather halo)
             tcol, res_col = tcol0, res_col0
             send_idx, halo = None, 0
 
+    push_fields = {}
+    if push is not None:
+        (ptiles, ptrow, ptcol, pt_dst), (prow, pcol, pval), precv, pslab = push
+        push_fields = dict(ptiles=ptiles, ptrow=ptrow, ptcol=ptcol, pt_dst=pt_dst,
+                           prow=prow, pcol=pcol, pval=pval, push_recv=precv,
+                           push_slab=pslab)
     return HybridShardedGraph(
         tiles=tiles, trow=trow, tcol=tcol,
         res_row=res_row, res_col=res_col, res_val=res_val,
@@ -588,5 +945,5 @@ def partition_graph_hybrid(
         sym_scale=None if sym_scale is None else
         np.asarray(sym_scale)[:n_pad].reshape(n_dev, n_local),
         send_idx=send_idx, halo_size=halo, node_perm=node_perm,
-        tile_dtype=dtype_name,
+        tile_dtype=dtype_name, **push_fields,
     )

@@ -6,7 +6,9 @@ rank, each on its own device (``cuda:<LOCAL_RANK>``, or the CPU when asked
 for). A rank holds its rows of the features, labels and split and its own
 slab of the graph (``RankGraph``), aggregates its rows' edges against a
 source buffer filled by a collective (``parallel.collectives``: all_gather
-of every row, or the boundary all_to_all of only the referenced rows),
+of every row, the boundary all_to_all of only the referenced rows, the
+ring's rotation of one block at a time, or the adaptive halo's exchange of
+partial sums),
 sums the weight gradients and the metrics with ``all_reduce``, and runs the
 same Adam step as every other rank, so the weights stay replicated.
 
@@ -14,10 +16,19 @@ Aggregation layouts (``parallel.partition``):
 - flat COO slabs (``graphsum_dist``): the ordered gather-sum of
   ``ops.cuda_segment`` by local row, its backward the same sum transposed
   (by buffer row), then the collectives' autograd;
-- tile slabs plus a COO residual (``graphsum_dist_hybrid``, and
-  ``graphsum_dist_hybrid_scaled`` for int8 pattern slabs): K3 over the
-  rectangular slab (``ops.cuda_bcsr.bcsr_matmul_rect``); self-adjoint, so
-  the backward is the same aggregation of the cotangent;
+- the ring (``graphsum_ring``): n_dev steps of the ordered gather-sum of
+  one slab against the block the rank holds, the block passed on by
+  ``collectives.ppermute_rows`` between steps;
+- the adaptive push/pull halo over flat slabs (``graphsum_dist_adaptive``):
+  the pulled edges as ``graphsum_dist``, the push pairs' partial rows
+  summed on their source rank, one ``all_to_all`` and an ordered add at
+  the receiver;
+- tile slabs plus a COO residual (``graphsum_dist_hybrid``,
+  ``graphsum_dist_hybrid_scaled`` for int8 pattern slabs, and their
+  ``_adaptive`` forms with push tiles): K3 over the rectangular slab
+  (``ops.cuda_bcsr.bcsr_matmul_rect``);
+- the ring, the adaptive and the tile aggregations are self-adjoint (Â is
+  symmetric), so each backward is the same aggregation of the cotangent;
 - the mesh GAT over ``gat_mesh_pack`` slabs (``ops.tile_attention.
   gat_attend_rect``: K5 forward, K7 backward) or over flat COO slabs.
 
@@ -51,15 +62,16 @@ checkpoint while the others wait at a barrier.
 recompute issues the layer's collectives again, in the same order on every
 rank, inside the captured epoch.
 
-Not ported (NotImplementedError): the ring and adaptive halos, tensor
-parallelism (``tp`` > 1) and the GAT's ``edge_chunk``. The mesh CE is the plain masked CE of ``ops.loss`` on every
-rank, as in the JAX package (``ce_impl`` does not apply).
+Not ported (NotImplementedError): tensor parallelism (``tp`` > 1). The
+mesh CE is the plain masked CE of ``ops.loss`` on every rank, as in the JAX
+package (``ce_impl`` does not apply).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -67,24 +79,28 @@ import torch
 from parallel_gcn_tpu_torch.config import Config
 from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL
 from parallel_gcn_tpu_torch.device import resolve_device
-from parallel_gcn_tpu_torch.models.gat import LEAKY_SLOPE, GATModel, _edge_softmax_segment
+from parallel_gcn_tpu_torch.models.gat import (LEAKY_SLOPE, GATModel, _edge_softmax_segment,
+                                               attend_chunked)
 from parallel_gcn_tpu_torch.models.gcn import GCNModel, set_matmul_precision
 from parallel_gcn_tpu_torch.models.sage import GINModel, SAGEModel
 from parallel_gcn_tpu_torch.ops.cuda_bcsr import BCSR, bcsr_matmul_rect, slab_pack
 from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout
 from parallel_gcn_tpu_torch.ops.cuda_segment import (Segments, gather, gather_sum,
-                                                     gather_sum_t, segment_sum, segments)
+                                                     gather_sum_t, segment_sum, segment_sum_,
+                                                     segments)
 from parallel_gcn_tpu_torch.ops.loss import masked_softmax_xent_sums
 from parallel_gcn_tpu_torch.ops.tile_attention import (RectAttention, gat_attend_rect,
                                                        rect_attention)
 from parallel_gcn_tpu_torch.optim import AdamState, adam_step
 from parallel_gcn_tpu_torch.parallel import collectives
-from parallel_gcn_tpu_torch.parallel.collectives import (all_reduce_sum, buffer_rows,
-                                                         gather_buffer)
+from parallel_gcn_tpu_torch.parallel.collectives import (all_reduce_sum, all_to_all_rows,
+                                                         buffer_rows, gather_buffer,
+                                                         ppermute_rows)
 from parallel_gcn_tpu_torch.parallel.partition import (GATMeshPack, HybridShardedGraph,
                                                        ShardedGraph, gat_mesh_pack,
                                                        partition_graph,
-                                                       partition_graph_hybrid)
+                                                       partition_graph_hybrid,
+                                                       partition_graph_ring)
 from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table
 from parallel_gcn_tpu_torch.train import (_ATTN_SEED_HIGH, _SEED_HIGH, FitResult, _l2_term,
                                           _sync, checkpoint_writer, eager_loop, epoch_seeds,
@@ -148,14 +164,41 @@ def sharded_sqrt_deg(ds, sgraph) -> np.ndarray:
 
 
 @dataclass(frozen=True)
+class PushGroup:
+    """A rank's half of the adaptive halo's push pairs: the partial-sum slab
+    it sends (``n_slab`` = n_dev·push_slab rows, one chunk per destination
+    rank), built from its COO push edges (``seg`` over the slab's slots,
+    ``col`` its local source rows, ``val``) and, on tile slabs, from its
+    push tiles (``tiles``, a rect pack over its local rows whose first
+    ``n_tile_rows`` output rows land at the slots ``tile_seg`` lists; None
+    when the rank pushes no tile); and the receive map: row k of the
+    received slab, at ``keep[k]`` (all rows when None), adds into local row
+    ``recv_seg.index[k]``, the rows of one destination in (peer, slot)
+    order."""
+
+    n_slab: int
+    seg: Segments
+    col: torch.Tensor
+    val: torch.Tensor
+    recv_seg: Segments
+    keep: torch.Tensor | None = None
+    tiles: BCSR | None = None
+    tile_seg: Segments | None = None
+    n_tile_rows: int = 0
+
+
+@dataclass(frozen=True)
 class RankGraph:
     """Rank ``rank``'s slab of a partition on its device: flat COO
     (``coo``, with the ``Segments`` of its rows and of its buffer columns),
-    a tile slab with its residual (``slab``, ``res`` with its rows'
-    ``Segments``, and the int8 slab's ``d``), or the mesh GAT's packs
-    (``attn``, over ``res``'s layout). ``send`` is the boundary halo's
-    schedule, the ``Segments`` of its sent rows (None: the all_gather
-    halo). ``sqrt_deg``: the rank's rows' sqrt(deg) (SAGE/GIN only)."""
+    the ring's slabs (``ring``: per rotation step the ``Segments`` of its
+    rows, its columns within the held block and its values), a tile slab
+    with its residual (``slab``, ``res`` with its rows' ``Segments``, and
+    the int8 slab's ``d``), or the mesh GAT's packs (``attn``, over
+    ``res``'s layout). ``send`` is the boundary halo's schedule, the
+    ``Segments`` of its sent rows (None: the all_gather halo); ``push`` the
+    adaptive halo's push pairs. ``sqrt_deg``: the rank's rows' sqrt(deg)
+    (SAGE/GIN only). Padding edges (val 0) are left out of every slab."""
 
     n_dev: int
     rank: int
@@ -163,21 +206,67 @@ class RankGraph:
     n_buf: int
     send: Segments | None = None
     coo: tuple | None = None  # (row_local, col, val, row segments, col segments)
+    ring: tuple | None = None  # ((row segments, col, val), ...) one per step
     slab: BCSR | None = None
     res: tuple | None = None  # (rrow, rcol, rval, row segments)
     d: torch.Tensor | None = None
+    push: PushGroup | None = None
     attn: RectAttention | None = None
     sqrt_deg: torch.Tensor | None = None
 
     def aggregate(self, h: torch.Tensor) -> torch.Tensor:
-        """Â·h on this rank's rows, in h's dtype."""
+        """Â·h on this rank's rows, in h's dtype (the JAX ``_aggregate``)."""
+        if self.ring is not None:
+            return graphsum_ring(h, self.ring)
         if self.coo is not None:
+            if self.push is not None:
+                return graphsum_dist_adaptive(h, self.coo, self.send, self.push)
             return graphsum_dist(h, *self.coo, send=self.send)
         if self.slab is None:
             raise ValueError("the mesh GAT's packs carry no GCN aggregation")
+        if self.push is not None:
+            if self.d is not None:
+                return graphsum_dist_hybrid_adaptive_scaled(h, self.d, self.send, self.slab,
+                                                            *self.res, self.push)
+            return graphsum_dist_hybrid_adaptive(h, self.send, self.slab, *self.res,
+                                                 self.push)
         if self.d is not None:
             return graphsum_dist_hybrid_scaled(h, self.d, self.send, self.slab, *self.res)
         return graphsum_dist_hybrid(h, self.send, self.slab, *self.res)
+
+
+def _push_group(sg, r: int, device) -> PushGroup:
+    """Rank ``r``'s ``PushGroup`` of an adaptive partition: the COO push
+    edges without their padding (slot n_slab on tile slabs, val 0 on flat
+    ones), the push tiles (tile slabs), the receive map without its unused
+    slots."""
+    hybrid = isinstance(sg, HybridShardedGraph)
+    n_slab = sg.n_dev * sg.push_slab
+    prow, pcol, pval = ((sg.prow, sg.pcol, sg.pval) if hybrid
+                        else (sg.push_row, sg.push_col, sg.push_val))
+    live = (prow[r] < n_slab) & (pval[r] != 0)
+    slot = torch.from_numpy(prow[r][live].astype(np.int64)).to(device)
+    recv = sg.push_recv[r]
+    keep = np.flatnonzero(recv < sg.n_local)
+    group = dict(
+        n_slab=n_slab, seg=segments(slot, n_slab),
+        col=torch.from_numpy(pcol[r][live].astype(np.int64)).to(device),
+        val=torch.from_numpy(pval[r][live].astype(np.float32)).to(device),
+        recv_seg=segments(torch.from_numpy(recv[keep].astype(np.int64)).to(device),
+                          sg.n_local),
+        keep=None if len(keep) == len(recv) else torch.from_numpy(keep).to(device))
+    ptiles = sg.ptiles[r] if hybrid else None
+    if ptiles is not None and ptiles.reshape(ptiles.shape[0], -1).any():
+        # (a rank whose push pairs hold residual edges only has zero tiles)
+        dst = sg.pt_dst[r]
+        n_rows = int((dst < n_slab).sum())  # the real rows lead, in slot order
+        group.update(
+            tiles=slab_pack(sg.ptiles[r], sg.ptrow[r], sg.ptcol[r], dst.shape[0],
+                            sg.n_local, sg.tile_dtype, device),
+            tile_seg=segments(torch.from_numpy(dst[:n_rows].astype(np.int64)).to(device),
+                              n_slab),
+            n_tile_rows=n_rows)
+    return PushGroup(**group)
 
 
 def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None) -> RankGraph:
@@ -185,6 +274,14 @@ def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None) ->
     ``HybridShardedGraph`` or ``GATMeshPack``) on ``device``, with its rows
     of ``sqrt_deg`` (``sharded_sqrt_deg``) when given."""
     r = rank
+
+    def coo(rows, cols, vals, n_cols):
+        """(row, col, val, row segments, col segments) of the live edges."""
+        live = vals != 0
+        row = torch.from_numpy(rows[live].astype(np.int64)).to(device)
+        col = torch.from_numpy(cols[live].astype(np.int64)).to(device)
+        val = torch.from_numpy(vals[live].astype(np.float32)).to(device)
+        return row, col, val, segments(row, sgraph.n_local), segments(col, n_cols)
 
     def i64(a):
         return torch.from_numpy(a[r].astype(np.int64)).to(device)
@@ -195,6 +292,8 @@ def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None) ->
     base = dict(n_dev=sgraph.n_dev, rank=r, n_local=sgraph.n_local, n_buf=sgraph.n_buf,
                 send=None if sgraph.send_idx is None else segments(i64(sgraph.send_idx),
                                                                     sgraph.n_local),
+                push=_push_group(sgraph, r, device) if getattr(sgraph, "push_slab", 0)
+                else None,
                 sqrt_deg=None if sqrt_deg is None else f32(sqrt_deg))
     if isinstance(sgraph, GATMeshPack):
         sg = sgraph
@@ -207,14 +306,16 @@ def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None) ->
         sg = sgraph
         slab = slab_pack(sg.tiles[r], sg.trow[r], sg.tcol[r], sg.n_local, sg.n_buf,
                          sg.tile_dtype, device)
-        rrow = i64(sg.res_row)
-        return RankGraph(**base, slab=slab,
-                         res=(rrow, i64(sg.res_col), f32(sg.res_val),
-                              segments(rrow, sg.n_local)),
+        rrow, rcol, rval, rseg, _ = coo(sg.res_row[r], sg.res_col[r], sg.res_val[r],
+                                         sg.n_buf)
+        return RankGraph(**base, slab=slab, res=(rrow, rcol, rval, rseg),
                          d=None if sg.sym_scale is None else f32(sg.sym_scale))
-    row, col = i64(sgraph.row_local), i64(sgraph.col)
-    return RankGraph(**base, coo=(row, col, f32(sgraph.val), segments(row, sgraph.n_local),
-                                  segments(col, sgraph.n_buf)))
+    if sgraph.ring:
+        steps = (coo(sgraph.row_local[r, s], sgraph.col[r, s], sgraph.val[r, s],
+                     sgraph.n_local) for s in range(sgraph.n_dev))
+        return RankGraph(**base, ring=tuple((seg, col, val) for _, col, val, seg, _ in steps))
+    return RankGraph(**base, coo=coo(sgraph.row_local[r], sgraph.col[r], sgraph.val[r],
+                                     sgraph.n_buf))
 
 
 # ---------------------------------------------------------------------------
@@ -233,47 +334,153 @@ def graphsum_dist(x_local, row_local, col, val, row_seg: Segments, col_seg: Segm
     return gather_sum_t(x_buf, row_seg, col, val, col_seg)
 
 
-def _hybrid_impl(x_local, d_local, send, slab, rrow, rcol, rval, res_seg):
-    if d_local is not None:
-        # int8 pattern slabs: scale before the exchange (one collective),
-        # aggregate the 0/k pattern, scale the local rows: d ⊙ B (d ⊙ x)
-        x_local = (d_local[:, None] * x_local.float()).to(x_local.dtype)
-    x_buf = buffer_rows(x_local, send)
-    out = bcsr_matmul_rect(slab, x_buf).to(x_local.dtype)
-    out = out + gather_sum(x_buf, res_seg, rcol, rval)
-    if d_local is not None:
-        out = (d_local[:, None] * out).to(out.dtype)
-    return out
-
-
-class _HybridAgg(torch.autograd.Function):
-    """Self-adjoint at the collective level: the global matrix is symmetric,
-    so the gradient on rank d's rows is the same operation applied to the
-    exchanged cotangent (Σ_b A[b,d]ᵀ g_b = Σ_b A[d,b] g_b), for either
-    halo."""
+class _SelfAdjoint(torch.autograd.Function):
+    """``impl(x)`` whose backward is ``impl`` of the cotangent: exact for any
+    layout of the symmetric Â, however its edges are routed, because the
+    cotangent is row-sharded like x and Σ_b A[b,d]ᵀ g_b = Σ_b A[d,b] g_b
+    (the JAX package's custom VJPs of the tile and adaptive aggregations)."""
 
     @staticmethod
-    def forward(ctx, x_local, d_local, send, slab, rrow, rcol, rval, res_seg):
-        ctx.args = (d_local, send, slab, rrow, rcol, rval, res_seg)
-        return _hybrid_impl(x_local, d_local, send, slab, rrow, rcol, rval, res_seg)
+    def forward(ctx, x, impl):
+        ctx.impl = impl
+        return impl(x)
 
     @staticmethod
     def backward(ctx, g):
-        return (_hybrid_impl(g.contiguous(), *ctx.args),) + (None,) * 7
+        return ctx.impl(g.contiguous()), None
+
+
+def _scaled(impl, d_local):
+    """int8 pattern slabs: scale the local rows by d before any exchange
+    (the pulled rows and the pushed partials then carry d-scaled operands)
+    and the output rows after: d ⊙ B (d ⊙ x) = Â·x."""
+
+    def run(x_local):
+        out = impl((d_local[:, None] * x_local.float()).to(x_local.dtype))
+        return (d_local[:, None] * out).to(out.dtype)
+
+    return run
+
+
+def pull_sum(x_buf, slab, rcol, rval, res_seg):
+    """The pulled and local edges of a tile slab: K3 over the slab against
+    the source buffer plus the residual's ordered gather-sum (its rows are
+    ``res_seg``'s index), [n_local, F] in x_buf's dtype (K3's f32 rounded
+    first, as JAX casts it)."""
+    out = bcsr_matmul_rect(slab, x_buf).to(x_buf.dtype)
+    return out + gather_sum(x_buf, res_seg, rcol, rval)
+
+
+def push_partials(x_local, push: PushGroup):
+    """This rank's partial-sum slab [n_slab, F] in x's dtype: the push
+    edges summed by slot in edge order (kernel (a)), then on tile slabs K3
+    over the push tiles, rounded to x's dtype and added at their slots
+    (kernel (b); each slot takes at most one tile row). JAX rounds both to
+    x's dtype before the exchange as well."""
+    slab = gather_sum(x_local, push.seg, push.col, push.val)
+    if push.tiles is not None:
+        part = bcsr_matmul_rect(push.tiles, x_local)[: push.n_tile_rows].to(slab.dtype)
+        segment_sum_(slab, push.tile_seg, part)
+    return slab
+
+
+def receive_add(out, recv, push: PushGroup):
+    """``out`` plus the received partial rows at their local rows, in place:
+    kernel (b) adds a row's partials in (peer, slot) order to out's value in
+    float32 and rounds once; the unused slots are left out."""
+    if push.keep is not None:
+        recv = recv.index_select(0, push.keep)
+    return segment_sum_(out, push.recv_seg, recv.to(out.dtype))
+
+
+def ring_step(acc, blk, step):
+    """One step of the ring: the step's slab summed against the held block
+    in edge order (kernel (a), rounded to blk's dtype once), added to the
+    accumulator in blk's dtype, as JAX keeps it."""
+    seg, col, val = step
+    part = gather_sum(blk, seg, col, val)
+    return part if acc is None else acc + part
+
+
+def _ring_impl(x_local, steps):
+    acc, blk = None, x_local
+    for s, step in enumerate(steps):
+        acc = ring_step(acc, blk, step)
+        if s + 1 < len(steps):  # JAX's last rotation only sends blocks home
+            blk = ppermute_rows(blk)
+    return acc
+
+
+def graphsum_ring(x_local, steps):
+    """Distributed Â·x over the ring halo (JAX ``graphsum_ring``): n_dev
+    steps, each the ordered gather-sum of the step's slab against the block
+    this rank holds, then the block passed to rank + 1. A rank holds one
+    remote block at a time instead of the gathered matrix. ``steps``:
+    ``RankGraph.ring``. Self-adjoint."""
+    return _SelfAdjoint.apply(x_local, partial(_ring_impl, steps=steps))
+
+
+def _adaptive_impl(x_local, coo, send, push):
+    row, col, val, row_seg, _ = coo
+    out = gather_sum(buffer_rows(x_local, send), row_seg, col, val)
+    return receive_add(out, all_to_all_rows(push_partials(x_local, push)), push)
+
+
+def graphsum_dist_adaptive(x_local, coo, send, push: PushGroup):
+    """Distributed Â·x over flat COO slabs with the adaptive push/pull halo
+    (JAX ``graphsum_dist_adaptive``): the pulled and local edges through the
+    boundary buffer, the push edges summed on this rank by slot, one
+    ``all_to_all`` of the partial rows, the received rows added at their
+    local rows in order. ``coo``: ``RankGraph.coo``. Self-adjoint."""
+    return _SelfAdjoint.apply(x_local, partial(_adaptive_impl, coo=coo, send=send, push=push))
+
+
+def _hybrid_impl(x_local, send, slab, rrow, rcol, rval, res_seg, push=None):
+    del rrow  # res_seg's index
+    out = pull_sum(buffer_rows(x_local, send), slab, rcol, rval, res_seg)
+    if push is None:
+        return out
+    return receive_add(out, all_to_all_rows(push_partials(x_local, push)), push)
 
 
 def graphsum_dist_hybrid(x_local, send, slab, rrow, rcol, rval, res_seg):
     """Distributed Â·x over a rank's tile slab (K3 rect) plus its COO
     residual summed in edge order (``res_seg``: rrow's segments over the
-    rank's rows), in x's dtype; ``send`` None for the all_gather halo."""
-    return _HybridAgg.apply(x_local, None, send, slab, rrow, rcol, rval, res_seg)
+    rank's rows), in x's dtype; ``send`` None for the all_gather halo.
+    Self-adjoint."""
+    return _SelfAdjoint.apply(x_local, partial(_hybrid_impl, send=send, slab=slab, rrow=rrow,
+                                               rcol=rcol, rval=rval, res_seg=res_seg))
 
 
 def graphsum_dist_hybrid_scaled(x_local, d_local, send, slab, rrow, rcol, rval, res_seg):
     """``graphsum_dist_hybrid`` for int8 pattern slabs: the slab holds the
     0/k pattern, the residual the multiplicities, ``d_local`` (deg^{-1/2} of
     the rank's rows) the normalization."""
-    return _HybridAgg.apply(x_local, d_local, send, slab, rrow, rcol, rval, res_seg)
+    impl = partial(_hybrid_impl, send=send, slab=slab, rrow=rrow, rcol=rcol, rval=rval,
+                   res_seg=res_seg)
+    return _SelfAdjoint.apply(x_local, _scaled(impl, d_local))
+
+
+def graphsum_dist_hybrid_adaptive(x_local, send, slab, rrow, rcol, rval, res_seg,
+                                  push: PushGroup):
+    """Distributed Â·x over tile slabs with the adaptive halo (JAX
+    ``graphsum_dist_hybrid_adaptive``): the pulled slab as
+    ``graphsum_dist_hybrid``, plus the push pairs' partial slab (the push
+    residual by slot, K3 over the push tiles) exchanged by one
+    ``all_to_all`` and added at its rows in order. Self-adjoint."""
+    return _SelfAdjoint.apply(x_local, partial(_hybrid_impl, send=send, slab=slab, rrow=rrow,
+                                               rcol=rcol, rval=rval, res_seg=res_seg,
+                                               push=push))
+
+
+def graphsum_dist_hybrid_adaptive_scaled(x_local, d_local, send, slab, rrow, rcol, rval,
+                                         res_seg, push: PushGroup):
+    """``graphsum_dist_hybrid_adaptive`` for int8 pattern slabs (JAX
+    ``graphsum_dist_hybrid_adaptive_scaled``): d scales the local rows
+    before any exchange and the output rows after."""
+    impl = partial(_hybrid_impl, send=send, slab=slab, rrow=rrow, rcol=rcol, rval=rval,
+                   res_seg=res_seg, push=push)
+    return _SelfAdjoint.apply(x_local, _scaled(impl, d_local))
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +513,8 @@ class MeshGIN(_OnSlab, GINModel):
 class MeshGAT(GATModel):
     """The GAT forward over the rank's slab: per layer one exchange carries
     [W·h | t] into the source buffer; attention over the ``gat_mesh_pack``
-    tiles (``tile``) or the flat COO slab (``segment``)."""
+    tiles (``tile``) or the flat COO slab (``segment``, streamed in chunks
+    with ``edge_chunk``)."""
 
     def _check_graph(self, graph: RankGraph) -> None:
         if (graph.attn is None) == (self.backend == "tile"):
@@ -326,6 +534,11 @@ class MeshGAT(GATModel):
 
     def _attend_segment(self, graph, hw3, s, t, seed, training):
         t_buf, hw_buf = self._source_buffer(graph, hw3, t)
+        chunks = self.chunks_of(*graph.coo[:3], graph.n_local, graph.n_buf)
+        if chunks is not None:
+            # the streaming softmax over the rank's slab (JAX _attend_chunked)
+            rate = self.attn_dropout if training else 0.0
+            return attend_chunked(chunks, s, t_buf, hw_buf, seed, rate)
         edges = _Edges(*graph.coo)
         alpha = _edge_softmax_segment(edges, s, t_buf, graph.n_local)
         if training and self.attn_dropout > 0.0:
@@ -379,7 +592,7 @@ def build_mesh_model(cfg: Config, sgraph, weights: list[torch.Tensor],
         return MeshGAT(weights, cfg.gcn.dropouts, heads=cfg.gcn.heads,
                        attn_dropout=cfg.gcn.attn_dropout,
                        backend="tile" if isinstance(sgraph, GATMeshPack) else "segment",
-                       **common)
+                       edge_chunk=cfg.tpu.edge_chunk, **common)
     if cfg.gcn.model == "sage":
         return MeshSAGE(weights, cfg.gcn.dropouts, **common)
     if cfg.gcn.model == "gin":
@@ -527,30 +740,37 @@ def make_preagg_fn(graph: RankGraph):
 
 
 def _check_config(cfg: Config, halo: str) -> None:
-    """The JAX package's config errors, and NotImplementedError for what is
-    not ported."""
+    """The JAX package's config errors (``fit_parallel``), and
+    NotImplementedError for tensor parallelism, which is not ported."""
     gat = cfg.gcn.model == "gat"
-    unported = {
-        f"halo={halo}": halo in ("ring", "adaptive"),
-        f"tp={cfg.tpu.tp}": cfg.tpu.tp > 1,
-        "edge_chunk with model=gat on the mesh": (
-            gat and cfg.tpu.edge_chunk > 0 and cfg.tpu.backend not in ("hybrid", "bcsr")),
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
+    tiles = cfg.tpu.backend in ("hybrid", "bcsr")
+    if gat and (halo in ("ring", "adaptive") or cfg.tpu.tp > 1):
+        raise ValueError(
+            "model=gat over the mesh supports the flat COO partition or the gat_mesh_pack "
+            "tile partition, with the all_gather or boundary halo — set "
+            "halo=all_gather|boundary, tp=1")
+    if cfg.tpu.tp > 1:
         raise NotImplementedError(
-            f"not yet ported to parallel_gcn_tpu_torch: {', '.join(missing)}")
-    if gat and cfg.tpu.backend in ("hybrid", "bcsr") and cfg.tpu.edge_chunk:
+            f"not yet ported to parallel_gcn_tpu_torch: tp={cfg.tpu.tp}")
+    if gat and tiles and cfg.tpu.edge_chunk:
         raise ValueError(
             "edge_chunk streams the SEGMENT attention; the tile backend already bounds "
             "memory at O(N·heads) — unset edge_chunk or set backend=segment")
+    if tiles and halo == "ring":
+        raise ValueError(
+            "backend=hybrid/bcsr uses per-device tile slabs against the all_gather, "
+            "boundary or adaptive halo; the ppermute ring is only available with the COO "
+            "backends (set backend=segment, or halo=boundary|adaptive to keep the tile "
+            "slabs AND memory scaling)")
 
 
 def partition_for(cfg: Config, ds, n_devices: int, halo: str):
-    """The partition ``fit_parallel`` trains on: tile slabs for
-    ``backend=hybrid|bcsr`` (and the mesh GAT's packs over them for
-    ``model=gat``), flat COO slabs otherwise; ``halo_fallback`` turns a
-    boundary buffer that would not be smaller into the all_gather layout."""
+    """The partition ``fit_parallel`` trains on (JAX ``fit_parallel``): tile
+    slabs for ``backend=hybrid|bcsr`` with the all_gather, boundary or
+    adaptive halo (and the mesh GAT's packs over them for ``model=gat``);
+    otherwise flat COO slabs, or the ring's. ``halo_fallback`` turns a
+    boundary or adaptive buffer that would not be smaller into the
+    all_gather layout."""
     if cfg.tpu.backend in ("hybrid", "bcsr"):
         tile_dtype = cfg.tpu.tile_dtype
         if tile_dtype == "auto":
@@ -560,13 +780,25 @@ def partition_for(cfg: Config, ds, n_devices: int, halo: str):
             tile_r=cfg.tpu.tile_size, tile_c=cfg.tpu.tile_cols, tile_dtype=tile_dtype,
             tile_budget_bytes=cfg.tpu.tile_budget_mb * 1024 * 1024,
             min_tile_nnz=cfg.tpu.min_tile_nnz or None,
-            boundary=halo == "boundary", balance=cfg.tpu.balance_slabs,
-            boundary_fallback=cfg.tpu.halo_fallback,
+            boundary=halo == "boundary", adaptive=halo == "adaptive",
+            balance=cfg.tpu.balance_slabs, boundary_fallback=cfg.tpu.halo_fallback,
         )
         return gat_mesh_pack(sgraph) if cfg.gcn.model == "gat" else sgraph
+    if halo == "ring":
+        return partition_graph_ring(ds.graph, n_devices, node_pad=cfg.tpu.node_pad)
     return partition_graph(ds.graph, n_devices, node_pad=cfg.tpu.node_pad,
-                           boundary=halo == "boundary",
+                           boundary=halo == "boundary", adaptive=halo == "adaptive",
                            boundary_fallback=cfg.tpu.halo_fallback)
+
+
+def halo_of(sgraph) -> str:
+    """The halo a partition's layout runs: ring, adaptive (push pairs),
+    boundary or all_gather."""
+    if getattr(sgraph, "ring", False):
+        return "ring"
+    if getattr(sgraph, "push_slab", 0):
+        return "adaptive"
+    return "all_gather" if sgraph.send_idx is None else "boundary"
 
 
 @dataclass
@@ -659,8 +891,8 @@ def fit_parallel(
     val metrics and the reference's early-stopping rule, evaluate the test
     split. Call it on every rank of a world of ``n_devices`` processes
     (torchrun), or with ``n_devices`` 1 and no world (a world of one is
-    started). ``halo``: ``all_gather`` or ``boundary`` (default
-    ``cfg.tpu.halo``). ``weights`` (float32, a GAT's in JAX leaf order)
+    started). ``halo``: ``all_gather``, ``boundary``, ``adaptive`` or
+    ``ring`` (default ``cfg.tpu.halo``). ``weights`` (float32, a GAT's in JAX leaf order)
     replace the Glorot init from ``cfg.tpu.seed``; ``resume_from`` and the
     checkpoint options as ``train.fit`` takes them. The history, losses and
     accuracies are the whole world's, equal on every rank; only rank 0
@@ -682,8 +914,7 @@ def fit_parallel(
         sgraph, model = run.sgraph, run.model
         opt_state = resumed_adam(ck, list(model.weights))
         if verbose:
-            print(f"mesh: {n_devices} rank(s), halo="
-                  f"{'boundary' if sgraph.send_idx is not None else 'all_gather'}, "
+            print(f"mesh: {n_devices} rank(s), halo={halo_of(sgraph)}, "
                   f"n_local={sgraph.n_local}, n_buf={sgraph.n_buf}, device {device}")
 
         x_train, x_eval = preagg_inputs(cfg, run)

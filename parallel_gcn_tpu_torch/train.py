@@ -123,15 +123,8 @@ def build_model(cfg: Config, dds: DeviceDataset,
     gat = family == "gat"
     backend = resolve_backend(dds.graph, cfg.tpu.backend, cfg.tpu.dense_threshold)
     gat_backend = _gat_backend(cfg, dds.graph, backend) if gat else None
-    unported = {
-        f"tp={cfg.tpu.tp}": cfg.tpu.tp > 1,
-        "edge_chunk with model=gat": gat and cfg.tpu.edge_chunk > 0,
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError(
-            f"not yet ported to parallel_gcn_tpu_torch: {', '.join(missing)}"
-        )
+    if cfg.tpu.tp > 1:
+        raise NotImplementedError(f"not yet ported to parallel_gcn_tpu_torch: tp={cfg.tpu.tp}")
     set_matmul_precision(cfg.tpu.matmul_precision)
     if weights is None:
         weights = init_weights(cfg, dds.input_dim, dds.output_dim)
@@ -146,6 +139,7 @@ def build_model(cfg: Config, dds: DeviceDataset,
             compute_dtype=cfg.tpu.compute_dtype,
             residual=cfg.gcn.residual,
             remat=cfg.gcn.remat,
+            edge_chunk=cfg.tpu.edge_chunk,
         )
     common = dict(residual=cfg.gcn.residual, backend=backend, edge_chunk=cfg.tpu.edge_chunk,
                   dense_threshold=cfg.tpu.dense_threshold,

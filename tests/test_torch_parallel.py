@@ -13,7 +13,9 @@ rank imports only torch, numpy and the port). Checks:
 - the collectives of one epoch step, pinned to the structure of
   ``tests/test_parallel.py``'s ``test_epoch_step_collective_structure``:
   the all_gather halo 4 gathers and 2 reduce-scatters, the boundary halo
-  6 all_to_alls, for the GCN and the GAT tile path; plus 2 all_reduces
+  6 all_to_alls, for the GCN and the GAT tile path, the ring 6 rotations
+  (``tests/test_torch_halo.py`` checks the ring and adaptive halos'
+  numbers); plus 2 all_reduces
   (gradients with the train sums, the val sums);
 - the collectives of the mesh GCN's deferred-eval epoch (``mode=scan``):
   one exchange for the stacked last layer, one all_reduce;
@@ -21,6 +23,7 @@ rank imports only torch, numpy and the port). Checks:
   torchrun world of 2.
 """
 
+import importlib
 import os
 import pickle
 import subprocess
@@ -53,14 +56,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # ---------------------------------------------------------------------------
 
 
-def _entry(rank, world, store, fn_name, args, out_dir):
+def _entry(rank, world, store, module, fn_name, args, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world)
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
-            result = globals()[fn_name](rank, world, *args)
+            fn = getattr(importlib.import_module(module), fn_name)
+            result = fn(rank, world, *args)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -69,11 +73,12 @@ def _entry(rank, world, store, fn_name, args, out_dir):
 
 def run_world(fn, world: int, tmp_path, *args, timeout_s: float = 240.0) -> list:
     """``fn(rank, world, *args)`` on every rank of a gloo world of ``world``
-    processes; returns the ranks' results. ``fn`` must live in this module.
-    A world still running after ``timeout_s`` (a hung collective) is killed
-    and the test fails."""
-    ctx = mp.spawn(_entry, args=(world, str(tmp_path / "store"), fn.__name__, args,
-                                 str(tmp_path)), nprocs=world, join=False)
+    processes; returns the ranks' results. ``fn`` must live at the top of a
+    test module that imports no JAX (a rank imports that module). A world
+    still running after ``timeout_s`` (a hung collective) is killed and the
+    test fails."""
+    ctx = mp.spawn(_entry, args=(world, str(tmp_path / "store"), fn.__module__, fn.__name__,
+                                 args, str(tmp_path)), nprocs=world, join=False)
     deadline = time.monotonic() + timeout_s
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:
@@ -181,6 +186,8 @@ STRUCTURE = {
     "gcn-hybrid-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=6),
     "gat-tiles-all_gather": dict(all_gather=4, reduce_scatter=2, all_to_all=0),
     "gat-tiles-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=6),
+    # one rotation a forward and a backward aggregation at world 2
+    "gcn-flat-ring": dict(all_gather=0, reduce_scatter=0, all_to_all=0, ppermute=6),
 }
 
 
@@ -205,9 +212,12 @@ def _collective_structure(rank, world):
 # the collectives of the mesh GCN's deferred-eval epoch: the shared layer 0
 # and the stacked last layer once each forward, each layer's backward once
 DEFERRED_STRUCTURE = {
-    "gcn-flat-all_gather": dict(all_gather=3, reduce_scatter=1, all_to_all=0, all_reduce=1),
-    "gcn-flat-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=4, all_reduce=1),
-    "gcn-hybrid-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=4, all_reduce=1),
+    "gcn-flat-all_gather": dict(all_gather=3, reduce_scatter=1, all_to_all=0, all_reduce=1,
+                                ppermute=0),
+    "gcn-flat-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=4, all_reduce=1,
+                              ppermute=0),
+    "gcn-hybrid-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=4, all_reduce=1,
+                                ppermute=0),
 }
 
 
@@ -316,7 +326,8 @@ def test_dropout_masks_differ_across_ranks(tmp_path):
 
 
 # options that the mesh has ported since they were listed here
-PORTED_MESH_OPTIONS = {("model", "sage"), ("model", "gin"), ("remat", True)}
+PORTED_MESH_OPTIONS = {("model", "sage"), ("model", "gin"), ("remat", True),
+                       ("halo", "ring"), ("halo", "adaptive")}
 
 
 @pytest.mark.parametrize("key,value", [
@@ -324,15 +335,15 @@ PORTED_MESH_OPTIONS = {("model", "sage"), ("model", "gin"), ("remat", True)}
     ("model", "gin"), ("remat", True),
 ])
 def test_unported_mesh_options_raise(key, value):
-    """The unported options raise; the ported ones pass the config check
-    and, beside an unported halo, leave the refusal naming the halo only."""
+    """The unported option (tp > 1) raises; the ported ones pass the config
+    check and, beside tp=2, leave the refusal naming tp only."""
     cfg = mesh_config("gcn-flat-all_gather")
     section = cfg.tpu if hasattr(cfg.tpu, key) else cfg.gcn
     setattr(section, key, value)
     if (key, value) in PORTED_MESH_OPTIONS:
         tpl._check_config(cfg, cfg.tpu.halo)
-        cfg.tpu.halo = "ring"
-        with pytest.raises(NotImplementedError, match="parallel_gcn_tpu_torch: halo=ring$"):
+        cfg.tpu.tp = 2
+        with pytest.raises(NotImplementedError, match="parallel_gcn_tpu_torch: tp=2$"):
             tpl.fit_parallel(cfg, None, n_devices=2, device="cpu")
         return
     with pytest.raises(NotImplementedError, match=f"{key}|{value}"):

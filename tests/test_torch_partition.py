@@ -3,8 +3,8 @@
 Every partition function on the same host CSR, for 1, 2 and 4 ranks, with
 the boundary halo on and off, slab balancing, int8 pattern slabs and the
 mesh GAT's packs: every array equals the JAX package's exactly (bf16 tiles
-compared as their float32 values). Plus the error paths of what is not
-ported.
+compared as their float32 values). The ring and adaptive layouts are in
+``tests/test_torch_halo.py``.
 """
 
 import warnings
@@ -119,8 +119,20 @@ def test_partition_graph_hybrid_and_gat_pack_equal_jax(graphs, name, n_dev, tile
 
 
 def test_unported_layouts_raise(graphs):
+    """The adaptive layouts, refused until they were ported, now build and
+    equal JAX's (every case: ``tests/test_torch_halo.py``); the hub graph's
+    tile slabs then push, and the mesh GAT's packs refuse them."""
+    from test_torch_halo import hub_csr
+
     csr = graphs["random"]
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        tp.partition_graph(csr, 2, adaptive=True)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        tp.partition_graph_hybrid(csr, 2, adaptive=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        _assert_same(tp.partition_graph(csr, 2, adaptive=True),
+                     jp.partition_graph(_jax_csr(csr), 2, adaptive=True))
+        hub = hub_csr()
+        got = tp.partition_graph_hybrid(hub, 2, min_tile_nnz=8, adaptive=True)
+        _assert_same(got, jp.partition_graph_hybrid(_jax_csr(hub), 2, min_tile_nnz=8,
+                                                    adaptive=True))
+    assert got.push_slab > 0
+    with pytest.raises(ValueError, match="pull-only"):
+        tp.gat_mesh_pack(got)
