@@ -96,7 +96,17 @@ Phases, each printed on its own lines:
      (``check_halo_case`` states the tolerances), at F=41 against the plain
      versions on the CPU, the gradient through the self-adjoint route, two
      runs bit-identical, each piece's time beside the buffer rows of the
-     boundary and all_gather layouts;
+     boundary and all_gather layouts; tensor parallelism
+     (``[tp-emulated]``): tp = 2 and 4 feat ranks of one node rank as
+     threads of this process taking turns (the feat collectives become
+     concatenations and sums in feat-rank order; the node rank's halo runs
+     over an NCCL world of one), driving the port's TP layers (``MeshGCN``,
+     ``MeshSAGE``, ``MeshGIN`` with an emulated feat group) at synth-reddit's
+     602 -> 600 -> 41 on the one-rank int8 slab: one training forward and
+     backward against the same model at tp 1 (``phase_tp_emulated`` states
+     the tolerances), with the file's dropouts two runs bit-identical (their
+     launches counted as a main path's), and K3 and kernel (a) at 300 and 150
+     columns against their plain versions;
   7. main paths, each in ``mode=scan`` (the whole-run path: epoch 1, the
      capture of the epoch as one CUDA graph, 9 replays) with the launch
      counts set to 0 just before it:
@@ -1516,6 +1526,355 @@ def check_halo_case(name: str, csr, sg, sgb, device: str) -> dict:
     return dict(rows=rows, push_slab=sg.push_slab, ms=pieces)
 
 
+# tensor parallelism emulated on one card: the feat widths of synth-reddit's
+# 600-wide hidden layer at tp 2 and 4
+TP_SIZES = (2, 4)
+TP_FAMILIES = {"GCN": [], "SAGE": SAGE_ARGS, "GIN": GIN_ARGS}
+
+
+class _Lockstep:
+    """``size`` feat ranks of one node rank, each a thread of this process,
+    taking turns: a rank runs until it reaches a feat collective, leaves its
+    tensor and hands the turn on; the last rank combines the tensors
+    (``combine``, differentiable torch ops in feat-rank order) and hands the
+    turn back to rank 0, and each rank takes its share of the result when
+    its turn comes again. One rank runs at a time, in rank order, so two
+    runs launch the same kernels in the same order."""
+
+    def __init__(self, size: int):
+        import threading
+
+        self.size, self.turn, self.error = size, 0, None
+        self.cv = threading.Condition()
+        self.slots: list = [None] * size
+        self.out: list = []
+
+    def wait(self, r: int) -> None:
+        with self.cv:
+            if not self.cv.wait_for(lambda: self.turn == r or self.error is not None, 300):
+                raise TimeoutError(f"feat rank {r} waited 300 s for its turn")
+            if self.error is not None:
+                raise RuntimeError("another emulated feat rank failed") from self.error
+
+    def hand_on(self, r: int) -> None:
+        with self.cv:
+            self.turn = (r + 1) % self.size
+            self.cv.notify_all()
+
+    def fail(self, error: BaseException) -> None:
+        with self.cv:
+            self.error = error
+            self.cv.notify_all()
+
+    def exchange(self, r: int, x, combine):
+        self.slots[r] = x
+        if r == self.size - 1:
+            self.out, self.slots = combine(self.slots), [None] * self.size
+        self.hand_on(r)
+        self.wait(r)
+        return self.out[r]
+
+
+class _EmulatedFeat:
+    """Feat rank ``rank`` of a ``_Lockstep`` grid, with the methods of
+    ``collectives.FeatGroup`` that the TP layers call: the collectives are
+    concatenations and sums in feat-rank order. The ranks' forwards build
+    one autograd graph, so one backward of one rank's loss runs every
+    transpose (a psum's sum hands each partial the cotangent; the column
+    gather's concatenation hands each block its slice; a replicated tensor
+    sums the cotangents of the ranks that read it, which is Megatron's f,
+    so ``copy_in`` is the identity)."""
+
+    def __init__(self, lock: _Lockstep, rank: int):
+        self.lock, self.rank, self.size = lock, rank, lock.size
+
+    @staticmethod
+    def _sum(xs):
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = acc + x
+        return acc
+
+    def psum(self, x):
+        return self.lock.exchange(self.rank, x, lambda xs: [self._sum(xs)] * self.size)
+
+    all_reduce = psum
+
+    def psum_scatter(self, x):
+        return self.lock.exchange(self.rank, x, lambda xs: [
+            c.contiguous() for c in self._sum(xs).chunk(self.size, dim=1)])
+
+    def gather_cols(self, x):
+        import torch
+
+        return self.lock.exchange(self.rank, x,
+                                  lambda xs: [torch.cat(xs, dim=1)] * self.size)
+
+    def copy_in(self, x):
+        return x
+
+
+def _tp_emulated_step(models, x, graph, labels, mask, n_train: int, seeds: list):
+    """One training forward and backward of ``models`` (one a feat rank,
+    ``_EmulatedFeat`` grids; one model alone: tp 1) on the card: (rank 0's
+    logits, every rank's weight gradients in rank order, the loss's
+    cotangent of the logits)."""
+    import threading
+
+    import torch
+
+    from parallel_gcn_tpu_torch.ops.loss import masked_softmax_xent_sums
+
+    out: list = [None] * len(models)
+    if len(models) == 1:
+        out[0] = models[0](x, graph, training=True, seeds=seeds[0])
+    else:
+        lock = models[0].feat.lock
+
+        def rank(r):
+            try:
+                lock.wait(r)
+                out[r] = models[r](x, graph, training=True, seeds=seeds[r])
+                lock.hand_on(r)
+            except BaseException as e:  # the other ranks wait on this one
+                lock.fail(e)
+                raise
+
+        threads = [threading.Thread(target=rank, args=(r,)) for r in range(len(models))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert all(o is not None for o in out), "an emulated feat rank failed"
+    logits, weights = out[0], [w for m in models for w in m.weights]
+    loss = masked_softmax_xent_sums(logits, labels, mask)[0] / float(n_train)
+    (cot,) = torch.autograd.grad(loss, [logits], retain_graph=True)
+    grads = torch.autograd.grad(logits, weights, cot)
+    return logits.detach(), [g.detach() for g in grads], cot
+
+
+def _tp_models(cfg, sg, weights, tp: int, device="cuda"):
+    """The mesh model of ``cfg`` at tp 1, or its ``tp`` feat ranks over one
+    ``_Lockstep`` grid, on ``device``."""
+    from parallel_gcn_tpu_torch.parallel import train_parallel as tpl
+
+    if tp == 1:
+        return [tpl.build_mesh_model(cfg, sg, weights, device)]
+    lock = _Lockstep(tp)
+    return [tpl.build_mesh_model(cfg, sg, weights, device, feat=_EmulatedFeat(lock, r))
+            for r in range(tp)]
+
+
+def _full_grads(grads, cfg, tp: int):
+    """The TP ranks' gradient shards (rank-major) put back into full arrays."""
+    import torch
+
+    from parallel_gcn_tpu_torch.parallel import train_parallel as tpl
+
+    n = len(grads) // tp
+    kinds = tpl.leaf_kinds(n, cfg.gcn.model)
+    return [torch.cat([grads[r * n + i] for r in range(tp)], dim=1 if kinds[i] == "col" else 0)
+            for i in range(n)]
+
+
+def check_tp_kernels(graph, results: dict) -> None:
+    """K3 over the one-rank slab and kernel (a) over its residual at the
+    TP widths 300 and 150 bf16 (synth-reddit's 600 over tp 2 and 4, padded
+    to 304 and 160 by ``pad_features``) against their plain versions, with
+    phase 3's tolerances, two runs bit-identical."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+
+    gen = torch.Generator().manual_seed(13)
+    slab, (rrow, rcol, rval, res_seg) = graph.slab, graph.res
+    nnz = int(slab.live_entries[0].numel())
+    for F in (600 // t for t in TP_SIZES):
+        x = torch.randn((slab.n_nodes, F), generator=gen).to(torch.bfloat16).cuda()
+        got = cb.bcsr_matmul_rect(slab, x)
+        assert torch.equal(got, cb.bcsr_matmul_rect(slab, x)), "K3 rect: two runs differ"
+        err = _max_err(got, cb.bcsr_matmul_plain(slab, x), 2e-3)
+        ms = _events_ms(lambda: cb.bcsr_matmul_rect(slab, x), 10)
+        pms = _events_ms(lambda: cb.bcsr_matmul_plain(slab, x), 2)
+        bound = _bound(_pack_bytes(slab) + _nbytes(x, got), 2 * nnz * F)
+        print(f"[tp-emulated] K3 rect one-rank slab F={F} bf16 (x padded to "
+              f"{cb.pad_features(x).shape[1]}): max_abs_err {err:.3e} (rtol 2e-3), runs "
+              f"bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        results[f"K3 rect F={F}"] = dict(err=err, ms=ms, plain_ms=pms, **bound)
+        check_segment_gather(results, None, f"one-rank slab residual (tp width {F})",
+                             x[: graph.n_buf], res_seg, rcol, rval)
+        del x, got
+
+
+def phase_tp_emulated(ds) -> dict:
+    """Tensor parallelism on one card: tp = 2 and 4 feat ranks of one node
+    rank emulated in this process (``_Lockstep``, ``_EmulatedFeat``: the
+    feat collectives become concatenations and sums in feat-rank order),
+    driving the port's own TP layers (``MeshGCN``, ``MeshSAGE``, ``MeshGIN``
+    built by ``build_mesh_model`` with the emulated group) over synth-reddit
+    at 602 -> 600 -> 41 on the params file's hybrid int8 slab at one node
+    rank. For each family and tp: one training forward and backward (the
+    GCN without input pre-aggregation, so layer 0 aggregates its 600/tp
+    columns) with dropouts 0, the logits and every weight gradient against
+    the same mesh model at tp 1: in f32 within rtol 1e-4 + 1e-5·max|ref|;
+    in bf16 the logits within 2·L·(12 + tp) roundings of 2^-9 of Σ|terms|
+    (the same forward on |x| and |W| in f32: every intermediate bounds its
+    term, and no path pair rounds more often) + 1e-5·max|ref|, the GCN's
+    and SAGE's gradients within 2^-4·max|ref|; every family's bf16
+    gradients at tp 1, 2 and 4 against the f32 ones at tp 1 within the same
+    count of roundings of their Σ|terms| (the |x|, |W| model's gradients of
+    |f32 cotangent|), plus the bf16 cotangent's change carried back by that
+    model. GIN-0's gradients cancel: a leaf's Σ|terms| reach 300-4000 times
+    its max|g|, so one rounding of one term moves an entry by whole units
+    at tp 1 as at tp 4, and only this bound holds them; then with the
+    file's dropouts in bf16, two runs bit-identical, the launch counts set to 0 just before the
+    first and read after it. K3 and kernel (a) at 300 and 150 columns
+    against their plain versions (``check_tp_kernels``). Returns the
+    launches and the checks' errors."""
+    import torch
+
+    from parallel_gcn_tpu_torch.models.gcn import set_matmul_precision
+    from parallel_gcn_tpu_torch.parallel import collectives
+    from parallel_gcn_tpu_torch.parallel import train_parallel as tpl
+
+    t0 = time.perf_counter()
+    cfg0 = _config(["halo=boundary"], 1)
+    with warnings_ignored():
+        sg = tpl.partition_for(cfg0, ds, 1, "boundary")
+    graph = tpl.rank_graph(sg, 0, torch.device("cuda"), tpl.sharded_sqrt_deg(ds, sg))
+    data = tpl.rank_data(ds, sg, 0, torch.device("cuda"))
+    print(f"[tp-emulated] synth-reddit's one-rank int8 slab and rows on the card in "
+          f"{time.perf_counter() - t0:.1f} s: {graph.slab.n_tiles} tiles, {sg.n_local} rows")
+    results: dict = {}
+    check_tp_kernels(graph, results)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    bf16_red = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    set_matmul_precision("highest")
+    counts: dict = {}
+    errs: dict = {}
+    # the node rank's aggregation runs its halo over a world of one (NCCL)
+    with collectives.world(1, torch.device("cuda", 0)):
+        _tp_families(ds, sg, graph, data, counts, errs)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = bf16_red
+    del graph, data
+    torch.cuda.empty_cache()
+    print(f"[tp-emulated] done in {time.perf_counter() - t0:.1f} s")
+    return dict(counts=counts, errs=errs, kernels=results)
+
+
+def _tp_families(ds, sg, graph, data, counts: dict, errs: dict) -> None:
+    """``phase_tp_emulated``'s checks of each family and tp."""
+    import torch
+
+    from parallel_gcn_tpu_torch.data.parser import TRAIN
+    from parallel_gcn_tpu_torch.parallel import train_parallel as tpl
+    from parallel_gcn_tpu_torch.train import init_weights
+
+    mask = data.split == TRAIN
+    n_train = int(mask.sum())
+    for fam, args in TP_FAMILIES.items():
+        cfg = _config(args, 1)
+        L = len(cfg.gcn.dropouts)
+        full = init_weights(cfg, ds.input_dim, ds.output_dim)
+        no_seeds = [[0] * L]
+
+        def step(dtype: str, tp: int):
+            c = _config([*args, f"compute_dtype={dtype}",
+                         "dropouts=" + ",".join(["0.0"] * L)], 1)
+            logits, grads, cot = _tp_emulated_step(_tp_models(c, sg, full, tp), data.x,
+                                                   graph, data.labels, mask, n_train,
+                                                   no_seeds * tp)
+            return logits, _full_grads(grads, c, tp), cot
+
+        l32, g32, cot32 = step("float32", 1)
+        for tp in TP_SIZES:
+            logits, grads, _ = step("float32", tp)
+            e_l = _max_err(logits, l32, 1e-4)
+            e_g = max(_max_err(g, r, 1e-4) for g, r in zip(grads, g32))
+            errs[f"{fam} tp={tp} float32"] = (e_l, e_g)
+            print(f"[tp-emulated] {fam} tp={tp} float32, dropouts 0: logits max_abs_err "
+                  f"{e_l:.3e}, weight gradients max abs_err {e_g:.3e} against tp=1, shards "
+                  f"{[list(w.shape) for w in tpl.shard_weights(full, tp, 0, cfg.gcn.model)]}")
+            del logits, grads
+        # the same forward on |x| and |W| in f32: its logits bound every term
+        # of the logits; its gradients of |f32 cotangent| are each gradient
+        # entry's Σ|terms|, of a cotangent's change what the change carries
+        # back (every product and sum on magnitudes, every ReLU passing)
+        a = _config([*args, "compute_dtype=float32", "dropouts=" + ",".join(["0.0"] * L)], 1)
+        abs_model = _tp_models(a, sg, [w.abs() for w in full], 1)[0]
+        abs_logits = abs_model(data.x.abs(), graph, training=True, seeds=no_seeds[0])
+        scale = abs_logits.detach()
+        terms = torch.autograd.grad(abs_logits, abs_model.weights, cot32.abs(),
+                                    retain_graph=True)
+        l1, g1, cot1 = step("bfloat16", 1)
+        for tp in (1, *TP_SIZES):
+            logits, grads, cot = (l1, g1, cot1) if tp == 1 else step("bfloat16", tp)
+            rounds = 2 * L * (12 + tp) * 2.0**-9
+            carried = torch.autograd.grad(abs_logits, abs_model.weights, (cot - cot32).abs(),
+                                          retain_graph=True)
+            units = 0.0  # the largest |g - g32| / Σ|terms|, in roundings (2^-9)
+            for g, r, t, b in zip(grads, g32, terms, carried):
+                assert bool(torch.isfinite(g).all()), f"{fam} tp={tp} bf16 gradient"
+                err = (g - r).abs()
+                assert bool((err <= rounds * t + (1 + rounds) * b
+                             + 1e-5 * r.abs().max()).all()), \
+                    f"{fam} tp={tp} bf16 gradient beyond the rounding bound of the f32 one"
+                units = max(units, float((err / t.clamp_min(1e-30)).max()) * 2.0**9)
+            e_32 = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(grads, g32))
+            if tp == 1:
+                cancel = max(float(t.max() / r.abs().max()) for t, r in zip(terms, g32))
+                print(f"[tp-emulated] {fam} tp=1 bfloat16, dropouts 0: weight gradients "
+                      f"against f32 max err / max|g32| {e_32:.3e}, at most {units:.3f} "
+                      f"roundings of an entry's Σ|terms| (bound {rounds * 2**9:.0f}); a "
+                      f"leaf's largest Σ|terms| up to {cancel:.1f} times its max|g32|")
+                continue
+            err = (logits - l1).abs()
+            bound = rounds * scale + 1e-5 * l1.abs().max()
+            assert bool((err <= bound).all()), f"{fam} tp={tp} bf16 logits beyond the bound"
+            e_l = float(err.max())
+            e_g = 0.0
+            for g, r in zip(grads, g1):
+                gerr = float((g - r).abs().max())
+                assert fam == "GIN" or gerr <= 2.0**-4 * float(r.abs().max()), \
+                    f"{fam} tp={tp} bf16 gradient off by {gerr}"
+                e_g = max(e_g, gerr / float(r.abs().max()))
+            errs[f"{fam} tp={tp} bfloat16"] = (e_l, e_g)
+            print(f"[tp-emulated] {fam} tp={tp} bfloat16, dropouts 0: logits max_abs_err "
+                  f"{e_l:.3e}, weight gradients max err / max|ref| {e_g:.3e} against tp=1; "
+                  f"against f32 {e_32:.3e}, at most {units:.3f} roundings of an entry's "
+                  f"Σ|terms| (bound {rounds * 2**9:.0f}), shards "
+                  f"{[list(w.shape) for w in tpl.shard_weights(full, tp, 0, cfg.gcn.model)]}")
+            del logits, grads, cot, carried
+        del l32, g32, cot32, l1, g1, cot1, abs_model, abs_logits, scale, terms
+        # the file's dropouts in bf16: launches at the feat widths, two runs bit-identical
+        seeds0 = [int(s) for s in torch.randint(0, 2**62, (L,),
+                                                generator=torch.Generator().manual_seed(5))]
+        for tp in TP_SIZES:
+            models = _tp_models(cfg, sg, full, tp)
+            seeds = [tpl.rank_seeds(seeds0, 0, False, r, m.feat_sharded_inputs())
+                     for r, m in enumerate(models)]
+            _reset_counts()
+            first = _tp_emulated_step(models, data.x, graph, data.labels, mask, n_train,
+                                      [[_slot(s) for s in r] for r in seeds])[:2]
+            torch.cuda.synchronize()
+            launched = _read_counts()
+            for k, v in launched.items():
+                counts[k] = counts.get(k, 0) + v
+            models = _tp_models(cfg, sg, full, tp)
+            again = _tp_emulated_step(models, data.x, graph, data.labels, mask, n_train,
+                                      [[_slot(s) for s in r] for r in seeds])[:2]
+            assert torch.equal(first[0], again[0]) and all(
+                torch.equal(a, b) for a, b in zip(first[1], again[1])), \
+                f"{fam} tp={tp}: two runs differ"
+            assert bool(torch.isfinite(first[0]).all())
+            print(f"[tp-emulated] {fam} tp={tp} bf16, dropouts {cfg.gcn.dropouts}: one "
+                  f"training forward and backward, two runs bit-identical; launches "
+                  f"{ {k: v for k, v in launched.items() if v} }")
+            del models, first, again
+
+
 GAT_CHUNK = 1_048_576  # edges a chunk of the streaming attention
 GAT_SEGMENT_ARGS = ["model=gat", "backend=segment", "heads=2", "hidden_dims=32",
                     "dropouts=0.0,0.1", "attn_dropout=0.1"]
@@ -2414,6 +2773,8 @@ def main() -> int:
     _stamp("mesh kernels")
     halo = phase_halo_kernels(ds)
     _stamp("halo kernels")
+    tp_emu = phase_tp_emulated(ds)
+    _stamp("tp emulated")
 
     # the main paths: mode=scan (the default) through cli.main, each beside
     # mode=eager through train.fit on this script's copy of the dataset
@@ -2588,9 +2949,14 @@ def main() -> int:
              "GAT segment": gat_chunk["main-gat-segment"],
              "GAT segment chunked": gat_chunk["main-gat-chunk"],
              "mesh GAT segment chunked": mesh_gat_chunk}
-    # each kernel's launches over every main path (K3 and K8 run on none: 0)
-    counts = {key: sum(p["counts"][key] for p in paths.values()) for key in KERNEL_KEYS}
+    # each kernel's launches over every main path and the emulated TP
+    # forwards and backwards (K3 and K8 run on none: 0)
+    counts = {key: sum(p["counts"][key] for p in paths.values()) + tp_emu["counts"][key]
+              for key in KERNEL_KEYS}
     print(f"[main] launches by path: {json.dumps({k: p['counts'] for k, p in paths.items()})}")
+    print(f"[tp-emulated] launches (GCN, SAGE, GIN at tp 2 and 4, one training step each): "
+          f"{json.dumps(tp_emu['counts'])}; errors against tp=1 (logits, gradients): "
+          f"{json.dumps(tp_emu['errs'])}")
     print(f"[main] scan ms/epoch by path: "
           f"{json.dumps({k: round(p['ms'], 3) for k, p in paths.items()})}")
     print(f"[remat] peak max_memory_allocated bytes (remat, without): "

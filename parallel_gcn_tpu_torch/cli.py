@@ -21,17 +21,22 @@ package's format (``ckpt_{epoch:06d}.npz``, ``ckpt_final.npz``);
 
 Under torchrun the CLI trains node-partitioned over the world's processes,
 one per GPU (``parallel.train_parallel.fit_parallel``); ``n_devices=N``,
-when given, must equal the world's size, and N > 1 needs such a world:
+when given, must equal the world's size over ``tp`` (default 1), and a
+mesh of more than one process needs such a world. ``tp=T`` > 1 (tensor
+parallelism: the GCN, SAGE and GIN) runs N node ranks of T feat ranks each,
+N·T processes (``n_devices`` defaults to the world's size over T):
 
       torchrun --standalone --nproc_per_node=N -m parallel_gcn_tpu_torch synth-reddit n_devices=N halo=boundary
       torchrun --standalone --nproc_per_node=2 -m parallel_gcn_tpu_torch synth-medium device=cpu n_devices=2
       torchrun --standalone --nproc_per_node=N -m parallel_gcn_tpu_torch synth-reddit n_devices=N model=sage halo=boundary
       torchrun --standalone --nproc_per_node=N -m parallel_gcn_tpu_torch synth-reddit n_devices=N backend=segment halo=ring
       torchrun --standalone --nproc_per_node=N -m parallel_gcn_tpu_torch synth-reddit n_devices=N halo=adaptive
+      torchrun --standalone --nproc_per_node=4 -m parallel_gcn_tpu_torch synth-reddit n_devices=2 tp=2
+      torchrun --standalone --nproc_per_node=4 -m parallel_gcn_tpu_torch synth-medium device=cpu n_devices=2 tp=2
 
 The device defaults to cuda; the CPU runs only when asked for. Returns 2 on a
-bad argument, a missing dataset or checkpoint, or ``n_devices`` without its
-world, 1 when the device is unavailable.
+bad argument, a missing dataset or checkpoint, or ``n_devices`` / ``tp``
+without their world, 1 when the device is unavailable.
 """
 
 from __future__ import annotations
@@ -79,18 +84,17 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: no checkpoint at {resume_from!r}")
         return 2
     world = os.environ.get("WORLD_SIZE")  # set by torchrun
-    mesh = cfg.tpu.n_devices > 1 or cfg.tpu.tp > 1 or world is not None
+    tp = cfg.tpu.tp
+    mesh = cfg.tpu.n_devices > 1 or tp > 1 or world is not None
     if mesh:
-        from parallel_gcn_tpu_torch.parallel.collectives import MESH_COMMAND
+        from parallel_gcn_tpu_torch.parallel.collectives import mesh_command
 
-        if cfg.tpu.tp > 1:
-            print(f"error: tp={cfg.tpu.tp} (tensor parallelism) is not yet ported to "
-                  "parallel_gcn_tpu_torch")
-            return 2
-        n = cfg.tpu.n_devices or int(world)
-        if int(world or 1) != n:
-            print(f"error: n_devices={n} needs a torch.distributed world of {n} "
-                  f"processes, one per GPU: {MESH_COMMAND.format(n=n)}")
+        size = int(world or 1)
+        n = cfg.tpu.n_devices or max(size // tp, 1)
+        if size != n * tp:
+            grid = f"n_devices={n}" + (f" × tp={tp}" if tp > 1 else "")
+            print(f"error: {grid} needs a torch.distributed world of {n * tp} "
+                  f"processes, one per GPU: {mesh_command(n, tp)}")
             return 2
     try:
         device = resolve_device(device_arg)

@@ -61,6 +61,18 @@ def glorot(generator: torch.Generator, rows: int, cols: int) -> torch.Tensor:
     return torch.empty(rows, cols).uniform_(-r, r, generator=generator)
 
 
+def layer_entry(h: torch.Tensor, rate: float, seed, training: bool,
+                pre_relu: bool) -> torch.Tensor:
+    """[the previous layer's deferred ReLU →] a layer's dropout at ``rate``:
+    one K2 when both run (``relu_dropout``), K1 alone, or neither."""
+    drop = training and rate > 0.0
+    if pre_relu:
+        if drop:
+            return relu_dropout(h, seed, rate)
+        h = torch.relu(h)
+    return dropout(h, seed, rate) if drop else h
+
+
 def init_params(
     generator: torch.Generator, input_dim: int, hidden_dims: Sequence[int],
     output_dim: int,
@@ -135,14 +147,19 @@ class GCNModel(nn.Module):
             w = self.weights[layer].to(self.compute_dtype)
             # layer 0's input is data: no dX kernel
             return dropout_matmul(h, w, seed, rate, need_dx=layer > 0).to(self.compute_dtype)
-        if pre_relu:
-            if drop:
-                h = relu_dropout(h, seed, rate)
-                return feature_transform(h, self.weights[layer], self.compute_dtype)
-            h = torch.relu(h)
-        if drop:
-            h = dropout(h, seed, rate)
+        h = self.slice_in(layer_entry(h, rate, seed, training, pre_relu), layer)
         return feature_transform(h, self.weights[layer], self.compute_dtype)
+
+    def slice_in(self, h: torch.Tensor, layer: int) -> torch.Tensor:
+        """The part of layer ``layer``'s input (after its dropout) that its
+        weight multiplies: all of it here (a tensor-parallel mesh model takes
+        its feat rank's columns)."""
+        return h
+
+    def between_layers(self, h: torch.Tensor, layer: int) -> torch.Tensor:
+        """What runs on layer ``layer``'s output before the next layer:
+        nothing here (a tensor-parallel mesh model gathers columns)."""
+        return h
 
     def forward(
         self,
@@ -201,4 +218,5 @@ class GCNModel(nn.Module):
                     h = h + prev
                 h = torch.relu(h)
                 prev = h
+            h = self.between_layers(h, layer)
         return h

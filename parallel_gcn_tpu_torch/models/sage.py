@@ -42,8 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from parallel_gcn_tpu_torch.device import torch_dtype
-from parallel_gcn_tpu_torch.models.gcn import glorot
-from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout, relu_dropout
+from parallel_gcn_tpu_torch.models.gcn import glorot, layer_entry
 from parallel_gcn_tpu_torch.ops.graphsum import graphsum
 from parallel_gcn_tpu_torch.ops.sparse_matmul import feature_transform
 
@@ -150,13 +149,7 @@ class _AggVariant(nn.Module):
     def _entry(self, h, layer: int, seed, training: bool, pre_relu: bool) -> torch.Tensor:
         """[the previous layer's ReLU →] this layer's dropout, fused into K2
         when both run."""
-        rate = self.dropouts[layer]
-        drop = training and rate > 0.0
-        if pre_relu:
-            if drop:
-                return relu_dropout(h, seed, rate)
-            h = torch.relu(h)
-        return dropout(h, seed, rate) if drop else h
+        return layer_entry(h, self.dropouts[layer], seed, training, pre_relu)
 
     def _layer(self, h, layer: int, seed, training: bool, pre_relu: bool, graph):
         raise NotImplementedError
@@ -182,19 +175,30 @@ class _AggVariant(nn.Module):
         h = x.to(self.compute_dtype)
         prev = None
         for layer in range(self.n_layers):
-            args = (h, layer, seeds[layer], training, layer > 0 and not self.residual, graph)
-            if self.remat and training:
-                h = checkpoint(self._layer, *args, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                h = self._layer(*args)
+            h = self.run_layer(h, layer, seeds[layer], training,
+                               layer > 0 and not self.residual, graph)
             if self.residual and 0 < layer < last and prev is not None \
                     and prev.shape == h.shape:
                 h = h + prev
             if layer < last and self.residual:
                 h = torch.relu(h)
                 prev = h
+            if layer < last:
+                h = self.between_layers(h, layer)
         return h.float()
+
+    def run_layer(self, h, layer: int, seed, training: bool, pre_relu: bool, graph):
+        """``_layer``, recomputed in the backward when training with
+        ``remat``."""
+        args = (h, layer, seed, training, pre_relu, graph)
+        if self.remat and training:
+            return checkpoint(self._layer, *args, use_reentrant=False, preserve_rng_state=False)
+        return self._layer(*args)
+
+    def between_layers(self, h: torch.Tensor, layer: int) -> torch.Tensor:
+        """What runs on layer ``layer``'s output before the next layer: nothing
+        here (the tensor-parallel mesh model gathers columns)."""
+        return h
 
 
 class SAGEModel(_AggVariant):

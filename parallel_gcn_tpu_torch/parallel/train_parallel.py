@@ -43,7 +43,9 @@ Dropout seeds. Every rank draws the epoch's seeds from the same generator
 keeps them on rank 0 and replaces each by ``splitmix64(splitmix64(seed) ^
 rank)`` reduced to the seed's range on rank r > 0, so the masks differ
 across ranks (the JAX package folds the axis index into the key) and a
-world of one replays the single-card run's masks.
+world of one replays the single-card run's masks. Under tensor parallelism
+a layer whose input is feat-sharded derives its seed once more from the
+feat index; a replicated input's mask is the same on every feat rank.
 
 ``mode=scan`` (the default) runs the whole-run path of ``scan.ScanLoop``
 on every rank, the counterpart of the JAX package's ``make_parallel_run``:
@@ -62,9 +64,22 @@ checkpoint while the others wait at a barrier.
 recompute issues the layer's collectives again, in the same order on every
 rank, inside the captured epoch.
 
-Not ported (NotImplementedError): tensor parallelism (``tp`` > 1). The
-mesh CE is the plain masked CE of ``ops.loss`` on every rank, as in the JAX
-package (``ce_impl`` does not apply).
+Tensor parallelism (``tp`` > 1; the GCN, SAGE and GIN, on every halo and
+layout): a world of ``n_devices × tp`` processes forms the JAX package's
+(nodes, feat) grid (``collectives.grid``). The node ranks partition the
+rows as above; the ``tp`` feat ranks of a node rank hold the same rows and
+a 1/tp shard of each feat-sharded weight (``tp_schedule``,
+``shard_weights``: Megatron's col/row split), and the models' TP layers
+(``MeshGCN``, ``MeshSAGE``, ``MeshGIN`` with ``feat``) reach the feat
+collectives through their ``collectives.FeatGroup``. Gradients and metrics
+are reduced over the node group only; the decayed leaf's Σw² is summed over
+feat in every reported loss. Under ``remat`` a TP layer checkpoints its
+pieces between feat collectives, so the recompute re-runs none of them.
+Checkpoints hold full arrays: gathered over feat to write, sliced on
+resume. The GAT takes no ``tp``, as in the JAX package.
+
+The mesh CE is the plain masked CE of ``ops.loss`` on every rank, as in the
+JAX package (``ce_impl`` does not apply).
 """
 
 from __future__ import annotations
@@ -75,6 +90,7 @@ from functools import partial
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from parallel_gcn_tpu_torch.config import Config
 from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL
@@ -88,7 +104,8 @@ from parallel_gcn_tpu_torch.ops.cuda_dropout import dropout
 from parallel_gcn_tpu_torch.ops.cuda_segment import (Segments, gather, gather_sum,
                                                      gather_sum_t, segment_sum, segment_sum_,
                                                      segments)
-from parallel_gcn_tpu_torch.ops.loss import masked_softmax_xent_sums
+from parallel_gcn_tpu_torch.ops.loss import l2_penalty, masked_softmax_xent_sums
+from parallel_gcn_tpu_torch.ops.sparse_matmul import feature_transform
 from parallel_gcn_tpu_torch.ops.tile_attention import (RectAttention, gat_attend_rect,
                                                        rect_attention)
 from parallel_gcn_tpu_torch.optim import AdamState, adam_step
@@ -102,10 +119,10 @@ from parallel_gcn_tpu_torch.parallel.partition import (GATMeshPack, HybridSharde
                                                        partition_graph_hybrid,
                                                        partition_graph_ring)
 from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table
-from parallel_gcn_tpu_torch.train import (_ATTN_SEED_HIGH, _SEED_HIGH, FitResult, _l2_term,
-                                          _sync, checkpoint_writer, eager_loop, epoch_seeds,
-                                          fit_result, fused_deferred_forward, print_scan,
-                                          init_weights, resume_state, resumed_adam,
+from parallel_gcn_tpu_torch.train import (_ATTN_SEED_HIGH, _SEED_HIGH, FitResult, _sync,
+                                          checkpoint_writer, eager_loop, epoch_seeds,
+                                          fit_result, fused_deferred_forward, init_weights,
+                                          l2_term, print_scan, resume_state, resumed_adam,
                                           scan_checkpoints, scan_schedule, skip_epochs)
 
 _M64 = (1 << 64) - 1
@@ -213,26 +230,28 @@ class RankGraph:
     push: PushGroup | None = None
     attn: RectAttention | None = None
     sqrt_deg: torch.Tensor | None = None
+    group: object = None  # the node group the exchanges run over (None: the world)
 
     def aggregate(self, h: torch.Tensor) -> torch.Tensor:
         """Â·h on this rank's rows, in h's dtype (the JAX ``_aggregate``)."""
+        g = self.group
         if self.ring is not None:
-            return graphsum_ring(h, self.ring)
+            return graphsum_ring(h, self.ring, g)
         if self.coo is not None:
             if self.push is not None:
-                return graphsum_dist_adaptive(h, self.coo, self.send, self.push)
-            return graphsum_dist(h, *self.coo, send=self.send)
+                return graphsum_dist_adaptive(h, self.coo, self.send, self.push, g)
+            return graphsum_dist(h, *self.coo, send=self.send, group=g)
         if self.slab is None:
             raise ValueError("the mesh GAT's packs carry no GCN aggregation")
         if self.push is not None:
             if self.d is not None:
                 return graphsum_dist_hybrid_adaptive_scaled(h, self.d, self.send, self.slab,
-                                                            *self.res, self.push)
+                                                            *self.res, self.push, g)
             return graphsum_dist_hybrid_adaptive(h, self.send, self.slab, *self.res,
-                                                 self.push)
+                                                 self.push, g)
         if self.d is not None:
-            return graphsum_dist_hybrid_scaled(h, self.d, self.send, self.slab, *self.res)
-        return graphsum_dist_hybrid(h, self.send, self.slab, *self.res)
+            return graphsum_dist_hybrid_scaled(h, self.d, self.send, self.slab, *self.res, g)
+        return graphsum_dist_hybrid(h, self.send, self.slab, *self.res, g)
 
 
 def _push_group(sg, r: int, device) -> PushGroup:
@@ -269,10 +288,12 @@ def _push_group(sg, r: int, device) -> PushGroup:
     return PushGroup(**group)
 
 
-def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None) -> RankGraph:
+def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None,
+               group=None) -> RankGraph:
     """Rank ``rank``'s slab of ``sgraph`` (``ShardedGraph``,
     ``HybridShardedGraph`` or ``GATMeshPack``) on ``device``, with its rows
-    of ``sqrt_deg`` (``sharded_sqrt_deg``) when given."""
+    of ``sqrt_deg`` (``sharded_sqrt_deg``) when given, exchanging over the
+    node ``group`` (None: the whole world)."""
     r = rank
 
     def coo(rows, cols, vals, n_cols):
@@ -294,7 +315,7 @@ def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None) ->
                                                                     sgraph.n_local),
                 push=_push_group(sgraph, r, device) if getattr(sgraph, "push_slab", 0)
                 else None,
-                sqrt_deg=None if sqrt_deg is None else f32(sqrt_deg))
+                sqrt_deg=None if sqrt_deg is None else f32(sqrt_deg), group=group)
     if isinstance(sgraph, GATMeshPack):
         sg = sgraph
         attn = rect_attention(sg.tiles_r[r], sg.trow_r[r], sg.tcol_r[r], sg.tiles_c[r],
@@ -324,13 +345,13 @@ def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None) ->
 
 
 def graphsum_dist(x_local, row_local, col, val, row_seg: Segments, col_seg: Segments,
-                  send: Segments | None = None):
+                  send: Segments | None = None, group=None):
     """Distributed Â·x over row-sharded features, flat COO slab: the source
-    buffer (all_gather, or the boundary halo with ``send``), then
-    ``val·x_buf[col]`` summed into ``row_local`` in edge order (``row_seg``),
-    in x's dtype. The backward sums the cotangent by buffer row
-    (``col_seg``), then transposes the collective."""
-    x_buf = gather_buffer(x_local, send)
+    buffer (all_gather, or the boundary halo with ``send``, over the node
+    ``group``), then ``val·x_buf[col]`` summed into ``row_local`` in edge
+    order (``row_seg``), in x's dtype. The backward sums the cotangent by
+    buffer row (``col_seg``), then transposes the collective."""
+    x_buf = gather_buffer(x_local, send, group)
     return gather_sum_t(x_buf, row_seg, col, val, col_seg)
 
 
@@ -402,67 +423,70 @@ def ring_step(acc, blk, step):
     return part if acc is None else acc + part
 
 
-def _ring_impl(x_local, steps):
+def _ring_impl(x_local, steps, group=None):
     acc, blk = None, x_local
     for s, step in enumerate(steps):
         acc = ring_step(acc, blk, step)
         if s + 1 < len(steps):  # JAX's last rotation only sends blocks home
-            blk = ppermute_rows(blk)
+            blk = ppermute_rows(blk, group)
     return acc
 
 
-def graphsum_ring(x_local, steps):
+def graphsum_ring(x_local, steps, group=None):
     """Distributed Â·x over the ring halo (JAX ``graphsum_ring``): n_dev
     steps, each the ordered gather-sum of the step's slab against the block
     this rank holds, then the block passed to rank + 1. A rank holds one
     remote block at a time instead of the gathered matrix. ``steps``:
     ``RankGraph.ring``. Self-adjoint."""
-    return _SelfAdjoint.apply(x_local, partial(_ring_impl, steps=steps))
+    return _SelfAdjoint.apply(x_local, partial(_ring_impl, steps=steps, group=group))
 
 
-def _adaptive_impl(x_local, coo, send, push):
+def _adaptive_impl(x_local, coo, send, push, group=None):
     row, col, val, row_seg, _ = coo
-    out = gather_sum(buffer_rows(x_local, send), row_seg, col, val)
-    return receive_add(out, all_to_all_rows(push_partials(x_local, push)), push)
+    out = gather_sum(buffer_rows(x_local, send, group), row_seg, col, val)
+    return receive_add(out, all_to_all_rows(push_partials(x_local, push), group), push)
 
 
-def graphsum_dist_adaptive(x_local, coo, send, push: PushGroup):
+def graphsum_dist_adaptive(x_local, coo, send, push: PushGroup, group=None):
     """Distributed Â·x over flat COO slabs with the adaptive push/pull halo
     (JAX ``graphsum_dist_adaptive``): the pulled and local edges through the
     boundary buffer, the push edges summed on this rank by slot, one
     ``all_to_all`` of the partial rows, the received rows added at their
     local rows in order. ``coo``: ``RankGraph.coo``. Self-adjoint."""
-    return _SelfAdjoint.apply(x_local, partial(_adaptive_impl, coo=coo, send=send, push=push))
+    return _SelfAdjoint.apply(x_local, partial(_adaptive_impl, coo=coo, send=send, push=push,
+                                               group=group))
 
 
-def _hybrid_impl(x_local, send, slab, rrow, rcol, rval, res_seg, push=None):
+def _hybrid_impl(x_local, send, slab, rrow, rcol, rval, res_seg, push=None, group=None):
     del rrow  # res_seg's index
-    out = pull_sum(buffer_rows(x_local, send), slab, rcol, rval, res_seg)
+    out = pull_sum(buffer_rows(x_local, send, group), slab, rcol, rval, res_seg)
     if push is None:
         return out
-    return receive_add(out, all_to_all_rows(push_partials(x_local, push)), push)
+    return receive_add(out, all_to_all_rows(push_partials(x_local, push), group), push)
 
 
-def graphsum_dist_hybrid(x_local, send, slab, rrow, rcol, rval, res_seg):
+def graphsum_dist_hybrid(x_local, send, slab, rrow, rcol, rval, res_seg, group=None):
     """Distributed Â·x over a rank's tile slab (K3 rect) plus its COO
     residual summed in edge order (``res_seg``: rrow's segments over the
     rank's rows), in x's dtype; ``send`` None for the all_gather halo.
     Self-adjoint."""
     return _SelfAdjoint.apply(x_local, partial(_hybrid_impl, send=send, slab=slab, rrow=rrow,
-                                               rcol=rcol, rval=rval, res_seg=res_seg))
+                                               rcol=rcol, rval=rval, res_seg=res_seg,
+                                               group=group))
 
 
-def graphsum_dist_hybrid_scaled(x_local, d_local, send, slab, rrow, rcol, rval, res_seg):
+def graphsum_dist_hybrid_scaled(x_local, d_local, send, slab, rrow, rcol, rval, res_seg,
+                                group=None):
     """``graphsum_dist_hybrid`` for int8 pattern slabs: the slab holds the
     0/k pattern, the residual the multiplicities, ``d_local`` (deg^{-1/2} of
     the rank's rows) the normalization."""
     impl = partial(_hybrid_impl, send=send, slab=slab, rrow=rrow, rcol=rcol, rval=rval,
-                   res_seg=res_seg)
+                   res_seg=res_seg, group=group)
     return _SelfAdjoint.apply(x_local, _scaled(impl, d_local))
 
 
 def graphsum_dist_hybrid_adaptive(x_local, send, slab, rrow, rcol, rval, res_seg,
-                                  push: PushGroup):
+                                  push: PushGroup, group=None):
     """Distributed Â·x over tile slabs with the adaptive halo (JAX
     ``graphsum_dist_hybrid_adaptive``): the pulled slab as
     ``graphsum_dist_hybrid``, plus the push pairs' partial slab (the push
@@ -470,17 +494,116 @@ def graphsum_dist_hybrid_adaptive(x_local, send, slab, rrow, rcol, rval, res_seg
     ``all_to_all`` and added at its rows in order. Self-adjoint."""
     return _SelfAdjoint.apply(x_local, partial(_hybrid_impl, send=send, slab=slab, rrow=rrow,
                                                rcol=rcol, rval=rval, res_seg=res_seg,
-                                               push=push))
+                                               push=push, group=group))
 
 
 def graphsum_dist_hybrid_adaptive_scaled(x_local, d_local, send, slab, rrow, rcol, rval,
-                                         res_seg, push: PushGroup):
+                                         res_seg, push: PushGroup, group=None):
     """``graphsum_dist_hybrid_adaptive`` for int8 pattern slabs (JAX
     ``graphsum_dist_hybrid_adaptive_scaled``): d scales the local rows
     before any exchange and the output rows after."""
     impl = partial(_hybrid_impl, send=send, slab=slab, rrow=rrow, rcol=rcol, rval=rval,
-                   res_seg=res_seg, push=push)
+                   res_seg=res_seg, push=push, group=group)
     return _SelfAdjoint.apply(x_local, _scaled(impl, d_local))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the feat axis's schedule and weight shards
+# ---------------------------------------------------------------------------
+
+
+def tp_schedule(n_layers: int) -> list[str]:
+    """Each layer's kind over the feat axis (JAX ``_tp_schedule``): ``col``,
+    W split on its output dim (a replicated input, a feat-sharded output, no
+    collective); ``row``, W split on its input dim (a feat-sharded input,
+    partial outputs reduced over feat). Alternating, the last layer always
+    ``row`` so the logits come out replicated."""
+    return ["row" if (i % 2 == 1 or i == n_layers - 1) else "col" for i in range(n_layers)]
+
+
+def rep_in_schedule(sched: list[str]) -> tuple[list[bool], list[bool]]:
+    """(rep_in, gather_after) of a schedule (JAX ``_rep_in_schedule``):
+    whether layer l's input is replicated over feat, and whether the column
+    all_gather runs after layer l (the next layer is ``col`` and its input
+    would be sharded)."""
+    rep_in, gather_after, rep = [], [], True
+    for i, kind in enumerate(sched):
+        rep_in.append(rep)
+        last = i == len(sched) - 1
+        rep = kind == "row" and last
+        gather = not last and sched[i + 1] == "col" and not rep
+        gather_after.append(gather)
+        if gather:
+            rep = True
+    return rep_in, gather_after
+
+
+def validate_tp_dims(input_dim: int, hidden_dims, output_dim: int, tp: int,
+                     model: str = "gcn") -> None:
+    """Raise ``ValueError`` when a dim cannot be split ``tp`` ways (JAX
+    ``validate_tp_dims``, its messages)."""
+    if tp <= 1:
+        return
+    dims = [input_dim, *hidden_dims, output_dim]
+    n_layers = len(dims) - 1
+    if model == "gin":
+        # inner MLP pairs: w1 col-sharded on dims[i+1], w2 row-sharded on the
+        # same width; the last layer row-shards its input dims[L-1]
+        for i in range(n_layers - 1):
+            if dims[i + 1] % tp:
+                raise ValueError(f"tp={tp} requires GIN layer {i}'s hidden dim {dims[i + 1]} "
+                                 "divisible by tp (Megatron MLP pair)")
+        if dims[n_layers - 1] % tp:
+            raise ValueError(f"tp={tp} requires the GIN classifier input dim "
+                             f"{dims[n_layers - 1]} divisible by tp (row-sharded)")
+        return
+    # the GCN and SAGE share the alternating schedule
+    for i, kind in enumerate(tp_schedule(n_layers)):
+        if kind == "col" and dims[i + 1] % tp:
+            raise ValueError(f"tp={tp} requires layer {i}'s output dim {dims[i + 1]} "
+                             "divisible by tp (column-sharded weight)")
+        if kind == "row" and i < n_layers - 1 and dims[i + 1] % tp:
+            raise ValueError(f"tp={tp} requires layer {i}'s output dim {dims[i + 1]} "
+                             "divisible by tp (reduce_scatter over feat)")
+        if kind == "row" and i % 2 == 1 and dims[i] % tp:
+            raise ValueError(f"tp={tp} requires layer {i}'s input dim {dims[i]} "
+                             "divisible by tp (row-sharded weight)")
+    if n_layers == 1 and input_dim % tp:
+        raise ValueError(f"tp={tp} with a single layer requires input_dim {input_dim} "
+                         "divisible by tp")
+
+
+def leaf_kinds(n_leaves: int, model: str = "gcn") -> list[str]:
+    """The split of each of a family's ``n_leaves`` flat leaves (JAX
+    ``_weight_specs``): ``col`` (output dim) or ``row`` (input dim). The GCN
+    one leaf a layer on the schedule; SAGE ``[neigh, self]`` both on the
+    layer's kind; GIN ``[w1 col, w2 row]`` a layer, the last ``[w1 row]``."""
+    if model == "sage":
+        return [k for k in tp_schedule(n_leaves // 2) for _ in range(2)]
+    if model == "gin":
+        return ["col", "row"] * (n_leaves // 2) + ["row"]
+    return tp_schedule(n_leaves)
+
+
+def shard_weights(weights: list[torch.Tensor], tp: int, feat_rank: int,
+                  model: str = "gcn") -> list[torch.Tensor]:
+    """Feat rank ``feat_rank``'s contiguous slices of a family's full flat
+    leaves (weights or Adam moments; JAX ``shard_weights``' addressable
+    shards)."""
+    if tp <= 1:
+        return list(weights)
+    return [w.chunk(tp, dim=1 if kind == "col" else 0)[feat_rank].contiguous()
+            for w, kind in zip(weights, leaf_kinds(len(weights), model), strict=True)]
+
+
+def gather_weights(shards: list[torch.Tensor], feat, model: str = "gcn") -> list[torch.Tensor]:
+    """The inverse of ``shard_weights`` over the feat ranks of ``feat`` (a
+    ``collectives.FeatGroup``): every leaf's full array, on every feat
+    rank."""
+    with torch.no_grad():
+        return [feat.all_gather_cols(w.detach()) if kind == "col"
+                else feat.all_gather_rows(w.detach())
+                for w, kind in zip(shards, leaf_kinds(len(shards), model), strict=True)]
 
 
 # ---------------------------------------------------------------------------
@@ -489,25 +612,155 @@ def graphsum_dist_hybrid_adaptive_scaled(x_local, d_local, send, slab, rrow, rco
 
 
 class _OnSlab:
-    """A single-card model's aggregation on the rank's slab, in h's dtype."""
+    """A single-card model's aggregation on the rank's slab, in h's dtype,
+    and its tensor-parallel frame: ``feat`` (a ``collectives.FeatGroup``,
+    or an object with its methods) makes the model one feat rank of a
+    ``tp``-way grid over shards of its weights; None is ``tp`` 1."""
+
+    def __init__(self, *args, feat=None, **kw):
+        super().__init__(*args, **kw)
+        self.feat = feat if feat is not None and feat.size > 1 else None
+        self.sched = tp_schedule(self.n_layers)
+        self.rep_in, self.gather_after = rep_in_schedule(self.sched)
 
     def aggregate(self, h: torch.Tensor, graph: RankGraph) -> torch.Tensor:
         return graph.aggregate(h).to(h.dtype)
 
+    def feat_sharded_inputs(self) -> list[bool]:
+        """Per layer, whether its input is feat-sharded, so its dropout mask
+        is drawn per feat rank (JAX ``_keys``); replicated inputs share the
+        mask across feat."""
+        if self.feat is None:
+            return [False] * self.n_layers
+        return [not r for r in self.rep_in]
+
+    def _piece(self, fn, *args, training: bool):
+        """``fn(*args)``, recomputed in the backward when training with
+        ``remat``: a TP layer checkpoints its pieces between its feat
+        collectives, never across one, so the recompute re-runs none of them
+        (JAX's ``_TP_SAVE`` policy)."""
+        if self.remat and training:
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
+    def slice_in(self, h: torch.Tensor, layer: int) -> torch.Tensor:
+        """A ``row`` layer's replicated input cut to this feat rank's column
+        block, the rows of its weight shard (after the dropout of the full
+        input); any other input whole."""
+        if self.feat is None or self.sched[layer] != "row" or not self.rep_in[layer]:
+            return h
+        width = h.shape[1] // self.feat.size
+        j = self.feat.rank
+        return h[:, j * width:(j + 1) * width]
+
+    def between_layers(self, h: torch.Tensor, layer: int) -> torch.Tensor:
+        """The column all_gather after layer ``layer`` where ``gather_after``
+        says."""
+        if self.feat is not None and self.gather_after[layer]:
+            return self.feat.gather_cols(h)
+        return h
+
+    def _reduce(self, partial_out: torch.Tensor, layer: int) -> torch.Tensor:
+        """A row layer's partial product summed over feat: replicated for the
+        last layer (``psum``), else this rank's column block
+        (``psum_scatter``)."""
+        if layer == self.n_layers - 1:
+            return self.feat.psum(partial_out)
+        return self.feat.psum_scatter(partial_out)
+
+    def stack_reduce(self, stacked: torch.Tensor) -> torch.Tensor:
+        """The deferred-eval epoch's stacked [train | val] partial logits
+        summed over feat in one collective (no autograd: its transpose is
+        the identity)."""
+        return stacked if self.feat is None else self.feat.all_reduce(stacked)
+
 
 class MeshGCN(_OnSlab, GCNModel):
     """The GCN forward with every aggregation on the rank's slab (the JAX
-    mesh forward: dropout → X·W → Â·(·) → ReLU, residual as on one card)."""
+    mesh forward: dropout → X·W → Â·(·) → ReLU, residual as on one card).
+
+    With ``feat`` (tensor parallelism, JAX ``forward_tp``): a ``col`` layer
+    multiplies its replicated input by its column shard and aggregates the
+    1/tp-wide result; a ``row`` layer (slicing a replicated input) gives a
+    partial product, ``psum_scatter`` (the last: ``psum``) sums it over
+    feat, then the aggregation; the column all_gather runs where
+    ``gather_after`` says. Â·H is column-independent, so every aggregation
+    but the last layer's runs at 1/tp of the width. The deferred ReLU stays
+    fused into K2 (ReLU commutes with the column gather)."""
+
+    def layer(self, h, graph, layer: int, seed, training: bool, skip_agg: bool):
+        if self.feat is None:
+            return super().layer(h, graph, layer, seed, training, skip_agg)
+        pre_relu = self.defers_relu(layer)
+        if self.sched[layer] == "col":  # no feat collective: one piece
+            return self._piece(self._layer, h, graph, layer, seed, training, skip_agg,
+                               training=training)
+        part = self._piece(self.layer_pre, h, layer, seed, training, pre_relu,
+                           training=training)
+        h = self._reduce(part, layer)
+        if skip_agg:
+            return h
+        return self._piece(self.aggregate, h, graph, training=training)
 
 
 class MeshSAGE(_OnSlab, SAGEModel):
     """SAGE over the rank's slab (JAX ``forward_agg_variant``): the mean
     rewrite scales the rank's rows by ``RankGraph.sqrt_deg`` before the
-    exchange."""
+    exchange. With ``feat``, both of a layer's weights take the GCN's
+    col/row schedule: a ``col`` layer is the single-card layer on its column
+    shards; a ``row`` layer sums each product over feat before the
+    neighbour mean of the shard."""
+
+    def run_layer(self, h, layer: int, seed, training: bool, pre_relu: bool, graph):
+        if self.feat is None or self.sched[layer] == "col":
+            return super().run_layer(h, layer, seed, training, pre_relu, graph)
+        w = self.layer_weights(layer)
+        dtype = self.compute_dtype
+
+        def products(h):
+            h = self._entry(h, layer, seed, training, pre_relu)
+            h = self.slice_in(h, layer)
+            return feature_transform(h, w["self"], dtype), feature_transform(h, w["neigh"], dtype)
+
+        ps, pn = self._piece(products, h, training=training)
+        ps, pn = self._reduce(ps, layer), self._reduce(pn, layer)
+        return self._piece(lambda ps, pn: ps + self.mean_agg(pn, graph).to(dtype), ps, pn,
+                           training=training)
 
 
 class MeshGIN(_OnSlab, GINModel):
-    """GIN over the rank's slab, as ``MeshSAGE``, with the sum rewrite."""
+    """GIN over the rank's slab, as ``MeshSAGE``, with the sum rewrite. With
+    ``feat`` every layer aggregates its replicated input on each feat rank,
+    then runs its MLP as a Megatron pair (w1 col → ReLU → w2 row; the last
+    layer's slice into its row-sharded w1), the partial output summed over
+    feat (``psum``). From layer 1 on the layer's input takes a gradient, so
+    ``copy_in`` (Megatron's f) sums its partial cotangents over feat."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        # every layer's input is replicated (its dropout mask shared across
+        # feat) and no column gather runs; only the last layer slices it
+        L = self.n_layers
+        self.sched = ["col"] * (L - 1) + ["row"]
+        self.rep_in, self.gather_after = [True] * L, [False] * L
+
+    def run_layer(self, h, layer: int, seed, training: bool, pre_relu: bool, graph):
+        if self.feat is None:
+            return super().run_layer(h, layer, seed, training, pre_relu, graph)
+        w = self.layer_weights(layer)
+        dtype = self.compute_dtype
+
+        def body(h):
+            h = self._entry(h, layer, seed, training, pre_relu)
+            z = self.eps * h + self.sum_agg(h, graph).to(dtype)
+            if layer > 0:
+                z = self.feat.copy_in(z)
+            if "w2" in w:
+                z = feature_transform(z, w["w1"], dtype)
+                return feature_transform(torch.relu(z), w["w2"], dtype)
+            return feature_transform(self.slice_in(z, layer), w["w1"], dtype)
+
+        return self.feat.psum(self._piece(body, h, training=training))
 
 
 class MeshGAT(GATModel):
@@ -522,7 +775,8 @@ class MeshGAT(GATModel):
 
     def _source_buffer(self, graph, hw3, t):
         n, H, D = hw3.shape
-        buf = gather_buffer(torch.cat([hw3.reshape(n, H * D), t], dim=1), graph.send)
+        buf = gather_buffer(torch.cat([hw3.reshape(n, H * D), t], dim=1), graph.send,
+                            graph.group)
         return buf[:, H * D:], buf[:, : H * D].view(-1, H, D)
 
     def _attend_tile(self, graph, hw3, s, t, seed, training):
@@ -568,37 +822,57 @@ def _mix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def rank_seeds(seeds: list[int], rank: int, attention: bool = False) -> list[int]:
-    """The epoch's dropout seeds for rank ``rank``: unchanged on rank 0;
+# salts the feat index's derivation apart from the node rank's
+_FEAT_SALT = 0x5EED_FEA7_0000_0001
+
+
+def rank_seeds(seeds: list[int], rank: int, attention: bool = False, feat_rank: int = 0,
+               sharded: list[bool] | None = None) -> list[int]:
+    """The epoch's dropout seeds for node rank ``rank``: unchanged on rank 0;
     ``splitmix64(splitmix64(seed) ^ rank)`` reduced to the seed's range on
     the others. With ``attention`` (GAT) the odd entries are int32 attention
-    seeds."""
-    if rank == 0:
-        return list(seeds)
+    seeds. Tensor parallelism: on feat rank ``feat_rank`` > 0 the seed of
+    each layer whose input is feat-sharded (``sharded``, one flag a layer)
+    is derived once more, ``splitmix64(splitmix64(seed ^ salt) ^
+    feat_rank)``, so the feat ranks' masks form one mask over the full
+    width; a replicated input keeps the node rank's seed, so its mask is
+    the same on every feat rank (JAX ``_keys`` folds the feat index into the
+    key of exactly those layers)."""
     highs = [(_ATTN_SEED_HIGH if attention and i % 2 else _SEED_HIGH)
              for i in range(len(seeds))]
-    return [_mix64(_mix64(s) ^ rank) % hi for s, hi in zip(seeds, highs)]
+    out = list(seeds) if rank == 0 else [_mix64(_mix64(s) ^ rank) % hi
+                                         for s, hi in zip(seeds, highs)]
+    if feat_rank and sharded:
+        out = [_mix64(_mix64(s ^ _FEAT_SALT) ^ feat_rank) % hi if sharded[i] else s
+               for i, (s, hi) in enumerate(zip(out, highs))]
+    return out
 
 
 def build_mesh_model(cfg: Config, sgraph, weights: list[torch.Tensor],
-                     device) -> MeshGCN | MeshGAT | MeshSAGE | MeshGIN:
+                     device, feat=None) -> MeshGCN | MeshGAT | MeshSAGE | MeshGIN:
     """The mesh model of ``cfg`` with a copy of ``weights`` (float32, the
-    family's leaves in JAX leaf order) on ``device``; training leaves the
-    caller's tensors alone."""
+    family's full leaves in JAX leaf order) on ``device``; training leaves
+    the caller's tensors alone. With ``feat`` (a ``collectives.FeatGroup``
+    of more than one rank, or an object with its methods) the model holds
+    feat rank ``feat.rank``'s shards (``shard_weights``)."""
+    tp = 1 if feat is None else feat.size
+    if tp > 1:
+        weights = shard_weights(weights, tp, feat.rank, cfg.gcn.model)
     weights = [w.detach().to(device, torch.float32, copy=True) for w in weights]
     common = dict(compute_dtype=cfg.tpu.compute_dtype, residual=cfg.gcn.residual,
                   remat=cfg.gcn.remat)
-    if cfg.gcn.model == "gat":
+    if cfg.gcn.model == "gat":  # tp 1 (_check_config)
         return MeshGAT(weights, cfg.gcn.dropouts, heads=cfg.gcn.heads,
                        attn_dropout=cfg.gcn.attn_dropout,
                        backend="tile" if isinstance(sgraph, GATMeshPack) else "segment",
                        edge_chunk=cfg.tpu.edge_chunk, **common)
     if cfg.gcn.model == "sage":
-        return MeshSAGE(weights, cfg.gcn.dropouts, **common)
+        return MeshSAGE(weights, cfg.gcn.dropouts, feat=feat, **common)
     if cfg.gcn.model == "gin":
-        return MeshGIN(weights, cfg.gcn.dropouts, gin_eps=cfg.gcn.gin_eps, **common)
-    return MeshGCN(weights, cfg.gcn.dropouts, fuse_dropout_matmul=cfg.tpu.fuse_dropout_matmul,
-                   **common)
+        return MeshGIN(weights, cfg.gcn.dropouts, gin_eps=cfg.gcn.gin_eps, feat=feat, **common)
+    # the fused dropout⊗matmul (K10) does not apply under tp (fit_parallel's note)
+    return MeshGCN(weights, cfg.gcn.dropouts, feat=feat,
+                   fuse_dropout_matmul=cfg.tpu.fuse_dropout_matmul and tp == 1, **common)
 
 
 # ---------------------------------------------------------------------------
@@ -606,12 +880,20 @@ def build_mesh_model(cfg: Config, sgraph, weights: list[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _global_ce(logits, labels, mask, num_samples):
+def _global_ce(logits, labels, mask, num_samples, group=None):
     """(loss, accuracy) of the whole world from this rank's rows: the local
-    sums of ``ops.loss`` reduced over the ranks, divided by the split's
-    size."""
-    sums = all_reduce_sum(torch.stack(masked_softmax_xent_sums(logits, labels, mask)))
+    sums of ``ops.loss`` reduced over the node ``group`` (the feat ranks
+    hold the same replicated logits), divided by the split's size."""
+    sums = all_reduce_sum(torch.stack(masked_softmax_xent_sums(logits, labels, mask)), group)
     return sums[0] / float(num_samples), sums[1] / float(num_samples)
+
+
+def _feat_sum(model, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the feat ranks (tensor parallelism), else ``t``:
+    the partial Σw² of the decayed leaf's shard (JAX ``_pen``'s psum over
+    feat)."""
+    feat = getattr(model, "feat", None)
+    return t if feat is None else feat.all_reduce(t)
 
 
 def make_parallel_epoch_step(cfg: Config, model, graph: RankGraph, data: RankData,
@@ -619,10 +901,11 @@ def make_parallel_epoch_step(cfg: Config, model, graph: RankGraph, data: RankDat
     """One-epoch function ``(opt_state, seeds) -> metrics[4]`` (train_loss,
     train_acc, val_loss, val_acc; the same on every rank). ``seeds`` are
     this rank's (``rank_seeds``). The local loss's gradient, its sum over
-    the ranks (one ``all_reduce`` with the train metrics' sums), Adam in
-    place, then the val eval on the updated weights. ``x_train`` /
-    ``x_eval``: the rank's Â·X (``make_preagg_fn``), and layer 0 of the
-    train / val forward skips its aggregation."""
+    the node ranks (one ``all_reduce`` with the train metrics' sums), Adam
+    in place, then the val eval on the updated weights; under tensor
+    parallelism one feat ``all_reduce`` of the pre- and post-update Σw².
+    ``x_train`` / ``x_eval``: the rank's Â·X (``make_preagg_fn``), and
+    layer 0 of the train / val forward skips its aggregation."""
     adam = cfg.adam
     wd = adam.weight_decay
     n_train, n_val = split_counts[TRAIN], split_counts[VAL]
@@ -637,19 +920,19 @@ def make_parallel_epoch_step(cfg: Config, model, graph: RankGraph, data: RankDat
                        input_preagg=x_train is not None)
         loss_sum, correct = masked_softmax_xent_sums(logits, data.labels, train_mask)
         grads = torch.autograd.grad(loss_sum / float(n_train), weights)
-        grads, sums = _reduce_grads(weights, grads, torch.stack([loss_sum.detach(), correct]))
+        grads, sums = _reduce_grads(weights, grads, torch.stack([loss_sum.detach(), correct]),
+                                    graph.group)
         with torch.no_grad():
-            # the L2 term of the PRE-update W0
-            train_loss = sums[0] / float(n_train) + _l2_term(wd, weights[0])
-            train_acc = sums[1] / float(n_train)
+            l2_pre = l2_penalty(weights[0])  # the L2 term of the PRE-update W0
         adam_step(weights, grads, opt_state, learning_rate=adam.learning_rate,
                   weight_decay=wd, beta1=adam.beta1, beta2=adam.beta2, eps=adam.eps)
         with torch.no_grad():
             val_ce, val_acc = _global_ce(
                 model(x_ev, graph, training=False, input_preagg=x_eval is not None),
-                data.labels, val_mask, n_val)
-            return torch.stack([train_loss, train_acc,
-                                val_ce + _l2_term(wd, weights[0]), val_acc])
+                data.labels, val_mask, n_val, graph.group)
+            l2 = _feat_sum(model, torch.stack([l2_pre, l2_penalty(weights[0])]))
+            return torch.stack([sums[0] / float(n_train) + l2_term(wd, l2[0]),
+                                sums[1] / float(n_train), val_ce + l2_term(wd, l2[1]), val_acc])
 
     return step
 
@@ -659,10 +942,12 @@ def make_parallel_deferred_step(cfg: Config, model: MeshGCN, graph: RankGraph,
                                 x_eval=None):
     """The mesh GCN's deferred-eval epoch (``train.fused_deferred_forward``
     over the rank's slab: one last-layer aggregation, one collective, for
-    the train and the val halves): ``(opt_state, seeds) -> metrics[4]``,
-    this epoch's train loss and accuracy and the val loss and accuracy of
-    the weights it started from. One ``all_reduce`` carries the local
-    gradients and both halves' sums."""
+    the train and the val halves; under tensor parallelism one feat
+    ``all_reduce`` of both halves' partial logits, JAX
+    ``forward_stacked_tp``): ``(opt_state, seeds) -> metrics[4]``, this
+    epoch's train loss and accuracy and the val loss and accuracy of the
+    weights it started from. One ``all_reduce`` over the node ranks carries
+    the local gradients and both halves' sums."""
     adam = cfg.adam
     wd = adam.weight_decay
     n_train, n_val = split_counts[TRAIN], split_counts[VAL]
@@ -681,10 +966,10 @@ def make_parallel_deferred_step(cfg: Config, model: MeshGCN, graph: RankGraph,
         with torch.no_grad():
             val_sums = masked_softmax_xent_sums(le, data.labels, val_mask)
             sums = torch.stack([loss_sum.detach(), correct, *val_sums])
-        grads, sums = _reduce_grads(weights, grads, sums)
+        grads, sums = _reduce_grads(weights, grads, sums, graph.group)
         with torch.no_grad():
             # the L2 term of the PRE-update W0, which the val half also ran on
-            pen = _l2_term(wd, weights[0])
+            pen = l2_term(wd, _feat_sum(model, l2_penalty(weights[0])))
             metrics = torch.stack([sums[0] / float(n_train) + pen, sums[1] / float(n_train),
                                    sums[2] / float(n_val) + pen, sums[3] / float(n_val)])
         adam_step(weights, grads, opt_state, learning_rate=adam.learning_rate,
@@ -694,10 +979,13 @@ def make_parallel_deferred_step(cfg: Config, model: MeshGCN, graph: RankGraph,
     return step
 
 
-def _reduce_grads(weights, grads, sums):
-    """One ``all_reduce`` of the local gradients and the metric ``sums``:
-    (the world's gradients shaped like ``weights``, the world's sums)."""
-    flat = all_reduce_sum(torch.cat([g.reshape(-1).float() for g in grads] + [sums]))
+def _reduce_grads(weights, grads, sums, group=None):
+    """One ``all_reduce`` over the node ``group`` of the local gradients and
+    the metric ``sums``: (the gradients of the world's loss shaped like
+    ``weights``, the world's sums). Under tensor parallelism each feat rank
+    reduces its own shards' gradients: a sum over the whole world would
+    multiply the sums by tp."""
+    flat = all_reduce_sum(torch.cat([g.reshape(-1).float() for g in grads] + [sums]), group)
     out, off = [], 0
     for w in weights:
         out.append(flat[off : off + w.numel()].view(w.shape))
@@ -717,8 +1005,9 @@ def make_parallel_eval_fn(cfg: Config, model, graph: RankGraph, data: RankData,
     def eval_fn():
         with torch.no_grad():
             ce, acc = _global_ce(model(x, graph, training=False, input_preagg=preagg),
-                                 data.labels, mask, split_counts[split])
-            return ce + _l2_term(cfg.adam.weight_decay, model.weights[0]), acc
+                                 data.labels, mask, split_counts[split], graph.group)
+            l2 = _feat_sum(model, l2_penalty(model.weights[0]))
+            return ce + l2_term(cfg.adam.weight_decay, l2), acc
 
     return eval_fn
 
@@ -740,8 +1029,9 @@ def make_preagg_fn(graph: RankGraph):
 
 
 def _check_config(cfg: Config, halo: str) -> None:
-    """The JAX package's config errors (``fit_parallel``), and
-    NotImplementedError for tensor parallelism, which is not ported."""
+    """The JAX package's config errors (``fit_parallel``): among them, the
+    GAT takes no tensor parallelism (its per-destination softmax stays
+    device-local; ``tp`` is for the GCN, SAGE and GIN)."""
     gat = cfg.gcn.model == "gat"
     tiles = cfg.tpu.backend in ("hybrid", "bcsr")
     if gat and (halo in ("ring", "adaptive") or cfg.tpu.tp > 1):
@@ -749,9 +1039,6 @@ def _check_config(cfg: Config, halo: str) -> None:
             "model=gat over the mesh supports the flat COO partition or the gat_mesh_pack "
             "tile partition, with the all_gather or boundary halo — set "
             "halo=all_gather|boundary, tp=1")
-    if cfg.tpu.tp > 1:
-        raise NotImplementedError(
-            f"not yet ported to parallel_gcn_tpu_torch: tp={cfg.tpu.tp}")
     if gat and tiles and cfg.tpu.edge_chunk:
         raise ValueError(
             "edge_chunk streams the SEGMENT attention; the tile backend already bounds "
@@ -804,30 +1091,48 @@ def halo_of(sgraph) -> str:
 @dataclass
 class RankRun:
     """What ``fit_parallel`` trains on one rank: the partition, the rank's
-    slab, rows and model, and the splits' global sizes."""
+    slab, rows and model, the splits' global sizes and the rank's place in
+    the (nodes, feat) grid."""
 
     sgraph: ShardedGraph | HybridShardedGraph | GATMeshPack
     graph: RankGraph
     data: RankData
     model: MeshGCN | MeshGAT | MeshSAGE | MeshGIN
     split_counts: dict
+    grid: collectives.Grid | None = None
+
+    def seeds(self, seeds: list[int], attention: bool = False) -> list[int]:
+        """This rank's share of an epoch's seeds (``rank_seeds``)."""
+        model = self.model
+        feat = getattr(model, "feat", None)
+        if feat is None:
+            return rank_seeds(seeds, self.graph.rank, attention)
+        return rank_seeds(seeds, self.graph.rank, attention, feat.rank,
+                          model.feat_sharded_inputs())
 
 
 def build_rank(cfg: Config, ds, rank: int, n_devices: int, halo: str, device,
-               weights: list[torch.Tensor] | None = None) -> RankRun:
-    """Rank ``rank``'s share of a run of ``cfg`` over ``n_devices`` ranks on
-    ``device``; ``weights`` (float32, the family's leaves in JAX leaf order)
-    or the Glorot init from ``cfg.tpu.seed``. Sets the matmul precision."""
+               weights: list[torch.Tensor] | None = None,
+               grid: collectives.Grid | None = None) -> RankRun:
+    """Node rank ``rank``'s share of a run of ``cfg`` over ``n_devices``
+    node ranks on ``device``; ``weights`` (float32, the family's full leaves
+    in JAX leaf order) or the Glorot init from ``cfg.tpu.seed``; ``grid``
+    (``collectives.grid``) the node group the exchanges run over and, under
+    tensor parallelism, the feat rank whose shards the model holds. Sets the
+    matmul precision."""
     sgraph = partition_for(cfg, ds, n_devices, halo)
     if weights is None:
         weights = init_weights(cfg, ds.input_dim, ds.output_dim)
     set_matmul_precision(cfg.tpu.matmul_precision)
     sdeg = sharded_sqrt_deg(ds, sgraph) if cfg.gcn.model in ("sage", "gin") else None
+    group = None if grid is None else grid.node_group
     return RankRun(
-        sgraph=sgraph, graph=rank_graph(sgraph, rank, device, sdeg),
+        sgraph=sgraph, graph=rank_graph(sgraph, rank, device, sdeg, group),
         data=rank_data(ds, sgraph, rank, device),
-        model=build_mesh_model(cfg, sgraph, weights, device),
+        model=build_mesh_model(cfg, sgraph, weights, device,
+                               None if grid is None else grid.feat),
         split_counts={s: int((ds.split == s).sum()) for s in (TRAIN, VAL, TEST)},
+        grid=grid,
     )
 
 
@@ -864,9 +1169,8 @@ def make_parallel_scan_loop(cfg: Config, run: RankRun, opt_state: AdamState,
     else:
         step = make_parallel_epoch_step(cfg, model, graph, data, counts, x_train, x_eval)
         final_val = None
-    table = seed_table([rank_seeds(epoch_seeds(gen, model.n_layers, attention=gat),
-                                   graph.rank, gat) for _ in range(epochs)],
-                       data.x.device)
+    table = seed_table([run.seeds(epoch_seeds(gen, model.n_layers, attention=gat), gat)
+                        for _ in range(epochs)], data.x.device)
     return ScanLoop(lambda slots: step(opt_state, slots),
                     state=[*model.weights, *opt_state.m, *opt_state.v, opt_state.step],
                     seeds=SeedSlots(model.n_layers, gat, data.x.device), table=table, k=k,
@@ -889,33 +1193,57 @@ def fit_parallel(
     """The node-partitioned training run, the mesh counterpart of
     ``train.fit``: partition the host dataset ``ds``, train with per-epoch
     val metrics and the reference's early-stopping rule, evaluate the test
-    split. Call it on every rank of a world of ``n_devices`` processes
-    (torchrun), or with ``n_devices`` 1 and no world (a world of one is
+    split. Call it on every rank of a world of ``n_devices × cfg.tpu.tp``
+    processes (torchrun; ``n_devices`` defaults to the world's size over
+    ``tp``), or with ``n_devices`` 1, ``tp`` 1 and no world (a world of one is
     started). ``halo``: ``all_gather``, ``boundary``, ``adaptive`` or
-    ``ring`` (default ``cfg.tpu.halo``). ``weights`` (float32, a GAT's in JAX leaf order)
-    replace the Glorot init from ``cfg.tpu.seed``; ``resume_from`` and the
-    checkpoint options as ``train.fit`` takes them. The history, losses and
-    accuracies are the whole world's, equal on every rank; only rank 0
-    prints."""
+    ``ring`` (default ``cfg.tpu.halo``). ``weights`` (float32, the family's
+    full leaves in JAX leaf order) replace the Glorot init from
+    ``cfg.tpu.seed``; ``resume_from`` and the checkpoint options as
+    ``train.fit`` takes them (under tensor parallelism the files hold full
+    arrays: gathered over feat to write, sliced on resume). The history,
+    losses and accuracies are the whole world's, equal on every rank, and so
+    are the result's weights (full arrays); only rank 0 prints."""
     halo = halo or cfg.tpu.halo
     _check_config(cfg, halo)
+    tp = max(cfg.tpu.tp, 1)
     device = collectives.local_device(
         device if isinstance(device, torch.device) else resolve_device(device))
     if n_devices is None:
-        n_devices = cfg.tpu.n_devices or (
-            torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1)
+        n_devices = cfg.tpu.n_devices or max(
+            (torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1)
+            // tp, 1)
     verbose = cfg.train.verbose if verbose is None else verbose
     gat = cfg.gcn.model == "gat"
-    with collectives.world(n_devices, device) as (rank, _):
+    with collectives.world(n_devices, device, tp) as (rank, _):
+        validate_tp_dims(ds.input_dim, cfg.gcn.hidden_dims, ds.output_dim, tp, cfg.gcn.model)
+        grid = collectives.grid(n_devices, tp)
         verbose = verbose and rank == 0
         ck, weights, start, seed = resume_state(resume_from, weights, cfg.tpu.seed, "cpu",
                                                 verbose)
-        run = build_rank(cfg, ds, rank, n_devices, halo, device, weights)
+        run = build_rank(cfg, ds, grid.node_rank, n_devices, halo, device, weights, grid)
         sgraph, model = run.sgraph, run.model
         opt_state = resumed_adam(ck, list(model.weights))
+        if ck is not None and tp > 1:  # the file's moments are full arrays
+            opt_state.m, opt_state.v = (shard_weights(list(t), tp, grid.feat_rank,
+                                                      cfg.gcn.model)
+                                        for t in (opt_state.m, opt_state.v))
         if verbose:
             print(f"mesh: {n_devices} rank(s), halo={halo_of(sgraph)}, "
                   f"n_local={sgraph.n_local}, n_buf={sgraph.n_buf}, device {device}")
+            if tp > 1:
+                print(f"tp: {tp} feat ranks a node rank ({n_devices * tp} processes), layer "
+                      f"kinds {model.sched}, rank 0's weight shards "
+                      f"{[list(w.shape) for w in model.weights]}")
+                if cfg.tpu.fuse_dropout_matmul and cfg.gcn.model == "gcn":
+                    print("note: fuse_dropout_matmul does not apply under tp > 1 (the JAX "
+                          "package's TP forward has no fused layer) — ignored")
+
+        def full_state():
+            """(full weights, Adam state with full moments), on every rank."""
+            gather = partial(gather_weights, feat=grid.feat, model=cfg.gcn.model)
+            return gather(list(model.weights)), AdamState(
+                step=opt_state.step, m=gather(list(opt_state.m)), v=gather(list(opt_state.v)))
 
         x_train, x_eval = preagg_inputs(cfg, run)
         test_fn = make_parallel_eval_fn(cfg, model, run.graph, run.data, run.split_counts,
@@ -924,7 +1252,8 @@ def fit_parallel(
         skip_epochs(gen, start, model.n_layers, gat)
         ckpt_s: list = []
         save = checkpoint_writer(cfg, model, opt_state, seed, ckpt_s, write=rank == 0,
-                                 barrier=torch.distributed.barrier, verbose=verbose)
+                                 barrier=torch.distributed.barrier,
+                                 gather=full_state if tp > 1 else None, verbose=verbose)
         scan = None
         _sync(device)
         t0 = time.perf_counter()
@@ -940,7 +1269,7 @@ def fit_parallel(
                                             run.split_counts, x_train, x_eval)
             history, epochs_run = eager_loop(
                 step, opt_state, cfg, SeedSlots(model.n_layers, gat, device),
-                lambda: rank_seeds(epoch_seeds(gen, model.n_layers, attention=gat), rank, gat),
+                lambda: run.seeds(epoch_seeds(gen, model.n_layers, attention=gat), gat),
                 device, verbose, start, save)
             total = time.perf_counter() - t0
         if save is not None:
@@ -949,5 +1278,8 @@ def fit_parallel(
         if verbose:
             print(f"test_loss={test_loss:.5f} test_acc={test_acc:.5f}")
             print(f"total time: {total:.5f}")
-    return fit_result(model, history, epochs_run, test_loss, test_acc, total, scan,
-                      start_epoch=start, checkpoint_s=ckpt_s)
+        result = fit_result(model, history, epochs_run, test_loss, test_acc, total, scan,
+                            start_epoch=start, checkpoint_s=ckpt_s)
+        if tp > 1:
+            result.weights = [w.detach() for w in full_state()[0]]
+    return result

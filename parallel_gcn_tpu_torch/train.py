@@ -54,6 +54,7 @@ from parallel_gcn_tpu_torch.ops.cuda_ce import masked_softmax_xent_fused
 from parallel_gcn_tpu_torch.ops.graphsum import resolve_backend
 from parallel_gcn_tpu_torch.ops.loss import l2_penalty, masked_softmax_xent
 from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
+from parallel_gcn_tpu_torch.parallel.collectives import mesh_command
 from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table, upload_seeds
 from parallel_gcn_tpu_torch.utils.checkpoint import Checkpoint, load_checkpoint, save_checkpoint
 
@@ -124,7 +125,9 @@ def build_model(cfg: Config, dds: DeviceDataset,
     backend = resolve_backend(dds.graph, cfg.tpu.backend, cfg.tpu.dense_threshold)
     gat_backend = _gat_backend(cfg, dds.graph, backend) if gat else None
     if cfg.tpu.tp > 1:
-        raise NotImplementedError(f"not yet ported to parallel_gcn_tpu_torch: tp={cfg.tpu.tp}")
+        # JAX's fit has no tp either: its CLI sends tp to the mesh
+        raise ValueError(f"tp={cfg.tpu.tp} (tensor parallelism) trains on the mesh, one process "
+                         f"per GPU: {mesh_command(cfg.tpu.n_devices or 1, cfg.tpu.tp)}")
     set_matmul_precision(cfg.tpu.matmul_precision)
     if weights is None:
         weights = init_weights(cfg, dds.input_dim, dds.output_dim)
@@ -161,9 +164,11 @@ def _ce_fn(cfg: Config) -> Callable:
     return masked_softmax_xent
 
 
-def _l2_term(wd: float, w0: torch.Tensor) -> torch.Tensor:
-    """wd·||W0||²/2, the reported-loss regularizer (src/gcn.cu:440-455)."""
-    return float(np.float32(wd)) * l2_penalty(w0) / 2.0
+def l2_term(wd: float, sq: torch.Tensor) -> torch.Tensor:
+    """wd·Σw²/2 of ``sq`` = Σw² of W0 (``l2_penalty``, summed over the feat
+    ranks under tensor parallelism), the reported-loss regularizer
+    (src/gcn.cu:440-455)."""
+    return float(np.float32(wd)) * sq / 2.0
 
 
 def preaggregate_input(model: GCNModel, dds: DeviceDataset) -> DeviceDataset:
@@ -208,14 +213,14 @@ def make_epoch_step(model: Model, cfg: Config, dds: DeviceDataset) -> Callable:
         grads = torch.autograd.grad(ce, weights)
         with torch.no_grad():
             # the L2 term of the PRE-update W0 (src/gcn.cu:314)
-            train_loss = ce.detach() + _l2_term(wd, weights[0])
+            train_loss = ce.detach() + l2_term(wd, l2_penalty(weights[0]))
         adam_step(weights, grads, opt_state, learning_rate=adam.learning_rate,
                   weight_decay=wd, beta1=adam.beta1, beta2=adam.beta2, eps=adam.eps)
         with torch.no_grad():
             val_logits = model(x_eval, dds.graph, training=False,
                                input_preagg=eval_preagg)
             val_ce, val_acc = ce_fn(val_logits, dds.labels, val_mask, n_val)
-            val_loss = val_ce + _l2_term(wd, weights[0])
+            val_loss = val_ce + l2_term(wd, l2_penalty(weights[0]))
             return torch.stack([train_loss, train_acc, val_loss, val_acc])
 
     return epoch_step
@@ -234,7 +239,7 @@ def make_eval_fn(model: Model, cfg: Config, dds: DeviceDataset,
         with torch.no_grad():
             logits = model(x_eval, dds.graph, training=False, input_preagg=eval_preagg)
             ce, acc = ce_fn(logits, dds.labels, mask, n)
-            return ce + _l2_term(wd, model.weights[0]), acc
+            return ce + l2_term(wd, l2_penalty(model.weights[0])), acc
 
     return eval_fn
 
@@ -243,20 +248,23 @@ class _StackedAggregate(torch.autograd.Function):
     """``Â·[a_t | a_e]`` as one aggregation of the two halves side by side;
     the gradient flows to the train half ``a_t`` only, as the aggregation of
     its cotangent (Â is symmetric). ``aggregate`` runs Â·h without
-    autograd."""
+    autograd; ``reduce``, when given, first sums the stacked halves' partial
+    products over the feat ranks (tensor parallelism), a sum whose
+    transpose is the identity."""
 
     @staticmethod
-    def forward(ctx, a_t, a_e, aggregate):
+    def forward(ctx, a_t, a_e, aggregate, reduce=None):
         ctx.aggregate = aggregate
         n_cols = a_t.shape[1]
-        out = aggregate(torch.cat([a_t, a_e], dim=1))
+        stacked = torch.cat([a_t, a_e], dim=1)
+        out = aggregate(stacked if reduce is None else reduce(stacked))
         lt, le = out[:, :n_cols].contiguous(), out[:, n_cols:].contiguous()
         ctx.mark_non_differentiable(le)
         return lt, le
 
     @staticmethod
     def backward(ctx, g_t, g_e):
-        return ctx.aggregate(g_t.contiguous()), None, None
+        return ctx.aggregate(g_t.contiguous()), None, None, None
 
 
 def fused_deferred_forward(model: GCNModel, x_train, x_eval, graph, seeds, *,
@@ -275,7 +283,10 @@ def fused_deferred_forward(model: GCNModel, x_train, x_eval, graph, seeds, *,
     are shared outright when all their dropouts are 0 and both forwards read
     the same input (both pre-aggregated or neither). Gradients flow through
     the train logits only. ``model.aggregate`` must be self-adjoint (the GCN
-    and mesh GCN aggregations are)."""
+    and mesh GCN aggregations are). A tensor-parallel mesh GCN's last layer
+    gives partial products, which its ``stack_reduce`` sums over the feat
+    ranks in one collective before the aggregation (JAX
+    ``forward_stacked_tp``)."""
     L = model.n_layers
     if L < 2:
         raise ValueError("deferred-eval fusion needs the last layer's aggregation")
@@ -288,7 +299,8 @@ def fused_deferred_forward(model: GCNModel, x_train, x_eval, graph, seeds, *,
         he = ht if share else model.prefix(x_eval, graph, training=False,
                                             seeds=[None] * L, preagg=eval_preagg)
         ae = model.layer_pre(he, L - 1, None, False, pre_relu=pre_relu)
-    lt, le = _StackedAggregate.apply(at, ae, lambda h: model.aggregate(h, graph))
+    lt, le = _StackedAggregate.apply(at, ae, lambda h: model.aggregate(h, graph),
+                                     getattr(model, "stack_reduce", None))
     return lt.float(), le.float()
 
 
@@ -318,7 +330,7 @@ def make_deferred_step(model: GCNModel, cfg: Config, dds: DeviceDataset) -> Call
         with torch.no_grad():
             # the L2 term of the PRE-update W0: the reference's for the train
             # loss, and the weights the deferred val forward ran on
-            pen = _l2_term(wd, weights[0])
+            pen = l2_term(wd, l2_penalty(weights[0]))
             metrics = torch.stack([ce.detach() + pen, train_acc, val_ce + pen, val_acc])
         adam_step(weights, grads, opt_state, learning_rate=adam.learning_rate,
                   weight_decay=wd, beta1=adam.beta1, beta2=adam.beta2, eps=adam.eps)
@@ -394,19 +406,24 @@ def scan_checkpoints(cfg: Config, start: int, save: Callable | None,
 def checkpoint_writer(cfg: Config, model: Model, opt_state: AdamState, seed: int,
                       times: list, *, write: bool = True,
                       barrier: Callable[[], None] | None = None,
+                      gather: Callable[[], tuple] | None = None,
                       verbose: bool = False) -> Callable[[str, int], None] | None:
     """``save(name, epoch)``: the run's weights, Adam state and generator
     seed as ``cfg.train.checkpoint_dir``/name, its seconds appended to
-    ``times``; None without a checkpoint_dir. Only a process with ``write``
-    writes (the mesh's rank 0); every process then waits at ``barrier``."""
+    ``times``; None without a checkpoint_dir. ``gather()``, when given, runs
+    on every process and returns the full (weights, Adam state) to write
+    (tensor parallelism's shards gathered over the feat ranks). Only a
+    process with ``write`` writes (the mesh's rank 0); every process then
+    waits at ``barrier``."""
     ckpt_dir = cfg.train.checkpoint_dir
     if not ckpt_dir:
         return None
 
     def save(name: str, epoch: int) -> None:
         t0 = time.perf_counter()
+        weights, state = (list(model.weights), opt_state) if gather is None else gather()
         if write:
-            save_checkpoint(os.path.join(ckpt_dir, name), list(model.weights), opt_state,
+            save_checkpoint(os.path.join(ckpt_dir, name), weights, state,
                             epoch, keys=model.layer_keys, seed=seed)
         if barrier is not None:
             barrier()

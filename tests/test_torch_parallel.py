@@ -210,14 +210,16 @@ def _collective_structure(rank, world):
 
 
 # the collectives of the mesh GCN's deferred-eval epoch: the shared layer 0
-# and the stacked last layer once each forward, each layer's backward once
+# and the stacked last layer once each forward, each layer's backward once;
+# at tp 1 no feat collective
+NO_FEAT = dict(feat_psum=0, feat_psum_scatter=0, feat_all_gather=0, feat_f=0)
 DEFERRED_STRUCTURE = {
     "gcn-flat-all_gather": dict(all_gather=3, reduce_scatter=1, all_to_all=0, all_reduce=1,
-                                ppermute=0),
+                                ppermute=0, **NO_FEAT),
     "gcn-flat-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=4, all_reduce=1,
-                              ppermute=0),
+                              ppermute=0, **NO_FEAT),
     "gcn-hybrid-boundary": dict(all_gather=0, reduce_scatter=0, all_to_all=4, all_reduce=1,
-                                ppermute=0),
+                                ppermute=0, **NO_FEAT),
 }
 
 
@@ -325,9 +327,9 @@ def test_dropout_masks_differ_across_ranks(tmp_path):
     assert all(0 <= s < 2**31 - 1 for s in r1[1::2])
 
 
-# options that the mesh has ported since they were listed here
+# options that the mesh has ported since they were listed here: all of them
 PORTED_MESH_OPTIONS = {("model", "sage"), ("model", "gin"), ("remat", True),
-                       ("halo", "ring"), ("halo", "adaptive")}
+                       ("halo", "ring"), ("halo", "adaptive"), ("tp", 2)}
 
 
 @pytest.mark.parametrize("key,value", [
@@ -335,18 +337,17 @@ PORTED_MESH_OPTIONS = {("model", "sage"), ("model", "gin"), ("remat", True),
     ("model", "gin"), ("remat", True),
 ])
 def test_unported_mesh_options_raise(key, value):
-    """The unported option (tp > 1) raises; the ported ones pass the config
-    check and, beside tp=2, leave the refusal naming tp only."""
+    """No listed option is refused any more: each passes the config check,
+    and ``fit_parallel`` outside a world of its size raises the torchrun
+    command of that size (n_devices × tp processes) instead of a
+    NotImplementedError."""
     cfg = mesh_config("gcn-flat-all_gather")
     section = cfg.tpu if hasattr(cfg.tpu, key) else cfg.gcn
     setattr(section, key, value)
-    if (key, value) in PORTED_MESH_OPTIONS:
-        tpl._check_config(cfg, cfg.tpu.halo)
-        cfg.tpu.tp = 2
-        with pytest.raises(NotImplementedError, match="parallel_gcn_tpu_torch: tp=2$"):
-            tpl.fit_parallel(cfg, None, n_devices=2, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=f"{key}|{value}"):
+    assert (key, value) in PORTED_MESH_OPTIONS
+    tpl._check_config(cfg, cfg.tpu.halo)
+    with pytest.raises(RuntimeError,
+                       match=f"torchrun --standalone --nproc_per_node={2 * cfg.tpu.tp} "):
         tpl.fit_parallel(cfg, None, n_devices=2, device="cpu")
 
 

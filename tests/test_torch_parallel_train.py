@@ -12,6 +12,10 @@ boundary halo. The histories agree within 1e-4 and test_acc is equal. The
 same for ``mode=scan`` against JAX's whole-run program (deferred eval on
 the GCN routes, and the early-stopping loop where it fires). Plus a world
 of one against the port's own single-card ``fit``, with dropout on.
+
+Weight decay 0 because of ROADMAP F2 and F5: the JAX mesh's gradient is
+n_dev·tp times the loss's (n_dev here, at tp 1), so its decay acts as
+wd/(n_dev·tp). ``tests/test_torch_tp.py`` holds the tensor-parallel runs.
 """
 
 import warnings
@@ -90,9 +94,9 @@ def _single_card_fit(route, weights, **kw):
 def test_fit_parallel_world_2_matches_jax(tmp_path):
     """At weight decay 0 against JAX on 2 devices. The JAX mesh step
     differentiates a loss it has already summed over the devices and then
-    sums the gradients again, so its gradient is n_dev times the loss's:
-    Adam's update does not see the scale, but its weight decay then acts as
-    wd/n_dev. So with the default decay the port's world-2 runs are held to
+    sums the gradients again, so its gradient is n_dev·tp times the loss's
+    (F2, F5; tp is 1 here): Adam's update does not see the scale, but its
+    weight decay then acts as wd/(n_dev·tp). So with the default decay the port's world-2 runs are held to
     the port's single-card ``fit`` (itself held to JAX's single-chip
     trainer by tests/test_torch_train.py and test_torch_gat_train.py)."""
     ds = mesh_dataset()
