@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """GPU smoke test of parallel_gcn_tpu_torch on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR``: another checkout (the parent commit unpacked with ``git
+archive``), whose ordered sums (``csrc/segment_sum.cu``) are built alone
+and timed beside this tree's on the same inputs, bit-equal to them.
 
 Phases, each printed on its own lines:
   1. device: nvidia-smi's name and power limit, torch's device name;
@@ -45,7 +49,13 @@ Phases, each printed on its own lines:
      CPU in the same dtype (f32 sums in item order, one rounding: the
      kernels' order and accumulation; within rtol 1e-5 + 1e-5·max|ref| as
      the stated tolerance), two runs bit-identical, beside ``index_add_`` on
-     the card and ``torch.sparse.mm`` / ``torch.segment_reduce``. Beside each
+     the card and ``torch.sparse.mm`` / ``torch.segment_reduce``; and over
+     the flat COO of all of Â (``backend=segment``, 11.84M entries, rows of
+     up to 30,418): (a) at 41, 82 and 600 bf16, (b) at [E, 2] and [E, 2, 41]
+     f32, bit-equal to the plain version over every row (41) or over the
+     hub rows and 1,000 seeded rows, with the row-length histogram and (a)
+     over the hub rows alone; with ``--parent`` each beside the parent's
+     kernel. Beside each
      kernel's time: its plain version's, the
      unfused pair it replaces (K10), and the one PyTorch call that computes
      the same function where there is one (``torch.sparse.mm`` for K3/K4,
@@ -601,82 +611,181 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
 
 
 def _segment_case(results: dict, key: str, label: str, fn, ref, plain, library,
-                  nbytes: int, flops: float, kind: str) -> None:
+                  nbytes: int, flops: float, kind: str, parent=None,
+                  per_item_bound_ms: float | None = None) -> dict:
     """One ordered-sum shape: ``fn()`` (the kernel) twice bit-identical and
     bit-equal to ``ref`` (its plain version on the CPU in the kernel's
     dtype, f32 or bf16: float32 sums in item order, one rounding, the
-    kernel's order and accumulation), within rtol 1e-5 + 1e-5·max|ref| of
-    it; beside it ``plain()`` (the plain version on the card: ``index_add_``'s
-    atomics) and ``library()`` (the one PyTorch call for the same sum),
-    timed by CUDA events; the bound from ``nbytes`` and ``flops``."""
+    kernel's order and accumulation; or a callable that holds the output to
+    it on the rows it covers), within rtol 1e-5 + 1e-5·max|ref| of it;
+    beside it ``plain()`` (the plain version on the card: ``index_add_``'s
+    atomics), ``library()`` (the one PyTorch call for the same sum) and,
+    with ``parent``, the parent tree's kernel on the same inputs (bit-equal
+    to this one), timed by CUDA events, and the kernels' device time
+    (``torch.profiler``; a call's hub and walk kernels overlap: their sum);
+    the bound from ``nbytes`` and ``flops``. Returns the shape's numbers."""
     import torch
 
     got = fn()
     assert torch.equal(got, fn()), f"{label}: two runs differ"
-    got_cpu = got.cpu()
-    assert torch.equal(got_cpu, ref.to(got.dtype)), f"{label}: not bit-equal to the CPU order"
-    err = _max_err(got_cpu, ref.to(got.dtype), 1e-5)
+    if callable(ref):
+        err = ref(got)
+    else:
+        got_cpu = got.cpu()
+        assert torch.equal(got_cpu, ref.to(got.dtype)), f"{label}: not bit-equal to the CPU order"
+        err = _max_err(got_cpu, ref.to(got.dtype), 1e-5)
     card = plain()
     card_diff = float((card.float() - got.float()).abs().max())
+    del card
     ms = _events_ms(fn, 20)
     plain_ms = _events_ms(plain, 20)
     library_ms = _events_ms(library, 20)
     bound = _bound(nbytes, flops, kind)
+    row = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+    row["device_ms"] = device = _device_ms(fn, 10, "pgcn_seg::")
+    extra = f", device {device:.4f} ms"
+    if per_item_bound_ms is not None:
+        extra += f", bound counting a gathered row an item {per_item_bound_ms:.4f} ms"
+    before = ""
+    if parent is not None:
+        assert torch.equal(parent(), got), f"{label}: the parent's kernel gives other bits"
+        row["parent_ms"] = _events_ms(parent, 20)
+        before = f", the parent's kernel {row['parent_ms']:.4f} ms (bit-equal)"
     print(f"[kernels] ordered sum {label}: bit-equal to the plain version on the CPU (max_abs_err "
           f"{err:.3e}), runs bit-identical; the plain version on the card (index_add_) differs "
-          f"by {card_diff:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"{library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+          f"by {card_diff:.3e}; kernel {ms:.4f} ms{before}, plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}){extra}",
+          flush=True)
     if key:
-        results[key] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+        results[key] = row
+    return row
 
 
-def check_segment_gather(results: dict, key: str, label: str, x, seg, src, val) -> None:
-    """Kernel (a) ``gather_sum`` against its plain version; library call:
-    ``torch.sparse.mm`` of the same rows as a CSR (f32 values and x)."""
+def parent_segment_sums(parent: str | None):
+    """The parent tree's ordered sums, to time them beside this tree's on
+    the same inputs: its ``csrc/segment_sum.cu`` built alone by nvcc into
+    ``.smoke/`` and called through its C interface (PRs 10-13's: CSR
+    offsets, permutation, live list in segment order (this tree's work
+    list's live entries, sorted once a ``Segments``), int64 src and f32
+    val; (a)'s output zeroed first, as its wrapper did). Returns
+    (gather_sum(x, seg, src, val), segment_sum_(out, seg, values)) over this
+    tree's ``Segments``, or None without a parent tree."""
+    if not parent:
+        return None
+    import ctypes
+
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import _build
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(parent, "parallel_gcn_tpu_torch", "csrc", "segment_sum.cu")
+    os.makedirs(os.path.join(repo, ".smoke"), exist_ok=True)
+    path = os.path.join(repo, ".smoke", "parent_segment_sum.so")
+    t0 = time.perf_counter()
+    _build._run_nvcc([src], path)
+    lib = ctypes.CDLL(path)
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.pgcn_gather_sum.argtypes = [p, p, p, i32, p, p, p, i32, p, i32, p]
+    lib.pgcn_segment_sum.argtypes = [p, p, p, i32, p, i32, p, i64, i32, p]
+    print(f"[kernels] the parent's ordered sums ({src}) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    code = {torch.float32: 0, torch.bfloat16: 1}
+
+    lives = {}
+
+    def head(seg):
+        if id(seg) not in lives:
+            lives[id(seg)] = (seg, torch.sort(seg.work[:seg.n_live, 0]).values.contiguous())
+        live = lives[id(seg)][1]
+        return [seg.ptr.data_ptr(), None if seg.perm is None else seg.perm.data_ptr(),
+                live.data_ptr(), live.numel()]
+
+    def stream():
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def gather_sum(x, seg, src, val):
+        out = torch.zeros((seg.n, x.shape[1]), dtype=x.dtype, device=x.device)
+        rc = lib.pgcn_gather_sum(*head(seg), src.data_ptr(), val.data_ptr(), x.data_ptr(),
+                                 code[x.dtype], out.data_ptr(), x.shape[1], stream())
+        _build.check(rc, "the parent's gather-sum")
+        return out
+
+    def segment_sum_(out, seg, values):
+        rc = lib.pgcn_segment_sum(*head(seg), values.data_ptr(), code[out.dtype],
+                                  out.data_ptr(), out.stride(0), out[0].numel(), stream())
+        _build.check(rc, "the parent's segment sum")
+        return out
+
+    return gather_sum, segment_sum_
+
+
+def check_segment_gather(results: dict, key: str, label: str, x, seg, parent=None, ref=None,
+                         plain_chunks: int = 1) -> dict:
+    """Kernel (a) ``gather_sum`` over ``seg`` (built with its src and val)
+    against its plain version (``ref``: on the CPU over every row when
+    None, in ``plain_chunks`` item chunks); library call:
+    ``torch.sparse.mm`` of the same rows as a CSR (f32 values and x);
+    ``parent``: the parent tree's sums (``parent_segment_sums``)."""
     import torch
 
     from parallel_gcn_tpu_torch.ops import cuda_segment as cs
 
-    n, F = seg.n, x.shape[1]
-    ref = cs.gather_sum_plain(x.cpu(), seg.index.cpu(), src.cpu(), val.cpu(), n)
+    n, F, src, val = seg.n, x.shape[1], seg.src, seg.val
+    if ref is None:
+        ref = cs.gather_sum_plain(x.cpu(), seg.index.cpu(), src.cpu(), val.cpu(), n,
+                                  plain_chunks)
     order = seg.perm.long() if seg.perm is not None else slice(None)
     csr = torch.sparse_csr_tensor(seg.ptr.long(), src[order], val[order].float(),
                                   size=(n, x.shape[0]))
     x32 = x.float()
-    nbytes = (_nbytes(seg.ptr, src, val, *([seg.perm] if seg.perm is not None else []))
-              + seg.index.numel() * F * x.element_size() + n * F * x.element_size())
-    _segment_case(results, key, f"(a) gather_sum {label} [E={seg.index.numel()}, {F}] "
-                  f"{x.dtype}", lambda: cs.gather_sum(x, seg, src, val), ref,
-                  lambda: cs.gather_sum_plain(x, seg.index, src, val, n),
-                  lambda: torch.sparse.mm(csr, x32), nbytes, 2.0 * seg.index.numel() * F,
-                  "f32")
+    # each input read once: the index (the packed items, 8 bytes an item,
+    # and the offsets), the rows of x that it gathers (each once), out
+    # written once; beside it the bound that counts a gathered row for
+    # every item
+    index_bytes = _nbytes(seg.items, seg.ptr)
+    row = F * x.element_size()
+    nbytes = index_bytes + int(torch.unique(src).numel()) * row + n * row
+    per_item = _bound(index_bytes + seg.index.numel() * row + n * row)["bound_ms"]
+    return _segment_case(
+        results, key, f"(a) gather_sum {label} [E={seg.index.numel()}, {F}] {x.dtype}",
+        lambda: cs.gather_sum(x, seg), ref,
+        lambda: cs.gather_sum_plain(x, seg.index, src, val, n, plain_chunks),
+        lambda: torch.sparse.mm(csr, x32), nbytes, 2.0 * seg.index.numel() * F, "f32",
+        parent=parent and (lambda: parent[0](x, seg, src, val)), per_item_bound_ms=per_item)
 
 
-def check_segment_sum(results: dict, key: str, label: str, values, seg) -> None:
-    """Kernel (b) ``segment_sum_`` into zeros against its plain version;
-    library call: ``torch.segment_reduce`` over the same offsets (the items
-    taken in segment order beforehand where the index is not sorted)."""
+def check_segment_sum(results: dict, key: str, label: str, values, seg, parent=None,
+                      ref=None) -> dict:
+    """Kernel (b) ``segment_sum_`` into zeros against its plain version
+    (``ref``: on the CPU over every row when None); library call:
+    ``torch.segment_reduce`` over the same offsets (the items taken in
+    segment order beforehand where the index is not sorted); ``parent``: the
+    parent tree's sums."""
     import torch
 
     from parallel_gcn_tpu_torch.ops import cuda_segment as cs
 
     n, shape = seg.n, values.shape[1:]
-    ref = cs.segment_sum_(torch.zeros((n, *shape), dtype=values.dtype), seg.index.cpu(),
-                          values.cpu())
+    if ref is None:
+        ref = cs.segment_sum_(torch.zeros((n, *shape), dtype=values.dtype), seg.index.cpu(),
+                              values.cpu())
     ordered = values if seg.perm is None else values.index_select(0, seg.perm.long())
     offsets = seg.ptr.long()
     # the rows of the segments with items are read and written
     nbytes = (_nbytes(seg.ptr, values, *([seg.perm] if seg.perm is not None else []))
-              + 2 * seg.live.numel() * values[0].numel() * values.element_size())
-    _segment_case(results, key, f"(b) segment_sum {label} [E={values.shape[0]}, "
-                  f"{', '.join(map(str, shape))}] {values.dtype}",
-                  lambda: cs.segment_sum_(values.new_zeros((n, *shape)), seg, values), ref,
-                  lambda: values.new_zeros((n, *shape)).index_add_(0, seg.index, values),
-                  lambda: torch.segment_reduce(ordered, "sum", offsets=offsets, axis=0),
-                  nbytes, float(values.numel()), "f32")
+              + 2 * seg.n_live * values[0].numel() * values.element_size())
+    return _segment_case(
+        results, key, f"(b) segment_sum {label} [E={values.shape[0]}, "
+        f"{', '.join(map(str, shape))}] {values.dtype}",
+        lambda: cs.segment_sum_(values.new_zeros((n, *shape)), seg, values), ref,
+        lambda: values.new_zeros((n, *shape)).index_add_(0, seg.index, values),
+        lambda: torch.segment_reduce(ordered, "sum", offsets=offsets, axis=0),
+        nbytes, float(values.numel()), "f32",
+        parent=parent and (lambda: parent[1](values.new_zeros((n, *shape)), seg, values)))
 
 
-def check_segment(results: dict, graph, gin602) -> None:
+def check_segment(results: dict, graph, gin602, parent=None) -> None:
     """The ordered sums at synth-reddit's residual shapes: the GCN's
     hybrid residual at 41 columns and stacked at 82 (bf16, kernel (a), and
     at 41 in f32), SAGE's layer 0 and GIN's layer 1 at 600 columns and GIN's
@@ -684,28 +793,100 @@ def check_segment(results: dict, graph, gin602) -> None:
     denominators [E, 2] and numerators
     [E, 2, 41] (f32, kernel (b), and the numerators in bf16), all by
     destination over the graph's row segments; each bit-equal to its plain
-    version in its own dtype."""
+    version in its own dtype, and to the parent tree's kernel (``parent``,
+    ``parent_segment_sums``) where given."""
     import torch
 
     gen = torch.Generator().manual_seed(3)
     n, seg = graph.n_nodes, graph.row_seg
     e = seg.index.numel()
     print(f"[kernels] synth-reddit's COO residual: {e} padded edges over {n} rows, "
-          f"{seg.live.numel()} rows with edges, at most "
+          f"{seg.n_live} rows with edges, at most "
           f"{int((seg.ptr[1:] - seg.ptr[:-1]).max())} in a row")
     for F, key, dtype in ((41, "ordered gather_sum", torch.bfloat16), (82, None, torch.bfloat16),
                           (41, None, torch.float32)):
         x = torch.randn((n, F), generator=gen).to(dtype).cuda()
-        check_segment_gather(results, key, "GCN residual", x, seg, graph.col, graph.val)
+        check_segment_gather(results, key, "GCN residual", x, seg, parent)
     x = torch.randn((n, 600), generator=gen).to(torch.bfloat16).cuda()
-    check_segment_gather(results, None, "SAGE/GIN residual", x, seg, graph.col, graph.val)
+    check_segment_gather(results, None, "SAGE/GIN residual", x, seg, parent)
     del x
-    check_segment_gather(results, None, "GIN layer-0 input", gin602, seg, graph.col, graph.val)
+    check_segment_gather(results, None, "GIN layer-0 input", gin602, seg, parent)
     for shape, key, dtype in (((e, 2), None, torch.float32),
                               ((e, 2, 41), "ordered segment_sum", torch.float32),
                               ((e, 2, 41), None, torch.bfloat16)):
         values = torch.randn(shape, generator=gen).to(dtype).cuda()
-        check_segment_sum(results, key, "GAT residual", values, seg)
+        check_segment_sum(results, key, "GAT residual", values, seg, parent)
+
+
+def check_segment_flat(ds, cfg, parent=None) -> None:
+    """The ordered sums over the single card's flat COO (``backend=segment``:
+    all of synth-reddit's Â, ``graph.row_seg``, the rows of the ring and
+    flat halos at one rank): (a) at 41, 82 and 600 bf16 and (b) at [E, 2]
+    and [E, 2, 41] f32, each twice bit-identical, (a) at 41 bit-equal to its
+    plain version on the CPU over every row (in 16 item chunks), the others
+    over the hub rows (more than 1,000 items) and 1,000 rows drawn with a
+    seed; beside each the parent tree's kernel (bit-equal), ``index_add_``
+    and the library call; the row-length histogram; and (a) over the hub
+    rows alone, which shows whether their chains set the time."""
+    import numpy as np
+    import torch
+
+    from parallel_gcn_tpu_torch.data.graph import build_graph
+    from parallel_gcn_tpu_torch.ops import cuda_segment as cs
+
+    t0 = time.perf_counter()
+    graph = build_graph(ds.graph, device=torch.device("cuda"), node_pad=cfg.tpu.node_pad)
+    seg, n, e = graph.row_seg, graph.n_nodes, graph.n_edges_pad
+    lengths = np.diff(seg.ptr.cpu().numpy())
+    real = np.diff(ds.graph.indptr)
+    hubs = np.flatnonzero(real > 1000)
+    print(f"[kernels] synth-reddit's flat COO (backend=segment) built in "
+          f"{time.perf_counter() - t0:.1f} s: {e} padded entries over {n} rows "
+          f"({e - ds.graph.nnz} padding entries on the last); entries a row: mean "
+          f"{real.mean():.1f}, p99 {np.percentile(real, 99):.0f}, p99.9 "
+          f"{np.percentile(real, 99.9):.0f}, max {real.max()}; {len(hubs)} rows above 1,000 "
+          f"holding {int(real[hubs].sum())}", flush=True)
+    rng = np.random.default_rng(14)
+    rows = np.union1d(hubs, rng.choice(np.flatnonzero(lengths > 0), 1000, replace=False))
+    ptr = seg.ptr.cpu().numpy()
+    items = torch.from_numpy(np.concatenate([np.arange(ptr[r], ptr[r + 1]) for r in rows])).cuda()
+    sub_index = torch.from_numpy(np.repeat(np.arange(len(rows)), lengths[rows]))
+    rows_t = torch.from_numpy(rows).cuda()
+
+    def on_rows(want):
+        """Hold an output to ``want`` on the sampled rows, bit for bit."""
+        def check(got):
+            sub = got[rows_t].cpu()
+            assert torch.equal(sub, want), "not bit-equal to the CPU order on the sampled rows"
+            return _max_err(sub, want, 1e-5)
+        return check
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    src_s, val_s = graph.col[items].cpu(), graph.val[items].cpu()
+    for F in (41, 82, 600):
+        x = torch.randn((n, F), generator=gen, device="cuda").to(torch.bfloat16)
+        ref = None if F == 41 else on_rows(
+            cs.gather_sum_plain(x.cpu(), sub_index, src_s, val_s, len(rows)))
+        check_segment_gather({}, None, "flat COO (all of A)", x, seg, parent, ref,
+                             plain_chunks=16)
+        del x
+    for shape in ((e, 2), (e, 2, 41)):
+        values = torch.randn(shape, generator=gen, device="cuda")
+        want = torch.zeros((len(rows), *shape[1:])).index_add_(0, sub_index,
+                                                                values[items].cpu())
+        check_segment_sum({}, None, "flat COO (all of A)", values, seg, parent, on_rows(want))
+        del values
+    # the hub rows alone: their items as a residual of their own
+    hub_items = torch.cat([torch.arange(int(ptr[r]), int(ptr[r + 1])) for r in hubs]).cuda()
+    hub_seg = cs.segments(graph.row[hub_items], n, graph.col[hub_items], graph.val[hub_items])
+    for F in (41, 600):
+        x = torch.randn((n, F), generator=gen, device="cuda").to(torch.bfloat16)
+        ms = _events_ms(lambda: cs.gather_sum(x, hub_seg), 20)
+        print(f"[kernels] (a) over the {len(hubs)} hub rows alone ({hub_items.numel()} entries, "
+              f"at most {int(real.max())} a row) F={F} bf16: {ms:.4f} ms", flush=True)
+        del x
+    del graph, seg, hub_seg
+    torch.cuda.empty_cache()
 
 
 def check_segment_slab(gcn, attn) -> None:
@@ -716,9 +897,9 @@ def check_segment_slab(gcn, attn) -> None:
     import torch
 
     gen = torch.Generator().manual_seed(4)
-    rrow, rcol, rval, res_seg = gcn.res
+    res_seg = gcn.res
     x = torch.randn((gcn.n_buf, 41), generator=gen).to(torch.bfloat16).cuda()
-    check_segment_gather({}, None, "mesh GCN slab residual", x, res_seg, rcol, rval)
+    check_segment_gather({}, None, "mesh GCN slab residual", x, res_seg)
     if attn.residual is None:
         print("[mesh-kernels] the GAT slab has no residual: no ordered sum by source")
         return
@@ -1353,10 +1534,9 @@ def _emulate(sg, graphs, xs):
     outs = []
     for g, buf in zip(graphs, bufs):
         if g.coo is not None:
-            row, col, val, row_seg, _ = g.coo
-            outs.append(gather_sum(buf, row_seg, col, val))
+            outs.append(gather_sum(buf, g.coo[3]))
         else:
-            outs.append(tpl.pull_sum(buf, g.slab, *g.res[1:]))
+            outs.append(tpl.pull_sum(buf, g.slab, g.res))
     if graphs[0].push is not None:
         recv = all_to_all([tpl.push_partials(x, g.push) for x, g in zip(xs, graphs)])
         outs = [tpl.receive_add(o, r, g.push) for o, r, g in zip(outs, recv, graphs)]
@@ -1494,12 +1674,11 @@ def check_halo_case(name: str, csr, sg, sgb, device: str) -> dict:
             continue
         buf = torch.randn((sg.n_buf, F), generator=gen).to(torch.bfloat16).to(dev)
         if g0.coo is not None:
-            row, col, val, row_seg, _ = g0.coo
             pieces[f"pull gather-sum F={F}"] = _events_ms(
-                lambda: gather_sum(buf, row_seg, col, val), 5)
+                lambda: gather_sum(buf, g0.coo[3]), 5)
         else:
             pieces[f"pull K3 + residual F={F}"] = _events_ms(
-                lambda: tpl.pull_sum(buf, g0.slab, *g0.res[1:]), 5)
+                lambda: tpl.pull_sum(buf, g0.slab, g0.res), 5)
         if g0.push.tiles is not None:
             pieces[f"push K3 alone F={F}"] = _events_ms(
                 lambda: tpl.bcsr_matmul_rect(g0.push.tiles, x0), 5)
@@ -1687,7 +1866,7 @@ def check_tp_kernels(graph, results: dict) -> None:
     from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
 
     gen = torch.Generator().manual_seed(13)
-    slab, (rrow, rcol, rval, res_seg) = graph.slab, graph.res
+    slab, res_seg = graph.slab, graph.res
     nnz = int(slab.live_entries[0].numel())
     for F in (600 // t for t in TP_SIZES):
         x = torch.randn((slab.n_nodes, F), generator=gen).to(torch.bfloat16).cuda()
@@ -1703,7 +1882,7 @@ def check_tp_kernels(graph, results: dict) -> None:
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
         results[f"K3 rect F={F}"] = dict(err=err, ms=ms, plain_ms=pms, **bound)
         check_segment_gather(results, None, f"one-rank slab residual (tp width {F})",
-                             x[: graph.n_buf], res_seg, rcol, rval)
+                             x[: graph.n_buf], res_seg)
         del x, got
 
 
@@ -2021,7 +2200,8 @@ def phase_mesh_path(tag: str, args: list[str], ds, single: dict,
 
     eager_ms, scan_run = _compare_modes(tag, run, losses, ms, deterministic)
     per_replay = _per_replay(res.graph_launches)
-    calls = {k: v for k, v in res.graph_launches.items() if k not in KERNEL_KEYS.values()}
+    calls = {k: v for k, v in res.graph_launches.items()
+             if k not in KERNEL_KEYS.values() and k not in HUB_KEYS.values()}
     single_eager = single.get("eager_ms")
     eager_tax = (f" against the single card's {single_eager:.3f} "
                  f"({eager_ms / single_eager:.3f}x)" if single_eager else "")
@@ -2069,8 +2249,7 @@ def _category(kernel: str) -> str:
                      ("merge_segments_kernel<false>", "K6/K7 ordered merge"),
                      ("nccl", "collectives (NCCL)"),
                      # the ordered sums of the COO residual (and the halo's cotangent)
-                     ("gather_sum_kernel", "scatter/index (residual)"),
-                     ("segment_sum_kernel", "scatter/index (residual)"),
+                     ("pgcn_seg::", "scatter/index (residual)"),
                      ("dropout_kernel", "K1 dropout"), ("gemm", "GEMMs"), ("gemv", "GEMMs"),
                      ("xmma", "GEMMs"), ("nvjet", "GEMMs"), ("cutlass", "GEMMs"),
                      ("scatter", "scatter/index (residual)"),
@@ -2320,6 +2499,11 @@ KERNEL_KEYS = {"K1": "dropout", "K2": "relu_dropout", "K3": "bcsr", "K4": "bcsr_
                "K10 fwd": "fused_fwd", "K10 dW": "fused_dw", "K10 dX": "fused_dx",
                "K8": "sddmm", "ordered gather_sum": "gather_sum",
                "ordered segment_sum": "segment_sum"}
+# the ordered sums' hub kernels (launched beside the walk kernel by a call
+# whose work list has hubs), counted apart from KERNEL_KEYS so the launches
+# a replay stay those of the walk kernels
+HUB_KEYS = {"ordered gather_sum hub": "gather_sum_hub",
+            "ordered segment_sum hub": "segment_sum_hub"}
 
 
 def _reset_counts() -> None:
@@ -2343,7 +2527,7 @@ def _read_counts(replays: int = 0, per_replay: dict | None = None) -> dict:
 
     counts, per_replay = launch_counts(), per_replay or {}
     return {k: counts[key] + max(replays - 1, 0) * per_replay.get(key, 0)
-            for k, key in KERNEL_KEYS.items()}
+            for k, key in {**KERNEL_KEYS, **HUB_KEYS}.items()}
 
 
 def _per_replay(graph_launches: dict) -> dict:
@@ -2694,7 +2878,7 @@ def _stamp(label: str) -> None:
     print(f"[time] {label} done at {time.perf_counter() - _T0:.1f} s", flush=True)
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2714,7 +2898,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cfg = load_config(default_params_path("synth-reddit"))
-    _, dds = prepare_device_dataset(cfg, "synth-reddit", torch.device("cuda"))
+    ds_host, dds = prepare_device_dataset(cfg, "synth-reddit", torch.device("cuda"))
     torch.cuda.synchronize()
     pack = dds.graph.bcsr
     per_row = torch.bincount(pack.tile_rows.long(), minlength=pack.n_tile_rows)
@@ -2735,7 +2919,11 @@ def main() -> int:
     check_dropout_offset()
     # GIN's layer-0 aggregation input: s ⊙ x in bf16 (models/sage.py sum_agg)
     gin602 = dds.graph.sqrt_deg.to(torch.bfloat16)[:, None] * dds.x.to(torch.bfloat16)
-    check_segment(results, dds.graph, gin602)
+    parent = parent_segment_sums(argv[argv.index("--parent") + 1] if "--parent" in argv
+                                 else None)
+    check_segment(results, dds.graph, gin602, parent)
+    check_segment_flat(ds_host, cfg, parent)
+    _stamp("ordered sums")
     check_bcsr(results, dds.graph.bcsr, dds.x, gin602)
     del gin602
     check_tile_attention(results, dds.graph.bcsr)
@@ -2952,7 +3140,7 @@ def main() -> int:
     # each kernel's launches over every main path and the emulated TP
     # forwards and backwards (K3 and K8 run on none: 0)
     counts = {key: sum(p["counts"][key] for p in paths.values()) + tp_emu["counts"][key]
-              for key in KERNEL_KEYS}
+              for key in {**KERNEL_KEYS, **HUB_KEYS}}
     print(f"[main] launches by path: {json.dumps({k: p['counts'] for k, p in paths.items()})}")
     print(f"[tp-emulated] launches (GCN, SAGE, GIN at tp 2 and 4, one training step each): "
           f"{json.dumps(tp_emu['counts'])}; errors against tp=1 (logits, gradients): "
@@ -2973,6 +3161,8 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                 **({"bound_pack_ms": r["pack_bound_ms"]} if "pack_bound_ms" in r else {}),
+                **({"parent_ms": r["parent_ms"]} if "parent_ms" in r else {}),
+                **({"hub_launches": counts[f"{key} hub"]} if f"{key} hub" in counts else {}),
                 **({"bound_f32_ops_ms": r["f32_ops_bound_ms"]} if "f32_ops_bound_ms" in r
                    else {})}
 
@@ -3024,4 +3214,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -33,7 +33,8 @@ of the outputs). The base also sweeps the tiles per segment
 ``--parent DIR`` also times the K3/K4 of another checkout's package (e.g.
 the parent commit unpacked with ``git archive``) in a process of its own.
 
-    python3 kernel_variants.py rowsum                     # the COO residual's row sums
+    python3 kernel_variants.py segment [--parent DIR]     # the ordered sums: every variant
+    python3 kernel_variants.py segment-paths --parent DIR [--only NAME,...]  # paths' ms/epoch
     python3 kernel_variants.py attention [--parent DIR]   # K5/K6: every variant in one process
     python3 kernel_variants.py rect [--parent DIR]        # K7: every variant in one process
     python3 kernel_variants.py dropout [--parent DIR]     # K1/K2: every variant in one process
@@ -59,6 +60,20 @@ knobs (min blocks, warp steps in flight, ``__expf``) and variants that are
 wrong on purpose, each removing one cost. ``--parent`` times K7 of another
 checkout (``--time-rect DIR``).
 
+The ordered segment sums (``csrc/segment_sum.cu``, ``segment_sum_bf16.cu``
+and their header) in the same way: every source variant in
+``SEG_VARIANTS`` (items in flight, the item walker's steps and group, CTAs
+an SM), every wrapper knob in ``SEG_KNOBS`` (the hub threshold, the
+widest vector) and the work list's other order of the rows that are no
+hubs, at synth-reddit's residual and flat COO shapes (CUDA events over 10
+calls, the kernels' device time by ``torch.profiler``), with hashes of the
+outputs, and the flat shapes split into their hub rows, the other rows and
+the longest row (``[seg-split]``); ``--parent`` times the parent's kernels
+(the old design, its source built alone) in the same process on the same
+inputs. ``segment-paths --parent DIR`` runs the ring GCN and the GAT (scan
+and eager) and the segment GAT through the CLI of both trees in turns
+(``--only`` names some of them).
+
 K1/K2 (``csrc/dropout.cu``) in the same way at the main paths' bf16 shapes
 [233472, 64] and [233472, 600], rate 0.1: CUDA events over 20 wrapper calls
 and the kernel's device time by ``torch.profiler``, beside
@@ -73,6 +88,7 @@ flight, the grid, streaming cache hints, and the Philox rounds removed
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import hashlib
 import os
@@ -350,9 +366,11 @@ def _start_builds(src, variants: dict, family: str):
             edited[rel] = edited[rel].replace(old, new)
         paths = []
         for rel, text in edited.items():
-            paths.append(os.path.join(vdir, os.path.basename(rel)))
-            with open(paths[-1], "w") as f:
+            path = os.path.join(vdir, os.path.basename(rel))
+            with open(path, "w") as f:
                 f.write(text)
+            if path.endswith(".cu"):  # an edited header is written, not compiled
+                paths.append(path)
         lib = os.path.join(out_dir, f"lib{name}.so")
         try:
             libs[name] = (lib, _build._run_nvcc(paths, lib))
@@ -991,57 +1009,324 @@ def time_dropout_tree(root: str) -> None:
     print(f"[drop-variant] {root}: {_time_dropout(torch, cd, inputs)}", flush=True)
 
 
-def rowsum_family(parent: str | None) -> int:
-    """The COO residual's row sums on synth-reddit's residual (its
-    row-sorted destinations), at the widths the main paths add: the GCN's
-    [E, 41] bf16 and the deferred eval's [E, 82], the GAT's denominators
-    [E, 2] and numerators [E, 82] f32. Three ways: ``index_add_`` (the
-    port's, atomics), ``index_put_`` with accumulate (sorted) and
-    ``torch.segment_reduce`` over the rows: CUDA events over 50 calls,
-    whether two calls give the same bits, whether the call captures in a
-    CUDA graph."""
-    import torch
+_SEG_H = "csrc/segment_sum.cuh"
+SEG = ("csrc/segment_sum.cu", "csrc/segment_sum_bf16.cu", _SEG_H)
 
+
+def _seg_const(name: str, value: int) -> tuple:
+    """An edit of ``constexpr int name = ...;`` in csrc/segment_sum.cuh."""
+    import re
+
+    with open(os.path.join(ROOT, PKG, _SEG_H)) as f:
+        line = re.search(rf"constexpr int {name} = [^;]*;", f.read()).group(0)
+    return (_SEG_H, line, f"constexpr int {name} = {value};")
+
+
+# name -> edits: the ordered sums' source variants, built together (both
+# translation units, the header edited) and loaded in turn under the
+# checkout's wrappers. The design steps: items in flight (a lane's ring in
+# the walk kernel and in the hub kernel, the item walker's steps), the item
+# walker's group, CTAs an SM (``__launch_bounds__``'s minimum, which caps
+# the walk kernel's registers)
+SEG_VARIANTS = {
+    "ring-8": [_seg_const("kRingRegs", 8)],
+    "ring-32": [_seg_const("kRingRegs", 32)],
+    "hub-ring-32": [_seg_const("kHubRingRegs", 32)],
+    "item-steps-2": [_seg_const("kItemSteps", 2)],
+    "item-group-16": [_seg_const("kItemGroup", 16)],
+    "min-blocks-6": [_seg_const("kMinBlocks", 6)],
+    "min-blocks-8": [_seg_const("kMinBlocks", 8)],
+    # the index by a load an item (every lane the same address) instead of
+    # the batch's shuffles
+    "index-uniform": [(_SEG_H, """        sv[j] = Op::kScale ? __int_as_float(__shfl_sync(mask, cur.y, q0 + j, S)) : 1.f;
+        const int qn = q0 + j + D;
+        sr[j] = __shfl_sync(mask, qn < S ? cur.x : nxt.x, qn & (S - 1), S);""",
+                       """        sv[j] = Op::kScale ? __int_as_float(op.index(begin + k + j).y) : 1.f;
+        sr[j] = k + j + D < n ? op.index(begin + k + j + D).x : 0;""")],
+    # wrong on purpose: every item's row is row 0 (in L1), to show the
+    # gathers' share
+    "gather-row-0": [(_SEG_H, "  const T* row = op.row(src);\n#pragma unroll\n  for (int p = 0; p < P",
+                      "  const T* row = op.row(0);\n#pragma unroll\n  for (int p = 0; p < P")],
+}
+# name -> (setting of ops/cuda_segment.py, value): the hub threshold (no
+# hubs: every segment walked by the walk kernel; read when the Segments are
+# built, so they are built again under the knob), the widest vector, the
+# hubs' widest vector, the widest row of half warps
+SEG_KNOBS = {
+    "hub-128": ("HUB_ITEMS", 128), "hub-256": ("HUB_ITEMS", 256),
+    "hub-2048": ("HUB_ITEMS", 2048), "no-hubs": ("HUB_ITEMS", 2**31 - 1),
+    "vec-8": ("MAX_VEC_BYTES", 8), "vec-4": ("MAX_VEC_BYTES", 4),
+    "hub-vec-16": ("HUB_VEC_BYTES", 16), "hub-vec-4": ("HUB_VEC_BYTES", 4),
+    "half-warps-64": ("HALF_WARP_VECS", 64), "warp-1200-bytes": ("WARP_ROW_BYTES", 1200),
+}
+_SEG_SETUP_KNOBS = ("HUB_ITEMS",)
+_PTXAS_SEG = (("cols_walk_kernelI13__nv_bfloat16Li2ELi32ELi2ENS_6Gather", "(a) bf16 F=41"),
+              ("cols_hub_kernelI13__nv_bfloat16Li2ENS_6Gather", "(a) bf16 F=41 hubs"),
+              ("cols_walk_kernelI13__nv_bfloat16Li16ELi32ELi1ENS_6Gather", "(a) bf16 F=600"),
+              ("cols_hub_kernelI13__nv_bfloat16Li8ENS_6Gather", "(a) bf16 F=600 hubs"),
+              ("items_walk_kernelIfLi2ENS_5Terms", "(b) f32 W=2"),
+              ("cols_walk_kernelIfLi8ELi32ELi2ENS_5Terms", "(b) f32 W=82"))
+
+
+def _segment_inputs(torch):
+    """name -> (kernel, graph, input) at synth-reddit's shapes: the hybrid
+    residual's rows (the GCN, SAGE, GIN and GAT paths) and the flat COO's of
+    all of Â (the ring, the flat halos, the segment GAT): (a) at 41, 82, 600
+    (and on the residual 602 and TP's 150 and 300) bf16, (b) at [E, 2] and
+    [E, 2, 41] f32."""
     from parallel_gcn_tpu_torch.config import default_params_path, load_config
+    from parallel_gcn_tpu_torch.data.graph import build_graph
     from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset
 
-    if parent:
-        print("[variant] rowsum takes no --parent")
+    dev = torch.device("cuda")
+    cfg = load_config(default_params_path("synth-reddit"))
+    ds, dds = prepare_device_dataset(cfg, "synth-reddit", dev)
+    flat = build_graph(ds.graph, device=dev, node_pad=cfg.tpu.node_pad)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shapes = {}
+    for tag, g in (("residual", dds.graph), ("flat", flat)):
+        for F in (41, 82, 150, 300, 600, 602) if tag == "residual" else (41, 82, 600):
+            shapes[f"{tag} (a) [E, {F}] bf16"] = (
+                "a", g, torch.randn((g.n_nodes, F), generator=gen, device=dev).to(torch.bfloat16))
+        for shape in ((g.n_edges_pad, 2), (g.n_edges_pad, 2, 41)):
+            shapes[f"{tag} (b) [E, {', '.join(map(str, shape[1:]))}] f32"] = (
+                "b", g, torch.randn(shape, generator=gen, device=dev))
+    return shapes
+
+
+def _segment_fn(cs, op, seg, t):
+    if op == "a":
+        return lambda: cs.gather_sum(t, seg)
+    return lambda: cs.segment_sum_(t.new_zeros((seg.n, *t.shape[1:])), seg, t)
+
+
+def _other_order(seg):
+    """``seg`` with the live segments that are no hubs in the other order
+    than ``segments`` gives them (longest first where it keeps segment
+    order, and the reverse; ties in segment order)."""
+    import torch
+
+    w = seg.work
+    rest = w[seg.n_hub:seg.n_live]
+    rest = rest[torch.sort(rest[:, 0]).indices]  # segment order
+    if seg.index.numel() >= seg.n:  # segments kept segment order: longest first
+        rest = rest[torch.sort((rest[:, 1] - rest[:, 2]).long(), stable=True).indices]
+    return dataclasses.replace(seg, work=torch.cat([w[:seg.n_hub], rest,
+                                                    w[seg.n_live:]]).contiguous())
+
+
+def _time_segment(torch, cs, shapes, parent=None, seg_of=None) -> str:
+    """Each shape's call (this tree's wrapper, or ``parent``'s kernels from
+    ``chip_smoke.parent_segment_sums``; with ``seg_of`` over
+    ``seg_of(graph)`` instead of the graph's row segments): CUDA events over
+    10 calls, the kernels' device time and the output's hash."""
+    parts, built = [], {}
+    for name, (op, g, t) in shapes.items():
+        seg = g.row_seg
+        if seg_of is not None:
+            if id(g) not in built:
+                built[id(g)] = seg_of(g)
+            seg = built[id(g)]
+        if parent is None:
+            fn = _segment_fn(cs, op, seg, t)
+        elif op == "a":
+            fn = lambda g=g, t=t: parent[0](t, g.row_seg, g.col, g.val)  # noqa: E731
+        else:
+            fn = lambda g=g, t=t: parent[1](  # noqa: E731
+                t.new_zeros((g.n_nodes, *t.shape[1:])), g.row_seg, t)
+        try:
+            parts.append(f"{name} {_events_ms(torch, fn, 10):.4f} ms (device "
+                         f"{_segment_device_ms(torch, fn):.4f}; {_digest(fn())})")
+        except RuntimeError as e:  # a variant whose layout a shape cannot take
+            parts.append(f"{name} failed: {e}")
+    return "; ".join(parts)
+
+
+def _segment_device_ms(torch, fn, reps=10) -> float:
+    """Device ms a call in the ordered sums' kernels (this tree's and the
+    parent's), by ``torch.profiler``: the kernels' own time, which the
+    host's cost of a short call hides from the events (the hub and walk
+    kernels of one call overlap: their sum)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and ("pgcn_seg" in e.name or "sum_kernel" in e.name)) / 1e3 / reps
+
+
+def _segment_split(torch, cs, parent=None) -> None:
+    """What holds the flat shapes: (a) at 41 and 600 bf16 and (b) at [E, 2]
+    and [E, 2, 41] f32 over all of Â, over its hub rows alone (``HUB_ITEMS``
+    or more items), over the other rows alone and over its longest row
+    alone, this tree's kernels and ``parent``'s on the same inputs."""
+    import numpy as np
+
+    from parallel_gcn_tpu_torch.config import default_params_path, load_config
+    from parallel_gcn_tpu_torch.data.graph import build_graph
+    from parallel_gcn_tpu_torch.data.parser import prepare_host_dataset
+
+    cfg = load_config(default_params_path("synth-reddit"))
+    g = build_graph(prepare_host_dataset(cfg, "synth-reddit").graph, device=torch.device("cuda"),
+                    node_pad=cfg.tpu.node_pad)
+    n, ptr = g.n_nodes, g.row_seg.ptr.cpu().numpy()
+    lens = np.diff(ptr)
+    rows = {"all": None, "hub rows": np.flatnonzero(lens >= cs.HUB_ITEMS),
+            "other rows": np.flatnonzero((lens < cs.HUB_ITEMS) & (lens > 0)),
+            "longest row": np.argsort(-lens, kind="stable")[:1]}
+    parts = {}
+    for name, r in rows.items():
+        if r is None:
+            parts[name] = (g.row_seg, None)
+            continue
+        items = torch.from_numpy(np.concatenate([np.arange(ptr[i], ptr[i + 1]) for i in r])).cuda()
+        parts[name] = (cs.segments(g.row[items], n, g.col[items], g.val[items]), items)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for F in (41, 600):
+        x = torch.randn((n, F), generator=gen, device="cuda").to(torch.bfloat16)
+        line = []
+        for name, (seg, _) in parts.items():
+            ms = _events_ms(torch, lambda: cs.gather_sum(x, seg), 10)
+            old = "" if parent is None else " (parent {:.4f})".format(
+                _events_ms(torch, lambda: parent[0](x, seg, seg.src, seg.val), 10))
+            line.append(f"{name} {ms:.4f}{old}")
+        print(f"[seg-split] flat (a) [E, {F}] bf16, ms: {'; '.join(line)}", flush=True)
+    for shape in ((g.n_edges_pad, 2), (g.n_edges_pad, 2, 41)):
+        v = torch.randn(shape, generator=gen, device="cuda")
+        line = []
+        for name, (seg, items) in parts.items():
+            vals = v if items is None else v[items]
+
+            def call(fn, seg=seg, vals=vals):
+                return fn(vals.new_zeros((n, *shape[1:])), seg, vals)
+
+            ms = _events_ms(torch, lambda: call(cs.segment_sum_), 10)
+            old = "" if parent is None else (
+                f" (parent {_events_ms(torch, lambda: call(parent[1]), 10):.4f})")
+            line.append(f"{name} {ms:.4f}{old}")
+        print(f"[seg-split] flat (b) [E, {', '.join(map(str, shape[1:]))}] f32, ms: "
+              f"{'; '.join(line)}", flush=True)
+    print(f"[seg-split] rows: {len(rows['hub rows'])} hub rows of {cs.HUB_ITEMS} items or more "
+          f"({int(lens[rows['hub rows']].sum())} items), longest {int(lens.max())}")
+
+
+def segment_family(parent: str | None) -> int:
+    """The ordered sums (``csrc/segment_sum.cu``) of the checkout, its
+    source variants and wrapper knobs, and ``parent``'s kernels (the old
+    kernel: its source built alone and called through its C interface, on
+    the same inputs), at synth-reddit's residual and flat shapes."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import parent_segment_sums
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_segment as cs
+
+    join = _start_builds(SEG, SEG_VARIANTS, "segment")
+    base = _build.load_library()
+    old = parent_segment_sums(parent)
+    shapes = _segment_inputs(torch)
+    libs, errors = join()
+    print(f"[seg-variant] base ptxas: {_ptxas(_build.build_info['log'], _PTXAS_SEG)}")
+    for name, err in errors.items():
+        print(f"[seg-variant] {name} not built: {err}")
+    if old is not None:
+        print(f"[seg-variant] parent {parent}: {_time_segment(torch, cs, shapes, old)}",
+              flush=True)
+    print(f"[seg-variant] base: {_time_segment(torch, cs, shapes)}", flush=True)
+    _segment_split(torch, cs, old)
+    print(f"[seg-variant] the other order of the live rows that are no hubs: "
+          f"{_time_segment(torch, cs, shapes, seg_of=lambda g: _other_order(g.row_seg))}",
+          flush=True)
+
+    def rebuilt(g):
+        return cs.segments(g.row, g.n_nodes, g.col, g.val)
+
+    for name, (knob, value) in SEG_KNOBS.items():
+        saved = getattr(cs, knob)
+        setattr(cs, knob, value)
+        cs._plan.cache_clear()
+        seg_of = rebuilt if knob in _SEG_SETUP_KNOBS else None
+        try:
+            print(f"[seg-variant] knob {name} ({knob}={value}): "
+                  f"{_time_segment(torch, cs, shapes, seg_of=seg_of)}", flush=True)
+        finally:
+            setattr(cs, knob, saved)
+            cs._plan.cache_clear()
+    for name, (path, log) in libs.items():
+        _load_variant(path, base, ["pgcn_gather_sum", "pgcn_segment_sum"])
+        print(f"[seg-variant] {name}: {_time_segment(torch, cs, shapes)} "
+              f"[ptxas: {_ptxas(log, _PTXAS_SEG)}]", flush=True)
+    _build._lib = base
+    print(f"[seg-variant] base again: {_time_segment(torch, cs, shapes)}", flush=True)
+    if old is not None:
+        print(f"[seg-variant] parent again: {_time_segment(torch, cs, shapes, old)}",
+              flush=True)
+    return int(bool(errors))
+
+
+# name -> (launcher, CLI arguments after the dataset): the paths whose
+# ms/epoch the ordered sums move, run as a user runs them, in mode=scan (the
+# default) and in mode=eager, where the wrappers' host work is on the
+# clock; the ring at one rank through a torchrun world of one
+SEG_PATHS = {
+    "ring GCN": ("torchrun", ["backend=segment", "halo=ring"]),
+    "ring GCN eager": ("torchrun", ["backend=segment", "halo=ring", "mode=eager"]),
+    "GAT": ("python", ["model=gat", "heads=2", "hidden_dims=32", "dropouts=0.0,0.1"]),
+    "GAT eager": ("python", ["model=gat", "heads=2", "hidden_dims=32", "dropouts=0.0,0.1",
+                             "mode=eager"]),
+    "segment GAT": ("python", ["model=gat", "backend=segment", "heads=2", "hidden_dims=32",
+                               "dropouts=0.0,0.1"]),
+}
+
+
+def segment_paths(parent: str | None, only: list[str] | None = None) -> int:
+    """``SEG_PATHS`` (those named in ``only`` when given) through the CLI
+    (synth-reddit, 10 epochs) of ``parent`` and of this checkout in turns
+    (parent, this, this, parent), each run a process of its own in its
+    tree, the generated data shared (``PGCN_CACHE_DIR``): each run's
+    ms/epoch, in scan mode over the replays, in eager mode the mean host
+    clock of epochs 2-10."""
+    import re
+
+    if not parent:
+        print("error: segment-paths needs --parent DIR")
         return 2
-    _, dds = prepare_device_dataset(load_config(default_params_path("synth-reddit")),
-                                    "synth-reddit", torch.device("cuda"))
-    row, n = dds.graph.row, dds.graph.n_nodes
-    assert bool((row[1:] >= row[:-1]).all()), "the residual's rows are not sorted"
-    lengths = torch.bincount(row, minlength=n)
-    gen = torch.Generator().manual_seed(9)
-    for width, dtype in ((41, torch.bfloat16), (82, torch.bfloat16), (2, torch.float32),
-                         (82, torch.float32)):
-        src = torch.randn((row.numel(), width), generator=gen).to(dtype).cuda()
-        ways = {
-            "index_add_": lambda: torch.zeros((n, width), dtype=dtype,
-                                              device="cuda").index_add_(0, row, src),
-            "index_put_ accumulate": lambda: torch.zeros((n, width), dtype=dtype,
-                                                         device="cuda").index_put_(
-                (row,), src, accumulate=True),
-            "segment_reduce": lambda: torch.segment_reduce(src, "sum", lengths=lengths,
-                                                           axis=0, unsafe=True),
-        }
-        for name, fn in ways.items():
-            same = torch.equal(fn(), fn())
-            ms = _events_ms(torch, fn, reps=50)
-            graph = torch.cuda.CUDAGraph()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                fn()
-            torch.cuda.current_stream().wait_stream(side)
-            with torch.cuda.graph(graph):
-                fn()
-            graph.replay()
-            torch.cuda.synchronize()
-            print(f"[variant] rowsum {row.numel()} residual edges into {n} rows, [E, {width}] "
-                  f"{dtype}: {name} {ms:.4f} ms, two calls bit-identical {same}, captures "
-                  f"in a CUDA graph", flush=True)
+    paths = {k: v for k, v in SEG_PATHS.items() if only is None or k in only}
+    if only is not None and len(paths) != len(only):
+        print(f"error: --only takes names of {list(SEG_PATHS)}")
+        return 2
+    env = dict(os.environ, PGCN_CACHE_DIR=os.path.join(ROOT, ".synth_cache"))
+    runs: dict = {}
+    for tree in (os.path.abspath(parent), ROOT, ROOT, os.path.abspath(parent)):
+        label = "parent" if tree != ROOT else "this tree"
+        for name, (launcher, args) in paths.items():
+            cmd = ([sys.executable, "-m", PKG] if launcher == "python" else
+                   ["torchrun", "--standalone", "--nproc_per_node=1", "-m", PKG])
+            t0 = time.perf_counter()
+            proc = subprocess.run([*cmd, "synth-reddit", *args, "epochs=10"], cwd=tree, env=env,
+                                  capture_output=True, text=True, timeout=900)
+            eager = "mode=eager" in args
+            steady = [float(t) * 1e3 for t in re.findall(r"^epoch=\d+ .* time=(\S+)$",
+                                                          proc.stdout, re.M)][1:]
+            found = re.search(r"avg_epoch_time=(\S+) ms", proc.stdout)
+            if proc.returncode or not found or (eager and not steady):
+                print(f"[seg-path] {label} {name} failed (exit {proc.returncode}):\n"
+                      f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+                return 1
+            ms = sum(steady) / len(steady) if eager else float(found.group(1))
+            runs.setdefault((label, name), []).append(ms)
+            print(f"[seg-path] {label} {name}: {ms:.3f} ms/epoch "
+                  f"({'eager' if eager else 'scan'}, epochs 2-10; run "
+                  f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    for (label, name), ms in runs.items():
+        print(f"[seg-path] {name}, {label}: {', '.join(f'{m:.3f}' for m in ms)} ms/epoch, mean "
+              f"{sum(ms) / len(ms):.3f}")
     return 0
 
 
@@ -1059,7 +1344,10 @@ def main(argv: list[str]) -> int:
     print(f"[variant] card: {smi.stdout.strip()}", flush=True)
     parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     families = {"spmm": spmm_family, "attention": attention_family, "rect": rect_family,
-                "dropout": dropout_family, "fused": fused_family, "rowsum": rowsum_family}
+                "dropout": dropout_family, "fused": fused_family, "segment": segment_family,
+                "segment-paths": segment_paths}
+    if argv[:1] == ["segment-paths"] and "--only" in argv:
+        return segment_paths(parent, argv[argv.index("--only") + 1].split(","))
     if argv[:1] and argv[0] in families:
         return families[argv[0]](parent)
     if argv:

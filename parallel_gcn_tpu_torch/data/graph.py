@@ -358,10 +358,11 @@ def build_graph(
 
     row_t = torch.from_numpy(row).to(device)
     col_t = torch.from_numpy(col).to(device)
+    val_t = torch.from_numpy(val).to(device)
     return Graph(
         row=row_t,
         col=col_t,
-        val=torch.from_numpy(val).to(device),
+        val=val_t,
         adj=adj,
         bcsr=None if bcsr_pack is None else bcsr_pack.to(device),
         n_nodes=n_pad,
@@ -371,7 +372,7 @@ def build_graph(
         coo_complete=coo_complete,
         sqrt_deg=torch.from_numpy(sqrt_deg_np).to(device),
         adj_scale=adj_scale,
-        row_seg=segments(row_t, n_pad),
+        row_seg=segments(row_t, n_pad, col_t, val_t),
         col_seg=segments(col_t, n_pad),
     )
 

@@ -83,10 +83,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_dropout_matmul_dw.restype = i32
     lib.pgcn_dropout_matmul_dx.argtypes = [p, p, p, i32, i64, i32, i32, p, u32, f32, p]
     lib.pgcn_dropout_matmul_dx.restype = i32
-    # the Segments' ptr, perm and live list, then the items
-    lib.pgcn_gather_sum.argtypes = [p, p, p, i32, p, p, p, i32, p, i32, p]
+    # the work list, its hubs, live and written entries; the packed items
+    # (a) or the permutation (b); the rows' source and out (rows ld apart),
+    # the width; the layout (ops/cuda_segment.layout) and the hubs' vectors
+    seg = [p, i32, i32, i32, p, p, i64, i32, p, i64, i32, i32, i32, i32, i32, i32, i32, p]
+    lib.pgcn_gather_sum.argtypes = seg
     lib.pgcn_gather_sum.restype = i32
-    lib.pgcn_segment_sum.argtypes = [p, p, p, i32, p, i32, p, i64, i32, p]
+    lib.pgcn_segment_sum.argtypes = seg
     lib.pgcn_segment_sum.restype = i32
 
 

@@ -14,25 +14,32 @@ items in item order, with no atomics:
   place, for per-edge terms (the GAT residual's) and the halo's cotangent.
 
 Both run over ``Segments``: the CSR of an index vector, built once with the
-graph on its device (a host sync, never inside a captured epoch). Items
-whose index is not sorted are walked through a stable permutation, so each
-segment's items are added in item order. Both accumulate in float32 and
-store once in the output's type. The plain versions compute the same
-function: the terms in float32 (for bf16, (a)'s products of bf16 operands
-are exact in f32), ``index_add_`` into a float32 accumulator on the CPU
-(which adds in item order), one rounding to the output's type. So kernel
-and plain version are one function bit for bit, in float32 and in bf16.
-The JAX package rounds every bf16 product and partial sum instead
-(``ops.graphsum`` states the distance). ``gather`` and ``segment_sum`` are
-the two differentiable adjoints: each one's backward is the other.
+graph on its device (a host sync, never inside a captured epoch), with the
+kernels' work list and, for (a), the items' ``src`` and ``val`` packed in
+segment order: the ``Segments`` own the gather's operands. Items whose index is not
+sorted are walked through a stable permutation, so each segment's items
+are added in item order. Both accumulate in float32 and store once in the
+output's type. The plain versions compute the same function: the terms in
+float32 (for bf16, (a)'s products of bf16 operands are exact in f32),
+``index_add_`` into a float32 accumulator on the CPU (which adds in item
+order), one rounding to the output's type. So kernel and plain version are
+one function bit for bit, in float32 and in bf16. The JAX package rounds
+every bf16 product and partial sum instead (``ops.graphsum`` states the
+distance). ``gather`` and ``segment_sum`` are the two differentiable
+adjoints: each one's backward is the other.
 
-Each wrapper launches its kernel for CUDA tensors and runs the plain
-version for CPU tensors. ``launches`` counts kernel launches.
+Each wrapper launches its kernels for CUDA tensors and runs the plain
+version for CPU tensors. ``launches`` counts kernel launches: a call's walk
+kernel under the wrapper's name, its hub kernel (where the call has hubs)
+under the name with ``_hub``. ``layout`` is the kernels' division of the
+work, which ``tests/test_torch_segment.py`` models in numpy.
 """
 
 from __future__ import annotations
 
-import ctypes
+import dataclasses
+import functools
+import math
 from dataclasses import dataclass
 
 import torch
@@ -41,8 +48,31 @@ from parallel_gcn_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches by wrapper: "gather_sum" (a) and "segment_sum" (b)
-launches = {"gather_sum": 0, "segment_sum": 0}
+# kernel launches by wrapper: "gather_sum" (a) and "segment_sum" (b) their
+# walk kernels, "..._hub" their hub kernels
+launches = {"gather_sum": 0, "segment_sum": 0, "gather_sum_hub": 0, "segment_sum_hub": 0}
+
+# The kernels' layout knobs (settled on the card by ``kernel_variants.py
+# segment``): the widest vector a lane loads, in bytes; the items from which
+# a segment is a hub (read when ``Segments`` are built: the hubs lead the
+# work list and go to the hub kernel, a team of warps one vector a lane,
+# with a deeper ring).
+MAX_VEC_BYTES = 16
+HUB_ITEMS = 512
+# the widest vector of a hub lane: a hub takes the narrowest vectors whose
+# team fits in 8 warps (narrower vectors spread a hub over more lanes, each
+# with a ring as deep); rows of at most HALF_WARP_VECS vectors go to half
+# warps
+HUB_VEC_BYTES = 16
+HALF_WARP_VECS = 16
+WARP_ROW_BYTES = 512  # rows of at most this many bytes go to one warp (up to 4 passes)
+# rows of at most ITEM_WIDTH elements are summed by the item walker (lanes
+# take items, not columns); the widest row a launch takes, in vectors
+# (wider rows: one launch a column chunk): 8 warps of 32 lanes, 4 passes.
+# A call's launches are made once a shape (``_plan``): a change of these
+# knobs after a call takes ``_plan.cache_clear()``.
+ITEM_WIDTH = 8
+_TEAM_VECS = 32 * 8 * 4
 
 
 @dataclass(frozen=True)
@@ -50,52 +80,192 @@ class Segments:
     """An index vector as CSR. ``index`` [E] int64 holds each item's
     segment in item order; the items of segment i are those at positions
     ``ptr[i]..ptr[i+1]`` of the stable sorted order, which is ``perm`` (int32)
-    or, for a sorted index, the items themselves (``perm`` None). ``live``
-    (int32) lists the segments that have items, in order: the kernels walk
-    only those."""
+    or, for a sorted index, the items themselves (``perm`` None). ``work``
+    [n, 4] int32 is the kernels' work list: every segment as (segment,
+    begin, end, 0): first the ``n_hub`` hubs (``HUB_ITEMS`` items or more),
+    longest first, then the other live segments (longest first where there
+    are fewer items than segments, as in a sparse residual, whose long rows
+    would otherwise set the tail; else in segment order, which keeps the
+    gathers of neighbouring rows together), then the empty ones, so its
+    first ``n_live`` rows are the segments that have items. ``src`` and
+    ``val``, when given, are the gather-sum's operands (kernel (a)) and
+    ``items`` [E, 2] int32 them packed in segment order: (src, the bits of
+    val as float32)."""
 
     index: torch.Tensor
     ptr: torch.Tensor
     perm: torch.Tensor | None
-    live: torch.Tensor
     n: int
+    work: torch.Tensor
+    n_hub: int
+    n_live: int
+    src: torch.Tensor | None = None
+    val: torch.Tensor | None = None
+    items: torch.Tensor | None = None
 
 
-def segments(index: torch.Tensor, n: int) -> Segments:
-    """The ``Segments`` of ``index`` (values in [0, n)) on its device. Reads
-    the index on the host once: build it with the graph, not in an epoch."""
+def _pack_items(seg: Segments, src: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """(src, val) of every item in segment order as [E, 2] int32: src and
+    the bits of val as float32, one 8-byte load an item for kernel (a)."""
+    if src.shape != seg.index.shape or val.shape != seg.index.shape:
+        raise ValueError(f"src {tuple(src.shape)} and val {tuple(val.shape)} must match the "
+                         f"index {tuple(seg.index.shape)}")
+    src, val = src.int(), val.float()
+    if seg.perm is not None:
+        order = seg.perm.long()
+        src, val = src[order], val[order]
+    return torch.stack([src, val.view(torch.int32)], 1).contiguous()
+
+
+def segments(index: torch.Tensor, n: int, src: torch.Tensor | None = None,
+             val: torch.Tensor | None = None) -> Segments:
+    """The ``Segments`` of ``index`` (values in [0, n)) on its device, with
+    the gather-sum's ``src`` and ``val`` packed when given (both or
+    neither). Reads the index on the host once: build it with the graph, not
+    in an epoch."""
     index = index.long().contiguous()
     if index.dim() != 1 or index.numel() >= 2**31 or n >= 2**31:
         raise ValueError(f"segments take a 1-d index of < 2^31 items into < 2^31 "
                          f"segments, got {tuple(index.shape)} into {n}")
     if index.numel() and not (0 <= int(index.min()) and int(index.max()) < n):
         raise ValueError(f"index values outside [0, {n})")
+    if (src is None) != (val is None):
+        raise ValueError("segments pack src and val together")
     if index.numel() < 2 or bool((index[1:] >= index[:-1]).all()):
         ordered, perm = index, None
     else:
         ordered, order = torch.sort(index, stable=True)
         perm = order.int()
     ptr = torch.searchsorted(ordered, torch.arange(n + 1, device=index.device)).int()
-    live = torch.nonzero(ptr[1:] > ptr[:-1]).flatten().int()
-    return Segments(index=index, ptr=ptr, perm=perm, live=live, n=n)
+    lengths = (ptr[1:] - ptr[:-1]).long()
+    # the work list: hubs longest first, the other live segments, the empty ones
+    group = torch.where(lengths >= HUB_ITEMS, 0, torch.where(lengths > 0, 1, 2))
+    ids = torch.arange(n, device=index.device)
+    longest = index.numel() < n
+    key = torch.where((group == 0) | ((group == 1) & longest), -lengths, ids)
+    order = torch.sort(key, stable=True).indices
+    order = order[torch.sort(group[order], stable=True).indices]
+    work = torch.stack([order, ptr[:-1].long()[order], ptr[1:].long()[order],
+                        torch.zeros_like(order)], 1).int().contiguous()
+    seg = Segments(index=index, ptr=ptr, perm=perm, n=n, work=work,
+                   n_hub=int((group == 0).sum()), n_live=int((group < 2).sum()))
+    if src is None:
+        return seg
+    return dataclasses.replace(seg, src=src, val=val, items=_pack_items(seg, src, val))
 
 
-def group_layout(width: int) -> tuple[int, int]:
-    """(G, chunks) of the kernels for rows of ``width`` columns: a group of G
-    threads sums one (live segment, 2G-column chunk), each thread columns
-    ``chunk·2G + lane`` and ``+ G``; G the smallest power of two that covers
-    half the row, at most 32."""
-    g = 1
-    while g < 32 and 2 * g < width:
-        g *= 2
-    return g, -(-width // (2 * g))
+@dataclass(frozen=True)
+class Layout:
+    """The kernels' division of one call's work (``layout``).
+    ``vec_bytes`` 0: the item walker, a group of 8 lanes a segment (a warp
+    for a hub), lane j loading item k + j's row. Else the column walker:
+    rows of ``nvec`` vectors of ``vec_bytes``; a segment is owned by a
+    group of ``group`` lanes of a warp (``team`` 1) or by a team of
+    ``team`` warps, lane t holding vectors t + p·lanes for p < ``passes``;
+    with ``hubs``, the work list's hubs go to teams of ``hub_team`` warps,
+    one vector of ``hub_vec_bytes`` a lane (else the rest's units walk them
+    too)."""
+
+    vec_bytes: int
+    nvec: int
+    group: int
+    passes: int
+    team: int
+    hub_team: int
+    hubs: bool
+    hub_vec_bytes: int
 
 
-def _launch_args(seg: Segments, device) -> list:
-    if seg.ptr.device != device:
-        raise ValueError(f"segments on {seg.ptr.device}, tensors on {device}")
-    return [seg.ptr.data_ptr(), None if seg.perm is None else seg.perm.data_ptr(),
-            seg.live.data_ptr(), seg.live.numel()]
+def _vec_bytes(width: int, esize: int, align: int) -> int:
+    """The widest vector (at most ``MAX_VEC_BYTES``) that divides a row of
+    ``width`` elements of ``esize`` bytes and ``align``, the alignment of
+    the call's addresses and row strides."""
+    vb = MAX_VEC_BYTES
+    while vb > esize and (align % vb or width * esize % vb):
+        vb //= 2
+    return vb
+
+
+def layout(width: int, esize: int, align: int) -> Layout:
+    """The layout of a call over rows of ``width`` elements of ``esize``
+    bytes whose addresses and row strides are multiples of ``align`` bytes:
+    rows of up to ``HALF_WARP_VECS`` vectors to half warps, rows of up to
+    ``WARP_ROW_BYTES`` (and 128 vectors) to a warp (up to 4 passes), up to
+    256 vectors to a team of warps one vector a lane, up
+    to ``_TEAM_VECS`` to a team of 8 warps or fewer, 2 or 4 passes; hubs to
+    teams of up to 8 warps, one vector a lane, the narrowest (at most
+    ``HUB_VEC_BYTES``) that fits (wider rows: no hub kernel). The wrapper cuts rows wider than
+    ``_TEAM_VECS`` vectors into column chunks."""
+    if width <= ITEM_WIDTH:
+        return Layout(0, width, 8, 1, 1, 1, True, 0)
+    vb = _vec_bytes(width, esize, align)
+    nvec = width * esize // vb
+    if nvec > _TEAM_VECS:
+        raise ValueError(f"{nvec} vectors a row exceed a launch's {_TEAM_VECS}")
+    hub_vb = esize
+    while hub_vb < min(vb, HUB_VEC_BYTES) and width * esize > 32 * 8 * hub_vb:
+        hub_vb *= 2
+    hub_team = -(-(width * esize // hub_vb) // 32)
+    hub = (hub_team, True, hub_vb) if hub_team <= 8 else (1, False, vb)
+
+    def passes_for(lanes):
+        return next(p for p in (1, 2, 4) if lanes * p >= nvec)
+
+    if nvec <= HALF_WARP_VECS:
+        return Layout(vb, nvec, 16, passes_for(16), 1, *hub)
+    if nvec <= 128 and width * esize <= WARP_ROW_BYTES:
+        return Layout(vb, nvec, 32, passes_for(32), 1, *hub)
+    if nvec <= 256:
+        return Layout(vb, nvec, 32, 1, -(-nvec // 32), *hub)
+    passes = 2 if nvec <= 512 else 4
+    return Layout(vb, nvec, 32, passes, -(-nvec // (32 * passes)), *hub)
+
+
+def _column_chunks(width: int, esize: int, align: int) -> list[tuple[int, int]]:
+    """(first column, columns) of each launch over rows of ``width``: at
+    most ``_TEAM_VECS`` vectors a launch (one launch for every width the
+    models use)."""
+    step = _TEAM_VECS * _vec_bytes(width, esize, align) // esize
+    return [(c, min(step, width - c)) for c in range(0, width, step)]
+
+
+@functools.cache
+def _plan(width: int, esize: int, align: int) -> tuple:
+    """The launches of a call over rows of ``width`` elements of ``esize``
+    bytes aligned to ``align`` bytes, made once a shape: per column chunk
+    (its byte offset, whether it takes the hub kernel, the layout's
+    arguments from the width on)."""
+    plan = []
+    for c0, cols in _column_chunks(width, esize, align):
+        lay = layout(cols, esize, align)
+        plan.append((c0 * esize, lay.hubs, (cols, lay.vec_bytes, lay.group, lay.passes,
+                                            lay.team, lay.hub_team, lay.hub_vec_bytes)))
+    return tuple(plan)
+
+
+def _launch(fn, what: str, key: str, seg: Segments, n_work: int, first, base: torch.Tensor,
+            ld_in: int, out: torch.Tensor, width: int) -> None:
+    """Launch kernel ``fn`` (``pgcn_gather_sum`` or ``pgcn_segment_sum``)
+    over the first ``n_work`` entries of ``seg``'s work list: ``first`` its
+    leading arguments, ``base`` the row source (x or values, rows ``ld_in``
+    apart), once a column chunk of out's rows of ``width``."""
+    if seg.work.device != out.device:
+        raise ValueError(f"segments on {seg.work.device}, tensors on {out.device}")
+    ld_out, esize = out.stride(0), out.element_size()
+    base_ptr, out_ptr = base.data_ptr(), out.data_ptr()
+    # the alignment (a power of two, at most 16) of both addresses and row strides
+    align = math.gcd(16, base_ptr, out_ptr, ld_in * esize, ld_out * esize)
+    work, code = seg.work.data_ptr(), _DTYPE_CODE[out.dtype]
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for off, hubs, args in _plan(width, esize, align):
+            n_hub = seg.n_hub if hubs else 0
+            _build.check(fn(work, n_hub, seg.n_live, n_work, *first, base_ptr + off, ld_in, code,
+                            out_ptr + off, ld_out, *args, stream), what)
+            # the hub kernel runs where there are hubs, the walk kernel where
+            # other entries are left
+            launches[key + "_hub"] += n_hub > 0
+            launches[key] += n_work > n_hub
 
 
 def _check_dtype(t: torch.Tensor, what: str) -> None:
@@ -123,34 +293,27 @@ def gather_sum_plain(x: torch.Tensor, index: torch.Tensor, src: torch.Tensor,
     return acc.to(x.dtype)
 
 
-def gather_sum(x: torch.Tensor, seg: Segments, src: torch.Tensor, val: torch.Tensor,
-               n_chunks: int = 1) -> torch.Tensor:
+def gather_sum(x: torch.Tensor, seg: Segments, n_chunks: int = 1) -> torch.Tensor:
     """``out[i] = Σ_{e: seg.index[e] = i} val[e]·x[src[e]]`` in item order,
-    [seg.n, F] in x's dtype (f32 or bf16). Kernel (a) for CUDA tensors
-    (float32 sums, ``n_chunks`` unused: it builds no [E, F] product), the
-    plain version for CPU ones."""
+    [seg.n, F] in x's dtype (f32 or bf16), over the ``src`` and ``val``
+    that ``seg`` was built with. Kernel (a) for CUDA tensors (float32 sums
+    over ``seg.items``; ``n_chunks`` unused: it builds no [E, F] product),
+    the plain version for CPU ones."""
+    if seg.items is None:
+        raise ValueError("gather_sum takes Segments built with src and val "
+                         "(segments(index, n, src, val))")
     if x.device.type == "cpu":
-        return gather_sum_plain(x, seg.index, src, val, seg.n, n_chunks)
+        return gather_sum_plain(x, seg.index, seg.src, seg.val, seg.n, n_chunks)
     if x.device.type != "cuda":
         raise ValueError(f"gather_sum: unsupported device {x.device}")
     _check_dtype(x, "gather_sum")
     x = x.contiguous()
-    src, val = src.long().contiguous(), val.float().contiguous()
-    if src.shape != seg.index.shape or val.shape != seg.index.shape:
-        raise ValueError(f"src {tuple(src.shape)} and val {tuple(val.shape)} must match the "
-                         f"index {tuple(seg.index.shape)}")
     F = x.shape[1]
-    out = torch.zeros((seg.n, F), dtype=x.dtype, device=x.device)  # rows without items
-    if seg.live.numel() == 0 or F == 0:
-        return out
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = lib.pgcn_gather_sum(*_launch_args(seg, x.device), src.data_ptr(),
-                                 val.data_ptr(), x.data_ptr(), _DTYPE_CODE[x.dtype],
-                                 out.data_ptr(), F, stream)
-    _build.check(rc, "ordered gather-sum kernel")
-    launches["gather_sum"] += 1
+    out = torch.empty((seg.n, F), dtype=x.dtype, device=x.device)  # every row is written
+    if seg.n == 0 or F == 0:
+        return out.zero_()
+    _launch(_build.load_library().pgcn_gather_sum, "ordered gather-sum kernel", "gather_sum",
+            seg, seg.n, (seg.items.data_ptr(),), x, F, out, F)
     return out
 
 
@@ -184,17 +347,12 @@ def segment_sum_(out: torch.Tensor, index: Segments | torch.Tensor,
         raise ValueError(f"{seg.index.shape[0]} items into {seg.n} segments do not fit "
                          f"values {tuple(values.shape)} and out {tuple(out.shape)}")
     W = out[0].numel() if out.shape[0] else 0
-    if seg.live.numel() == 0 or W == 0:
+    if seg.n_live == 0 or W == 0:
         return out
     values = values.contiguous()
-    lib = _build.load_library()
-    with torch.cuda.device(out.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        rc = lib.pgcn_segment_sum(*_launch_args(seg, out.device), values.data_ptr(),
-                                  _DTYPE_CODE[out.dtype], out.data_ptr(), out.stride(0), W,
-                                  stream)
-    _build.check(rc, "ordered segment-sum kernel")
-    launches["segment_sum"] += 1
+    perm = seg.perm.data_ptr() if seg.perm is not None else None
+    _launch(_build.load_library().pgcn_segment_sum, "ordered segment-sum kernel",
+            "segment_sum", seg, seg.n_live, (perm,), values, W, out, W)
     return out
 
 
@@ -238,22 +396,20 @@ def gather(x: torch.Tensor, seg: Segments) -> torch.Tensor:
 
 class _GatherSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seg, src, val, seg_t):
-        ctx.seg, ctx.val, ctx.seg_t = seg, val, seg_t
-        return gather_sum(x, seg, src, val)
+    def forward(ctx, x, seg, seg_t):
+        ctx.seg_t = seg_t
+        return gather_sum(x, seg)
 
     @staticmethod
     def backward(ctx, g):
         # the transpose: Σ over the items with src = j of val·g[index]
-        dx = gather_sum(g.contiguous(), ctx.seg_t, ctx.seg.index, ctx.val)
-        return dx, None, None, None, None
+        return gather_sum(g.contiguous(), ctx.seg_t), None, None
 
 
-def gather_sum_t(x: torch.Tensor, seg: Segments, src: torch.Tensor, val: torch.Tensor,
-                 seg_t: Segments) -> torch.Tensor:
-    """Differentiable ``gather_sum(x, seg, src, val)``: the backward is the
-    transposed sum over ``seg_t``, the ``Segments`` of ``src`` over x's
-    rows."""
+def gather_sum_t(x: torch.Tensor, seg: Segments, seg_t: Segments) -> torch.Tensor:
+    """Differentiable ``gather_sum(x, seg)``: the backward is the
+    transposed sum over ``seg_t``, the ``Segments`` of seg's src over x's
+    rows, built with ``seg.index`` and the same val as its src and val."""
     if seg_t.n != x.shape[0]:
         raise ValueError(f"transposed segments over {seg_t.n} rows for x of {x.shape[0]}")
-    return _GatherSum.apply(x, seg, src, val, seg_t)
+    return _GatherSum.apply(x, seg, seg_t)

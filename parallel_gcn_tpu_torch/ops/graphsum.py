@@ -47,7 +47,7 @@ _DEFAULT_EDGE_ELEM_BUDGET = 256 * 1024 * 1024
 def _segment(x, graph: Graph, n_chunks):
     """Σ_e val[e]·x[col[e]] into row[e] in edge order, in x's dtype: the
     ordered gather-sum (``n_chunks`` edge chunks in its plain version)."""
-    return gather_sum(x, graph.row_seg, graph.col, graph.val, n_chunks=n_chunks)
+    return gather_sum(x, graph.row_seg, n_chunks=n_chunks)
 
 
 def _pick_n_chunks(n_edges_pad: int, n_feat: int, edge_chunk: int) -> int:

@@ -43,6 +43,6 @@ def sparse_feature_transform(
     reference's backward (src/module.cu:136-163), whose sums by feature run
     in nonzero order too. Builds the index's segments per call (a host
     sync)."""
-    row, col = feat_row.long(), feat_col.long()
-    return gather_sum_t(w, segments(row, n_nodes), col, feat_val,
-                        segments(col, w.shape[0]))
+    row, col = feat_row.long().contiguous(), feat_col.long().contiguous()
+    seg = segments(row, n_nodes, col, feat_val)
+    return gather_sum_t(w, seg, segments(col, w.shape[0], seg.index, feat_val))

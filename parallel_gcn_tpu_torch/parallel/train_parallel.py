@@ -210,9 +210,9 @@ class RankGraph:
     (``coo``, with the ``Segments`` of its rows and of its buffer columns),
     the ring's slabs (``ring``: per rotation step the ``Segments`` of its
     rows, its columns within the held block and its values), a tile slab
-    with its residual (``slab``, ``res`` with its rows' ``Segments``, and
-    the int8 slab's ``d``), or the mesh GAT's packs (``attn``, over
-    ``res``'s layout). ``send`` is the boundary halo's schedule, the
+    with its residual (``slab``, ``res`` its rows' ``Segments`` with its
+    columns and values packed, and the int8 slab's ``d``), or the mesh
+    GAT's packs (``attn``). ``send`` is the boundary halo's schedule, the
     ``Segments`` of its sent rows (None: the all_gather halo); ``push`` the
     adaptive halo's push pairs. ``sqrt_deg``: the rank's rows' sqrt(deg)
     (SAGE/GIN only). Padding edges (val 0) are left out of every slab."""
@@ -223,9 +223,9 @@ class RankGraph:
     n_buf: int
     send: Segments | None = None
     coo: tuple | None = None  # (row_local, col, val, row segments, col segments)
-    ring: tuple | None = None  # ((row segments, col, val), ...) one per step
+    ring: tuple | None = None  # the row segments of each step (their gather operands packed)
     slab: BCSR | None = None
-    res: tuple | None = None  # (rrow, rcol, rval, row segments)
+    res: Segments | None = None  # the residual's row segments (gather operands packed)
     d: torch.Tensor | None = None
     push: PushGroup | None = None
     attn: RectAttention | None = None
@@ -240,18 +240,17 @@ class RankGraph:
         if self.coo is not None:
             if self.push is not None:
                 return graphsum_dist_adaptive(h, self.coo, self.send, self.push, g)
-            return graphsum_dist(h, *self.coo, send=self.send, group=g)
+            return graphsum_dist(h, *self.coo[3:], send=self.send, group=g)
         if self.slab is None:
             raise ValueError("the mesh GAT's packs carry no GCN aggregation")
         if self.push is not None:
             if self.d is not None:
                 return graphsum_dist_hybrid_adaptive_scaled(h, self.d, self.send, self.slab,
-                                                            *self.res, self.push, g)
-            return graphsum_dist_hybrid_adaptive(h, self.send, self.slab, *self.res,
-                                                 self.push, g)
+                                                            self.res, self.push, g)
+            return graphsum_dist_hybrid_adaptive(h, self.send, self.slab, self.res, self.push, g)
         if self.d is not None:
-            return graphsum_dist_hybrid_scaled(h, self.d, self.send, self.slab, *self.res, g)
-        return graphsum_dist_hybrid(h, self.send, self.slab, *self.res, g)
+            return graphsum_dist_hybrid_scaled(h, self.d, self.send, self.slab, self.res, g)
+        return graphsum_dist_hybrid(h, self.send, self.slab, self.res, g)
 
 
 def _push_group(sg, r: int, device) -> PushGroup:
@@ -267,10 +266,10 @@ def _push_group(sg, r: int, device) -> PushGroup:
     slot = torch.from_numpy(prow[r][live].astype(np.int64)).to(device)
     recv = sg.push_recv[r]
     keep = np.flatnonzero(recv < sg.n_local)
+    col = torch.from_numpy(pcol[r][live].astype(np.int64)).to(device)
+    val = torch.from_numpy(pval[r][live].astype(np.float32)).to(device)
     group = dict(
-        n_slab=n_slab, seg=segments(slot, n_slab),
-        col=torch.from_numpy(pcol[r][live].astype(np.int64)).to(device),
-        val=torch.from_numpy(pval[r][live].astype(np.float32)).to(device),
+        n_slab=n_slab, seg=segments(slot, n_slab, col, val), col=col, val=val,
         recv_seg=segments(torch.from_numpy(recv[keep].astype(np.int64)).to(device),
                           sg.n_local),
         keep=None if len(keep) == len(recv) else torch.from_numpy(keep).to(device))
@@ -296,13 +295,17 @@ def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None,
     node ``group`` (None: the whole world)."""
     r = rank
 
-    def coo(rows, cols, vals, n_cols):
-        """(row, col, val, row segments, col segments) of the live edges."""
+    def edges(rows, cols, vals):
+        """(row, col, val) of the live edges on the device."""
         live = vals != 0
-        row = torch.from_numpy(rows[live].astype(np.int64)).to(device)
-        col = torch.from_numpy(cols[live].astype(np.int64)).to(device)
-        val = torch.from_numpy(vals[live].astype(np.float32)).to(device)
-        return row, col, val, segments(row, sgraph.n_local), segments(col, n_cols)
+        return (torch.from_numpy(rows[live].astype(np.int64)).to(device),
+                torch.from_numpy(cols[live].astype(np.int64)).to(device),
+                torch.from_numpy(vals[live].astype(np.float32)).to(device))
+
+    def row_segments(rows, cols, vals):
+        """The live edges' row segments, their columns and values packed."""
+        row, col, val = edges(rows, cols, vals)
+        return segments(row, sgraph.n_local, col, val)
 
     def i64(a):
         return torch.from_numpy(a[r].astype(np.int64)).to(device)
@@ -327,16 +330,16 @@ def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None,
         sg = sgraph
         slab = slab_pack(sg.tiles[r], sg.trow[r], sg.tcol[r], sg.n_local, sg.n_buf,
                          sg.tile_dtype, device)
-        rrow, rcol, rval, rseg, _ = coo(sg.res_row[r], sg.res_col[r], sg.res_val[r],
-                                         sg.n_buf)
-        return RankGraph(**base, slab=slab, res=(rrow, rcol, rval, rseg),
+        return RankGraph(**base, slab=slab,
+                         res=row_segments(sg.res_row[r], sg.res_col[r], sg.res_val[r]),
                          d=None if sg.sym_scale is None else f32(sg.sym_scale))
     if sgraph.ring:
-        steps = (coo(sgraph.row_local[r, s], sgraph.col[r, s], sgraph.val[r, s],
-                     sgraph.n_local) for s in range(sgraph.n_dev))
-        return RankGraph(**base, ring=tuple((seg, col, val) for _, col, val, seg, _ in steps))
-    return RankGraph(**base, coo=coo(sgraph.row_local[r], sgraph.col[r], sgraph.val[r],
-                                     sgraph.n_buf))
+        return RankGraph(**base, ring=tuple(
+            row_segments(sgraph.row_local[r, s], sgraph.col[r, s], sgraph.val[r, s])
+            for s in range(sgraph.n_dev)))
+    row, col, val = edges(sgraph.row_local[r], sgraph.col[r], sgraph.val[r])
+    return RankGraph(**base, coo=(row, col, val, segments(row, sgraph.n_local, col, val),
+                                  segments(col, sgraph.n_buf, row, val)))
 
 
 # ---------------------------------------------------------------------------
@@ -344,15 +347,15 @@ def rank_graph(sgraph, rank: int, device, sqrt_deg: np.ndarray | None = None,
 # ---------------------------------------------------------------------------
 
 
-def graphsum_dist(x_local, row_local, col, val, row_seg: Segments, col_seg: Segments,
+def graphsum_dist(x_local, row_seg: Segments, col_seg: Segments,
                   send: Segments | None = None, group=None):
     """Distributed Â·x over row-sharded features, flat COO slab: the source
     buffer (all_gather, or the boundary halo with ``send``, over the node
-    ``group``), then ``val·x_buf[col]`` summed into ``row_local`` in edge
-    order (``row_seg``), in x's dtype. The backward sums the cotangent by
+    ``group``), then ``val·x_buf[col]`` summed into the local rows in edge
+    order (``row_seg``, built with col and val), in x's dtype. The backward sums the cotangent by
     buffer row (``col_seg``), then transposes the collective."""
     x_buf = gather_buffer(x_local, send, group)
-    return gather_sum_t(x_buf, row_seg, col, val, col_seg)
+    return gather_sum_t(x_buf, row_seg, col_seg)
 
 
 class _SelfAdjoint(torch.autograd.Function):
@@ -383,13 +386,13 @@ def _scaled(impl, d_local):
     return run
 
 
-def pull_sum(x_buf, slab, rcol, rval, res_seg):
+def pull_sum(x_buf, slab, res_seg):
     """The pulled and local edges of a tile slab: K3 over the slab against
-    the source buffer plus the residual's ordered gather-sum (its rows are
-    ``res_seg``'s index), [n_local, F] in x_buf's dtype (K3's f32 rounded
-    first, as JAX casts it)."""
+    the source buffer plus the residual's ordered gather-sum (``res_seg``,
+    built with its columns and values), [n_local, F] in x_buf's dtype (K3's
+    f32 rounded first, as JAX casts it)."""
     out = bcsr_matmul_rect(slab, x_buf).to(x_buf.dtype)
-    return out + gather_sum(x_buf, res_seg, rcol, rval)
+    return out + gather_sum(x_buf, res_seg)
 
 
 def push_partials(x_local, push: PushGroup):
@@ -398,7 +401,7 @@ def push_partials(x_local, push: PushGroup):
     over the push tiles, rounded to x's dtype and added at their slots
     (kernel (b); each slot takes at most one tile row). JAX rounds both to
     x's dtype before the exchange as well."""
-    slab = gather_sum(x_local, push.seg, push.col, push.val)
+    slab = gather_sum(x_local, push.seg)
     if push.tiles is not None:
         part = bcsr_matmul_rect(push.tiles, x_local)[: push.n_tile_rows].to(slab.dtype)
         segment_sum_(slab, push.tile_seg, part)
@@ -414,19 +417,19 @@ def receive_add(out, recv, push: PushGroup):
     return segment_sum_(out, push.recv_seg, recv.to(out.dtype))
 
 
-def ring_step(acc, blk, step):
-    """One step of the ring: the step's slab summed against the held block
-    in edge order (kernel (a), rounded to blk's dtype once), added to the
-    accumulator in blk's dtype, as JAX keeps it."""
-    seg, col, val = step
-    part = gather_sum(blk, seg, col, val)
+def ring_step(acc, blk, seg):
+    """One step of the ring: the step's slab (``seg``, its row segments with
+    its columns and values) summed against the held block in edge order
+    (kernel (a), rounded to blk's dtype once), added to the accumulator in
+    blk's dtype, as JAX keeps it."""
+    part = gather_sum(blk, seg)
     return part if acc is None else acc + part
 
 
 def _ring_impl(x_local, steps, group=None):
     acc, blk = None, x_local
-    for s, step in enumerate(steps):
-        acc = ring_step(acc, blk, step)
+    for s, seg in enumerate(steps):
+        acc = ring_step(acc, blk, seg)
         if s + 1 < len(steps):  # JAX's last rotation only sends blocks home
             blk = ppermute_rows(blk, group)
     return acc
@@ -442,8 +445,7 @@ def graphsum_ring(x_local, steps, group=None):
 
 
 def _adaptive_impl(x_local, coo, send, push, group=None):
-    row, col, val, row_seg, _ = coo
-    out = gather_sum(buffer_rows(x_local, send, group), row_seg, col, val)
+    out = gather_sum(buffer_rows(x_local, send, group), coo[3])
     return receive_add(out, all_to_all_rows(push_partials(x_local, push), group), push)
 
 
@@ -457,53 +459,47 @@ def graphsum_dist_adaptive(x_local, coo, send, push: PushGroup, group=None):
                                                group=group))
 
 
-def _hybrid_impl(x_local, send, slab, rrow, rcol, rval, res_seg, push=None, group=None):
-    del rrow  # res_seg's index
-    out = pull_sum(buffer_rows(x_local, send, group), slab, rcol, rval, res_seg)
+def _hybrid_impl(x_local, send, slab, res_seg, push=None, group=None):
+    out = pull_sum(buffer_rows(x_local, send, group), slab, res_seg)
     if push is None:
         return out
     return receive_add(out, all_to_all_rows(push_partials(x_local, push), group), push)
 
 
-def graphsum_dist_hybrid(x_local, send, slab, rrow, rcol, rval, res_seg, group=None):
+def graphsum_dist_hybrid(x_local, send, slab, res_seg, group=None):
     """Distributed Â·x over a rank's tile slab (K3 rect) plus its COO
-    residual summed in edge order (``res_seg``: rrow's segments over the
-    rank's rows), in x's dtype; ``send`` None for the all_gather halo.
-    Self-adjoint."""
-    return _SelfAdjoint.apply(x_local, partial(_hybrid_impl, send=send, slab=slab, rrow=rrow,
-                                               rcol=rcol, rval=rval, res_seg=res_seg,
-                                               group=group))
+    residual summed in edge order (``res_seg``: its segments over the
+    rank's rows, built with its columns and values), in x's dtype; ``send``
+    None for the all_gather halo. Self-adjoint."""
+    return _SelfAdjoint.apply(x_local, partial(_hybrid_impl, send=send, slab=slab,
+                                               res_seg=res_seg, group=group))
 
 
-def graphsum_dist_hybrid_scaled(x_local, d_local, send, slab, rrow, rcol, rval, res_seg,
-                                group=None):
+def graphsum_dist_hybrid_scaled(x_local, d_local, send, slab, res_seg, group=None):
     """``graphsum_dist_hybrid`` for int8 pattern slabs: the slab holds the
     0/k pattern, the residual the multiplicities, ``d_local`` (deg^{-1/2} of
     the rank's rows) the normalization."""
-    impl = partial(_hybrid_impl, send=send, slab=slab, rrow=rrow, rcol=rcol, rval=rval,
-                   res_seg=res_seg, group=group)
+    impl = partial(_hybrid_impl, send=send, slab=slab, res_seg=res_seg, group=group)
     return _SelfAdjoint.apply(x_local, _scaled(impl, d_local))
 
 
-def graphsum_dist_hybrid_adaptive(x_local, send, slab, rrow, rcol, rval, res_seg,
-                                  push: PushGroup, group=None):
+def graphsum_dist_hybrid_adaptive(x_local, send, slab, res_seg, push: PushGroup, group=None):
     """Distributed Â·x over tile slabs with the adaptive halo (JAX
     ``graphsum_dist_hybrid_adaptive``): the pulled slab as
     ``graphsum_dist_hybrid``, plus the push pairs' partial slab (the push
     residual by slot, K3 over the push tiles) exchanged by one
     ``all_to_all`` and added at its rows in order. Self-adjoint."""
-    return _SelfAdjoint.apply(x_local, partial(_hybrid_impl, send=send, slab=slab, rrow=rrow,
-                                               rcol=rcol, rval=rval, res_seg=res_seg,
-                                               push=push, group=group))
+    return _SelfAdjoint.apply(x_local, partial(_hybrid_impl, send=send, slab=slab,
+                                               res_seg=res_seg, push=push, group=group))
 
 
-def graphsum_dist_hybrid_adaptive_scaled(x_local, d_local, send, slab, rrow, rcol, rval,
-                                         res_seg, push: PushGroup, group=None):
+def graphsum_dist_hybrid_adaptive_scaled(x_local, d_local, send, slab, res_seg,
+                                         push: PushGroup, group=None):
     """``graphsum_dist_hybrid_adaptive`` for int8 pattern slabs (JAX
     ``graphsum_dist_hybrid_adaptive_scaled``): d scales the local rows
     before any exchange and the output rows after."""
-    impl = partial(_hybrid_impl, send=send, slab=slab, rrow=rrow, rcol=rcol, rval=rval,
-                   res_seg=res_seg, push=push, group=group)
+    impl = partial(_hybrid_impl, send=send, slab=slab, res_seg=res_seg, push=push,
+                   group=group)
     return _SelfAdjoint.apply(x_local, _scaled(impl, d_local))
 
 

@@ -8,11 +8,14 @@ residual's forward merge and backward, on a square pack and on a mesh slab
 (whose dt and dv are summed by source), bit-equal to the ``index_add_`` code
 the port ran before and within rtol 1e-5 (+ 1e-6·max|ref|) of JAX's
 ``gat_attend_tiles`` / ``gat_attend_rect`` at f32; the boundary halo's
-backward with a row sent to several peers; and a numpy model of both
-kernels' thread layout and item order (csrc/segment_sum.cu), bit-equal to
-the plain versions in f32. In bf16 (the F4 case): a numpy model of kernel
-(a)'s numeric (f32 products of bf16 operands, an f32 sum in item order, one
-rounding) bit-equal to the port's CPU path, both plain versions' float32
+backward with a row sent to several peers; the set-up arrays (the
+longest-first work list, the items packed in segment order) and the
+kernels' layout at the models' widths; and a numpy model of both kernels'
+division of the work and item order (csrc/segment_sum.cuh), bit-equal to
+the plain versions in f32, and with a 5,000-item hub in f32 and bf16. In
+bf16 (the F4 case): a numpy model of kernel (a)'s numeric (f32 products of
+bf16 operands, an f32 sum in item order, one rounding) bit-equal to the
+port's CPU path, both plain versions' float32
 accumulation, and the port's and JAX's ``_segment_once``'s errors against
 an f64 sum on rows of up to 409 items, from which the port-against-JAX bf16
 tolerance is derived. The kernels themselves run on the card in
@@ -75,8 +78,10 @@ def test_offsets_and_permutation_match_numpy(sort):
     seg = cs.segments(torch.from_numpy(idx), n)
     ptr = np.concatenate([[0], np.cumsum(np.bincount(idx, minlength=n))])
     np.testing.assert_array_equal(seg.ptr.numpy(), ptr)
-    np.testing.assert_array_equal(seg.live.numpy(), np.flatnonzero(np.bincount(idx, minlength=n)))
-    assert seg.ptr.dtype == torch.int32 and seg.live.dtype == torch.int32 and seg.n == n
+    # the live segments lead the work list
+    np.testing.assert_array_equal(np.sort(seg.work[:seg.n_live, 0].numpy()),
+                                  np.flatnonzero(np.bincount(idx, minlength=n)))
+    assert seg.ptr.dtype == torch.int32 and seg.work.dtype == torch.int32 and seg.n == n
     if sort:
         assert seg.perm is None
     else:
@@ -231,11 +236,12 @@ def test_adjoints():
     n, m, e = 12, 9, 70
     row, col = rng.integers(0, n, e), rng.integers(0, m, e)
     val = rng.standard_normal(e).astype(np.float32)
-    rs, ct = cs.segments(torch.from_numpy(row), n), cs.segments(torch.from_numpy(col), m)
+    trow, tcol, tval = (torch.from_numpy(a) for a in (row, col, val))
+    rs, ct = cs.segments(trow, n, tcol, tval), cs.segments(tcol, m, trow, tval)
     x = torch.from_numpy(rng.standard_normal((m, 3)).astype(np.float32)).requires_grad_()
     a = np.zeros((n, m), np.float32)
     np.add.at(a, (row, col), val)
-    out = cs.gather_sum_t(x, rs, torch.from_numpy(col), torch.from_numpy(val), ct)
+    out = cs.gather_sum_t(x, rs, ct)
     g = rng.standard_normal((n, 3)).astype(np.float32)
     out.backward(torch.from_numpy(g))
     np.testing.assert_allclose(out.detach().numpy(), a @ x.detach().numpy(), rtol=1e-5,
@@ -252,32 +258,83 @@ def test_adjoints():
     np.testing.assert_allclose(y.grad.numpy(), ones.T @ g[:, :2], rtol=1e-5, atol=1e-5)
 
 
-def _kernel_model(seg, width, term, base=None):
-    """csrc/segment_sum.cu in numpy: thread ``tid`` of group ``tid // G``
-    (lane ``tid % G``) owns live segment ``live[group // chunks]`` and
-    columns ``chunk·2G + lane`` and ``+ G``; it adds its segment's items in
-    sorted order (``perm``), one f32 rounding a product and a sum, from 0 or
-    from ``base``. Also checks that every (segment with items, column) has
-    one owner and the other rows none."""
-    G, chunks = cs.group_layout(width)
-    ptr, live = seg.ptr.numpy(), seg.live.numpy()
-    perm = None if seg.perm is None else seg.perm.numpy()
-    out = np.zeros((seg.n, width), np.float32) if base is None else base.copy()
-    owners = np.zeros((seg.n, width), np.int64)
-    for tid in range(len(live) * chunks * G):
-        group, lane = divmod(tid, G)
-        i, chunk = live[group // chunks], group % chunks
-        for c in (chunk * 2 * G + lane, chunk * 2 * G + lane + G):
-            if c >= width:
-                continue
-            owners[i, c] += 1
-            acc = out[i, c]
-            for k in range(ptr[i], ptr[i + 1]):
-                e = k if perm is None else perm[k]
-                acc = np.float32(acc + term(e, c))
-            out[i, c] = acc
-    np.testing.assert_array_equal(owners, np.repeat((np.diff(ptr) > 0)[:, None], width, 1))
+def _owned_columns(lay, hub: bool, esize: int, width: int) -> list:
+    """The columns each lane of a work entry's unit holds (csrc/segment_sum.cuh):
+    the item walker's lanes all add every column (lane 0 stores); the column
+    walker's lane t holds vectors t + p·lanes, p < passes (a hub team: one
+    vector of the hub's width a lane)."""
+    if lay.vec_bytes == 0:
+        return [np.arange(width)]
+    if hub:
+        vec, lanes, passes = lay.hub_vec_bytes // esize, 32 * lay.hub_team, 1
+    else:
+        vec, passes = lay.vec_bytes // esize, lay.passes
+        lanes = lay.group if lay.team == 1 else 32 * lay.team
+    nvec = width // vec
+    out = []
+    for t in range(lanes):
+        vs = [t + p * lanes for p in range(passes) if t + p * lanes < nvec]
+        if vs:
+            out.append(np.concatenate([np.arange(v * vec, (v + 1) * vec) for v in vs]))
     return out
+
+
+def _kernel_model(seg, width, term, base=None, dtype=np.float32):
+    """csrc/segment_sum.cuh in numpy: the units walk the work list
+    (``seg.work``: hubs longest first, the other live segments, the empty
+    ones): for kernel (a) (``base`` None) every segment, rows without items
+    written as 0; for kernel (b) the live ones. The first ``n_hub`` entries
+    go to hub teams (where the layout has them); each lane of an entry's
+    unit holds the columns ``cs.layout`` gives it and adds the segment's
+    items in sorted order (``perm``), one f32 rounding a product and a sum,
+    from 0 or from ``base``, then rounds once to ``dtype``. Also checks that
+    every (written row, column) has one owner and the other rows none."""
+    esize = np.dtype(dtype).itemsize
+    lay = cs.layout(width, esize, 16)
+    n_hub = seg.n_hub if lay.hubs else 0
+    work = seg.work.numpy()
+    perm = None if seg.perm is None else seg.perm.numpy()
+    n_work = seg.n if base is None else seg.n_live
+    out = (np.zeros((seg.n, width), np.float32) if base is None
+           else base.astype(np.float32))
+    owners = np.zeros((seg.n, width), np.int64)
+    for w in range(n_work):
+        i, b, e = work[w, :3]
+        for cols in _owned_columns(lay, w < n_hub, esize, width):
+            owners[i, cols] += 1
+            acc = out[i, cols]
+            for k in range(b, e):
+                acc = (acc + term(k if perm is None else perm[k], cols)).astype(np.float32)
+            out[i, cols] = acc
+    written = np.ones(seg.n, bool) if base is None else np.diff(seg.ptr.numpy()) > 0
+    np.testing.assert_array_equal(owners, np.repeat(written[:, None], width, 1))
+    return out.astype(dtype)
+
+
+def _check_model(seg, idx, width, rng, n, n_src, dtype=np.float32):
+    """Both kernels' model against the plain versions, bit for bit."""
+    e = idx.size
+    src = rng.integers(0, n_src, e)
+    val = rng.standard_normal(e).astype(np.float32)
+    x = rng.standard_normal((n_src, width)).astype(np.float32).astype(dtype)
+    tdtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(tdtype)
+
+    packed = cs.segments(seg.index, seg.n, torch.from_numpy(src), torch.from_numpy(val))
+    want = cs.gather_sum(t(x), packed)
+    vr = val.astype(dtype).astype(np.float32)  # val as x's type
+    x32 = x.astype(np.float32)
+    got = _kernel_model(seg, width, lambda k, c: vr[k] * x32[src[k], c], dtype=dtype)
+    np.testing.assert_array_equal(got.astype(np.float32), want.float().numpy())
+
+    values = rng.standard_normal((e, width)).astype(np.float32).astype(dtype)
+    base = rng.standard_normal((n, width)).astype(np.float32).astype(dtype)
+    want = cs.segment_sum_(t(base), seg, t(values))
+    v32 = values.astype(np.float32)
+    got = _kernel_model(seg, width, lambda k, c: v32[k, c], base, dtype=dtype)
+    np.testing.assert_array_equal(got.astype(np.float32), want.float().numpy())
 
 
 @pytest.mark.parametrize("width", [1, 2, 5, 41, 64, 82, 130])
@@ -288,21 +345,103 @@ def test_kernel_model_is_bit_equal_to_plain(width, sort):
     idx = rng.integers(0, n - 2, e)
     if sort:
         idx = np.sort(idx)
-    src = rng.integers(0, n_src, e)
-    val = rng.standard_normal(e).astype(np.float32)
-    x = rng.standard_normal((n_src, width)).astype(np.float32)
-    seg = cs.segments(torch.from_numpy(idx), n)
-    want = cs.gather_sum(torch.from_numpy(x), seg, torch.from_numpy(src),
-                         torch.from_numpy(val)).numpy()
-    got = _kernel_model(seg, width, lambda k, c: np.float32(val[k] * x[src[k], c]))
-    np.testing.assert_array_equal(got, want)
+    _check_model(cs.segments(torch.from_numpy(idx), n), idx, width, rng, n, n_src)
 
-    values = rng.standard_normal((e, width)).astype(np.float32)
-    base = rng.standard_normal((n, width)).astype(np.float32)
-    want = cs.segment_sum_(torch.from_numpy(base.copy()), seg,
-                           torch.from_numpy(values)).numpy()
-    got = _kernel_model(seg, width, lambda k, c: values[k, c], base)
-    np.testing.assert_array_equal(got, want)
+
+@pytest.mark.parametrize("width, dtype", [(2, np.float32), (41, np.float32),
+                                          (600, jnp.bfloat16)])
+@pytest.mark.parametrize("sort", [False, True])
+def test_kernel_model_with_a_hub(width, dtype, sort):
+    """One 5,000-item segment among short ones: the hub goes first to a team
+    of warps (one vector a lane; the item walker: a whole warp)."""
+    rng = np.random.default_rng(7)
+    n, n_src = 40, 97
+    idx = np.concatenate([np.full(5000, 17), rng.integers(0, n - 3, 300)])
+    idx = np.sort(idx) if sort else rng.permutation(idx)
+    seg = cs.segments(torch.from_numpy(idx), n)
+    assert cs.layout(width, np.dtype(dtype).itemsize, 16).hubs
+    assert seg.n_hub == 1 and int(seg.work[0, 0]) == 17
+    _check_model(seg, idx, width, rng, n, n_src, dtype)
+
+
+@pytest.mark.parametrize("n", [50, 700, 1000])  # more items than segments, as many, fewer
+@pytest.mark.parametrize("sort", [False, True])
+def test_work_list_and_packed_items_match_numpy(sort, n, monkeypatch):
+    """The set-up arrays: the work list (every segment as (segment, begin,
+    end, 0): the hubs longest first, then the other live segments longest
+    first where there are fewer items than segments, else in segment
+    order, then the empty ones; ties in segment order) and (a)'s items (src
+    and the bits of val, in segment order)."""
+    monkeypatch.setattr(cs, "HUB_ITEMS", 40)
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, n - 5, 700)
+    idx[:90] = 11  # two hubs: rows 11 and 3
+    idx[90:140] = 3
+    if sort:
+        idx = np.sort(idx)
+    src = rng.integers(0, 1000, idx.size)
+    val = rng.standard_normal(idx.size).astype(np.float32)
+    seg = cs.segments(torch.from_numpy(idx), n, torch.from_numpy(src), torch.from_numpy(val))
+    counts = np.bincount(idx, minlength=n)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    ids = np.arange(n)
+    group = np.where(counts >= 40, 0, np.where(counts > 0, 1, 2))
+    longest = idx.size < n
+    key = np.where((group == 0) | ((group == 1) & longest), -counts, ids)
+    order = np.lexsort((ids, key, group))
+    np.testing.assert_array_equal(
+        seg.work.numpy(), np.stack([order, ptr[order], ptr[order + 1], 0 * order], 1))
+    assert seg.work.dtype == torch.int32 and seg.work.is_contiguous()
+    assert seg.n_hub == 2 and list(seg.work[:2, 0].numpy()) == [11, 3]
+    assert seg.n_live == int((counts > 0).sum())
+    by_segment = np.argsort(idx, kind="stable")
+    np.testing.assert_array_equal(seg.items.numpy()[:, 0], src[by_segment])
+    np.testing.assert_array_equal(seg.items.numpy()[:, 1], val[by_segment].view(np.int32))
+    assert seg.items.dtype == torch.int32 and seg.items.shape == (idx.size, 2)
+    assert seg.src is not None and seg.val is not None
+    with pytest.raises(ValueError, match="built with src and val"):
+        cs.gather_sum(torch.ones((1000, 3)), cs.segments(torch.from_numpy(idx), n))
+
+
+@pytest.mark.parametrize("width, esize, align, want", [
+    # (vector bytes, vectors, group, passes, team, hub team, hub vector bytes)
+    (41, 2, 16, (2, 41, 32, 2, 1, 2, 2)),     # the GCN's residual, bf16 rows of 82 bytes
+    (82, 2, 16, (4, 41, 32, 2, 1, 3, 2)),     # the stacked forward
+    (600, 2, 16, (16, 75, 32, 1, 3, 5, 8)),   # SAGE/GIN: a team of 3 warps a row, hubs 5
+    (602, 2, 16, (4, 301, 32, 2, 5, 1, 4)),   # GIN's layer 0: 5 warps, 2 passes, no hubs
+    (300, 2, 16, (8, 75, 32, 1, 3, 5, 4)),    # TP halves: a team of 3 warps
+    (150, 2, 16, (4, 75, 32, 4, 1, 5, 2)),    # TP quarters: rows of 300 bytes, one warp
+    (41, 4, 16, (4, 41, 32, 2, 1, 2, 4)),
+    (82, 4, 16, (8, 41, 32, 2, 1, 3, 4)),     # the GAT's numerators [E, 2, 41] f32
+    (64, 4, 16, (16, 16, 16, 1, 1, 2, 4)),    # [E, 2, 32] f32
+    (82, 4, 4, (4, 82, 32, 4, 1, 3, 4)),      # a column slice aligned to 4 bytes
+    (2, 4, 16, (0, 2, 8, 1, 1, 1, 0)),        # the GAT's denominators: the item walker
+    (2000, 4, 16, (16, 500, 32, 2, 8, 1, 16)),   # no hub kernel: 16 warps a hub
+    (4096, 4, 16, (16, 1024, 32, 4, 8, 1, 16)),
+])
+def test_layout_of_the_models_widths(width, esize, align, want):
+    lay = cs.layout(width, esize, align)
+    assert (lay.vec_bytes, lay.nvec, lay.group, lay.passes, lay.team, lay.hub_team,
+            lay.hub_vec_bytes) == want
+    # a hub team covers the row one vector a lane, or there is none
+    covered = 32 * lay.hub_team * lay.hub_vec_bytes >= width * esize
+    assert lay.hubs == (lay.vec_bytes == 0 or covered)
+
+
+@pytest.mark.parametrize("width, esize, align", [(41, 2, 16), (600, 2, 16), (2, 4, 16),
+                                                 (82, 4, 4), (4096, 4, 16), (5000, 2, 2)])
+def test_plan_is_the_layout_of_each_column_chunk(width, esize, align):
+    """A call's launches, made once a shape: per column chunk its byte
+    offset, whether it takes the hub kernel and the layout's arguments."""
+    plan = cs._plan(width, esize, align)
+    assert cs._plan(width, esize, align) is plan
+    chunks = cs._column_chunks(width, esize, align)
+    assert sum(cols for _, cols in chunks) == width and len(plan) == len(chunks)
+    for (off, hubs, args), (c0, cols) in zip(plan, chunks):
+        lay = cs.layout(cols, esize, align)
+        assert off == c0 * esize and hubs == lay.hubs
+        assert args == (cols, lay.vec_bytes, lay.group, lay.passes, lay.team, lay.hub_team,
+                        lay.hub_vec_bytes)
 
 
 # The bf16 residual's error relative to each row's Σ|term|, on
@@ -349,9 +488,9 @@ def test_bf16_gather_sum_rounds_once_and_its_distance_from_jax():
         acc[live] = acc[live] + terms[ptr[live] + k]
     model = acc.astype(jnp.bfloat16).astype(np.float32)
 
-    seg = cs.segments(torch.from_numpy(index), n)
+    seg = cs.segments(torch.from_numpy(index), n, torch.from_numpy(src), torch.from_numpy(val))
     xt = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
-    port = cs.gather_sum(xt, seg, torch.from_numpy(src), torch.from_numpy(val))
+    port = cs.gather_sum(xt, seg)
     assert port.dtype == torch.bfloat16
     port = port.float().numpy()
     np.testing.assert_array_equal(port, model)
@@ -404,21 +543,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [2, 41, 82])
+@pytest.mark.parametrize("width", [2, 41, 82, 600])
 def test_kernels_match_plain_on_card(cuda_device, width):
     """Both kernels against their plain versions on the CPU: f32 bit-equal,
-    two launches bit-identical."""
+    two launches bit-identical; a 5,000-item hub row among the short ones."""
     rng = np.random.default_rng(width)
     n, e = 5000, 60000
     idx = rng.integers(0, n, e)
+    idx[rng.choice(e, 5000, replace=False)] = 123
     src = rng.integers(0, n, e)
     val = rng.standard_normal(e).astype(np.float32)
     x = rng.standard_normal((n, width)).astype(np.float32)
     values = rng.standard_normal((e, width)).astype(np.float32)
     for dev in (CPU, cuda_device):
-        seg = cs.segments(torch.from_numpy(idx).to(dev), n)
-        args = (torch.from_numpy(x).to(dev), seg, torch.from_numpy(src).to(dev),
-                torch.from_numpy(val).to(dev))
+        seg = cs.segments(torch.from_numpy(idx).to(dev), n, torch.from_numpy(src).to(dev),
+                          torch.from_numpy(val).to(dev))
+        args = (torch.from_numpy(x).to(dev), seg)
         a = cs.gather_sum(*args).cpu().numpy()
         np.testing.assert_array_equal(a, cs.gather_sum(*args).cpu().numpy())
         b = cs.segment_sum_(torch.zeros(n, width, device=dev), seg,
