@@ -153,6 +153,19 @@ Phases, each printed on its own lines:
   8. mesh profiles: the mesh GCN's, GAT's, SAGE's and GIN's epochs under
      ``torch.profiler``, eager and as the scan's replay (phase 4 profiles
      the single-card replays too);
+  7b. seed batches (``seeds.fit_seeds``, ``mode=scan``, the launch counts set
+     to 0 just before each): ``[seed-lanes]`` (with the kernel checks) holds
+     K1 and K2 over seed lanes (one launch, lane s's seed at its solo element
+     index) bit-equal to their plain versions at [233472, 4·600] bf16 and
+     [2708, 8·1433] f32 and lane by lane to the unlaned kernel, beside the
+     unlaned kernel over the same bytes; ``[main-seeds]``: synth-reddit's GCN
+     at full width as 4 lanes for 10 epochs, each lane bit-equal to its solo
+     ``fit`` (history, test metrics, weights), the batch's replay profiled;
+     ``[seeds-medium]``: synth-medium (segment) as 16 lanes for 30 epochs,
+     lanes 0, 5, 10, 15 bit-equal to their solo runs; ``[seeds-stop]``: a
+     cora-sized graph on the dense backend in f32 as 8 lanes with
+     ``early_stopping=5`` that stop at different epochs, each where its solo
+     run stops, histories within 1e-6;
   9. resume, after the GCN's, the GAT's and the mesh GCN's main path:
      through ``cli.main`` (the mesh GCN in a torchrun world of one), 10
      epochs with ``early_stopping=0 checkpoint_every=5 checkpoint_dir=``, bit-equal
@@ -210,6 +223,10 @@ DENSE_SETS = {
                      n_val=500, feature_nnz_per_row=32, n_communities=6),
 }
 
+# the port's utils.timer and utils.profiling, bound by main once the checkout
+# is on the path (the script imports nothing of the port before it has a card)
+timer = profiling = None
+
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s by type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -251,48 +268,6 @@ def _attn_bounds(pack, io: int, fmas_per: int, H: int, D: int) -> dict:
     nnz = int(pack.attn_index.col.numel())
     return dict(**_bound(_index_bytes(pack) + io, 2 * fmas_per * nnz * H * D, "f32"),
                 pack_bound_ms=_bound(_pack_bytes(pack) + io)["bound_ms"])
-
-
-def _events_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _device_ms(fn, reps: int, *names: str) -> float:
-    """Mean device milliseconds per call of ``fn`` in kernels whose names
-    contain one of ``names``, by ``torch.profiler``, after one warm-up call:
-    a short kernel's own time, which the host's launch cost hides from
-    ``_events_ms``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(5):  # a profile that caught no event (a few µs of kernels) is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(evt.device_time_total for evt in prof.events()
-                    if evt.device_type == torch.autograd.DeviceType.CUDA
-                    and any(name in evt.name for name in names))
-        if total > 0:
-            break
-    assert total > 0, f"the profiler saw no {names} kernel"
-    return total / 1e3 / reps
 
 
 def _max_err(got, ref, rtol: float, atol_frac: float = 1e-5) -> float:
@@ -435,16 +410,16 @@ def check_dropout(results: dict) -> None:
         inv = torch.tensor(1 / (1 - rate), dtype=dtype).cuda()
         want = torch.where(out > 0, g * inv, torch.zeros((), dtype=dtype, device="cuda"))
         assert torch.equal(xr.grad, want), "K2 backward"
-        ms1 = _events_ms(lambda: cd.dropout(x, slot, rate), 20)
-        dev1 = _device_ms(lambda: cd.dropout(x, slot, rate), 20, "dropout_kernel")
-        pms1 = _events_ms(lambda: cd.dropout_plain(x, seed, rate), 3)
-        ms2 = _events_ms(lambda: cd.relu_dropout(x, slot, rate), 20)
-        dev2 = _device_ms(lambda: cd.relu_dropout(x, slot, rate), 20, "dropout_kernel")
-        pms2 = _events_ms(lambda: cd.dropout_plain(x, seed, rate, relu=True), 3)
+        ms1 = timer.events_ms(lambda: cd.dropout(x, slot, rate), 20)
+        dev1 = profiling.kernel_ms(lambda: cd.dropout(x, slot, rate), 20, "dropout_kernel")
+        pms1 = timer.events_ms(lambda: cd.dropout_plain(x, seed, rate), 3)
+        ms2 = timer.events_ms(lambda: cd.relu_dropout(x, slot, rate), 20)
+        dev2 = profiling.kernel_ms(lambda: cd.relu_dropout(x, slot, rate), 20, "dropout_kernel")
+        pms2 = timer.events_ms(lambda: cd.dropout_plain(x, seed, rate, relu=True), 3)
         # the one PyTorch call for inverted dropout (another mask, from
         # PyTorch's generator; never on the port's path)
-        lib_ms = _events_ms(lambda: torch.nn.functional.dropout(x, rate), 20)
-        lib_dev = _device_ms(lambda: torch.nn.functional.dropout(x, rate), 20, "dropout")
+        lib_ms = timer.events_ms(lambda: torch.nn.functional.dropout(x, rate), 20)
+        lib_dev = profiling.kernel_ms(lambda: torch.nn.functional.dropout(x, rate), 20, "dropout")
         bound = _bound(2 * _nbytes(x))
         for key, name, ms, dev, pms, what in (
                 ("K1", "dropout", ms1, dev1, pms1, "fwd and bwd"),
@@ -503,6 +478,83 @@ def check_dropout_offset() -> None:
           f"a multiple of 4 is refused")
 
 
+# K1/K2 over seed lanes at the seed phases' shapes: ([rows, F], lanes, dtype,
+# rate): synth-reddit's layer 1 entry (K2) at [main-seeds]' 4 lanes, and the
+# cora-sized input dropout (K1) at [seeds-stop]'s 8 lanes
+LANE_SHAPES = (((233472, 600), 4, "bfloat16", 0.1), ((2708, 1433), 8, "float32", 0.4))
+
+
+def check_seed_lanes(results: dict) -> None:
+    """``[seed-lanes]``: K1 and K2 over S seed lanes (``dropout_lanes_kernel``,
+    one launch, lane s's seed at lane s's solo element index r·F + c) bit-equal
+    to their plain versions and, lane by lane, to the unlaned kernel on the
+    lane's own [rows, F] (the solo run's mask), backward included; lanes whose
+    F is no whole number of 16-byte vectors and K1 at an element offset too.
+    Times beside the bound (the unlaned kernel's byte bound at [rows, S·F]),
+    the unlaned kernel over the same bytes and ``F.dropout``."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
+
+    gen = torch.Generator().manual_seed(5)
+    base = 0x1234_5678_9ABC
+    for (rows, width), lanes, dtype_name, rate in LANE_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        seeds = [base + 7919 * s for s in range(lanes)]
+        # the seeds as the trainer holds them: a device slot of one int64 a lane
+        slot = torch.tensor(seeds, dtype=torch.int64, device="cuda")
+        x = torch.randn(rows, lanes * width, generator=gen).to(dtype).cuda()
+        g = torch.randn(rows, lanes * width, generator=gen).to(dtype).cuda()
+        inv = torch.tensor(1 / (1 - rate), dtype=dtype).cuda()
+        for key, name, relu in (("K1 lanes", "dropout", False), ("K2 lanes", "relu_dropout", True)):
+            fn = cd.relu_dropout if relu else cd.dropout
+            got = fn(x, slot, rate)
+            assert torch.equal(got, cd.dropout_plain(x, seeds, rate, relu)), \
+                f"{key} != plain at [{rows}, {lanes}·{width}] {dtype_name}"
+            for s in range(lanes):
+                lane = x[:, s * width:(s + 1) * width].contiguous()
+                assert torch.equal(got[:, s * width:(s + 1) * width], fn(lane, slot[s], rate)), \
+                    f"{key}: lane {s} != the unlaned kernel on its own columns"
+            xr = x.clone().requires_grad_(True)
+            out = fn(xr, slot, rate)
+            out.backward(g)
+            want = (torch.where(out > 0, g * inv, torch.zeros((), dtype=dtype, device="cuda"))
+                    if relu else cd.dropout_plain(g, seeds, rate))
+            assert torch.equal(xr.grad, want), f"{key} backward"
+            del xr, out, want
+            ms = timer.events_ms(lambda: fn(x, slot, rate), 20)
+            dev = profiling.kernel_ms(lambda: fn(x, slot, rate), 20, "dropout_lanes_kernel")
+            pms = timer.events_ms(lambda: cd.dropout_plain(x, seeds, rate, relu), 3)
+            # the unlaned kernel over the same bytes (one seed for the tensor)
+            one_ms = timer.events_ms(lambda: fn(x, base, rate), 20)
+            one_dev = profiling.kernel_ms(lambda: fn(x, base, rate), 20, "::dropout_kernel")
+            lib_ms = timer.events_ms(lambda: torch.nn.functional.dropout(x, rate), 20)
+            bound = _bound(2 * _nbytes(x))
+            print(f"[seed-lanes] {key} {name} [{rows}, {lanes}·{width}] {dtype_name} rate {rate}: "
+                  f"bit-equal to plain and lane by lane to the unlaned kernel on [{rows}, "
+                  f"{width}], fwd and bwd; kernel {ms:.4f} ms (device {dev:.4f}), unlaned kernel "
+                  f"at the same bytes {one_ms:.4f} ms (device {one_dev:.4f}), plain {pms:.4f} ms, "
+                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"torch.nn.functional.dropout {lib_ms:.4f} ms")
+            if (key == "K2 lanes") == (dtype_name == "bfloat16"):
+                results[key] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
+                                    unlaned_ms=one_ms, **bound)
+        del x, g
+    # the counter path: lanes of 41 columns (no whole 16-byte vector), bf16
+    # and f32, and K1 at an element offset
+    for dtype in (torch.bfloat16, torch.float32):
+        seeds = [base + s for s in range(3)]
+        x = torch.randn(1001, 3 * 41, generator=gen).to(dtype).cuda()
+        slot = torch.tensor(seeds, dtype=torch.int64, device="cuda")
+        for relu in (False, True):
+            fn = cd.relu_dropout if relu else cd.dropout
+            assert torch.equal(fn(x, slot, 0.3), cd.dropout_plain(x, seeds, 0.3, relu)), \
+                f"lanes of 41 columns != plain ({dtype}, relu={relu})"
+        assert torch.equal(cd.dropout(x, slot, 0.3, 8), cd.dropout_plain(x, seeds, 0.3, False, 8))
+    print("[seed-lanes] K1, K2 over 3 lanes of [1001, 41] (the counter path) bit-equal to plain "
+          "in bf16 and f32, K1 at element offset 8 too")
+
+
 def _check_stacked(tag: str, spmm, a, b, bound: dict | None = None) -> None:
     """The deferred-eval schedule's call: ``spmm`` of ``[a | b]`` at twice
     the width against two calls at the width of one. Prints whether each
@@ -515,8 +567,8 @@ def _check_stacked(tag: str, spmm, a, b, bound: dict | None = None) -> None:
     one = (spmm(a), spmm(b))
     same = torch.equal(both[:, :c], one[0]) and torch.equal(both[:, c:], one[1])
     diff = max(float((both[:, :c] - one[0]).abs().max()), float((both[:, c:] - one[1]).abs().max()))
-    wide = _events_ms(lambda: spmm(torch.cat([a, b], dim=1)), 10)
-    narrow = _events_ms(lambda: spmm(a), 10)
+    wide = timer.events_ms(lambda: spmm(torch.cat([a, b], dim=1)), 10)
+    narrow = timer.events_ms(lambda: spmm(a), 10)
     print(f"[kernels] {tag} stacked F={2 * c} (the deferred eval's train | val halves): "
           f"columns bitwise those of two F={c} calls: {same} (max difference {diff:.3e}); "
           f"{wide:.4f} ms with the concatenation, against 2 x {narrow:.4f} ms"
@@ -549,8 +601,8 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
             assert torch.equal(got, cb.bcsr_matmul_impl(pack, x)), f"{key}: two runs differ"
             ref = cb.bcsr_matmul_plain(pack, x)
             errs.append(_max_err(got, ref, rtol))
-            ms = _events_ms(lambda: cb.bcsr_matmul_impl(pack, x), 10)
-            pms = _events_ms(lambda: cb.bcsr_matmul_plain(pack, x), 2)
+            ms = timer.events_ms(lambda: cb.bcsr_matmul_impl(pack, x), 10)
+            pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(pack, x), 2)
             kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
             bound = _bound(_pack_bytes(pack) + _nbytes(x, got), 2 * pack_nnz * x.shape[1], kind)
             print(f"[kernels] {key} bcsr fwd F={x.shape[1]} {x.dtype}: max_abs_err "
@@ -560,7 +612,7 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
                 # the library call at the wide width: cuSPARSE on f32 x
                 csr = _pack_csr(pack)
                 x32 = x.float()
-                lib_ms = _events_ms(lambda: torch.sparse.mm(csr, x32), 10)
+                lib_ms = timer.events_ms(lambda: torch.sparse.mm(csr, x32), 10)
                 print(f"[kernels] {key} library torch.sparse.mm (CSR f32) F=600: "
                       f"{lib_ms:.4f} ms")
                 del csr, x32
@@ -576,7 +628,7 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
                 x32 = x.float()
                 lib = torch.sparse.mm(csr, x32)
                 rel = float(((lib - got).abs().max() / got.abs().max()))
-                results[key]["library_ms"] = _events_ms(lambda: torch.sparse.mm(csr, x32), 10)
+                results[key]["library_ms"] = timer.events_ms(lambda: torch.sparse.mm(csr, x32), 10)
                 print(f"[kernels] {key} library torch.sparse.mm (CSR f32, "
                       f"{csr.values().numel()} nnz) F={x.shape[1]}: "
                       f"{results[key]['library_ms']:.4f} ms, max diff to the kernel "
@@ -637,19 +689,19 @@ def _segment_case(results: dict, key: str, label: str, fn, ref, plain, library,
     card = plain()
     card_diff = float((card.float() - got.float()).abs().max())
     del card
-    ms = _events_ms(fn, 20)
-    plain_ms = _events_ms(plain, 20)
-    library_ms = _events_ms(library, 20)
+    ms = timer.events_ms(fn, 20)
+    plain_ms = timer.events_ms(plain, 20)
+    library_ms = timer.events_ms(library, 20)
     bound = _bound(nbytes, flops, kind)
     row = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
-    row["device_ms"] = device = _device_ms(fn, 10, "pgcn_seg::")
+    row["device_ms"] = device = profiling.kernel_ms(fn, 10, "pgcn_seg::")
     extra = f", device {device:.4f} ms"
     if per_item_bound_ms is not None:
         extra += f", bound counting a gathered row an item {per_item_bound_ms:.4f} ms"
     before = ""
     if parent is not None:
         assert torch.equal(parent(), got), f"{label}: the parent's kernel gives other bits"
-        row["parent_ms"] = _events_ms(parent, 20)
+        row["parent_ms"] = timer.events_ms(parent, 20)
         before = f", the parent's kernel {row['parent_ms']:.4f} ms (bit-equal)"
     print(f"[kernels] ordered sum {label}: bit-equal to the plain version on the CPU (max_abs_err "
           f"{err:.3e}), runs bit-identical; the plain version on the card (index_add_) differs "
@@ -881,7 +933,7 @@ def check_segment_flat(ds, cfg, parent=None) -> None:
     hub_seg = cs.segments(graph.row[hub_items], n, graph.col[hub_items], graph.val[hub_items])
     for F in (41, 600):
         x = torch.randn((n, F), generator=gen, device="cuda").to(torch.bfloat16)
-        ms = _events_ms(lambda: cs.gather_sum(x, hub_seg), 20)
+        ms = timer.events_ms(lambda: cs.gather_sum(x, hub_seg), 20)
         print(f"[kernels] (a) over the {len(hubs)} hub rows alone ({hub_items.numel()} entries, "
               f"at most {int(real.max())} a row) F={F} bf16: {ms:.4f} ms", flush=True)
         del x
@@ -966,11 +1018,11 @@ def check_tile_attention(results: dict, pack) -> None:
                 e6 = max(_max_err(a, b, 1e-3, atol_frac=1e-4) for a, b in zip(bwd, ref))
                 errs["K5"].append(e5)
                 errs["K6"].append(e6)
-                ms5 = _events_ms(lambda: ta.gat_fwd_tiles(pack, s, t, v, **kw), 10)
-                pms5 = _events_ms(lambda: ta.gat_fwd_tiles_plain(pack, s, t, v, **pkw), 2)
-                ms6 = _events_ms(
+                ms5 = timer.events_ms(lambda: ta.gat_fwd_tiles(pack, s, t, v, **kw), 10)
+                pms5 = timer.events_ms(lambda: ta.gat_fwd_tiles_plain(pack, s, t, v, **pkw), 2)
+                ms6 = timer.events_ms(
                     lambda: ta.gat_bwd_tiles(pack, s, t, v, g, m, den, rho, **kw), 10)
-                pms6 = _events_ms(
+                pms6 = timer.events_ms(
                     lambda: ta.gat_bwd_tiles_plain(pack, s, t, v, g, m, den, rho, **pkw), 2)
                 b5 = _attn_bounds(pack, _nbytes(s, t, v, *fwd), 1, H, D)
                 b6 = _attn_bounds(pack, _nbytes(s, t, v, g, m, den, rho, *bwd), 3, H, D)
@@ -1015,9 +1067,9 @@ def check_ce(results: dict, dds) -> None:
         if train:
             errs.append(_max_err(got[2], ref[2], 2e-5))
         kernel = lambda: ce._run(logits, labels, mask, num, train)  # noqa: E731
-        ms = _device_ms(kernel, 20, "ce_kernel")
-        call_ms = _events_ms(kernel, 20)
-        pms = _events_ms(
+        ms = profiling.kernel_ms(kernel, 20, "ce_kernel")
+        call_ms = timer.events_ms(kernel, 20)
+        pms = timer.events_ms(
             lambda: ce.masked_softmax_xent_fused_plain(logits, labels, mask, num, train), 5)
         outs = [t for t in got if t is not None]
         results[key] = dict(err=max(errs), ms=ms, plain_ms=pms,
@@ -1162,10 +1214,10 @@ def check_fused(results: dict) -> None:
         err = _max_err(got, plain(), rtol)
         # device time, as the [profile] lines and K9 read it; a call's time
         # by CUDA events beside it
-        ms = _device_ms(kernel, 20, *names[key])
-        call_ms = _events_ms(kernel, 20)
-        pms = _events_ms(plain, 2)
-        ums = _device_ms(unfused[key], 20, "")  # every kernel of the pair
+        ms = profiling.kernel_ms(kernel, 20, *names[key])
+        call_ms = timer.events_ms(kernel, 20)
+        pms = timer.events_ms(plain, 2)
+        ums = profiling.kernel_ms(unfused[key], 20, "")  # every kernel of the pair
         ins = {"K10 fwd": (x, w), "K10 dW": (x, g), "K10 dX": (g, w)}[key]
         # dX's f32 product runs as three bf16 passes (g split into exact terms)
         bound = _bound(_nbytes(*ins, got), 3 * flops if key == "K10 dX" else flops)
@@ -1238,12 +1290,12 @@ def check_sddmm(results: dict, ds, cfg) -> None:
         out = cs.sddmm_bcsr(pack, a, b)
         assert torch.equal(out, cs.sddmm_bcsr(pack, a, b)), "K8: two runs differ"
         errs.append(_max_err(out, cs.sddmm_plain(pack, a, b), rtol))
-        ms = _events_ms(lambda: cs.sddmm_bcsr(pack, a, b), 10)
-        pms = _events_ms(lambda: cs.sddmm_plain(pack, a, b), 2)
+        ms = timer.events_ms(lambda: cs.sddmm_bcsr(pack, a, b), 10)
+        pms = timer.events_ms(lambda: cs.sddmm_plain(pack, a, b), 2)
         a3, b3 = a.view(-1, R, 41), b.view(-1, R, 41)
         rows, cols = pack.tile_rows.long(), pack.tile_cols.long()
         lib = lambda: torch.bmm(a3[rows], b3[cols].transpose(1, 2))  # noqa: E731
-        lib_ms = _events_ms(lib, 5)
+        lib_ms = timer.events_ms(lib, 5)
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
         bound = _bound(_nbytes(a, b, pack.tile_rows, pack.tile_cols, out),
                        2 * T * R * R * 41, kind)
@@ -1333,8 +1385,8 @@ def check_bcsr_rect(results: dict, slab, tag: str, record: bool) -> None:
         got = cb.bcsr_matmul_rect(slab, x)
         assert torch.equal(got, cb.bcsr_matmul_rect(slab, x)), "K3 rect: two runs differ"
         errs.append(_max_err(got, cb.bcsr_matmul_plain(slab, x), rtol))
-        ms = _events_ms(lambda: cb.bcsr_matmul_rect(slab, x), 10)
-        pms = _events_ms(lambda: cb.bcsr_matmul_plain(slab, x), 2)
+        ms = timer.events_ms(lambda: cb.bcsr_matmul_rect(slab, x), 10)
+        pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(slab, x), 2)
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
         bound = _bound(_pack_bytes(slab) + _nbytes(x, got), 2 * nnz * F, kind)
         print(f"[mesh-kernels] K3 rect {tag} F={F} {dtype}: max_abs_err {errs[-1]:.3e} "
@@ -1343,7 +1395,7 @@ def check_bcsr_rect(results: dict, slab, tag: str, record: bool) -> None:
         if record and F in (41, 600):
             csr = _pack_csr(slab)
             x32 = x.float()
-            lib_ms = _events_ms(lambda: torch.sparse.mm(csr, x32), 10)
+            lib_ms = timer.events_ms(lambda: torch.sparse.mm(csr, x32), 10)
             print(f"[mesh-kernels] K3 rect {tag} library torch.sparse.mm (CSR f32, "
                   f"{csr.values().numel()} nnz) F={F}: {lib_ms:.4f} ms")
             if F == 41:
@@ -1412,8 +1464,8 @@ def check_attention_rect(results: dict, attn, tag: str, record: bool) -> None:
                            attn.cols, (*bw, *col), 2),
             }
             for key, (kernel, plain, pack, tensors, fmas) in calls.items():
-                ms = _events_ms(kernel, 10)
-                pms = _events_ms(plain, 2)
+                ms = timer.events_ms(kernel, 10)
+                pms = timer.events_ms(plain, 2)
                 # over the slab's (K7 col: its column copy's) live-column
                 # index, which all three walk, and streaming its tiles
                 bound = _attn_bounds(pack, _nbytes(*tensors), fmas, H, D)
@@ -1667,26 +1719,26 @@ def check_halo_case(name: str, csr, sg, sgb, device: str) -> dict:
     for F in (41, 600):
         x0 = torch.randn((sg.n_local, F), generator=gen).to(torch.bfloat16).to(dev)
         if g0.ring is not None:
-            pieces[f"ring step 0 (local slab) F={F}"] = _events_ms(
+            pieces[f"ring step 0 (local slab) F={F}"] = timer.events_ms(
                 lambda: tpl.ring_step(None, x0, g0.ring[0]), 5)
-            pieces[f"ring steps 1-{n - 1} F={F}"] = sum(_events_ms(
+            pieces[f"ring steps 1-{n - 1} F={F}"] = sum(timer.events_ms(
                 lambda s=s: tpl.ring_step(None, x0, g0.ring[s]), 5) for s in range(1, n))
             continue
         buf = torch.randn((sg.n_buf, F), generator=gen).to(torch.bfloat16).to(dev)
         if g0.coo is not None:
-            pieces[f"pull gather-sum F={F}"] = _events_ms(
+            pieces[f"pull gather-sum F={F}"] = timer.events_ms(
                 lambda: gather_sum(buf, g0.coo[3]), 5)
         else:
-            pieces[f"pull K3 + residual F={F}"] = _events_ms(
+            pieces[f"pull K3 + residual F={F}"] = timer.events_ms(
                 lambda: tpl.pull_sum(buf, g0.slab, g0.res), 5)
         if g0.push.tiles is not None:
-            pieces[f"push K3 alone F={F}"] = _events_ms(
+            pieces[f"push K3 alone F={F}"] = timer.events_ms(
                 lambda: tpl.bcsr_matmul_rect(g0.push.tiles, x0), 5)
         part = tpl.push_partials(x0, g0.push)
-        pieces[f"push partial slab F={F}"] = _events_ms(
+        pieces[f"push partial slab F={F}"] = timer.events_ms(
             lambda: tpl.push_partials(x0, g0.push), 5)
         out = torch.zeros((sg.n_local, F), dtype=torch.bfloat16, device=dev)
-        pieces[f"receive-add F={F}"] = _events_ms(
+        pieces[f"receive-add F={F}"] = timer.events_ms(
             lambda: tpl.receive_add(out, part, g0.push), 5)
         del buf, part, out
     rows = {"this layout": sg.n_local if getattr(sg, "ring", False) else sg.n_buf,
@@ -1873,8 +1925,8 @@ def check_tp_kernels(graph, results: dict) -> None:
         got = cb.bcsr_matmul_rect(slab, x)
         assert torch.equal(got, cb.bcsr_matmul_rect(slab, x)), "K3 rect: two runs differ"
         err = _max_err(got, cb.bcsr_matmul_plain(slab, x), 2e-3)
-        ms = _events_ms(lambda: cb.bcsr_matmul_rect(slab, x), 10)
-        pms = _events_ms(lambda: cb.bcsr_matmul_plain(slab, x), 2)
+        ms = timer.events_ms(lambda: cb.bcsr_matmul_rect(slab, x), 10)
+        pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(slab, x), 2)
         bound = _bound(_pack_bytes(slab) + _nbytes(x, got), 2 * nnz * F)
         print(f"[tp-emulated] K3 rect one-rank slab F={F} bf16 (x padded to "
               f"{cb.pad_features(x).shape[1]}): max_abs_err {err:.3e} (rtol 2e-3), runs "
@@ -2105,8 +2157,8 @@ def check_attention_chunked(ds) -> int:
             tol = (f"within 2^-5 of Σα|hw|, at most "
                    f"{float((diff / scale.clamp(min=1e-30)).max()):.3e} of it")
             del scale, diff
-        ms = _events_ms(lambda: attend_chunked(chunks, s, t, hw, slot, 0.1), 3)
-        ref_ms = _events_ms(lambda: model._attend_segment(graph, hw, s, t, slot, True), 3)
+        ms = timer.events_ms(lambda: attend_chunked(chunks, s, t, hw, slot, 0.1), 3)
+        ref_ms = timer.events_ms(lambda: model._attend_segment(graph, hw, s, t, slot, True), 3)
         print(f"[main-gat-chunk] one layer's attention over {graph.n_edges_pad} edges in "
               f"{len(chunks)} chunks of {GAT_CHUNK} (their Segments built in {t_chunks:.2f} s), "
               f"{dtype}, attention dropout 0.1: against the unchunked softmax max_abs_err "
@@ -2228,119 +2280,29 @@ def _config(args: list[str], epochs: int):
     return cfg
 
 
-def _category(kernel: str) -> str:
-    for key, cat in (("::ce_kernel", "K9 masked CE"),
-                     ("fwd_mma_kernel", "K10 fused fwd"), ("fwd_fma_kernel", "K10 fused fwd"),
-                     ("dw_mma_kernel", "K10 fused dW"), ("dw_fma_kernel", "K10 fused dW"),
-                     ("reduce_splits_kernel", "K10 fused dW"), ("dx_kernel<", "K10 fused dX"),
-                     ("dx_mma_kernel", "K10 fused dX"),
-                     ("spmm_pipe_kernel", "K3/K4 tile SpMM"),
-                     ("sddmm_", "K8 sddmm"),
-                     ("spmm_fma_kernel", "K3/K4 tile SpMM"),
-                     ("reduce_segments_kernel", "K3/K4 tile SpMM"),
-                     ("dropout_kernel<__nv_bfloat16, true>", "K2 relu_dropout"),
-                     ("dropout_kernel<float, true>", "K2 relu_dropout"),
-                     ("gat_fwd_kernel", "K5 gat_fwd"), ("merge_segments_kernel<true>", "K5 gat_fwd"),
-                     ("gat_bwd_kernel", "K6 gat_bwd"),
-                     # the padded v / g rows that K5, K6 and K7 copy before their walks
-                     ("pad_heads_kernel", "K5/K6/K7 padded rows"),
-                     ("gat_bwd_rect_row_kernel", "K7 row sweep"),
-                     ("gat_bwd_rect_col_kernel", "K7 column sweep"),
-                     ("merge_segments_kernel<false>", "K6/K7 ordered merge"),
-                     ("nccl", "collectives (NCCL)"),
-                     # the ordered sums of the COO residual (and the halo's cotangent)
-                     ("pgcn_seg::", "scatter/index (residual)"),
-                     ("dropout_kernel", "K1 dropout"), ("gemm", "GEMMs"), ("gemv", "GEMMs"),
-                     ("xmma", "GEMMs"), ("nvjet", "GEMMs"), ("cutlass", "GEMMs"),
-                     ("scatter", "scatter/index (residual)"),
-                     ("index", "scatter/index (residual)"), ("reduce", "reductions"),
-                     ("Memcpy", "copies"), ("Memset", "copies")):
-        if key in kernel:
-            return cat
-    return "other elementwise"
-
-
-def _trace_of(prof) -> dict:
-    """The profiler's trace (its chrome-trace JSON) as a dict."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return json.load(f)
-
-
-def _report_profile(label: str, trace: dict, reps: int, host_ms: float) -> float:
-    """Print the device time by op of ``reps`` epochs in a profiler
-    ``trace`` (its kernel, memcpy and memset records) against ``host_ms`` a
-    host-clock epoch, and the device's idle share; returns the device
-    ms/epoch."""
-    by_kernel: dict = {}
-    for evt in trace["traceEvents"]:
-        if evt.get("ph") == "X" and evt.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            name = evt["name"]
-            by_kernel[name] = by_kernel.get(name, 0.0) + evt["dur"] / 1e3 / reps
-    dev_ms = sum(by_kernel.values())
-    records = sum(1 for evt in trace["traceEvents"] if evt.get("ph") == "X"
-                  and evt.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    print(f"[profile] {label}: {host_ms:.3f} ms/epoch host clock, {dev_ms:.3f} ms/epoch "
-          f"device time ({records / reps:.0f} device records an epoch), device idle "
-          f"{100 * (1 - dev_ms / host_ms):.1f}%")
-    if dev_ms == 0:
-        print("[profile] the profiler saw no device time: device time not measured")
-        return dev_ms
-    by_cat: dict = {}
-    for name, ms in by_kernel.items():
-        by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
-    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {cat:28s} {ms:9.3f} ms/epoch {100 * ms / dev_ms:5.1f}%")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[profile]   kernel {ms:9.3f} ms/epoch  {name[:110]}")
-    return dev_ms
-
-
-def _profiled(step, reps: int) -> tuple[dict, list]:
-    """``step()`` once under the profiler's warm-up and ``reps`` times
-    under its trace (a profile that starts cold has been seen to miss part
-    of the first mesh replay's kernels): (the trace, the host seconds of the
-    traced calls)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    traces: list = []
-    secs = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1),
-                 on_trace_ready=lambda p: traces.append(_trace_of(p))) as prof:
-        for _ in range(1 + reps):
-            t0 = time.perf_counter()
-            step()
-            secs.append(time.perf_counter() - t0)
-            prof.step()
-    return traces[0], secs[1:]
-
-
 def _profile_epochs(label: str, epoch) -> None:
     """Device time by op over 3 calls of ``epoch()`` (one eager training
-    epoch that ends reading its metrics) after 2 warm-up calls, against the
-    host clock of the profiled calls."""
+    epoch that ends reading its metrics) after 2 warm-up calls and the
+    profiler's warm-up call, against the host clock of the profiled calls
+    (``utils.profiling``)."""
     for _ in range(2):
         epoch()
     reps = 3
-    trace, secs = _profiled(epoch, reps)
-    _report_profile(f"{label}, mode=eager, {reps} epochs after 2 warm-up", trace, reps,
-                    sum(secs) * 1e3 / reps)
+    _, prof = profiling.profile_fn(epoch, reps=reps)
+    profiling.report(f"{label}, mode=eager, {reps} epochs after 2 warm-up", prof)
 
 
 # epochs of a profiled scan: epoch 1 (before the capture), 2 warm-up replays,
-# 3 timed without the profiler, the profiler's warm-up replay and 3 under it
-SCAN_PROFILE_EPOCHS = 10
+# 3 timed without the profiler, the profiler's warm-up replay and 3 under it,
+# and as many again for a second trace when the first is short
+SCAN_PROFILE_EPOCHS = 14
 
 
 def _profile_scan(label: str, loop) -> None:
     """Device time by op over 3 replays of ``loop``'s captured epoch
-    (``_profiled``) against the host clock of 3 unprofiled replays ended by
-    one sync: the scan epoch's idle share."""
+    (``utils.profiling``, the trace held to the captured launches) against
+    the host clock of 3 unprofiled replays ended by one sync: the scan
+    epoch's idle share."""
     import torch
 
     loop.prepare()
@@ -2353,14 +2315,9 @@ def _profile_scan(label: str, loop) -> None:
         loop.epoch()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
-
-    def replay():
-        loop.epoch()
-        torch.cuda.synchronize()
-
-    trace, _ = _profiled(replay, reps)
-    _report_profile(f"{label}, mode=scan, {reps} replays (unprofiled host clock of 3 others)",
-                    trace, reps, host_ms)
+    _, prof = profiling.profile_fn(loop.epoch, reps=reps, per_step=loop.graph_launches)
+    profiling.report(f"{label}, mode=scan, {reps} replays (unprofiled host clock of 3 others)",
+                     prof, host_ms)
 
 
 def phase_profile(name: str, args: list[str], dds) -> None:
@@ -2498,7 +2455,8 @@ KERNEL_KEYS = {"K1": "dropout", "K2": "relu_dropout", "K3": "bcsr", "K4": "bcsr_
                "K7 col": "gat_bwd_rect_col", "K9 train": "ce_train", "K9 eval": "ce_eval",
                "K10 fwd": "fused_fwd", "K10 dW": "fused_dw", "K10 dX": "fused_dx",
                "K8": "sddmm", "ordered gather_sum": "gather_sum",
-               "ordered segment_sum": "segment_sum"}
+               "ordered segment_sum": "segment_sum", "K1 lanes": "dropout_lanes",
+               "K2 lanes": "relu_dropout_lanes"}
 # the ordered sums' hub kernels (launched beside the walk kernel by a call
 # whose work list has hubs), counted apart from KERNEL_KEYS so the launches
 # a replay stay those of the walk kernels
@@ -2776,6 +2734,128 @@ def phase_resume(tag: str, args: list[str], unchunked, unchunked_ms: float,
                 chunked_ms=whole.avg_epoch_time_s * 1e3)
 
 
+SEED_LANES = 4  # [main-seeds]
+
+
+def _seed_batch(tag: str, cfg, dds, lanes: int, solo_lanes, exact: bool) -> dict:
+    """``seeds.fit_seeds`` of ``cfg`` over ``lanes`` seeds from ``cfg.tpu.seed``
+    (``mode=scan``: epoch 1, the capture, replays), with every launch count
+    set to 0 just before it, then ``train.fit`` of each lane in
+    ``solo_lanes`` with its seed: the lane must be its solo run, bit for bit
+    with ``exact`` (history, test metrics, weights), or with the same epochs,
+    histories within 1e-6 and the test metrics and final weights within
+    1e-5."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from parallel_gcn_tpu_torch.seeds import fit_seeds
+    from parallel_gcn_tpu_torch.train import fit
+
+    seeds = [cfg.tpu.seed + s for s in range(lanes)]
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = fit_seeds(cfg, dds, seeds)
+    secs = time.perf_counter() - t0
+    counts = _read_counts(res.replays, res.graph_launches)
+    per_replay = _per_replay(res.graph_launches)
+    solo_ms, diffs = [], []
+    for s in solo_lanes:
+        solo_cfg = copy.deepcopy(cfg)
+        solo_cfg.tpu.seed = seeds[s]
+        solo = fit(solo_cfg, dds)
+        solo_ms.append(solo.avg_epoch_time_s * 1e3)
+        assert res.epochs_run[s] == solo.epochs_run, \
+            f"[{tag}] lane {s} ran {res.epochs_run[s]} epochs, its solo run {solo.epochs_run}"
+        test = (float(res.test_loss[s]), float(res.test_acc[s]))
+        if exact:
+            same = (np.array_equal(res.history[s], solo.history)
+                    and test == (solo.test_loss, solo.test_acc)
+                    and all(torch.equal(a, b) for a, b in zip(res.weights[s], solo.weights)))
+            assert same, f"[{tag}] lane {s} (seed {seeds[s]}) is not its solo run bit for bit"
+        else:
+            diff = (float(abs(res.history[s] - solo.history).max()),
+                    max(abs(test[0] - solo.test_loss), abs(test[1] - solo.test_acc)),
+                    max(float((a - b).abs().max()) for a, b in zip(res.weights[s],
+                                                                  solo.weights)))
+            diffs.append(diff)
+            assert diff[0] <= 1e-6, f"[{tag}] lane {s}'s history differs from its solo run's " \
+                                    f"by {diff[0]}"
+            # the test eval and the weights after the last epoch: 1e-5
+            assert max(diff[1:]) <= 1e-5, f"[{tag}] lane {s}'s test metrics and weights differ " \
+                                          f"from its solo run's by {diff[1:]}"
+    ms, one = res.avg_epoch_time_s * 1e3, sum(solo_ms) / len(solo_ms)
+    print(f"[{tag}] {lanes} lanes through fit_seeds (mode=scan) in {secs:.1f} s: {ms:.3f} "
+          f"ms/epoch over {res.replays} replays, set-up {res.setup_time_s:.3f} s; one solo run "
+          f"{one:.3f} ms/epoch ({lanes} solo runs {lanes * one:.3f}: the batch takes "
+          f"{ms / (lanes * one):.3f} of them); epochs run {res.epochs_run}; lanes "
+          f"{list(solo_lanes)} equal to their solo runs "
+          + ("bit for bit (history, test metrics, weights)" if exact else
+             "in epochs, histories within {:.3e}, test metrics {:.3e}, weights {:.3e}".format(
+                 *(max(d[i] for d in diffs) for i in range(3))))
+          + f"; test_acc {[round(float(a), 5) for a in res.test_acc]}; launches a replay "
+            f"{per_replay}, launches {counts}")
+    return dict(counts=counts, per_replay=per_replay, ms=ms, solo_ms=one, result=res)
+
+
+def phase_main_seeds(dds) -> dict:
+    """``[main-seeds]``: synth-reddit's GCN at full width (602 -> 600 -> 41,
+    hybrid int8 tiles, bf16) as a batch of ``SEED_LANES`` seeds, ``EPOCHS``
+    epochs, each lane held bit for bit against its solo ``fit``; then the
+    batch's replay under the profiler."""
+    from parallel_gcn_tpu_torch.seeds import seed_run
+
+    out = _seed_batch("main-seeds", _config([], EPOCHS), dds, SEED_LANES,
+                      range(SEED_LANES), exact=True)
+    cfg = _config([], SCAN_PROFILE_EPOCHS)
+    run = seed_run(cfg, dds, [cfg.tpu.seed + s for s in range(SEED_LANES)])
+    _profile_scan(f"synth-reddit GCN, {SEED_LANES} seed lanes", run.loop)
+    return out
+
+
+def phase_seeds_medium() -> dict:
+    """``[seeds-medium]``: synth-medium (``backend=segment``: the flat COO's
+    ordered gather-sum at 16·64 columns) as 16 lanes, 30 epochs, lanes 0, 5,
+    10 and 15 held bit for bit against their solo runs."""
+    import torch
+
+    from parallel_gcn_tpu_torch.config import default_params_path, load_config
+    from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset
+
+    cfg = load_config(default_params_path("synth-medium"), dict(epochs=30, verbose=False))
+    t0 = time.perf_counter()
+    _, dds = prepare_device_dataset(cfg, "synth-medium", torch.device("cuda"))
+    print(f"[seeds-medium] synth-medium generated in {time.perf_counter() - t0:.1f} s "
+          f"(backend={cfg.tpu.backend}, hidden {cfg.gcn.hidden_dims}, dropouts "
+          f"{cfg.gcn.dropouts}, {cfg.tpu.compute_dtype})")
+    return _seed_batch("seeds-medium", cfg, dds, 16, (0, 5, 10, 15), exact=True)
+
+
+def phase_seeds_stop() -> dict:
+    """``[seeds-stop]``: a generated cora-sized graph (``DENSE_SETS``, with a
+    feature signal of 2.0 so that lanes stop at different epochs) on the
+    dense backend in f32, ``parameters_cora.txt``'s width 72 and dropouts
+    0.4 / 0.2 (K1 over 8 lanes of 1,433 features), 8 lanes with
+    ``early_stopping=5`` and at most 200 epochs: each lane stops where its
+    solo run stops, its history within 1e-6 (Â·[N, 8·72] is one cuBLAS
+    product whose algorithm follows the shape, so bits are not asked for)."""
+    import torch
+
+    from parallel_gcn_tpu_torch.config import default_params_path, load_config
+    from parallel_gcn_tpu_torch.data.parser import to_device
+    from parallel_gcn_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    ds = make_synthetic_dataset("cora-sized", **DENSE_SETS["cora"], feature_signal=2.0)
+    dds = to_device(ds, device=torch.device("cuda"), dense=True)
+    cfg = load_config(default_params_path("cora"), dict(
+        epochs=200, early_stopping=5, compute_dtype="float32", backend="dense", verbose=False))
+    out = _seed_batch("seeds-stop", cfg, dds, 8, range(8), exact=False)
+    runs = out["result"].epochs_run
+    assert len(set(runs)) > 1 and max(runs) < 200, f"the lanes stopped at {runs}"
+    return out
+
+
 def phase_remat(tag: str, args: list[str], dds, unremat) -> dict:
     """``train.fit`` of synth-reddit with ``args`` in ``mode=scan`` without
     and with ``remat=true``, every launch count set to 0 just before the
@@ -2888,6 +2968,8 @@ def main(argv: list[str]) -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     import parallel_gcn_tpu_torch  # noqa: F401  (fails outside a checkout)
+    global timer, profiling
+    from parallel_gcn_tpu_torch.utils import profiling, timer
     from parallel_gcn_tpu_torch.config import default_params_path, load_config
     from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset, prepare_host_dataset
 
@@ -2917,6 +2999,7 @@ def main(argv: list[str]) -> int:
     results: dict = {}
     check_dropout(results)
     check_dropout_offset()
+    check_seed_lanes(results)
     # GIN's layer-0 aggregation input: s ⊙ x in bf16 (models/sage.py sum_agg)
     gin602 = dds.graph.sqrt_deg.to(torch.bfloat16)[:, None] * dds.x.to(torch.bfloat16)
     parent = parent_segment_sums(argv[argv.index("--parent") + 1] if "--parent" in argv
@@ -3033,6 +3116,18 @@ def main(argv: list[str]) -> int:
     assert (gin["counts"]["K4"], gin["counts"]["ordered gather_sum"],
             gin["counts"]["K2"]) == (5 * EPOCHS + 2, 5 * EPOCHS + 2, EPOCHS), gin
     _stamp("main-gin")
+    main_seeds = phase_main_seeds(dds)
+    # a replay: the GCN's deferred schedule over the lanes: K2 over the lanes
+    # once (layer 1's train forward), K4 and the gather-sum of its residual
+    # over 4·82 columns (the stacked forward) and 4·41 (the backward); plus
+    # the pre-aggregation, the final val eval and the test eval, each one
+    # aggregation for all lanes
+    assert main_seeds["per_replay"] == {"K2 lanes": 1, "K4": 2, "ordered gather_sum": 2}, \
+        main_seeds["per_replay"]
+    assert (main_seeds["counts"]["K2 lanes"], main_seeds["counts"]["K4"],
+            main_seeds["counts"]["ordered gather_sum"], main_seeds["counts"]["K2"]) == (
+        EPOCHS, 2 * EPOCHS + 3, 2 * EPOCHS + 3, 0), main_seeds
+    _stamp("main-seeds")
     remat = {"GCN": phase_remat("remat-gcn", [], dds, gcn["scan_run"]),
              "GAT": phase_remat("remat-gat", GAT_ARGS, dds, gat["scan_run"])}
     # the GCN's deferred schedule recomputes layer 0's transform only (its
@@ -3045,6 +3140,15 @@ def main(argv: list[str]) -> int:
     del dds
     torch.cuda.empty_cache()
     _stamp("single-card paths")
+    seeds_medium = phase_seeds_medium()
+    assert seeds_medium["per_replay"] == {"K2 lanes": 1, "ordered gather_sum": 2}, \
+        seeds_medium["per_replay"]
+    seeds_stop = phase_seeds_stop()
+    # the plain epoch (early stopping): K1 over the lanes' input features and
+    # K2 at layer 1's entry, in the train forward; the dense Â is cuBLAS's
+    assert seeds_stop["per_replay"] == {"K1 lanes": 1, "K2 lanes": 1}, seeds_stop["per_replay"]
+    torch.cuda.empty_cache()
+    _stamp("seed batches")
     mesh_gcn = phase_mesh_path("main-mesh-gcn", MESH_GCN_ARGS, ds, gcn)
     # a replay (deferred eval on the mesh): K3 over the slab for the stacked
     # forward and for the backward (layer 0 pre-aggregated), each with the
@@ -3136,7 +3240,8 @@ def main(argv: list[str]) -> int:
              "mesh GCN hybrid adaptive": hyb_adaptive,
              "GAT segment": gat_chunk["main-gat-segment"],
              "GAT segment chunked": gat_chunk["main-gat-chunk"],
-             "mesh GAT segment chunked": mesh_gat_chunk}
+             "mesh GAT segment chunked": mesh_gat_chunk, "GCN 4 seed lanes": main_seeds,
+             "synth-medium 16 seed lanes": seeds_medium, "cora-sized 8 seed lanes": seeds_stop}
     # each kernel's launches over every main path and the emulated TP
     # forwards and backwards (K3 and K8 run on none: 0)
     counts = {key: sum(p["counts"][key] for p in paths.values()) + tp_emu["counts"][key]
@@ -3163,6 +3268,7 @@ def main(argv: list[str]) -> int:
                 **({"bound_pack_ms": r["pack_bound_ms"]} if "pack_bound_ms" in r else {}),
                 **({"parent_ms": r["parent_ms"]} if "parent_ms" in r else {}),
                 **({"hub_launches": counts[f"{key} hub"]} if f"{key} hub" in counts else {}),
+                **({"unlaned_ms": r["unlaned_ms"]} if "unlaned_ms" in r else {}),
                 **({"bound_f32_ops_ms": r["f32_ops_bound_ms"]} if "f32_ops_bound_ms" in r
                    else {})}
 
@@ -3200,6 +3306,10 @@ def main(argv: list[str]) -> int:
                   "parallel_gcn_tpu/ops/tile_attention.py:475"),
             entry("ordered gather_sum", "ordered_gather_sum", seg_src, seg_replaces),
             entry("ordered segment_sum", "ordered_segment_sum", seg_src, seg_replaces),
+            entry("K1 lanes", "dropout_lanes", drop_src,
+                  "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
+            entry("K2 lanes", "relu_dropout_lanes", drop_src,
+                  "parallel_gcn_tpu/ops/pallas_dropout.py:142"),
         ],
         # ported kernels that no main path launches
         "off_path_kernels": [

@@ -43,6 +43,20 @@
 // path in the same kernel: one counter a thread, the same bits. The mask is
 // never stored (the K1 backward regenerates it, the K2 backward reads the
 // saved output).
+//
+// Seed lanes (dropout_lanes_kernel, for a batch of S training runs that
+// share one graph, parallel_gcn_tpu_torch/seeds.py). The batch keeps its
+// activations row-major as [rows, S*F], lane s in columns s*F .. s*F+F-1,
+// and lane s's mask is the mask of a solo run with lane s's seed on its own
+// [rows, F] tensor: element (r, c) of lane s uses lane s's seed and the
+// element index r*F + c (plus the offset), so a lane equals its solo run
+// bit for bit. One launch covers all lanes, a 16-byte vector a step where F
+// is a whole number of vectors (each vector then lies in one lane's row and
+// on whole Philox counters: its solo index r*F + c is a multiple of the
+// vector width), else one counter of one lane a step (4 elements, each
+// placed by its own row and column). The bound is the unlaned kernel's byte
+// bound at [rows, S*F]; the row and lane of a vector cost two 64-bit
+// divisions, below its two Philox counters.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,6 +243,116 @@ int launch(const void* x, void* out, int64_t n, const unsigned long long* seed,
   return 0;
 }
 
+
+// The lanes kernel: x and out are [rows, lanes * width] row-major; seeds
+// holds one uint64 a lane. n_vec is the tensor's number of 16-byte vectors
+// when width is a whole number of them and x and out are aligned, else 0
+// (every element through the counter path).
+template <typename T, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+dropout_lanes_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t rows,
+                     int64_t lanes, int64_t width, int64_t n_vec,
+                     const unsigned long long* __restrict__ seeds, uint64_t ctr0, uint32_t thr,
+                     float inv_keep) {
+  constexpr int kVec = Vec<T>::kVec;
+  constexpr int kCtr = kVec / 4;
+  const int64_t row_len = lanes * width;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* ov = reinterpret_cast<uint4*>(out);
+  const int64_t stride = (int64_t)gridDim.x * kThreads * kUnroll;
+  for (int64_t w0 = (int64_t)blockIdx.x * kThreads * kUnroll + threadIdx.x; w0 < n_vec;
+       w0 += stride) {
+    uint4 in[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t w = w0 + (int64_t)u * kThreads;
+      if (w < n_vec) in[u] = __ldg(xv + w);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t w = w0 + (int64_t)u * kThreads;
+      if (w < n_vec) {
+        const int64_t e = w * kVec;  // the vector's first element
+        const int64_t r = e / row_len;
+        const int64_t col = e - r * row_len;
+        const int64_t lane = col / width;
+        const int64_t j = r * width + (col - lane * width);  // its index in the lane
+        const unsigned long long key = __ldg(seeds + lane);
+        uint32_t bits[kVec];
+#pragma unroll
+        for (int c = 0; c < kCtr; ++c) {
+          const uint4 b = philox4x32_10(ctr0 + (uint64_t)(j >> 2) + c, (uint32_t)key,
+                                        (uint32_t)(key >> 32));
+          bits[4 * c] = b.x; bits[4 * c + 1] = b.y;
+          bits[4 * c + 2] = b.z; bits[4 * c + 3] = b.w;
+        }
+        float f[kVec];
+        Vec<T>::get(in[u], f);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) f[k] = drop1<kRelu>(f[k], bits[k], thr, inv_keep);
+        ov[w] = Vec<T>::put(f);
+      }
+    }
+  }
+  if (n_vec > 0) return;
+  // the counter path: one Philox counter (4 elements) of one lane a thread;
+  // lane-major, so that neighbouring threads hold neighbouring elements
+  const int64_t n_lane = rows * width;
+  const int64_t ctr_lane = (n_lane + 3) >> 2;
+  for (int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x; p < lanes * ctr_lane;
+       p += (int64_t)gridDim.x * kThreads) {
+    const int64_t lane = p / ctr_lane;
+    const int64_t q = p - lane * ctr_lane;
+    const unsigned long long key = __ldg(seeds + lane);
+    const uint4 b = philox4x32_10(ctr0 + (uint64_t)q, (uint32_t)key, (uint32_t)(key >> 32));
+    const uint32_t bits[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t j = (q << 2) + k;
+      if (j < n_lane) {
+        const int64_t r = j / width;
+        const int64_t i = r * row_len + lane * width + (j - r * width);
+        Vec<T>::store1(out + i, drop1<kRelu>(Vec<T>::load1(x + i), bits[k], thr, inv_keep));
+      }
+    }
+  }
+}
+
+template <typename T, bool kRelu>
+int launch_lanes(const void* x, void* out, int64_t rows, int64_t lanes, int64_t width,
+                 const unsigned long long* seeds, uint64_t ctr0, uint32_t thr, float inv_keep,
+                 cudaStream_t stream) {
+  constexpr int kVec = Vec<T>::kVec;
+  const bool whole = width % kVec == 0 &&
+                     ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
+                      15u) == 0;
+  const int64_t n_vec = whole ? rows * lanes * width / kVec : 0;
+  const int64_t work = whole ? (n_vec + kUnroll - 1) / kUnroll
+                             : lanes * ((rows * width + 3) >> 2);
+  const int64_t want = (work + kThreads - 1) / kThreads;
+  static int cached[kMaxDevices];  // the grid's cap a device, 0: not yet asked
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dropout_lanes_kernel<T, kRelu>, kThreads, 0);
+    if (rc != cudaSuccess) return (int)rc;
+    cached[dev] = kWaves * sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int64_t cap = cached[dev];
+  const int64_t rounds = (want + cap - 1) / cap;
+  const int64_t grid = want > 0 ? (want + rounds - 1) / rounds : 1;
+  dropout_lanes_kernel<T, kRelu><<<(unsigned)grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), rows, lanes, width, n_vec, seeds, ctr0,
+      thr, inv_keep);
+  return 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Any alignment of x and out. seed points
@@ -247,6 +371,33 @@ extern "C" int pgcn_dropout(const void* x, void* out, int64_t n, int dtype,
   } else if (dtype == 1) {
     rc = relu ? launch<__nv_bfloat16, true>(x, out, n, seed, ctr0, thr, inv_keep, s)
               : launch<__nv_bfloat16, false>(x, out, n, seed, ctr0, thr, inv_keep, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rc) return rc;
+  return (int)cudaGetLastError();
+}
+
+// K1 / K2 over S seed lanes: x and out are [rows, lanes * width] row-major,
+// seeds points to lanes uint64 seeds in device memory. Otherwise as
+// pgcn_dropout.
+extern "C" int pgcn_dropout_lanes(const void* x, void* out, int64_t rows, int64_t lanes,
+                                  int64_t width, int dtype, int relu,
+                                  const unsigned long long* seeds, uint64_t ctr0, uint32_t thr,
+                                  float inv_keep, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || lanes <= 0 || width <= 0) return (int)cudaErrorInvalidValue;
+  int rc;
+  if (dtype == 0) {
+    rc = relu ? launch_lanes<float, true>(x, out, rows, lanes, width, seeds, ctr0, thr,
+                                          inv_keep, s)
+              : launch_lanes<float, false>(x, out, rows, lanes, width, seeds, ctr0, thr,
+                                           inv_keep, s);
+  } else if (dtype == 1) {
+    rc = relu ? launch_lanes<__nv_bfloat16, true>(x, out, rows, lanes, width, seeds, ctr0,
+                                                  thr, inv_keep, s)
+              : launch_lanes<__nv_bfloat16, false>(x, out, rows, lanes, width, seeds, ctr0,
+                                                   thr, inv_keep, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

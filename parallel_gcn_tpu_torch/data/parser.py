@@ -271,11 +271,12 @@ def prepare_host_dataset(cfg, name: str) -> Dataset:
 
 
 def prepare_device_dataset(
-    cfg, name: str, device: torch.device
+    cfg, name: str, device: torch.device, host: Dataset | None = None
 ) -> tuple[Dataset, DeviceDataset]:
     """Load → (optionally) reorder → device layout on ``device``, driven by
-    one Config."""
-    ds = prepare_host_dataset(cfg, name)
+    one Config; ``host``, when given, is ``prepare_host_dataset``'s result
+    for ``cfg`` (a sweep over layouts loads and reorders once)."""
+    ds = prepare_host_dataset(cfg, name) if host is None else host
     cfg.tpu.__post_init__()
     backend = cfg.tpu.backend
     dense = backend == "dense" or (

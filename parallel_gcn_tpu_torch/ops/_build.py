@@ -50,6 +50,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_dropout.argtypes = [p, p, i64, i32, i32, p, ctypes.c_uint64, ctypes.c_uint32,
                                  ctypes.c_float, p]
     lib.pgcn_dropout.restype = i32
+    lib.pgcn_dropout_lanes.argtypes = [p, p, i64, i64, i64, i32, i32, p, ctypes.c_uint64,
+                                       ctypes.c_uint32, ctypes.c_float, p]
+    lib.pgcn_dropout_lanes.restype = i32
     lib.pgcn_bcsr_spmm.argtypes = [
         p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, i32, i32, i32, i32, i32, p,
     ]

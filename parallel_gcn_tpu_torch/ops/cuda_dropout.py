@@ -28,6 +28,14 @@ tests, kernel checks), which ``seed_tensor`` writes to the device with a
 fill kernel. The plain version takes either, without reading a slot on the
 host.
 
+Seed lanes. A batch of S training runs over one graph (``seeds.fit_seeds``)
+keeps its activations as [rows, S·F], lane s in columns s·F … s·F+F−1, and
+passes S seeds (a slot of S integers on the device, or S ints): lane s's
+element (r, c) is drawn with lane s's seed at element index r·F + c (plus
+the offset), so each lane's mask is the one its solo run draws on its own
+[rows, F] tensor, bit for bit, and one launch masks every lane
+(``dropout_lanes_kernel`` in ``csrc/dropout.cu``).
+
 Each wrapper runs the kernel for a CUDA tensor and the plain PyTorch version
 (``dropout_plain``), which computes the same bits with int64 arithmetic, for
 a CPU tensor. The kernel takes any contiguous tensor: one whose data is not
@@ -41,6 +49,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Sequence
 
 import torch
 
@@ -54,10 +63,42 @@ _PHILOX_W1 = 0xBB67AE85
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches by wrapper: "dropout" (K1), "relu_dropout" (K2)
-launches = {"dropout": 0, "relu_dropout": 0}
+# kernel launches by wrapper: "dropout" (K1), "relu_dropout" (K2), and the
+# same over seed lanes
+launches = {"dropout": 0, "relu_dropout": 0, "dropout_lanes": 0, "relu_dropout_lanes": 0}
 
-Seed = int | torch.Tensor  # a Python int, or a slot the kernels read on the device
+# a Python int or a slot the kernels read on the device; for seed lanes a
+# sequence of ints or a slot of one integer a lane
+Seed = int | torch.Tensor | Sequence[int]
+
+
+def n_lanes(seed: Seed) -> int:
+    """The seed lanes ``seed`` gives: its elements (1 for an int)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.numel()
+    return 1 if isinstance(seed, int) else len(seed)
+
+
+def _lane(seed: Seed, s: int) -> Seed:
+    """Lane ``s``'s seed: an int, or a 0-d view of the slot (an int seed is
+    its one lane)."""
+    if isinstance(seed, int):
+        return seed
+    return seed.reshape(-1)[s] if isinstance(seed, torch.Tensor) else seed[s]
+
+
+def lane_seeds(seed: Seed, device) -> torch.Tensor:
+    """The lanes' seeds as the int64 tensor on ``device`` a kernel reads
+    (a slot as it is; ints as their uint64 bits, copied there)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.is_floating_point() or seed.device != torch.device(device):
+            raise ValueError(f"a seed slot holds integers on {device}, got {seed.dtype} on "
+                             f"{seed.device}")
+        return seed.reshape(-1).to(torch.int64).contiguous()
+    if any(not 0 <= v < 2**64 for v in seed):
+        raise ValueError(f"seeds must be uint64, got {list(seed)}")
+    return torch.tensor([v - 2**64 if v >= 2**63 else v for v in seed],
+                        dtype=torch.int64).to(device)
 
 
 def seed_tensor(seed: Seed, device, dtype: torch.dtype = torch.int64) -> torch.Tensor:
@@ -151,11 +192,26 @@ def _inv_keep(rate: float, dtype: torch.dtype) -> float:
 def dropout_plain(x: torch.Tensor, seed: Seed, rate: float,
                   relu: bool = False, offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same bits, same rounding), at
-    any element offset."""
-    keep = keep_mask(seed, rate, x.shape, x.device, offset)
+    any element offset; over seed lanes each lane's columns take the mask of
+    its own [rows, F] tensor."""
+    lanes = n_lanes(seed)
+    if lanes > 1:
+        rows, width = _lane_shape(x, lanes)
+        keep = torch.cat([keep_mask(_lane(seed, s), rate, (rows, width), x.device, offset)
+                          for s in range(lanes)], dim=1)
+    else:
+        keep = keep_mask(_lane(seed, 0), rate, x.shape, x.device, offset)
     if relu:
         keep = keep & (x > 0)
     return torch.where(keep, x * _inv_keep(rate, x.dtype), 0.0)
+
+
+def _lane_shape(x: torch.Tensor, lanes: int) -> tuple[int, int]:
+    """(rows, F) of ``x`` = [rows, lanes·F]."""
+    if x.dim() != 2 or x.shape[1] % lanes:
+        raise ValueError(f"{lanes} seed lanes need a [rows, {lanes}·F] tensor, got "
+                         f"{tuple(x.shape)}")
+    return x.shape[0], x.shape[1] // lanes
 
 
 def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool,
@@ -171,7 +227,10 @@ def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool,
         raise TypeError(f"dropout kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("dropout kernel needs a contiguous tensor")
-    slot = seed_tensor(seed, x.device)
+    lanes = n_lanes(seed)
+    if lanes > 1:
+        return _run_lanes(x, seed, rate, relu, offset, lanes)
+    slot = seed_tensor(_lane(seed, 0), x.device)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -185,6 +244,28 @@ def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool,
         )
     _build.check(rc, "dropout kernel")
     launches["relu_dropout" if relu else "dropout"] += 1
+    return out
+
+
+def _run_lanes(x: torch.Tensor, seed: Seed, rate: float, relu: bool, offset: int,
+               lanes: int) -> torch.Tensor:
+    """The lanes kernel on [rows, lanes·F] (``_run`` checked device,
+    dtype, contiguity and offset)."""
+    rows, width = _lane_shape(x, lanes)
+    slots = lane_seeds(seed, x.device)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pgcn_dropout_lanes(
+            x.data_ptr(), out.data_ptr(), rows, lanes, width, _DTYPE_CODE[x.dtype], int(relu),
+            slots.data_ptr(), offset >> 2, keep_threshold(rate), _inv_keep(rate, x.dtype),
+            ctypes.c_void_p(stream),
+        )
+    _build.check(rc, "dropout lanes kernel")
+    launches["relu_dropout_lanes" if relu else "dropout_lanes"] += 1
     return out
 
 
@@ -216,9 +297,9 @@ class _ReluDropout(torch.autograd.Function):
 
 
 def dropout(x: torch.Tensor, seed: Seed, rate: float, offset: int = 0) -> torch.Tensor:
-    """Inverted dropout of ``x`` (K1) with ``seed`` (an int or a slot), its
-    elements at ``offset`` in the mask's index (the module docstring). Rate
-    0 is the identity."""
+    """Inverted dropout of ``x`` (K1) with ``seed`` (an int or a slot; S of
+    them for S seed lanes), its elements at ``offset`` in the mask's index
+    (the module docstring). Rate 0 is the identity."""
     if rate <= 0.0:
         return x
     return _Dropout.apply(x, seed, rate, offset)
@@ -226,7 +307,7 @@ def dropout(x: torch.Tensor, seed: Seed, rate: float, offset: int = 0) -> torch.
 
 def relu_dropout(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """``dropout(relu(x))`` in one pass (K2) with ``seed`` (an int or a
-    slot). Rate 0 is a plain ReLU."""
+    slot; S of them for S seed lanes). Rate 0 is a plain ReLU."""
     if rate <= 0.0:
         return torch.relu(x)
     return _ReluDropout.apply(x, seed, rate)

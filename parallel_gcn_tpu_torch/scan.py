@@ -135,7 +135,7 @@ class ScanLoop:
         if every and (k or checkpoint is None):
             raise ValueError("periodic checkpoints of a scan need k = 0 and a writer")
         self.device = torch.device(device)
-        self.epochs = table.shape[0]
+        self.epochs = table.shape[-2]
         self.step, self.state, self.seeds, self.table = step, list(state), seeds, table
         self.k, self.final_val = k, final_val
         self.every, self.checkpoint = every, checkpoint
@@ -261,6 +261,11 @@ class ScanLoop:
         # a one-epoch run has no epoch after the warm-up: its one epoch's time
         epoch_s = ((time.perf_counter() - t1) / (self.queued - first) if self.queued > first
                    else setup / max(self.queued, 1))
+        return self._result(setup if self.device.type == "cuda" else 0.0, epoch_s,
+                            self.queued - first if self.graph is not None else 0)
+
+    def _result(self, setup_s: float, epoch_s: float, replays: int) -> ScanResult:
+        """The run's result, after the deferred schedule's final val eval."""
         if self.final_val is not None:
             with torch.no_grad():
                 val = torch.stack(self.final_val())
@@ -268,6 +273,5 @@ class ScanLoop:
         epochs_run = int(self.epoch_idx)
         return ScanResult(
             history=self.history[:epochs_run].cpu().numpy(), epochs_run=epochs_run,
-            setup_s=setup if self.device.type == "cuda" else 0.0, epoch_s=epoch_s,
-            replays=self.queued - first if self.graph is not None else 0,
+            setup_s=setup_s, epoch_s=epoch_s, replays=replays,
             graph_launches=dict(self.graph_launches))

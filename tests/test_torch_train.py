@@ -7,6 +7,7 @@ split. Plus the package's import hygiene and the CLI's exit codes.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -138,15 +139,39 @@ def test_early_stopping_mean_of_last_k():
     assert all(vl[e] <= vl[e - 2:e + 1].mean() for e in range(2, res.epochs_run - 1))
 
 
+PORT_MODULES = ["parallel_gcn_tpu_torch", "parallel_gcn_tpu_torch.train",
+                "parallel_gcn_tpu_torch.cli", "parallel_gcn_tpu_torch.seeds",
+                "parallel_gcn_tpu_torch.golden", "parallel_gcn_tpu_torch.utils.timer",
+                "parallel_gcn_tpu_torch.utils.profiling",
+                *(f"parallel_gcn_tpu_torch.harness.{m}" for m in (
+                    "common", "accuracy", "tuning", "seed_select", "performance",
+                    "performance_golden", "profile", "tuning_layout", "scaling",
+                    "mesh_onechip"))]
+
+
 def test_package_never_imports_jax():
-    code = ("import sys, parallel_gcn_tpu_torch, parallel_gcn_tpu_torch.train, "
-            "parallel_gcn_tpu_torch.cli; "
+    code = (f"import sys, {', '.join(PORT_MODULES)}; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'parallel_gcn_tpu' or m.startswith('parallel_gcn_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_port_source_imports_jax():
+    # the scripts that run on the card import lazily, inside functions
+    bad = re.compile(r"^\s*(import jax\b|from jax\b|import parallel_gcn_tpu\b(?!_torch)|"
+                     r"from parallel_gcn_tpu\b(?!_torch))")
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "mesh_halos.py", "mesh_tp.py",
+                                             "kernel_variants.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "parallel_gcn_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    found = []
+    for path in paths:
+        with open(path) as f:
+            found += [f"{path}:{i}: {ln.strip()}" for i, ln in enumerate(f, 1) if bad.match(ln)]
+    assert len(paths) > 50 and not found, found
 
 
 def _run_cli(args, tmp_path):
