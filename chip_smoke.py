@@ -10,6 +10,11 @@ and timed beside this tree's on the same inputs, bit-equal to them.
 Phases, each printed on its own lines:
   1. device: nvidia-smi's name and power limit, torch's device name;
   2. build: compiles the CUDA kernels (csrc/*.cu) and prints the seconds;
+     the native loader (``csrc/loader.cpp``, g++ with OpenMP: a failed build
+     fails the run); ``[native]``: its label sweep against the numpy sweep on
+     synth-reddit's hub-excluded edges and ``load_dataset_native`` against
+     the numpy reader on synth-medium written as reference-format files to a
+     temporary directory, equal, both timed;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes synth-reddit's training gives it (dropout bit-equal, also on
      ragged lengths and on views that are not 16-byte aligned; tile
@@ -147,7 +152,7 @@ Phases, each printed on its own lines:
      deterministic algorithms, the same configuration twice in
      ``mode=scan`` and once in ``mode=eager`` (its ms/epoch): the three runs
      must be one run bit for bit (history, test metrics, weights); then,
-     except for the mesh SAGE and GIN (for the time limit), both modes
+     except for the mesh paths (for the time limit), both modes
      again with deterministic algorithms, whose train losses must agree
      within 1e-4;
   8. mesh profiles: the mesh GCN's, GAT's, SAGE's and GIN's epochs under
@@ -166,6 +171,19 @@ Phases, each printed on its own lines:
      cora-sized graph on the dense backend in f32 as 8 lanes with
      ``early_stopping=5`` that stop at different epochs, each where its solo
      run stops, histories within 1e-6;
+  7c. ``[main-products]``: synth-products at full width (100 -> 256 -> 47,
+     hybrid, community reorder, 512x512 int8 tiles, the file's tile budget
+     and ``min_tile_nnz``, bf16) with its node, edge, community and split
+     counts cut to one eighth (``PRODUCTS_EIGHTH``): each set-up stage timed,
+     K4 at 47 (bf16) and 100 (f32) columns, the residual's gather-sum at 47
+     and K2 on [n, 256] against their plain versions, then ``train.fit`` for
+     ``PRODUCTS_EPOCHS`` epochs in ``mode=scan`` (the GCN's launches, a
+     finite falling loss, ms/epoch, peak memory);
+  7d. ``[products-shapes]``: K2, K4 and the residual's gather-sum at the
+     full synth-products run's shapes and index widths on random inputs
+     (activations [2,449,408, 256], 28,704 int8 tiles past 2^31 bytes,
+     23,050,722 residual items with rows of up to 143,437) against their
+     plain versions;
   9. resume, after the GCN's, the GAT's and the mesh GCN's main path:
      through ``cli.main`` (the mesh GCN in a torchrun world of one), 10
      epochs with ``early_stopping=0 checkpoint_every=5 checkpoint_dir=``, bit-equal
@@ -2495,11 +2513,7 @@ def _per_replay(graph_launches: dict) -> dict:
 
 def phase_main_path(tag: str, argv: list[str], falls: bool = True) -> dict:
     """``cli.main(argv)`` (``mode=scan``, the default) with every launch
-    count set to 0 just before it; checks the losses (finite, and with
-    ``falls`` the last below the first) and returns the
-    launches (the capture's counted once per replay), the train losses, the
-    scan's ms/epoch over the replays of epochs 2 to the last, its set-up
-    seconds and the captured epoch's launches."""
+    count set to 0 just before it; checks the run (``_check_run``)."""
     from parallel_gcn_tpu_torch import cli
 
     buf = io.StringIO()
@@ -2508,10 +2522,21 @@ def phase_main_path(tag: str, argv: list[str], falls: bool = True) -> dict:
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     secs = time.perf_counter() - t0
-    out = buf.getvalue()
+    assert rc == 0, f"cli.main returned {rc}:\n{buf.getvalue()}"
+    return _check_run(tag, f"{' '.join(argv)} through cli.main", buf.getvalue(), secs,
+                      EPOCHS, falls)
+
+
+def _check_run(tag: str, what: str, out: str, secs: float, epochs: int,
+               falls: bool = True) -> dict:
+    """Prints a scan run's output ``out`` under ``[tag]``, checks the losses
+    (finite, and with ``falls`` the last below the first) and returns the
+    launches since the counts were set to 0 (the capture's counted once per
+    replay), the train losses, the scan's ms/epoch over the replays of
+    epochs 2 to the last, its set-up seconds and the captured epoch's
+    launches."""
     for line in out.splitlines():
         print(f"[{tag}] {line}")
-    assert rc == 0, f"cli.main returned {rc}"
     scan = re.search(r"^scan: epoch 1 and the capture in (\S+) s, (\d+) replays of one CUDA "
                      r"graph, (\S+) ms/epoch; launches a replay: (.*)$", out, re.M)
     assert scan, "no CUDA graph: the scan did not capture its epoch"
@@ -2521,18 +2546,18 @@ def phase_main_path(tag: str, argv: list[str], falls: bool = True) -> dict:
     history = [tuple(map(float, m)) for m in re.findall(
         r"^epoch=\d+ train_loss=(\S+) train_acc=(\S+) val_loss=(\S+) val_acc=(\S+)$", out, re.M)]
     losses = [row[0] for row in history]
-    assert len(losses) == EPOCHS, f"expected {EPOCHS} epoch lines, got {len(losses)}"
-    assert replays == EPOCHS - 1, f"{replays} replays for {EPOCHS} epochs"
+    assert len(losses) == epochs, f"expected {epochs} epoch lines, got {len(losses)}"
+    assert replays == epochs - 1, f"{replays} replays for {epochs} epochs"
     assert all(math.isfinite(v) for v in losses), losses
     assert not falls or losses[-1] < losses[0], f"train loss did not fall: {losses}"
     test_acc = float(re.search(r"test_acc=(\S+)", out).group(1))
     assert math.isfinite(test_acc), test_acc
-    print(f"[{tag}] {' '.join(argv)} through cli.main (mode=scan) in {secs:.1f} s: "
-          f"{ms:.3f} ms/epoch over the {replays} replays of epochs 2-{EPOCHS}, set-up (epoch 1 "
+    print(f"[{tag}] {what} (mode=scan) in {secs:.1f} s: "
+          f"{ms:.3f} ms/epoch over the {replays} replays of epochs 2-{epochs}, set-up (epoch 1 "
           f"and the capture) {setup_s:.3f} s, train loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
           f"test_acc {test_acc:.5f}, launches a replay {per_replay}, launches {counts}")
     return dict(counts=counts, losses=losses, history=history, ms=ms, setup_s=setup_s,
-                per_replay=per_replay)
+                per_replay=per_replay, test_acc=test_acc)
 
 
 def _steady_ms(out: str) -> float:
@@ -2579,9 +2604,8 @@ def _compare_modes(tag: str, run, scan_losses, scan_ms: float, deterministic: bo
     epoch), and the scan's train losses those ``cli.main`` printed (5
     decimals). Then, with ``deterministic``, both modes again under
     ``_deterministic``, whose train-loss histories must agree within 1e-4;
-    the mesh SAGE and GIN leave it out for the smoke's time limit (it costs
-    two more runs, and their single-card paths and the mesh GCN's and GAT's
-    have it). Returns (the eager ms/epoch, epochs 2 to the last, from its
+    the mesh paths leave it out for the smoke's time limit (it costs two
+    more runs, and their single-card paths have it). Returns (the eager ms/epoch, epochs 2 to the last, from its
     lines; the first scan run)."""
     import numpy as np
 
@@ -2897,6 +2921,279 @@ def phase_remat(tag: str, args: list[str], dds, unremat) -> dict:
                 per_replay=_per_replay(res.graph_launches))
 
 
+def build_native() -> float:
+    """Builds (or loads) the native loader, ``csrc/loader.cpp`` by g++ with
+    OpenMP; a failed build fails the run. Returns the seconds."""
+    from parallel_gcn_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    native.load_library()
+    secs = time.perf_counter() - t0
+    print(f"[native] {os.path.basename(native.library_path())} built and loaded in {secs:.2f} s "
+          f"(g++ {' '.join(native.FLAGS)})", flush=True)
+    return secs
+
+
+def _write_reference_files(directory: str, name: str, ds) -> None:
+    """``ds`` as the reference's ``.graph`` (neighbours without the
+    self-loop), ``.svmlight`` and ``.split`` files."""
+    import numpy as np
+
+    g, f = ds.graph, ds.feature_csr
+    with open(os.path.join(directory, f"{name}.graph"), "w") as fh:
+        for i in range(g.n_rows):
+            nb = g.indices[g.indptr[i]:g.indptr[i + 1]]
+            fh.write(" ".join(map(str, nb[nb != i].tolist())) + "\n")
+    with open(os.path.join(directory, f"{name}.svmlight"), "w") as fh:
+        for i in range(f.n_rows):
+            a, b = f.indptr[i], f.indptr[i + 1]
+            fh.write(f"{ds.labels[i]} " + " ".join(
+                f"{j}:{v:.7g}" for j, v in zip(f.indices[a:b].tolist(), f.values[a:b].tolist()))
+                + "\n")
+    np.savetxt(os.path.join(directory, f"{name}.split"), ds.split, fmt="%d")
+
+
+def phase_native(ds_host) -> None:
+    """``[native]``: the native sweep's labels against the numpy sweep's on
+    synth-reddit's hub-excluded edges (equal, both timed), and
+    ``load_dataset_native`` against the numpy reader on synth-medium written
+    as reference-format files to a temporary directory (equal, both timed)."""
+    import tempfile
+
+    import numpy as np
+
+    from parallel_gcn_tpu_torch.data import native, parser, reorder
+    from parallel_gcn_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    rows, cols, _ = reorder.hub_excluded_edges(ds_host.graph, 1024)
+    n = ds_host.graph.n_rows
+    t0 = time.perf_counter()
+    fast = native.community_labels_native(rows, cols, n, 8)
+    t1 = time.perf_counter()
+    slow = reorder._propagate_labels_numpy(rows, cols, n, 8)
+    t2 = time.perf_counter()
+    assert np.array_equal(fast, slow), "native and numpy label sweeps differ"
+    print(f"[native] label propagation over synth-reddit's {len(rows)} hub-excluded edges, 8 "
+          f"sweeps: native {t1 - t0:.2f} s, numpy {t2 - t1:.2f} s ({(t2 - t1) / (t1 - t0):.1f}x), "
+          f"labels equal ({len(np.unique(fast))} communities)", flush=True)
+    src = make_synthetic_dataset("synth-medium")
+    with tempfile.TemporaryDirectory() as d:
+        _write_reference_files(d, "medium", src)
+        t0 = time.perf_counter()
+        graph, feats, labels, split, fin, fout = native.load_dataset_native(d, "medium", False)
+        t1 = time.perf_counter()
+        ref = parser.load_dataset("medium", d, use_native=False)
+        t2 = time.perf_counter()
+    for name in ("indptr", "indices", "values", "sym_scale"):
+        assert np.array_equal(getattr(graph, name), getattr(ref.graph, name)), name
+    for name in ("indptr", "indices", "values"):
+        assert np.array_equal(getattr(feats, name), getattr(ref.feature_csr, name)), name
+    assert np.array_equal(labels, ref.labels) and np.array_equal(split, ref.split)
+    assert (fin, fout) == (ref.input_dim, ref.output_dim)
+    print(f"[native] load_dataset_native on synth-medium's files ({graph.n_rows} nodes, "
+          f"{graph.nnz} graph entries, {feats.nnz} features): {t1 - t0:.2f} s, the numpy reader "
+          f"{t2 - t1:.2f} s; graph, features, labels and split equal", flush=True)
+
+
+# [main-products]: synth-products at full width with its node, edge,
+# community and split counts cut to one eighth
+PRODUCTS_EIGHTH = dict(n_nodes=306_129, n_edges=15_464_785, n_communities=600,
+                       n_train=24_577, n_val=4_915)
+PRODUCTS_EPOCHS = 5
+
+
+def check_products_kernels(dds) -> None:
+    """The kernels of the products path at its shapes: K4 over the pack at
+    47 columns (bf16 x, rtol 2e-3) and at the set-up's 100 (f32 x, rtol
+    1e-4), the residual's ordered gather-sum at 47 bf16 (bit-equal to its
+    plain version on the CPU), K2 on [n, 256] bf16 (bit-equal), each timed
+    beside its plain version."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+    from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
+
+    gen = torch.Generator().manual_seed(16)
+    g, pack = dds.graph, dds.graph.bcsr
+    n = g.n_nodes
+    nnz = int(pack.live_entries[0].numel())
+    for x, rtol in ((torch.randn((n, 47), generator=gen).to(torch.bfloat16).cuda(), 2e-3),
+                    (dds.x, 1e-4)):
+        got = cb.bcsr_matmul_impl(pack, x)
+        assert torch.equal(got, cb.bcsr_matmul_impl(pack, x)), "K4: two runs differ"
+        err = _max_err(got, cb.bcsr_matmul_plain(pack, x), rtol)
+        ms = timer.events_ms(lambda: cb.bcsr_matmul_impl(pack, x), 10)
+        pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(pack, x), 2)
+        kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        bound = _bound(_pack_bytes(pack) + _nbytes(x, got), 2 * nnz * x.shape[1], kind)
+        print(f"[main-products] K4 bcsr fwd F={x.shape[1]} {x.dtype} over {pack.n_tiles} tiles: "
+              f"max_abs_err {err:.3e} (rtol {rtol}), runs bit-identical; kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    x = torch.randn((n, 47), generator=gen).to(torch.bfloat16).cuda()
+    check_segment_gather({}, None, "synth-products residual", x, g.row_seg)
+    seed = 0x5EED_0F_C0DE
+    x = torch.randn((n, 256), generator=gen).to(torch.bfloat16).cuda()
+    got = cd.relu_dropout(x, _slot(seed), 0.1)
+    assert torch.equal(got, cd.dropout_plain(x, seed, 0.1, relu=True)), "K2 != plain"
+    ms = timer.events_ms(lambda: cd.relu_dropout(x, _slot(seed), 0.1), 20)
+    pms = timer.events_ms(lambda: cd.dropout_plain(x, seed, 0.1, relu=True), 3)
+    print(f"[main-products] K2 relu_dropout [{n}, 256] bf16 rate 0.1: bit-equal to plain; kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, bound {_bound(2 * _nbytes(x))['bound_ms']:.4f} ms",
+          flush=True)
+
+
+# [products-shapes]: the full-size products path's shapes on random inputs
+# (no generation): activations of [2,449,408, 256] (nodes padded to the
+# 512-wide tiles), as many 512x512 int8 tiles as its pack holds (26,636,
+# offsets past 2^31 bytes), a residual of its 23,050,722 items whose
+# longest rows are its three longest
+PRODUCTS_N_PAD = 2_449_408
+PRODUCTS_TILES_PER_ROW = 6  # x 4,784 tile rows = 28,704 tiles
+PRODUCTS_RES_ITEMS = 23_050_722
+PRODUCTS_HUB_ROWS = (143_437, 71_923, 47_492)
+
+
+def phase_products_shapes() -> None:
+    """``[products-shapes]``: the kernels of the full-size products path
+    held against their plain versions at its index widths. K2 on random
+    [2,449,408, 256] in bf16 (the path's) and in f32 (2.5 GB: byte offsets
+    past 2^31), bit-equal; K4 over a random int8 pattern pack
+    (``pack_census._random_pack``, d = 1) of 28,704 tiles (7.5 GB) at 47
+    and 94 bf16 columns and 100 f32 columns, within rtol 2e-3 / 1e-4 of
+    ``bcsr_matmul_plain`` over every row, and over the rows whose tiles lie
+    past the 2^31-byte offset on their own; kernel (a) over a random
+    residual of 23,050,722 items into 2,449,408 rows holding rows of
+    143,437, 71,923 and 47,492 items, bit-equal to ``gather_sum_plain`` on
+    the CPU (``check_segment_gather``). Each is timed beside its plain
+    version."""
+    import numpy as np
+    import torch
+
+    from parallel_gcn_tpu_torch.harness.pack_census import _random_pack
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+    from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
+    from parallel_gcn_tpu_torch.ops import cuda_segment as cs
+
+    n = PRODUCTS_N_PAD
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    seed = 0x5EED_16_C0DE
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((n, 256), generator=gen, device="cuda", dtype=dtype)
+        got = cd.relu_dropout(x, _slot(seed), 0.1)
+        ref = cd.dropout_plain(x, seed, 0.1, relu=True)
+        assert torch.equal(got, ref), f"K2 [{n}, 256] {dtype} != plain"
+        del got, ref
+        ms = timer.events_ms(lambda: cd.relu_dropout(x, _slot(seed), 0.1), 10)
+        pms = timer.events_ms(lambda: cd.dropout_plain(x, seed, 0.1, relu=True), 2)
+        print(f"[products-shapes] K2 relu_dropout [{n}, 256] {dtype} ({_nbytes(x)} bytes) rate "
+              f"0.1: bit-equal to plain; kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, bound {_bound(2 * _nbytes(x))['bound_ms']:.4f} ms",
+              flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pack = _random_pack(n // 512, 512, PRODUCTS_TILES_PER_ROW, np.random.default_rng(16))
+    pack = pack.to(torch.device("cuda"))
+    torch.cuda.synchronize()
+    tile_bytes = pack.tile_r * pack.tile_c
+    first = 2**31 // tile_bytes  # the first tile at or past the 2^31-byte offset
+    assert pack.n_tiles > first, pack.n_tiles
+    r0 = int(pack.tile_rows[first]) * pack.tile_r
+    nnz = int(pack.live_entries[0].numel())
+    print(f"[products-shapes] random int8 pack: {pack.n_tiles} tiles 512x512 "
+          f"({pack.n_tiles * tile_bytes} bytes), {nnz} entries, built and copied in "
+          f"{time.perf_counter() - t0:.1f} s; tile {first} (tile row "
+          f"{int(pack.tile_rows[first])}) starts at byte 2^31", flush=True)
+    for F, dtype, rtol in ((47, torch.bfloat16, 2e-3), (94, torch.bfloat16, 2e-3),
+                           (100, torch.float32, 1e-4)):
+        x = torch.randn((n, F), generator=gen, device="cuda").to(dtype)
+        got = cb.bcsr_matmul_impl(pack, x)
+        assert torch.equal(got, cb.bcsr_matmul_impl(pack, x)), "K4: two runs differ"
+        ref = cb.bcsr_matmul_plain(pack, x)
+        err = _max_err(got, ref, rtol)
+        err_past = _max_err(got[r0:], ref[r0:], rtol)
+        del ref
+        ms = timer.events_ms(lambda: cb.bcsr_matmul_impl(pack, x), 10)
+        pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(pack, x), 2)
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        bound = _bound(_pack_bytes(pack) + _nbytes(x, got), 2 * nnz * F, kind)
+        print(f"[products-shapes] K4 bcsr fwd F={F} {dtype} over {pack.n_tiles} tiles: "
+              f"max_abs_err {err:.3e} (rtol {rtol}), on rows {r0}.. (tiles past 2^31 bytes) "
+              f"{err_past:.3e}, runs bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+        del x, got
+    del pack
+    torch.cuda.empty_cache()
+
+    # the residual: the three hub rows at random places, the other items
+    # spread at random over the other rows
+    rng = np.random.default_rng(16)
+    hubs = rng.choice(n, len(PRODUCTS_HUB_ROWS), replace=False)
+    others = np.setdiff1d(np.arange(n), hubs)
+    rest = others[rng.integers(0, len(others), PRODUCTS_RES_ITEMS - sum(PRODUCTS_HUB_ROWS))]
+    index = np.sort(np.concatenate([np.repeat(hubs, PRODUCTS_HUB_ROWS), rest]))
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    seg = cs.segments(torch.from_numpy(index).to(dev), n,
+                      torch.from_numpy(rng.integers(0, n, len(index))).to(dev),
+                      torch.from_numpy(rng.random(len(index), np.float32)).to(dev))
+    lengths = (seg.ptr[1:] - seg.ptr[:-1]).long()
+    print(f"[products-shapes] random residual: {seg.index.numel()} items into {n} rows, "
+          f"{seg.n_hub} hub rows (>= {cs.HUB_ITEMS} items), longest "
+          f"{torch.topk(lengths, 3).values.tolist()}; segments built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert seg.index.numel() == PRODUCTS_RES_ITEMS
+    assert torch.topk(lengths, 3).values.tolist() == list(PRODUCTS_HUB_ROWS)
+    x = torch.randn((n, 47), generator=gen, device="cuda").to(torch.bfloat16)
+    check_segment_gather({}, None, "products-size residual", x, seg, plain_chunks=8)
+    del seg, x
+    torch.cuda.empty_cache()
+
+
+def phase_main_products() -> dict:
+    """``[main-products]``: synth-products (``parameters_synth-products.txt``:
+    100 -> 256 -> 47, hybrid, community reorder, 512x512 int8 tiles, the
+    file's tile budget and ``min_tile_nnz``, bf16) on ``PRODUCTS_EIGHTH`` of
+    its graph, generated, reordered and packed by ``prepare_host_dataset``
+    and ``prepare_device_dataset`` with each stage timed; its kernels at the path's shapes
+    (``check_products_kernels``); then ``train.fit`` for ``PRODUCTS_EPOCHS``
+    epochs in ``mode=scan`` with the launch counts set to 0 just before it:
+    ms/epoch, peak memory, a finite falling loss and the GCN's launches."""
+    import torch
+
+    from parallel_gcn_tpu_torch.config import default_params_path, load_config
+    from parallel_gcn_tpu_torch.data.parser import (describe_setup, prepare_device_dataset,
+                                                    prepare_host_dataset)
+    from parallel_gcn_tpu_torch.train import fit
+
+    cfg = load_config(default_params_path("synth-products"), {"epochs": PRODUCTS_EPOCHS})
+    ds = prepare_host_dataset(cfg, "synth-products", PRODUCTS_EIGHTH)
+    assert ds.setup["labels"] == "native", ds.setup
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _, dds = prepare_device_dataset(cfg, "synth-products", torch.device("cuda"), host=ds)
+    print(f"[main-products] synth-products at one eighth ({ds.n_nodes} nodes, {ds.graph.nnz} "
+          f"entries with self-loops, {ds.input_dim} -> {cfg.gcn.hidden_dims[0]} -> "
+          f"{ds.output_dim}, train/val/test {ds.train_dim}/{ds.val_dim}/{ds.test_dim})")
+    print(f"[main-products] {describe_setup(ds, dds)}", flush=True)
+    check_products_kernels(dds)
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        fit(cfg, dds, verbose=True)
+    out = _check_run("main-products", "train.fit", buf.getvalue(), time.perf_counter() - t0,
+                     PRODUCTS_EPOCHS)
+    out["peak"] = torch.cuda.max_memory_allocated() - before
+    print(f"[main-products] peak max_memory_allocated above the {before} bytes held before the "
+          f"dataset: {out['peak']} bytes", flush=True)
+    del dds
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_dense() -> dict:
     """The dense backend on the card: generated graphs at cora's and
     citeseer's sizes (``DENSE_SETS``, under ``dense_threshold``) train the
@@ -2977,6 +3274,7 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     kind = phase_device()
     phase_build()
+    build_native()
 
     t0 = time.perf_counter()
     cfg = load_config(default_params_path("synth-reddit"))
@@ -2996,6 +3294,8 @@ def main(argv: list[str]) -> int:
           f"{idx.ptr.numel() - 1} (segment, row) units, {_nbytes(idx.ptr, idx.col)} bytes, "
           f"built on the card in {time.perf_counter() - t0:.4f} s")
 
+    phase_native(ds_host)
+    _stamp("native")
     results: dict = {}
     check_dropout(results)
     check_dropout_offset()
@@ -3149,7 +3449,19 @@ def main(argv: list[str]) -> int:
     assert seeds_stop["per_replay"] == {"K1 lanes": 1, "K2 lanes": 1}, seeds_stop["per_replay"]
     torch.cuda.empty_cache()
     _stamp("seed batches")
-    mesh_gcn = phase_mesh_path("main-mesh-gcn", MESH_GCN_ARGS, ds, gcn)
+    products = phase_main_products()
+    # a replay: the GCN's deferred schedule (K2 once, K4 and the residual's
+    # gather-sum for the stacked forward at 94 columns and the backward at
+    # 47); plus the pre-aggregation at 100, the final val eval and the test
+    assert products["per_replay"] == {"K2": 1, "K4": 2, "ordered gather_sum": 2}, \
+        products["per_replay"]
+    assert (products["counts"]["K2"], products["counts"]["K4"],
+            products["counts"]["ordered gather_sum"]) == (
+        PRODUCTS_EPOCHS, 2 * PRODUCTS_EPOCHS + 3, 2 * PRODUCTS_EPOCHS + 3), products
+    _stamp("main-products")
+    phase_products_shapes()
+    _stamp("products-shapes")
+    mesh_gcn = phase_mesh_path("main-mesh-gcn", MESH_GCN_ARGS, ds, gcn, deterministic=False)
     # a replay (deferred eval on the mesh): K3 over the slab for the stacked
     # forward and for the backward (layer 0 pre-aggregated), each with the
     # gather-sum of the slab's residual, K2 on layer 1's train input; plus
@@ -3164,7 +3476,7 @@ def main(argv: list[str]) -> int:
     resume["mesh GCN"] = phase_resume("resume-mesh-gcn", MESH_GCN_ARGS, mesh_gcn["scan_run"],
                                       mesh_gcn["ms"], mesh=True)
     _stamp("resume-mesh-gcn")
-    mesh_gat = phase_mesh_path("main-mesh-gat", MESH_GAT_ARGS, ds, gat)
+    mesh_gat = phase_mesh_path("main-mesh-gat", MESH_GAT_ARGS, ds, gat, deterministic=False)
     # a replay: rect K5 for both layers in the train forward and the val
     # eval, both K7 sweeps for both layers' backward, K1 on layer 1's input
     # and in its backward, the residual's ordered sums as on the GAT path
@@ -3241,7 +3553,8 @@ def main(argv: list[str]) -> int:
              "GAT segment": gat_chunk["main-gat-segment"],
              "GAT segment chunked": gat_chunk["main-gat-chunk"],
              "mesh GAT segment chunked": mesh_gat_chunk, "GCN 4 seed lanes": main_seeds,
-             "synth-medium 16 seed lanes": seeds_medium, "cora-sized 8 seed lanes": seeds_stop}
+             "synth-medium 16 seed lanes": seeds_medium, "cora-sized 8 seed lanes": seeds_stop,
+             "synth-products at one eighth": products}
     # each kernel's launches over every main path and the emulated TP
     # forwards and backwards (K3 and K8 run on none: 0)
     counts = {key: sum(p["counts"][key] for p in paths.values()) + tp_emu["counts"][key]

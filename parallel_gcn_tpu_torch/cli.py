@@ -108,7 +108,7 @@ def main(argv: list[str] | None = None) -> int:
     if mesh:
         return _main_mesh(cfg, dataset, device, resume_from)
 
-    from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset
+    from parallel_gcn_tpu_torch.data.parser import describe_setup, prepare_device_dataset
     from parallel_gcn_tpu_torch.train import fit
 
     print(f"torch {torch.__version__} — device {device}: {device_name(device)}")
@@ -124,8 +124,13 @@ def main(argv: list[str] | None = None) -> int:
         f"features={ds.input_dim} classes={ds.output_dim} "
         f"train/val/test={ds.train_dim}/{ds.val_dim}/{ds.test_dim}"
     )
+    print(describe_setup(ds, dds))
     print("TRAINING AND EVALUATION OF GCN:")
-    print(_summary(fit(cfg, dds, resume_from=resume_from)))
+    result = fit(cfg, dds, resume_from=resume_from)
+    print(_summary(result))
+    if device.type == "cuda":
+        print(f"peak device memory (max_memory_allocated): "
+              f"{torch.cuda.max_memory_allocated(device)} bytes")
     return 0
 
 

@@ -62,7 +62,7 @@ class GCNConfig:
     epochs: int = 100
     early_stopping: int = 0
     residual: bool = False
-    # model family; the port trains gcn only so far (see ROADMAP.md)
+    # model family: gcn, gat, sage or gin (the port trains all four)
     model: str = "gcn"
     heads: int = 8
     attn_dropout: float = 0.0

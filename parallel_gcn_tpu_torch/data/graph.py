@@ -15,6 +15,7 @@ implicit self-loop (src/parser.cpp:29-31) and
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -268,13 +269,18 @@ def build_graph(
     tile_size: int = 128,
     tile_cols: int = 0,
     adj_dtype="float32",
+    times: dict | None = None,
 ) -> Graph:
     """Pad a host CSR into the static-shaped device Graph on ``device``.
 
     Padding edges get val=0 and row=col=n_nodes_pad-1. ``bcsr=True`` packs
     all of Â into tiles; ``hybrid=True`` packs only the dense-enough tiles
     (``split_dense_tiles``) and keeps the other edges as the COO residual.
+    ``times``, when given, receives the seconds of the host pack
+    (``pack_s``) and of the copy to the device with the segments
+    (``copy_s``).
     """
+    t0 = time.perf_counter()
     from parallel_gcn_tpu_torch.ops.cuda_bcsr import build_bcsr
     from parallel_gcn_tpu_torch.ops.cuda_segment import segments
 
@@ -356,10 +362,11 @@ def build_graph(
         np.diff(csr.indptr).astype(np.float32)
     )
 
+    t1 = time.perf_counter()
     row_t = torch.from_numpy(row).to(device)
     col_t = torch.from_numpy(col).to(device)
     val_t = torch.from_numpy(val).to(device)
-    return Graph(
+    graph = Graph(
         row=row_t,
         col=col_t,
         val=val_t,
@@ -375,6 +382,11 @@ def build_graph(
         row_seg=segments(row_t, n_pad, col_t, val_t),
         col_seg=segments(col_t, n_pad),
     )
+    if times is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.update(pack_s=t1 - t0, copy_s=time.perf_counter() - t1)
+    return graph
 
 
 def random_graph(

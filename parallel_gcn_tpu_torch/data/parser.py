@@ -13,7 +13,8 @@ The readers are numpy; ``to_device`` writes torch tensors on a given device.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -67,6 +68,9 @@ class Dataset:
     n_nodes: int
     input_dim: int
     output_dim: int
+    # set-up record: seconds by stage ("load_s", "reorder_s", "permute_s"),
+    # where the data came from ("source") and the label sweep that ran
+    setup: dict = field(default_factory=dict)
 
     @property
     def train_dim(self) -> int:
@@ -146,11 +150,28 @@ def parse_split_file(path: str) -> np.ndarray:
     return np.loadtxt(path, dtype=np.int32).reshape(-1)
 
 
+def _native_tuple(directory: str, name: str, binarize: bool):
+    """``native.load_dataset_native``'s tuple, or None where the library is
+    unavailable (said once on stderr)."""
+    from parallel_gcn_tpu_torch.data import native
+
+    try:
+        return native.load_dataset_native(directory, name, binarize)
+    except RuntimeError:
+        native.warn_fallback("the dataset reader")
+        return None
+
+
 def load_dataset(
-    name: str, data_dir: str = "", binarize_features: bool = False
+    name: str, data_dir: str = "", binarize_features: bool = False, use_native: bool = True,
+    spec: dict | None = None,
 ) -> Dataset:
     """A reference-format dataset (cora, citeseer, ...) read from disk, or a
-    registered synthetic one (synth-reddit, ...) generated from its seed."""
+    registered synthetic one (synth-reddit, ...) generated from its seed;
+    ``spec`` overrides the synthetic spec's sizes (``make_synthetic_dataset``,
+    never cached). ``use_native`` reads the files with the native loader
+    (``data.native``) where it builds, else with the numpy readers; both give
+    the same dataset."""
     from parallel_gcn_tpu_torch.data.synthetic import (
         SYNTH_FEATURE_SPECS,
         SYNTHETIC_SPECS,
@@ -158,17 +179,21 @@ def load_dataset(
         make_synthetic_dataset,
     )
 
-    if name in SYNTHETIC_SPECS:
-        return make_synthetic_dataset(name)
+    if name in SYNTHETIC_SPECS or spec:
+        return make_synthetic_dataset(name, **(spec or {}))
     if name in SYNTH_FEATURE_SPECS:
         return make_synth_feature_dataset(name, data_dir=data_dir)
 
     directory = find_data_dir(name, data_dir)
-    graph = parse_graph_file(os.path.join(directory, f"{name}.graph"))
-    feature_csr, labels, input_dim, output_dim = parse_svmlight_file(
-        os.path.join(directory, f"{name}.svmlight"), binarize=binarize_features
-    )
-    split = parse_split_file(os.path.join(directory, f"{name}.split"))
+    loaded = _native_tuple(directory, name, binarize_features) if use_native else None
+    if loaded is not None:
+        graph, feature_csr, labels, split, input_dim, output_dim = loaded
+    else:
+        graph = parse_graph_file(os.path.join(directory, f"{name}.graph"))
+        feature_csr, labels, input_dim, output_dim = parse_svmlight_file(
+            os.path.join(directory, f"{name}.svmlight"), binarize=binarize_features
+        )
+        split = parse_split_file(os.path.join(directory, f"{name}.split"))
     return Dataset(
         name=name,
         graph=graph,
@@ -198,6 +223,9 @@ class DeviceDataset:
     # Â·X for eval forwards when the training input dropout is nonzero
     # (train.preaggregate_input); None until then
     x_agg: torch.Tensor | None = None
+    # seconds of the host pack ("pack_s") and of the copy to the device
+    # with the residual's segments ("copy_s")
+    setup: dict = field(default_factory=dict)
 
     @property
     def device(self) -> torch.device:
@@ -223,13 +251,15 @@ def to_device(
     if bcsr or hybrid:
         node_pad = max(node_pad, tile_cols or tile_size)
     n_pad = n_nodes_pad or pad_to_multiple(ds.n_nodes, node_pad)
+    setup: dict = {}
     graph = build_graph(
         ds.graph, device=device, node_pad=node_pad, dense=dense, bcsr=bcsr,
         hybrid=hybrid, n_nodes_pad=n_pad, tile_dtype=tile_dtype,
         tile_size=tile_size, tile_cols=tile_cols, adj_dtype=adj_dtype,
         tile_budget_bytes=tile_budget_mb * 1024 * 1024,
-        min_tile_nnz=min_tile_nnz or None,
+        min_tile_nnz=min_tile_nnz or None, times=setup,
     )
+    t0 = time.perf_counter()
 
     x = np.zeros((n_pad, ds.input_dim), dtype=np.float32)
     x[: ds.n_nodes] = ds.features
@@ -238,7 +268,7 @@ def to_device(
     split = np.zeros(n_pad, dtype=np.int32)
     split[: ds.n_nodes] = ds.split
 
-    return DeviceDataset(
+    dds = DeviceDataset(
         graph=graph,
         x=torch.from_numpy(x).to(device),
         labels=torch.from_numpy(labels).to(device),
@@ -247,27 +277,71 @@ def to_device(
         input_dim=ds.input_dim,
         output_dim=ds.output_dim,
         split_counts={s: int((ds.split == s).sum()) for s in (TRAIN, VAL, TEST)},
+        setup=setup,
     )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    setup["copy_s"] += time.perf_counter() - t0
+    return dds
 
 
-def prepare_host_dataset(cfg, name: str) -> Dataset:
-    """Load and (optionally) reorder: the host half of data preparation."""
+def prepare_host_dataset(cfg, name: str, spec: dict | None = None) -> Dataset:
+    """Load and (optionally) reorder: the host half of data preparation;
+    ``spec`` overrides a synthetic spec's sizes (``load_dataset``). ``setup``
+    of the result holds each stage's seconds and, where this call ran a
+    label sweep (generation, community reorder), which one: ``native`` where
+    its library loads, else ``numpy``."""
+    from parallel_gcn_tpu_torch.data import native, reorder
+
+    t0 = time.perf_counter()
     ds = load_dataset(
-        name, cfg.data.data_dir, binarize_features=cfg.data.binarize_features
+        name, cfg.data.data_dir, binarize_features=cfg.data.binarize_features, spec=spec
     )
+    setup = {**ds.setup, "load_s": time.perf_counter() - t0}
     if cfg.tpu.reorder != "none":
-        from parallel_gcn_tpu_torch.data.reorder import (
-            community_order,
-            permute_dataset,
-            rcm_permutation,
-        )
-
+        t0 = time.perf_counter()
         if cfg.tpu.reorder == "community":
-            order = community_order(ds.graph, hub_block=cfg.tpu.reorder_hub_block)
+            order = reorder.community_order(ds.graph, hub_block=cfg.tpu.reorder_hub_block)
         else:
-            order = rcm_permutation(ds.graph)
-        ds = permute_dataset(ds, order)
+            order = reorder.rcm_permutation(ds.graph)
+        setup["reorder_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = reorder.permute_dataset(ds, order)
+        setup["permute_s"] = time.perf_counter() - t0
+    if cfg.tpu.reorder == "community" or setup.get("source") == "generated":
+        setup["labels"] = "native" if native.available() else "numpy"
+    ds.setup = setup
     return ds
+
+
+def peak_rss_bytes() -> int:
+    """This process's peak resident set size (``getrusage``; Linux reports
+    kilobytes)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def describe_setup(ds: Dataset, dds: DeviceDataset) -> str:
+    """The ``[setup]`` line: each host stage's seconds (load or generation,
+    reorder, permute, pack, copy to the device), the label sweep that ran,
+    the peak host RSS, and the tile / residual split of the graph's entries
+    (self-loops included)."""
+    st = {**ds.setup, **dds.setup}
+    stages = ", ".join(f"{k[:-2]} {st[k]:.1f} s" for k in
+                       ("load_s", "reorder_s", "permute_s", "pack_s", "copy_s") if k in st)
+    line = (f"[setup] {stages} ({st.get('source', 'read')}, labels={st.get('labels', 'none')}); "
+            f"peak host RSS {peak_rss_bytes() / 2**30:.2f} GiB")
+    g = dds.graph
+    if g.bcsr is not None:
+        pack = g.bcsr
+        resid = int((g.val != 0).sum()) if g.is_hybrid else 0
+        line += (f"; {pack.n_tiles_real} tiles {pack.tile_r}x{pack.tile_c} "
+                 f"{str(pack.tiles.dtype).removeprefix('torch.')} "
+                 f"({pack.tiles.numel() * pack.tiles.element_size() / 2**30:.2f} GiB), "
+                 f"residual {resid} entries, {1 - resid / max(g.n_real_edges, 1):.1%} of "
+                 f"{g.n_real_edges} in tiles")
+    return line
 
 
 def prepare_device_dataset(

@@ -19,10 +19,7 @@ import os
 import numpy as np
 
 from parallel_gcn_tpu_torch.data.graph import HostCSR, normalized_adjacency_values
-from parallel_gcn_tpu_torch.data.reorder import (
-    _propagate_labels_numpy,
-    hub_excluded_edges,
-)
+from parallel_gcn_tpu_torch.data.reorder import _propagate_labels, hub_excluded_edges
 
 
 def _cache_dir() -> str:
@@ -196,7 +193,7 @@ def structure_labels(
     → ``label_noise`` of nodes flipped to a uniform class."""
     n = csr.n_rows
     rows, cols, _ = hub_excluded_edges(csr, 1024)
-    clusters = _propagate_labels_numpy(rows, cols, n, n_iters)
+    clusters = _propagate_labels(rows, cols, n, n_iters)
 
     uniq, dense_id, sizes = np.unique(
         clusters, return_inverse=True, return_counts=True
@@ -344,6 +341,7 @@ def make_synthetic_dataset(name: str, seed: int = 19990304, **overrides):
         n_nodes=n_nodes,
         input_dim=spec["input_dim"],
         output_dim=spec["n_classes"],
+        setup={"source": "cache" if cached is not None else "generated"},
     )
 
 

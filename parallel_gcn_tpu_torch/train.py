@@ -529,7 +529,12 @@ def fit(
         if verbose:
             print(f"note: input_preagg has no {cfg.gcn.model.upper()} analog — ignored")
     elif cfg.tpu.input_preagg:
+        t0 = time.perf_counter()
         dds = preaggregate_input(model, dds)
+        _sync(dds.device)
+        if verbose:
+            print(f"setup: the input's pre-aggregation (Â·X at {dds.input_dim} columns) in "
+                  f"{time.perf_counter() - t0:.3f} s")
     opt_state = resumed_adam(ck, list(model.weights))
     gen = torch.Generator().manual_seed(seed)
     skip_epochs(gen, start, model.n_layers, gat)

@@ -142,11 +142,12 @@ def test_early_stopping_mean_of_last_k():
 PORT_MODULES = ["parallel_gcn_tpu_torch", "parallel_gcn_tpu_torch.train",
                 "parallel_gcn_tpu_torch.cli", "parallel_gcn_tpu_torch.seeds",
                 "parallel_gcn_tpu_torch.golden", "parallel_gcn_tpu_torch.utils.timer",
-                "parallel_gcn_tpu_torch.utils.profiling",
+                "parallel_gcn_tpu_torch.utils.profiling", "parallel_gcn_tpu_torch.data.native",
                 *(f"parallel_gcn_tpu_torch.harness.{m}" for m in (
                     "common", "accuracy", "tuning", "seed_select", "performance",
                     "performance_golden", "profile", "tuning_layout", "scaling",
-                    "mesh_onechip"))]
+                    "mesh_onechip", "scale_demo", "pack_census", "residual_stats",
+                    "feature_impl_bench", "plots", "evidence_check"))]
 
 
 def test_package_never_imports_jax():
