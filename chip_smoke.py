@@ -163,14 +163,28 @@ Phases, each printed on its own lines:
      K1 and K2 over seed lanes (one launch, lane s's seed at its solo element
      index) bit-equal to their plain versions at [233472, 4·600] bf16 and
      [2708, 8·1433] f32 and lane by lane to the unlaned kernel, beside the
-     unlaned kernel over the same bytes; ``[main-seeds]``: synth-reddit's GCN
-     at full width as 4 lanes for 10 epochs, each lane bit-equal to its solo
-     ``fit`` (history, test metrics, weights), the batch's replay profiled;
-     ``[seeds-medium]``: synth-medium (segment) as 16 lanes for 30 epochs,
-     lanes 0, 5, 10, 15 bit-equal to their solo runs; ``[seeds-stop]``: a
-     cora-sized graph on the dense backend in f32 as 8 lanes with
-     ``early_stopping=5`` that stop at different epochs, each where its solo
-     run stops, histories within 1e-6;
+     unlaned kernel over the same bytes; and K10's forward, dW and dX over
+     seed lanes (one launch each) at synth-reddit's fused layer 1 ([233472,
+     4·600] bf16 x [4, 600, 41]) and the cora-sized graph's layers (the shared
+     [2708, 1433] f32 input x [8, 1433, 72], no dX; [2708, 8·72] x [8, 72,
+     7]), lane by lane bit-equal to the unlaned K10 on the lane's operands
+     and within K10's tolerances of the laned plain version, beside S
+     unlaned launches and the byte bound; ``[main-seeds]``: synth-reddit's
+     GCN at full width as 4 lanes for 10 epochs, each lane bit-equal to its
+     solo ``fit`` (history, test metrics, weights), the batch's replay
+     profiled; ``[seeds-sage]``, ``[seeds-gin]`` (GIN-0), ``[seeds-gat]``
+     (heads 2 of 32, attention dropout 0.1) and ``[seeds-fused]``
+     (``ce_impl=pallas fuse_dropout_matmul=true``): synth-reddit at full width
+     as 4 lanes for 10 epochs, each lane bit-equal to its solo ``fit``, the
+     launches a replay the solo schedule's over the lanes (the GAT's 4 times
+     the solo replay's, the fused GCN's K10 once over the lanes), each
+     batch's replay profiled; ``[seeds-medium]``: synth-medium (segment) as
+     16 lanes for 30 epochs, lanes 0, 5, 10, 15 bit-equal to their solo runs;
+     ``[seeds-stop]``: a cora-sized graph on the dense backend in f32 as 8
+     lanes with ``early_stopping=5`` that stop at different epochs, each where
+     its solo run stops, histories within 1e-6, and ``[seeds-stop-fused]``
+     the same with ``fuse_dropout_matmul=true`` (the f32 laned K10, layer 0
+     over the shared input);
   7c. ``[main-products]``: synth-products at full width (100 -> 256 -> 47,
      hybrid, community reorder, 512x512 int8 tiles, the file's tile budget
      and ``min_tile_nnz``, bf16) with its node, edge, community and split
@@ -571,6 +585,95 @@ def check_seed_lanes(results: dict) -> None:
         assert torch.equal(cd.dropout(x, slot, 0.3, 8), cd.dropout_plain(x, seeds, 0.3, False, 8))
     print("[seed-lanes] K1, K2 over 3 lanes of [1001, 41] (the counter path) bit-equal to plain "
           "in bf16 and f32, K1 at element offset 8 too")
+    check_fused_lanes(results)
+
+
+# the laned K10 at the seed phases' shapes: ([n, k, m], lanes, dtype, rate,
+# shared x): synth-reddit's fused layer 1 at [seeds-fused]' 4 lanes, and the
+# cora-sized graph's layer 0 (the shared input, no dX) and layer 1 at
+# [seeds-stop-fused]' 8 lanes (parameters_cora.txt: 1433 -> 72 -> 7, dropouts
+# 0.4 / 0.2); 1,433 f32 columns put every lane but the first off 16 bytes
+FUSED_LANE_SHAPES = (((233472, 600, 41), 4, "bfloat16", 0.1, False),
+                     ((2708, 1433, 72), 8, "float32", 0.4, True),
+                     ((2708, 72, 7), 8, "float32", 0.2, False))
+FUSED_LANE_KERNELS = {"K10 fwd lanes": ("fwd_mma_lanes_kernel", "fwd_fma_lanes_kernel"),
+                      "K10 dW lanes": ("dw_mma_lanes_kernel", "dw_fma_lanes_kernel",
+                                       "reduce_splits_lanes_kernel"),
+                      "K10 dX lanes": ("dx_mma_lanes_kernel", "dx_lanes_kernel<")}
+
+
+def check_fused_lanes(results: dict) -> None:
+    """``[seed-lanes]``: K10's forward, dW and dX over S seed lanes (one
+    launch each, ``cuda_fused.dropout_matmul_lanes``) at FUSED_LANE_SHAPES,
+    the seeds in a device slot: lane by lane bit-equal to the unlaned K10 on
+    the lane's own operands (its columns of a joined x, or the shared x; its
+    W and seed), within ``check_fused``'s tolerances of the laned plain
+    version (f32 outputs rtol 1e-4, bf16 one bf16 ulp, + 1e-5·max|ref|), two
+    runs bit-identical; times (CUDA events and device time) beside the byte
+    bound and beside S unlaned launches on the lanes' operands."""
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import cuda_fused as cf
+
+    gen = torch.Generator().manual_seed(9)
+    base = 0x2468_ACE0_1357
+    for (n, k, m), lanes, dtype_name, rate, shared in FUSED_LANE_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        seeds = [base + 7919 * s for s in range(lanes)]
+        slot = torch.tensor(seeds, dtype=torch.int64, device="cuda")
+        x = torch.randn(n, k if shared else lanes * k, generator=gen).to(dtype).cuda()
+        r = (6.0 / (k + m)) ** 0.5  # Glorot range, as the layers' weights
+        w = ((torch.rand((lanes, k, m), generator=gen) * 2 - 1) * r).to(dtype).cuda()
+        g = (torch.randn((n, lanes * m), generator=gen) / n).cuda()
+        xs = [x if shared else x[:, s * k:(s + 1) * k].contiguous() for s in range(lanes)]
+        gs = [g[:, s * m:(s + 1) * m].contiguous() for s in range(lanes)]
+        rtol_out = 2.0**-7 if dtype == torch.bfloat16 else 1e-4
+        calls = {
+            "K10 fwd lanes": (lambda: cf._fwd_lanes(x, w, slot, rate),
+                              lambda: cf.dropout_matmul_lanes_plain(x, w, seeds, rate),
+                              lambda s: cf._fwd(xs[s], w[s], slot[s], rate),
+                              lambda t, s: t[:, s * m:(s + 1) * m], 1e-4, (x, w)),
+            "K10 dW lanes": (lambda: cf._dw_lanes(x, g, slot, rate, dtype, shared),
+                             lambda: cf.dropout_matmul_lanes_dw_plain(x, g, seeds, rate, dtype,
+                                                                      shared),
+                             lambda s: cf._dw(xs[s], gs[s], slot[s], rate, dtype),
+                             lambda t, s: t[s], rtol_out, (x, g)),
+        }
+        if not shared:
+            calls["K10 dX lanes"] = (lambda: cf._dx_lanes(g, w, slot, rate, dtype),
+                                     lambda: cf.dropout_matmul_lanes_dx_plain(g, w, seeds, rate,
+                                                                              dtype),
+                                     lambda s: cf._dx(gs[s], w[s], slot[s], rate, dtype),
+                                     lambda t, s: t[:, s * k:(s + 1) * k], rtol_out, (g, w))
+        flops = 2 * n * k * m * lanes
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        for key, (kernel, plain, solo, lane_of, rtol, ins) in calls.items():
+            got, again = kernel(), kernel()
+            assert torch.equal(got, again), f"{key}: two runs differ"
+            for s in range(lanes):
+                assert torch.equal(lane_of(got, s), solo(s)), \
+                    f"{key} [{n}, {lanes}·{k}] x [{k}, {m}] {dtype_name}: lane {s} != the " \
+                    f"unlaned K10 on its own operands"
+            err = _max_err(got, plain(), rtol)
+            ms = timer.events_ms(kernel, 20)
+            dev = profiling.kernel_ms(kernel, 20, *FUSED_LANE_KERNELS[key])
+            pms = timer.events_ms(plain, 2)
+            unlaned_ms = timer.events_ms(lambda: [solo(s) for s in range(lanes)], 20)
+            # dX's f32 product runs as three bf16 passes (g split into exact terms)
+            bound = _bound(_nbytes(*ins, got),
+                           3 * flops if key == "K10 dX lanes" and kind == "bf16" else flops, kind)
+            print(f"[seed-lanes] {key} [{n}, {lanes}·{k}{' shared' if shared else ''}] x "
+                  f"[{lanes}, {k}, {m}] {dtype_name} rate {rate}: bit-equal lane by lane to the "
+                  f"unlaned K10, max_abs_err {err:.3e} against plain (rtol {rtol:.3g}), runs "
+                  f"bit-identical; kernel {ms:.4f} ms (device {dev:.4f}), {lanes} unlaned "
+                  f"launches {unlaned_ms:.4f} ms, plain {pms:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            if key not in results or dtype == torch.bfloat16:
+                results[key] = dict(err=err, ms=ms, plain_ms=pms, unlaned_ms=unlaned_ms,
+                                    library_ms=None, **bound)
+            results[key]["err"] = max(results[key]["err"], err)
+        del x, w, g, xs, gs
+    torch.cuda.empty_cache()
 
 
 def _check_stacked(tag: str, spmm, a, b, bound: dict | None = None) -> None:
@@ -2474,7 +2577,8 @@ KERNEL_KEYS = {"K1": "dropout", "K2": "relu_dropout", "K3": "bcsr", "K4": "bcsr_
                "K10 fwd": "fused_fwd", "K10 dW": "fused_dw", "K10 dX": "fused_dx",
                "K8": "sddmm", "ordered gather_sum": "gather_sum",
                "ordered segment_sum": "segment_sum", "K1 lanes": "dropout_lanes",
-               "K2 lanes": "relu_dropout_lanes"}
+               "K2 lanes": "relu_dropout_lanes", "K10 fwd lanes": "fused_fwd_lanes",
+               "K10 dW lanes": "fused_dw_lanes", "K10 dX lanes": "fused_dx_lanes"}
 # the ordered sums' hub kernels (launched beside the walk kernel by a call
 # whose work list has hubs), counted apart from KERNEL_KEYS so the launches
 # a replay stay those of the walk kernels
@@ -2838,6 +2942,29 @@ def phase_main_seeds(dds) -> dict:
     return out
 
 
+# the seed batches of the other families and of the fused GCN at
+# synth-reddit's full width: [tag, the configuration's arguments, the lanes
+# held against their solo runs]
+SEED_FAMILIES = (("seeds-sage", SAGE_ARGS, range(SEED_LANES)),
+                 ("seeds-gin", GIN_ARGS, range(SEED_LANES)),
+                 ("seeds-gat", [*GAT_ARGS, "attn_dropout=0.1"], range(SEED_LANES)),
+                 ("seeds-fused", FUSED_ARGS, range(SEED_LANES)))
+
+
+def phase_seeds_family(tag: str, args: list[str], dds, solo_lanes) -> dict:
+    """``[seeds-sage]``, ``[seeds-gin]``, ``[seeds-gat]``, ``[seeds-fused]``:
+    synth-reddit's configuration ``args`` at full width as ``SEED_LANES``
+    lanes for ``EPOCHS`` epochs, each lane of ``solo_lanes`` bit for bit its
+    solo ``fit``; then the batch's replay under the profiler."""
+    from parallel_gcn_tpu_torch.seeds import seed_run
+
+    out = _seed_batch(tag, _config(args, EPOCHS), dds, SEED_LANES, solo_lanes, exact=True)
+    cfg = _config(args, SCAN_PROFILE_EPOCHS)
+    run = seed_run(cfg, dds, [cfg.tpu.seed + s for s in range(SEED_LANES)])
+    _profile_scan(f"synth-reddit {' '.join(args)}, {SEED_LANES} seed lanes", run.loop)
+    return out
+
+
 def phase_seeds_medium() -> dict:
     """``[seeds-medium]``: synth-medium (``backend=segment``: the flat COO's
     ordered gather-sum at 16·64 columns) as 16 lanes, 30 epochs, lanes 0, 5,
@@ -2856,14 +2983,17 @@ def phase_seeds_medium() -> dict:
     return _seed_batch("seeds-medium", cfg, dds, 16, (0, 5, 10, 15), exact=True)
 
 
-def phase_seeds_stop() -> dict:
+def phase_seeds_stop(fused: bool = False) -> dict:
     """``[seeds-stop]``: a generated cora-sized graph (``DENSE_SETS``, with a
     feature signal of 2.0 so that lanes stop at different epochs) on the
     dense backend in f32, ``parameters_cora.txt``'s width 72 and dropouts
     0.4 / 0.2 (K1 over 8 lanes of 1,433 features), 8 lanes with
     ``early_stopping=5`` and at most 200 epochs: each lane stops where its
     solo run stops, its history within 1e-6 (Â·[N, 8·72] is one cuBLAS
-    product whose algorithm follows the shape, so bits are not asked for)."""
+    product whose algorithm follows the shape, so bits are not asked for).
+    ``[seeds-stop-fused]`` (``fused``): the same with
+    ``fuse_dropout_matmul=true``, the f32 laned K10 at both layers (layer
+    0 over the shared input)."""
     import torch
 
     from parallel_gcn_tpu_torch.config import default_params_path, load_config
@@ -2873,8 +3003,10 @@ def phase_seeds_stop() -> dict:
     ds = make_synthetic_dataset("cora-sized", **DENSE_SETS["cora"], feature_signal=2.0)
     dds = to_device(ds, device=torch.device("cuda"), dense=True)
     cfg = load_config(default_params_path("cora"), dict(
-        epochs=200, early_stopping=5, compute_dtype="float32", backend="dense", verbose=False))
-    out = _seed_batch("seeds-stop", cfg, dds, 8, range(8), exact=False)
+        epochs=200, early_stopping=5, compute_dtype="float32", backend="dense", verbose=False,
+        fuse_dropout_matmul=fused))
+    out = _seed_batch("seeds-stop-fused" if fused else "seeds-stop", cfg, dds, 8, range(8),
+                      exact=False)
     runs = out["result"].epochs_run
     assert len(set(runs)) > 1 and max(runs) < 200, f"the lanes stopped at {runs}"
     return out
@@ -3428,6 +3560,21 @@ def main(argv: list[str]) -> int:
             main_seeds["counts"]["ordered gather_sum"], main_seeds["counts"]["K2"]) == (
         EPOCHS, 2 * EPOCHS + 3, 2 * EPOCHS + 3, 0), main_seeds
     _stamp("main-seeds")
+    families = {tag: phase_seeds_family(tag, args, dds, lanes)
+                for tag, args, lanes in SEED_FAMILIES}
+    # a replay: each family's solo schedule with the aggregations over the
+    # lanes' joined columns (SAGE's and GIN's K4 and gather-sums as alone, K2
+    # over the lanes once); the GAT's attention once a lane (K5, K6, K1 and
+    # the residual's sums 4 times the solo replay's); the fused GCN's K10
+    # over the lanes once each way, K9 once a lane
+    for tag, want in (("seeds-sage", {"K2 lanes": 1, "K4": 6, "ordered gather_sum": 6}),
+                      ("seeds-gin", {"K2 lanes": 1, "K4": 5, "ordered gather_sum": 5}),
+                      ("seeds-gat", {k: SEED_LANES * v for k, v in gat["per_replay"].items()}),
+                      ("seeds-fused", {"K4": 2, "K9 train": SEED_LANES, "K9 eval": SEED_LANES,
+                                       "K10 fwd lanes": 1, "K10 dW lanes": 1,
+                                       "K10 dX lanes": 1, "ordered gather_sum": 2})):
+        assert families[tag]["per_replay"] == want, (tag, families[tag]["per_replay"])
+    _stamp("seeds-families")
     remat = {"GCN": phase_remat("remat-gcn", [], dds, gcn["scan_run"]),
              "GAT": phase_remat("remat-gat", GAT_ARGS, dds, gat["scan_run"])}
     # the GCN's deferred schedule recomputes layer 0's transform only (its
@@ -3447,6 +3594,11 @@ def main(argv: list[str]) -> int:
     # the plain epoch (early stopping): K1 over the lanes' input features and
     # K2 at layer 1's entry, in the train forward; the dense Â is cuBLAS's
     assert seeds_stop["per_replay"] == {"K1 lanes": 1, "K2 lanes": 1}, seeds_stop["per_replay"]
+    seeds_stop_fused = phase_seeds_stop(fused=True)
+    # the laned K10 at both layers' training forward (layer 0 over the
+    # shared input) and backward, dX at layer 1 only
+    assert seeds_stop_fused["per_replay"] == {"K10 fwd lanes": 2, "K10 dW lanes": 2,
+                                              "K10 dX lanes": 1}, seeds_stop_fused["per_replay"]
     torch.cuda.empty_cache()
     _stamp("seed batches")
     products = phase_main_products()
@@ -3554,6 +3706,7 @@ def main(argv: list[str]) -> int:
              "GAT segment chunked": gat_chunk["main-gat-chunk"],
              "mesh GAT segment chunked": mesh_gat_chunk, "GCN 4 seed lanes": main_seeds,
              "synth-medium 16 seed lanes": seeds_medium, "cora-sized 8 seed lanes": seeds_stop,
+             "cora-sized 8 fused seed lanes": seeds_stop_fused, **families,
              "synth-products at one eighth": products}
     # each kernel's launches over every main path and the emulated TP
     # forwards and backwards (K3 and K8 run on none: 0)
@@ -3594,36 +3747,45 @@ def main(argv: list[str]) -> int:
     seg_src = "parallel_gcn_tpu_torch/csrc/segment_sum.cu"
     # no Pallas kernel: the JAX package sums its residual with XLA's segment_sum
     seg_replaces = "parallel_gcn_tpu/ops/graphsum.py:45 (jax.ops.segment_sum, no Pallas kernel)"
+    kernels = [
+        entry("K1", "dropout", drop_src, "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
+        entry("K2", "relu_dropout", drop_src, "parallel_gcn_tpu/ops/pallas_dropout.py:142"),
+        entry("K4", "bcsr_spmm_scaled", bcsr_src, "parallel_gcn_tpu/ops/pallas_bcsr.py:254"),
+        entry("K5", "gat_fwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:179"),
+        entry("K6", "gat_bwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:283"),
+        entry("K9 train", "masked_ce_train", ce_src, "parallel_gcn_tpu/ops/pallas_ce.py:77"),
+        entry("K9 eval", "masked_ce_eval", ce_src, "parallel_gcn_tpu/ops/pallas_ce.py:73"),
+        entry("K10 fwd", "dropout_matmul_fwd", mm_src,
+              "parallel_gcn_tpu/ops/pallas_fused.py:49"),
+        entry("K10 dW", "dropout_matmul_dw", mm_src,
+              "parallel_gcn_tpu/ops/pallas_fused.py:70"),
+        entry("K10 dX", "dropout_matmul_dx", mm_src,
+              "parallel_gcn_tpu/ops/pallas_fused.py:93"),
+        entry("K3 rect", "bcsr_spmm_rect", bcsr_src,
+              "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),
+        entry("K5 rect", "gat_fwd_rect", attn_src,
+              "parallel_gcn_tpu/ops/tile_attention.py:179"),
+        entry("K7 row", "gat_bwd_rect_row", rect_src,
+              "parallel_gcn_tpu/ops/tile_attention.py:439"),
+        entry("K7 col", "gat_bwd_rect_col", rect_src,
+              "parallel_gcn_tpu/ops/tile_attention.py:475"),
+        entry("ordered gather_sum", "ordered_gather_sum", seg_src, seg_replaces),
+        entry("ordered segment_sum", "ordered_segment_sum", seg_src, seg_replaces),
+        entry("K1 lanes", "dropout_lanes", drop_src,
+              "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
+        entry("K2 lanes", "relu_dropout_lanes", drop_src,
+              "parallel_gcn_tpu/ops/pallas_dropout.py:142"),
+        entry("K10 fwd lanes", "dropout_matmul_fwd_lanes", mm_src,
+              "parallel_gcn_tpu/ops/pallas_fused.py:49"),
+        entry("K10 dW lanes", "dropout_matmul_dw_lanes", mm_src,
+              "parallel_gcn_tpu/ops/pallas_fused.py:70"),
+        entry("K10 dX lanes", "dropout_matmul_dx_lanes", mm_src,
+              "parallel_gcn_tpu/ops/pallas_fused.py:93"),
+    ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    assert not idle, f"kernels of the main paths that no main path launched: {idle}"
     print(json.dumps({
-        "kernels": [
-            entry("K1", "dropout", drop_src, "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
-            entry("K2", "relu_dropout", drop_src, "parallel_gcn_tpu/ops/pallas_dropout.py:142"),
-            entry("K4", "bcsr_spmm_scaled", bcsr_src, "parallel_gcn_tpu/ops/pallas_bcsr.py:254"),
-            entry("K5", "gat_fwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:179"),
-            entry("K6", "gat_bwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:283"),
-            entry("K9 train", "masked_ce_train", ce_src, "parallel_gcn_tpu/ops/pallas_ce.py:77"),
-            entry("K9 eval", "masked_ce_eval", ce_src, "parallel_gcn_tpu/ops/pallas_ce.py:73"),
-            entry("K10 fwd", "dropout_matmul_fwd", mm_src,
-                  "parallel_gcn_tpu/ops/pallas_fused.py:49"),
-            entry("K10 dW", "dropout_matmul_dw", mm_src,
-                  "parallel_gcn_tpu/ops/pallas_fused.py:70"),
-            entry("K10 dX", "dropout_matmul_dx", mm_src,
-                  "parallel_gcn_tpu/ops/pallas_fused.py:93"),
-            entry("K3 rect", "bcsr_spmm_rect", bcsr_src,
-                  "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),
-            entry("K5 rect", "gat_fwd_rect", attn_src,
-                  "parallel_gcn_tpu/ops/tile_attention.py:179"),
-            entry("K7 row", "gat_bwd_rect_row", rect_src,
-                  "parallel_gcn_tpu/ops/tile_attention.py:439"),
-            entry("K7 col", "gat_bwd_rect_col", rect_src,
-                  "parallel_gcn_tpu/ops/tile_attention.py:475"),
-            entry("ordered gather_sum", "ordered_gather_sum", seg_src, seg_replaces),
-            entry("ordered segment_sum", "ordered_segment_sum", seg_src, seg_replaces),
-            entry("K1 lanes", "dropout_lanes", drop_src,
-                  "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
-            entry("K2 lanes", "relu_dropout_lanes", drop_src,
-                  "parallel_gcn_tpu/ops/pallas_dropout.py:142"),
-        ],
+        "kernels": kernels,
         # ported kernels that no main path launches
         "off_path_kernels": [
             entry("K3", "bcsr_spmm", bcsr_src, "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),

@@ -16,6 +16,10 @@ f32 logits) and K10 (dropout⊗matmul forward, dW, dX, [233472, 600] bf16 ×
 time of every kernel a call launches (``torch.profiler``), with hashes of
 the outputs, so variants that change only speed show the base's hashes.
 ``FUSED_KNOBS`` are settings of the checkout's wrapper (dW's slab width).
+The base also times K10 over 4 seed lanes ([233472, 4·600] bf16, one
+launch each way) beside 4 unlaned launches on the lanes' operands. Times
+are ``utils.timer.events_ms``, the median of batch means that
+``chip_smoke.py`` takes.
 The design steps are the forward's ring depth and row tile, dW's ring
 depth and slab width, K9's staged rows against its looped path; the
 wrong-on-purpose variants each remove one cost (Philox, the products, the
@@ -115,7 +119,8 @@ _NO_MMA = [(MM, """  asm volatile(
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));""",
             "  c[0] += __uint_as_float(a0 ^ a1 ^ a2 ^ a3 ^ b0 ^ b1);")]
-_NO_X = [(MM, "      cp_async16(dst, ok ? x + row * k + col : x, ok ? 16 : 0);\n    } else {", "    } else {")]
+_NO_X = [(MM, "      cp_async16(dst, ok ? x + row * ldx + col : x, ok ? 16 : 0);\n    } else {",
+          "    } else {")]
 
 
 def _const(name: str, value: int) -> tuple:
@@ -144,9 +149,9 @@ FUSED_VARIANTS = {
     "fwd-8-warps": lambda: [_const("kFwdWarps", 8)],
     "dw-stages-3": lambda: [_const("kDwStages", 3)],
     "dw-rows-32": lambda: [_const("kDwRows", 32), _const("kDwStages", 4)],
-    "dx-plain-stores": lambda: [(MM, "__stcs(reinterpret_cast<uint2*>(dx + bidx),\n"
+    "dx-plain-stores": lambda: [(MM, "__stcs(reinterpret_cast<uint2*>(dst),\n"
                                  "                     make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])));",
-                                 "*reinterpret_cast<uint2*>(dx + bidx) =\n"
+                                 "*reinterpret_cast<uint2*>(dst) =\n"
                                  "                  make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));")],
     "dx-no-unroll": lambda: [(MM, "#pragma unroll 2  // two pairs' mma chains in flight\n", "")],
     "dx-halves-contiguous": lambda: [(MM, "for (int pr = half; pr < pairs; pr += 2) {",
@@ -166,8 +171,8 @@ FUSED_VARIANTS = {
     "no-w-staging": lambda: [(MM, "        wf32[e] = v;\n", "")],
     "dx-no-stores": lambda: [(MM, "            if (kAl4) {\n              __stcs(",
                               "            if (v[0] == 1234.5f) {\n              __stcs("),
-                             (MM, "                if (col + t < k) dx[bidx + t]",
-                              "                if (v[t] == 1234.5f) dx[bidx + t]")],
+                             (MM, "                if (col + t < k) dst[t]",
+                              "                if (v[t] == 1234.5f) dst[t]")],
     "dx-stores-only": lambda: _DX_KEEP + [(MM, "for (int t = 0; t < 3; ++t) {",
                                            "for (int t = 0; t < 0; ++t) {")],
     "dx-no-pairs": lambda: [(MM, "for (int pr = half; pr < pairs; pr += 2) {",
@@ -457,8 +462,45 @@ def _time_fused(torch, ce, cf, t) -> str:
     parts = []
     for key, (fn, out) in calls.items():
         result = fn() if out is None else fn()[out]
-        parts.append(f"{key} {_events_ms(torch, fn, 20):.4f} ms (device "
+        parts.append(f"{key} {_events_ms(fn, 20):.4f} ms (device "
                      f"{_device_total_ms(torch, fn):.4f}; {_digest(result)})")
+    return "; ".join(parts)
+
+
+def _time_fused_lanes(torch, cf, n: int, lanes: int = 4) -> str:
+    """K10 over ``lanes`` seed lanes (``cuda_fused.dropout_matmul_lanes``) at
+    the fused GCN's layer 1 of a synth-reddit seed batch, x [n, lanes·600]
+    bf16, W [lanes, 600, 41], beside ``lanes`` unlaned launches on the
+    lanes' own operands: CUDA events over 20 calls, device time, and
+    whether each lane is its unlaned launch bit for bit."""
+    gen = torch.Generator().manual_seed(1)
+    seed, rate = 0x0F1E_2D3C_4B5A_6978, 0.1
+    slot = torch.tensor([seed + 7919 * s for s in range(lanes)], device="cuda")
+    x = torch.randn((n, lanes * 600), generator=gen).bfloat16().cuda()
+    w = ((torch.rand((lanes, 600, 41), generator=gen) * 2 - 1) * 0.0988).bfloat16().cuda()
+    g = (torch.randn((n, lanes * 41), generator=gen) / n).cuda()
+    xs = [x[:, s * 600:(s + 1) * 600].contiguous() for s in range(lanes)]
+    gs = [g[:, s * 41:(s + 1) * 41].contiguous() for s in range(lanes)]
+    calls = {
+        "K10 fwd": (lambda: cf._fwd_lanes(x, w, slot, rate),
+                    lambda s: cf._fwd(xs[s], w[s], slot[s], rate),
+                    lambda t, s: t[:, s * 41:(s + 1) * 41]),
+        "K10 dW": (lambda: cf._dw_lanes(x, g, slot, rate, torch.bfloat16),
+                   lambda s: cf._dw(xs[s], gs[s], slot[s], rate, torch.bfloat16),
+                   lambda t, s: t[s]),
+        "K10 dX": (lambda: cf._dx_lanes(g, w, slot, rate, torch.bfloat16),
+                   lambda s: cf._dx(gs[s], w[s], slot[s], rate, torch.bfloat16),
+                   lambda t, s: t[:, s * 600:(s + 1) * 600]),
+    }
+    parts = []
+    for key, (laned, solo, lane_of) in calls.items():
+        got = laned()
+        same = all(torch.equal(lane_of(got, s), solo(s)) for s in range(lanes))
+        unlaned = lambda: [solo(s) for s in range(lanes)]  # noqa: E731
+        parts.append(f"{key} lanes {_events_ms(laned, 20):.4f} ms (device "
+                     f"{_device_total_ms(torch, laned):.4f}), {lanes} unlaned "
+                     f"{_events_ms(unlaned, 20):.4f} ms (device "
+                     f"{_device_total_ms(torch, unlaned):.4f}), lanes = unlaned: {same}")
     return "; ".join(parts)
 
 
@@ -487,6 +529,8 @@ def fused_family(parent: str | None) -> int:
     fns = ["pgcn_masked_ce", "pgcn_dropout_matmul_fwd", "pgcn_dropout_matmul_dw",
            "pgcn_dropout_matmul_dw_blocks", "pgcn_dropout_matmul_dx"]
     print(f"[fused-variant] base: {_time_fused(torch, ce, cf, inputs)}", flush=True)
+    print(f"[fused-variant] base, 4 seed lanes: "
+          f"{_time_fused_lanes(torch, cf, inputs['x'].shape[0])}", flush=True)
     for name, knobs in FUSED_KNOBS.items():
         old = {k: getattr(cf, k) for k in knobs}
         for k, v in knobs.items():
@@ -537,17 +581,13 @@ def _spmm_inputs(torch):
     return dds.graph.bcsr, x41, x600
 
 
-def _events_ms(torch, fn, reps=10):
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+def _events_ms(fn, reps=10):
+    """``utils.timer.events_ms`` of the package on the path (this
+    checkout's, or the tree a ``--time-*`` process times): the median of
+    batch means of CUDA events, as ``chip_smoke.py`` times."""
+    from parallel_gcn_tpu_torch.utils.timer import events_ms
+
+    return events_ms(fn, reps)
 
 
 def _digest(t):
@@ -562,7 +602,7 @@ def _time_spmm(torch, cb, pack, x41, x600) -> str:
     for key, pk, x in (("K4 F=41", pack, x41), ("K3 F=41", pattern, x41),
                        ("K3 F=600", pattern, x600)):
         out = cb.bcsr_matmul_impl(pk, x)
-        parts.append(f"{key} {_events_ms(torch, lambda: cb.bcsr_matmul_impl(pk, x)):.4f} ms "
+        parts.append(f"{key} {_events_ms(lambda: cb.bcsr_matmul_impl(pk, x)):.4f} ms "
                      f"({_digest(out)})")
     return "; ".join(parts)
 
@@ -597,7 +637,7 @@ def spmm_family(parent: str | None) -> int:
 
     print(f"[spmm-variant] base (segments of {cb.SPMM_SEGMENT_TILES}): "
           f"{_time_spmm(torch, cb, pack, x41, x600)}", flush=True)
-    xp_ms = _events_ms(torch, lambda: cb.pad_features(x41))
+    xp_ms = _events_ms(lambda: cb.pad_features(x41))
     print(f"[spmm-variant] x41 padded to 48 bf16 features (the wrapper's copy): "
           f"{xp_ms:.4f} ms", flush=True)
     for tiles in (2, 4, 8):
@@ -661,10 +701,10 @@ def _time_attention(torch, ta, pack, shapes, bare: bool) -> str:
                  "K6": lambda: ta.gat_bwd_tiles(pack, s, t, v, g, m, den, rho, slope=0.2)}
         for key, fn in calls.items():
             out = fn()
-            part = (f"{key} D={D} {_events_ms(torch, fn):.4f} ms "
+            part = (f"{key} D={D} {_events_ms(fn):.4f} ms "
                     f"({_digest(torch.cat([x.reshape(x.shape[0], -1) for x in out], 1))})")
             if bare:
-                part += f", kernel alone {_events_ms(torch, _bare_call(ta, key, pack, shapes[D])):.4f}"
+                part += f", kernel alone {_events_ms(_bare_call(ta, key, pack, shapes[D])):.4f}"
             parts.append(part)
     return "; ".join(parts)
 
@@ -763,7 +803,7 @@ def attention_family(parent: str | None) -> int:
           f"{e6:.3e} of max|ref|", flush=True)
     print(f"[attn-variant] base: {_time_attention(torch, ta, pack, shapes, True)}", flush=True)
     for D, (s, t, v, g, m, den, rho) in shapes.items():
-        ms = _events_ms(torch, lambda: ta._node_records(s, t, m, den, rho))
+        ms = _events_ms(lambda: ta._node_records(s, t, m, den, rho))
         print(f"[attn-variant] K6's node records (torch, in its wrapper) D={D}: {ms:.4f} ms",
               flush=True)
     for name, (path, log) in libs.items():
@@ -837,10 +877,10 @@ def _time_rect(torch, ta, slabs, bare: bool) -> str:
             for sweep, (fn, lib_call) in calls.items():
                 out = fn()
                 out = out if sweep == "row" else torch.cat([out[0], out[1].flatten(1)], 1)
-                part = (f"{tag} {sweep} D={D} {_events_ms(torch, fn):.4f} ms "
+                part = (f"{tag} {sweep} D={D} {_events_ms(fn):.4f} ms "
                         f"({_digest(out)})")
                 if bare:
-                    part += f", kernel alone {_events_ms(torch, lib_call):.4f}"
+                    part += f", kernel alone {_events_ms(lib_call):.4f}"
                 parts.append(part)
     return "; ".join(parts)
 
@@ -877,7 +917,7 @@ def rect_family(parent: str | None) -> int:
     print(f"[rect-variant] base: {_time_rect(torch, ta, slabs, True)}", flush=True)
     for tag, (attn, shapes) in slabs.items():
         bw, _ = shapes[41]
-        ms = _events_ms(torch, lambda: ta._rect_bwd_args(*bw))
+        ms = _events_ms(lambda: ta._rect_bwd_args(*bw))
         print(f"[rect-variant] K7's records and padded g, v rows ({tag}, D=41, shared by "
               f"both sweeps): {ms:.4f} ms", flush=True)
     for name, (path, log) in libs.items():
@@ -938,7 +978,7 @@ def _time_dropout(torch, cd, inputs) -> str:
     for shape, x in inputs.items():
         for key, fn in (("K1", lambda: cd.dropout(x, seed, rate)),
                         ("K2", lambda: cd.relu_dropout(x, seed, rate))):
-            parts.append(f"{key} {list(shape)} {_events_ms(torch, fn, 20):.4f} ms "
+            parts.append(f"{key} {list(shape)} {_events_ms(fn, 20):.4f} ms "
                          f"(device {_dropout_device_ms(torch, fn):.4f}; {_digest(fn())})")
     return "; ".join(parts)
 
@@ -962,7 +1002,7 @@ def dropout_family(parent: str | None) -> int:
     for shape, x in inputs.items():
         fn = lambda: torch.nn.functional.dropout(x, 0.1)  # noqa: E731
         print(f"[drop-variant] torch.nn.functional.dropout {list(shape)} bf16 rate 0.1: "
-              f"{_events_ms(torch, fn, 20):.4f} ms (device {_dropout_device_ms(torch, fn):.4f})",
+              f"{_events_ms(fn, 20):.4f} ms (device {_dropout_device_ms(torch, fn):.4f})",
               flush=True)
     print(f"[drop-variant] base: {_time_dropout(torch, cd, inputs)}", flush=True)
     # a K1 call's cost by layer at the small shape, where the kernel is short:
@@ -981,7 +1021,7 @@ def dropout_family(parent: str | None) -> int:
               "torch.empty_like alone": lambda: torch.empty_like(x),
               "torch.nn.functional.dropout": lambda: torch.nn.functional.dropout(x, 0.1)}
     print("[drop-variant] K1 [233472, 64] by layer, ms a call over 200: " + "; ".join(
-        f"{k} {_events_ms(torch, fn, 200):.4f}" for k, fn in layers.items()), flush=True)
+        f"{k} {_events_ms(fn, 200):.4f}" for k, fn in layers.items()), flush=True)
     for name, (path, log) in libs.items():
         _load_variant(path, base, ["pgcn_dropout"])
         print(f"[drop-variant] {name}: {_time_dropout(torch, cd, inputs)} "
@@ -1135,7 +1175,7 @@ def _time_segment(torch, cs, shapes, parent=None, seg_of=None) -> str:
             fn = lambda g=g, t=t: parent[1](  # noqa: E731
                 t.new_zeros((g.n_nodes, *t.shape[1:])), g.row_seg, t)
         try:
-            parts.append(f"{name} {_events_ms(torch, fn, 10):.4f} ms (device "
+            parts.append(f"{name} {_events_ms(fn, 10):.4f} ms (device "
                          f"{_segment_device_ms(torch, fn):.4f}; {_digest(fn())})")
         except RuntimeError as e:  # a variant whose layout a shape cannot take
             parts.append(f"{name} failed: {e}")
@@ -1191,9 +1231,9 @@ def _segment_split(torch, cs, parent=None) -> None:
         x = torch.randn((n, F), generator=gen, device="cuda").to(torch.bfloat16)
         line = []
         for name, (seg, _) in parts.items():
-            ms = _events_ms(torch, lambda: cs.gather_sum(x, seg), 10)
+            ms = _events_ms(lambda: cs.gather_sum(x, seg), 10)
             old = "" if parent is None else " (parent {:.4f})".format(
-                _events_ms(torch, lambda: parent[0](x, seg, seg.src, seg.val), 10))
+                _events_ms(lambda: parent[0](x, seg, seg.src, seg.val), 10))
             line.append(f"{name} {ms:.4f}{old}")
         print(f"[seg-split] flat (a) [E, {F}] bf16, ms: {'; '.join(line)}", flush=True)
     for shape in ((g.n_edges_pad, 2), (g.n_edges_pad, 2, 41)):
@@ -1205,9 +1245,9 @@ def _segment_split(torch, cs, parent=None) -> None:
             def call(fn, seg=seg, vals=vals):
                 return fn(vals.new_zeros((n, *shape[1:])), seg, vals)
 
-            ms = _events_ms(torch, lambda: call(cs.segment_sum_), 10)
+            ms = _events_ms(lambda: call(cs.segment_sum_), 10)
             old = "" if parent is None else (
-                f" (parent {_events_ms(torch, lambda: call(parent[1]), 10):.4f})")
+                f" (parent {_events_ms(lambda: call(parent[1]), 10):.4f})")
             line.append(f"{name} {ms:.4f}{old}")
         print(f"[seg-split] flat (b) [E, {', '.join(map(str, shape[1:]))}] f32, ms: "
               f"{'; '.join(line)}", flush=True)

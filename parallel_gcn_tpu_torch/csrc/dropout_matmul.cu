@@ -48,6 +48,14 @@
 //     three exact bf16 terms), W staged once, output columns permuted so a
 //     thread writes 4 consecutive columns under one Philox counter.
 // Ragged n, k and m are masked in the kernels; the host pads nothing.
+//
+// Seed lanes (*_lanes_kernel, the pgcn_dropout_matmul_*_lanes entry points):
+// one launch runs a layer of S training runs, as JAX's vmap of the Pallas
+// kernels adds a batch grid axis. Each kernel's body is shared by its
+// unlaned and laned kernel; lane s runs it on its own operands, with its own
+// seed and its solo mask index, so it is the unlaned launch bit for bit
+// (the comment above LaneArgs). Reading a shared x once for all lanes is
+// later work: each lane reads it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,22 +169,23 @@ __device__ __forceinline__ bool aligned4(const T* p) {
 }
 
 // The masked, scaled x of row `row`, columns col .. col+3 (zeros past n
-// rows or k columns), each rounded to T: where(keep, x·inv_keep, 0).
+// rows or k columns), each rounded to T: where(keep, x·inv_keep, 0). The
+// mask index is row·k + col (x as its own [n, k]); x's rows lie ldx apart.
 template <typename T>
 __device__ __forceinline__ void masked4(const T* __restrict__ x, int64_t n, int k,
-                                        int64_t row, int col, const Mask& mk,
+                                        int64_t ldx, int64_t row, int col, const Mask& mk,
                                         float inv_keep, float (&v)[4]) {
   v[0] = v[1] = v[2] = v[3] = 0.0f;
   if (row >= n || col >= k) return;
-  const int64_t b = row * k + col;
-  const unsigned keep = mk.keep4(b);
+  const unsigned keep = mk.keep4(row * k + col);
   if (!keep) return;
+  const T* p = x + row * ldx + col;
   const int len = min(4, k - col);
   float xv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (len == 4 && aligned4(x + b)) {
-    load4(x + b, xv);
+  if (len == 4 && aligned4(p)) {
+    load4(p, xv);
   } else {
-    for (int q = 0; q < len; ++q) xv[q] = to_float(x[b + q]);
+    for (int q = 0; q < len; ++q) xv[q] = to_float(p[q]);
   }
 #pragma unroll
   for (int q = 0; q < 4; ++q)
@@ -210,11 +219,12 @@ constexpr int kTN = 48;                        // output columns per block (fwd,
 constexpr int kFmaChunk = 32;                  // contraction chunk, f32 fwd and dW
 constexpr int kFmaThreads = 16 * (kTN / 4);    // 192
 
-// f32 forward: out[r0.., n0..] = xm · W
-__global__ void __launch_bounds__(kFmaThreads)
-fwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               float* __restrict__ out, int64_t n, int k, int m, MaskArgs ma,
-               float inv_keep) {
+// f32 forward: out[r0.., n0..] = xm · W (x's rows ldx apart, out's ldo)
+__device__ __forceinline__ void fwd_fma_body(const float* __restrict__ x,
+                                             const float* __restrict__ w,
+                                             float* __restrict__ out, int64_t n, int k, int m,
+                                             int64_t ldx, int64_t ldo, MaskArgs ma,
+                                             float inv_keep) {
   const Mask mk = ma.load();
   __shared__ float a_s[kRows][kFmaChunk + 1];              // xm [row][kcol]
   __shared__ __align__(16) float b_s[kFmaChunk][kTN];      // W [kcol][out col]
@@ -229,7 +239,7 @@ fwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int r = e / (kFmaChunk / 4);
       const int c = (e % (kFmaChunk / 4)) * 4;
       float v[4];
-      masked4(x, n, k, r0 + r, k0 + c, mk, inv_keep, v);
+      masked4(x, n, k, ldx, r0 + r, k0 + c, mk, inv_keep, v);
 #pragma unroll
       for (int q = 0; q < 4; ++q) a_s[r][c + q] = v[q];
     }
@@ -248,23 +258,31 @@ fwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx * 4 + j;
-      if (row < n && col < m) out[row * m + col] = acc[i][j];
+      if (row < n && col < m) out[row * ldo + col] = acc[i][j];
     }
   }
 }
 
-// f32 dW partial of row range [rs0, rs0 + rows_per_split):
-// ws[split][kc0.., n0..] = xmᵀ · g
 __global__ void __launch_bounds__(kFmaThreads)
-dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
-              float* __restrict__ ws, int64_t n, int k, int m,
-              int64_t rows_per_split, MaskArgs ma, float inv_keep) {
+fwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               float* __restrict__ out, int64_t n, int k, int m, MaskArgs ma,
+               float inv_keep) {
+  fwd_fma_body(x, w, out, n, k, m, k, m, ma, inv_keep);
+}
+
+// f32 dW partial of row range [rs0, rs0 + rows_per_split) of split
+// `split`: ws[split][kc0.., n0..] = xmᵀ · g
+__device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
+                                            const float* __restrict__ g,
+                                            float* __restrict__ ws, int64_t n, int k, int m,
+                                            int64_t ldx, int64_t rows_per_split, int split,
+                                            MaskArgs ma, float inv_keep) {
   const Mask mk = ma.load();
   __shared__ float a_s[kRows][kFmaChunk + 1];              // xm [kcol][row]
   __shared__ __align__(16) float b_s[kFmaChunk][kTN];      // g [row][out col]
   const int kc0 = blockIdx.x * kRows;
   const int n0 = blockIdx.y * kTN;
-  const int64_t rs0 = (int64_t)blockIdx.z * rows_per_split;
+  const int64_t rs0 = (int64_t)split * rows_per_split;
   const int64_t rs1 = rs0 + rows_per_split < n ? rs0 + rows_per_split : n;
   const int tid = threadIdx.x;
   const int ty = tid / (kTN / 4);
@@ -275,7 +293,7 @@ dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
       const int r = e / (kRows / 4);
       const int c = (e % (kRows / 4)) * 4;
       float v[4];
-      masked4(x, n, k, r0 + r, kc0 + c, mk, inv_keep, v);
+      masked4(x, n, k, ldx, r0 + r, kc0 + c, mk, inv_keep, v);
 #pragma unroll
       for (int q = 0; q < 4; ++q) a_s[c + q][r] = v[q];
     }
@@ -288,7 +306,7 @@ dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
     fma_block<kFmaChunk + 1, kTN>(a_s, b_s, acc, ty, tx, kFmaChunk);
     __syncthreads();
   }
-  float* dst = ws + (int64_t)blockIdx.z * k * m;
+  float* dst = ws + (int64_t)split * k * m;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kc = kc0 + ty * 4 + i;
@@ -298,6 +316,13 @@ dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
       if (kc < k && col < m) dst[(int64_t)kc * m + col] = acc[i][j];
     }
   }
+}
+
+__global__ void __launch_bounds__(kFmaThreads)
+dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
+              float* __restrict__ ws, int64_t n, int k, int m,
+              int64_t rows_per_split, MaskArgs ma, float inv_keep) {
+  dw_fma_body(x, g, ws, n, k, m, k, rows_per_split, blockIdx.z, ma, inv_keep);
 }
 
 // ---------------------------------------------------------------------------
@@ -423,8 +448,8 @@ __device__ __forceinline__ int xswz(int r) { return (r & 3) << 1; }
 // == 0 and x 16-byte aligned), else element by element. Zeros past row n or
 // column k.
 __device__ __forceinline__ void stage_x(uint8_t* st, const __nv_bfloat16* __restrict__ x,
-                                        int64_t row0, int64_t n, int col0, int k, bool vec,
-                                        int lane) {
+                                        int64_t row0, int64_t n, int col0, int k, int64_t ldx,
+                                        bool vec, int lane) {
 #pragma unroll
   for (int e = lane; e < 16 * (kKC / 8); e += 32) {
     const int r = e / (kKC / 8);
@@ -434,12 +459,12 @@ __device__ __forceinline__ void stage_x(uint8_t* st, const __nv_bfloat16* __rest
     uint8_t* dst = st + r * (kKC * 2) + ((p ^ xswz(r)) << 4);
     const bool ok = row < n && col < k;
     if (vec) {
-      cp_async16(dst, ok ? x + row * k + col : x, ok ? 16 : 0);
+      cp_async16(dst, ok ? x + row * ldx + col : x, ok ? 16 : 0);
     } else {
       uint32_t h[8];
 #pragma unroll
       for (int t = 0; t < 8; ++t)
-        h[t] = (row < n && col + t < k) ? bf16_bits(x + row * k + col + t) : 0u;
+        h[t] = (row < n && col + t < k) ? bf16_bits(x + row * ldx + col + t) : 0u;
       *reinterpret_cast<uint4*>(dst) =
           make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16, h[6] | h[7] << 16);
     }
@@ -447,10 +472,11 @@ __device__ __forceinline__ void stage_x(uint8_t* st, const __nv_bfloat16* __rest
 }
 
 template <bool kAl4>
-__global__ void __launch_bounds__(kFwdWarps * 32, 1)
-fwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-               float* __restrict__ out, int64_t n, int k, int m, int kw_max, int vec,
-               MaskArgs ma, uint32_t ik2) {
+__device__ __forceinline__ void fwd_mma_body(const __nv_bfloat16* __restrict__ x,
+                                             const __nv_bfloat16* __restrict__ w,
+                                             float* __restrict__ out, int64_t n, int k, int m,
+                                             int64_t ldx, int64_t ldo, int kw_max, int vec,
+                                             MaskArgs ma, uint32_t ik2) {
   const Mask mk = ma.load();
   extern __shared__ __align__(128) uint8_t smem[];
   const int tid = threadIdx.x;
@@ -482,7 +508,7 @@ fwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
       auto issue = [&]() {
         if (i_next < n_items) {
           stage_x(ring + (i_next % kFwdStages) * kFwdStageBytes, x, it_tile * 16, n,
-                  k0w + it_kc * kKC, k, vec, lane);
+                  k0w + it_kc * kKC, k, ldx, vec, lane);
           if (++it_kc == kcs) {
             it_kc = 0;
             it_tile += n_warps;
@@ -582,7 +608,7 @@ fwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
               for (int jj = 0; jj < 2; ++jj) {
                 const int col = n0 + t * 8 + 2 * q + jj;
                 if (t < 2 * np && orow < n && col < m) {
-                  float* o = out + orow * m + col;
+                  float* o = out + orow * ldo + col;
                   *o = k0w > 0 ? *o + acc[t][2 * h + jj] : acc[t][2 * h + jj];
                 }
               }
@@ -598,6 +624,14 @@ fwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
     }
   }
   cp_async_wait<0>();
+}
+
+template <bool kAl4>
+__global__ void __launch_bounds__(kFwdWarps * 32, 1)
+fwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+               float* __restrict__ out, int64_t n, int k, int m, int kw_max, int vec,
+               MaskArgs ma, uint32_t ik2) {
+  fwd_mma_body<kAl4>(x, w, out, n, k, m, k, m, kw_max, vec, ma, ik2);
 }
 
 // ---- dW --------------------------------------------------------------------
@@ -626,10 +660,12 @@ __host__ __device__ constexpr int dw_smem_bytes(int slab) {
 }
 
 template <bool kAl4>
-__global__ void __launch_bounds__(kDwMaxSlab, 2)
-dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
-              float* __restrict__ ws, int64_t n, int k, int m, int slab,
-              int64_t rows_per_split, int vec, int gflat, MaskArgs ma, uint32_t ik2) {
+__device__ __forceinline__ void dw_mma_body(const __nv_bfloat16* __restrict__ x,
+                                            const float* __restrict__ g,
+                                            float* __restrict__ ws, int64_t n, int k, int m,
+                                            int64_t ldx, int slab, int64_t rows_per_split,
+                                            int split, int vec, int gflat, MaskArgs ma,
+                                            uint32_t ik2) {
   const Mask mk = ma.load();
   extern __shared__ __align__(128) uint8_t smem[];
   const int stage_bytes = dw_stage_bytes(slab);
@@ -637,7 +673,7 @@ dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
   __nv_bfloat16* gb = reinterpret_cast<__nv_bfloat16*>(smem + kDwStages * stage_bytes);
   const int cs0 = blockIdx.x * slab;
   const int n0 = blockIdx.y * kDwNB;
-  const int64_t rs0 = (int64_t)blockIdx.z * rows_per_split;
+  const int64_t rs0 = (int64_t)split * rows_per_split;
   const int64_t rs1 = rs0 + rows_per_split < n ? rs0 + rows_per_split : n;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -665,12 +701,12 @@ dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
         uint8_t* dst = st + xoff + i * 16 * slab;
         const bool ok = row < rs1 && xcol < k;
         if (vec) {
-          cp_async16(dst, ok ? x + row * k + xcol : x, ok ? 16 : 0);
+          cp_async16(dst, ok ? x + row * ldx + xcol : x, ok ? 16 : 0);
         } else {
           uint32_t h[8];
 #pragma unroll
           for (int t = 0; t < 8; ++t)
-            h[t] = (row < rs1 && xcol + t < k) ? bf16_bits(x + row * k + xcol + t) : 0u;
+            h[t] = (row < rs1 && xcol + t < k) ? bf16_bits(x + row * ldx + xcol + t) : 0u;
           *reinterpret_cast<uint4*>(dst) = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
                                                       h[4] | h[5] << 16, h[6] | h[7] << 16);
         }
@@ -770,7 +806,7 @@ dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
     }
   }
   cp_async_wait<0>();
-  float* dst = ws + (int64_t)blockIdx.z * k * m;
+  float* dst = ws + (int64_t)split * k * m;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -786,6 +822,15 @@ dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
       }
     }
   }
+}
+
+template <bool kAl4>
+__global__ void __launch_bounds__(kDwMaxSlab, 2)
+dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
+              float* __restrict__ ws, int64_t n, int k, int m, int slab,
+              int64_t rows_per_split, int vec, int gflat, MaskArgs ma, uint32_t ik2) {
+  dw_mma_body<kAl4>(x, g, ws, n, k, m, k, slab, rows_per_split, blockIdx.z, vec, gflat, ma,
+                    ik2);
 }
 
 // ---- dX --------------------------------------------------------------------
@@ -811,10 +856,11 @@ constexpr int kDxWarps = 8;
 constexpr int kDxRows = 64;
 
 template <int kKS, bool kAl4>
-__global__ void __launch_bounds__(kDxWarps * 32, 2)
-dx_mma_kernel(const float* __restrict__ g, const __nv_bfloat16* __restrict__ w,
-              __nv_bfloat16* __restrict__ dx, int64_t n, int k, int m, int cw_max,
-              MaskArgs ma, float inv_keep) {
+__device__ __forceinline__ void dx_mma_body(const float* __restrict__ g,
+                                            const __nv_bfloat16* __restrict__ w,
+                                            __nv_bfloat16* __restrict__ dx, int64_t n, int k,
+                                            int m, int64_t ldx, int cw_max, MaskArgs ma,
+                                            float inv_keep) {
   const Mask mk = ma.load();
   extern __shared__ __align__(128) uint8_t smem[];
   float* gring = reinterpret_cast<float*>(smem);  // [2][kDxRows·m]
@@ -916,18 +962,19 @@ dx_mma_kernel(const float* __restrict__ g, const __nv_bfloat16* __restrict__ w,
           const int64_t orow = row + 8 * h;
           if (orow < n && col < k) {
             const int64_t bidx = orow * k + col;
+            __nv_bfloat16* dst = dx + orow * ldx + col;
             const unsigned bits = keep4<kAl4>(mk, bidx);
             const float v[4] = {(bits & 1u) ? ca[2 * h] * inv_keep : 0.0f,
                                 (bits & 2u) ? ca[2 * h + 1] * inv_keep : 0.0f,
                                 (bits & 4u) ? cb[2 * h] * inv_keep : 0.0f,
                                 (bits & 8u) ? cb[2 * h + 1] * inv_keep : 0.0f};
             if (kAl4) {
-              __stcs(reinterpret_cast<uint2*>(dx + bidx),
+              __stcs(reinterpret_cast<uint2*>(dst),
                      make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])));
             } else {
 #pragma unroll
               for (int t = 0; t < 4; ++t)
-                if (col + t < k) dx[bidx + t] = __float2bfloat16_rn(v[t]);
+                if (col + t < k) dst[t] = __float2bfloat16_rn(v[t]);
             }
           }
         }
@@ -935,6 +982,14 @@ dx_mma_kernel(const float* __restrict__ g, const __nv_bfloat16* __restrict__ w,
     }
   }
   cp_async_wait<0>();
+}
+
+template <int kKS, bool kAl4>
+__global__ void __launch_bounds__(kDxWarps * 32, 2)
+dx_mma_kernel(const float* __restrict__ g, const __nv_bfloat16* __restrict__ w,
+              __nv_bfloat16* __restrict__ dx, int64_t n, int k, int m, int cw_max,
+              MaskArgs ma, float inv_keep) {
+  dx_mma_body<kKS, kAl4>(g, w, dx, n, k, m, k, cw_max, ma, inv_keep);
 }
 
 // dW = Σ_split ws[split], in split order, rounded to T.
@@ -949,6 +1004,21 @@ __global__ void reduce_splits_kernel(const float* __restrict__ ws, int splits,
   }
 }
 
+// The same over seed lanes: ws [lanes, splits, k, m], dw [lanes, k, m].
+template <typename T>
+__global__ void reduce_splits_lanes_kernel(const float* __restrict__ ws, int splits,
+                                           int64_t km, int lanes, T* __restrict__ dw) {
+  const int64_t total = km * lanes;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t lane = e / km;
+    const float* src = ws + lane * splits * km + (e - lane * km);
+    float s = 0.0f;
+    for (int i = 0; i < splits; ++i) s += src[(int64_t)i * km];
+    dw[e] = from_float<T>(s);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // dX: f32 CUDA-core FMAs over the m contraction (g is f32, W is read as
 // f32), then where(keep, ·/keep, 0) rounded to T.
@@ -957,9 +1027,9 @@ constexpr int kDxChunk = 64;                   // m contraction chunk
 constexpr int kDxThreads = 16 * (kDxTN / 4);   // 256
 
 template <typename T>
-__global__ void __launch_bounds__(kDxThreads)
-dx_kernel(const float* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx,
-          int64_t n, int k, int m, MaskArgs ma, float inv_keep) {
+__device__ __forceinline__ void dx_body(const float* __restrict__ g, const T* __restrict__ w,
+                                        T* __restrict__ dx, int64_t n, int k, int m,
+                                        int64_t ldx, MaskArgs ma, float inv_keep) {
   const Mask mk = ma.load();
   __shared__ float a_s[kRows][kDxChunk + 1];            // g [row][m]
   __shared__ __align__(16) float b_s[kDxChunk][kDxTN];  // W [m][kcol]
@@ -993,19 +1063,109 @@ dx_kernel(const float* __restrict__ g, const T* __restrict__ w, T* __restrict__ 
     for (int i = 0; i < 4; ++i) {
       const int64_t row = r0 + ty * 4 + i;
       if (row >= n || col >= k) continue;
-      const int64_t b = row * k + col;
-      const unsigned keep = mk.keep4(b);
+      const unsigned keep = mk.keep4(row * k + col);
+      T* dst = dx + row * ldx + col;
       float v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = ((keep >> j) & 1u) ? acc[i][j] * inv_keep : 0.0f;
       const int len = min(4, k - col);
-      if (len == 4 && aligned4(dx + b)) {
-        store4(dx + b, v);
+      if (len == 4 && aligned4(dst)) {
+        store4(dst, v);
       } else {
-        for (int j = 0; j < len; ++j) dx[b + j] = from_float<T>(v[j]);
+        for (int j = 0; j < len; ++j) dst[j] = from_float<T>(v[j]);
       }
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDxThreads)
+dx_kernel(const float* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx,
+          int64_t n, int k, int m, MaskArgs ma, float inv_keep) {
+  dx_body<T>(g, w, dx, n, k, m, k, ma, inv_keep);
+}
+
+// ---------------------------------------------------------------------------
+// Seed lanes: one launch runs a layer of S training runs (seeds.fit_seeds,
+// the JAX harnesses' vmap of the Pallas kernels, which adds a batch grid
+// axis). Lane s reads x at x + s·x_lane with rows ldx apart (joined
+// [n, S·k]: x_lane = k, ldx = S·k; shared [n, k], every lane's input:
+// x_lane = 0, ldx = k), the s-th [k, m] of W [S, k, m], the s-th seed, and
+// g lane-major (lane s's [n, m] contiguous at g + s·g_lane); it writes out
+// columns s·m.. of [n, S·m] (ldo = S·m), dX columns s·k.. of [n, S·k] (rows
+// ldx apart) and the s-th [splits, k, m] of the dW workspace. Each lane runs
+// the unlaned kernel's body on those operands: its mask at its solo index
+// r·k + c, its tiling, k loop, dW split plan and split order, so lane s is
+// the unlaned kernel on the lane's own operands bit for bit. A lane whose x
+// or dX columns are not 16-byte aligned takes the bodies' element path. The
+// lane is blockIdx.y (the persistent kernels, dX), blockIdx.z (the f32
+// forward) or blockIdx.z / splits (dW).
+struct LaneArgs {
+  int64_t x_lane, ldx, ldo, g_lane;
+};
+
+__device__ __forceinline__ MaskArgs lane_mask(MaskArgs ma, int lane) {
+  return MaskArgs{ma.seed + lane, ma.thr};
+}
+
+__global__ void __launch_bounds__(kFmaThreads)
+fwd_fma_lanes_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ out, int64_t n, int k, int m, LaneArgs la,
+                     MaskArgs ma, float inv_keep) {
+  const int lane = blockIdx.z;
+  fwd_fma_body(x + lane * la.x_lane, w + (int64_t)lane * k * m, out + (int64_t)lane * m, n, k,
+               m, la.ldx, la.ldo, lane_mask(ma, lane), inv_keep);
+}
+
+__global__ void __launch_bounds__(kFmaThreads)
+dw_fma_lanes_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                    float* __restrict__ ws, int64_t n, int k, int m, LaneArgs la,
+                    int64_t rows_per_split, int splits, MaskArgs ma, float inv_keep) {
+  const int lane = blockIdx.z / splits;
+  dw_fma_body(x + lane * la.x_lane, g + lane * la.g_lane, ws + (int64_t)lane * splits * k * m,
+              n, k, m, la.ldx, rows_per_split, blockIdx.z % splits, lane_mask(ma, lane),
+              inv_keep);
+}
+
+template <bool kAl4>
+__global__ void __launch_bounds__(kFwdWarps * 32, 1)
+fwd_mma_lanes_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                     float* __restrict__ out, int64_t n, int k, int m, LaneArgs la,
+                     int kw_max, int vec, MaskArgs ma, uint32_t ik2) {
+  const int lane = blockIdx.y;
+  fwd_mma_body<kAl4>(x + lane * la.x_lane, w + (int64_t)lane * k * m, out + (int64_t)lane * m,
+                     n, k, m, la.ldx, la.ldo, kw_max, vec, lane_mask(ma, lane), ik2);
+}
+
+template <bool kAl4>
+__global__ void __launch_bounds__(kDwMaxSlab, 2)
+dw_mma_lanes_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
+                    float* __restrict__ ws, int64_t n, int k, int m, LaneArgs la, int slab,
+                    int64_t rows_per_split, int splits, int vec, int gflat, MaskArgs ma,
+                    uint32_t ik2) {
+  const int lane = blockIdx.z / splits;
+  dw_mma_body<kAl4>(x + lane * la.x_lane, g + lane * la.g_lane,
+                    ws + (int64_t)lane * splits * k * m, n, k, m, la.ldx, slab, rows_per_split,
+                    blockIdx.z % splits, vec, gflat, lane_mask(ma, lane), ik2);
+}
+
+template <int kKS, bool kAl4>
+__global__ void __launch_bounds__(kDxWarps * 32, 2)
+dx_mma_lanes_kernel(const float* __restrict__ g, const __nv_bfloat16* __restrict__ w,
+                    __nv_bfloat16* __restrict__ dx, int64_t n, int k, int m, LaneArgs la,
+                    int cw_max, MaskArgs ma, float inv_keep) {
+  const int lane = blockIdx.y;
+  dx_mma_body<kKS, kAl4>(g + lane * la.g_lane, w + (int64_t)lane * k * m, dx + (int64_t)lane * k,
+                         n, k, m, la.ldx, cw_max, lane_mask(ma, lane), inv_keep);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDxThreads)
+dx_lanes_kernel(const float* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx,
+                int64_t n, int k, int m, LaneArgs la, MaskArgs ma, float inv_keep) {
+  const int lane = blockIdx.y;
+  dx_body<T>(g + lane * la.g_lane, w + (int64_t)lane * k * m, dx + (int64_t)lane * k, n, k, m,
+             la.ldx, lane_mask(ma, lane), inv_keep);
 }
 
 unsigned cdiv(int64_t a, int64_t b) { return (unsigned)((a + b - 1) / b); }
@@ -1067,45 +1227,67 @@ int resident_blocks(K kernel, int threads, int smem, int* blocks) {
   return 0;
 }
 
+// `kernel` over min(tiles, resident blocks) × `lanes` blocks.
 template <typename K, typename... Args>
-int launch_persistent(K kernel, int64_t tiles, int threads, int smem, cudaStream_t s,
-                      Args... args) {
+int launch_persistent(K kernel, int64_t tiles, unsigned lanes, int threads, int smem,
+                      cudaStream_t s, Args... args) {
   int blocks = 0;
   const int rc = resident_blocks(kernel, threads, smem, &blocks);
   if (rc) return rc;
   const unsigned grid = (unsigned)(tiles < blocks ? tiles : blocks);
-  kernel<<<grid, threads, smem, s>>>(args...);
+  kernel<<<dim3(grid, lanes), threads, smem, s>>>(args...);
   return 0;
 }
 
+// la: the seed lanes' layout (null: one unlaned launch)
 int fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, float* out, int64_t n, int k,
-             int m, MaskArgs mk, float inv_keep, cudaStream_t s) {
+             int m, MaskArgs mk, float inv_keep, cudaStream_t s, const LaneArgs* la = nullptr,
+             int lanes = 1) {
   const int np = (min(kNB, m) + 15) / 16;  // n-tile pairs of the widest W chunk
   const int kw_max = kWBytes / (np * 32) / kKC * kKC;
   const int kw = min(kw_max, (k + kKC - 1) / kKC * kKC);
   const int smem = kFwdWarps * kFwdStages * kFwdStageBytes + kw * np * 32;
-  const int vec = k % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+  // 16-byte copies when every row of every lane starts 16-byte aligned
+  const int vec = k % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0 &&
+                  (!la || (la->ldx % 8 == 0 && la->x_lane % 8 == 0));
   const int64_t tiles = (n + 16 * kFwdWarps - 1) / (16 * kFwdWarps);
   const uint32_t ik2 = bf16x2_of(inv_keep);
+  const int threads = kFwdWarps * 32;
+  if (la) {
+    if (k % 4 == 0)
+      return launch_persistent(fwd_mma_lanes_kernel<true>, tiles, lanes, threads, smem, s, x,
+                               w, out, n, k, m, *la, kw_max, vec, mk, ik2);
+    return launch_persistent(fwd_mma_lanes_kernel<false>, tiles, lanes, threads, smem, s, x, w,
+                             out, n, k, m, *la, kw_max, vec, mk, ik2);
+  }
   if (k % 4 == 0)
-    return launch_persistent(fwd_mma_kernel<true>, tiles, kFwdWarps * 32, smem, s, x, w, out,
-                             n, k, m, kw_max, vec, mk, ik2);
-  return launch_persistent(fwd_mma_kernel<false>, tiles, kFwdWarps * 32, smem, s, x, w, out,
-                           n, k, m, kw_max, vec, mk, ik2);
+    return launch_persistent(fwd_mma_kernel<true>, tiles, 1, threads, smem, s, x, w, out, n, k,
+                             m, kw_max, vec, mk, ik2);
+  return launch_persistent(fwd_mma_kernel<false>, tiles, 1, threads, smem, s, x, w, out, n, k,
+                           m, kw_max, vec, mk, ik2);
 }
 
 template <int kKS>
 int dx_bf16(const float* g, const __nv_bfloat16* w, __nv_bfloat16* dx, int64_t n, int k,
-            int m, MaskArgs mk, float inv_keep, cudaStream_t s) {
+            int m, MaskArgs mk, float inv_keep, cudaStream_t s, const LaneArgs* la = nullptr,
+            int lanes = 1) {
   const int cw_max = kWBytes / (kKS * 512) * 16;  // output columns a W chunk (a multiple of 16)
   const int cw = min(cw_max, (k + 15) / 16 * 16);
   const int smem = 2 * kDxRows * m * 4 + cw / 16 * kKS * 512;
   const int64_t tiles = (n + kDxRows - 1) / kDxRows;
+  const int threads = kDxWarps * 32;
+  if (la) {
+    if (k % 4 == 0)
+      return launch_persistent(dx_mma_lanes_kernel<kKS, true>, tiles, lanes, threads, smem, s,
+                               g, w, dx, n, k, m, *la, cw_max, mk, inv_keep);
+    return launch_persistent(dx_mma_lanes_kernel<kKS, false>, tiles, lanes, threads, smem, s, g,
+                             w, dx, n, k, m, *la, cw_max, mk, inv_keep);
+  }
   if (k % 4 == 0)
-    return launch_persistent(dx_mma_kernel<kKS, true>, tiles, kDxWarps * 32, smem, s, g, w,
-                             dx, n, k, m, cw_max, mk, inv_keep);
-  return launch_persistent(dx_mma_kernel<kKS, false>, tiles, kDxWarps * 32, smem, s, g, w,
-                           dx, n, k, m, cw_max, mk, inv_keep);
+    return launch_persistent(dx_mma_kernel<kKS, true>, tiles, 1, threads, smem, s, g, w, dx, n,
+                             k, m, cw_max, mk, inv_keep);
+  return launch_persistent(dx_mma_kernel<kKS, false>, tiles, 1, threads, smem, s, g, w, dx, n,
+                           k, m, cw_max, mk, inv_keep);
 }
 
 }  // namespace
@@ -1218,6 +1400,125 @@ extern "C" int pgcn_dropout_matmul_dx(const float* g, const void* w, void* dx, i
     dx_kernel<__nv_bfloat16><<<cdiv(n, kRows), kDxThreads, 0, s>>>(
         g, static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx), n, k,
         m, mk, inv_keep);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Seed lanes (the block comment above LaneArgs). x: joined [n, lanes·k]
+// (x_lane = k, ldx = lanes·k) or shared [n, k] (x_lane = 0, ldx = k); w:
+// [lanes, k, m] in x's dtype; out: [n, lanes·m] f32; seeds: lanes uint64 in
+// device memory, lane s's the s-th.
+extern "C" int pgcn_dropout_matmul_fwd_lanes(const void* x, const void* w, float* out,
+                                             int dtype, int64_t n, int k, int m, int lanes,
+                                             int64_t x_lane, int64_t ldx,
+                                             const unsigned long long* seeds, uint32_t thr,
+                                             float inv_keep, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || k <= 0 || m <= 0 || lanes <= 0 || lanes > 65535 || x_lane < 0 || ldx < k)
+    return (int)cudaErrorInvalidValue;
+  const MaskArgs mk{seeds, thr};
+  const LaneArgs la{x_lane, ldx, (int64_t)lanes * m, 0};
+  if (dtype == 0) {
+    const dim3 grid(cdiv(n, kRows), cdiv(m, kTN), (unsigned)lanes);
+    fwd_fma_lanes_kernel<<<grid, kFmaThreads, 0, s>>>(static_cast<const float*>(x),
+                                                      static_cast<const float*>(w), out, n, k,
+                                                      m, la, mk, inv_keep);
+  } else if (dtype == 1) {
+    const int rc = fwd_bf16(static_cast<const __nv_bfloat16*>(x),
+                            static_cast<const __nv_bfloat16*>(w), out, n, k, m, mk, inv_keep, s,
+                            &la, lanes);
+    if (rc) return rc;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// g: lane-major, lane s's [n, m] f32 at g + s·g_lane; ws: [lanes, splits, k,
+// m] f32 scratch; dw: [lanes, k, m] in x's dtype. slab, splits and
+// rows_per_split are the unlaned launch's for one lane's [n, k] x.
+extern "C" int pgcn_dropout_matmul_dw_lanes(const void* x, const float* g, int64_t g_lane,
+                                            float* ws, void* dw, int dtype, int64_t n, int k,
+                                            int m, int lanes, int64_t x_lane, int64_t ldx,
+                                            int slab, int splits, int64_t rows_per_split,
+                                            const unsigned long long* seeds, uint32_t thr,
+                                            float inv_keep, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || k <= 0 || m <= 0 || lanes <= 0 || x_lane < 0 || ldx < k || g_lane < n * m ||
+      splits <= 0 || (int64_t)splits * lanes > 65535 || rows_per_split <= 0 ||
+      rows_per_split % kSplitRows ||
+      (int64_t)splits != (n + rows_per_split - 1) / rows_per_split)
+    return (int)cudaErrorInvalidValue;
+  const MaskArgs mk{seeds, thr};
+  const LaneArgs la{x_lane, ldx, 0, g_lane};
+  const int64_t km = (int64_t)k * m;
+  const unsigned rblocks = cdiv(km * lanes, 256) < 1024u ? cdiv(km * lanes, 256) : 1024u;
+  const unsigned z = (unsigned)(splits * lanes);
+  if (dtype == 0) {
+    const dim3 grid(cdiv(k, kRows), cdiv(m, kTN), z);
+    dw_fma_lanes_kernel<<<grid, kFmaThreads, 0, s>>>(static_cast<const float*>(x), g, ws, n, k,
+                                                     m, la, rows_per_split, splits, mk,
+                                                     inv_keep);
+    reduce_splits_lanes_kernel<float><<<rblocks, 256, 0, s>>>(ws, splits, km, lanes,
+                                                             static_cast<float*>(dw));
+  } else if (dtype == 1) {
+    if (slab % 64 || slab < 64 || slab > kDwMaxSlab) return (int)cudaErrorInvalidValue;
+    const int smem = dw_smem_bytes(slab);
+    const int vec = k % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0 &&
+                    ldx % 8 == 0 && x_lane % 8 == 0;
+    const uint32_t ik2 = bf16x2_of(inv_keep);
+    const dim3 grid(cdiv(k, slab), cdiv(m, kDwNB), z);
+    auto kernel = k % 4 == 0 ? dw_mma_lanes_kernel<true> : dw_mma_lanes_kernel<false>;
+    int resident = 0;  // raises the kernel's shared memory limit, once
+    const int rc = resident_blocks(kernel, slab, smem, &resident);
+    if (rc) return rc;
+    const int gflat = m <= kDwNB && (reinterpret_cast<uintptr_t>(g) & 15u) == 0 &&
+                      g_lane % 4 == 0;
+    kernel<<<grid, slab, smem, s>>>(static_cast<const __nv_bfloat16*>(x), g, ws, n, k, m, la,
+                                    slab, rows_per_split, splits, vec, gflat, mk, ik2);
+    reduce_splits_lanes_kernel<__nv_bfloat16><<<rblocks, 256, 0, s>>>(
+        ws, splits, km, lanes, static_cast<__nv_bfloat16*>(dw));
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// g: lane-major as for dW (16-byte aligned, g_lane a multiple of 4, for
+// bf16); w: [lanes, k, m] in x's dtype; dx: joined [n, lanes·k] in x's dtype
+// (ldx = lanes·k). inv_keep is the f32 1/keep.
+extern "C" int pgcn_dropout_matmul_dx_lanes(const float* g, int64_t g_lane, const void* w,
+                                            void* dx, int dtype, int64_t n, int k, int m,
+                                            int lanes, int64_t ldx,
+                                            const unsigned long long* seeds, uint32_t thr,
+                                            float inv_keep, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || k <= 0 || m <= 0 || lanes <= 0 || lanes > 65535 || ldx < (int64_t)lanes * k ||
+      g_lane < n * m)
+    return (int)cudaErrorInvalidValue;
+  const MaskArgs mk{seeds, thr};
+  const LaneArgs la{0, ldx, 0, g_lane};
+  const dim3 grid(cdiv(n, kRows), (unsigned)lanes);
+  if (dtype == 0) {
+    dx_lanes_kernel<float><<<grid, kDxThreads, 0, s>>>(
+        g, static_cast<const float*>(w), static_cast<float*>(dx), n, k, m, la, mk, inv_keep);
+  } else if (dtype == 1 && m <= 64) {
+    if ((reinterpret_cast<uintptr_t>(g) & 15u) || g_lane % 4)
+      return (int)cudaErrorMisalignedAddress;
+    const auto* wb = static_cast<const __nv_bfloat16*>(w);
+    auto* out = static_cast<__nv_bfloat16*>(dx);
+    const int ks = (m + 15) / 16;
+    const int rc = ks == 1   ? dx_bf16<1>(g, wb, out, n, k, m, mk, inv_keep, s, &la, lanes)
+                   : ks == 2 ? dx_bf16<2>(g, wb, out, n, k, m, mk, inv_keep, s, &la, lanes)
+                   : ks == 3 ? dx_bf16<3>(g, wb, out, n, k, m, mk, inv_keep, s, &la, lanes)
+                             : dx_bf16<4>(g, wb, out, n, k, m, mk, inv_keep, s, &la, lanes);
+    if (rc) return rc;
+  } else if (dtype == 1) {
+    dx_lanes_kernel<__nv_bfloat16><<<grid, kDxThreads, 0, s>>>(
+        g, static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx), n, k, m, la,
+        mk, inv_keep);
   } else {
     return (int)cudaErrorInvalidValue;
   }

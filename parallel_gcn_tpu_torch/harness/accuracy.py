@@ -6,7 +6,12 @@ the test accuracy.
 
 All N seeds train at once as one seed batch (``seeds.fit_seeds``), lane s
 being ``fit`` with ``seed=s``; the row also gives the wall time of one lane
-alone, so the batch's cost stands beside a single run's.
+alone, so the batch's cost stands beside a single run's. ``--set`` applies
+config overrides to every dataset, and a seed batch takes every family, as
+the JAX harness's vmapped whole run does: ``--set model=gat heads=8
+hidden_dims=8 attn_dropout=0.6 --tag gat`` is the JAX harness's GAT row
+(``output/accuracy_tpu_gat.txt``), ``--set model=sage`` / ``model=gin``, and
+``--set fuse_dropout_matmul=true`` the fused GCN (K10 over seed lanes).
 
 Usage:
     python -m parallel_gcn_tpu_torch.harness.accuracy [dataset ...] [--seeds N]

@@ -2,7 +2,8 @@
 over the port (the analog of the reference's shipped tuned seeds,
 parameters/parameters_cora.txt seed=1382895624, report p.14).
 
-Seeds train in batches of lanes (``seeds.fit_seeds``), lane s being
+Seeds train in batches of lanes (``seeds.fit_seeds``, which takes the
+parameters file's model of any family, fused kernels included), lane s being
 ``fit`` with ``seed=s``, so a seed chosen here reproduces through
 ``python -m parallel_gcn_tpu_torch <ds> seed=<s>``. The JAX harness re-scores
 the head of its ranking solo because its batched bf16 matmuls drift from a

@@ -2,7 +2,8 @@
 (the reference's tuning_accuracy sweep, test/tuning_accuracy.cpp): a grid
 over layers × hidden width × dropout × weight decay, each configuration
 scored as the mean val accuracy over N seeds trained as one seed batch
-(``seeds.fit_seeds``).
+(``seeds.fit_seeds``, which trains the parameters file's model of any
+family).
 
 The reference's coarse grid (:56-60) and refined -DSECOND grid (:63-83) are
 the presets, as the JAX package trims them. Each configuration computes its

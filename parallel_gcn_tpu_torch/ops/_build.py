@@ -86,6 +86,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_dropout_matmul_dw.restype = i32
     lib.pgcn_dropout_matmul_dx.argtypes = [p, p, p, i32, i64, i32, i32, p, u32, f32, p]
     lib.pgcn_dropout_matmul_dx.restype = i32
+    # seed lanes: the lanes, x's lane step and row stride (fwd, dW), g's lane step (dW, dX)
+    lib.pgcn_dropout_matmul_fwd_lanes.argtypes = [p, p, p, i32, i64, i32, i32, i32, i64, i64, p,
+                                                  u32, f32, p]
+    lib.pgcn_dropout_matmul_fwd_lanes.restype = i32
+    lib.pgcn_dropout_matmul_dw_lanes.argtypes = [p, p, i64, p, p, i32, i64, i32, i32, i32, i64,
+                                                 i64, i32, i32, i64, p, u32, f32, p]
+    lib.pgcn_dropout_matmul_dw_lanes.restype = i32
+    lib.pgcn_dropout_matmul_dx_lanes.argtypes = [p, i64, p, p, i32, i64, i32, i32, i32, i64, p,
+                                                 u32, f32, p]
+    lib.pgcn_dropout_matmul_dx_lanes.restype = i32
     # the work list, its hubs, live and written entries; the packed items
     # (a) or the permutation (b); the rows' source and out (rows ld apart),
     # the width; the layout (ops/cuda_segment.layout) and the hubs' vectors

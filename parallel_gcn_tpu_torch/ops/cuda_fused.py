@@ -23,6 +23,19 @@ The seed is an int or a slot the kernels read on the device, as for K1
 (``cuda_dropout.seed_tensor``). Each wrapper runs the kernel for CUDA
 tensors and the plain PyTorch version for CPU tensors; ``launches`` counts
 kernel launches.
+
+Seed lanes (``dropout_matmul_lanes``): one launch runs a layer of S training
+runs (``seeds.fit_seeds``), as JAX's ``vmap`` of the K10 ``pallas_call``
+adds a batch grid axis. x is joined [N, S·K] (lane s in columns s·K …
+s·K+K−1) or shared [N, K] (every lane's input, layer 0 of a seed batch);
+W is [S, K, M], one weight a lane; the seeds are S (a slot of S integers on
+the device, or S ints); the output is [N, S·M] f32, lane s in columns s·M …;
+dW is [S, K, M] and dX joined [N, S·K]. Lane s's mask is the solo mask of
+its own [N, K] (Philox of its seed at r·K + c), and its tiling, K loop, dW
+split plan (``dw_splits`` as for one lane) and split order are the solo
+launch's, so lane s is the unlaned kernel on its own operands bit for bit.
+The plain versions (``dropout_matmul_lanes_plain`` and its dW and dX) are
+the unlaned plain versions lane by lane.
 """
 
 from __future__ import annotations
@@ -40,8 +53,10 @@ _DW_CHUNK = 64  # rows of a dW split are a multiple of this (csrc/dropout_matmul
 _DW_MAX_SLAB = 320  # x columns a bf16 dW block owns at most (kDwMaxSlab)
 _DW_NB = 48  # g columns a bf16 dW block owns (kDwNB); the f32 kernel's blocks are 64 x 48
 
-# kernel launches by kernel: "fused_fwd", "fused_dw", "fused_dx"
-launches = {"fused_fwd": 0, "fused_dw": 0, "fused_dx": 0}
+# kernel launches by kernel: "fused_fwd", "fused_dw", "fused_dx", and the
+# same over seed lanes
+launches = {"fused_fwd": 0, "fused_dw": 0, "fused_dx": 0,
+            "fused_fwd_lanes": 0, "fused_dw_lanes": 0, "fused_dx_lanes": 0}
 
 
 def _masked_x(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
@@ -231,3 +246,224 @@ def dropout_matmul(x: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float,
     if not 0.0 < rate < 1.0:
         raise ValueError(f"dropout_matmul needs a rate in (0, 1), got {rate}")
     return _DropoutMatmul.apply(x, w, seed, rate, need_dx)
+
+
+def _lane_operands(x: torch.Tensor, w: torch.Tensor, seed: Seed) -> tuple[int, int, int, bool]:
+    """(lanes, K, M, shared) of a laned call: W [S, K, M], x joined [N, S·K]
+    or shared [N, K], S seeds."""
+    if w.dim() != 3 or 0 in w.shape:
+        raise ValueError(f"dropout_matmul lanes: w must be [S, K, M], got {tuple(w.shape)}")
+    lanes, k, m = w.shape
+    if x.dim() != 2 or x.shape[1] not in (k, lanes * k):
+        raise ValueError(f"dropout_matmul lanes: x must be [N, {lanes}·{k}] (joined) or "
+                         f"[N, {k}] (shared), got {tuple(x.shape)}")
+    if cuda_dropout.n_lanes(seed) != lanes:
+        raise ValueError(f"dropout_matmul lanes: {lanes} lanes need {lanes} seeds, got "
+                         f"{cuda_dropout.n_lanes(seed)}")
+    return lanes, k, m, lanes > 1 and x.shape[1] == k
+
+
+def _lane_cols(t: torch.Tensor, s: int, width: int) -> torch.Tensor:
+    """Lane s's columns of a joined [N, S·width] tensor, contiguous."""
+    return t[:, s * width:(s + 1) * width].contiguous()
+
+
+def _lane_x(x: torch.Tensor, s: int, k: int, shared: bool) -> torch.Tensor:
+    return x if shared else _lane_cols(x, s, k)
+
+
+def dropout_matmul_lanes_plain(x: torch.Tensor, w: torch.Tensor, seed: Seed,
+                               rate: float) -> torch.Tensor:
+    """Plain laned forward: lane s's ``dropout_matmul_plain`` on its own x
+    and W[s] with its seed, side by side as [N, S·M] float32."""
+    lanes, k, _, shared = _lane_operands(x, w, seed)
+    return torch.cat([dropout_matmul_plain(_lane_x(x, s, k, shared), w[s],
+                                           cuda_dropout._lane(seed, s), rate)
+                      for s in range(lanes)], dim=1)
+
+
+def dropout_matmul_lanes_dw_plain(x: torch.Tensor, g: torch.Tensor, seed: Seed, rate: float,
+                                  w_dtype: torch.dtype, shared: bool = False) -> torch.Tensor:
+    """Plain laned dW [S, K, M]: lane s's ``dropout_matmul_dw_plain`` on its
+    x (``shared``: every lane's) and its columns of g [N, S·M]."""
+    lanes = cuda_dropout.n_lanes(seed)
+    k = x.shape[1] if shared else x.shape[1] // lanes
+    m = g.shape[1] // lanes
+    return torch.stack([dropout_matmul_dw_plain(_lane_x(x, s, k, shared), _lane_cols(g, s, m),
+                                                cuda_dropout._lane(seed, s), rate, w_dtype)
+                        for s in range(lanes)])
+
+
+def dropout_matmul_lanes_dx_plain(g: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float,
+                                  x_dtype: torch.dtype) -> torch.Tensor:
+    """Plain laned dX, joined [N, S·K]: lane s's ``dropout_matmul_dx_plain``
+    on its columns of g [N, S·M] and W[s]."""
+    lanes, _, m = w.shape
+    return torch.cat([dropout_matmul_dx_plain(_lane_cols(g, s, m), w[s],
+                                              cuda_dropout._lane(seed, s), rate, x_dtype)
+                      for s in range(lanes)], dim=1)
+
+
+def lane_strides(k: int, m: int, lanes: int, shared: bool) -> tuple[int, int, int]:
+    """(x_lane, ldx, ldo) of the laned kernels (``csrc/dropout_matmul.cu``,
+    ``LaneArgs``): lane s reads x from element s·x_lane with rows ldx apart
+    and writes its output at column s·m of rows ldo apart (its dX at column
+    s·k of rows ldx apart)."""
+    return (0 if shared else k), (k if shared else lanes * k), lanes * m
+
+
+def dw_lane_plan(n: int, k: int, m: int, lanes: int, blocks: int,
+                 dtype: torch.dtype = torch.bfloat16) -> tuple[int, int, int]:
+    """(splits, rows_per_split, grid z) of the laned dW launch: every lane
+    takes one solo launch's split plan (``dw_splits``), and the grid's z
+    extent covers (lane, split) as lane·splits + split."""
+    splits, rows = dw_splits(n, k, m, blocks, dtype)
+    if splits * lanes > 65535:
+        raise ValueError(f"dropout_matmul lanes dW: {lanes} lanes × {splits} splits exceed the "
+                         "grid's z extent")
+    return splits, rows, splits * lanes
+
+
+def _lane_slots(seed: Seed, lanes: int, device) -> torch.Tensor:
+    slots = cuda_dropout.lane_seeds(seed, device)
+    if slots.numel() != lanes:
+        raise ValueError(f"dropout_matmul lanes: {lanes} lanes need {lanes} seeds, got "
+                         f"{slots.numel()}")
+    return slots
+
+
+def lane_major(g: torch.Tensor, lanes: int) -> tuple[torch.Tensor, int]:
+    """g [N, S·M] float32 as the laned dW and dX kernels read it: lane s's
+    [N, M] contiguous at element s·step of one buffer, step = N·M rounded up
+    to a multiple of 4 (each lane 16-byte aligned). Returns (buffer, step)."""
+    n, width = g.shape
+    m = width // lanes
+    step = -(-n * m // 4) * 4
+    buf = torch.empty((lanes, step), dtype=torch.float32, device=g.device)
+    buf[:, :n * m].view(lanes, n, m).copy_(g.view(n, lanes, m).transpose(0, 1))
+    return buf, step
+
+
+def _fwd_lanes(x: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
+    if _on_cpu(x, "dropout_matmul lanes"):
+        return dropout_matmul_lanes_plain(x, w, seed, rate)
+    lanes, k, m, shared = _lane_operands(x, w, seed)
+    _check("dropout_matmul lanes", x.dtype, x)
+    if w.dtype != x.dtype or w.device != x.device or not w.is_contiguous():
+        raise ValueError(f"dropout_matmul lanes: w must be contiguous on x's device in x's "
+                         f"dtype {x.dtype}, got {w.dtype} on {w.device}")
+    slots = _lane_slots(seed, lanes, x.device)
+    n = x.shape[0]
+    x_lane, ldx, _ = lane_strides(k, m, lanes, shared)
+    out = torch.empty((n, lanes * m), dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.pgcn_dropout_matmul_fwd_lanes(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], n, k, m, lanes,
+            x_lane, ldx, slots.data_ptr(), cuda_dropout.keep_threshold(rate),
+            cuda_dropout._inv_keep(rate, x.dtype), _stream(x.device))
+    _build.check(rc, "dropout_matmul lanes forward kernel")
+    launches["fused_fwd_lanes"] += 1
+    return out
+
+
+def _dw_lanes(x: torch.Tensor, g: torch.Tensor, seed: Seed, rate: float, w_dtype: torch.dtype,
+              shared: bool = False, g_lanes: tuple | None = None) -> torch.Tensor:
+    """Laned dW [S, K, M]; ``g_lanes`` is ``lane_major(g)`` when the caller
+    has it."""
+    if _on_cpu(x, "dropout_matmul lanes dW"):
+        return dropout_matmul_lanes_dw_plain(x, g, seed, rate, w_dtype, shared)
+    lanes = cuda_dropout.n_lanes(seed)
+    _check("dropout_matmul lanes dW", x.dtype, x, g)
+    n = x.shape[0]
+    k = x.shape[1] if shared else x.shape[1] // lanes
+    m = g.shape[1] // lanes
+    if (g.dtype != torch.float32 or g.shape[0] != n or g.shape[1] != lanes * m
+            or x.shape[1] != (k if shared else lanes * k) or w_dtype != x.dtype):
+        raise ValueError(f"dropout_matmul lanes dW: g must be float32 [{n}, {lanes}·M], x "
+                         f"[{n}, {lanes}·K] or shared, w of x's dtype; got x {tuple(x.shape)}, "
+                         f"g {tuple(g.shape)} {g.dtype}, w {w_dtype}")
+    slots = _lane_slots(seed, lanes, x.device)
+    gl, step = g_lanes if g_lanes is not None else lane_major(g, lanes)
+    lib = _build.load_library()
+    slab = dw_slab(k)
+    x_lane, ldx, _ = lane_strides(k, m, lanes, shared)
+    with torch.cuda.device(x.device):
+        splits, rows, _ = dw_lane_plan(n, k, m, lanes,
+                                       _dw_blocks(x.device.index, x.dtype, slab), x.dtype)
+        ws = torch.empty((lanes, splits, k, m), dtype=torch.float32, device=x.device)
+        dw = torch.empty((lanes, k, m), dtype=w_dtype, device=x.device)
+        rc = lib.pgcn_dropout_matmul_dw_lanes(
+            x.data_ptr(), gl.data_ptr(), step, ws.data_ptr(), dw.data_ptr(),
+            _DTYPE_CODE[x.dtype], n, k, m, lanes, x_lane, ldx, slab, splits,
+            rows, slots.data_ptr(), cuda_dropout.keep_threshold(rate),
+            cuda_dropout._inv_keep(rate, x.dtype), _stream(x.device))
+    _build.check(rc, "dropout_matmul lanes dW kernel")
+    launches["fused_dw_lanes"] += 1
+    return dw
+
+
+def _dx_lanes(g: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float,
+              x_dtype: torch.dtype, g_lanes: tuple | None = None) -> torch.Tensor:
+    """Laned dX, joined [N, S·K] in ``x_dtype``."""
+    if _on_cpu(g, "dropout_matmul lanes dX"):
+        return dropout_matmul_lanes_dx_plain(g, w, seed, rate, x_dtype)
+    _check("dropout_matmul lanes dX", x_dtype, g)
+    if w.dim() != 3 or w.dtype != x_dtype or not w.is_contiguous() or w.device != g.device:
+        raise ValueError(f"dropout_matmul lanes dX: w must be a contiguous [S, K, M] in x's "
+                         f"dtype, got {tuple(w.shape)} {w.dtype}")
+    lanes, k, m = w.shape
+    n = g.shape[0]
+    if g.dtype != torch.float32 or g.shape[1] != lanes * m:
+        raise ValueError(f"dropout_matmul lanes dX: g must be float32 [N, {lanes}·{m}], got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    slots = _lane_slots(seed, lanes, g.device)
+    gl, step = g_lanes if g_lanes is not None else lane_major(g, lanes)
+    dx = torch.empty((n, lanes * k), dtype=x_dtype, device=g.device)
+    lib = _build.load_library()
+    with torch.cuda.device(g.device):
+        rc = lib.pgcn_dropout_matmul_dx_lanes(
+            gl.data_ptr(), step, w.data_ptr(), dx.data_ptr(), _DTYPE_CODE[x_dtype], n, k, m,
+            lanes, lane_strides(k, m, lanes, False)[1], slots.data_ptr(),
+            cuda_dropout.keep_threshold(rate),
+            1.0 / (1.0 - rate), _stream(g.device))
+    _build.check(rc, "dropout_matmul lanes dX kernel")
+    launches["fused_dx_lanes"] += 1
+    return dx
+
+
+class _DropoutMatmulLanes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, seed, rate, need_dx):
+        ctx.save_for_backward(x, w)
+        ctx.seed, ctx.rate, ctx.need_dx = seed, rate, need_dx
+        ctx.shared = _lane_operands(x, w, seed)[3]
+        return _fwd_lanes(x, w, seed, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.float().contiguous()
+        # the lane-major g both kernels read, made once
+        g_lanes = lane_major(g, w.shape[0]) if g.device.type == "cuda" else None
+        dw = (_dw_lanes(x, g, ctx.seed, ctx.rate, w.dtype, ctx.shared, g_lanes)
+              if ctx.needs_input_grad[1] else None)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (_dx_lanes(g, w, ctx.seed, ctx.rate, x.dtype, g_lanes) if ctx.need_dx
+                  else torch.zeros_like(x))
+        return dx, dw, None, None, None
+
+
+def dropout_matmul_lanes(x: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float,
+                         need_dx: bool = True) -> torch.Tensor:
+    """``dropout_matmul`` of S seed lanes in one launch each way (module
+    docstring): x joined [N, S·K] or shared [N, K], ``w`` [S, K, M], S seeds;
+    returns [N, S·M] float32. A shared x is data (a seed batch's input
+    layer): it takes ``need_dx=False``."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout_matmul needs a rate in (0, 1), got {rate}")
+    if need_dx and _lane_operands(x, w, seed)[3]:
+        raise ValueError("dropout_matmul lanes: a shared x (every lane's input) has no dX; "
+                         "pass need_dx=False")
+    return _DropoutMatmulLanes.apply(x, w, seed, rate, need_dx)

@@ -1,21 +1,31 @@
-"""Seed-batched whole run: S GCN training runs over one graph at once.
+"""Seed-batched whole run: S training runs of one model over one graph at
+once, for every family (GCN, GraphSAGE, GIN, GAT).
 
 The counterpart of the JAX harnesses' ``jax.vmap(one)`` over
 ``train._make_scan_run`` (``harness/accuracy.py:62-73``, ``tuning.py``,
-``seed_select.py``), which train N seeds in one program. ``fit_seeds(cfg,
-dds, seeds)`` runs lane s as ``train.fit`` runs ``cfg`` with ``seed=s``: the
-Glorot init from a generator seeded s, the dropout seeds of ``epoch_seeds``
-from another seeded s in the same order, the same Adam and L2 on W0 only,
-and, with early stopping off, the deferred-eval schedule.
+``seed_select.py``), which train N seeds in one program whatever the model.
+``fit_seeds(cfg, dds, seeds)`` runs lane s as ``train.fit`` runs ``cfg`` with
+``seed=s``: the Glorot init from a generator seeded s, the dropout seeds of
+``epoch_seeds`` from another seeded s in the same order (a GAT's attention
+seeds too), the same Adam and L2 on leaf 0 only, and, for a GCN with early
+stopping off, the deferred-eval schedule; the other families take the plain
+epoch, as their solo runs do.
 
 What the lanes share: Â, X and the pre-aggregated Â·X, and every
-aggregation. A lane's activations sit side by side with the others' as
-[rows, S·F], lane s in columns s·F … s·F+F−1, so each layer's aggregation
-is one ``graphsum`` over S·F columns (the tile SpMM and the ordered sums
-compute each column alone, so a lane's columns are those of its solo run),
-and the dropout kernels mask every lane in one launch with lane s's seed at
-lane s's solo element index (``ops.cuda_dropout``, seed lanes). The
-deferred eval stacks train | val per lane.
+aggregation of the GCN, SAGE and GIN. A lane's activations sit side by side
+with the others' as [rows, S·F], lane s in columns s·F … s·F+F−1, so each
+such aggregation is one ``graphsum`` over S·F columns (the tile SpMM and the
+ordered sums compute each column alone, so a lane's columns are those of its
+solo run; SAGE's and GIN's sqrt(deg) scalings are elementwise over the
+joined tensor), and the dropout kernels mask every lane in one launch with
+lane s's seed at lane s's solo element index (``ops.cuda_dropout``, seed
+lanes). GIN's layer 0 without input dropout aggregates the shared X once.
+The fused GCN (``fuse_dropout_matmul``) runs each fused layer as one laned
+K10 launch a direction (``ops.cuda_fused.dropout_matmul_lanes``), over the
+shared X at layer 0. The deferred eval stacks train | val per lane. The
+GAT's attention depends on each lane's weights, so a GAT lane runs its
+model's forward on its own (``LaneGAT``): K5/K6 or the segment and dense
+softmaxes, feature and attention dropout, once a lane a layer.
 
 What each lane keeps: its weights, Adam state, loss, accuracy and L2. The
 GEMMs run lane by lane on contiguous [rows, F] operands, the shapes of a
@@ -45,7 +55,10 @@ from torch.utils.checkpoint import checkpoint
 
 from parallel_gcn_tpu_torch.config import Config
 from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL, DeviceDataset
+from parallel_gcn_tpu_torch.models.gat import GATModel
 from parallel_gcn_tpu_torch.models.gcn import GCNModel, layer_entry
+from parallel_gcn_tpu_torch.models.sage import GINModel
+from parallel_gcn_tpu_torch.ops.cuda_fused import dropout_matmul_lanes
 from parallel_gcn_tpu_torch.ops.loss import l2_penalty
 from parallel_gcn_tpu_torch.ops.sparse_matmul import feature_transform
 from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
@@ -53,8 +66,6 @@ from parallel_gcn_tpu_torch.scan import ScanLoop, ScanResult
 from parallel_gcn_tpu_torch.train import (_ce_fn, _eval_inputs, build_model, epoch_seeds,
                                           init_weights, l2_term, preaggregate_input,
                                           scan_schedule)
-
-_QUEUED = "ROADMAP Queue 1"
 
 
 @dataclass
@@ -76,16 +87,11 @@ class SeedsResult:
 
 
 def check_config(cfg: Config) -> None:
-    """Refuse what a seed batch does not run, naming where it is queued."""
-    if cfg.gcn.model != "gcn":
-        raise ValueError(f"fit_seeds trains the GCN; seed batches of model={cfg.gcn.model} are "
-                         f"queued ({_QUEUED}: seed batches for SAGE, GIN and the GAT)")
-    if cfg.tpu.fuse_dropout_matmul:
-        raise ValueError("fit_seeds has no fused dropout⊗matmul (K10 takes one seed); "
-                         "set fuse_dropout_matmul=false")
+    """Refuse what a seed batch does not run: the JAX harnesses batch only
+    the single-device whole-run program."""
     if cfg.tpu.n_devices > 1 or cfg.tpu.tp > 1:
-        raise ValueError("fit_seeds trains on one device; seed batches of the mesh are not "
-                         f"ported ({_QUEUED})")
+        raise ValueError("fit_seeds trains on one device: the JAX harnesses batch only the "
+                         "single-device whole run, so the mesh has no seed batch")
     if cfg.train.mode == "eager":
         raise ValueError("fit_seeds runs the whole-run path (mode=scan), as the JAX harnesses "
                          "batch only the whole-run program")
@@ -144,6 +150,12 @@ class _StackedLanes(torch.autograd.Function):
                 *([None] * lanes))
 
 
+def _check_joined(rate: float, training: bool, joined: bool) -> None:
+    if training and rate > 0 and not joined:
+        raise ValueError("a lane's dropout masks its own columns: pass the input as "
+                         "[rows, S·F]")
+
+
 class LaneGCN:
     """The GCN forward of S lanes over ``model``'s aggregation and knobs
     (``models.gcn.GCNModel``, whose own weights are lane 0's), lane s with
@@ -152,15 +164,39 @@ class LaneGCN:
 
     def __init__(self, model: GCNModel, weights: list[list[torch.Tensor]]):
         self.model, self.weights, self.lanes = model, weights, len(weights)
+        self.n_seeds = model.n_layers  # dropout seeds an epoch
+
+    def joins_input(self) -> bool:
+        """Whether the training input is each lane's own copy of the
+        features: an input dropout masks each lane's columns, unless the
+        laned K10 masks the shared features itself."""
+        m = self.model
+        return m.dropouts[0] > 0 and not m.fuse_dropout_matmul
+
+    def _fused(self, h, layer: int, seed, training: bool, pre_relu: bool):
+        """``GCNModel.layer_pre``'s fused branch over the lanes, [rows, S·F']
+        in the compute dtype (one laned K10 launch; layer 0 reads the shared
+        or joined input and runs no dX), or None where the layer does not
+        fuse."""
+        m = self.model
+        rate = m.dropouts[layer]
+        if not (training and rate > 0.0 and m.fuse_dropout_matmul):
+            return None
+        if pre_relu:
+            h = torch.relu(h)
+        w = torch.stack([ws[layer].to(m.compute_dtype) for ws in self.weights])
+        return dropout_matmul_lanes(h, w, seed, rate, need_dx=layer > 0).to(m.compute_dtype)
 
     def layer_pre(self, h, joined: bool, layer: int, seed, training: bool,
                   pre_relu: bool) -> list[torch.Tensor]:
         """Each lane's ``GCNModel.layer_pre``: [relu →] dropout (one launch
-        over the lanes, ``seed`` a slot of S seeds) → its feature transform."""
+        over the lanes, ``seed`` a slot of S seeds) → its feature transform,
+        or the laned K10."""
+        fused = self._fused(h, layer, seed, training, pre_relu)
+        if fused is not None:
+            return list(_Split.apply(fused, self.lanes))
         m = self.model
-        if training and m.dropouts[layer] > 0 and not joined:
-            raise ValueError("a lane's dropout masks its own columns: pass the input as "
-                             "[rows, S·F]")
+        _check_joined(m.dropouts[layer], training, joined)
         h = layer_entry(h, m.dropouts[layer], seed, training, pre_relu)
         parts = _Split.apply(h, self.lanes) if joined else [h] * self.lanes
         return [feature_transform(p, w[layer], m.compute_dtype)
@@ -168,8 +204,10 @@ class LaneGCN:
 
     def _layer(self, h, joined: bool, graph, layer: int, seed, training: bool,
                skip_agg: bool):
-        out = _Join.apply(*self.layer_pre(h, joined, layer, seed, training,
-                                          self.model.defers_relu(layer)))
+        pre_relu = self.model.defers_relu(layer)
+        out = self._fused(h, layer, seed, training, pre_relu)
+        if out is None:
+            out = _Join.apply(*self.layer_pre(h, joined, layer, seed, training, pre_relu))
         return out if skip_agg else self.model.aggregate(out, graph)
 
     def layer(self, h, joined: bool, graph, layer: int, seed, training: bool,
@@ -226,17 +264,110 @@ class LaneGCN:
         return [t.float() for t in out[:lanes]], [t.float() for t in out[lanes:]]
 
 
-class LaneSeedSlots:
-    """The device memory the dropout kernels read a lane batch's seeds from:
-    int64 [n_layers, S]; ``slots[l]`` is layer l's S seeds (``scan.SeedSlots``
-    over lanes)."""
+class LaneAgg:
+    """SAGE or GIN (``models.sage``) over S lanes, ``models[s]`` being lane
+    s's model (its weights). Activations are joined [rows, S·F] as in
+    ``LaneGCN``: each layer's entry (K1/K2) is one launch over the lanes,
+    each aggregation one ``graphsum`` over S·F columns, the transforms run
+    lane by lane; ``_AggVariant.forward``'s residual and ReLU, and ``remat``
+    per layer."""
 
-    def __init__(self, n_layers: int, lanes: int, device):
-        self.buf = torch.zeros((n_layers, lanes), dtype=torch.int64, device=device)
+    def __init__(self, models: list):
+        self.models, self.model, self.lanes = models, models[0], len(models)
+        self.weights = [list(m.weights) for m in models]
+        self.n_seeds = self.model.n_layers
+
+    def joins_input(self) -> bool:
+        return self.model.dropouts[0] > 0
+
+    def _layer(self, h, joined: bool, layer: int, seed, training: bool, pre_relu: bool, graph):
+        m, lanes = self.model, self.lanes
+        _check_joined(m.dropouts[layer], training, joined)
+        h = layer_entry(h, m.dropouts[layer], seed, training, pre_relu)
+        dtype = m.compute_dtype
+        ws = [lm.layer_weights(layer) for lm in self.models]
+        if isinstance(m, GINModel):
+            # (1+eps)·h + Σ_N h on the joined input, or once on the shared one
+            z = m.eps * h + m.sum_agg(h, graph).to(dtype)
+            outs = []
+            for p, w in zip(_Split.apply(z, lanes) if joined else [z] * lanes, ws):
+                o = feature_transform(p, w["w1"], dtype)
+                outs.append(feature_transform(torch.relu(o), w["w2"], dtype) if "w2" in w else o)
+            return _Join.apply(*outs)
+        parts = _Split.apply(h, lanes) if joined else [h] * lanes
+        h_self = _Join.apply(*[feature_transform(p, w["self"], dtype) for p, w in zip(parts, ws)])
+        h_neigh = _Join.apply(*[feature_transform(p, w["neigh"], dtype)
+                                for p, w in zip(parts, ws)])
+        return h_self + m.mean_agg(h_neigh, graph).to(dtype)
+
+    def run_layer(self, *args):
+        """``_layer``, recomputed in the backward when training with
+        ``remat``."""
+        if self.model.remat and args[4]:
+            return checkpoint(self._layer, *args, use_reentrant=False, preserve_rng_state=False)
+        return self._layer(*args)
+
+    def forward(self, x, joined: bool, graph, *, training: bool, seeds: Sequence,
+                preagg: bool) -> list[torch.Tensor]:
+        """Each lane's logits, float32 [rows, C] (``_AggVariant.forward``)."""
+        m = self.model
+        last = m.n_layers - 1
+        h, prev = x.to(m.compute_dtype), None
+        for layer in range(m.n_layers):
+            h = self.run_layer(h, joined, layer, seeds[layer], training,
+                               layer > 0 and not m.residual, graph)
+            joined = True
+            if m.residual and 0 < layer < last and prev is not None and prev.shape == h.shape:
+                h = h + prev
+            if layer < last and m.residual:
+                h = torch.relu(h)
+                prev = h
+        return [p.float() for p in _Split.apply(h, self.lanes)]
+
+
+class LaneGAT:
+    """The GAT over S lanes: the attention depends on each lane's weights,
+    so lane s runs its own model's forward (``models[s]``, a
+    ``models.gat.GATModel``) on the shared input with its seeds from the
+    slots: feature dropout (K1), the transform, the attention (K5/K6 on the
+    tile backend, the segment or dense softmax), ELU, residual and head
+    mean, once a lane a layer, each at its solo shapes."""
+
+    def __init__(self, models: list[GATModel]):
+        self.models, self.model, self.lanes = models, models[0], len(models)
+        self.weights = [list(m.weights) for m in models]
+        self.n_seeds = 2 * self.model.n_layers  # feature and attention seeds
+        for m in models[1:]:  # one set of streaming edge chunks for every lane
+            m._chunks = self.model._chunks
+
+    def joins_input(self) -> bool:
+        return False
+
+    def forward(self, x, joined: bool, graph, *, training: bool, seeds: Sequence,
+                preagg: bool) -> list[torch.Tensor]:
+        """Each lane's logits, float32 [rows, C]; ``seeds`` 2L slots of S."""
+        if joined:
+            raise ValueError("GAT lanes read one shared input")
+        return [m(x, graph, training=training,
+                  seeds=[None if t is None else t[s] for t in seeds])
+                for s, m in enumerate(self.models)]
+
+
+LaneModel = LaneGCN | LaneAgg | LaneGAT
+
+
+class LaneSeedSlots:
+    """The device memory the kernels read a lane batch's seeds from: int64
+    [n_seeds, S]; ``slots[j]`` is seed j's S lanes, in ``train.epoch_seeds``'
+    order (a GAT's attention seeds in int32 range; ``scan.SeedSlots`` over
+    lanes)."""
+
+    def __init__(self, n_seeds: int, lanes: int, device):
+        self.buf = torch.zeros((n_seeds, lanes), dtype=torch.int64, device=device)
         self.slots = list(self.buf.unbind())
 
     def load(self, rows: torch.Tensor) -> None:
-        """Write the next epoch's seeds, ``rows`` int64 [S, n_layers]."""
+        """Write the next epoch's seeds, ``rows`` int64 [S, n_seeds]."""
         self.buf.copy_(rows.t())
 
 
@@ -307,21 +438,21 @@ def _lane_metrics(logits: list, ce_fn, dds: DeviceDataset, split: int):
     return [ce_fn(t, dds.labels, mask, dds.split_counts[split]) for t in logits]
 
 
-def make_lane_step(lm: LaneGCN, cfg: Config, dds: DeviceDataset, x_train, train_joined: bool,
+def make_lane_step(lm: LaneModel, cfg: Config, dds: DeviceDataset, x_train, train_joined: bool,
                    opt_states: list[AdamState], deferred: bool) -> Callable:
     """One epoch of every lane, ``(slots) -> [metrics[4]] a lane``: the
     plain epoch of ``train.make_epoch_step`` or the deferred one of
     ``train.make_deferred_step``, lane by lane where a lane's solo run
     reduces. Updates the lanes' weights and Adam states in place."""
     adam, model = cfg.adam, lm.model
-    wd, L = adam.weight_decay, model.n_layers
+    wd, nw = adam.weight_decay, len(lm.weights[0])
     x_eval, eval_preagg = _eval_inputs(model, dds)
     ce_fn = _ce_fn(cfg)
     weights = [w for ws in lm.weights for w in ws]
 
     def adam_all(grads):
         for s, ws in enumerate(lm.weights):
-            adam_step(ws, grads[s * L:(s + 1) * L], opt_states[s],
+            adam_step(ws, grads[s * nw:(s + 1) * nw], opt_states[s],
                       learning_rate=adam.learning_rate, weight_decay=wd, beta1=adam.beta1,
                       beta2=adam.beta2, eps=adam.eps)
 
@@ -352,7 +483,7 @@ def make_lane_step(lm: LaneGCN, cfg: Config, dds: DeviceDataset, x_train, train_
         adam_all(grads)
         with torch.no_grad():
             val = _lane_metrics(lm.forward(x_eval, False, dds.graph, training=False,
-                                               seeds=[None] * L, preagg=eval_preagg),
+                                           seeds=[None] * lm.n_seeds, preagg=eval_preagg),
                                 ce_fn, dds, VAL)
             return [torch.stack([tl, acc, vce + pen, vacc])
                     for tl, (_, acc), (vce, vacc), pen in zip(train_loss, train, val, pens())]
@@ -360,7 +491,7 @@ def make_lane_step(lm: LaneGCN, cfg: Config, dds: DeviceDataset, x_train, train_
     return deferred_step if deferred else plain_step
 
 
-def make_lane_eval_fn(lm: LaneGCN, cfg: Config, dds: DeviceDataset, split: int) -> Callable:
+def make_lane_eval_fn(lm: LaneModel, cfg: Config, dds: DeviceDataset, split: int) -> Callable:
     """``() -> [(loss, acc)] a lane`` of ``split`` on the lanes' current
     weights (``train.make_eval_fn``)."""
     wd = cfg.adam.weight_decay
@@ -370,7 +501,7 @@ def make_lane_eval_fn(lm: LaneGCN, cfg: Config, dds: DeviceDataset, split: int) 
     def eval_fn():
         with torch.no_grad():
             logits = lm.forward(x_eval, False, dds.graph, training=False,
-                                seeds=[None] * lm.model.n_layers, preagg=eval_preagg)
+                                seeds=[None] * lm.n_seeds, preagg=eval_preagg)
             return [(ce + l2_term(wd, l2_penalty(ws[0])), acc)
                     for (ce, acc), ws in zip(_lane_metrics(logits, ce_fn, dds, split),
                                              lm.weights)]
@@ -395,16 +526,17 @@ class SeedRun:
     the test split's eval (``[(loss, acc)] a lane``)."""
 
     seeds: list[int]
-    lm: LaneGCN
+    lm: LaneModel
     loop: LaneScanLoop
     test: Callable
 
 
 def seed_run(cfg: Config, dds: DeviceDataset, seeds: Sequence[int],
              weights: list[list[torch.Tensor]] | None = None) -> SeedRun:
-    """Build ``fit_seeds``' batch: the lanes' weights (``weights[s]``,
-    float32 in JAX leaf order, or the Glorot init of seed s), Adam states and
-    seed table, the shared Â·X, and the loop over ``cfg.gcn.epochs``."""
+    """Build ``fit_seeds``' batch: the lanes' models with their weights
+    (``weights[s]``, float32 in JAX leaf order, or the Glorot init of seed
+    s), Adam states and seed table, the shared Â·X (GCN), and the loop over
+    ``cfg.gcn.epochs``."""
     check_config(cfg)
     seeds = [int(s) for s in seeds]
     if not seeds:
@@ -413,27 +545,31 @@ def seed_run(cfg: Config, dds: DeviceDataset, seeds: Sequence[int],
     if len(weights) != len(seeds):
         raise ValueError(f"{len(seeds)} seeds but {len(weights)} weight lists")
     lanes = len(seeds)
-    model = build_model(cfg, dds, weights[0])
-    lane_w = [list(model.weights)] + [
-        [torch.nn.Parameter(w.to(dds.device).float().contiguous()) for w in ws]
-        for ws in weights[1:]]
-    lm = LaneGCN(model, lane_w)
-    if cfg.tpu.input_preagg:
-        dds = preaggregate_input(model, dds)
-    # a training input dropout masks each lane's own copy of the features
-    train_joined = cfg.gcn.dropouts[0] > 0
+    models = [build_model(cfg, dds, ws) for ws in weights]
+    model = models[0]
+    if isinstance(model, GATModel):
+        lm = LaneGAT(models)
+    elif isinstance(model, GCNModel):
+        lm = LaneGCN(model, [list(m.weights) for m in models])
+        if cfg.tpu.input_preagg:
+            dds = preaggregate_input(model, dds)
+    else:
+        lm = LaneAgg(models)
+    lane_w = lm.weights
+    train_joined = lm.joins_input()
     x_train = dds.x.repeat(1, lanes) if train_joined else dds.x
     opt_states = [init_adam(ws) for ws in lane_w]
     epochs = cfg.gcn.epochs
     k, deferred = scan_schedule(model, cfg)
+    gat = isinstance(model, GATModel)
     table = torch.tensor(
-        [[epoch_seeds(gen, model.n_layers) for _ in range(epochs)]
+        [[epoch_seeds(gen, model.n_layers, attention=gat) for _ in range(epochs)]
          for gen in (torch.Generator().manual_seed(s) for s in seeds)],
-        dtype=torch.int64).reshape(lanes, epochs, model.n_layers).to(dds.device)
+        dtype=torch.int64).reshape(lanes, epochs, lm.n_seeds).to(dds.device)
     loop = LaneScanLoop(make_lane_step(lm, cfg, dds, x_train, train_joined, opt_states, deferred),
                         lane_state=[[*ws, *st.m, *st.v, st.step]
                                     for ws, st in zip(lane_w, opt_states)],
-                        seeds=LaneSeedSlots(model.n_layers, lanes, dds.device), table=table, k=k,
+                        seeds=LaneSeedSlots(lm.n_seeds, lanes, dds.device), table=table, k=k,
                         final_val=make_lane_eval_fn(lm, cfg, dds, VAL) if deferred else None,
                         device=dds.device)
     return SeedRun(seeds=seeds, lm=lm, loop=loop, test=make_lane_eval_fn(lm, cfg, dds, TEST))
@@ -442,7 +578,7 @@ def seed_run(cfg: Config, dds: DeviceDataset, seeds: Sequence[int],
 def fit_seeds(cfg: Config, dds: DeviceDataset, seeds: Sequence[int], *,
               weights: list[list[torch.Tensor]] | None = None,
               verbose: bool | None = None) -> SeedsResult:
-    """Train ``cfg``'s GCN once a seed, every seed at once (module
+    """Train ``cfg``'s model once a seed, every seed at once (module
     docstring): lane s is ``train.fit`` of ``cfg`` with ``seed=s``.
     ``weights[s]`` (float32, JAX leaf order) replaces lane s's Glorot init.
     Writes no checkpoints; ``check_config`` lists what it refuses."""

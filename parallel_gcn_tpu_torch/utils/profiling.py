@@ -37,6 +37,14 @@ import torch
 # kernel categories: the first key a kernel's name contains names it
 _CATEGORIES = (
     ("::ce_kernel", "K9 masked CE"),
+    # K10 over seed lanes (seeds.fit_seeds)
+    ("fwd_mma_lanes_kernel", "K10 fused fwd (lanes)"),
+    ("fwd_fma_lanes_kernel", "K10 fused fwd (lanes)"),
+    ("dw_mma_lanes_kernel", "K10 fused dW (lanes)"),
+    ("dw_fma_lanes_kernel", "K10 fused dW (lanes)"),
+    ("reduce_splits_lanes_kernel", "K10 fused dW (lanes)"),
+    ("dx_mma_lanes_kernel", "K10 fused dX (lanes)"),
+    ("dx_lanes_kernel<", "K10 fused dX (lanes)"),
     ("fwd_mma_kernel", "K10 fused fwd"), ("fwd_fma_kernel", "K10 fused fwd"),
     ("dw_mma_kernel", "K10 fused dW"), ("dw_fma_kernel", "K10 fused dW"),
     ("reduce_splits_kernel", "K10 fused dW"), ("dx_kernel<", "K10 fused dX"),
@@ -82,6 +90,9 @@ LAUNCHED = (
     (("fused_fwd",), ("fwd_mma_kernel", "fwd_fma_kernel")),
     (("fused_dw",), ("dw_mma_kernel", "dw_fma_kernel")),
     (("fused_dx",), ("dx_kernel<", "dx_mma_kernel")),
+    (("fused_fwd_lanes",), ("fwd_mma_lanes_kernel", "fwd_fma_lanes_kernel")),
+    (("fused_dw_lanes",), ("dw_mma_lanes_kernel", "dw_fma_lanes_kernel")),
+    (("fused_dx_lanes",), ("dx_lanes_kernel<", "dx_mma_lanes_kernel")),
     (("sddmm",), ("sddmm_",)),
     (("gather_sum", "segment_sum"), ("_walk_kernel<",)),
     (("gather_sum_hub", "segment_sum_hub"), ("_hub_kernel<",)),

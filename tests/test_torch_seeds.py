@@ -181,8 +181,6 @@ def test_lanes_match_the_jax_vmapped_whole_run(k, epochs):
 
 
 @pytest.mark.parametrize("over, match", [
-    (dict(model="gat"), "model=gat"), (dict(model="sage"), "model=sage"),
-    (dict(model="gin"), "model=gin"), (dict(fuse_dropout_matmul=True), "fuse_dropout_matmul"),
     (dict(n_devices=2), "one device"), (dict(tp=2), "one device"),
     (dict(mode="eager"), "mode=scan")])
 def test_fit_seeds_refusals(over, match):
@@ -191,6 +189,5 @@ def test_fit_seeds_refusals(over, match):
         section = cfg.gcn if hasattr(cfg.gcn, key) else (
             cfg.train if hasattr(cfg.train, key) else cfg.tpu)
         setattr(section, key, val)
-    with pytest.raises(ValueError, match=match) as err:
+    with pytest.raises(ValueError, match=match):
         sd.fit_seeds(cfg, None, SEEDS)
-    assert match != "model=sage" or "ROADMAP" in str(err.value)
