@@ -161,8 +161,10 @@ Phases, each printed on its own lines:
   7b. seed batches (``seeds.fit_seeds``, ``mode=scan``, the launch counts set
      to 0 just before each): ``[seed-lanes]`` (with the kernel checks) holds
      K1 and K2 over seed lanes (one launch, lane s's seed at its solo element
-     index) bit-equal to their plain versions at [233472, 4·600] bf16 and
-     [2708, 8·1433] f32 and lane by lane to the unlaned kernel, beside the
+     index; a joined, per-lane or shared input, joined or per-lane output)
+     bit-equal to their plain versions at [233472, 4·600] bf16, [2708,
+     8·1433] and [3327, 4·3703] f32 and lane by lane to the unlaned kernel,
+     and K2's backward over lanes bit-equal to PyTorch's where, beside the
      unlaned kernel over the same bytes; and K10's forward, dW and dX over
      seed lanes (one launch each) at synth-reddit's fused layer 1 ([233472,
      4·600] bf16 x [4, 600, 41]) and the cora-sized graph's layers (the shared
@@ -511,80 +513,152 @@ def check_dropout_offset() -> None:
 
 
 # K1/K2 over seed lanes at the seed phases' shapes: ([rows, F], lanes, dtype,
-# rate): synth-reddit's layer 1 entry (K2) at [main-seeds]' 4 lanes, and the
-# cora-sized input dropout (K1) at [seeds-stop]'s 8 lanes
-LANE_SHAPES = (((233472, 600), 4, "bfloat16", 0.1), ((2708, 1433), 8, "float32", 0.4))
+# rate, the input's layout): synth-reddit's layer 1 entry (K2) at
+# [main-seeds]' 4 lanes from the joined aggregation, the cora-sized input
+# dropout (K1) at [seeds-stop]'s 8 lanes from the shared features, and a
+# citeseer-wide one (3,703 f32 columns: no whole 16-byte vector a row) at 4
+LANE_SHAPES = (((233472, 600), 4, "bfloat16", 0.1, "joined"),
+               ((2708, 1433), 8, "float32", 0.4, "shared"),
+               ((3327, 3703), 4, "float32", 0.5, "shared"))
+
+
+def _lane_inputs(layout: str, x, lanes: int):
+    """The laned kernel's input from the joined ``x`` [rows, S·F] (shared:
+    its first lane, S times)."""
+    if layout == "joined":
+        return x
+    parts = [p.contiguous() for p in x.chunk(lanes, dim=1)]
+    return [parts[0]] * lanes if layout == "shared" else parts
+
 
 
 def check_seed_lanes(results: dict) -> None:
     """``[seed-lanes]``: K1 and K2 over S seed lanes (``dropout_lanes_kernel``,
-    one launch, lane s's seed at lane s's solo element index r·F + c) bit-equal
-    to their plain versions and, lane by lane, to the unlaned kernel on the
-    lane's own [rows, F] (the solo run's mask), backward included; lanes whose
-    F is no whole number of 16-byte vectors and K1 at an element offset too.
-    Times beside the bound (the unlaned kernel's byte bound at [rows, S·F]),
-    the unlaned kernel over the same bytes and ``F.dropout``."""
+    one launch, lane s's seed at lane s's solo element index r·F + c), every
+    input layout (joined, the lanes' own tensors, a shared input) to every
+    output layout (the lanes' tensors: the split in the same launch; joined),
+    bit-equal to their plain versions and, lane by lane, to the unlaned
+    kernel on the lane's own [rows, F] (the solo run's mask); K2's backward
+    over lanes (``dropout_lanes_bwd_kernel``) bit-equal to PyTorch's
+    ``where(out > 0, g·(1/keep), 0)`` in each layout; the lanes of 41 columns
+    and K1 at an element offset too. Times of the main paths' calls (K2:
+    joined in, lanes out; K1: the shared input to the lanes; the backward:
+    lanes in, joined out) beside the bound (each byte read and written once),
+    the unlaned kernel over the same bytes, S unlaned launches with the
+    parent's copy of the split, and ``F.dropout``."""
     import torch
 
     from parallel_gcn_tpu_torch.ops import cuda_dropout as cd
 
     gen = torch.Generator().manual_seed(5)
     base = 0x1234_5678_9ABC
-    for (rows, width), lanes, dtype_name, rate in LANE_SHAPES:
+    layouts = ("joined", "lanes", "shared")
+    for (rows, width), lanes, dtype_name, rate, main_in in LANE_SHAPES:
         dtype = getattr(torch, dtype_name)
         seeds = [base + 7919 * s for s in range(lanes)]
         # the seeds as the trainer holds them: a device slot of one int64 a lane
         slot = torch.tensor(seeds, dtype=torch.int64, device="cuda")
         x = torch.randn(rows, lanes * width, generator=gen).to(dtype).cuda()
-        g = torch.randn(rows, lanes * width, generator=gen).to(dtype).cuda()
-        inv = torch.tensor(1 / (1 - rate), dtype=dtype).cuda()
-        for key, name, relu in (("K1 lanes", "dropout", False), ("K2 lanes", "relu_dropout", True)):
-            fn = cd.relu_dropout if relu else cd.dropout
-            got = fn(x, slot, rate)
-            assert torch.equal(got, cd.dropout_plain(x, seeds, rate, relu)), \
-                f"{key} != plain at [{rows}, {lanes}·{width}] {dtype_name}"
-            for s in range(lanes):
-                lane = x[:, s * width:(s + 1) * width].contiguous()
-                assert torch.equal(got[:, s * width:(s + 1) * width], fn(lane, slot[s], rate)), \
-                    f"{key}: lane {s} != the unlaned kernel on its own columns"
-            xr = x.clone().requires_grad_(True)
-            out = fn(xr, slot, rate)
-            out.backward(g)
-            want = (torch.where(out > 0, g * inv, torch.zeros((), dtype=dtype, device="cuda"))
-                    if relu else cd.dropout_plain(g, seeds, rate))
-            assert torch.equal(xr.grad, want), f"{key} backward"
-            del xr, out, want
-            ms = timer.events_ms(lambda: fn(x, slot, rate), 20)
-            dev = profiling.kernel_ms(lambda: fn(x, slot, rate), 20, "dropout_lanes_kernel")
-            pms = timer.events_ms(lambda: cd.dropout_plain(x, seeds, rate, relu), 3)
-            # the unlaned kernel over the same bytes (one seed for the tensor)
-            one_ms = timer.events_ms(lambda: fn(x, base, rate), 20)
-            one_dev = profiling.kernel_ms(lambda: fn(x, base, rate), 20, "::dropout_kernel")
-            lib_ms = timer.events_ms(lambda: torch.nn.functional.dropout(x, rate), 20)
-            bound = _bound(2 * _nbytes(x))
-            print(f"[seed-lanes] {key} {name} [{rows}, {lanes}·{width}] {dtype_name} rate {rate}: "
-                  f"bit-equal to plain and lane by lane to the unlaned kernel on [{rows}, "
-                  f"{width}], fwd and bwd; kernel {ms:.4f} ms (device {dev:.4f}), unlaned kernel "
-                  f"at the same bytes {one_ms:.4f} ms (device {one_dev:.4f}), plain {pms:.4f} ms, "
-                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
-                  f"torch.nn.functional.dropout {lib_ms:.4f} ms")
-            if (key == "K2 lanes") == (dtype_name == "bfloat16"):
-                results[key] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
-                                    unlaned_ms=one_ms, **bound)
-        del x, g
-    # the counter path: lanes of 41 columns (no whole 16-byte vector), bf16
-    # and f32, and K1 at an element offset
-    for dtype in (torch.bfloat16, torch.float32):
-        seeds = [base + s for s in range(3)]
-        x = torch.randn(1001, 3 * 41, generator=gen).to(dtype).cuda()
-        slot = torch.tensor(seeds, dtype=torch.int64, device="cuda")
+        inv = cd._inv_keep(rate, dtype)
         for relu in (False, True):
-            fn = cd.relu_dropout if relu else cd.dropout
-            assert torch.equal(fn(x, slot, 0.3), cd.dropout_plain(x, seeds, 0.3, relu)), \
-                f"lanes of 41 columns != plain ({dtype}, relu={relu})"
-        assert torch.equal(cd.dropout(x, slot, 0.3, 8), cd.dropout_plain(x, seeds, 0.3, False, 8))
-    print("[seed-lanes] K1, K2 over 3 lanes of [1001, 41] (the counter path) bit-equal to plain "
-          "in bf16 and f32, K1 at element offset 8 too")
+            key = "K2 lanes" if relu else "K1 lanes"
+            wants = {}  # the plain version of each joined input (the lanes' is x's)
+            for layout in layouts:
+                xin = _lane_inputs(layout, x, lanes)
+                joined_in = (torch.cat(xin, 1) if isinstance(xin, list) else xin)
+                shared = layout == "shared"
+                if shared not in wants:
+                    wants[shared] = cd.lane_dropout_plain([joined_in], seeds, rate, int(relu),
+                                                          0, lanes, True)
+                    # lane by lane, the unlaned kernel on the lane's own columns
+                    got = torch.cat(cd.lane_dropout(xin, slot, rate, relu=relu), 1)
+                    for s in range(lanes):
+                        solo = (cd.relu_dropout if relu else cd.dropout)(
+                            joined_in[:, s * width:(s + 1) * width].contiguous(), slot[s], rate)
+                        assert torch.equal(got[:, s * width:(s + 1) * width], solo), \
+                            f"{key} {layout}: lane {s} != the unlaned kernel on its own columns"
+                for join in (False, True):
+                    got = cd.lane_dropout(xin, slot, rate, relu=relu, join=join)
+                    got_j = got if join else torch.cat(got, 1)
+                    assert torch.equal(got_j, wants[shared]), \
+                        f"{key} {layout} -> {'joined' if join else 'lanes'} != plain at " \
+                        f"[{rows}, {lanes}·{width}] {dtype_name}"
+                if relu and layout != "shared":
+                    # the backward: the cotangent in the output's layout, the
+                    # gradient in the input's
+                    out = cd.lane_dropout(xin, slot, rate, relu=True)
+                    g = [torch.randn(rows, width, generator=gen).to(dtype).cuda()
+                         for _ in range(lanes)]
+                    dx = cd._run_lanes(g, None, rate, 2, 0, lanes, layout == "joined",
+                                       aux=list(out))
+                    ref = [torch.where(o > 0, gs * inv, 0.0) for o, gs in zip(out, g)]
+                    dx_j = dx if layout == "joined" else torch.cat(dx, 1)
+                    assert torch.equal(dx_j, torch.cat(ref, 1)), \
+                        f"K2 lanes backward ({layout}) != torch.where(out > 0, g * inv, 0)"
+        # the main path's calls, timed
+        xin = _lane_inputs(main_in, x, lanes)
+        relu = main_in == "joined"
+        key = "K2 lanes" if relu else "K1 lanes"
+        fn = lambda: cd.lane_dropout(xin, slot, rate, relu=relu)  # noqa: E731
+        ms = timer.events_ms(fn, 20)
+        dev = profiling.kernel_ms(fn, 20, "dropout_lanes_kernel")
+        joined_in = torch.cat(xin, 1) if isinstance(xin, list) else xin
+        pms = timer.events_ms(lambda: cd.lane_dropout_plain(
+            [joined_in], seeds, rate, int(relu), 0, lanes, False), 3)
+        # the unlaned kernel over the same bytes (one seed for the tensor), and
+        # the parent's path: the laned mask joined, then the lanes' copies
+        one = (cd.relu_dropout if relu else cd.dropout)
+        one_ms = timer.events_ms(lambda: one(joined_in, base, rate), 20)
+        unlaned = [joined_in[:, s * width:(s + 1) * width].contiguous() for s in range(lanes)]
+        each_ms = timer.events_ms(lambda: [one(u, slot[s], rate) for s, u in enumerate(unlaned)],
+                                  20)
+        lib_ms = timer.events_ms(lambda: torch.nn.functional.dropout(joined_in, rate), 20)
+        in_bytes = _nbytes(xin) if not isinstance(xin, list) else (
+            _nbytes(xin[0]) if main_in == "shared" else _nbytes(*xin))
+        bound = _bound(in_bytes + _nbytes(joined_in))
+        print(f"[seed-lanes] {key} [{rows}, {lanes}·{width}] {dtype_name} rate {rate}, every "
+              f"layout in ({', '.join(layouts)}) and out (lanes, joined): bit-equal to plain and "
+              f"lane by lane to the unlaned kernel; the main path's call ({main_in} in, the lanes "
+              f"out) {ms:.4f} ms (device {dev:.4f}), unlaned kernel at the same bytes "
+              f"{one_ms:.4f} ms, {lanes} unlaned launches {each_ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+              f"torch.nn.functional.dropout {lib_ms:.4f} ms")
+        if (rows, width) != (3327, 3703):
+            results[key] = dict(err=0.0, ms=ms, plain_ms=pms, library_ms=lib_ms,
+                                unlaned_ms=one_ms, **bound)
+        if relu:  # the backward: lanes in (cotangents, saved outputs), joined out
+            out = list(cd.lane_dropout(xin, slot, rate, relu=True))
+            g = [torch.randn(rows, width, generator=gen).to(dtype).cuda() for _ in range(lanes)]
+            bwd = lambda: cd._run_lanes(g, None, rate, 2, 0, lanes, True, aux=out)  # noqa: E731
+            bms = timer.events_ms(bwd, 20)
+            bdev = profiling.kernel_ms(bwd, 20, "dropout_lanes_bwd_kernel")
+            torch_ms = timer.events_ms(lambda: torch.cat(
+                [torch.where(o > 0, gs * inv, 0.0) for o, gs in zip(out, g)], 1), 20)
+            bbound = _bound(3 * _nbytes(joined_in))
+            print(f"[seed-lanes] K2 lanes backward [{rows}, {lanes}·{width}] {dtype_name}: "
+                  f"{bms:.4f} ms (device {bdev:.4f}), PyTorch's where and cat {torch_ms:.4f} ms, "
+                  f"bound {bbound['bound_ms']:.4f} ms ({bbound['bound_by']})")
+            results["K2 lanes bwd"] = dict(err=0.0, ms=bms, plain_ms=torch_ms, library_ms=None,
+                                           **bbound)
+            del out, g
+        del x, xin, joined_in, unlaned
+    # the lanes of 41 columns (no whole 16-byte vector a row), bf16 and f32,
+    # K1 at an element offset; 70 lanes (64 a launch, then the rest)
+    for (rows, width), lanes in (((1001, 41), 3), ((257, 41), 70)):
+        seeds = [base + s for s in range(lanes)]
+        slot = torch.tensor(seeds, dtype=torch.int64, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(rows, lanes * width, generator=gen).to(dtype).cuda()
+            for relu, offset in ((False, 0), (True, 0), (False, 8)):
+                want = cd.lane_dropout_plain([x], seeds, 0.3, int(relu), offset, lanes, True)
+                for join in (True, False):
+                    got = cd.lane_dropout(x, slot, 0.3, relu=relu, join=join, offset=offset)
+                    assert torch.equal(got if join else torch.cat(got, 1), want), \
+                        f"{lanes} lanes of {width} columns != plain ({dtype}, relu={relu}, " \
+                        f"offset {offset}, join={join})"
+    print("[seed-lanes] K1, K2 over 3 lanes of [1001, 41] (vectors across row ends) and 70 "
+          "lanes of [257, 41] (two launches), joined and split, bit-equal to plain in bf16 and "
+          "f32, K1 at element offset 8 too")
     check_fused_lanes(results)
 
 
@@ -596,10 +670,12 @@ def check_seed_lanes(results: dict) -> None:
 FUSED_LANE_SHAPES = (((233472, 600, 41), 4, "bfloat16", 0.1, False),
                      ((2708, 1433, 72), 8, "float32", 0.4, True),
                      ((2708, 72, 7), 8, "float32", 0.2, False))
-FUSED_LANE_KERNELS = {"K10 fwd lanes": ("fwd_mma_lanes_kernel", "fwd_fma_lanes_kernel"),
+FUSED_LANE_KERNELS = {"K10 fwd lanes": ("fwd_mma_lanes_kernel", "fwd_fma_lanes_kernel",
+                                        "fwd_fma_shared_kernel"),
                       "K10 dW lanes": ("dw_mma_lanes_kernel", "dw_fma_lanes_kernel",
                                        "reduce_splits_lanes_kernel"),
-                      "K10 dX lanes": ("dx_mma_lanes_kernel", "dx_lanes_kernel<")}
+                      "K10 dX lanes": ("dx_mma_lanes_kernel", "dx_lanes_kernel<",
+                                       "dx_wfrag_kernel")}
 
 
 def check_fused_lanes(results: dict) -> None:
@@ -2577,7 +2653,8 @@ KERNEL_KEYS = {"K1": "dropout", "K2": "relu_dropout", "K3": "bcsr", "K4": "bcsr_
                "K10 fwd": "fused_fwd", "K10 dW": "fused_dw", "K10 dX": "fused_dx",
                "K8": "sddmm", "ordered gather_sum": "gather_sum",
                "ordered segment_sum": "segment_sum", "K1 lanes": "dropout_lanes",
-               "K2 lanes": "relu_dropout_lanes", "K10 fwd lanes": "fused_fwd_lanes",
+               "K2 lanes": "relu_dropout_lanes", "K2 lanes bwd": "relu_dropout_lanes_bwd",
+               "K10 fwd lanes": "fused_fwd_lanes",
                "K10 dW lanes": "fused_dw_lanes", "K10 dX lanes": "fused_dx_lanes"}
 # the ordered sums' hub kernels (launched beside the walk kernel by a call
 # whose work list has hubs), counted apart from KERNEL_KEYS so the launches
@@ -3550,15 +3627,17 @@ def main(argv: list[str]) -> int:
     _stamp("main-gin")
     main_seeds = phase_main_seeds(dds)
     # a replay: the GCN's deferred schedule over the lanes: K2 over the lanes
-    # once (layer 1's train forward), K4 and the gather-sum of its residual
+    # once (layer 1's train forward, from layer 0's lanes to the lanes' GEMMs)
+    # and its backward once, K4 and the gather-sum of its residual
     # over 4·82 columns (the stacked forward) and 4·41 (the backward); plus
     # the pre-aggregation, the final val eval and the test eval, each one
     # aggregation for all lanes
-    assert main_seeds["per_replay"] == {"K2 lanes": 1, "K4": 2, "ordered gather_sum": 2}, \
-        main_seeds["per_replay"]
-    assert (main_seeds["counts"]["K2 lanes"], main_seeds["counts"]["K4"],
-            main_seeds["counts"]["ordered gather_sum"], main_seeds["counts"]["K2"]) == (
-        EPOCHS, 2 * EPOCHS + 3, 2 * EPOCHS + 3, 0), main_seeds
+    assert main_seeds["per_replay"] == {"K2 lanes": 1, "K2 lanes bwd": 1, "K4": 2,
+                                        "ordered gather_sum": 2}, main_seeds["per_replay"]
+    assert (main_seeds["counts"]["K2 lanes"], main_seeds["counts"]["K2 lanes bwd"],
+            main_seeds["counts"]["K4"], main_seeds["counts"]["ordered gather_sum"],
+            main_seeds["counts"]["K2"]) == (
+        EPOCHS, EPOCHS, 2 * EPOCHS + 3, 2 * EPOCHS + 3, 0), main_seeds
     _stamp("main-seeds")
     families = {tag: phase_seeds_family(tag, args, dds, lanes)
                 for tag, args, lanes in SEED_FAMILIES}
@@ -3567,8 +3646,10 @@ def main(argv: list[str]) -> int:
     # over the lanes once); the GAT's attention once a lane (K5, K6, K1 and
     # the residual's sums 4 times the solo replay's); the fused GCN's K10
     # over the lanes once each way, K9 once a lane
-    for tag, want in (("seeds-sage", {"K2 lanes": 1, "K4": 6, "ordered gather_sum": 6}),
-                      ("seeds-gin", {"K2 lanes": 1, "K4": 5, "ordered gather_sum": 5}),
+    for tag, want in (("seeds-sage", {"K2 lanes": 1, "K2 lanes bwd": 1, "K4": 6,
+                                      "ordered gather_sum": 6}),
+                      ("seeds-gin", {"K2 lanes": 1, "K2 lanes bwd": 1, "K4": 5,
+                                     "ordered gather_sum": 5}),
                       ("seeds-gat", {k: SEED_LANES * v for k, v in gat["per_replay"].items()}),
                       ("seeds-fused", {"K4": 2, "K9 train": SEED_LANES, "K9 eval": SEED_LANES,
                                        "K10 fwd lanes": 1, "K10 dW lanes": 1,
@@ -3588,12 +3669,14 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     _stamp("single-card paths")
     seeds_medium = phase_seeds_medium()
-    assert seeds_medium["per_replay"] == {"K2 lanes": 1, "ordered gather_sum": 2}, \
-        seeds_medium["per_replay"]
+    assert seeds_medium["per_replay"] == {"K2 lanes": 1, "K2 lanes bwd": 1,
+                                          "ordered gather_sum": 2}, seeds_medium["per_replay"]
     seeds_stop = phase_seeds_stop()
     # the plain epoch (early stopping): K1 over the lanes' input features and
-    # K2 at layer 1's entry, in the train forward; the dense Â is cuBLAS's
-    assert seeds_stop["per_replay"] == {"K1 lanes": 1, "K2 lanes": 1}, seeds_stop["per_replay"]
+    # K2 at layer 1's entry, in the train forward, and K2's backward; the
+    # dense Â is cuBLAS's
+    assert seeds_stop["per_replay"] == {"K1 lanes": 1, "K2 lanes": 1, "K2 lanes bwd": 1}, \
+        seeds_stop["per_replay"]
     seeds_stop_fused = phase_seeds_stop(fused=True)
     # the laned K10 at both layers' training forward (layer 0 over the
     # shared input) and backward, dX at layer 1 only
@@ -3775,6 +3858,9 @@ def main(argv: list[str]) -> int:
               "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
         entry("K2 lanes", "relu_dropout_lanes", drop_src,
               "parallel_gcn_tpu/ops/pallas_dropout.py:142"),
+        # no Pallas kernel: the JAX package's K2 backward is jnp (its custom_vjp)
+        entry("K2 lanes bwd", "relu_dropout_lanes_bwd", drop_src,
+              "parallel_gcn_tpu/ops/pallas_dropout.py:197 (_relu_bwd, jnp: no Pallas kernel)"),
         entry("K10 fwd lanes", "dropout_matmul_fwd_lanes", mm_src,
               "parallel_gcn_tpu/ops/pallas_fused.py:49"),
         entry("K10 dW lanes", "dropout_matmul_dw_lanes", mm_src,

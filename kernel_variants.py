@@ -16,8 +16,10 @@ f32 logits) and K10 (dropout⊗matmul forward, dW, dX, [233472, 600] bf16 ×
 time of every kernel a call launches (``torch.profiler``), with hashes of
 the outputs, so variants that change only speed show the base's hashes.
 ``FUSED_KNOBS`` are settings of the checkout's wrapper (dW's slab width).
-The base also times K10 over 4 seed lanes ([233472, 4·600] bf16, one
-launch each way) beside 4 unlaned launches on the lanes' operands. Times
+The base and ``--parent`` also time K10 over 4 seed lanes ([233472,
+4·600] bf16, one launch each way) beside 4 unlaned launches on the lanes'
+operands, and the cora-sized f32 lanes (8 lanes, layer 0 over a shared x);
+``FUSED_LANE_VARIANTS`` are timed over the lanes. Times
 are ``utils.timer.events_ms``, the median of batch means that
 ``chip_smoke.py`` takes.
 The design steps are the forward's ring depth and row tile, dW's ring
@@ -86,8 +88,10 @@ Function, wrapper, library call) at the small shape, where the host's share
 shows. ``DROP_VARIANTS`` are the design steps:
 the vector width (every element through the scalar path), the loads in
 flight, the grid, streaming cache hints, and the Philox rounds removed
-(wrong on purpose). ``--parent`` times another checkout's K1/K2
-(``--time-dropout DIR``).
+(wrong on purpose). The base and ``--parent`` also time K1/K2 over seed
+lanes as a seed batch runs them (``_time_dropout_lanes``: the parent's
+laned kernel and lane copies against the split in the same launch).
+``--parent`` times another checkout's K1/K2 (``--time-dropout DIR``).
 """
 
 from __future__ import annotations
@@ -178,6 +182,20 @@ FUSED_VARIANTS = {
     "dx-no-pairs": lambda: [(MM, "for (int pr = half; pr < pairs; pr += 2) {",
                              "for (int pr = half; pr < 0; pr += 2) {")],
     "dx-one-term": lambda: [(MM, "for (int t = 0; t < 3; ++t) {", "for (int t = 2; t < 3; ++t) {")],
+}
+# name -> edits, timed over seed lanes (``_time_fused_lanes``): the laned dX
+# with one lane a group (each lane's blocks apart, g's lane columns staged by
+# 4-byte copies, a joined row written by 4 blocks at different times), to
+# measure what writing whole joined rows from one block is worth
+FUSED_LANE_VARIANTS = {
+    "dx-lanes-one-a-group": lambda: [
+        (MM, "const int group = max(1, min(lanes, optin / 2 / ring_lane));",
+         "const int group = 1;")],
+    # wrong on purpose: W staged for the first tile's items only (later
+    # items compute with stale fragments), to show W's restaging's share
+    "dx-lanes-no-w-restage": lambda: [
+        (MM, "    if (i < items) {\n      const int rem = i % per_tile;",
+         "    if (i < per_tile) {\n      const int rem = i % per_tile;")],
 }
 # name -> {attribute of ops/cuda_fused.py: value}: knobs of the checkout's
 # wrapper, timed with the checkout's library (dW's slab width at most)
@@ -467,6 +485,37 @@ def _time_fused(torch, ce, cf, t) -> str:
     return "; ".join(parts)
 
 
+def _time_fused_lanes_f32(torch, cf) -> str:
+    """The laned f32 K10 of the cora-sized fused batch ([seeds-stop-fused]:
+    parameters_cora.txt's 1433 -> 72 -> 7, 8 lanes): layer 0 over the shared
+    x [2708, 1433] (fwd, dW), layer 1 over the joined [2708, 8·72] (fwd, dW,
+    dX), beside 8 unlaned launches; CUDA events over 20 calls, device time."""
+    gen = torch.Generator().manual_seed(2)
+    lanes, seed = 8, 0x0F1E_2D3C_4B5A_6978
+    slot = torch.tensor([seed + 7919 * s for s in range(lanes)], device="cuda")
+    parts = []
+    for n, k, m, rate, shared in ((2708, 1433, 72, 0.4, True), (2708, 72, 7, 0.2, False)):
+        x = torch.randn((n, k if shared else lanes * k), generator=gen).cuda()
+        w = ((torch.rand((lanes, k, m), generator=gen) * 2 - 1) * 0.1).cuda()
+        g = (torch.randn((n, lanes * m), generator=gen) / n).cuda()
+        xs = [x if shared else x[:, s * k:(s + 1) * k].contiguous() for s in range(lanes)]
+        gs = [g[:, s * m:(s + 1) * m].contiguous() for s in range(lanes)]
+        calls = {"fwd": (lambda: cf._fwd_lanes(x, w, slot, rate),
+                         lambda s: cf._fwd(xs[s], w[s], slot[s], rate)),
+                 "dW": (lambda: cf._dw_lanes(x, g, slot, rate, torch.float32, shared),
+                        lambda s: cf._dw(xs[s], gs[s], slot[s], rate, torch.float32))}
+        if not shared:
+            calls["dX"] = (lambda: cf._dx_lanes(g, w, slot, rate, torch.float32),
+                           lambda s: cf._dx(gs[s], w[s], slot[s], rate, torch.float32))
+        for key, (laned, solo) in calls.items():
+            unlaned = lambda: [solo(s) for s in range(lanes)]  # noqa: E731
+            parts.append(f"f32 [{n}, {'' if shared else f'{lanes}·'}{k}] x [{lanes}, {k}, {m}] "
+                         f"{key} lanes {_events_ms(laned, 20):.4f} ms (device "
+                         f"{_device_total_ms(torch, laned):.4f}), {lanes} unlaned "
+                         f"{_events_ms(unlaned, 20):.4f} ms; {_digest(laned())}")
+    return "; ".join(parts)
+
+
 def _time_fused_lanes(torch, cf, n: int, lanes: int = 4) -> str:
     """K10 over ``lanes`` seed lanes (``cuda_fused.dropout_matmul_lanes``) at
     the fused GCN's layer 1 of a synth-reddit seed batch, x [n, lanes·600]
@@ -529,8 +578,23 @@ def fused_family(parent: str | None) -> int:
     fns = ["pgcn_masked_ce", "pgcn_dropout_matmul_fwd", "pgcn_dropout_matmul_dw",
            "pgcn_dropout_matmul_dw_blocks", "pgcn_dropout_matmul_dx"]
     print(f"[fused-variant] base: {_time_fused(torch, ce, cf, inputs)}", flush=True)
+    lane_join = _start_builds((MM, CE), {k: v() for k, v in FUSED_LANE_VARIANTS.items()},
+                              "fused-lanes")
     print(f"[fused-variant] base, 4 seed lanes: "
           f"{_time_fused_lanes(torch, cf, inputs['x'].shape[0])}", flush=True)
+    print(f"[fused-variant] base, the cora-sized f32 lanes: {_time_fused_lanes_f32(torch, cf)}",
+          flush=True)
+    lane_libs, lane_errors = lane_join()
+    errors.update(lane_errors)
+    for name, err in lane_errors.items():
+        print(f"[fused-variant] {name} not built: {err}")
+    lane_fns = [*fns, "pgcn_dropout_matmul_fwd_lanes", "pgcn_dropout_matmul_dw_lanes",
+                "pgcn_dropout_matmul_dx_lanes"]
+    for name, (path, _) in lane_libs.items():
+        _load_variant(path, base, lane_fns)
+        print(f"[fused-variant] {name}, 4 seed lanes: "
+              f"{_time_fused_lanes(torch, cf, inputs['x'].shape[0])}", flush=True)
+    _build._lib = base
     for name, knobs in FUSED_KNOBS.items():
         old = {k: getattr(cf, k) for k in knobs}
         for k, v in knobs.items():
@@ -565,6 +629,10 @@ def time_fused_tree(root: str) -> None:
     _build.load_library()
     inputs = _fused_inputs(torch)
     print(f"[fused-variant] {root}: {_time_fused(torch, ce, cf, inputs)}", flush=True)
+    print(f"[fused-variant] {root}, 4 seed lanes: "
+          f"{_time_fused_lanes(torch, cf, inputs['x'].shape[0])}", flush=True)
+    print(f"[fused-variant] {root}, the cora-sized f32 lanes: "
+          f"{_time_fused_lanes_f32(torch, cf)}", flush=True)
 
 
 def _spmm_inputs(torch):
@@ -983,6 +1051,45 @@ def _time_dropout(torch, cd, inputs) -> str:
     return "; ".join(parts)
 
 
+def _time_dropout_lanes(torch, cd) -> str:
+    """K1/K2 over seed lanes as a seed batch runs them, in either tree: K2 at
+    [233472, 4·600] bf16 (the joined aggregation in, the lanes' [233472, 600]
+    for their GEMMs out, and the backward's joined gradient from the lanes'
+    cotangents), K1 at [2708, 8·1433] f32 (the input features to the 8
+    lanes); a tree without ``lane_dropout`` (the parent) runs its path: the
+    laned kernel on the joined tensor, then the lanes' copies (``_Split``),
+    the backward PyTorch's ``where`` and ``cat``, and the input repeated
+    once a lane. CUDA events over 20 calls, device time of every kernel."""
+    gen = torch.Generator().manual_seed(3)
+    fused = hasattr(cd, "lane_dropout")
+    parts = []
+    for (rows, width), lanes, dtype, rate, relu in (((233472, 600), 4, torch.bfloat16, 0.1, True),
+                                                    ((2708, 1433), 8, torch.float32, 0.4, False)):
+        slot = torch.tensor([0x1234_5678_9ABC + 7919 * s for s in range(lanes)], device="cuda")
+        if relu:
+            x = torch.randn((rows, lanes * width), generator=gen).to(dtype).cuda()
+            fwd = ((lambda: cd.lane_dropout(x, slot, rate, relu=True)) if fused else
+                   (lambda: [p.contiguous() for p in cd.relu_dropout(x, slot, rate).chunk(lanes, 1)]))
+        else:
+            x = torch.randn((rows, width), generator=gen).to(dtype).cuda()
+            fwd = ((lambda: cd.lane_dropout([x] * lanes, slot, rate)) if fused else
+                   (lambda: [p.contiguous() for p in
+                             cd.dropout(x.repeat(1, lanes), slot, rate).chunk(lanes, 1)]))
+        out = [t for t in fwd()]
+        parts.append(f"{'K2' if relu else 'K1'} [{rows}, {lanes}·{width}] the lanes' entry "
+                     f"{_events_ms(fwd, 20):.4f} ms (device {_device_total_ms(torch, fwd):.4f}; "
+                     f"{_digest(torch.cat(out, 1))})")
+        if relu:
+            g = [torch.randn((rows, width), generator=gen).to(dtype).cuda() for _ in range(lanes)]
+            inv = cd._inv_keep(rate, dtype)
+            bwd = ((lambda: cd._run_lanes(g, None, rate, 2, 0, lanes, True, aux=out)) if fused else
+                   (lambda: torch.where(torch.cat(out, 1) > 0, torch.cat(g, 1) * inv, 0.0)))
+            parts.append(f"its backward {_events_ms(bwd, 20):.4f} ms (device "
+                         f"{_device_total_ms(torch, bwd):.4f}; {_digest(bwd())})")
+        del x, out
+    return "; ".join(parts)
+
+
 def dropout_family(parent: str | None) -> int:
     """K1/K2 of the checkout and its source variants, and of ``parent``'s
     package, beside ``torch.nn.functional.dropout``."""
@@ -1005,6 +1112,7 @@ def dropout_family(parent: str | None) -> int:
               f"{_events_ms(fn, 20):.4f} ms (device {_dropout_device_ms(torch, fn):.4f})",
               flush=True)
     print(f"[drop-variant] base: {_time_dropout(torch, cd, inputs)}", flush=True)
+    print(f"[drop-variant] base, seed lanes: {_time_dropout_lanes(torch, cd)}", flush=True)
     # a K1 call's cost by layer at the small shape, where the kernel is short:
     # 200 calls back to back, so each time is the larger of host and device
     import ctypes
@@ -1047,6 +1155,7 @@ def time_dropout_tree(root: str) -> None:
     _build.load_library()
     inputs = _dropout_inputs(torch)
     print(f"[drop-variant] {root}: {_time_dropout(torch, cd, inputs)}", flush=True)
+    print(f"[drop-variant] {root}, seed lanes: {_time_dropout_lanes(torch, cd)}", flush=True)
 
 
 _SEG_H = "csrc/segment_sum.cuh"

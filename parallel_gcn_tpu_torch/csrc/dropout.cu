@@ -44,19 +44,33 @@
 // never stored (the K1 backward regenerates it, the K2 backward reads the
 // saved output).
 //
-// Seed lanes (dropout_lanes_kernel, for a batch of S training runs that
-// share one graph, parallel_gcn_tpu_torch/seeds.py). The batch keeps its
-// activations row-major as [rows, S*F], lane s in columns s*F .. s*F+F-1,
-// and lane s's mask is the mask of a solo run with lane s's seed on its own
-// [rows, F] tensor: element (r, c) of lane s uses lane s's seed and the
-// element index r*F + c (plus the offset), so a lane equals its solo run
-// bit for bit. One launch covers all lanes, a 16-byte vector a step where F
-// is a whole number of vectors (each vector then lies in one lane's row and
-// on whole Philox counters: its solo index r*F + c is a multiple of the
-// vector width), else one counter of one lane a step (4 elements, each
-// placed by its own row and column). The bound is the unlaned kernel's byte
-// bound at [rows, S*F]; the row and lane of a vector cost two 64-bit
-// divisions, below its two Philox counters.
+// Seed lanes (dropout_lanes_kernel, dropout_lanes_bwd_kernel; a batch of S
+// training runs over one graph, parallel_gcn_tpu_torch/seeds.py). Lane s's
+// mask is the mask of a solo run with lane s's seed on its own [rows, F]
+// tensor: element (r, c) of lane s draws lane s's seed at its solo index
+// j = r*F + c (plus the offset), so a lane equals its solo run bit for bit.
+// Each operand (input, output, and the backward's saved output) is given
+// lane by lane as a pointer and a row stride (LaneRefs): a joined [rows,
+// S*F] tensor (lane s at column s*F, rows S*F apart), or S lane-contiguous
+// [rows, F] tensors (rows F apart; S times the same tensor for an input that
+// every lane reads), any layout in with any layout out. So one launch also
+// makes the lanes' split (joined in, lanes out) or their join, both ways,
+// with no copy of its own.
+// Design: a block is one lane's (blockIdx.x % S, so the lanes' blocks of a
+// row range run side by side); its threads walk the lane's own index space
+// j in 16-byte vectors of whole Philox counters, as the unlaned kernel walks
+// its tensor, whatever F is. A lane-contiguous operand is read or written
+// at j, a vector at a time when its base is aligned. A
+// joined operand is reached through (r, c) = (j / F, j % F): r is the high
+// word of j times a reciprocal of F computed on the host (floor((2^64 - 1)
+// / F) + 1, exact while rows*F*F < 2^64), no division; the vector is one
+// 16-byte access when F and the row stride are whole vectors, else a walk of
+// its elements that carries (r, c) across row ends. The bound is the
+// unlaned kernel's: each byte read and written once.
+// The backward of K2 over lanes (dropout_lanes_bwd_kernel) reads the
+// cotangent and the saved output in the output's layout and writes
+// where(out > 0, g * inv_keep, 0) in the input's layout, the rounding of
+// PyTorch's where(out > 0, g * s, 0.0) with s the host scalar inv_keep.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,6 +128,17 @@ template <> struct Vec<float> {
   }
   static __device__ __forceinline__ float load1(const float* p) { return *p; }
   static __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+  // one element's bits, and a vector as its elements' bits
+  union Pack {
+    uint4 u;
+    uint32_t h[4];
+  };
+  static __device__ __forceinline__ uint32_t bits1(const float* p) {
+    return __float_as_uint(*p);
+  }
+  static __device__ __forceinline__ void put_bits1(float* p, uint32_t b) {
+    *p = __uint_as_float(b);
+  }
 };
 
 template <> struct Vec<__nv_bfloat16> {
@@ -139,6 +164,16 @@ template <> struct Vec<__nv_bfloat16> {
   }
   static __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16_rn(v);
+  }
+  union Pack {
+    uint4 u;
+    uint16_t h[8];
+  };
+  static __device__ __forceinline__ uint16_t bits1(const __nv_bfloat16* p) {
+    return __bfloat16_as_ushort(*p);
+  }
+  static __device__ __forceinline__ void put_bits1(__nv_bfloat16* p, uint16_t b) {
+    *p = __ushort_as_bfloat16(b);
   }
 };
 
@@ -244,93 +279,174 @@ int launch(const void* x, void* out, int64_t n, const unsigned long long* seed,
 }
 
 
-// The lanes kernel: x and out are [rows, lanes * width] row-major; seeds
-// holds one uint64 a lane. n_vec is the tensor's number of 16-byte vectors
-// when width is a whole number of them and x and out are aligned, else 0
-// (every element through the counter path).
-template <typename T, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-dropout_lanes_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t rows,
-                     int64_t lanes, int64_t width, int64_t n_vec,
-                     const unsigned long long* __restrict__ seeds, uint64_t ctr0, uint32_t thr,
-                     float inv_keep) {
-  constexpr int kVec = Vec<T>::kVec;
-  constexpr int kCtr = kVec / 4;
-  const int64_t row_len = lanes * width;
-  const uint4* xv = reinterpret_cast<const uint4*>(x);
-  uint4* ov = reinterpret_cast<uint4*>(out);
-  const int64_t stride = (int64_t)gridDim.x * kThreads * kUnroll;
-  for (int64_t w0 = (int64_t)blockIdx.x * kThreads * kUnroll + threadIdx.x; w0 < n_vec;
-       w0 += stride) {
-    uint4 in[kUnroll];
+constexpr int kMaxLanes = 64;  // lanes a launch (pgcn_dropout_lanes launches in parts)
+
+// One operand of S lanes: lane s's element (r, c) at p[s] + r*ld + c.
+struct LaneRefs {
+  const void* p[kMaxLanes];
+  int64_t ld;  // elements between rows: F for a lane-contiguous operand
+  int vec;     // 1: every lane's vectors can move 16 bytes at a time
+};
+
+struct LaneShape {
+  int lanes;
+  int64_t width;   // F
+  int64_t n;       // rows*F, a lane's elements
+  uint64_t magic;  // floor((2^64 - 1) / F) + 1 (F > 1): j / F = umulhi(j, magic)
+};
+
+__device__ __forceinline__ int64_t lane_row(int64_t j, const LaneShape& sh) {
+  return sh.width == 1 ? j : (int64_t)__umul64hi((unsigned long long)j, sh.magic);
+}
+
+// Vector v of a lane (its elements j = v*kVec ..) of operand `o` as 16
+// bytes: zeros past the lane's n elements.
+template <typename T>
+__device__ __forceinline__ uint4 lane_load(const T* __restrict__ p, int64_t ld, int vec,
+                                           int64_t v, const LaneShape& sh) {
+  using V = Vec<T>;
+  const int64_t j = v * V::kVec;
+  const bool contig = ld == sh.width;
+  int64_t r = 0, c = 0;
+  if (!contig) {
+    r = lane_row(j, sh);
+    c = j - r * sh.width;
+  }
+  if (vec && j + V::kVec <= sh.n)
+    return __ldg(reinterpret_cast<const uint4*>(p + (contig ? j : r * ld + c)));
+  typename V::Pack out;
+  out.u = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t w = w0 + (int64_t)u * kThreads;
-      if (w < n_vec) in[u] = __ldg(xv + w);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t w = w0 + (int64_t)u * kThreads;
-      if (w < n_vec) {
-        const int64_t e = w * kVec;  // the vector's first element
-        const int64_t r = e / row_len;
-        const int64_t col = e - r * row_len;
-        const int64_t lane = col / width;
-        const int64_t j = r * width + (col - lane * width);  // its index in the lane
-        const unsigned long long key = __ldg(seeds + lane);
-        uint32_t bits[kVec];
-#pragma unroll
-        for (int c = 0; c < kCtr; ++c) {
-          const uint4 b = philox4x32_10(ctr0 + (uint64_t)(j >> 2) + c, (uint32_t)key,
-                                        (uint32_t)(key >> 32));
-          bits[4 * c] = b.x; bits[4 * c + 1] = b.y;
-          bits[4 * c + 2] = b.z; bits[4 * c + 3] = b.w;
-        }
-        float f[kVec];
-        Vec<T>::get(in[u], f);
-#pragma unroll
-        for (int k = 0; k < kVec; ++k) f[k] = drop1<kRelu>(f[k], bits[k], thr, inv_keep);
-        ov[w] = Vec<T>::put(f);
-      }
+  for (int e = 0; e < V::kVec; ++e) {
+    if (j + e < sh.n) out.h[e] = V::bits1(p + (contig ? j + e : r * ld + c));
+    if (++c == sh.width) {
+      c = 0;
+      ++r;
     }
   }
-  if (n_vec > 0) return;
-  // the counter path: one Philox counter (4 elements) of one lane a thread;
-  // lane-major, so that neighbouring threads hold neighbouring elements
-  const int64_t n_lane = rows * width;
-  const int64_t ctr_lane = (n_lane + 3) >> 2;
-  for (int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x; p < lanes * ctr_lane;
-       p += (int64_t)gridDim.x * kThreads) {
-    const int64_t lane = p / ctr_lane;
-    const int64_t q = p - lane * ctr_lane;
-    const unsigned long long key = __ldg(seeds + lane);
-    const uint4 b = philox4x32_10(ctr0 + (uint64_t)q, (uint32_t)key, (uint32_t)(key >> 32));
-    const uint32_t bits[4] = {b.x, b.y, b.z, b.w};
+  return out.u;
+}
+
+template <typename T>
+__device__ __forceinline__ void lane_store(T* __restrict__ p, int64_t ld, int vec, int64_t v,
+                                           const LaneShape& sh, uint4 val) {
+  using V = Vec<T>;
+  const int64_t j = v * V::kVec;
+  const bool contig = ld == sh.width;
+  int64_t r = 0, c = 0;
+  if (!contig) {
+    r = lane_row(j, sh);
+    c = j - r * sh.width;
+  }
+  if (vec && j + V::kVec <= sh.n) {
+    *reinterpret_cast<uint4*>(p + (contig ? j : r * ld + c)) = val;
+    return;
+  }
+  typename V::Pack in;
+  in.u = val;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int64_t j = (q << 2) + k;
-      if (j < n_lane) {
-        const int64_t r = j / width;
-        const int64_t i = r * row_len + lane * width + (j - r * width);
-        Vec<T>::store1(out + i, drop1<kRelu>(Vec<T>::load1(x + i), bits[k], thr, inv_keep));
+  for (int e = 0; e < V::kVec; ++e) {
+    if (j + e < sh.n) V::put_bits1(p + (contig ? j + e : r * ld + c), in.h[e]);
+    if (++c == sh.width) {
+      c = 0;
+      ++r;
+    }
+  }
+}
+
+// kMode 0: dropout (K1), 1: relu -> dropout (K2), 2: K2's backward from the
+// cotangent x and the saved output o. The lane is blockIdx.x % lanes (the
+// lanes' blocks of one row range run together, so a joined operand's rows
+// are read or written whole), the block's place in its lane blockIdx.x /
+// lanes; its operands' pointers come from the kernel's parameters
+// (__grid_constant__: read in place, no copy a thread).
+template <typename T, int kMode>
+__device__ __forceinline__ void lanes_body(const T* __restrict__ x, int64_t x_ld, int x_vec,
+                                           const T* __restrict__ o, int64_t o_ld, int o_vec,
+                                           T* __restrict__ y, int64_t y_ld, int y_vec,
+                                           const LaneShape& sh, int lane,
+                                           const unsigned long long* __restrict__ seeds,
+                                           uint64_t ctr0, uint32_t thr, float inv_keep) {
+  using V = Vec<T>;
+  constexpr int kVec = V::kVec;
+  constexpr int kCtr = kVec / 4;
+  uint32_t k0 = 0, k1 = 0;
+  if (kMode < 2) {
+    const unsigned long long key = __ldg(seeds + lane);
+    k0 = (uint32_t)key;
+    k1 = (uint32_t)(key >> 32);
+  }
+  const int64_t n_vec = (sh.n + kVec - 1) / kVec;
+  const int64_t step = (int64_t)(gridDim.x / sh.lanes) * kThreads * kUnroll;
+  for (int64_t v0 = (int64_t)(blockIdx.x / sh.lanes) * kThreads * kUnroll + threadIdx.x;
+       v0 < n_vec; v0 += step) {
+    uint4 a[kUnroll], b[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = v0 + (int64_t)u * kThreads;
+      if (v < n_vec) {
+        a[u] = lane_load(x, x_ld, x_vec, v, sh);
+        if (kMode == 2) b[u] = lane_load(o, o_ld, o_vec, v, sh);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = v0 + (int64_t)u * kThreads;
+      if (v < n_vec) {
+        float f[kVec];
+        V::get(a[u], f);
+        if (kMode == 2) {
+          float saved[kVec];
+          V::get(b[u], saved);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) f[e] = saved[e] > 0.0f ? f[e] * inv_keep : 0.0f;
+        } else {
+          uint32_t word[kVec];
+#pragma unroll
+          for (int c = 0; c < kCtr; ++c) {
+            const uint4 w = philox4x32_10(ctr0 + (uint64_t)v * kCtr + c, k0, k1);
+            word[4 * c] = w.x; word[4 * c + 1] = w.y;
+            word[4 * c + 2] = w.z; word[4 * c + 3] = w.w;
+          }
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) f[e] = drop1<kMode == 1>(f[e], word[e], thr, inv_keep);
+        }
+        lane_store(y, y_ld, y_vec, v, sh, V::put(f));
       }
     }
   }
 }
 
 template <typename T, bool kRelu>
-int launch_lanes(const void* x, void* out, int64_t rows, int64_t lanes, int64_t width,
-                 const unsigned long long* seeds, uint64_t ctr0, uint32_t thr, float inv_keep,
-                 cudaStream_t stream) {
-  constexpr int kVec = Vec<T>::kVec;
-  const bool whole = width % kVec == 0 &&
-                     ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
-                      15u) == 0;
-  const int64_t n_vec = whole ? rows * lanes * width / kVec : 0;
-  const int64_t work = whole ? (n_vec + kUnroll - 1) / kUnroll
-                             : lanes * ((rows * width + 3) >> 2);
-  const int64_t want = (work + kThreads - 1) / kThreads;
-  static int cached[kMaxDevices];  // the grid's cap a device, 0: not yet asked
+__global__ void __launch_bounds__(kThreads)
+dropout_lanes_kernel(const __grid_constant__ LaneRefs in, const __grid_constant__ LaneRefs out,
+                     const LaneShape sh, const unsigned long long* __restrict__ seeds,
+                     uint64_t ctr0, uint32_t thr, float inv_keep) {
+  const int lane = blockIdx.x % sh.lanes;
+  const T* x = static_cast<const T*>(in.p[lane]);
+  lanes_body<T, kRelu ? 1 : 0>(x, in.ld, in.vec, x, in.ld, in.vec,
+                               static_cast<T*>(const_cast<void*>(out.p[lane])), out.ld, out.vec,
+                               sh, lane, seeds, ctr0, thr, inv_keep);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dropout_lanes_bwd_kernel(const __grid_constant__ LaneRefs g,
+                         const __grid_constant__ LaneRefs saved,
+                         const __grid_constant__ LaneRefs out, const LaneShape sh,
+                         float inv_keep) {
+  const int lane = blockIdx.x % sh.lanes;
+  lanes_body<T, 2>(static_cast<const T*>(g.p[lane]), g.ld, g.vec,
+                   static_cast<const T*>(saved.p[lane]), saved.ld, saved.vec,
+                   static_cast<T*>(const_cast<void*>(out.p[lane])), out.ld, out.vec, sh, lane,
+                   nullptr, 0, 0, inv_keep);
+}
+
+// The most blocks a lane's row of the grid takes: kWaves times the card's
+// resident blocks of `kernel`, shared by the lanes.
+template <typename K>
+int lanes_grid(K kernel, int64_t n_vec, int lanes, unsigned* blocks) {
+  static int cached[kMaxDevices];  // per instantiation and device; 0: not yet asked
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return (int)rc;
@@ -339,17 +455,70 @@ int launch_lanes(const void* x, void* out, int64_t rows, int64_t lanes, int64_t 
     int sms = 0, per_sm = 0;
     rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (rc == cudaSuccess)
-      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, dropout_lanes_kernel<T, kRelu>, kThreads, 0);
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
     if (rc != cudaSuccess) return (int)rc;
     cached[dev] = kWaves * sms * (per_sm > 0 ? per_sm : 1);
   }
-  const int64_t cap = cached[dev];
+  const int64_t cap = cached[dev] / lanes > 0 ? cached[dev] / lanes : 1;
+  const int64_t want = ((n_vec + kUnroll - 1) / kUnroll + kThreads - 1) / kThreads;
   const int64_t rounds = (want + cap - 1) / cap;
-  const int64_t grid = want > 0 ? (want + rounds - 1) / rounds : 1;
-  dropout_lanes_kernel<T, kRelu><<<(unsigned)grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), rows, lanes, width, n_vec, seeds, ctr0,
-      thr, inv_keep);
+  *blocks = (unsigned)(want > 0 ? (want + rounds - 1) / rounds : 1);
+  return 0;
+}
+
+int fill_refs(LaneRefs* r, const void* const* p, int64_t ld, int lanes, int64_t width,
+              int vec_elems) {
+  if (ld < width) return (int)cudaErrorInvalidValue;
+  r->ld = ld;
+  // a lane-contiguous operand moves whole vectors from an aligned base; a
+  // joined one needs whole vectors a row too
+  int vec = ld == width || (width % vec_elems == 0 && ld % vec_elems == 0);
+  for (int s = 0; s < kMaxLanes; ++s) {
+    r->p[s] = s < lanes ? p[s] : nullptr;
+    if (s < lanes) {
+      if (p[s] == nullptr) return (int)cudaErrorInvalidValue;
+      vec = vec && (reinterpret_cast<uintptr_t>(p[s]) & 15u) == 0;
+    }
+  }
+  r->vec = vec;
+  return 0;
+}
+
+template <typename T>
+int launch_lanes(const void* const* in, int64_t in_ld, const void* const* aux, int64_t aux_ld,
+                 const void* const* out, int64_t out_ld, int64_t rows, int lanes,
+                 int64_t width, int mode, const unsigned long long* seeds, uint64_t ctr0,
+                 uint32_t thr, float inv_keep, cudaStream_t stream) {
+  constexpr int kVec = Vec<T>::kVec;
+  LaneRefs ri, ra, ro;
+  int rc = fill_refs(&ri, in, in_ld, lanes, width, kVec);
+  if (!rc) rc = fill_refs(&ro, out, out_ld, lanes, width, kVec);
+  if (!rc && mode == 2) rc = fill_refs(&ra, aux, aux_ld, lanes, width, kVec);
+  if (rc) return rc;
+  LaneShape sh;
+  sh.lanes = lanes;
+  sh.width = width;
+  sh.n = rows * width;
+  sh.magic = width > 1 ? UINT64_MAX / (uint64_t)width + 1 : 0;
+  const int64_t n_vec = (sh.n + kVec - 1) / kVec;
+  unsigned blocks = 0;
+  const dim3 block(kThreads);
+  if (mode == 2) {
+    rc = lanes_grid(dropout_lanes_bwd_kernel<T>, n_vec, lanes, &blocks);
+    if (rc) return rc;
+    dropout_lanes_bwd_kernel<T><<<blocks * lanes, block, 0, stream>>>(ri, ra, ro, sh,
+                                                                          inv_keep);
+  } else if (mode == 1) {
+    rc = lanes_grid(dropout_lanes_kernel<T, true>, n_vec, lanes, &blocks);
+    if (rc) return rc;
+    dropout_lanes_kernel<T, true><<<blocks * lanes, block, 0, stream>>>(
+        ri, ro, sh, seeds, ctr0, thr, inv_keep);
+  } else {
+    rc = lanes_grid(dropout_lanes_kernel<T, false>, n_vec, lanes, &blocks);
+    if (rc) return rc;
+    dropout_lanes_kernel<T, false><<<blocks * lanes, block, 0, stream>>>(
+        ri, ro, sh, seeds, ctr0, thr, inv_keep);
+  }
   return 0;
 }
 
@@ -378,29 +547,41 @@ extern "C" int pgcn_dropout(const void* x, void* out, int64_t n, int dtype,
   return (int)cudaGetLastError();
 }
 
-// K1 / K2 over S seed lanes: x and out are [rows, lanes * width] row-major,
-// seeds points to lanes uint64 seeds in device memory. Otherwise as
-// pgcn_dropout.
-extern "C" int pgcn_dropout_lanes(const void* x, void* out, int64_t rows, int64_t lanes,
-                                  int64_t width, int dtype, int relu,
+// K1 / K2 over S seed lanes, and K2's backward (mode 0: K1, 1: K2, 2: K2's
+// backward from the cotangent `in` and the saved output `aux`). Each operand
+// is `lanes` pointers in host memory (lane s's element (0, 0)) and a row
+// stride in elements: width for lane-contiguous [rows, width] tensors,
+// lanes*width for a joined [rows, lanes*width] one (lane s at column
+// s*width). seeds points to lanes uint64 seeds in device memory (unread in
+// mode 2); ctr0 is the element offset / 4. Otherwise as pgcn_dropout. Any
+// number of lanes: a launch takes up to kMaxLanes of them (the pointers are
+// kernel parameters), the next launch the next lanes with their seeds.
+extern "C" int pgcn_dropout_lanes(const void* const* in, int64_t in_ld, const void* const* aux,
+                                  int64_t aux_ld, const void* const* out, int64_t out_ld,
+                                  int64_t rows, int lanes, int64_t width, int dtype, int mode,
                                   const unsigned long long* seeds, uint64_t ctr0, uint32_t thr,
                                   float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || lanes <= 0 || width <= 0) return (int)cudaErrorInvalidValue;
-  int rc;
-  if (dtype == 0) {
-    rc = relu ? launch_lanes<float, true>(x, out, rows, lanes, width, seeds, ctr0, thr,
-                                          inv_keep, s)
-              : launch_lanes<float, false>(x, out, rows, lanes, width, seeds, ctr0, thr,
-                                           inv_keep, s);
-  } else if (dtype == 1) {
-    rc = relu ? launch_lanes<__nv_bfloat16, true>(x, out, rows, lanes, width, seeds, ctr0,
-                                                  thr, inv_keep, s)
-              : launch_lanes<__nv_bfloat16, false>(x, out, rows, lanes, width, seeds, ctr0,
-                                                   thr, inv_keep, s);
-  } else {
+  if (rows <= 0 || lanes <= 0 || width <= 0 || mode < 0 || mode > 2 ||
+      (mode < 2 && seeds == nullptr))
     return (int)cudaErrorInvalidValue;
+  // a lane's index j fits int64, and the reciprocal's row is exact while
+  // j < 2^64 / width
+  if ((uint64_t)rows > (uint64_t)INT64_MAX / (uint64_t)width ||
+      (uint64_t)rows > UINT64_MAX / (uint64_t)width / (uint64_t)width)
+    return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  for (int s0 = 0; s0 < lanes; s0 += kMaxLanes) {
+    const int part = lanes - s0 < kMaxLanes ? lanes - s0 : kMaxLanes;
+    const unsigned long long* sd = mode < 2 ? seeds + s0 : nullptr;
+    const void* const* ax = mode == 2 ? aux + s0 : aux;
+    const int rc =
+        dtype == 0 ? launch_lanes<float>(in + s0, in_ld, ax, aux_ld, out + s0, out_ld, rows,
+                                         part, width, mode, sd, ctr0, thr, inv_keep, s)
+                   : launch_lanes<__nv_bfloat16>(in + s0, in_ld, ax, aux_ld, out + s0, out_ld,
+                                                 rows, part, width, mode, sd, ctr0, thr,
+                                                 inv_keep, s);
+    if (rc) return rc;
   }
-  if (rc) return rc;
   return (int)cudaGetLastError();
 }

@@ -51,11 +51,14 @@
 //
 // Seed lanes (*_lanes_kernel, the pgcn_dropout_matmul_*_lanes entry points):
 // one launch runs a layer of S training runs, as JAX's vmap of the Pallas
-// kernels adds a batch grid axis. Each kernel's body is shared by its
-// unlaned and laned kernel; lane s runs it on its own operands, with its own
-// seed and its solo mask index, so it is the unlaned launch bit for bit
-// (the comment above LaneArgs). Reading a shared x once for all lanes is
-// later work: each lane reads it.
+// kernels adds a batch grid axis, lane s with its own seed at its solo mask
+// index and each output summed in the unlaned kernel's order, so a lane is
+// the unlaned launch bit for bit (the comment above LaneArgs). The joined g
+// is read in place. The f32 forward over a shared x takes a row tile × a
+// tile of the lanes' columns, reading x's piece once for the block's lanes;
+// the bf16 dX takes a row tile for every lane and writes whole joined rows;
+// the rest run the unlaned body once a lane (blockIdx.y or z), each lane
+// reading a shared x itself.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -271,11 +274,12 @@ fwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // f32 dW partial of row range [rs0, rs0 + rows_per_split) of split
-// `split`: ws[split][kc0.., n0..] = xmᵀ · g
+// `split`: ws[split][kc0.., n0..] = xmᵀ · g (g's rows ldg apart)
 __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
                                             const float* __restrict__ g,
                                             float* __restrict__ ws, int64_t n, int k, int m,
-                                            int64_t ldx, int64_t rows_per_split, int split,
+                                            int64_t ldx, int64_t ldg, int64_t rows_per_split,
+                                            int split,
                                             MaskArgs ma, float inv_keep) {
   const Mask mk = ma.load();
   __shared__ float a_s[kRows][kFmaChunk + 1];              // xm [kcol][row]
@@ -300,7 +304,7 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
     for (int e = tid; e < kFmaChunk * kTN; e += kFmaThreads) {
       const int r = e / kTN;
       const int j = e % kTN;
-      b_s[r][j] = (r0 + r < n && n0 + j < m) ? g[(r0 + r) * m + n0 + j] : 0.0f;
+      b_s[r][j] = (r0 + r < n && n0 + j < m) ? g[(r0 + r) * ldg + n0 + j] : 0.0f;
     }
     __syncthreads();
     fma_block<kFmaChunk + 1, kTN>(a_s, b_s, acc, ty, tx, kFmaChunk);
@@ -322,7 +326,7 @@ __global__ void __launch_bounds__(kFmaThreads)
 dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
               float* __restrict__ ws, int64_t n, int k, int m,
               int64_t rows_per_split, MaskArgs ma, float inv_keep) {
-  dw_fma_body(x, g, ws, n, k, m, k, rows_per_split, blockIdx.z, ma, inv_keep);
+  dw_fma_body(x, g, ws, n, k, m, k, m, rows_per_split, blockIdx.z, ma, inv_keep);
 }
 
 // ---------------------------------------------------------------------------
@@ -663,9 +667,9 @@ template <bool kAl4>
 __device__ __forceinline__ void dw_mma_body(const __nv_bfloat16* __restrict__ x,
                                             const float* __restrict__ g,
                                             float* __restrict__ ws, int64_t n, int k, int m,
-                                            int64_t ldx, int slab, int64_t rows_per_split,
-                                            int split, int vec, int gflat, MaskArgs ma,
-                                            uint32_t ik2) {
+                                            int64_t ldx, int64_t ldg, int slab,
+                                            int64_t rows_per_split, int split, int vec,
+                                            int gflat, MaskArgs ma, uint32_t ik2) {
   const Mask mk = ma.load();
   extern __shared__ __align__(128) uint8_t smem[];
   const int stage_bytes = dw_stage_bytes(slab);
@@ -724,7 +728,7 @@ __device__ __forceinline__ void dw_mma_body(const __nv_bfloat16* __restrict__ x,
           const int64_t row = r0 + e / kDwNB;
           const int col = n0 + e % kDwNB;
           const bool ok = row < rs1 && col < m;
-          cp_async4(gr + e, ok ? g + row * m + col : g, ok ? 4 : 0);
+          cp_async4(gr + e, ok ? g + row * ldg + col : g, ok ? 4 : 0);
         }
       }
     }
@@ -829,7 +833,7 @@ __global__ void __launch_bounds__(kDwMaxSlab, 2)
 dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
               float* __restrict__ ws, int64_t n, int k, int m, int slab,
               int64_t rows_per_split, int vec, int gflat, MaskArgs ma, uint32_t ik2) {
-  dw_mma_body<kAl4>(x, g, ws, n, k, m, k, slab, rows_per_split, blockIdx.z, vec, gflat, ma,
+  dw_mma_body<kAl4>(x, g, ws, n, k, m, k, m, slab, rows_per_split, blockIdx.z, vec, gflat, ma,
                     ik2);
 }
 
@@ -853,6 +857,7 @@ dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
 // m ≤ 64 (kKS k16 steps held in registers); wider m and f32 take
 // dx_kernel.
 constexpr int kDxWarps = 8;
+constexpr int kDxLaneWarps = 16;  // the laned dX: 4 row groups × 4 column quarters
 constexpr int kDxRows = 64;
 
 template <int kKS, bool kAl4>
@@ -1029,7 +1034,7 @@ constexpr int kDxThreads = 16 * (kDxTN / 4);   // 256
 template <typename T>
 __device__ __forceinline__ void dx_body(const float* __restrict__ g, const T* __restrict__ w,
                                         T* __restrict__ dx, int64_t n, int k, int m,
-                                        int64_t ldx, MaskArgs ma, float inv_keep) {
+                                        int64_t ldg, int64_t ldx, MaskArgs ma, float inv_keep) {
   const Mask mk = ma.load();
   __shared__ float a_s[kRows][kDxChunk + 1];            // g [row][m]
   __shared__ __align__(16) float b_s[kDxChunk][kDxTN];  // W [m][kcol]
@@ -1045,7 +1050,7 @@ __device__ __forceinline__ void dx_body(const float* __restrict__ g, const T* __
         for (int e = tid; e < kRows * kDxChunk; e += kDxThreads) {
           const int r = e / kDxChunk;
           const int j = e % kDxChunk;
-          a_s[r][j] = (r0 + r < n && j < mlen) ? g[(r0 + r) * m + m0 + j] : 0.0f;
+          a_s[r][j] = (r0 + r < n && j < mlen) ? g[(r0 + r) * ldg + m0 + j] : 0.0f;
         }
       }
       for (int e = tid; e < kDxChunk * kDxTN; e += kDxThreads) {
@@ -1082,32 +1087,80 @@ template <typename T>
 __global__ void __launch_bounds__(kDxThreads)
 dx_kernel(const float* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx,
           int64_t n, int k, int m, MaskArgs ma, float inv_keep) {
-  dx_body<T>(g, w, dx, n, k, m, k, ma, inv_keep);
+  dx_body<T>(g, w, dx, n, k, m, m, k, ma, inv_keep);
 }
 
 // ---------------------------------------------------------------------------
 // Seed lanes: one launch runs a layer of S training runs (seeds.fit_seeds,
 // the JAX harnesses' vmap of the Pallas kernels, which adds a batch grid
-// axis). Lane s reads x at x + s·x_lane with rows ldx apart (joined
-// [n, S·k]: x_lane = k, ldx = S·k; shared [n, k], every lane's input:
-// x_lane = 0, ldx = k), the s-th [k, m] of W [S, k, m], the s-th seed, and
-// g lane-major (lane s's [n, m] contiguous at g + s·g_lane); it writes out
-// columns s·m.. of [n, S·m] (ldo = S·m), dX columns s·k.. of [n, S·k] (rows
-// ldx apart) and the s-th [splits, k, m] of the dW workspace. Each lane runs
-// the unlaned kernel's body on those operands: its mask at its solo index
-// r·k + c, its tiling, k loop, dW split plan and split order, so lane s is
-// the unlaned kernel on the lane's own operands bit for bit. A lane whose x
-// or dX columns are not 16-byte aligned takes the bodies' element path. The
-// lane is blockIdx.y (the persistent kernels, dX), blockIdx.z (the f32
-// forward) or blockIdx.z / splits (dW).
+// axis). x is joined [n, S·k] (lane s at column s·k: x_lane = k, ldx = S·k)
+// or shared [n, k] (every lane's input: x_lane = 0, ldx = k); W is [S, k, m];
+// g is joined [n, S·m] f32 and read in place (lane s's columns s·m.., rows
+// S·m apart); out is [n, S·m], dX joined [n, S·k], the dW workspace [S,
+// splits, k, m]. Every lane's outputs are the unlaned kernel's on the lane's
+// own operands bit for bit: its mask at its solo index r·k + c with its
+// seed, and each output's sum in the unlaned kernel's order (the f32 FMA
+// chains over the contraction ascending in zero-padded steps of 32; the bf16
+// fragments, k16 steps and dX's three terms; the dW split plan and the
+// ordered split sums).
 struct LaneArgs {
-  int64_t x_lane, ldx, ldo, g_lane;
+  int64_t x_lane, ldx, ldo;
 };
 
 __device__ __forceinline__ MaskArgs lane_mask(MaskArgs ma, int lane) {
   return MaskArgs{ma.seed + lane, ma.thr};
 }
 
+// The rest of the forward bf16 lanes: lane = blockIdx.y, each lane its own
+// persistent grid over its x (x + s·x_lane, rows ldx apart) and its W.
+template <bool kAl4>
+__global__ void __launch_bounds__(kFwdWarps * 32, 1)
+fwd_mma_lanes_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                     float* __restrict__ out, int64_t n, int k, int m, LaneArgs la,
+                     int kw_max, int vec, MaskArgs ma, uint32_t ik2) {
+  const int lane = blockIdx.y;
+  fwd_mma_body<kAl4>(x + lane * la.x_lane, w + (int64_t)lane * k * m, out + (int64_t)lane * m,
+                     n, k, m, la.ldx, la.ldo, kw_max, vec, lane_mask(ma, lane), ik2);
+}
+
+// bf16 dW: block (slab, n-block, lane·splits + split) as the unlaned grid of
+// each lane, x at x + s·x_lane (rows ldx apart), g's lane columns read in
+// place from the joined g (rows lanes·m apart, 4-byte copies).
+template <bool kAl4>
+__global__ void __launch_bounds__(kDwMaxSlab, 2)
+dw_mma_lanes_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
+                    float* __restrict__ ws, int64_t n, int k, int m, int lanes, int64_t x_lane,
+                    int64_t ldx, int slab, int64_t rows_per_split, int splits, int vec,
+                    MaskArgs ma, uint32_t ik2) {
+  const int lane = blockIdx.z / splits;
+  dw_mma_body<kAl4>(x + lane * x_lane, g + (int64_t)lane * m,
+                    ws + (int64_t)lane * splits * k * m, n, k, m, ldx, (int64_t)lanes * m, slab,
+                    rows_per_split, blockIdx.z % splits, vec, 0, lane_mask(ma, lane), ik2);
+}
+
+// ---- f32 over seed lanes ---------------------------------------------------
+// The f32 kernels of the cora-sized batches (x [2708, 1433] shared by 8
+// lanes, W [8, 1433, 72]; layer 1 over the joined [2708, 8·72]) are bound by
+// operations on CUDA cores.
+//   * The forward over a shared x (fwd_fma_shared_kernel): the lanes' output
+//     columns stand side by side, each lane's padded to a multiple of 4
+//     ("virtual" columns), so a thread's 4 columns are one lane's. A block
+//     owns 64 rows and a tile of vt virtual columns, the parts of the lanes
+//     it spans (fwd_col_tile: as wide as the grid still covers the card
+//     twice). Each 32-wide step of the contraction copies x's piece once for
+//     the block's lanes and W's piece into a 2-stage ring (4-byte cp.async,
+//     zeros past the edges), the next step's copies in flight while this
+//     step computes; a pass then masks x's piece into one plane a lane, each
+//     lane with its seed at its solo index. A thread owns up to kItems tiles
+//     of 4 × 4 outputs anywhere in the block's columns (a register tile
+//     across lanes), each output an FMA chain in the unlaned kernel's order.
+//   * The forward over a joined x, dW and dX (fwd_fma_lanes_kernel,
+//     dw_fma_lanes_kernel, dx_lanes_kernel): the unlaned body once a lane
+//     (blockIdx.z, or y for dX), the joined g's lane columns read in place.
+//     A tile across lanes took longer there on an H100 (device time, dW
+//     over the shared x 0.4398 against 0.4242 ms, over the joined x 0.0319
+//     against 0.0247; the forward over the joined x 0.0166 against 0.0160;
+//     dX, a block's row tile for every lane, 0.0558 against 0.0160).
 __global__ void __launch_bounds__(kFmaThreads)
 fwd_fma_lanes_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      float* __restrict__ out, int64_t n, int k, int m, LaneArgs la,
@@ -1119,53 +1172,416 @@ fwd_fma_lanes_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 __global__ void __launch_bounds__(kFmaThreads)
 dw_fma_lanes_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                    float* __restrict__ ws, int64_t n, int k, int m, LaneArgs la,
-                    int64_t rows_per_split, int splits, MaskArgs ma, float inv_keep) {
+                    float* __restrict__ ws, int64_t n, int k, int m, int lanes, int64_t x_lane,
+                    int64_t ldx, int64_t rows_per_split, int splits, MaskArgs ma,
+                    float inv_keep) {
   const int lane = blockIdx.z / splits;
-  dw_fma_body(x + lane * la.x_lane, g + lane * la.g_lane, ws + (int64_t)lane * splits * k * m,
-              n, k, m, la.ldx, rows_per_split, blockIdx.z % splits, lane_mask(ma, lane),
-              inv_keep);
+  dw_fma_body(x + lane * x_lane, g + (int64_t)lane * m, ws + (int64_t)lane * splits * k * m, n,
+              k, m, ldx, (int64_t)lanes * m, rows_per_split, blockIdx.z % splits,
+              lane_mask(ma, lane), inv_keep);
 }
 
-template <bool kAl4>
-__global__ void __launch_bounds__(kFwdWarps * 32, 1)
-fwd_mma_lanes_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                     float* __restrict__ out, int64_t n, int k, int m, LaneArgs la,
-                     int kw_max, int vec, MaskArgs ma, uint32_t ik2) {
-  const int lane = blockIdx.y;
-  fwd_mma_body<kAl4>(x + lane * la.x_lane, w + (int64_t)lane * k * m, out + (int64_t)lane * m,
-                     n, k, m, la.ldx, la.ldo, kw_max, vec, lane_mask(ma, lane), ik2);
+constexpr int kGrpThreads = 256;
+constexpr int kPlane = kRows + 4;          // a plane's row stride (floats)
+constexpr int kPiece = kRows * kFmaChunk;  // floats of x's piece: 64 rows × 32 columns
+constexpr int kGrpSmem = 110 * 1024;       // shared bytes a block at most
+constexpr int kTilePlanes = 9;             // lanes a column tile spans at most
+
+// x's piece of rows r0.. (64) and columns c0.. (32) into `raw` [64][32],
+// 4-byte copies, zeros past n or k.
+__device__ __forceinline__ void issue_x(float* raw, const float* __restrict__ x, int64_t ldx,
+                                        int64_t n, int k, int64_t r0, int c0) {
+  for (int e = threadIdx.x; e < kPiece; e += kGrpThreads) {
+    const int r = e / kFmaChunk;
+    const int c = e - r * kFmaChunk;
+    const bool ok = r0 + r < n && c0 + c < k;
+    cp_async4(raw + e, ok ? x + (r0 + r) * ldx + c0 + c : x, ok ? 4 : 0);
+  }
 }
 
-template <bool kAl4>
-__global__ void __launch_bounds__(kDwMaxSlab, 2)
-dw_mma_lanes_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g,
-                    float* __restrict__ ws, int64_t n, int k, int m, LaneArgs la, int slab,
-                    int64_t rows_per_split, int splits, int vec, int gflat, MaskArgs ma,
-                    uint32_t ik2) {
-  const int lane = blockIdx.z / splits;
-  dw_mma_body<kAl4>(x + lane * la.x_lane, g + lane * la.g_lane,
-                    ws + (int64_t)lane * splits * k * m, n, k, m, la.ldx, slab, rows_per_split,
-                    blockIdx.z % splits, vec, gflat, lane_mask(ma, lane), ik2);
+// A thread's share of a [32][vcols] piece of W: column v = tid % vcols,
+// rows tid / vcols, tid / vcols + step, ... (step = threads / vcols; the
+// threads past step · vcols copy nothing), so that no copy divides.
+struct ColCopy {
+  int v, r0, step, l, c;
+
+  // the piece's columns are virtual columns v0 .. v0 + vcols - 1 (lane l =
+  // column / mp of the launch)
+  __device__ __forceinline__ ColCopy(int vcols, int mp, int v0) {
+    v = threadIdx.x % vcols;
+    r0 = threadIdx.x / vcols;
+    step = kGrpThreads / vcols;
+    l = (v0 + v) / mp;
+    c = v0 + v - l * mp;
+  }
+};
+
+// W's rows k0.. (32) of the tile's lanes as [32][vcols] (lane l's column c
+// at l·mp + c), zeros past k rows or m columns; `wl` is this thread's
+// column of W (lane l, column c) at row 0
+__device__ __forceinline__ void issue_w(float* dst, const float* __restrict__ wl,
+                                        const ColCopy& cc, int k, int m, int vcols, int k0) {
+  if (cc.r0 >= cc.step) return;
+  for (int kk = cc.r0; kk < kFmaChunk; kk += cc.step) {
+    const bool ok = k0 + kk < k && cc.c < m;
+    cp_async4(dst + kk * vcols + cc.v, ok ? wl + (int64_t)(k0 + kk) * m : wl, ok ? 4 : 0);
+  }
+}
+
+// The P lanes' masked planes from x's staged piece `raw`: plane l [32 k]
+// [kPlane] holds lane lo + l's where(keep, x·inv_keep, 0) at column c, row
+// r; the mask index is the solo (r0 + r)·k + c0 + c.
+__device__ __forceinline__ void mask_planes(float* __restrict__ planes, const float* raw,
+                                            int64_t n, int k, int64_t r0, int c0, int P,
+                                            const uint2* keys, uint32_t thr, float inv_keep) {
+  constexpr int kQuads = kPiece / 4;
+  for (int e = threadIdx.x; e < P * kQuads; e += kGrpThreads) {
+    const int l = e / kQuads;
+    const int f = (e - l * kQuads) * 4;
+    const int r = f / kFmaChunk;
+    const int c = f - r * kFmaChunk;
+    const float4 xv = *reinterpret_cast<const float4*>(raw + f);
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int64_t row = r0 + r;
+    const int col = c0 + c;
+    if (row < n && col < k) {
+      const Mask mk{keys[l].x, keys[l].y, thr};
+      const unsigned keep = mk.keep4(row * k + col);
+      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if ((keep >> q) & 1u) v[q] = round_to<float>(xs[q] * inv_keep);
+    }
+    float* dst = planes + l * kFmaChunk * kPlane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[(c + q) * kPlane + r] = v[q];
+  }
+}
+
+// the tile's seeds as (lo, hi) words, read once a block
+__device__ __forceinline__ void load_keys(uint2* keys, MaskArgs ma, int s0, int G) {
+  if ((int)threadIdx.x < G) {
+    const unsigned long long key = __ldg(ma.seed + s0 + threadIdx.x);
+    keys[threadIdx.x] = make_uint2((uint32_t)key, (uint32_t)(key >> 32));
+  }
+  __syncthreads();
+}
+
+// acc[i][j] += a[i]·b[j] in the unlaned fma_block's operand order
+__device__ __forceinline__ void fma44(float (&acc)[4][4], float4 a, float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
+    acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
+    acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
+    acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
+  }
+}
+
+// The tile's products of one 32-wide step: item t of this thread adds
+// planes[aoff + kk·kPlane] (4 rows) times b[boff + kk·vcols] (4 of the
+// tile's columns), kk ascending.
+template <int kItems>
+__device__ __forceinline__ void grp_step(float (&acc)[kItems][4][4], const float* a_s,
+                                         const float* b_s, const int (&aoff)[kItems],
+                                         const int (&boff)[kItems], int vcols, int items) {
+  const int tid = threadIdx.x;
+#pragma unroll 4
+  for (int kk = 0; kk < kFmaChunk; ++kk) {
+#pragma unroll
+    for (int t = 0; t < kItems; ++t) {
+      if (tid + t * kGrpThreads < items)
+        fma44(acc[t], *reinterpret_cast<const float4*>(a_s + aoff[t] + kk * kPlane),
+              *reinterpret_cast<const float4*>(b_s + boff[t] + kk * vcols));
+    }
+  }
+}
+
+// f32 forward over a shared x: block (64-row tile, a tile of vt virtual
+// columns: parts of lanes lo .. lo + P - 1, at most pmax); out[r, s·m + c]
+// = xm_s · W[s]. x's piece comes once a block and W's piece through 2-stage
+// rings.
+template <int kItems>  // tiles of 4 × 4 outputs a thread: vt / 64, at least 1
+__global__ void __launch_bounds__(kGrpThreads, kItems > 1 ? 2 : 4)
+fwd_fma_shared_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      float* __restrict__ out, int64_t n, int k, int m, int lanes, int vt,
+                      int pmax, MaskArgs ma, float inv_keep) {
+  extern __shared__ __align__(16) float gsm[];
+  __shared__ uint2 keys[kTilePlanes];
+  const int mp = (m + 3) & ~3;
+  const int v0 = blockIdx.y * vt;
+  const int vcols = min(vt, lanes * mp - v0);  // a multiple of 4
+  const int lo = v0 / mp;
+  const int P = (v0 + vcols - 1) / mp - lo + 1;
+  const int items = 16 * (vcols / 4);
+  const int plane = kFmaChunk * kPlane;
+  float* a_s = gsm;                 // [P][32 k][kPlane]: 4 rows a float4
+  float* raw = a_s + pmax * plane;  // [2][64 rows][32 k]
+  float* b_s = raw + 2 * kPiece;    // [2][32 k][vcols]
+  const int wstage = kFmaChunk * vt;
+  const int64_t r0 = (int64_t)blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  load_keys(keys, ma, lo, P);
+  int aoff[kItems], boff[kItems];
+#pragma unroll
+  for (int t = 0; t < kItems; ++t) {
+    const int it = tid + t * kGrpThreads;
+    const int cg = it >> 4;
+    aoff[t] = ((v0 + cg * 4) / mp - lo) * plane + (it & 15) * 4;
+    boff[t] = cg * 4;
+  }
+  const ColCopy cc(vcols, mp, v0);
+  const float* wl = w + (int64_t)min(cc.l, lanes - 1) * k * m + min(cc.c, m - 1);
+  float acc[kItems][4][4] = {};
+  const int chunks = (k + kFmaChunk - 1) / kFmaChunk;
+  issue_x(raw, x, k, n, k, r0, 0);
+  issue_w(b_s, wl, cc, k, m, vcols, 0);
+  cp_async_commit();
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) {  // the next step's pieces, into the other stage
+      const int st = (ch + 1) & 1;
+      issue_x(raw + st * kPiece, x, k, n, k, r0, (ch + 1) * kFmaChunk);
+      issue_w(b_s + st * wstage, wl, cc, k, m, vcols, (ch + 1) * kFmaChunk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    mask_planes(a_s, raw + (ch & 1) * kPiece, n, k, r0, ch * kFmaChunk, P, keys, ma.thr,
+                inv_keep);
+    __syncthreads();
+    grp_step(acc, a_s, b_s + (ch & 1) * wstage, aoff, boff, vcols, items);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  const int64_t ldo = (int64_t)lanes * m;
+#pragma unroll
+  for (int t = 0; t < kItems; ++t) {
+    const int it = tid + t * kGrpThreads;
+    if (it >= items) continue;
+    const int va = v0 + (it >> 4) * 4;
+    const int l = va / mp;
+    const int c0 = va - l * mp;
+    float* o = out + (int64_t)l * m;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t row = r0 + (it & 15) * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (row < n && c0 + j < m) o[row * ldo + c0 + j] = acc[t][i][j];
+    }
+  }
+}
+
+// ---- dX over seed lanes ------------------------------------------------------
+// bf16, m <= 64 (dx_mma_lanes_kernel): a persistent grid of one 16-warp
+// block an SM walks 64-row tiles (4 row groups × 4 column quarters), and a
+// block takes each of its tiles for every lane of its group (blockIdx.y;
+// one group of all lanes when their g's ring fits half the block's shared
+// memory), so one block writes whole rows of the joined dX [n, S·k], every
+// lane of a row together. The tile's rows of the joined g are staged once
+// for the group through a 2-stage ring, read in place: one flat run of
+// 16-byte copies when the group is every lane, else 4-byte copies of the
+// group's columns. W comes per lane from its copy in mma fragment order that
+// dx_wfrag_kernel writes at the start of the launch (each lane's [k, m] as
+// the unlaned kernel stages it), through a 2-stage ring (of column chunks
+// where a lane's W does not fit a stage), so that the next lane's W streams
+// in while one computes. A lane's fragments, product order, mask and store
+// are the unlaned dx_mma_body's.
+// The f32 dX and bf16 with m > 64 (dx_lanes_kernel): dx_body once a lane
+// (blockIdx.y), g's lane columns read in place.
+
+// W [lanes, k, m] bf16 in dX's fragment order, every pair of 16 columns:
+// lane s's word ((pair·kks + step)·32 + ln)·4 + reg at s·words_lane
+__global__ void dx_wfrag_kernel(const __nv_bfloat16* __restrict__ w, uint32_t* __restrict__ out,
+                                int k, int m, int kks, int64_t words_lane, int lanes) {
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < words_lane * lanes;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t lane = e / words_lane;
+    const int64_t f = e - lane * words_lane;
+    const int reg = (int)(f & 3);
+    const int ln = (int)((f >> 2) & 31);
+    const int64_t ps = f >> 7;
+    const int gg = ln >> 2;
+    const int col = 16 * (int)(ps / kks) + 4 * (gg >> 1) + (gg & 1) + 2 * (reg >> 1);
+    const int j = 16 * (int)(ps % kks) + 8 * (reg & 1) + 2 * (ln & 3);
+    const __nv_bfloat16* wl = w + lane * k * m;
+    uint32_t v = 0;
+    if (col < k) {
+      if (j < m) v = bf16_bits(wl + (int64_t)col * m + j);
+      if (j + 1 < m) v |= bf16_bits(wl + (int64_t)col * m + j + 1) << 16;
+    }
+    out[e] = v;
+  }
 }
 
 template <int kKS, bool kAl4>
-__global__ void __launch_bounds__(kDxWarps * 32, 2)
-dx_mma_lanes_kernel(const float* __restrict__ g, const __nv_bfloat16* __restrict__ w,
-                    __nv_bfloat16* __restrict__ dx, int64_t n, int k, int m, LaneArgs la,
-                    int cw_max, MaskArgs ma, float inv_keep) {
-  const int lane = blockIdx.y;
-  dx_mma_body<kKS, kAl4>(g + lane * la.g_lane, w + (int64_t)lane * k * m, dx + (int64_t)lane * k,
-                         n, k, m, la.ldx, cw_max, lane_mask(ma, lane), inv_keep);
+__global__ void __launch_bounds__(kDxLaneWarps * 32, 1)
+dx_mma_lanes_kernel(const float* __restrict__ g, const uint4* __restrict__ wfrag,
+                    __nv_bfloat16* __restrict__ dx, int64_t n, int k, int m, int lanes,
+                    int group, int cw, MaskArgs ma, float inv_keep) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int s0 = blockIdx.y * group;
+  const int G = min(group, lanes - s0);
+  const int gcols = G * m;                    // staged g floats a row
+  const int64_t ldg = (int64_t)lanes * m;
+  const int64_t ldx = (int64_t)lanes * k;
+  const int gstage = kDxRows * group * m;     // floats a g stage, a multiple of 4
+  float* gring = reinterpret_cast<float*>(smem);
+  const int pairs_all = (k + 15) / 16;
+  const int cpairs = cw / 16;                 // pairs a W chunk
+  const int chunks = (pairs_all + cpairs - 1) / cpairs;
+  const int wstage = cpairs * kKS * 32;       // uint4 a W stage
+  uint4* wring = reinterpret_cast<uint4*>(smem + 2 * gstage * 4);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g8 = lane >> 2;
+  const int q = lane & 3;
+  const int64_t n_tiles = (n + kDxRows - 1) / kDxRows;
+  if ((int64_t)blockIdx.x >= n_tiles) return;
+  const int my_tiles = (int)((n_tiles - 1 - blockIdx.x) / gridDim.x + 1);
+  const int per_tile = G * chunks;            // items a tile: (lane, W chunk)
+  const int items = my_tiles * per_tile;
+  const int lr = (warp & 3) * 16 + g8;        // fragment rows lr, lr + 8 of the tile
+  const int quarter = warp >> 2;              // this warp's column pairs: quarter, + 4, ...
+  const bool flat = G == lanes;               // a tile's rows of g are one contiguous run
+  const int64_t ng = n * ldg;
+
+  // tile jt's rows of the group's g into g stage jt & 1 (nothing past the
+  // last tile); one commit group
+  auto issue_g = [&](int jt) {
+    if (jt < my_tiles) {
+      const int64_t r0 = (blockIdx.x + (int64_t)jt * gridDim.x) * kDxRows;
+      float* dst = gring + (jt & 1) * gstage;
+      if (flat) {
+        const int64_t e0 = r0 * ldg;
+        for (int e = tid; e < kDxRows * gcols / 4; e += blockDim.x) {
+          const int64_t left = ng - (e0 + 4 * e);
+          const int bytes = left >= 4 ? 16 : (left > 0 ? (int)left * 4 : 0);
+          cp_async16(dst + 4 * e, bytes ? g + e0 + 4 * e : g, bytes);
+        }
+      } else {
+        for (int e = tid; e < kDxRows * gcols; e += blockDim.x) {
+          const int r = e / gcols;
+          const bool ok = r0 + r < n;
+          cp_async4(dst + e, ok ? g + (r0 + r) * ldg + (int64_t)s0 * m + (e - r * gcols) : g,
+                    ok ? 4 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // item i's W chunk (lane, chunk) into W stage i & 1; one commit group
+  auto issue_w = [&](int i) {
+    if (i < items) {
+      const int rem = i % per_tile;
+      const int l = rem / chunks;
+      const int c = rem - l * chunks;
+      const int pc = min(cpairs, pairs_all - c * cpairs);
+      const uint4* src =
+          wfrag + ((int64_t)(s0 + l) * pairs_all + (int64_t)c * cpairs) * kKS * 32;
+      uint4* dst = wring + (i & 1) * wstage;
+      for (int e = tid; e < pc * kKS * 32; e += blockDim.x) cp_async16(dst + e, src + e, 16);
+    }
+    cp_async_commit();
+  };
+
+  issue_g(0);
+  issue_w(0);
+  for (int i = 0; i < items; ++i) {
+    // the next tile's g at a tile's first item, into the stage the tile
+    // before read; the next item's W into the stage item i - 1 read
+    const bool first = i % per_tile == 0;
+    if (first) issue_g(i / per_tile + 1);
+    issue_w(i + 1);
+    if (first) {  // all but the groups just issued: this tile's g and item i's W
+      cp_async_wait<2>();
+    } else {
+      cp_async_wait<1>();
+    }
+    __syncthreads();
+    const int jt = i / per_tile;
+    const int rem = i - jt * per_tile;
+    const int l = rem / chunks;
+    const int c = rem - l * chunks;
+    const int pairs = min(cpairs, pairs_all - c * cpairs);
+    const int c0w = c * cw;
+    const float* gs = gring + (jt & 1) * gstage + l * m;  // lane l's columns, rows gcols apart
+    const uint4* wf = wring + (i & 1) * wstage;
+    const int64_t row = (blockIdx.x + (int64_t)jt * gridDim.x) * kDxRows + lr;
+    const unsigned long long key = __ldg(ma.seed + s0 + l);
+    const Mask mk{(uint32_t)key, (uint32_t)(key >> 32), ma.thr};
+    __nv_bfloat16* dxl = dx + (int64_t)(s0 + l) * k;
+    // A = g split into three bf16 terms: a[term][s][reg], term 0 = lo
+    uint32_t a[3][kKS][4];
+#pragma unroll
+    for (int s = 0; s < kKS; ++s) {
+#pragma unroll
+      for (int reg = 0; reg < 4; ++reg) {
+        const int r = lr + 8 * (reg & 1);
+        const int j = 16 * s + 2 * q + 8 * (reg >> 1);
+        const float v0 = j < m ? gs[r * gcols + j] : 0.0f;
+        const float v1 = j + 1 < m ? gs[r * gcols + j + 1] : 0.0f;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+        const float r0 = v0 - __low2float(hi);
+        const float r1 = v1 - __high2float(hi);
+        const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+        a[2][s][reg] = *reinterpret_cast<const uint32_t*>(&hi);
+        a[1][s][reg] = *reinterpret_cast<const uint32_t*>(&mid);
+        a[0][s][reg] = pack_bf16(r0 - __low2float(mid), r1 - __high2float(mid));
+      }
+    }
+#pragma unroll 2  // two pairs' mma chains in flight
+    for (int pr = quarter; pr < pairs; pr += 4) {
+      float ca[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float cb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      uint4 b[kKS];
+#pragma unroll
+      for (int s = 0; s < kKS; ++s) b[s] = wf[(pr * kKS + s) * 32 + lane];
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+#pragma unroll
+        for (int s = 0; s < kKS; ++s) {
+          mma_bf16(ca, a[t][s][0], a[t][s][1], a[t][s][2], a[t][s][3], b[s].x, b[s].y);
+          mma_bf16(cb, a[t][s][0], a[t][s][1], a[t][s][2], a[t][s][3], b[s].z, b[s].w);
+        }
+      }
+      const int col = c0w + 16 * pr + 4 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t orow = row + 8 * h;
+        if (orow < n && col < k) {
+          const int64_t bidx = orow * k + col;
+          __nv_bfloat16* dst = dxl + orow * ldx + col;
+          const unsigned bits = keep4<kAl4>(mk, bidx);
+          const float v[4] = {(bits & 1u) ? ca[2 * h] * inv_keep : 0.0f,
+                              (bits & 2u) ? ca[2 * h + 1] * inv_keep : 0.0f,
+                              (bits & 4u) ? cb[2 * h] * inv_keep : 0.0f,
+                              (bits & 8u) ? cb[2 * h + 1] * inv_keep : 0.0f};
+          if (kAl4 && aligned4(dst)) {
+            __stcs(reinterpret_cast<uint2*>(dst),
+                   make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])));
+          } else {
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              if (col + t < k) dst[t] = __float2bfloat16_rn(v[t]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stages item i read are free for the copies issued next
+  }
+  cp_async_wait<0>();
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kDxThreads)
 dx_lanes_kernel(const float* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx,
-                int64_t n, int k, int m, LaneArgs la, MaskArgs ma, float inv_keep) {
+                int64_t n, int k, int m, int lanes, MaskArgs ma, float inv_keep) {
   const int lane = blockIdx.y;
-  dx_body<T>(g + lane * la.g_lane, w + (int64_t)lane * k * m, dx + (int64_t)lane * k, n, k, m,
-             la.ldx, lane_mask(ma, lane), inv_keep);
+  dx_body<T>(g + (int64_t)lane * m, w + (int64_t)lane * k * m, dx + (int64_t)lane * k, n, k, m,
+             (int64_t)lanes * m, (int64_t)lanes * k, lane_mask(ma, lane), inv_keep);
 }
 
 unsigned cdiv(int64_t a, int64_t b) { return (unsigned)((a + b - 1) / b); }
@@ -1269,25 +1685,85 @@ int fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, float* out, int64_t
 
 template <int kKS>
 int dx_bf16(const float* g, const __nv_bfloat16* w, __nv_bfloat16* dx, int64_t n, int k,
-            int m, MaskArgs mk, float inv_keep, cudaStream_t s, const LaneArgs* la = nullptr,
-            int lanes = 1) {
+            int m, MaskArgs mk, float inv_keep, cudaStream_t s) {
   const int cw_max = kWBytes / (kKS * 512) * 16;  // output columns a W chunk (a multiple of 16)
   const int cw = min(cw_max, (k + 15) / 16 * 16);
   const int smem = 2 * kDxRows * m * 4 + cw / 16 * kKS * 512;
   const int64_t tiles = (n + kDxRows - 1) / kDxRows;
   const int threads = kDxWarps * 32;
-  if (la) {
-    if (k % 4 == 0)
-      return launch_persistent(dx_mma_lanes_kernel<kKS, true>, tiles, lanes, threads, smem, s,
-                               g, w, dx, n, k, m, *la, cw_max, mk, inv_keep);
-    return launch_persistent(dx_mma_lanes_kernel<kKS, false>, tiles, lanes, threads, smem, s, g,
-                             w, dx, n, k, m, *la, cw_max, mk, inv_keep);
-  }
   if (k % 4 == 0)
     return launch_persistent(dx_mma_kernel<kKS, true>, tiles, 1, threads, smem, s, g, w, dx, n,
                              k, m, cw_max, mk, inv_keep);
   return launch_persistent(dx_mma_kernel<kKS, false>, tiles, 1, threads, smem, s, g, w, dx, n,
                            k, m, cw_max, mk, inv_keep);
+}
+
+// The laned bf16 dX (m <= 64): W's fragments into `wfrag` (lanes ×
+// ceil(k/16) pairs × kKS × 512 bytes), then the persistent grid × lane
+// groups, one block an SM. The group is every lane when their g's ring fits
+// half the block's shared memory; W's 2-stage ring takes the rest.
+template <int kKS>
+int dx_bf16_lanes(const float* g, const __nv_bfloat16* w, void* wfrag, __nv_bfloat16* dx,
+                  int64_t n, int k, int m, int lanes, MaskArgs mk, float inv_keep,
+                  cudaStream_t s) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  // one block an SM: g's 2-stage ring at most half of its shared memory, W's
+  // 2-stage ring of column chunks the rest
+  const int ring_lane = 2 * kDxRows * m * 4;
+  const int group = max(1, min(lanes, optin / 2 / ring_lane));
+  const int gbytes = group * ring_lane;
+  const int pairs_all = (k + 15) / 16;
+  const int cpairs = min(pairs_all, (optin - gbytes) / 2 / (kKS * 512));
+  if (cpairs < 1) return (int)cudaErrorInvalidValue;
+  const int smem = gbytes + 2 * cpairs * kKS * 512;
+  const int64_t words_lane = (int64_t)pairs_all * kKS * 128;
+  const unsigned wblocks = cdiv(words_lane * lanes, 256) < 1024u ? cdiv(words_lane * lanes, 256)
+                                                                 : 1024u;
+  dx_wfrag_kernel<<<wblocks, 256, 0, s>>>(w, static_cast<uint32_t*>(wfrag), k, m, kKS,
+                                          words_lane, lanes);
+  const int64_t tiles = (n + kDxRows - 1) / kDxRows;
+  const unsigned groups = cdiv(lanes, group);
+  const auto* wf = static_cast<const uint4*>(wfrag);
+  if (k % 4 == 0)
+    return launch_persistent(dx_mma_lanes_kernel<kKS, true>, tiles, groups, kDxLaneWarps * 32,
+                             smem, s, g, wf, dx, n, k, m, lanes, group, cpairs * 16, mk, inv_keep);
+  return launch_persistent(dx_mma_lanes_kernel<kKS, false>, tiles, groups, kDxLaneWarps * 32,
+                           smem, s, g, wf, dx, n, k, m, lanes, group, cpairs * 16, mk, inv_keep);
+}
+
+// The f32 forward over a shared x: its column tile, the widest of 256,
+// 128, 64 and 32 virtual columns whose lanes' planes (at most kTilePlanes)
+// and block fit kGrpSmem and whose grid (tiles × column tiles) covers the
+// card's SMs twice, else the narrowest that fits; its planes at most and
+// shared bytes.
+int fwd_col_tile(int lanes, int m, int64_t tiles, int* vt, int* pmax, int* smem) {
+  const int mp = (m + 3) & ~3;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  *vt = 0;
+  for (int cand = 256; cand >= 32; cand /= 2) {
+    const int p = min(lanes, (cand + mp - 1) / mp + 1);
+    const int bytes = (p * kFmaChunk * kPlane + 2 * kPiece + 2 * kFmaChunk * cand) * 4;
+    if (p > kTilePlanes || bytes > kGrpSmem) continue;
+    *vt = cand;
+    *pmax = p;
+    *smem = bytes;
+    if (tiles * cdiv((int64_t)lanes * mp, cand) >= 2 * (int64_t)sms) break;
+  }
+  return *vt ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Raise `kernel`'s dynamic shared memory limit to `smem` (once a size).
+template <typename K>
+int allow_smem(K kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
@@ -1419,13 +1895,28 @@ extern "C" int pgcn_dropout_matmul_fwd_lanes(const void* x, const void* w, float
   if (n <= 0 || k <= 0 || m <= 0 || lanes <= 0 || lanes > 65535 || x_lane < 0 || ldx < k)
     return (int)cudaErrorInvalidValue;
   const MaskArgs mk{seeds, thr};
-  const LaneArgs la{x_lane, ldx, (int64_t)lanes * m, 0};
-  if (dtype == 0) {
+  if (dtype == 0 && x_lane == 0) {  // a tile across lanes, x's piece once a block
+    const int64_t tiles = (n + kRows - 1) / kRows;
+    int vt = 0, pmax = 0, smem = 0;
+    int rc = fwd_col_tile(lanes, m, tiles, &vt, &pmax, &smem);
+    if (rc) return rc;
+    const dim3 grid((unsigned)tiles, cdiv((int64_t)lanes * ((m + 3) & ~3), vt));
+    auto kernel = vt >= 256   ? fwd_fma_shared_kernel<4>
+                  : vt == 128 ? fwd_fma_shared_kernel<2>
+                              : fwd_fma_shared_kernel<1>;
+    rc = allow_smem(kernel, smem);
+    if (rc) return rc;
+    kernel<<<grid, kGrpThreads, smem, s>>>(static_cast<const float*>(x),
+                                           static_cast<const float*>(w), out, n, k, m, lanes, vt,
+                                           pmax, mk, inv_keep);
+  } else if (dtype == 0) {  // one lane a block
+    const LaneArgs la{x_lane, ldx, (int64_t)lanes * m};
     const dim3 grid(cdiv(n, kRows), cdiv(m, kTN), (unsigned)lanes);
     fwd_fma_lanes_kernel<<<grid, kFmaThreads, 0, s>>>(static_cast<const float*>(x),
                                                       static_cast<const float*>(w), out, n, k,
                                                       m, la, mk, inv_keep);
   } else if (dtype == 1) {
+    const LaneArgs la{x_lane, ldx, (int64_t)lanes * m};
     const int rc = fwd_bf16(static_cast<const __nv_bfloat16*>(x),
                             static_cast<const __nv_bfloat16*>(w), out, n, k, m, mk, inv_keep, s,
                             &la, lanes);
@@ -1436,31 +1927,28 @@ extern "C" int pgcn_dropout_matmul_fwd_lanes(const void* x, const void* w, float
   return (int)cudaGetLastError();
 }
 
-// g: lane-major, lane s's [n, m] f32 at g + s·g_lane; ws: [lanes, splits, k,
-// m] f32 scratch; dw: [lanes, k, m] in x's dtype. slab, splits and
-// rows_per_split are the unlaned launch's for one lane's [n, k] x.
-extern "C" int pgcn_dropout_matmul_dw_lanes(const void* x, const float* g, int64_t g_lane,
-                                            float* ws, void* dw, int dtype, int64_t n, int k,
-                                            int m, int lanes, int64_t x_lane, int64_t ldx,
-                                            int slab, int splits, int64_t rows_per_split,
+// g: joined [n, lanes·m] f32, read in place; ws: [lanes, splits, k, m] f32
+// scratch; dw: [lanes, k, m] in x's dtype. slab, splits and rows_per_split
+// are the unlaned launch's for one lane's [n, k] x.
+extern "C" int pgcn_dropout_matmul_dw_lanes(const void* x, const float* g, float* ws, void* dw,
+                                            int dtype, int64_t n, int k, int m, int lanes,
+                                            int64_t x_lane, int64_t ldx, int slab, int splits,
+                                            int64_t rows_per_split,
                                             const unsigned long long* seeds, uint32_t thr,
                                             float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || k <= 0 || m <= 0 || lanes <= 0 || x_lane < 0 || ldx < k || g_lane < n * m ||
-      splits <= 0 || (int64_t)splits * lanes > 65535 || rows_per_split <= 0 ||
-      rows_per_split % kSplitRows ||
+  if (n <= 0 || k <= 0 || m <= 0 || lanes <= 0 || x_lane < 0 || ldx < k || splits <= 0 ||
+      (int64_t)splits * lanes > 65535 || rows_per_split <= 0 || rows_per_split % kSplitRows ||
       (int64_t)splits != (n + rows_per_split - 1) / rows_per_split)
     return (int)cudaErrorInvalidValue;
   const MaskArgs mk{seeds, thr};
-  const LaneArgs la{x_lane, ldx, 0, g_lane};
   const int64_t km = (int64_t)k * m;
   const unsigned rblocks = cdiv(km * lanes, 256) < 1024u ? cdiv(km * lanes, 256) : 1024u;
-  const unsigned z = (unsigned)(splits * lanes);
   if (dtype == 0) {
-    const dim3 grid(cdiv(k, kRows), cdiv(m, kTN), z);
+    const dim3 grid(cdiv(k, kRows), cdiv(m, kTN), (unsigned)(splits * lanes));
     dw_fma_lanes_kernel<<<grid, kFmaThreads, 0, s>>>(static_cast<const float*>(x), g, ws, n, k,
-                                                     m, la, rows_per_split, splits, mk,
-                                                     inv_keep);
+                                                     m, lanes, x_lane, ldx, rows_per_split,
+                                                     splits, mk, inv_keep);
     reduce_splits_lanes_kernel<float><<<rblocks, 256, 0, s>>>(ws, splits, km, lanes,
                                                              static_cast<float*>(dw));
   } else if (dtype == 1) {
@@ -1469,15 +1957,14 @@ extern "C" int pgcn_dropout_matmul_dw_lanes(const void* x, const float* g, int64
     const int vec = k % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0 &&
                     ldx % 8 == 0 && x_lane % 8 == 0;
     const uint32_t ik2 = bf16x2_of(inv_keep);
-    const dim3 grid(cdiv(k, slab), cdiv(m, kDwNB), z);
+    const dim3 grid(cdiv(k, slab), cdiv(m, kDwNB), (unsigned)(splits * lanes));
     auto kernel = k % 4 == 0 ? dw_mma_lanes_kernel<true> : dw_mma_lanes_kernel<false>;
     int resident = 0;  // raises the kernel's shared memory limit, once
     const int rc = resident_blocks(kernel, slab, smem, &resident);
     if (rc) return rc;
-    const int gflat = m <= kDwNB && (reinterpret_cast<uintptr_t>(g) & 15u) == 0 &&
-                      g_lane % 4 == 0;
-    kernel<<<grid, slab, smem, s>>>(static_cast<const __nv_bfloat16*>(x), g, ws, n, k, m, la,
-                                    slab, rows_per_split, splits, vec, gflat, mk, ik2);
+    kernel<<<grid, slab, smem, s>>>(static_cast<const __nv_bfloat16*>(x), g, ws, n, k, m,
+                                    lanes, x_lane, ldx, slab, rows_per_split, splits, vec, mk,
+                                    ik2);
     reduce_splits_lanes_kernel<__nv_bfloat16><<<rblocks, 256, 0, s>>>(
         ws, splits, km, lanes, static_cast<__nv_bfloat16*>(dw));
   } else {
@@ -1486,39 +1973,38 @@ extern "C" int pgcn_dropout_matmul_dw_lanes(const void* x, const float* g, int64
   return (int)cudaGetLastError();
 }
 
-// g: lane-major as for dW (16-byte aligned, g_lane a multiple of 4, for
-// bf16); w: [lanes, k, m] in x's dtype; dx: joined [n, lanes·k] in x's dtype
-// (ldx = lanes·k). inv_keep is the f32 1/keep.
-extern "C" int pgcn_dropout_matmul_dx_lanes(const float* g, int64_t g_lane, const void* w,
+// g: joined [n, lanes·m] f32 (16-byte aligned for bf16), read in place; w:
+// [lanes, k, m] in x's dtype; dx: joined [n, lanes·k] in x's dtype; wfrag:
+// bf16 with m <= 64, lanes·ceil(k/16)·ceil(m/16)·512 bytes of scratch for
+// W's fragments (else unread). inv_keep is the f32 1/keep.
+extern "C" int pgcn_dropout_matmul_dx_lanes(const float* g, const void* w, void* wfrag,
                                             void* dx, int dtype, int64_t n, int k, int m,
-                                            int lanes, int64_t ldx,
-                                            const unsigned long long* seeds, uint32_t thr,
-                                            float inv_keep, void* stream) {
+                                            int lanes, const unsigned long long* seeds,
+                                            uint32_t thr, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || k <= 0 || m <= 0 || lanes <= 0 || lanes > 65535 || ldx < (int64_t)lanes * k ||
-      g_lane < n * m)
+  if (n <= 0 || k <= 0 || m <= 0 || lanes <= 0 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
   const MaskArgs mk{seeds, thr};
-  const LaneArgs la{0, ldx, 0, g_lane};
   const dim3 grid(cdiv(n, kRows), (unsigned)lanes);
   if (dtype == 0) {
     dx_lanes_kernel<float><<<grid, kDxThreads, 0, s>>>(
-        g, static_cast<const float*>(w), static_cast<float*>(dx), n, k, m, la, mk, inv_keep);
+        g, static_cast<const float*>(w), static_cast<float*>(dx), n, k, m, lanes, mk, inv_keep);
   } else if (dtype == 1 && m <= 64) {
-    if ((reinterpret_cast<uintptr_t>(g) & 15u) || g_lane % 4)
+    if ((reinterpret_cast<uintptr_t>(g) & 15u) || (reinterpret_cast<uintptr_t>(wfrag) & 15u))
       return (int)cudaErrorMisalignedAddress;
     const auto* wb = static_cast<const __nv_bfloat16*>(w);
     auto* out = static_cast<__nv_bfloat16*>(dx);
     const int ks = (m + 15) / 16;
-    const int rc = ks == 1   ? dx_bf16<1>(g, wb, out, n, k, m, mk, inv_keep, s, &la, lanes)
-                   : ks == 2 ? dx_bf16<2>(g, wb, out, n, k, m, mk, inv_keep, s, &la, lanes)
-                   : ks == 3 ? dx_bf16<3>(g, wb, out, n, k, m, mk, inv_keep, s, &la, lanes)
-                             : dx_bf16<4>(g, wb, out, n, k, m, mk, inv_keep, s, &la, lanes);
+    const int rc =
+        ks == 1   ? dx_bf16_lanes<1>(g, wb, wfrag, out, n, k, m, lanes, mk, inv_keep, s)
+        : ks == 2 ? dx_bf16_lanes<2>(g, wb, wfrag, out, n, k, m, lanes, mk, inv_keep, s)
+        : ks == 3 ? dx_bf16_lanes<3>(g, wb, wfrag, out, n, k, m, lanes, mk, inv_keep, s)
+                  : dx_bf16_lanes<4>(g, wb, wfrag, out, n, k, m, lanes, mk, inv_keep, s);
     if (rc) return rc;
   } else if (dtype == 1) {
     dx_lanes_kernel<__nv_bfloat16><<<grid, kDxThreads, 0, s>>>(
-        g, static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx), n, k, m, la,
-        mk, inv_keep);
+        g, static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx), n, k, m,
+        lanes, mk, inv_keep);
   } else {
     return (int)cudaErrorInvalidValue;
   }

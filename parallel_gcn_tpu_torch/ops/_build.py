@@ -50,8 +50,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_dropout.argtypes = [p, p, i64, i32, i32, p, ctypes.c_uint64, ctypes.c_uint32,
                                  ctypes.c_float, p]
     lib.pgcn_dropout.restype = i32
-    lib.pgcn_dropout_lanes.argtypes = [p, p, i64, i64, i64, i32, i32, p, ctypes.c_uint64,
-                                       ctypes.c_uint32, ctypes.c_float, p]
+    # the lanes' input, saved output and output (host arrays of pointers, row
+    # strides), rows, lanes, F, dtype, mode, the seeds, counter, threshold, 1/keep
+    lib.pgcn_dropout_lanes.argtypes = [p, i64, p, i64, p, i64, i64, i32, i64, i32, i32, p,
+                                       ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float, p]
     lib.pgcn_dropout_lanes.restype = i32
     lib.pgcn_bcsr_spmm.argtypes = [
         p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, i32, i32, i32, i32, i32, p,
@@ -86,15 +88,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pgcn_dropout_matmul_dw.restype = i32
     lib.pgcn_dropout_matmul_dx.argtypes = [p, p, p, i32, i64, i32, i32, p, u32, f32, p]
     lib.pgcn_dropout_matmul_dx.restype = i32
-    # seed lanes: the lanes, x's lane step and row stride (fwd, dW), g's lane step (dW, dX)
+    # seed lanes: the lanes, x's lane step and row stride (fwd, dW); dX's W
+    # fragment scratch
     lib.pgcn_dropout_matmul_fwd_lanes.argtypes = [p, p, p, i32, i64, i32, i32, i32, i64, i64, p,
                                                   u32, f32, p]
     lib.pgcn_dropout_matmul_fwd_lanes.restype = i32
-    lib.pgcn_dropout_matmul_dw_lanes.argtypes = [p, p, i64, p, p, i32, i64, i32, i32, i32, i64,
-                                                 i64, i32, i32, i64, p, u32, f32, p]
+    lib.pgcn_dropout_matmul_dw_lanes.argtypes = [p, p, p, p, i32, i64, i32, i32, i32, i64, i64,
+                                                 i32, i32, i64, p, u32, f32, p]
     lib.pgcn_dropout_matmul_dw_lanes.restype = i32
-    lib.pgcn_dropout_matmul_dx_lanes.argtypes = [p, i64, p, p, i32, i64, i32, i32, i32, i64, p,
-                                                 u32, f32, p]
+    lib.pgcn_dropout_matmul_dx_lanes.argtypes = [p, p, p, p, i32, i64, i32, i32, i32, p, u32,
+                                                 f32, p]
     lib.pgcn_dropout_matmul_dx_lanes.restype = i32
     # the work list, its hubs, live and written entries; the packed items
     # (a) or the permutation (b); the rows' source and out (rows ld apart),

@@ -29,12 +29,18 @@ fill kernel. The plain version takes either, without reading a slot on the
 host.
 
 Seed lanes. A batch of S training runs over one graph (``seeds.fit_seeds``)
-keeps its activations as [rows, S·F], lane s in columns s·F … s·F+F−1, and
 passes S seeds (a slot of S integers on the device, or S ints): lane s's
 element (r, c) is drawn with lane s's seed at element index r·F + c (plus
 the offset), so each lane's mask is the one its solo run draws on its own
 [rows, F] tensor, bit for bit, and one launch masks every lane
-(``dropout_lanes_kernel`` in ``csrc/dropout.cu``).
+(``dropout_lanes_kernel`` in ``csrc/dropout.cu``). The lanes come joined
+([rows, S·F], lane s in columns s·F … s·F+F−1) or as S [rows, F] tensors
+(the same tensor S times for an input every lane reads), and go out either
+way: ``lane_dropout`` makes the lanes' split or join in the same launch, and
+its backward writes the input's layout (K1: the mask on the cotangent; K2:
+``dropout_lanes_bwd_kernel``, ``where(out > 0, g·(1/keep), 0)``). Any
+number of lanes (the kernel takes 64 a launch). ``dropout`` and
+``relu_dropout`` take one seed.
 
 Each wrapper runs the kernel for a CUDA tensor and the plain PyTorch version
 (``dropout_plain``), which computes the same bits with int64 arithmetic, for
@@ -63,9 +69,10 @@ _PHILOX_W1 = 0xBB67AE85
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches by wrapper: "dropout" (K1), "relu_dropout" (K2), and the
-# same over seed lanes
-launches = {"dropout": 0, "relu_dropout": 0, "dropout_lanes": 0, "relu_dropout_lanes": 0}
+# kernel launches by wrapper: "dropout" (K1), "relu_dropout" (K2), the same
+# over seed lanes, and K2's backward over seed lanes
+launches = {"dropout": 0, "relu_dropout": 0, "dropout_lanes": 0, "relu_dropout_lanes": 0,
+            "relu_dropout_lanes_bwd": 0}
 
 # a Python int or a slot the kernels read on the device; for seed lanes a
 # sequence of ints or a slot of one integer a lane
@@ -192,18 +199,18 @@ def _inv_keep(rate: float, dtype: torch.dtype) -> float:
 def dropout_plain(x: torch.Tensor, seed: Seed, rate: float,
                   relu: bool = False, offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same bits, same rounding), at
-    any element offset; over seed lanes each lane's columns take the mask of
-    its own [rows, F] tensor."""
-    lanes = n_lanes(seed)
-    if lanes > 1:
-        rows, width = _lane_shape(x, lanes)
-        keep = torch.cat([keep_mask(_lane(seed, s), rate, (rows, width), x.device, offset)
-                          for s in range(lanes)], dim=1)
-    else:
-        keep = keep_mask(_lane(seed, 0), rate, x.shape, x.device, offset)
+    any element offset, with one seed (``lane_dropout_plain`` takes S)."""
+    _one_seed(seed)
+    keep = keep_mask(_lane(seed, 0), rate, x.shape, x.device, offset)
     if relu:
         keep = keep & (x > 0)
     return torch.where(keep, x * _inv_keep(rate, x.dtype), 0.0)
+
+
+def _one_seed(seed: Seed) -> None:
+    if n_lanes(seed) != 1:
+        raise ValueError(f"dropout takes one seed, got {n_lanes(seed)}: seed lanes go through "
+                         "lane_dropout")
 
 
 def _lane_shape(x: torch.Tensor, lanes: int) -> tuple[int, int]:
@@ -227,9 +234,7 @@ def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool,
         raise TypeError(f"dropout kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("dropout kernel needs a contiguous tensor")
-    lanes = n_lanes(seed)
-    if lanes > 1:
-        return _run_lanes(x, seed, rate, relu, offset, lanes)
+    _one_seed(seed)
     slot = seed_tensor(_lane(seed, 0), x.device)
     out = torch.empty_like(x)
     if x.numel() == 0:
@@ -247,26 +252,151 @@ def _run(x: torch.Tensor, seed: Seed, rate: float, relu: bool,
     return out
 
 
-def _run_lanes(x: torch.Tensor, seed: Seed, rate: float, relu: bool, offset: int,
-               lanes: int) -> torch.Tensor:
-    """The lanes kernel on [rows, lanes·F] (``_run`` checked device,
-    dtype, contiguity and offset)."""
-    rows, width = _lane_shape(x, lanes)
-    slots = lane_seeds(seed, x.device)
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
+def _lane_parts(xs: Sequence[torch.Tensor], lanes: int) -> list[torch.Tensor]:
+    """The S lanes of a laned operand: its S tensors, or views of a joined
+    one's columns."""
+    if len(xs) == lanes:
+        return list(xs)
+    return list(xs[0].chunk(lanes, dim=1))
+
+
+def lane_dropout_plain(xs: Sequence[torch.Tensor], seed: Seed, rate: float, mode: int,
+                       offset: int, lanes: int, join: bool, aux=None):
+    """Plain version of the laned kernel: ``dropout_plain`` lane by lane
+    (``mode`` 0: K1, 1: K2), or K2's backward ``where(out > 0, g·(1/keep),
+    0)`` with the saved output ``aux`` (mode 2), then the output's layout."""
+    parts = _lane_parts(xs, lanes)
+    if mode == 2:
+        saved = _lane_parts(aux, lanes)
+        outs = [torch.where(o > 0, g * _inv_keep(rate, g.dtype), 0.0)
+                for g, o in zip(parts, saved)]
+    else:
+        outs = [dropout_plain(p, _lane(seed, s), rate, mode == 1, offset)
+                for s, p in enumerate(parts)]
+    return torch.cat(outs, dim=1) if join else tuple(outs)
+
+
+def _lane_operand(xs: Sequence[torch.Tensor], lanes: int) -> tuple[list[int], int, int, int]:
+    """(lane pointers, row stride, rows, F) of a laned operand: one joined
+    [rows, lanes·F] tensor or ``lanes`` [rows, F] tensors."""
+    if len(xs) == lanes:
+        rows, width = xs[0].shape
+        return [t.data_ptr() for t in xs], width, rows, width
+    rows, width = _lane_shape(xs[0], lanes)
+    base, size = xs[0].data_ptr(), xs[0].element_size()
+    return [base + s * width * size for s in range(lanes)], lanes * width, rows, width
+
+
+def _check_lanes(xs: Sequence[torch.Tensor], lanes: int) -> None:
+    if len(xs) not in (1, lanes) or lanes < 1:
+        raise ValueError(f"the lanes kernel takes its lanes as one joined tensor or one tensor "
+                         f"a lane, got {len(xs)} tensors for {lanes} lanes")
+    x = xs[0]
+    for t in xs:
+        if t.dim() != 2 or t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError("the lanes kernel takes contiguous 2-D tensors of one dtype on "
+                             "one device")
+    if len(xs) == lanes and lanes > 1 and any(t.shape != x.shape for t in xs):
+        raise ValueError(f"the lanes must have one shape, got {[tuple(t.shape) for t in xs]}")
+    if len(xs) != lanes:
+        _lane_shape(x, lanes)
+
+
+def _run_lanes(xs: Sequence[torch.Tensor], seed: Seed, rate: float, mode: int, offset: int,
+               lanes: int, join: bool, aux: Sequence[torch.Tensor] | None = None):
+    """The lanes kernel (``mode`` 0: K1, 1: K2, 2: K2's backward from the
+    cotangents ``xs`` and the saved outputs ``aux``) from ``xs`` (one joined
+    tensor or a tensor a lane) to a joined tensor (``join``) or a tuple of
+    the lanes' [rows, F] tensors."""
+    _check_lanes(xs, lanes)
+    x = xs[0]
+    if x.device.type == "cpu":
+        return lane_dropout_plain(xs, seed, rate, mode, offset, lanes, join, aux)
+    if x.device.type != "cuda":
+        raise ValueError(f"dropout: unsupported device {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"dropout kernel takes float32 or bfloat16, got {x.dtype}")
+    if offset < 0 or offset % 4:
+        raise ValueError(f"the dropout kernel takes element offsets that are multiples of 4, "
+                         f"got {offset}")
+    ptrs, ld, rows, width = _lane_operand(xs, lanes)
+    if join:
+        out = torch.empty((rows, lanes * width), dtype=x.dtype, device=x.device)
+        outs = [out]
+    else:
+        outs = [torch.empty((rows, width), dtype=x.dtype, device=x.device)
+                for _ in range(lanes)]
+    result = outs[0] if join else tuple(outs)
+    if rows * width == 0:
+        return result
+    o_ptrs, o_ld, _, _ = _lane_operand(outs, lanes)
+    if mode == 2:
+        _check_lanes(aux, lanes)
+        a_ptrs, a_ld, a_rows, a_width = _lane_operand(aux, lanes)
+        if (a_rows, a_width) != (rows, width) or aux[0].dtype != x.dtype:
+            raise ValueError("K2's backward over lanes: the saved output must match the "
+                             "cotangent")
+        slots = None
+    else:
+        a_ptrs, a_ld = ptrs, ld
+        slots = lane_seeds(seed, x.device)
+        if slots.numel() != lanes:
+            raise ValueError(f"{lanes} lanes need {lanes} seeds, got {slots.numel()}")
+    arr = ctypes.c_void_p * lanes
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pgcn_dropout_lanes(
-            x.data_ptr(), out.data_ptr(), rows, lanes, width, _DTYPE_CODE[x.dtype], int(relu),
-            slots.data_ptr(), offset >> 2, keep_threshold(rate), _inv_keep(rate, x.dtype),
-            ctypes.c_void_p(stream),
+            arr(*ptrs), ld, arr(*a_ptrs), a_ld, arr(*o_ptrs), o_ld, rows, lanes, width,
+            _DTYPE_CODE[x.dtype], mode, None if slots is None else slots.data_ptr(),
+            offset >> 2, keep_threshold(rate), _inv_keep(rate, x.dtype), ctypes.c_void_p(stream),
         )
     _build.check(rc, "dropout lanes kernel")
-    launches["relu_dropout_lanes" if relu else "dropout_lanes"] += 1
-    return out
+    launches[("dropout_lanes", "relu_dropout_lanes", "relu_dropout_lanes_bwd")[mode]] += 1
+    return result
+
+
+class _LaneDropout(torch.autograd.Function):
+    """``lane_dropout``: the inputs ``xs`` are one joined tensor or a tensor
+    a lane; the output is joined (``join``) or a tuple of lanes; the
+    gradients come back in the inputs' layout."""
+
+    @staticmethod
+    def forward(ctx, seed, rate, relu, offset, join, lanes, *xs):
+        ctx.seed, ctx.rate, ctx.relu, ctx.offset = seed, rate, relu, offset
+        ctx.lanes, ctx.join_in = lanes, len(xs) != lanes or lanes == 1
+        out = _run_lanes(xs, seed, rate, int(relu), offset, lanes, join)
+        if relu:
+            ctx.save_for_backward(*((out,) if join else out))
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        lanes = ctx.lanes
+        nones = (None,) * 6
+        grads = [g.contiguous() for g in grads]
+        if ctx.relu:
+            dx = _run_lanes(grads, None, ctx.rate, 2, 0, lanes, ctx.join_in,
+                            aux=ctx.saved_tensors)
+        else:
+            # same (seed, index) → same mask, applied to the cotangent
+            dx = _run_lanes(grads, ctx.seed, ctx.rate, 0, ctx.offset, lanes, ctx.join_in)
+        return (*nones, *((dx,) if ctx.join_in else dx))
+
+
+def lane_dropout(x: torch.Tensor | Sequence[torch.Tensor], seed: Seed, rate: float, *,
+                 relu: bool = False, join: bool = False, offset: int = 0):
+    """Dropout (K1), or ReLU then dropout (K2, ``relu``), of S seed lanes in
+    one launch, lane s with its seed at its solo index (the module
+    docstring). ``x`` is joined [rows, S·F] or a sequence of S [rows, F]
+    tensors (S times the same tensor for an input every lane reads); returns
+    the S lanes' [rows, F] tensors, or one joined [rows, S·F] tensor with
+    ``join``. The gradient comes back in ``x``'s layout. ``rate`` in (0,
+    1): a layer without dropout takes no kernel."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"lane_dropout needs a rate in (0, 1), got {rate}")
+    xs = [x] if isinstance(x, torch.Tensor) else list(x)
+    return _LaneDropout.apply(seed, rate, relu, offset, join, n_lanes(seed), *xs)
 
 
 class _Dropout(torch.autograd.Function):
@@ -287,7 +417,7 @@ class _ReluDropout(torch.autograd.Function):
     def forward(ctx, x, seed, rate):
         out = _run(x, seed, rate, relu=True)
         ctx.save_for_backward(out)
-        ctx.rate = rate
+        ctx.seed, ctx.rate = seed, rate
         return out
 
     @staticmethod
@@ -297,9 +427,9 @@ class _ReluDropout(torch.autograd.Function):
 
 
 def dropout(x: torch.Tensor, seed: Seed, rate: float, offset: int = 0) -> torch.Tensor:
-    """Inverted dropout of ``x`` (K1) with ``seed`` (an int or a slot; S of
-    them for S seed lanes), its elements at ``offset`` in the mask's index
-    (the module docstring). Rate 0 is the identity."""
+    """Inverted dropout of ``x`` (K1) with ``seed`` (an int or a slot), its
+    elements at ``offset`` in the mask's index (the module docstring). Rate
+    0 is the identity."""
     if rate <= 0.0:
         return x
     return _Dropout.apply(x, seed, rate, offset)
@@ -307,7 +437,7 @@ def dropout(x: torch.Tensor, seed: Seed, rate: float, offset: int = 0) -> torch.
 
 def relu_dropout(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """``dropout(relu(x))`` in one pass (K2) with ``seed`` (an int or a
-    slot; S of them for S seed lanes). Rate 0 is a plain ReLU."""
+    slot). Rate 0 is a plain ReLU."""
     if rate <= 0.0:
         return torch.relu(x)
     return _ReluDropout.apply(x, seed, rate)

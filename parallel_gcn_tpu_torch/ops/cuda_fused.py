@@ -30,12 +30,18 @@ adds a batch grid axis. x is joined [N, S·K] (lane s in columns s·K …
 s·K+K−1) or shared [N, K] (every lane's input, layer 0 of a seed batch);
 W is [S, K, M], one weight a lane; the seeds are S (a slot of S integers on
 the device, or S ints); the output is [N, S·M] f32, lane s in columns s·M …;
-dW is [S, K, M] and dX joined [N, S·K]. Lane s's mask is the solo mask of
-its own [N, K] (Philox of its seed at r·K + c), and its tiling, K loop, dW
-split plan (``dw_splits`` as for one lane) and split order are the solo
-launch's, so lane s is the unlaned kernel on its own operands bit for bit.
-The plain versions (``dropout_matmul_lanes_plain`` and its dW and dX) are
-the unlaned plain versions lane by lane.
+the gradient g is joined [N, S·M] f32 and read in place; dW is [S, K, M]
+and dX joined [N, S·K]. Lane s's mask is the solo mask of its own [N, K]
+(Philox of its seed at r·K + c), and every output is summed in the solo
+launch's order (its dW split plan, ``dw_splits`` as for one lane, and split
+order), so lane s is the unlaned kernel on its own operands bit for bit.
+The f32 forward over a shared x takes a tile across lanes and reads x's
+piece once for the block's lanes; the bf16 dX takes a row tile for every
+lane and writes whole joined rows, W's fragments prepared once a launch in
+a scratch buffer; the rest run the unlaned body once a lane
+(``csrc/dropout_matmul.cu``). The plain versions
+(``dropout_matmul_lanes_plain`` and its dW and dX) are the unlaned plain
+versions lane by lane.
 """
 
 from __future__ import annotations
@@ -332,16 +338,10 @@ def _lane_slots(seed: Seed, lanes: int, device) -> torch.Tensor:
     return slots
 
 
-def lane_major(g: torch.Tensor, lanes: int) -> tuple[torch.Tensor, int]:
-    """g [N, S·M] float32 as the laned dW and dX kernels read it: lane s's
-    [N, M] contiguous at element s·step of one buffer, step = N·M rounded up
-    to a multiple of 4 (each lane 16-byte aligned). Returns (buffer, step)."""
-    n, width = g.shape
-    m = width // lanes
-    step = -(-n * m // 4) * 4
-    buf = torch.empty((lanes, step), dtype=torch.float32, device=g.device)
-    buf[:, :n * m].view(lanes, n, m).copy_(g.view(n, lanes, m).transpose(0, 1))
-    return buf, step
+def dx_wfrag_bytes(k: int, m: int, lanes: int) -> int:
+    """Scratch bytes of the laned bf16 dX (m <= 64): each lane's W in the
+    mma fragment order, ceil(k/16) pairs × ceil(m/16) k16 steps × 512."""
+    return lanes * -(-k // 16) * -(-m // 16) * 512
 
 
 def _fwd_lanes(x: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
@@ -368,9 +368,8 @@ def _fwd_lanes(x: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float) -> tor
 
 
 def _dw_lanes(x: torch.Tensor, g: torch.Tensor, seed: Seed, rate: float, w_dtype: torch.dtype,
-              shared: bool = False, g_lanes: tuple | None = None) -> torch.Tensor:
-    """Laned dW [S, K, M]; ``g_lanes`` is ``lane_major(g)`` when the caller
-    has it."""
+              shared: bool = False) -> torch.Tensor:
+    """Laned dW [S, K, M] from the joined g, read in place."""
     if _on_cpu(x, "dropout_matmul lanes dW"):
         return dropout_matmul_lanes_dw_plain(x, g, seed, rate, w_dtype, shared)
     lanes = cuda_dropout.n_lanes(seed)
@@ -384,7 +383,6 @@ def _dw_lanes(x: torch.Tensor, g: torch.Tensor, seed: Seed, rate: float, w_dtype
                          f"[{n}, {lanes}·K] or shared, w of x's dtype; got x {tuple(x.shape)}, "
                          f"g {tuple(g.shape)} {g.dtype}, w {w_dtype}")
     slots = _lane_slots(seed, lanes, x.device)
-    gl, step = g_lanes if g_lanes is not None else lane_major(g, lanes)
     lib = _build.load_library()
     slab = dw_slab(k)
     x_lane, ldx, _ = lane_strides(k, m, lanes, shared)
@@ -394,7 +392,7 @@ def _dw_lanes(x: torch.Tensor, g: torch.Tensor, seed: Seed, rate: float, w_dtype
         ws = torch.empty((lanes, splits, k, m), dtype=torch.float32, device=x.device)
         dw = torch.empty((lanes, k, m), dtype=w_dtype, device=x.device)
         rc = lib.pgcn_dropout_matmul_dw_lanes(
-            x.data_ptr(), gl.data_ptr(), step, ws.data_ptr(), dw.data_ptr(),
+            x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
             _DTYPE_CODE[x.dtype], n, k, m, lanes, x_lane, ldx, slab, splits,
             rows, slots.data_ptr(), cuda_dropout.keep_threshold(rate),
             cuda_dropout._inv_keep(rate, x.dtype), _stream(x.device))
@@ -404,8 +402,9 @@ def _dw_lanes(x: torch.Tensor, g: torch.Tensor, seed: Seed, rate: float, w_dtype
 
 
 def _dx_lanes(g: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float,
-              x_dtype: torch.dtype, g_lanes: tuple | None = None) -> torch.Tensor:
-    """Laned dX, joined [N, S·K] in ``x_dtype``."""
+              x_dtype: torch.dtype) -> torch.Tensor:
+    """Laned dX, joined [N, S·K] in ``x_dtype``, from the joined g read in
+    place."""
     if _on_cpu(g, "dropout_matmul lanes dX"):
         return dropout_matmul_lanes_dx_plain(g, w, seed, rate, x_dtype)
     _check("dropout_matmul lanes dX", x_dtype, g)
@@ -417,15 +416,18 @@ def _dx_lanes(g: torch.Tensor, w: torch.Tensor, seed: Seed, rate: float,
     if g.dtype != torch.float32 or g.shape[1] != lanes * m:
         raise ValueError(f"dropout_matmul lanes dX: g must be float32 [N, {lanes}·{m}], got "
                          f"{tuple(g.shape)} {g.dtype}")
+    if g.data_ptr() % 16:  # the bf16 kernel copies g's rows in 16-byte pieces
+        g = g.clone()
     slots = _lane_slots(seed, lanes, g.device)
-    gl, step = g_lanes if g_lanes is not None else lane_major(g, lanes)
+    frag = x_dtype == torch.bfloat16 and m <= 64
+    wfrag = torch.empty(dx_wfrag_bytes(k, m, lanes) if frag else 0, dtype=torch.uint8,
+                        device=g.device)
     dx = torch.empty((n, lanes * k), dtype=x_dtype, device=g.device)
     lib = _build.load_library()
     with torch.cuda.device(g.device):
         rc = lib.pgcn_dropout_matmul_dx_lanes(
-            gl.data_ptr(), step, w.data_ptr(), dx.data_ptr(), _DTYPE_CODE[x_dtype], n, k, m,
-            lanes, lane_strides(k, m, lanes, False)[1], slots.data_ptr(),
-            cuda_dropout.keep_threshold(rate),
+            g.data_ptr(), w.data_ptr(), wfrag.data_ptr(), dx.data_ptr(), _DTYPE_CODE[x_dtype],
+            n, k, m, lanes, slots.data_ptr(), cuda_dropout.keep_threshold(rate),
             1.0 / (1.0 - rate), _stream(g.device))
     _build.check(rc, "dropout_matmul lanes dX kernel")
     launches["fused_dx_lanes"] += 1
@@ -444,13 +446,11 @@ class _DropoutMatmulLanes(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         g = g.float().contiguous()
-        # the lane-major g both kernels read, made once
-        g_lanes = lane_major(g, w.shape[0]) if g.device.type == "cuda" else None
-        dw = (_dw_lanes(x, g, ctx.seed, ctx.rate, w.dtype, ctx.shared, g_lanes)
+        dw = (_dw_lanes(x, g, ctx.seed, ctx.rate, w.dtype, ctx.shared)
               if ctx.needs_input_grad[1] else None)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = (_dx_lanes(g, w, ctx.seed, ctx.rate, x.dtype, g_lanes) if ctx.need_dx
+            dx = (_dx_lanes(g, w, ctx.seed, ctx.rate, x.dtype) if ctx.need_dx
                   else torch.zeros_like(x))
         return dx, dw, None, None, None
 

@@ -17,9 +17,14 @@ with the others' as [rows, S·F], lane s in columns s·F … s·F+F−1, so each
 such aggregation is one ``graphsum`` over S·F columns (the tile SpMM and the
 ordered sums compute each column alone, so a lane's columns are those of its
 solo run; SAGE's and GIN's sqrt(deg) scalings are elementwise over the
-joined tensor), and the dropout kernels mask every lane in one launch with
-lane s's seed at lane s's solo element index (``ops.cuda_dropout``, seed
-lanes). GIN's layer 0 without input dropout aggregates the shared X once.
+joined tensor). A layer's entry ([ReLU →] dropout) is one launch over every
+lane, lane s's seed at lane s's solo element index, that also makes the
+lanes' split: it reads the joined aggregation, the lanes' own tensors or
+the shared input, and writes each lane's contiguous [rows, F] for its GEMM
+(``ops.cuda_dropout.lane_dropout``; its backward writes the joined
+gradient). A layer whose output goes to no aggregation (layer 0 under
+pre-aggregation, without residual) hands the next entry its lanes unjoined.
+GIN's layer 0 without input dropout aggregates the shared X once.
 The fused GCN (``fuse_dropout_matmul``) runs each fused layer as one laned
 K10 launch a direction (``ops.cuda_fused.dropout_matmul_lanes``), over the
 shared X at layer 0. The deferred eval stacks train | val per lane. The
@@ -56,8 +61,9 @@ from torch.utils.checkpoint import checkpoint
 from parallel_gcn_tpu_torch.config import Config
 from parallel_gcn_tpu_torch.data.parser import TEST, TRAIN, VAL, DeviceDataset
 from parallel_gcn_tpu_torch.models.gat import GATModel
-from parallel_gcn_tpu_torch.models.gcn import GCNModel, layer_entry
+from parallel_gcn_tpu_torch.models.gcn import GCNModel
 from parallel_gcn_tpu_torch.models.sage import GINModel
+from parallel_gcn_tpu_torch.ops.cuda_dropout import lane_dropout
 from parallel_gcn_tpu_torch.ops.cuda_fused import dropout_matmul_lanes
 from parallel_gcn_tpu_torch.ops.loss import l2_penalty
 from parallel_gcn_tpu_torch.ops.sparse_matmul import feature_transform
@@ -150,28 +156,41 @@ class _StackedLanes(torch.autograd.Function):
                 *([None] * lanes))
 
 
-def _check_joined(rate: float, training: bool, joined: bool) -> None:
-    if training and rate > 0 and not joined:
-        raise ValueError("a lane's dropout masks its own columns: pass the input as "
-                         "[rows, S·F]")
+# a layer's input over the lanes: a joined [rows, S·F] tensor (``joined``),
+# one [rows, F] tensor every lane reads, or a list of the S lanes' tensors
+Lanes = torch.Tensor | list
+
+
+def lane_entry(h: Lanes, joined: bool, lanes: int, rate: float, seed, training: bool,
+               pre_relu: bool, join: bool = False) -> Lanes:
+    """Each lane's layer entry (``models.gcn.layer_entry``: [the deferred
+    ReLU →] dropout) from ``h`` (``Lanes``): one laned K1/K2 launch, which
+    also writes the lanes' layout, the S lanes' [rows, F] tensors (a list),
+    or one joined tensor with ``join``; without dropout the ReLU and the
+    layout change."""
+    x = h if isinstance(h, list) else (h if joined else [h] * lanes)
+    if training and rate > 0.0:
+        out = lane_dropout(x, seed, rate, relu=pre_relu, join=join)
+        return out if join else list(out)
+    if isinstance(x, list):
+        if pre_relu:
+            x = [torch.relu(p) for p in x]
+        return _Join.apply(*x) if join else x
+    if pre_relu:
+        x = torch.relu(x)
+    return x if join else list(_Split.apply(x, lanes))
 
 
 class LaneGCN:
     """The GCN forward of S lanes over ``model``'s aggregation and knobs
     (``models.gcn.GCNModel``, whose own weights are lane 0's), lane s with
-    the weights ``weights[s]``. A layer's input is ``joined`` ([rows, S·F])
-    or one [rows, F] tensor that every lane reads (the input features)."""
+    the weights ``weights[s]``. A layer's input is ``Lanes``: ``joined``
+    ([rows, S·F]), one [rows, F] tensor that every lane reads (the input
+    features), or the lanes' own tensors."""
 
     def __init__(self, model: GCNModel, weights: list[list[torch.Tensor]]):
         self.model, self.weights, self.lanes = model, weights, len(weights)
         self.n_seeds = model.n_layers  # dropout seeds an epoch
-
-    def joins_input(self) -> bool:
-        """Whether the training input is each lane's own copy of the
-        features: an input dropout masks each lane's columns, unless the
-        laned K10 masks the shared features itself."""
-        m = self.model
-        return m.dropouts[0] > 0 and not m.fuse_dropout_matmul
 
     def _fused(self, h, layer: int, seed, training: bool, pre_relu: bool):
         """``GCNModel.layer_pre``'s fused branch over the lanes, [rows, S·F']
@@ -182,6 +201,8 @@ class LaneGCN:
         rate = m.dropouts[layer]
         if not (training and rate > 0.0 and m.fuse_dropout_matmul):
             return None
+        if isinstance(h, list):
+            h = _Join.apply(*h)
         if pre_relu:
             h = torch.relu(h)
         w = torch.stack([ws[layer].to(m.compute_dtype) for ws in self.weights])
@@ -196,9 +217,7 @@ class LaneGCN:
         if fused is not None:
             return list(_Split.apply(fused, self.lanes))
         m = self.model
-        _check_joined(m.dropouts[layer], training, joined)
-        h = layer_entry(h, m.dropouts[layer], seed, training, pre_relu)
-        parts = _Split.apply(h, self.lanes) if joined else [h] * self.lanes
+        parts = lane_entry(h, joined, self.lanes, m.dropouts[layer], seed, training, pre_relu)
         return [feature_transform(p, w[layer], m.compute_dtype)
                 for p, w in zip(parts, self.weights)]
 
@@ -207,13 +226,16 @@ class LaneGCN:
         pre_relu = self.model.defers_relu(layer)
         out = self._fused(h, layer, seed, training, pre_relu)
         if out is None:
-            out = _Join.apply(*self.layer_pre(h, joined, layer, seed, training, pre_relu))
+            parts = self.layer_pre(h, joined, layer, seed, training, pre_relu)
+            if skip_agg and not self.model.residual:
+                return parts  # the next layer's entry reads the lanes themselves
+            out = _Join.apply(*parts)
         return out if skip_agg else self.model.aggregate(out, graph)
 
     def layer(self, h, joined: bool, graph, layer: int, seed, training: bool,
               skip_agg: bool):
-        """Layer ``layer`` over the lanes, [rows, S·F'] (``GCNModel.layer``,
-        recomputed in the backward with ``remat``)."""
+        """Layer ``layer`` over the lanes, [rows, S·F'] or the lanes' list
+        (``GCNModel.layer``, recomputed in the backward with ``remat``)."""
         args = (h, joined, graph, layer, seed, training, skip_agg)
         if self.model.remat and training:
             return checkpoint(self._layer, *args, use_reentrant=False,
@@ -243,16 +265,17 @@ class LaneGCN:
         last = self.model.n_layers - 1
         h, joined = self.prefix(x, joined, graph, training=training, seeds=seeds, preagg=preagg)
         out = self.layer(h, joined, graph, last, seeds[last], training, last == 0 and preagg)
-        return [p.float() for p in _Split.apply(out, self.lanes)]
+        return [p.float() for p in (out if isinstance(out, list) else
+                                    _Split.apply(out, self.lanes))]
 
-    def deferred(self, x_train, train_joined: bool, x_eval, graph, seeds, *,
-                 train_preagg: bool, eval_preagg: bool):
+    def deferred(self, x_train, x_eval, graph, seeds, *, train_preagg: bool,
+                 eval_preagg: bool):
         """Each lane's train logits and deferred val logits
         (``train.fused_deferred_forward``), float32."""
         m, lanes = self.model, self.lanes
         L = m.n_layers
         share = all(d == 0 for d in m.dropouts[:L - 1]) and train_preagg == eval_preagg
-        ht, joined = self.prefix(x_train, train_joined, graph, training=True, seeds=seeds,
+        ht, joined = self.prefix(x_train, False, graph, training=True, seeds=seeds,
                                  preagg=train_preagg)
         pre_relu = m.defers_relu(L - 1)
         at = self.layer_pre(ht, joined, L - 1, seeds[L - 1], True, pre_relu)
@@ -267,9 +290,10 @@ class LaneGCN:
 class LaneAgg:
     """SAGE or GIN (``models.sage``) over S lanes, ``models[s]`` being lane
     s's model (its weights). Activations are joined [rows, S·F] as in
-    ``LaneGCN``: each layer's entry (K1/K2) is one launch over the lanes,
-    each aggregation one ``graphsum`` over S·F columns, the transforms run
-    lane by lane; ``_AggVariant.forward``'s residual and ReLU, and ``remat``
+    ``LaneGCN``: each layer's entry (K1/K2) is one launch over the lanes
+    that writes each lane's own tensor for its transforms (GIN: the joined
+    tensor its aggregation reads), each aggregation one ``graphsum`` over
+    S·F columns, the transforms run lane by lane; ``_AggVariant.forward``'s residual and ReLU, and ``remat``
     per layer."""
 
     def __init__(self, models: list):
@@ -277,24 +301,26 @@ class LaneAgg:
         self.weights = [list(m.weights) for m in models]
         self.n_seeds = self.model.n_layers
 
-    def joins_input(self) -> bool:
-        return self.model.dropouts[0] > 0
-
     def _layer(self, h, joined: bool, layer: int, seed, training: bool, pre_relu: bool, graph):
         m, lanes = self.model, self.lanes
-        _check_joined(m.dropouts[layer], training, joined)
-        h = layer_entry(h, m.dropouts[layer], seed, training, pre_relu)
+        rate = m.dropouts[layer]
         dtype = m.compute_dtype
         ws = [lm.layer_weights(layer) for lm in self.models]
         if isinstance(m, GINModel):
-            # (1+eps)·h + Σ_N h on the joined input, or once on the shared one
+            # (1+eps)·h + Σ_N h on the joined entry, or once on the shared input
+            drop = training and rate > 0.0
+            if joined or drop:
+                h = lane_entry(h, joined, lanes, rate, seed, training, pre_relu, join=True)
+                joined = True
+            elif pre_relu:
+                h = torch.relu(h)
             z = m.eps * h + m.sum_agg(h, graph).to(dtype)
             outs = []
             for p, w in zip(_Split.apply(z, lanes) if joined else [z] * lanes, ws):
                 o = feature_transform(p, w["w1"], dtype)
                 outs.append(feature_transform(torch.relu(o), w["w2"], dtype) if "w2" in w else o)
             return _Join.apply(*outs)
-        parts = _Split.apply(h, lanes) if joined else [h] * lanes
+        parts = lane_entry(h, joined, lanes, rate, seed, training, pre_relu)
         h_self = _Join.apply(*[feature_transform(p, w["self"], dtype) for p, w in zip(parts, ws)])
         h_neigh = _Join.apply(*[feature_transform(p, w["neigh"], dtype)
                                 for p, w in zip(parts, ws)])
@@ -339,9 +365,6 @@ class LaneGAT:
         self.n_seeds = 2 * self.model.n_layers  # feature and attention seeds
         for m in models[1:]:  # one set of streaming edge chunks for every lane
             m._chunks = self.model._chunks
-
-    def joins_input(self) -> bool:
-        return False
 
     def forward(self, x, joined: bool, graph, *, training: bool, seeds: Sequence,
                 preagg: bool) -> list[torch.Tensor]:
@@ -438,7 +461,7 @@ def _lane_metrics(logits: list, ce_fn, dds: DeviceDataset, split: int):
     return [ce_fn(t, dds.labels, mask, dds.split_counts[split]) for t in logits]
 
 
-def make_lane_step(lm: LaneModel, cfg: Config, dds: DeviceDataset, x_train, train_joined: bool,
+def make_lane_step(lm: LaneModel, cfg: Config, dds: DeviceDataset, x_train,
                    opt_states: list[AdamState], deferred: bool) -> Callable:
     """One epoch of every lane, ``(slots) -> [metrics[4]] a lane``: the
     plain epoch of ``train.make_epoch_step`` or the deferred one of
@@ -460,7 +483,7 @@ def make_lane_step(lm: LaneModel, cfg: Config, dds: DeviceDataset, x_train, trai
         return [l2_term(wd, l2_penalty(ws[0])) for ws in lm.weights]
 
     def deferred_step(slots):
-        lt, le = lm.deferred(x_train, train_joined, x_eval, dds.graph, slots,
+        lt, le = lm.deferred(x_train, x_eval, dds.graph, slots,
                              train_preagg=model.input_preagg, eval_preagg=eval_preagg)
         train = _lane_metrics(lt, ce_fn, dds, TRAIN)
         with torch.no_grad():
@@ -474,7 +497,7 @@ def make_lane_step(lm: LaneModel, cfg: Config, dds: DeviceDataset, x_train, trai
         return rows
 
     def plain_step(slots):
-        logits = lm.forward(x_train, train_joined, dds.graph, training=True, seeds=slots,
+        logits = lm.forward(x_train, False, dds.graph, training=True, seeds=slots,
                             preagg=model.input_preagg)
         train = _lane_metrics(logits, ce_fn, dds, TRAIN)
         grads = torch.autograd.grad([ce for ce, _ in train], weights)
@@ -556,8 +579,6 @@ def seed_run(cfg: Config, dds: DeviceDataset, seeds: Sequence[int],
     else:
         lm = LaneAgg(models)
     lane_w = lm.weights
-    train_joined = lm.joins_input()
-    x_train = dds.x.repeat(1, lanes) if train_joined else dds.x
     opt_states = [init_adam(ws) for ws in lane_w]
     epochs = cfg.gcn.epochs
     k, deferred = scan_schedule(model, cfg)
@@ -566,7 +587,7 @@ def seed_run(cfg: Config, dds: DeviceDataset, seeds: Sequence[int],
         [[epoch_seeds(gen, model.n_layers, attention=gat) for _ in range(epochs)]
          for gen in (torch.Generator().manual_seed(s) for s in seeds)],
         dtype=torch.int64).reshape(lanes, epochs, lm.n_seeds).to(dds.device)
-    loop = LaneScanLoop(make_lane_step(lm, cfg, dds, x_train, train_joined, opt_states, deferred),
+    loop = LaneScanLoop(make_lane_step(lm, cfg, dds, dds.x, opt_states, deferred),
                         lane_state=[[*ws, *st.m, *st.v, st.step]
                                     for ws, st in zip(lane_w, opt_states)],
                         seeds=LaneSeedSlots(lm.n_seeds, lanes, dds.device), table=table, k=k,

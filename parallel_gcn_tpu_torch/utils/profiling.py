@@ -40,11 +40,13 @@ _CATEGORIES = (
     # K10 over seed lanes (seeds.fit_seeds)
     ("fwd_mma_lanes_kernel", "K10 fused fwd (lanes)"),
     ("fwd_fma_lanes_kernel", "K10 fused fwd (lanes)"),
+    ("fwd_fma_shared_kernel", "K10 fused fwd (lanes)"),
     ("dw_mma_lanes_kernel", "K10 fused dW (lanes)"),
     ("dw_fma_lanes_kernel", "K10 fused dW (lanes)"),
     ("reduce_splits_lanes_kernel", "K10 fused dW (lanes)"),
     ("dx_mma_lanes_kernel", "K10 fused dX (lanes)"),
     ("dx_lanes_kernel<", "K10 fused dX (lanes)"),
+    ("dx_wfrag_kernel", "K10 fused dX (lanes)"),
     ("fwd_mma_kernel", "K10 fused fwd"), ("fwd_fma_kernel", "K10 fused fwd"),
     ("dw_mma_kernel", "K10 fused dW"), ("dw_fma_kernel", "K10 fused dW"),
     ("reduce_splits_kernel", "K10 fused dW"), ("dx_kernel<", "K10 fused dX"),
@@ -53,6 +55,7 @@ _CATEGORIES = (
     ("sddmm_", "K8 sddmm"),
     ("spmm_fma_kernel", "K3/K4 tile SpMM"),
     ("reduce_segments_kernel", "K3/K4 tile SpMM"),
+    ("dropout_lanes_bwd_kernel", "K2 relu_dropout backward (lanes)"),
     ("dropout_lanes_kernel<__nv_bfloat16, true>", "K2 relu_dropout (lanes)"),
     ("dropout_lanes_kernel<float, true>", "K2 relu_dropout (lanes)"),
     ("dropout_lanes_kernel", "K1 dropout (lanes)"),
@@ -81,6 +84,7 @@ _CATEGORIES = (
 LAUNCHED = (
     (("dropout", "relu_dropout"), ("::dropout_kernel<",)),
     (("dropout_lanes", "relu_dropout_lanes"), ("::dropout_lanes_kernel<",)),
+    (("relu_dropout_lanes_bwd",), ("::dropout_lanes_bwd_kernel<",)),
     (("bcsr", "bcsr_scaled", "bcsr_rect"), ("spmm_pipe_kernel", "spmm_fma_kernel")),
     (("gat_fwd", "gat_fwd_rect"), ("gat_fwd_kernel",)),
     (("gat_bwd",), ("gat_bwd_kernel",)),
@@ -90,7 +94,8 @@ LAUNCHED = (
     (("fused_fwd",), ("fwd_mma_kernel", "fwd_fma_kernel")),
     (("fused_dw",), ("dw_mma_kernel", "dw_fma_kernel")),
     (("fused_dx",), ("dx_kernel<", "dx_mma_kernel")),
-    (("fused_fwd_lanes",), ("fwd_mma_lanes_kernel", "fwd_fma_lanes_kernel")),
+    (("fused_fwd_lanes",), ("fwd_mma_lanes_kernel", "fwd_fma_lanes_kernel",
+                            "fwd_fma_shared_kernel")),
     (("fused_dw_lanes",), ("dw_mma_lanes_kernel", "dw_fma_lanes_kernel")),
     (("fused_dx_lanes",), ("dx_lanes_kernel<", "dx_mma_lanes_kernel")),
     (("sddmm",), ("sddmm_",)),

@@ -29,6 +29,7 @@ import pickle
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -58,34 +59,63 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _entry(rank, world, store, module, fn_name, args, out_dir):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=world)
     try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            fn = getattr(importlib.import_module(module), fn_name)
-            result = fn(rank, world, *args)
-    finally:
-        dist.destroy_process_group()
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                fn = getattr(importlib.import_module(module), fn_name)
+                result = fn(rank, world, *args)
+            # no rank tears its connections down before every rank has made
+            # them: a rank whose checks run no collective (``_seeded_masks``)
+            # would otherwise close its end while a slower rank is still in
+            # gloo's connectFullMesh, which then fails with "Connection
+            # closed by peer"
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump({"result": result, "jax_loaded": "jax" in sys.modules}, f)
+
+
+def _rank_errors(tmp_path, world: int) -> str:
+    """Each rank's own traceback, where it wrote one."""
+    errs = []
+    for r in range(world):
+        path = tmp_path / f"rank{r}.err"
+        errs.append(f"--- rank {r}:\n" + (path.read_text() if path.exists() else
+                                         "(no error written: it ran on, or was stopped)\n"))
+    return "".join(errs)
 
 
 def run_world(fn, world: int, tmp_path, *args, timeout_s: float = 240.0) -> list:
     """``fn(rank, world, *args)`` on every rank of a gloo world of ``world``
     processes; returns the ranks' results. ``fn`` must live at the top of a
-    test module that imports no JAX (a rank imports that module). A world
-    still running after ``timeout_s`` (a hung collective) is killed and the
-    test fails."""
+    test module that imports no JAX (a rank imports that module). A rank
+    that fails writes its traceback, which the test's failure shows for
+    every rank; a world still running after ``timeout_s`` (a hung
+    collective) is killed and the test fails."""
     ctx = mp.spawn(_entry, args=(world, str(tmp_path / "store"), fn.__module__, fn.__name__,
                                  args, str(tmp_path)), nprocs=world, join=False)
     deadline = time.monotonic() + timeout_s
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            raise TimeoutError(f"{fn.__name__}: world of {world} still running "
-                               f"after {timeout_s} s")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"{fn.__name__}: world of {world} still running "
+                                   f"after {timeout_s} s")
+        missing = [r for r in range(world) if not (tmp_path / f"rank{r}.pkl").exists()]
+        if missing:
+            raise RuntimeError(f"{fn.__name__}: ranks {missing} ended without a result")
+    except Exception as e:
+        raise AssertionError(f"{fn.__name__}: the world of {world} failed: {e}\n"
+                             f"{_rank_errors(tmp_path, world)}") from e
     out = []
     for r in range(world):
         with open(tmp_path / f"rank{r}.pkl", "rb") as f:

@@ -35,18 +35,21 @@ def test_laned_dropout_plain_is_the_solo_mask_lane_by_lane(relu, dtype, width, o
     gen = torch.Generator().manual_seed(width)
     x = torch.randn(rows, lanes * width, generator=gen).to(dtype)
     slot = torch.tensor(SEEDS, dtype=torch.int64)
+    offset = 0 if relu else offset  # K2 takes no element offset
     for seed in (SEEDS, slot):
-        got = cd.dropout_plain(x, seed, 0.3, relu, offset)
+        got = cd.lane_dropout_plain([x], seed, 0.3, int(relu), offset, lanes, True)
         for s, one in enumerate(SEEDS):
             solo = cd.dropout_plain(x[:, s * width:(s + 1) * width].contiguous(), one, 0.3,
                                     relu, offset)
             assert torch.equal(got[:, s * width:(s + 1) * width], solo)
-    # the wrappers' CPU branch and the backward, through autograd
+    # the wrapper's CPU branch, joined in and out, and the backward, through
+    # autograd
     xr = x.clone().requires_grad_(True)
-    fn = cd.relu_dropout if relu else cd.dropout
-    out = fn(xr, slot, 0.3) if relu else fn(xr, slot, 0.3, offset)
-    assert torch.equal(out, cd.dropout_plain(x, SEEDS, 0.3, relu, 0 if relu else offset))
+    out = cd.lane_dropout(xr, slot, 0.3, relu=relu, join=True, offset=offset)
+    assert torch.equal(out, cd.lane_dropout_plain([x], SEEDS, 0.3, int(relu), offset, lanes,
+                                                  True))
     out.backward(torch.ones_like(out))
+    fn = cd.relu_dropout if relu else cd.dropout
     for s, one in enumerate(SEEDS):
         xs = x[:, s * width:(s + 1) * width].contiguous().requires_grad_(True)
         solo = fn(xs, one, 0.3) if relu else fn(xs, one, 0.3, offset)
@@ -56,9 +59,13 @@ def test_laned_dropout_plain_is_the_solo_mask_lane_by_lane(relu, dtype, width, o
 
 def test_laned_dropout_refuses_a_ragged_batch():
     with pytest.raises(ValueError, match="seed lanes need"):
-        cd.dropout_plain(torch.zeros(4, 10), [1, 2, 3], 0.5)
+        cd.lane_dropout(torch.zeros(4, 10), [1, 2, 3], 0.5)
     with pytest.raises(ValueError, match="uint64"):
         cd.lane_seeds([1, -2], CPU)
+    # the unlaned wrappers take one seed
+    for fn in (cd.dropout, cd.relu_dropout, cd.dropout_plain):
+        with pytest.raises(ValueError, match="one seed"):
+            fn(torch.zeros(4, 9), [1, 2, 3], 0.5)
 
 
 def _dataset():

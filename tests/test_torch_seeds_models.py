@@ -136,9 +136,23 @@ def test_fused_gcn_lanes_are_solo_fused_runs(dtype, k):
     cfg = _cfg("gcn", "hybrid", dtype, k, 20 if k else 12, (0.2, 0.3),
                fuse_dropout_matmul=True)
     run = sd.seed_run(cfg, dds, SEEDS)
-    # layer 0's laned K10 reads the shared features; k = 0 is the deferred
-    # schedule
-    assert not run.lm.joins_input() and (run.loop.final_val is not None) == (k == 0)
+    # k = 0 is the deferred schedule
+    assert (run.loop.final_val is not None) == (k == 0)
+    # layer 0's laned K10 reads the shared features (no copy a lane), layer
+    # 1's the joined hidden activations
+    widths = []
+    real = sd.dropout_matmul_lanes
+
+    def spy(x, w, *args, **kwargs):
+        widths.append((x.shape[1], w.shape[1]))
+        return real(x, w, *args, **kwargs)
+
+    sd.dropout_matmul_lanes = spy
+    try:
+        run.loop.step(run.loop.seeds.slots)
+    finally:
+        sd.dropout_matmul_lanes = real
+    assert widths == [(dds.input_dim, dds.input_dim), (len(SEEDS) * 8, 8)]
     _lanes_are_solo_runs(cfg, dds, SEEDS, dtype)
 
 
@@ -292,11 +306,12 @@ def test_laned_k10_refuses_ragged_batches_and_wrong_weights():
 # ---------------------------------------------------------------------------
 # (e) numpy models of the laned kernels' index arithmetic
 # (csrc/dropout_matmul.cu: the *_lanes_kernel wrappers around the unlaned
-# bodies, LaneArgs): lane s reads x at s·x_lane + r·ldx + c with its mask at
-# its solo index r·k + c, writes its output at s·m + r·ldo + j and its dX at
-# s·k + r·ldx + c, reads g lane-major at s·g_lane + r·m + j, and its dW
-# partials at (s·splits + split)·k·m + c·m + j, which the lanes' reduction
-# sums in split order. Values are small integers, so float64 sums are exact.
+# bodies, fwd_fma_shared_kernel, LaneArgs): lane s reads x at s·x_lane +
+# r·ldx + c with its mask at its solo index r·k + c, writes its output at
+# s·m + r·ldo + j and its dX at s·k + r·ldx + c, reads the joined g in place
+# at s·m + r·(S·m) + j, and its dW partials at (s·splits + split)·k·m + c·m
+# + j, which the lanes' reduction sums in split order. Values are small
+# integers, so float64 sums are exact.
 
 
 def _small(rng, *shape):
@@ -307,53 +322,101 @@ def _keep(seed, rate, n, k):
     return cd.keep_mask(seed, rate, (n, k), "cpu").numpy()
 
 
+# the f32 forward's column tiles (fwd_col_tile picks one of these, at most
+# 9 lanes' planes) and the unlaned f32 block's output columns
+FWD_TILES = (32, 64, 128, 256)
+FMA_COLS = 48
+
+
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("lanes, k", [(1, 24), (3, 21), (4, 14), (8, 16)])
 def test_laned_forward_and_dx_index_model(shared, lanes, k):
+    """The f32 forward's blocks over a shared x (a 64-row tile × a tile of
+    ``vt`` virtual columns across lanes, each lane's M padded to a multiple
+    of 4; x's piece read once a block, for every lane the tile spans), at
+    every column tile the kernel may take; over a joined x one lane a block
+    (row tile, 48 output columns, lane); dX's (row tile, lane), the joined g
+    read in place; at ``csrc/dropout_matmul.cu``'s strides."""
     rng = np.random.default_rng(lanes * 100 + k)
-    n, m, rate, inv = 29, 5, 0.3, 2.0
+    n, m, rate, inv, rows_t = 150, 5, 0.3, 2.0, 64
+    mp = 8
     x_lane, ldx, ldo = cf.lane_strides(k, m, lanes, shared)
     assert (x_lane, ldx, ldo) == ((0, k, lanes * m) if shared else (k, lanes * k, lanes * m))
+    tiles = -(-n // rows_t)
     x_mem = _small(rng, n * ldx)  # the x buffer the kernels read
     w = _small(rng, lanes, k, m)
-    g = _small(rng, n, lanes * m)
-    out_mem = np.full(n * ldo, np.nan)
-    dx_mem = np.full(n * lanes * k, np.nan)
-    reads = np.zeros(n * ldx, np.int64)
+    g_mem = _small(rng, n * lanes * m)  # the joined g, read in place
     seeds = [7 + 1000 * s for s in range(lanes)]
-    gl, g_lane = cf.lane_major(torch.from_numpy(g).float(), lanes)
-    gl = gl.double().numpy().reshape(-1)
-    assert g_lane % 4 == 0 and g_lane >= n * m
-    r, c = np.meshgrid(np.arange(n), np.arange(k), indexing="ij")
-    j = np.arange(m)
+    c = np.arange(k)
+    g = g_mem.reshape(n, lanes * m)
+
+    def check_out(out_mem):
+        assert not np.isnan(out_mem).any()
+        out = out_mem.reshape(n, lanes * m)
+        for s in range(lanes):
+            xs = x_mem.reshape(n, ldx)[:, s * x_lane:s * x_lane + k]
+            keep = _keep(seeds[s], rate, n, k)
+            np.testing.assert_array_equal(out[:, s * m:(s + 1) * m],
+                                          np.where(keep, xs * inv, 0.0) @ w[s])
+
+    if shared:
+        for vt in FWD_TILES:
+            planes = min(lanes, -(-vt // mp) + 1)
+            col_tiles = -(-lanes * mp // vt)
+            out_mem = np.full(n * ldo, np.nan)
+            reads = np.zeros(n * ldx, np.int64)
+            for t in range(tiles):
+                r = np.arange(t * rows_t, min(n, (t + 1) * rows_t))[:, None]
+                for ct in range(col_tiles):  # blockIdx.y: the column tile
+                    v0 = ct * vt
+                    vcols = min(vt, lanes * mp - v0)
+                    lo, hi = v0 // mp, (v0 + vcols - 1) // mp
+                    assert hi - lo + 1 <= planes
+                    np.add.at(reads, (r * ldx + c).reshape(-1), 1)  # x's piece once a block
+                    for s in range(lo, hi + 1):
+                        keep = _keep(seeds[s], rate, n, k)[r, c]  # the solo index r·k + c
+                        xm = np.where(keep, x_mem[r * ldx + c] * inv, 0.0)
+                        # the lane's columns inside the tile (padding columns dropped)
+                        j = np.arange(max(v0, s * mp) - s * mp,
+                                      min(v0 + vcols, (s + 1) * mp) - s * mp)
+                        j = j[j < m]
+                        assert np.isnan(out_mem[s * m + r * ldo + j]).all()
+                        out_mem[s * m + r * ldo + j] = xm @ w[s][:, j]
+            assert (reads == col_tiles).all()
+            check_out(out_mem)
+        return
+    out_mem = np.full(n * ldo, np.nan)
+    reads = np.zeros(n * ldx, np.int64)
+    dx_mem = np.full(n * lanes * k, np.nan)
+    for t in range(tiles):
+        r = np.arange(t * rows_t, min(n, (t + 1) * rows_t))[:, None]
+        for s in range(lanes):  # blockIdx.z (forward), blockIdx.y (dX): the lane
+            addr = s * x_lane + r * ldx + c
+            keep = _keep(seeds[s], rate, n, k)[r, c]
+            for j0 in range(0, m, FMA_COLS):  # blockIdx.y (forward): output columns
+                np.add.at(reads, addr.reshape(-1), 1)
+                j = np.arange(j0, min(m, j0 + FMA_COLS))
+                assert np.isnan(out_mem[s * m + r * ldo + j]).all()
+                out_mem[s * m + r * ldo + j] = np.where(keep, x_mem[addr] * inv, 0.0) @ w[s][:, j]
+            j = np.arange(m)
+            gs = g_mem[s * m + r * (lanes * m) + j]
+            at = s * k + r * (lanes * k) + c
+            assert np.isnan(dx_mem[at]).all()
+            dx_mem[at] = np.where(keep, (gs @ w[s].T) * inv, 0.0)
+    assert (reads == -(-m // FMA_COLS)).all()
+    check_out(out_mem)
     for s in range(lanes):
-        keep = _keep(seeds[s], rate, n, k)[r, c]  # the solo index r·k + c
-        addr = s * x_lane + r * ldx + c
-        np.add.at(reads, addr.reshape(-1), 1)
-        xm = np.where(keep, x_mem[addr] * inv, 0.0)
-        rows = np.arange(n)[:, None]
-        out_mem[s * m + rows * ldo + j] = xm @ w[s]
-        gs = gl[s * g_lane + rows * m + j]
-        np.testing.assert_array_equal(gs, g[:, s * m:(s + 1) * m])
-        if not shared:
-            dx_mem[s * k + r * ldx + c] = np.where(keep, (gs @ w[s].T) * inv, 0.0)
-    # every x element read once a lane that reads it; every output written
-    assert (reads == (lanes if shared else 1)).all()
-    assert not np.isnan(out_mem).any() and (shared or not np.isnan(dx_mem).any())
-    out = out_mem.reshape(n, lanes * m)
-    for s in range(lanes):
-        xs = x_mem.reshape(n, ldx)[:, s * x_lane:s * x_lane + k]
         keep = _keep(seeds[s], rate, n, k)
-        np.testing.assert_array_equal(out[:, s * m:(s + 1) * m],
-                                      np.where(keep, xs * inv, 0.0) @ w[s])
-        if not shared:
-            np.testing.assert_array_equal(
-                dx_mem.reshape(n, lanes * k)[:, s * k:(s + 1) * k],
-                np.where(keep, (g[:, s * m:(s + 1) * m] @ w[s].T) * inv, 0.0))
+        np.testing.assert_array_equal(
+            dx_mem.reshape(n, lanes * k)[:, s * k:(s + 1) * k],
+            np.where(keep, (g[:, s * m:(s + 1) * m] @ w[s].T) * inv, 0.0))
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8])
 def test_laned_dw_index_model_and_split_plan(lanes):
+    """dW's blocks, bf16 and f32 alike: (x columns, g columns, lane·splits
+    + split), the joined g read in place; the lanes' split plan is the solo
+    one, the reduction in split order."""
     rng = np.random.default_rng(lanes)
     n, k, m, rate, inv = 200, 20, 6, 0.3, 2.0
     blocks = 9
@@ -364,32 +427,34 @@ def test_laned_dw_index_model_and_split_plan(lanes):
         for dt in (torch.bfloat16, torch.float32):
             assert (cf.dw_lane_plan(nn, kk, mm, lanes, bb, dt)[:2]
                     == cf.dw_splits(nn, kk, mm, bb, dt))
-    x = _small(rng, n, lanes * k)
-    g = _small(rng, n, lanes * m)
-    gl, g_lane = cf.lane_major(torch.from_numpy(g).float(), lanes)
-    gl = gl.double().numpy().reshape(-1)
-    x_lane, ldx, _ = cf.lane_strides(k, m, lanes, False)
+    c = np.arange(k)
     seeds = [5 + s for s in range(lanes)]
     km = k * m
-    ws = np.full(lanes * splits * km, np.nan)
-    for bz in range(z):  # blockIdx.z: the lane, then the split
-        lane, split = bz // splits, bz % splits
-        r = np.arange(split * rows, min((split + 1) * rows, n))
-        c = np.arange(k)
-        keep = _keep(seeds[lane], rate, n, k)[r[:, None], c]
-        xm = np.where(keep, x.reshape(-1)[lane * x_lane + r[:, None] * ldx + c] * inv, 0.0)
-        gs = gl[lane * g_lane + r[:, None] * m + np.arange(m)]
-        ws[(lane * splits + split) * km + (c[:, None] * m + np.arange(m))] = xm.T @ gs
-    assert not np.isnan(ws).any()
-    # the lanes' reduction: e over lanes·k·m, lane e // km, in split order
-    e = np.arange(lanes * km)
-    lane = e // km
-    dw = sum(ws[lane * splits * km + (e - lane * km) + i * km] for i in range(splits))
-    for s in range(lanes):
-        keep = _keep(seeds[s], rate, n, k)
-        xs = np.where(keep, x[:, s * k:(s + 1) * k] * inv, 0.0)
-        np.testing.assert_array_equal(dw.reshape(lanes, k, m)[s],
-                                      xs.T @ g[:, s * m:(s + 1) * m])
+    for shared in (False, True):
+        x = _small(rng, n, k if shared else lanes * k)
+        g_mem = _small(rng, n * lanes * m)  # the joined g, read in place
+        x_lane, ldx, _ = cf.lane_strides(k, m, lanes, shared and lanes > 1)
+        ws = np.full(lanes * splits * km, np.nan)
+        for bz in range(z):  # (lane, split) of each block
+            lane, split = bz // splits, bz % splits
+            r = np.arange(split * rows, min((split + 1) * rows, n))
+            keep = _keep(seeds[lane], rate, n, k)[r[:, None], c]
+            xm = np.where(keep, x.reshape(-1)[lane * x_lane + r[:, None] * ldx + c] * inv, 0.0)
+            gs = g_mem[r[:, None] * (lanes * m) + lane * m + np.arange(m)]
+            at = (lane * splits + split) * km + (c[:, None] * m + np.arange(m))
+            assert np.isnan(ws[at]).all()
+            ws[at] = xm.T @ gs
+        assert not np.isnan(ws).any()
+        # the lanes' reduction: e over lanes·k·m, lane e // km, in split order
+        e = np.arange(lanes * km)
+        lane = e // km
+        dw = sum(ws[lane * splits * km + (e - lane * km) + i * km] for i in range(splits))
+        g = g_mem.reshape(n, lanes * m)
+        for s in range(lanes):
+            keep = _keep(seeds[s], rate, n, k)
+            xs = np.where(keep, (x if shared else x[:, s * k:(s + 1) * k]) * inv, 0.0)
+            np.testing.assert_array_equal(dw.reshape(lanes, k, m)[s],
+                                          xs.T @ g[:, s * m:(s + 1) * m])
 
 
 # ---------------------------------------------------------------------------

@@ -125,6 +125,10 @@ def test_a_short_trace_is_profiled_once_more():
 @pytest.mark.parametrize("name, cat", [
     (K2_LANES, "K2 relu_dropout (lanes)"),
     ("void (anonymous namespace)::dropout_lanes_kernel<float, false>(x)", "K1 dropout (lanes)"),
+    ("void (anonymous namespace)::dropout_lanes_bwd_kernel<__nv_bfloat16>(x)",
+     "K2 relu_dropout backward (lanes)"),
+    ("void (anonymous namespace)::dx_wfrag_kernel(x)", "K10 fused dX (lanes)"),
+    ("void (anonymous namespace)::fwd_fma_shared_kernel<1>(x)", "K10 fused fwd (lanes)"),
     (K2, "K2 relu_dropout"),
     ("void (anonymous namespace)::dropout_kernel<float, false>(x)", "K1 dropout"),
     (K4, "K3/K4 tile SpMM"), (WALK, "scatter/index (residual)"),
