@@ -9,7 +9,8 @@ and timed beside this tree's on the same inputs, bit-equal to them.
 
 Phases, each printed on its own lines:
   1. device: nvidia-smi's name and power limit, torch's device name;
-  2. build: compiles the CUDA kernels (csrc/*.cu) and prints the seconds;
+  2. build: compiles the CUDA kernels (csrc/*.cu) in a thread while the
+     host sets up synth-reddit, and prints the seconds;
      the native loader (``csrc/loader.cpp``, g++ with OpenMP: a failed build
      fails the run); ``[native]``: its label sweep against the numpy sweep on
      synth-reddit's hub-excluded edges and ``load_dataset_native`` against
@@ -26,8 +27,12 @@ Phases, each printed on its own lines:
      and two bounds each (over the pack's live-column index, which K5/K6
      read, and over the tile stream of the earlier design);
      the tile SpMM K4/K3 also at F=600 bf16 with ``torch.sparse.mm`` at
-     F=600 beside it, and at F=602 in f32 and as GIN's layer-0 input (the
-     bf16 features scaled by sqrt_deg), two runs of each bit-identical;
+     F=600 beside it, at F=41, 82 and 602 in f32 (the f32 body over the
+     pack's live-entry index, its build timed, with ``torch.sparse.mm`` on
+     the same f32 x at each width; F=602 is the set-up pre-aggregation's
+     call) and as GIN's layer-0 input (the bf16 features scaled by
+     sqrt_deg), two runs of each bit-identical, and ``torch.sparse.mm`` at
+     the stacked F=82;
      The fused kernels: masked softmax-CE K9 (train and eval variants) at
      synth-reddit's [233472, 41] f32 logits with its train and val masks
      and at ``CE_SHAPES`` (C 7 to 100, int32 and int64 labels, unaligned
@@ -84,11 +89,13 @@ Phases, each printed on its own lines:
      epochs from those datasets' parameter files in f32 on the card and on
      the CPU: metrics within 2e-4;
   6. sddmm: K8 on synth-reddit's int8 pack built with square 512×512 tiles,
-     forward at a, b [n, 41] f32 (rtol 1e-5) and bf16 (rtol 2e-3) + 1e-5·
-     max|ref| against its plain version, the backward through autograd with
-     the pack's tiles as loss weights (dA = W·b, dB = W·a within rtol 1e-4
-     in f32, one bf16 ulp in bf16), two runs bit-identical, beside the
-     gathered ``torch.bmm``;
+     forward at a, b [n, 41] f32 (rtol 1e-5, and bit-equal to its plain
+     version) and bf16 (rtol 2e-3) + 1e-5·max|ref| against its plain
+     version, the backward through autograd with the pack's tiles as loss
+     weights (dA = W·b, dB = W·a within rtol 1e-4 in f32, one bf16 ulp in
+     bf16), two runs bit-identical, beside the gathered ``torch.bmm``; the
+     backward's SpMM alone (the dense f32 body over f32 value tiles at the
+     pack's positions · b [n, 41] f32) timed;
      mesh kernels: K3, K5 and both K7 sweeps over rank 0's slab of
      synth-reddit's mesh partition at one rank (square) and at 4 ranks with
      the boundary halo (rectangular, built on the host), against their
@@ -126,7 +133,9 @@ Phases, each printed on its own lines:
      capture of the epoch as one CUDA graph, 9 replays) with the launch
      counts set to 0 just before it:
      ``parallel_gcn_tpu_torch.cli.main(["synth-reddit", "epochs=10"])`` (the
-     GCN), the same with ``model=gat heads=2 hidden_dims=32
+     GCN), ``[main-gcn-f32]`` the same through ``train.fit`` at
+     ``compute_dtype=float32`` (every aggregation on K4's f32 body: ms/epoch,
+     the set-up pre-aggregation's seconds, the f32 launches), the same with ``model=gat heads=2 hidden_dims=32
      dropouts=0.0,0.1`` (the GAT), with ``ce_impl=pallas
      fuse_dropout_matmul=true`` (the fused GCN), with ``model=sage`` and
      with ``model=gin gin_eps=0`` (602 -> 600 -> 41); the GCN and the GAT
@@ -191,7 +200,8 @@ Phases, each printed on its own lines:
      hybrid, community reorder, 512x512 int8 tiles, the file's tile budget
      and ``min_tile_nnz``, bf16) with its node, edge, community and split
      counts cut to one eighth (``PRODUCTS_EIGHTH``): each set-up stage timed,
-     K4 at 47 (bf16) and 100 (f32) columns, the residual's gather-sum at 47
+     K4 at 47 (bf16) and 100 (f32, beside ``torch.sparse.mm``) columns,
+     the residual's gather-sum at 47
      and K2 on [n, 256] against their plain versions, then ``train.fit`` for
      ``PRODUCTS_EPOCHS`` epochs in ``mode=scan`` (the GCN's launches, a
      finite falling loss, ms/epoch, peak memory);
@@ -199,16 +209,17 @@ Phases, each printed on its own lines:
      full synth-products run's shapes and index widths on random inputs
      (activations [2,449,408, 256], 28,704 int8 tiles past 2^31 bytes,
      23,050,722 residual items with rows of up to 143,437) against their
-     plain versions;
+     plain versions, K4's f32 line at F=100 beside ``torch.sparse.mm``;
   9. resume, after the GCN's, the GAT's and the mesh GCN's main path:
      through ``cli.main`` (the mesh GCN in a torchrun world of one), 10
      epochs with ``early_stopping=0 checkpoint_every=5 checkpoint_dir=``, bit-equal
      to the unchunked scan of phase 7, then ``resume_from=`` its
      ckpt_000005.npz: epochs 6-10, test metrics and final weights bit-equal;
      the seconds to write and load a checkpoint, the chunked ms/epoch.
-Then one JSON line with every kernel's launches over all main paths (K3
-and K8, which no main path runs, under ``off_path_kernels``), error, times
-and bound
+Then one JSON line with every kernel's launches over all main paths (K3,
+K3 f32 and K8, which no main path runs, under ``off_path_kernels``; the
+tile SpMM's f32 body as "K4 f32" and "K3 rect f32", with its F=41 numbers
+beside), error, times and bound
 (the least time the card could take: the larger of the bytes each input
 read once and each output written once at 3.35 TB/s, and the operations at
 the peak rate of their type, H100 SXM data sheet), and last
@@ -287,11 +298,38 @@ def _pack_bytes(pack) -> int:
                    *([pack.sym_scale] if pack.sym_scale is not None else []))
 
 
+def _walk_bytes(pack) -> int:
+    """Bytes of a pack that the tile SpMM's f32 body reads: its live-entry
+    index (``BCSR.spmm_index``), block columns and segment schedule."""
+    idx, sched = pack.spmm_index, pack.spmm_schedule
+    return _nbytes(idx.ent, idx.rptr, pack.tile_cols, sched.seg_tile_ptr, sched.seg_row,
+                   sched.seg_slot, sched.multi_row, sched.multi_slot_ptr)
+
+
+def _spmm_bound(pack, x, out) -> dict:
+    """The tile SpMM's bound: the live entries' products at x's type's
+    rate, and the bytes of x, out and what the route reads of the pack (the
+    live-entry index for f32 x, the tiles for bf16)."""
+    import torch
+
+    nnz = int(pack.live_entries[0].numel())
+    f32 = x.dtype == torch.float32
+    nbytes = (_walk_bytes(pack) if f32 else _pack_bytes(pack)) + _nbytes(x, out)
+    return _bound(nbytes, 2 * nnz * x.shape[1], "f32" if f32 else "bf16")
+
+
 def _index_bytes(pack) -> int:
     """Bytes of a pack that K5/K6 read: its live-column index and the
     segment schedule's rows and slots."""
     idx, sched = pack.attn_index, pack.schedule
     return _nbytes(idx.ptr, idx.col, sched.seg_row, sched.seg_slot)
+
+
+def _f32_body(pack) -> str:
+    """How the f32 body's lines name it: with the pack's live entries a tile
+    column (how many entries each staged x row serves)."""
+    live = pack.spmm_index.ent.shape[0] / (pack.n_tiles * pack.tile_c)
+    return f"f32 body (live entries, {live:.2f} a tile column)"
 
 
 def _attn_bounds(pack, io: int, fmas_per: int, H: int, D: int) -> dict:
@@ -369,16 +407,38 @@ def phase_device():
 
 
 def phase_build():
+    """Starts the kernels' build (one nvcc a source) in a thread, so that the
+    host's set-up of the dataset runs beside it; returns a function that
+    waits for the build, raises its error if it failed and prints its
+    lines."""
+    import threading
+
     from parallel_gcn_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    _build.load_library()
-    secs = time.perf_counter() - t0
-    print(f"[build] kernels built and loaded in {secs:.2f} s "
-          f"({os.path.basename(_build.build_info['path'])})")
-    for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    res: dict = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            _build.load_library()
+        except BaseException as e:  # raised again in the main thread
+            res["error"] = e
+        res["secs"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=build)
+    th.start()
+
+    def finish():
+        th.join()
+        if "error" in res:
+            raise res["error"]
+        print(f"[build] kernels built and loaded in {res['secs']:.2f} s, beside the dataset's "
+              f"set-up ({os.path.basename(_build.build_info['path'])})")
+        for line in _build.build_info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {line.strip()}")
+
+    return finish
 
 
 def check_dropout(results: dict) -> None:
@@ -789,30 +849,51 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
     x41 = torch.randn((n, 41), generator=gen).to(torch.bfloat16).cuda()
     g41 = torch.randn((n, 41), generator=gen).cuda()
     x600 = torch.randn((n, 600), generator=gen).to(torch.bfloat16).cuda()
+    x41f = torch.randn((n, 41), generator=gen).cuda()  # an f32 hybrid run's per-epoch width
+    # the deferred schedule's stacked forward of an f32 run ([main-gcn-f32])
+    x82f = torch.cat([x41f, g41], dim=1)
     # K3: the same tiles as a plain pattern pack (no d scaling)
     pattern = dataclasses.replace(bcsr_pack, sym_scale=None)
     for key, pack in (("K4", bcsr_pack), ("K3", pattern)):
         errs = []
-        for x, rtol in ((x41, 2e-3), (x600, 2e-3), (x602, 1e-4), (gin602, 2e-3)):
+        csr = _pack_csr(pack)  # the library calls' CSR of the same matrix
+        t0 = time.perf_counter()
+        idx = pack.spmm_index
+        torch.cuda.synchronize()
+        print(f"[kernels] {key} the f32 body's live-entry index: {idx.ent.shape[0]} entries, "
+              f"{idx.rptr.numel()} row offsets, {_nbytes(idx.ent, idx.rptr)} bytes, built on "
+              f"the card in {time.perf_counter() - t0:.4f} s")
+        for x, rtol in ((x41, 2e-3), (x600, 2e-3), (x41f, 1e-4), (x82f, 1e-4), (x602, 1e-4),
+                        (gin602, 2e-3)):
             got = cb.bcsr_matmul_impl(pack, x)
             assert torch.equal(got, cb.bcsr_matmul_impl(pack, x)), f"{key}: two runs differ"
             ref = cb.bcsr_matmul_plain(pack, x)
             errs.append(_max_err(got, ref, rtol))
             ms = timer.events_ms(lambda: cb.bcsr_matmul_impl(pack, x), 10)
             pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(pack, x), 2)
-            kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
-            bound = _bound(_pack_bytes(pack) + _nbytes(x, got), 2 * pack_nnz * x.shape[1], kind)
-            print(f"[kernels] {key} bcsr fwd F={x.shape[1]} {x.dtype}: max_abs_err "
+            bound = _spmm_bound(pack, x, got)
+            body = _f32_body(pack) if x.dtype == torch.float32 else "bf16 body"
+            print(f"[kernels] {key} bcsr fwd F={x.shape[1]} {x.dtype}, {body}: max_abs_err "
                   f"{errs[-1]:.3e} (rtol {rtol}), runs bit-identical; kernel {ms:.4f} ms, "
                   f"plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            if x.dtype == torch.float32:
+                # the library call at the same width on the same f32 x
+                lib_ms = timer.events_ms(lambda: torch.sparse.mm(csr, x), 10)
+                print(f"[kernels] {key} library torch.sparse.mm (CSR f32, f32 x) "
+                      f"F={x.shape[1]}: {lib_ms:.4f} ms")
+                r = dict(ms=ms, plain_ms=pms, library_ms=lib_ms, err=errs[-1], **bound)
+                rec = results.setdefault(f"{key} f32", {})
+                if x is x602:  # the set-up pre-aggregation's width: the JSON line's numbers
+                    rec.update(r)
+                else:
+                    rec[f"F={x.shape[1]}"] = r
             if x is x600:
                 # the library call at the wide width: cuSPARSE on f32 x
-                csr = _pack_csr(pack)
                 x32 = x.float()
                 lib_ms = timer.events_ms(lambda: torch.sparse.mm(csr, x32), 10)
                 print(f"[kernels] {key} library torch.sparse.mm (CSR f32) F=600: "
                       f"{lib_ms:.4f} ms")
-                del csr, x32
+                del x32
             if x is x41:
                 out_bytes = x.shape[0] * x.shape[1] * 4
                 flops = 2 * pack_nnz * x.shape[1]  # the live entries' products
@@ -821,7 +902,6 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
                 # the one PyTorch call that computes A·x: cuSPARSE SpMM on a
                 # CSR of the same matrix (f32 values and x; the port never
                 # calls it)
-                csr = _pack_csr(pack)
                 x32 = x.float()
                 lib = torch.sparse.mm(csr, x32)
                 rel = float(((lib - got).abs().max() / got.abs().max()))
@@ -830,7 +910,7 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
                       f"{csr.values().numel()} nnz) F={x.shape[1]}: "
                       f"{results[key]['library_ms']:.4f} ms, max diff to the kernel "
                       f"{rel:.3e} of max|out| (the kernel rounds the scaled tile to bf16)")
-                del csr, lib, x32
+                del lib, x32
         # backward through autograd: the same kernel on the cotangent
         for x, g in ((x41.float(), g41), (x602, torch.randn(x602.shape, generator=gen).cuda())):
             grads = []
@@ -852,11 +932,20 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
               f"max_abs_err {errs[-1]:.3e} (rtol 2e-3), runs bit-identical")
         del signed, got
         results[key]["err"] = max(errs)
+        rec = results[f"{key} f32"]
+        rec["err"] = max(rec["err"], rec["F=41"]["err"], rec["F=82"]["err"])
         if key == "K4":
             # the wide call's bound: the pack, x [n, 82] bf16 in, [n, 82] f32 out
-            _check_stacked("K4", lambda x: cb.bcsr_matmul_impl(pack, x), x41,
-                           torch.randn((n, 41), generator=gen).to(torch.bfloat16).cuda(),
+            x41b = torch.randn((n, 41), generator=gen).to(torch.bfloat16).cuda()
+            _check_stacked("K4", lambda x: cb.bcsr_matmul_impl(pack, x), x41, x41b,
                            _bound(_pack_bytes(pack) + n * 82 * (2 + 4), 2 * pack_nnz * 82))
+            x82 = torch.cat([x41, x41b], dim=1).float()
+            lib_ms = timer.events_ms(lambda: torch.sparse.mm(csr, x82), 10)
+            results["K4"]["stacked_library_ms"] = lib_ms
+            print(f"[kernels] K4 library torch.sparse.mm (CSR f32) at the stacked F=82: "
+                  f"{lib_ms:.4f} ms")
+            del x41b, x82
+        del csr
 
 
 def _segment_case(results: dict, key: str, label: str, fn, ref, plain, library,
@@ -1164,8 +1253,9 @@ def _pack_csr(pack):
     import torch
 
     rows, cols, vals = [], [], []
-    for b0 in range(0, pack.n_tiles, 64):
-        blk = pack.tiles[b0 : b0 + 64]
+    step = max(64, (1 << 28) // (pack.tile_r * pack.tile_c))  # about 256 MB of int8 tiles
+    for b0 in range(0, pack.n_tiles, step):
+        blk = pack.tiles[b0 : b0 + step]
         t, r, c = (blk != 0).nonzero(as_tuple=True)
         v = blk[t, r, c].float()
         rows.append(pack.tile_rows[t + b0].long() * pack.tile_r + r)
@@ -1486,7 +1576,12 @@ def check_sddmm(results: dict, ds, cfg) -> None:
         b = torch.randn((n, 41), generator=gen).to(dtype).cuda()
         out = cs.sddmm_bcsr(pack, a, b)
         assert torch.equal(out, cs.sddmm_bcsr(pack, a, b)), "K8: two runs differ"
-        errs.append(_max_err(out, cs.sddmm_plain(pack, a, b), rtol))
+        ref = cs.sddmm_plain(pack, a, b)
+        errs.append(_max_err(out, ref, rtol))
+        # f32: exact FMAs in k order from 0, as the plain cuBLAS product
+        same = torch.equal(out, ref)
+        assert same or dtype != torch.float32, "K8 f32 is not bit-equal to its plain version"
+        del ref
         ms = timer.events_ms(lambda: cs.sddmm_bcsr(pack, a, b), 10)
         pms = timer.events_ms(lambda: cs.sddmm_plain(pack, a, b), 2)
         a3, b3 = a.view(-1, R, 41), b.view(-1, R, 41)
@@ -1497,11 +1592,14 @@ def check_sddmm(results: dict, ds, cfg) -> None:
         bound = _bound(_nbytes(a, b, pack.tile_rows, pack.tile_cols, out),
                        2 * T * R * R * 41, kind)
         print(f"[sddmm] K8 fwd a, b [{n}, 41] {dtype}: max_abs_err {errs[-1]:.3e} (rtol "
-              f"{rtol}), runs bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"torch.bmm of the gathered blocks {lib_ms:.4f} ms, bound "
+              f"{rtol}), bit-equal to plain: {same}, runs bit-identical; kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, torch.bmm of the gathered blocks {lib_ms:.4f} ms, bound "
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {_nbytes(out)} output bytes)")
+        r = dict(ms=ms, plain_ms=pms, library_ms=lib_ms, err=errs[-1], **bound)
         if dtype == torch.float32:
-            results["K8"] = dict(ms=ms, plain_ms=pms, library_ms=lib_ms, **bound)
+            results["K8"] = r
+        else:
+            results["K8"]["bf16"] = r
         del out
         torch.cuda.empty_cache()
         # backward: L = sum(out ⊙ W), W the pack's tiles; dA = W·b, dB = Wᵀ·a = W·a
@@ -1524,6 +1622,23 @@ def check_sddmm(results: dict, ds, cfg) -> None:
               f"max_abs_err {e:.3e}, runs bit-identical")
         del w, grads, ar, br
         torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            # the backward's SpMM alone: the dense f32 body over f32 value
+            # tiles (a score cotangent at the pack's positions) times b
+            g = torch.randn((T, R, pack.tile_c), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(9))
+            gpack = dataclasses.replace(pattern, tiles=g)
+            got = cb.bcsr_matmul_impl(gpack, b, dense_tiles=True)
+            assert torch.equal(got, cb.bcsr_matmul_impl(gpack, b, dense_tiles=True))
+            e = _max_err(got, cb.bcsr_matmul_plain(gpack, b), 1e-4)
+            ms = timer.events_ms(lambda: cb.bcsr_matmul_impl(gpack, b, dense_tiles=True), 3)
+            bound = _bound(_nbytes(g, b, got), 2 * g.numel() * 41, "f32")
+            print(f"[sddmm] the dense f32 SpMM body at K8's backward shape ({T} f32 value "
+                  f"tiles · b [{n}, 41] f32): max_abs_err {e:.3e} (rtol 1e-4), runs "
+                  f"bit-identical; kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']})")
+            del g, gpack, got
+            torch.cuda.empty_cache()
     results["K8"]["err"] = max(errs)
     del pack
     torch.cuda.empty_cache()
@@ -1574,8 +1689,8 @@ def check_bcsr_rect(results: dict, slab, tag: str, record: bool) -> None:
     from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
 
     gen = torch.Generator().manual_seed(6)
-    nnz = int(slab.live_entries[0].numel())
     errs = []
+    csr = _pack_csr(slab) if record else None
     for F, dtype, rtol in ((41, torch.bfloat16, 2e-3), (600, torch.bfloat16, 2e-3),
                            (602, torch.float32, 1e-4)):
         x = torch.randn((slab.n_nodes, F), generator=gen).to(dtype).cuda()
@@ -1584,22 +1699,25 @@ def check_bcsr_rect(results: dict, slab, tag: str, record: bool) -> None:
         errs.append(_max_err(got, cb.bcsr_matmul_plain(slab, x), rtol))
         ms = timer.events_ms(lambda: cb.bcsr_matmul_rect(slab, x), 10)
         pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(slab, x), 2)
-        kind = "bf16" if dtype == torch.bfloat16 else "f32"
-        bound = _bound(_pack_bytes(slab) + _nbytes(x, got), 2 * nnz * F, kind)
-        print(f"[mesh-kernels] K3 rect {tag} F={F} {dtype}: max_abs_err {errs[-1]:.3e} "
-              f"(rtol {rtol}), runs bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-        if record and F in (41, 600):
-            csr = _pack_csr(slab)
+        bound = _spmm_bound(slab, x, got)
+        body = _f32_body(slab) if dtype == torch.float32 else "bf16 body"
+        print(f"[mesh-kernels] K3 rect {tag} F={F} {dtype}, {body}: max_abs_err "
+              f"{errs[-1]:.3e} (rtol {rtol}), runs bit-identical; kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        if record:
             x32 = x.float()
             lib_ms = timer.events_ms(lambda: torch.sparse.mm(csr, x32), 10)
             print(f"[mesh-kernels] K3 rect {tag} library torch.sparse.mm (CSR f32, "
                   f"{csr.values().numel()} nnz) F={F}: {lib_ms:.4f} ms")
+            if F == 602:  # the mesh's set-up pre-aggregation
+                results["K3 rect f32"] = dict(ms=ms, plain_ms=pms, library_ms=lib_ms,
+                                              err=errs[-1], **bound)
             if F == 41:
                 results["K3 rect"] = dict(ms=ms, plain_ms=pms, library_ms=lib_ms, **bound)
                 _check_stacked(f"K3 rect {tag}", lambda h: cb.bcsr_matmul_rect(slab, h), x,
                                torch.randn(x.shape, generator=gen).to(dtype).cuda())
-            del csr, x32
+            del x32
+    del csr
     r = results.setdefault("K3 rect", {})
     r["err"] = max(r.get("err", 0.0), *errs)
 
@@ -1711,7 +1829,7 @@ def check_reference_mesh() -> None:
     runs = {
         "GCN flat all_gather": (config("segment", "all_gather"), []),
         "GCN hybrid int8 boundary": (config("hybrid", "boundary"),
-                                     [(cuda_bcsr.launches, "bcsr_rect")]),
+                                     [(cuda_bcsr.launches, "bcsr_rect_f32")]),
         "GAT mesh pack boundary": (config("hybrid", "boundary", gat=True),
                                    [(tile_attention.launches, k) for k in
                                     ("gat_fwd_rect", "gat_bwd_rect_row", "gat_bwd_rect_col")]),
@@ -1931,6 +2049,8 @@ def check_halo_case(name: str, csr, sg, sgb, device: str) -> dict:
         if g0.push.tiles is not None:
             pieces[f"push K3 alone F={F}"] = timer.events_ms(
                 lambda: tpl.bcsr_matmul_rect(g0.push.tiles, x0), 5)
+            pieces[f"push K3 bound F={F}"] = _spmm_bound(
+                g0.push.tiles, x0, tpl.bcsr_matmul_rect(g0.push.tiles, x0))["bound_ms"]
         part = tpl.push_partials(x0, g0.push)
         pieces[f"push partial slab F={F}"] = timer.events_ms(
             lambda: tpl.push_partials(x0, g0.push), 5)
@@ -2411,8 +2531,9 @@ def phase_mesh_path(tag: str, args: list[str], ds, single: dict,
                     deterministic: bool = True, falls: bool = True) -> dict:
     """``fit_parallel`` of synth-reddit with ``args`` over the params file,
     ``n_devices=1`` (a world of one over NCCL), ``mode=scan`` with every
-    launch count set to 0 just before it, then ``mode=eager`` for the
-    comparison (``_compare_modes``); checks the losses (as
+    launch count set to 0 just before it, then one more scan and
+    ``mode=eager`` for the comparison (``_compare_modes``, this run the first
+    of its two scans); checks the losses (as
     ``phase_main_path``) and returns the
     scan's launches, ms/epoch and captured epoch. Prints the halo
     used and both epochs beside ``single``'s (the single-card path's scan and
@@ -2447,7 +2568,8 @@ def phase_mesh_path(tag: str, args: list[str], ds, single: dict,
         cfg.train.verbose = verbose
         return fit_parallel(cfg, ds, n_devices=1, device="cuda")
 
-    eager_ms, scan_run = _compare_modes(tag, run, losses, ms, deterministic)
+    # the run above is the first of the two scans compared
+    eager_ms, scan_run = _compare_modes(tag, run, losses, ms, deterministic, first=res)
     per_replay = _per_replay(res.graph_launches)
     calls = {k: v for k, v in res.graph_launches.items()
              if k not in KERNEL_KEYS.values() and k not in HUB_KEYS.values()}
@@ -2621,7 +2743,8 @@ def check_reference() -> None:
                            (cuda_fused.launches, "fused_dw"), (cuda_fused.launches, "fused_dx")],
              "GAT pallas CE": [(tile_attention.launches, "gat_fwd"),
                                (cuda_ce.launches, "ce_train"), (cuda_ce.launches, "ce_eval")]}
-    agg = [(cuda_bcsr.launches, "bcsr_scaled"), (cuda_segment.launches, "gather_sum"),
+    # (f32 compute: K4's f32 body)
+    agg = [(cuda_bcsr.launches, "bcsr_scaled_f32"), (cuda_segment.launches, "gather_sum"),
            (cuda_dropout.launches, "dropout"), (cuda_dropout.launches, "relu_dropout")]
     watch["SAGE"] = watch["GIN"] = agg
     # SAGE and GIN pack only the tiles of 400 edges or more: 16 tiles and a
@@ -2655,7 +2778,10 @@ KERNEL_KEYS = {"K1": "dropout", "K2": "relu_dropout", "K3": "bcsr", "K4": "bcsr_
                "ordered segment_sum": "segment_sum", "K1 lanes": "dropout_lanes",
                "K2 lanes": "relu_dropout_lanes", "K2 lanes bwd": "relu_dropout_lanes_bwd",
                "K10 fwd lanes": "fused_fwd_lanes",
-               "K10 dW lanes": "fused_dw_lanes", "K10 dX lanes": "fused_dx_lanes"}
+               "K10 dW lanes": "fused_dw_lanes", "K10 dX lanes": "fused_dx_lanes",
+               # the tile SpMM's f32 body over the live-entry index
+               "K4 f32": "bcsr_scaled_f32", "K3 f32": "bcsr_f32",
+               "K3 rect f32": "bcsr_rect_f32"}
 # the ordered sums' hub kernels (launched beside the walk kernel by a call
 # whose work list has hubs), counted apart from KERNEL_KEYS so the launches
 # a replay stay those of the walk kernels
@@ -2733,12 +2859,52 @@ def _check_run(tag: str, what: str, out: str, secs: float, epochs: int,
     assert not falls or losses[-1] < losses[0], f"train loss did not fall: {losses}"
     test_acc = float(re.search(r"test_acc=(\S+)", out).group(1))
     assert math.isfinite(test_acc), test_acc
+    preagg = re.search(r"^setup: the input's pre-aggregation .* in (\S+) s$", out, re.M)
     print(f"[{tag}] {what} (mode=scan) in {secs:.1f} s: "
           f"{ms:.3f} ms/epoch over the {replays} replays of epochs 2-{epochs}, set-up (epoch 1 "
           f"and the capture) {setup_s:.3f} s, train loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
           f"test_acc {test_acc:.5f}, launches a replay {per_replay}, launches {counts}")
     return dict(counts=counts, losses=losses, history=history, ms=ms, setup_s=setup_s,
-                per_replay=per_replay, test_acc=test_acc)
+                per_replay=per_replay, test_acc=test_acc,
+                preagg_s=float(preagg.group(1)) if preagg else None)
+
+
+def phase_main_gcn_f32(dds) -> dict:
+    """``[main-gcn-f32]``: synth-reddit's GCN through ``train.fit`` on this
+    script's copy of the dataset at ``compute_dtype=float32`` (the config's
+    default, the reference's own precision) in ``mode=scan`` for ``EPOCHS``
+    epochs, the launch counts set to 0 just before it: every aggregation on
+    K4's f32 body over the live-entry index (built at the run's set-up
+    pre-aggregation: a new pack object). Prints ms/epoch, the pre-aggregation's
+    seconds and the f32 K4 launches; the loss must fall."""
+    import dataclasses
+
+    from parallel_gcn_tpu_torch.train import fit
+
+    # the pack as a user's run has it: no index built yet
+    pack = dataclasses.replace(dds.graph.bcsr)
+    dds = dataclasses.replace(dds, graph=dataclasses.replace(dds.graph, bcsr=pack))
+    cfg = _config(["compute_dtype=float32"], EPOCHS)
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        fit(cfg, dds, verbose=True)
+    out = _check_run("main-gcn-f32", "synth-reddit compute_dtype=float32 through train.fit",
+                     buf.getvalue(), time.perf_counter() - t0, EPOCHS)
+    # a replay: the deferred schedule (K2 once; K4 for the stacked forward
+    # at 82 columns and the backward at 41, each with the residual's
+    # gather-sum), all in f32; plus the pre-aggregation, the final val and
+    # the test eval
+    assert out["per_replay"] == {"K2": 1, "K4 f32": 2, "ordered gather_sum": 2}, \
+        out["per_replay"]
+    assert (out["counts"]["K4 f32"], out["counts"]["K4"], out["counts"]["K2"]) == (
+        2 * EPOCHS + 3, 0, EPOCHS), out
+    print(f"[main-gcn-f32] {out['ms']:.3f} ms/epoch (scan, float32), the set-up "
+          f"pre-aggregation Â·X at 602 columns in {out['preagg_s']:.4f} s, K4 f32 launches "
+          f"{out['counts']['K4 f32']}, train loss {out['losses'][0]:.5f} -> "
+          f"{out['losses'][-1]:.5f}")
+    return out
 
 
 def _steady_ms(out: str) -> float:
@@ -2777,9 +2943,11 @@ def _same_run(a, b) -> bool:
             and all(torch.equal(x, y) for x, y in zip(a.weights, b.weights)))
 
 
-def _compare_modes(tag: str, run, scan_losses, scan_ms: float, deterministic: bool = True):
+def _compare_modes(tag: str, run, scan_losses, scan_ms: float, deterministic: bool = True,
+                   first=None):
     """``run(mode, verbose)`` (a training run's ``FitResult``) twice in
-    ``mode=scan`` and once in ``mode=eager``, without PyTorch's
+    ``mode=scan`` (once where ``first``, the path's own scan run, is given:
+    it is the other) and once in ``mode=eager``, without PyTorch's
     deterministic algorithms: the two scans and the eager run must be the
     same run bit for bit (the ordered residual sums leave no atomics in an
     epoch), and the scan's train losses those ``cli.main`` printed (5
@@ -2790,7 +2958,8 @@ def _compare_modes(tag: str, run, scan_losses, scan_ms: float, deterministic: bo
     lines; the first scan run)."""
     import numpy as np
 
-    scan_a, scan_b = run("scan", False), run("scan", False)
+    scan_a = run("scan", False) if first is None else first
+    scan_b = run("scan", False)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         eager = run("eager", True)
@@ -3225,7 +3394,6 @@ def check_products_kernels(dds) -> None:
     gen = torch.Generator().manual_seed(16)
     g, pack = dds.graph, dds.graph.bcsr
     n = g.n_nodes
-    nnz = int(pack.live_entries[0].numel())
     for x, rtol in ((torch.randn((n, 47), generator=gen).to(torch.bfloat16).cuda(), 2e-3),
                     (dds.x, 1e-4)):
         got = cb.bcsr_matmul_impl(pack, x)
@@ -3233,11 +3401,18 @@ def check_products_kernels(dds) -> None:
         err = _max_err(got, cb.bcsr_matmul_plain(pack, x), rtol)
         ms = timer.events_ms(lambda: cb.bcsr_matmul_impl(pack, x), 10)
         pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(pack, x), 2)
-        kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
-        bound = _bound(_pack_bytes(pack) + _nbytes(x, got), 2 * nnz * x.shape[1], kind)
-        print(f"[main-products] K4 bcsr fwd F={x.shape[1]} {x.dtype} over {pack.n_tiles} tiles: "
+        bound = _spmm_bound(pack, x, got)
+        lib = ""
+        if x.dtype == torch.float32:  # the set-up Â·X: the library call beside it
+            csr = _pack_csr(pack)
+            lib = (f", torch.sparse.mm (CSR f32, f32 x) "
+                   f"{timer.events_ms(lambda: torch.sparse.mm(csr, x), 10):.4f} ms")
+            del csr
+        body = _f32_body(pack) if x.dtype == torch.float32 else "bf16 body"
+        print(f"[main-products] K4 bcsr fwd F={x.shape[1]} {x.dtype}, {body}, over "
+              f"{pack.n_tiles} tiles: "
               f"max_abs_err {err:.3e} (rtol {rtol}), runs bit-identical; kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+              f"plain {pms:.4f} ms{lib}, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
     x = torch.randn((n, 47), generator=gen).to(torch.bfloat16).cuda()
     check_segment_gather({}, None, "synth-products residual", x, g.row_seg)
     seed = 0x5EED_0F_C0DE
@@ -3325,12 +3500,18 @@ def phase_products_shapes() -> None:
         del ref
         ms = timer.events_ms(lambda: cb.bcsr_matmul_impl(pack, x), 10)
         pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(pack, x), 2)
-        kind = "bf16" if dtype == torch.bfloat16 else "f32"
-        bound = _bound(_pack_bytes(pack) + _nbytes(x, got), 2 * nnz * F, kind)
-        print(f"[products-shapes] K4 bcsr fwd F={F} {dtype} over {pack.n_tiles} tiles: "
+        bound = _spmm_bound(pack, x, got)
+        lib = ""
+        if dtype == torch.float32:  # the set-up Â·X: the library call beside it
+            csr = _pack_csr(pack)
+            lib = (f", torch.sparse.mm (CSR f32, f32 x) "
+                   f"{timer.events_ms(lambda: torch.sparse.mm(csr, x), 10):.4f} ms")
+            del csr
+        body = _f32_body(pack) if dtype == torch.float32 else "bf16 body"
+        print(f"[products-shapes] K4 bcsr fwd F={F} {dtype}, {body}, over {pack.n_tiles} tiles: "
               f"max_abs_err {err:.3e} (rtol {rtol}), on rows {r0}.. (tiles past 2^31 bytes) "
-              f"{err_past:.3e}, runs bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+              f"{err_past:.3e}, runs bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms"
+              f"{lib}, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
         del x, got
     del pack
     torch.cuda.empty_cache()
@@ -3482,17 +3663,19 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     kind = phase_device()
-    phase_build()
+    built = phase_build()
     build_native()
 
     t0 = time.perf_counter()
     cfg = load_config(default_params_path("synth-reddit"))
     ds_host, dds = prepare_device_dataset(cfg, "synth-reddit", torch.device("cuda"))
     torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    built()
     pack = dds.graph.bcsr
     per_row = torch.bincount(pack.tile_rows.long(), minlength=pack.n_tile_rows)
     print(f"[setup] synth-reddit generated, reordered and packed in "
-          f"{time.perf_counter() - t0:.1f} s: {pack.n_tiles} tiles "
+          f"{setup_s:.1f} s: {pack.n_tiles} tiles "
           f"{pack.tile_r}x{pack.tile_c} int8 (max {int(per_row.max())} per tile-row, "
           f"{pack.schedule.n_seg} segments, {pack.schedule.multi_row.numel()} split rows), "
           f"{dds.graph.n_edges_pad} padded residual edges, n_pad {dds.graph.n_nodes}")
@@ -3566,9 +3749,13 @@ def main(argv: list[str]) -> int:
     # and the gather-sum once each for the input pre-aggregation, the final
     # val eval and the test eval
     assert gcn["per_replay"] == {"K2": 1, "K4": 2, "ordered gather_sum": 2}, gcn["per_replay"]
-    assert gcn["counts"]["K2"] == EPOCHS and gcn["counts"]["K4"] == 2 * EPOCHS + 3, gcn
+    # (the pre-aggregation of the f32 input: K4's f32 body)
+    assert gcn["counts"]["K2"] == EPOCHS and gcn["counts"]["K4"] == 2 * EPOCHS + 2, gcn
+    assert gcn["counts"]["K4 f32"] == 1, gcn
     assert gcn["counts"]["ordered gather_sum"] == 2 * EPOCHS + 3, gcn
     _stamp("main-gcn")
+    gcn_f32 = phase_main_gcn_f32(dds)
+    _stamp("main-gcn-f32")
     resume = {"GCN": phase_resume("resume-gcn", [], gcn["scan_run"], gcn["ms"])}
     _stamp("resume-gcn")
     gat = phase_main_path("main-gat", ["synth-reddit", *GAT_ARGS, f"epochs={EPOCHS}"])
@@ -3596,7 +3783,8 @@ def main(argv: list[str]) -> int:
                                    "K10 dW": 1, "K10 dX": 1, "ordered gather_sum": 2}, \
         fused["per_replay"]
     assert (fused["counts"]["K9 train"], fused["counts"]["K9 eval"], fused["counts"]["K4"],
-            fused["counts"]["K2"]) == (EPOCHS, EPOCHS + 2, 2 * EPOCHS + 3, 0), fused
+            fused["counts"]["K4 f32"], fused["counts"]["K2"]) == (
+        EPOCHS, EPOCHS + 2, 2 * EPOCHS + 2, 1, 0), fused
     diff = max(abs(a - b) for a, b in zip(gcn["losses"], fused["losses"]))
     print(f"[main-fused] {fused['ms']:.3f} ms/epoch (scan) against the default GCN path's "
           f"{gcn['ms']:.3f} (epochs 2-{EPOCHS}); train-loss trajectories differ by at most "
@@ -3635,9 +3823,9 @@ def main(argv: list[str]) -> int:
     assert main_seeds["per_replay"] == {"K2 lanes": 1, "K2 lanes bwd": 1, "K4": 2,
                                         "ordered gather_sum": 2}, main_seeds["per_replay"]
     assert (main_seeds["counts"]["K2 lanes"], main_seeds["counts"]["K2 lanes bwd"],
-            main_seeds["counts"]["K4"], main_seeds["counts"]["ordered gather_sum"],
-            main_seeds["counts"]["K2"]) == (
-        EPOCHS, EPOCHS, 2 * EPOCHS + 3, 2 * EPOCHS + 3, 0), main_seeds
+            main_seeds["counts"]["K4"], main_seeds["counts"]["K4 f32"],
+            main_seeds["counts"]["ordered gather_sum"], main_seeds["counts"]["K2"]) == (
+        EPOCHS, EPOCHS, 2 * EPOCHS + 2, 1, 2 * EPOCHS + 3, 0), main_seeds
     _stamp("main-seeds")
     families = {tag: phase_seeds_family(tag, args, dds, lanes)
                 for tag, args, lanes in SEED_FAMILIES}
@@ -3690,9 +3878,9 @@ def main(argv: list[str]) -> int:
     # 47); plus the pre-aggregation at 100, the final val eval and the test
     assert products["per_replay"] == {"K2": 1, "K4": 2, "ordered gather_sum": 2}, \
         products["per_replay"]
-    assert (products["counts"]["K2"], products["counts"]["K4"],
+    assert (products["counts"]["K2"], products["counts"]["K4"], products["counts"]["K4 f32"],
             products["counts"]["ordered gather_sum"]) == (
-        PRODUCTS_EPOCHS, 2 * PRODUCTS_EPOCHS + 3, 2 * PRODUCTS_EPOCHS + 3), products
+        PRODUCTS_EPOCHS, 2 * PRODUCTS_EPOCHS + 2, 1, 2 * PRODUCTS_EPOCHS + 3), products
     _stamp("main-products")
     phase_products_shapes()
     _stamp("products-shapes")
@@ -3704,9 +3892,9 @@ def main(argv: list[str]) -> int:
     # test
     assert mesh_gcn["per_replay"] == {"K2": 1, "K3 rect": 2, "ordered gather_sum": 2}, \
         mesh_gcn["per_replay"]
-    assert (mesh_gcn["counts"]["K3 rect"], mesh_gcn["counts"]["K2"],
-            mesh_gcn["counts"]["ordered gather_sum"]) == (
-        2 * EPOCHS + 3, EPOCHS, 2 * EPOCHS + 3), mesh_gcn
+    assert (mesh_gcn["counts"]["K3 rect"], mesh_gcn["counts"]["K3 rect f32"],
+            mesh_gcn["counts"]["K2"], mesh_gcn["counts"]["ordered gather_sum"]) == (
+        2 * EPOCHS + 2, 1, EPOCHS, 2 * EPOCHS + 3), mesh_gcn
     _stamp("main-mesh-gcn")
     resume["mesh GCN"] = phase_resume("resume-mesh-gcn", MESH_GCN_ARGS, mesh_gcn["scan_run"],
                                       mesh_gcn["ms"], mesh=True)
@@ -3780,7 +3968,8 @@ def main(argv: list[str]) -> int:
     phase_profile_mesh("SAGE", MESH_SAGE_ARGS, ds)
     phase_profile_mesh("GIN", MESH_GIN_ARGS, ds)
     _stamp("mesh profiles")
-    paths = {"GCN": gcn, "GAT": gat, "GCN fused": fused, "SAGE": sage, "GIN": gin,
+    paths = {"GCN": gcn, "GCN float32": gcn_f32, "GAT": gat, "GCN fused": fused, "SAGE": sage,
+             "GIN": gin,
              "mesh GCN": mesh_gcn, "mesh GAT": mesh_gat, "mesh SAGE": mesh_sage,
              "mesh GIN": mesh_gin, "GCN remat": remat["GCN"], "GAT remat": remat["GAT"],
              "mesh GCN ring": ring, "mesh SAGE ring": ring_sage, "mesh GCN adaptive": adaptive,
@@ -3834,6 +4023,11 @@ def main(argv: list[str]) -> int:
         entry("K1", "dropout", drop_src, "parallel_gcn_tpu/ops/pallas_dropout.py:30"),
         entry("K2", "relu_dropout", drop_src, "parallel_gcn_tpu/ops/pallas_dropout.py:142"),
         entry("K4", "bcsr_spmm_scaled", bcsr_src, "parallel_gcn_tpu/ops/pallas_bcsr.py:254"),
+        # the f32 body (spmm_walk_kernel): the set-up pre-aggregation's F=602
+        # numbers, F=41's and the stacked F=82's under their widths
+        {**entry("K4 f32", "bcsr_spmm_scaled_f32", bcsr_src,
+                 "parallel_gcn_tpu/ops/pallas_bcsr.py:254"), "F=41": results["K4 f32"]["F=41"],
+         "F=82": results["K4 f32"]["F=82"]},
         entry("K5", "gat_fwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:179"),
         entry("K6", "gat_bwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:283"),
         entry("K9 train", "masked_ce_train", ce_src, "parallel_gcn_tpu/ops/pallas_ce.py:77"),
@@ -3845,6 +4039,8 @@ def main(argv: list[str]) -> int:
         entry("K10 dX", "dropout_matmul_dx", mm_src,
               "parallel_gcn_tpu/ops/pallas_fused.py:93"),
         entry("K3 rect", "bcsr_spmm_rect", bcsr_src,
+              "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),
+        entry("K3 rect f32", "bcsr_spmm_rect_f32", bcsr_src,
               "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),
         entry("K5 rect", "gat_fwd_rect", attn_src,
               "parallel_gcn_tpu/ops/tile_attention.py:179"),
@@ -3875,8 +4071,11 @@ def main(argv: list[str]) -> int:
         # ported kernels that no main path launches
         "off_path_kernels": [
             entry("K3", "bcsr_spmm", bcsr_src, "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),
-            entry("K8", "sddmm_bcsr", "parallel_gcn_tpu_torch/csrc/sddmm.cu",
-                  "parallel_gcn_tpu/ops/pallas_sddmm.py:36"),
+            {**entry("K3 f32", "bcsr_spmm_f32", bcsr_src,
+                     "parallel_gcn_tpu/ops/pallas_bcsr.py:190"),
+             "F=41": results["K3 f32"]["F=41"]},
+            {**entry("K8", "sddmm_bcsr", "parallel_gcn_tpu_torch/csrc/sddmm.cu",
+                     "parallel_gcn_tpu/ops/pallas_sddmm.py:36"), "bf16": results["K8"]["bf16"]},
         ],
     }))
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,28 @@ of the outputs). The base also sweeps the tiles per segment
 ``--parent DIR`` also times the K3/K4 of another checkout's package (e.g.
 the parent commit unpacked with ``git archive``) in a process of its own.
 
+    python3 kernel_variants.py spmm-f32 [--parent DIR]    # the f32 tile SpMM body
+    python3 kernel_variants.py sddmm [--parent DIR]       # K8 and the dense f32 SpMM body
+
+The f32 body of the tile SpMM (``spmm_walk_kernel`` in
+``csrc/bcsr_spmm.cu``, K3/K4 at f32 compute) on synth-reddit's int8 pack at
+F=41 (an f32 hybrid run's per-epoch width) and 602 (the set-up Â·X), as K4
+and as K3, and on a random pack of the full products run's 28,704 512x512
+tiles at F=100: each against its plain version (rtol 1e-4, two runs
+bit-identical), at both warp shapes (32 rows × 64 features, 16 × 128), beside
+``torch.sparse.mm`` on f32 x, the dense FMA body of this tree and of
+``--parent`` (the parent's ``csrc/bcsr_spmm.cu`` built alone and loaded in
+this process; parent, change, change, parent), the bound of the index, x and
+out; the index's build; segment lengths; ``SPMM_F32_VARIANTS`` (the ring
+depth, and the x staging and the FMAs removed, wrong on purpose). K8
+(``csrc/sddmm.cu``) on synth-reddit's square 512x512 int8 pack with a, b
+[n, 41] f32 and bf16: against its plain version, this tree and the parent's
+kernel (its ``csrc/sddmm.cu`` built alone, on the unpadded inputs) in turns,
+``torch.bmm`` of the gathered blocks, ``SDDMM_VARIANTS`` (CTAs an SM, the k
+loop's unrolling, and the stores or the products removed, wrong on
+purpose); and the dense f32 SpMM body at K8's backward shape, this tree and
+the parent. Times are ``utils.timer.events_ms``.
+
     python3 kernel_variants.py segment [--parent DIR]     # the ordered sums: every variant
     python3 kernel_variants.py segment-paths --parent DIR [--only NAME,...]  # paths' ms/epoch
     python3 kernel_variants.py attention [--parent DIR]   # K5/K6: every variant in one process
@@ -1479,6 +1501,369 @@ def segment_paths(parent: str | None, only: list[str] | None = None) -> int:
     return 0
 
 
+# name -> [(text, replacement)] in csrc/bcsr_spmm.cu: the f32 body's design
+# steps (its ring depth, window, entry loop) and wrong-on-purpose variants
+# that each remove one cost (the x staging; the x reads and FMAs, which
+# leaves the index walk)
+SPMM_F32_VARIANTS = {
+    "as-is": [],  # the checkout's source: its ptxas line
+    "f32-stages-2": [("constexpr int kWalkStages = 3;", "constexpr int kWalkStages = 2;")],
+    "f32-window-64": [("constexpr int kWalkWin = 128;", "constexpr int kWalkWin = 64;")],
+    # 8-warp CTAs (two an SM where the shared memory allows: the 32 × 64 shape)
+    "f32-8-warps": [("constexpr int kWalkWarps = 16;", "constexpr int kWalkWarps = 8;"),
+                    ("__launch_bounds__(kWalkWarps * 32, 1)", "__launch_bounds__(kWalkWarps * 32, 2)")],
+    "f32-entry-loop-unroll-1": [("#pragma unroll 4\n        for (int j = d >> 16; j < b; ++j) {",
+                                 "#pragma unroll 1\n        for (int j = d >> 16; j < b; ++j) {")],
+    # wrong on purpose: no x staging copies; no x reads or FMAs (the index
+    # walk alone)
+    "f32-no-staging": [("if (f < fw) cp_async16_x(st + k * kFB + f, src + (size_t)k * ldx + f);",
+                        "(void)src;")],
+    "f32-walk-only": [("FVec<VEC>::fma(acc[i], __int_as_float(en.x), xv);",
+                       "acc[i][0] += __int_as_float(en.x);")],
+}
+# name -> [(text, replacement)] in csrc/sddmm.cu: K8's design steps and
+# wrong-on-purpose variants (no stores; no products)
+SDDMM_VARIANTS = {
+    "as-is": [],  # the checkout's source: its ptxas line
+    "one-cta-an-sm": [("constexpr int kFmaCtas = kNCF == 128 ? 2 : 3;",
+                       "constexpr int kFmaCtas = 1;"),
+                      ("cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)",
+                       "(per_sm = 1, cudaSuccess)")],
+    "fma-unroll-1": [("#pragma unroll 2\n    for (int k = 0; k < kn; ++k) {",
+                      "#pragma unroll 1\n    for (int k = 0; k < kn; ++k) {")],
+    "fma-unroll-4": [("#pragma unroll 2\n    for (int k = 0; k < kn; ++k) {",
+                      "#pragma unroll 4\n    for (int k = 0; k < kn; ++k) {")],
+    # f32: 128 × 64 outputs a step, 8 × 4 a thread, three CTAs an SM
+    "f32-64-columns": [("constexpr int kNCF = 128;", "constexpr int kNCF = 64;")],
+    # the f32 staging's row pitch 128: the k-fastest copies' writes 32 ways
+    # conflicting; the bf16 fragments stored straight (8 bytes a lane)
+    "f32-pitch-128": [("constexpr int kSF = kBlk + 4;", "constexpr int kSF = kBlk;")],
+    "bf16-direct-stores": [("constexpr bool kStoreViaSmem = true;",
+                            "constexpr bool kStoreViaSmem = false;")],
+    "no-stores": [("    if (p.kc == nkc - 1) {\n      float* dst = out + ((size_t)p.t * tile_r + p.rb * kBlk) * tile_c",
+                   "    if (p.kc == nkc - 1 && acc[0][0] == 12345.0f) {\n      float* dst = out + ((size_t)p.t * tile_r + p.rb * kBlk) * tile_c"),
+                  ("    if (p.kc == nkc - 1) {\n      if constexpr (kStoreViaSmem) {",
+                   "    if (p.kc == nkc - 1 && acc[0][0] == 12345.0f) {\n      if constexpr (kStoreViaSmem) {")],
+    "no-products": [("for (int k = 0; k < kn; ++k) {\n      const float4 a0", "for (int k = 0; k < 0; ++k) {\n      const float4 a0"),
+                    ("mma_bf16(acc[n], a0, a1, a2, a3, lds32(br), lds32(br + 8));",
+                     "acc[n][0] += __uint_as_float(a0 ^ lds32(br));")],
+}
+_PTXAS_WALK = (("spmm_walk_kernelILi2ELi2EE", "walk 32x64"),
+               ("spmm_walk_kernelILi4ELi1EE", "walk 16x128"))
+_PTXAS_SDDMM = (("sddmm_fma_kernel", "K8 f32"), ("sddmm_mma_kernel", "K8 bf16"))
+
+
+def _start_parent_build(parent: str, rel: str, family: str):
+    """nvcc of ``parent``'s ``rel`` (one source of its package, with its
+    headers) into ``.smoke/variants/<family>/libparent.so``, in a thread;
+    returns a function that waits and gives the library's path (None and
+    the error printed when the build fails)."""
+    import threading
+
+    from parallel_gcn_tpu_torch.ops import _build
+
+    out_dir = os.path.join(ROOT, ".smoke", "variants", family)
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "libparent.so")
+    res = {}
+
+    def build():
+        try:
+            _build._run_nvcc([os.path.join(os.path.abspath(parent), PKG, rel)], lib)
+            res["lib"] = lib
+        except RuntimeError as e:
+            print(f"[variant] the parent's {rel} not built: {e}", flush=True)
+
+    th = threading.Thread(target=build)
+    th.start()
+    return lambda: (th.join(), res.get("lib"))[1]
+
+
+def _check(torch, got, ref, rtol) -> float:
+    """max |got - ref| after asserting it within rtol·|ref| + 1e-5·max|ref|."""
+    err = (got - ref).abs()
+    assert bool((err <= rtol * ref.abs() + 1e-5 * ref.abs().max()).all()), float(err.max())
+    return float(err.max())
+
+
+def _parent_spmm(torch, cb, lib, pack, x):
+    """The parent's tile SpMM entry (its f32 body: FMAs over every tile
+    entry) on ``pack`` and f32 x, called as the parent's wrapper called it."""
+    import ctypes
+
+    sched = pack.spmm_schedule
+    out = torch.empty((pack.n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    ws = torch.empty((sched.n_slots, pack.tile_r, x.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    rc = lib.pgcn_bcsr_spmm(
+        pack.tiles.data_ptr(), cb._DTYPE_CODE[pack.tiles.dtype], sched.seg_tile_ptr.data_ptr(),
+        sched.seg_row.data_ptr(), sched.seg_slot.data_ptr(), sched.n_seg,
+        sched.multi_row.data_ptr(), sched.multi_slot_ptr.data_ptr(), sched.multi_row.shape[0],
+        pack.tile_cols.data_ptr(),
+        pack.sym_scale.data_ptr() if pack.sym_scale is not None else None, x.data_ptr(), 0,
+        out.data_ptr(), ws.data_ptr(), pack.tile_r, pack.tile_c, x.shape[1], x.shape[1],
+        int(pack.nonneg_tiles), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc == 0, rc
+    return out
+
+
+def _spmm_f32_row(torch, cb, label, pack, x, parent_lib, csr):
+    """One case of ``spmm-f32``: the walk at each shape against the plain
+    version (two runs bit-identical); the parent's f32 body (its FMA kernel
+    over every tile entry, the parent's library loaded in this process) and
+    this tree's default in turns (parent, change, change, parent);
+    ``torch.sparse.mm`` on f32 x; the bound of the walk's bytes (index, x,
+    out)."""
+    got = cb.bcsr_matmul_impl(pack, x)
+    assert torch.equal(got, cb.bcsr_matmul_impl(pack, x)), f"{label}: two runs differ"
+    err = _check(torch, got, cb.bcsr_matmul_plain(pack, x), 1e-4)
+    walk = {}
+    old = cb.SPMM_WALK_WIDE
+    for shape, wide in (("32x64", 1 << 30), ("16x128", 0)):
+        cb.SPMM_WALK_WIDE = wide
+        o = cb.bcsr_matmul_impl(pack, x)
+        assert torch.equal(o, cb.bcsr_matmul_impl(pack, x)), f"{label} {shape}: runs differ"
+        _check(torch, o, got, 1e-5)
+        walk[shape] = _events_ms(lambda: cb.bcsr_matmul_impl(pack, x))
+    cb.SPMM_WALK_WIDE = old
+    idx = pack.spmm_index
+    default = '16x128' if x.shape[1] > cb.SPMM_WALK_WIDE else '32x64'
+    live = idx.ent.shape[0] / (pack.n_tiles * pack.tile_c)
+    times = []
+    for who in ("parent", "change", "change", "parent"):
+        if who == "parent":
+            if parent_lib is not None:
+                times.append("parent " + format(_events_ms(
+                    lambda: _parent_spmm(torch, cb, parent_lib, pack, x), 3), ".4f"))
+        else:
+            times.append(f"change {_events_ms(lambda: cb.bcsr_matmul_impl(pack, x)):.4f}")
+    nbytes = sum(t.numel() * t.element_size() for t in (idx.ent, idx.rptr, x, got))
+    lib_ms = _events_ms(lambda: torch.sparse.mm(csr, x)) if csr is not None else float("nan")
+    print(f"[spmm-f32] {label}: max_abs_err {err:.3e} (rtol 1e-4), runs bit-identical; walk "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in walk.items())} ms (the default: {default}; "
+          f"{live:.2f} live entries a tile column); "
+          f"{', '.join(times)} ms; torch.sparse.mm f32 {lib_ms:.4f} ms; bound "
+          f"{nbytes / 3.35e12 * 1e3:.4f} ms ({nbytes} bytes: index, x, out)", flush=True)
+    return got
+
+
+def spmm_f32_family(parent: str | None) -> int:
+    """The f32 tile SpMM body (K3/K4 at f32) of the checkout: the walk at
+    both shapes, its source variants and segment lengths, the dense FMA body
+    of this tree and of ``parent``, ``torch.sparse.mm``; on synth-reddit's
+    pack at F=41 and 602 and on a random products-sized pack at F=100."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from parallel_gcn_tpu_torch.harness.pack_census import _random_pack
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    join = _start_builds(SPMM, SPMM_F32_VARIANTS, "spmm-f32")
+    parent_join = _start_parent_build(parent, SPMM, "spmm-f32") if parent else (lambda: None)
+    base = _build.load_library()
+    print(f"[spmm-f32] base ptxas: {_ptxas(_build.build_info['log'], _PTXAS_WALK)}", flush=True)
+    from parallel_gcn_tpu_torch.config import default_params_path, load_config
+    from parallel_gcn_tpu_torch.data.parser import prepare_device_dataset
+
+    cfg = load_config(default_params_path("synth-reddit"))
+    _, dds = prepare_device_dataset(cfg, "synth-reddit", torch.device("cuda"))
+    pack = dds.graph.bcsr
+    x602 = dds.x.float().contiguous()
+    gen = torch.Generator().manual_seed(2)
+    x41 = torch.randn((pack.n_nodes, 41), generator=gen).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = pack.spmm_index
+    torch.cuda.synchronize()
+    print(f"[spmm-f32] synth-reddit pack: {pack.n_tiles} tiles {pack.tile_r}x{pack.tile_c} "
+          f"int8; the index: {idx.ent.shape[0]} entries, {idx.rptr.numel()} row offsets, built in "
+          f"{time.perf_counter() - t0:.4f} s; again (events) "
+          f"{_events_ms(lambda: cb.spmm_index(pack), 3):.4f} ms", flush=True)
+    # how the live entries spread over the walk's units: a step (tile, chunk)
+    # of a CTA, its warps' runs (16 and 32 rows), its rows
+    cnt = (idx.rptr[1:] - idx.rptr[:-1]).view(pack.n_tiles, -1, pack.tile_r).float()
+    for rows in (16, 32):
+        g = cnt.view(cnt.shape[0], cnt.shape[1], -1, rows).sum(-1)
+        q = torch.quantile(g.flatten()[:1 << 24], torch.tensor([0.5, 0.99], device=g.device))
+        print(f"[spmm-f32] entries a warp's run of {rows} rows a chunk: mean "
+              f"{float(g.mean()):.1f}, median {float(q[0]):.0f}, p99 {float(q[1]):.0f}, max "
+              f"{float(g.max()):.0f}; the busiest warp of a 512-row step: mean "
+              f"{float(g.view(g.shape[0], g.shape[1], -1).amax(-1).mean()):.1f}", flush=True)
+    print(f"[spmm-f32] entries a row a chunk: max {float(cnt.max()):.0f}, rows with more than "
+          f"2: {float((cnt > 2).float().mean()):.4f}", flush=True)
+    del cnt
+    parent_lib = parent_join()
+    if parent_lib is not None:
+        import ctypes
+
+        parent_lib = ctypes.CDLL(parent_lib)
+        parent_lib.pgcn_bcsr_spmm.argtypes = base.pgcn_bcsr_spmm.argtypes
+        parent_lib.pgcn_bcsr_spmm.restype = base.pgcn_bcsr_spmm.restype
+    libs, errors = join()
+    for name, err in errors.items():
+        print(f"[spmm-f32] {name} not built: {err}", flush=True)
+    pattern = dataclasses.replace(pack, sym_scale=None)
+    cases = [("K4 F=41", pack, x41), ("K4 F=602 (the set-up Â·X)", pack, x602),
+             ("K3 F=41", pattern, x41), ("K3 F=602", pattern, x602)]
+    import chip_smoke  # the smoke's CSR of a pack, for the library call
+
+    csrs = {id(pack): chip_smoke._pack_csr(pack), id(pattern): chip_smoke._pack_csr(pattern)}
+    for label, pk, x in cases:
+        _spmm_f32_row(torch, cb, label, pk, x, parent_lib, csrs[id(pk)])
+    rows_np = pack.tile_rows.cpu().numpy()
+    for tiles in (2, 8):
+        sched = cb.tile_schedule(rows_np, pack.n_tile_rows, tiles).to(pack.tiles.device)
+        pk = dataclasses.replace(pack, spmm_schedule=sched)
+        pk.__dict__["spmm_index"] = idx
+        print(f"[spmm-f32] segments of {tiles} tiles: K4 F=41 "
+              f"{_events_ms(lambda: cb.bcsr_matmul_impl(pk, x41)):.4f} ms, F=602 "
+              f"{_events_ms(lambda: cb.bcsr_matmul_impl(pk, x602)):.4f} ms", flush=True)
+    for name, (path, log) in libs.items():
+        _load_variant(path, base, ["pgcn_bcsr_spmm", "pgcn_bcsr_spmm_walk"])
+        o41, o602 = cb.bcsr_matmul_impl(pack, x41), cb.bcsr_matmul_impl(pack, x602)
+        print(f"[spmm-f32] {name}: K4 F=41 {_events_ms(lambda: cb.bcsr_matmul_impl(pack, x41)):.4f}"
+              f" ms ({_digest(o41)}), F=602 "
+              f"{_events_ms(lambda: cb.bcsr_matmul_impl(pack, x602)):.4f} ms ({_digest(o602)}) "
+              f"[ptxas: {_ptxas(log, _PTXAS_WALK)}]", flush=True)
+    _build._lib = base
+    print(f"[spmm-f32] base digests: F=41 {_digest(cb.bcsr_matmul_impl(pack, x41))}, F=602 "
+          f"{_digest(cb.bcsr_matmul_impl(pack, x602))}", flush=True)
+    del dds, x602, x41, csrs, pack, pattern, idx
+    torch.cuda.empty_cache()
+    # products' set-up Â·X at F=100 over a random pack of the full run's 28,704 tiles
+    rpack = _random_pack(4784, 512, 6, np.random.default_rng(16)).to(torch.device("cuda"))
+    x100 = torch.randn((rpack.n_nodes, 100), device="cuda")
+    _spmm_f32_row(torch, cb, f"K4 F=100 over {rpack.n_tiles} random 512x512 tiles", rpack,
+                  x100, parent_lib, chip_smoke._pack_csr(rpack))
+    return int(bool(errors))
+
+
+def _sddmm_parent_call(torch, lib, pack, a, b):
+    """The parent's K8 entry (same C signature) on unpadded a, b."""
+    import ctypes
+
+    out = torch.empty((pack.n_tiles, pack.tile_r, pack.tile_c), dtype=torch.float32,
+                      device=a.device)
+    rc = lib.pgcn_sddmm(pack.tile_rows.data_ptr(), pack.tile_cols.data_ptr(), pack.n_tiles,
+                        a.data_ptr(), b.data_ptr(), 0 if a.dtype == torch.float32 else 1,
+                        a.shape[1], out.data_ptr(), pack.tile_r, pack.tile_c,
+                        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc == 0, rc
+    return out
+
+
+def sddmm_family(parent: str | None) -> int:
+    """K8 of the checkout and its source variants, and of ``parent``, on
+    synth-reddit's square 512x512 int8 pack with a, b [n, 41] in f32 and
+    bf16 (parent, change, change, parent); ``torch.bmm`` of the gathered
+    blocks; and the dense f32 SpMM body at K8's backward shape (the score
+    cotangent's value tiles · b [n, 41] f32) of this tree and the parent."""
+    import ctypes
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from parallel_gcn_tpu_torch.config import default_params_path, load_config
+    from parallel_gcn_tpu_torch.data.parser import prepare_host_dataset, to_device
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+    from parallel_gcn_tpu_torch.ops import cuda_sddmm as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    join = _start_builds("csrc/sddmm.cu", SDDMM_VARIANTS, "sddmm")
+    pj_sddmm = _start_parent_build(parent, "csrc/sddmm.cu", "sddmm") if parent else None
+    pj_spmm = _start_parent_build(parent, SPMM, "sddmm-spmm") if parent else None
+    base = _build.load_library()
+    print(f"[sddmm] base ptxas: {_ptxas(_build.build_info['log'], _PTXAS_SDDMM)}", flush=True)
+    cfg = load_config(default_params_path("synth-reddit"))
+    ds = prepare_host_dataset(cfg, "synth-reddit")
+    pack = to_device(ds, device=torch.device("cuda"), node_pad=cfg.tpu.node_pad, hybrid=True,
+                     tile_dtype="int8", tile_size=512, tile_cols=512,
+                     tile_budget_mb=cfg.tpu.tile_budget_mb,
+                     min_tile_nnz=cfg.tpu.min_tile_nnz).graph.bcsr
+    del ds
+    n, T, R = pack.n_nodes, pack.n_tiles, pack.tile_r
+    print(f"[sddmm] synth-reddit square pack: {T} int8 tiles {R}x{pack.tile_c}", flush=True)
+    plib = None
+    if pj_sddmm is not None and (path := pj_sddmm()) is not None:
+        plib = ctypes.CDLL(path)
+        plib.pgcn_sddmm.argtypes = base.pgcn_sddmm.argtypes
+        plib.pgcn_sddmm.restype = base.pgcn_sddmm.restype
+    libs, errors = join()
+    for name, err in errors.items():
+        print(f"[sddmm] {name} not built: {err}", flush=True)
+    gen = torch.Generator().manual_seed(8)
+    rows, cols = pack.tile_rows.long(), pack.tile_cols.long()
+    inputs = {}
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-3)):
+        a = torch.randn((n, 41), generator=gen).to(dtype).cuda()
+        b = torch.randn((n, 41), generator=gen).to(dtype).cuda()
+        inputs[dtype] = (a, b)
+        out = cs.sddmm_bcsr(pack, a, b)
+        assert torch.equal(out, cs.sddmm_bcsr(pack, a, b)), "K8: two runs differ"
+        ref = cs.sddmm_plain(pack, a, b)
+        err = _check(torch, out, ref, rtol)
+        same = torch.equal(out, ref)
+        del ref
+        times = []
+        for who in ("parent", "change", "change", "parent"):
+            if who == "parent" and plib is None:
+                continue
+            fn = ((lambda: _sddmm_parent_call(torch, plib, pack, a, b)) if who == "parent"
+                  else (lambda: cs.sddmm_bcsr(pack, a, b)))
+            times.append(f"{who} {_events_ms(fn, 6):.4f}")
+        a3, b3 = a.view(-1, R, 41), b.view(-1, R, 41)
+        bmm = _events_ms(lambda: torch.bmm(a3[rows], b3[cols].transpose(1, 2)), 3)
+        flops = 2 * T * R * pack.tile_c * 41
+        nbytes = out.numel() * 4 + 2 * a.numel() * a.element_size()
+        bound = max(nbytes / 3.35e12, flops / (67e12 if dtype == torch.float32 else 989e12))
+        print(f"[sddmm] K8 {dtype}: max_abs_err {err:.3e} (rtol {rtol}; bit-equal to plain: "
+              f"{same}), runs bit-identical; {', '.join(times)} ms; torch.bmm {bmm:.4f} ms; "
+              f"bound {bound * 1e3:.4f} ms; digest {_digest(out)}", flush=True)
+        del out
+        torch.cuda.empty_cache()
+    for name, (path, log) in libs.items():
+        _load_variant(path, base, ["pgcn_sddmm"])
+        parts = []
+        for dtype, (a, b) in inputs.items():
+            out = cs.sddmm_bcsr(pack, a, b)
+            parts.append(f"{dtype} {_events_ms(lambda: cs.sddmm_bcsr(pack, a, b), 6):.4f} ms "
+                         f"({_digest(out)})")
+            del out
+        print(f"[sddmm] {name}: {'; '.join(parts)} [ptxas: {_ptxas(log, _PTXAS_SDDMM)}]",
+              flush=True)
+    _build._lib = base
+    # the value-pack route at K8's backward shape: dA = G·b over the pack's
+    # positions, G dense f32 value tiles
+    a, b = inputs[torch.float32]
+    g = torch.randn((T, R, pack.tile_c), device="cuda")
+    gpack = dataclasses.replace(pack, sym_scale=None, tiles=g)
+    fn = lambda: cb.bcsr_matmul_impl(gpack, b, dense_tiles=True)  # noqa: E731
+    got = fn()
+    assert torch.equal(got, fn())
+    err = _check(torch, got, cb.bcsr_matmul_plain(gpack, b), 1e-4)
+    plib2 = pj_spmm() if pj_spmm is not None else None
+    times = []
+    for who in ("parent", "change", "change", "parent"):
+        if who == "parent" and plib2 is None:
+            continue
+        if who == "parent":
+            _load_variant(plib2, base, ["pgcn_bcsr_spmm"])
+        times.append(f"{who} {_events_ms(fn, 3):.4f}")
+        _build._lib = base
+    nbytes = g.numel() * 4 + b.numel() * 4 + got.numel() * 4
+    print(f"[sddmm] the dense f32 SpMM body at K8's backward shape ({T} f32 value tiles · "
+          f"b [{n}, 41]): max_abs_err {err:.3e} (rtol 1e-4), runs bit-identical; "
+          f"{', '.join(times)} ms; bound {nbytes / 3.35e12 * 1e3:.4f} ms (bytes)", flush=True)
+    return int(bool(errors))
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--time-spmm"]:
         time_spmm_tree(argv[1])
@@ -1494,7 +1879,8 @@ def main(argv: list[str]) -> int:
     parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     families = {"spmm": spmm_family, "attention": attention_family, "rect": rect_family,
                 "dropout": dropout_family, "fused": fused_family, "segment": segment_family,
-                "segment-paths": segment_paths}
+                "segment-paths": segment_paths, "spmm-f32": spmm_f32_family,
+                "sddmm": sddmm_family}
     if argv[:1] == ["segment-paths"] and "--only" in argv:
         return segment_paths(parent, argv[argv.index("--only") + 1].split(","))
     if argv[:1] and argv[0] in families:

@@ -56,15 +56,48 @@
 //     by the tile stream and the conversion, not the tensor cores; at F=600
 //     the products (1.6e12 FLOP) would be 1.7 ms at the wgmma peak, and
 //     wgmma is later work.
-// Compute dtype f32 (the set-up aggregation of f32 features, f32 tiles):
-// spmm_fma_kernel, 64×32 chunks in f32 and 4×4 FMA register blocks per
-// thread, unchanged since its first version (it runs once per run).
+// Compute dtype f32, int8 pattern tiles or f32 value tiles of a graph's
+// pack (the set-up pre-aggregation Â·X at 602 columns, every aggregation of
+// an f32 hybrid run at 41, products' Â·X at 100, the mesh's set-up K3):
+// spmm_walk_kernel, over the pack's live entries only.
+//   * What bounds it: on synth-reddit's pack 0.86% of the tile entries are
+//     live (11.7M of 1.36e9). Multiplying every entry on CUDA cores, as the
+//     first f32 kernel did, costs 1.64e12 FLOP at F=602: >= 24.5 ms at the
+//     FP32 peak. The live entries' products are 14.1 GFLOP (0.21 ms), so the
+//     bound is the bytes: the index, x and out, each once (0.4 ms at 602).
+//   * The index (ops/cuda_bcsr.spmm_index, built once a pack on its device):
+//     the live entries in (tile, 128-column chunk, row, column) order as
+//     {value, row << 16 | column in the chunk}, the value already scaled,
+//     fl(fl(k·d_c)·d_r), the Pallas kernel's rounding; an offset per (tile,
+//     chunk, row), the rows in an order that deals rows 16 apart to a warp
+//     (a block of dense rows would otherwise hold one warp, and the chunk's
+//     barrier, to its entries). A warp owns 16 or 32 row positions, so its
+//     entries of a chunk are one contiguous run.
+//   * A lane holds 2 or 4 features of every row of its warp (the rows an
+//     unrolled loop, the accumulators in registers). The warp reads its run
+//     from a window of 128 entries in shared memory, filled by cp.async
+//     during the chunk before (a longer run loads its later windows itself):
+//     an entry is one broadcast load, one vector load of x's row and 2 or 4
+//     FMAs, and a row's entries are a short loop, so the unrolled rows keep
+//     the code small. Each row is summed in (tile, column) order, the same
+//     every run: no atomics, bit-identical runs.
+//   * x is served from shared memory: a 3-stage cp.async ring holds, per
+//     chunk, its 128 x rows at the CTA's 64 or 128 features (16-byte copies;
+//     the wrapper pads x's rows to a multiple of 4 floats), copied under the
+//     walk of the chunk before; each staged row serves the entries of its
+//     column in the CTA's rows (synth-reddit's pack: 4.4 a column), where
+//     gathering every entry's row would move 28 GB at F=602.
+//   * Two shapes (ops/cuda_bcsr.SPMM_WALK_WIDE): 16 warps × 32 rows × 64
+//     features (a 512-row tile staged once a feature block), or 16 warps ×
+//     16 rows × 128 features (half the instructions an entry), chosen by F.
+// Dense f32 value tiles (K8's backward on its cotangent tiles):
+// spmm_fma_kernel, 64×32 chunks and 4×4 FMA register blocks per thread.
 //
-// What bounds it on an H100, per synth-reddit epoch: 3 passes (forward,
-// backward, eval) over 2,596 int8 tiles of 512×1024 (1.36 GB each pass,
-// ~0.4 ms at 3.35 TB/s; the ring alone, without compute, streams it in
-// ~0.64 ms); the int8 → bf16 conversion (~0.15 ms of K4) and the products
-// on top. Variants in kernel_variants.py, numbers in PERF.md.
+// What bounds the bf16 body on an H100, per synth-reddit epoch: 3 passes
+// (forward, backward, eval) over 2,596 int8 tiles of 512×1024 (1.36 GB each
+// pass, ~0.4 ms at 3.35 TB/s; the ring alone, without compute, streams it
+// in ~0.64 ms); the int8 → bf16 conversion (~0.15 ms of K4) and the
+// products on top. Variants in kernel_variants.py, numbers in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,10 +107,6 @@ namespace {
 
 constexpr int kRows = 64;  // output rows per CTA (f32 path)
 constexpr int kFeat = 64;  // output features per CTA (f32 path)
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
 
 // Where a CTA of segment `seg` writes its row block starting at row r0 of
 // the tile-row: out itself, or its workspace slot.
@@ -91,18 +120,17 @@ __device__ __forceinline__ float* segment_dst(float* out, float* ws,
 }
 
 // ---------------------------------------------------------------------------
-// f32 compute (int8 tiles with f32 x, f32 tiles): CUDA-core FMAs. Every
-// operand is exact in f32 here, so nothing is rounded before the product.
+// Dense f32 value tiles with f32 x (K8's backward on its cotangent tiles):
+// CUDA-core FMAs over every tile entry.
 constexpr int kFmaChunk = 32;
 constexpr int kFmaThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
-template <typename TT, typename XT, bool kScaled>
 __global__ void __launch_bounds__(kFmaThreads)
-spmm_fma_kernel(const TT* __restrict__ tiles, const int* __restrict__ seg_tile_ptr,
+spmm_fma_kernel(const float* __restrict__ tiles, const int* __restrict__ seg_tile_ptr,
                 const int* __restrict__ seg_row, const int* __restrict__ seg_slot,
-                const int* __restrict__ tile_cols, const float* __restrict__ d,
-                const XT* __restrict__ x, float* __restrict__ out,
-                float* __restrict__ ws, int tile_r, int tile_c, int n_feat) {
+                const int* __restrict__ tile_cols, const float* __restrict__ x,
+                float* __restrict__ out, float* __restrict__ ws, int tile_r, int tile_c,
+                int n_feat) {
   __shared__ float a_s[kRows][kFmaChunk + 1];
   __shared__ float x_s[kFmaChunk][kFeat];
 
@@ -113,7 +141,6 @@ spmm_fma_kernel(const TT* __restrict__ tiles, const int* __restrict__ seg_tile_p
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int row_base = seg_row[seg] * tile_r + r0;
 
   float acc[4][4];
 #pragma unroll
@@ -123,25 +150,18 @@ spmm_fma_kernel(const TT* __restrict__ tiles, const int* __restrict__ seg_tile_p
 
   const int t_end = seg_tile_ptr[seg + 1];
   for (int t = seg_tile_ptr[seg]; t < t_end; ++t) {
-    const TT* tile = tiles + (size_t)t * tile_r * tile_c + (size_t)r0 * tile_c;
+    const float* tile = tiles + (size_t)t * tile_r * tile_c + (size_t)r0 * tile_c;
     const int col_base = tile_cols[t] * tile_c;
     for (int k0 = 0; k0 < tile_c; k0 += kFmaChunk) {
       for (int e = tid; e < kRows * kFmaChunk; e += kFmaThreads) {
         const int r = e / kFmaChunk;
         const int k = e % kFmaChunk;
-        float a = to_float(tile[(size_t)r * tile_c + k0 + k]);
-        if (kScaled) {
-          a = a * d[col_base + k0 + k];
-          a = a * d[row_base + r];
-        }
-        a_s[r][k] = a;
+        a_s[r][k] = tile[(size_t)r * tile_c + k0 + k];
       }
       for (int e = tid; e < kFmaChunk * kFeat; e += kFmaThreads) {
         const int k = e / kFeat;
         const int f = e % kFeat;
-        x_s[k][f] = f0 + f < n_feat
-                        ? to_float(x[(size_t)(col_base + k0 + k) * n_feat + f0 + f])
-                        : 0.0f;
+        x_s[k][f] = f0 + f < n_feat ? x[(size_t)(col_base + k0 + k) * n_feat + f0 + f] : 0.0f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -493,6 +513,246 @@ __global__ void reduce_segments_kernel(const float* __restrict__ ws,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 compute over the live-entry index (see the header).
+constexpr int kWalkChunk = 128;  // tile columns a staged chunk (cuda_bcsr.SPMM_CHUNK)
+constexpr int kWalkGroup = 16;   // a warp holds 16·GPW rows (GPW 1 or 2)
+constexpr int kWalkWarps = 16;
+constexpr int kWalkStages = 3;
+constexpr int kWalkWin = 128;  // entries of a warp's window on its run of a chunk
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16_x(float* dst, const float* src) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(src));
+}
+
+// Stage x rows node0.. node0 + 127, features f0.. f0 + fw (4 floats a copy;
+// 4 divides ldx and f0, x 16-byte aligned) as st[k][f], kFB floats a row.
+// Features past fw rounded up to 4 are not written: only lanes whose outputs
+// are dropped read them.
+template <int kFB>
+__device__ __forceinline__ void stage_x(float* st, const float* __restrict__ x, size_t node0,
+                                        int f0, int fw, int ldx, int tid, int n_threads) {
+  constexpr int P = kFB / 4;  // copies a row
+  const float* src = x + node0 * ldx + f0;
+  for (int e = tid; e < kWalkChunk * P; e += n_threads) {
+    const int k = e / P;
+    const int f = (e % P) * 4;
+    if (f < fw) cp_async16_x(st + k * kFB + f, src + (size_t)k * ldx + f);
+  }
+}
+
+template <int VEC> struct FVec;
+template <> struct FVec<2> {
+  using T = float2;
+  __device__ __forceinline__ static void fma(float* acc, float v, T x) {
+    acc[0] = fmaf(v, x.x, acc[0]);
+    acc[1] = fmaf(v, x.y, acc[1]);
+  }
+};
+template <> struct FVec<4> {
+  using T = float4;
+  __device__ __forceinline__ static void fma(float* acc, float v, T x) {
+    acc[0] = fmaf(v, x.x, acc[0]);
+    acc[1] = fmaf(v, x.y, acc[1]);
+    acc[2] = fmaf(v, x.z, acc[2]);
+    acc[3] = fmaf(v, x.w, acc[3]);
+  }
+};
+
+// A CTA owns (segment, feature block of 32·VEC, block of warps·16·GPW row
+// positions); blockIdx.x = (seg · n_fb + fb) · n_rb + rb, so the row blocks
+// of one feature block, which stage the same x, run side by side. ent[e] =
+// {value bits, row << 16 | column in the chunk}; rptr[(t · nch + chunk) ·
+// tile_r + q] is the first entry of position q in a tile's chunk. Position
+// q is tile row (q % G)·16 + q / G (G = tile_r / 16), so a warp's rows lie
+// 16 apart and a block of dense rows spreads over the warps. A warp holds its rows'
+// offsets one a lane and reads its run of entries from a window in shared
+// memory, the first kWalkWin entries of the next chunk's run copied there
+// (cp.async) during this chunk's walk; an entry is one broadcast load, one
+// load of x's row and VEC FMAs, and the row loop's body is a short loop, so
+// the unrolled rows keep the code small.
+template <int VEC, int GPW>
+__global__ void __launch_bounds__(kWalkWarps * 32, 1)
+spmm_walk_kernel(const int2* __restrict__ ent, const int* __restrict__ rptr,
+                 const int* __restrict__ seg_tile_ptr, const int* __restrict__ seg_row,
+                 const int* __restrict__ seg_slot, const int* __restrict__ tile_cols,
+                 const float* __restrict__ x, float* __restrict__ out,
+                 float* __restrict__ ws, int tile_r, int tile_c, int n_feat, int ldx,
+                 int n_fb, int n_rb) {
+  constexpr int kFB = 32 * VEC;
+  constexpr int kRW = kWalkGroup * GPW;  // rows a warp (at most 32)
+  constexpr int kChunkFloats = kWalkChunk * kFB;
+  extern __shared__ __align__(16) float xs[];
+  // the warp's two windows of its runs' entries (this chunk's, the next's),
+  // after the staged chunks
+  int2* wins = reinterpret_cast<int2*>(xs + kWalkStages * kChunkFloats) +
+               (threadIdx.x / 32) * 2 * kWalkWin;
+
+  const int n_threads = blockDim.x;
+  const int rows_cta = (n_threads / 32) * kRW;
+  const int rb = blockIdx.x % n_rb;
+  const int fb = (blockIdx.x / n_rb) % n_fb;
+  const int seg = blockIdx.x / (n_rb * n_fb);
+  const int r0 = rb * rows_cta;
+  const int f0 = fb * kFB;
+  const int fw = min(kFB, n_feat - f0);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wrow0 = r0 + warp * kRW;  // the warp's first row position in the tile
+  const int nch = tile_c / kWalkChunk;
+  const int t0 = seg_tile_ptr[seg];
+  const int n_steps = (seg_tile_ptr[seg + 1] - t0) * nch;
+  // step s = the chunk s % nch of tile t0 + s / nch; its rows' offsets
+  const int* rp = rptr + (size_t)t0 * nch * tile_r + wrow0;
+
+  auto node0 = [&](int s) {
+    return (size_t)tile_cols[t0 + s / nch] * tile_c + (size_t)(s % nch) * kWalkChunk;
+  };
+  // the x chunk of step s into its ring stage
+  auto issue = [&](int s) {
+    if (s < n_steps)
+      stage_x<kFB>(xs + (s % kWalkStages) * kChunkFloats, x, node0(s), f0, fw, ldx, tid,
+                   n_threads);
+    cp_async_commit();
+  };
+  // lane l < kRW: the start of row l; `end`: the end of the warp's run
+  auto rows = [&](int s, int& p, int& end) {
+    p = end = 0;
+    if (s < n_steps) {
+      const int* q = rp + (size_t)s * tile_r;
+      p = lane < kRW ? __ldg(q + lane) : 0;
+      end = __ldg(q + kRW);
+    }
+  };
+  // the first window of step s's run, entries lo.., into its window
+  auto fetch = [&](int s, int lo, int end) {
+    if (s < n_steps) {
+      int2* d = wins + (s & 1) * kWalkWin;
+      const int n = min(kWalkWin, end - lo);
+      for (int j = lane; j < n; j += 32) cp_async8(d + j, ent + lo + j);
+    }
+    cp_async_commit();
+  };
+
+  float acc[kRW][VEC];
+#pragma unroll
+  for (int i = 0; i < kRW; ++i)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[i][j] = 0.0f;
+
+  // commit groups in order: the entries of step 0, x of steps 0 and 1, then
+  // each step s the entries of s + 1 and x of s + 2; waiting for all but the
+  // newest group at step s leaves both of its own complete
+  int p, end, p_n, end_n;
+  rows(0, p, end);
+  rows(1, p_n, end_n);
+  fetch(0, __shfl_sync(0xffffffffu, p, 0), end);
+#pragma unroll
+  for (int s = 0; s < kWalkStages - 1; ++s) issue(s);
+
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    int p_nn, end_nn;
+    rows(s + 2, p_nn, end_nn);
+    fetch(s + 1, __shfl_sync(0xffffffffu, p_n, 0), end_n);
+    issue(s + kWalkStages - 1);
+    const float* st = xs + (s % kWalkStages) * kChunkFloats;
+    int2* wv = wins + (s & 1) * kWalkWin;
+    const int lo = __shfl_sync(0xffffffffu, p, 0);  // the run: entries lo..end
+    // the run in windows of kWalkWin entries (a later one loaded here); each
+    // row takes the entries of its range that lie in the window
+    for (int wb = lo; wb < end; wb += kWalkWin) {
+      if (wb != lo) {
+        __syncwarp();
+        for (int j = lane; j < min(kWalkWin, end - wb); j += 32) wv[j] = __ldg(ent + wb + j);
+        __syncwarp();
+      }
+      // lane i < kRW: row i's entries in the window, [a, b) as a << 16 | b;
+      // the rows with any, one bit each (most rows of a chunk have none)
+      const int nx = __shfl_down_sync(0xffffffffu, p, 1);
+      const int ra = min(max(p - wb, 0), kWalkWin);
+      const int rb_ = min(max((lane == kRW - 1 ? end : nx) - wb, 0), kWalkWin);
+      const unsigned live = __ballot_sync(0xffffffffu, lane < kRW && rb_ > ra);
+      const int ab = ra << 16 | rb_;
+#pragma unroll
+      for (int i = 0; i < kRW; ++i) {
+        if (!(live >> i & 1u)) continue;
+        const int d = __shfl_sync(0xffffffffu, ab, i);
+        const int b = d & 0xffff;
+#pragma unroll 4
+        for (int j = d >> 16; j < b; ++j) {
+          const int2 en = wv[j];
+          const auto xv = *reinterpret_cast<const typename FVec<VEC>::T*>(
+              st + (en.y & (kWalkChunk - 1)) * kFB + lane * VEC);
+          FVec<VEC>::fma(acc[i], __int_as_float(en.x), xv);
+        }
+      }
+    }
+    __syncwarp();  // this window is refilled two steps on
+    p = p_n;
+    end = end_n;
+    p_n = p_nn;
+    end_n = end_nn;
+  }
+  cp_async_wait<0>();
+
+  // position q holds tile row (q % G)·16 + q / G (ops/cuda_bcsr.spmm_row)
+  float* dst = segment_dst(out, ws, seg_row, seg_slot, seg, tile_r, 0, n_feat) + f0;
+  const int G = tile_r / 16;
+#pragma unroll
+  for (int i = 0; i < kRW; ++i) {
+    const int q = wrow0 + i;
+    float* row = dst + (size_t)((q % G) * 16 + q / G) * n_feat;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      if (lane * VEC + j < fw) row[lane * VEC + j] = acc[i][j];
+  }
+}
+
+struct WalkArgs {
+  const int2* ent;
+  const int* rptr;
+  const int* seg_tile_ptr;
+  const int* seg_row;
+  const int* seg_slot;
+  int n_seg;
+  const int* tile_cols;
+  const float* x;
+  float* out;
+  float* ws;
+  int tile_r, tile_c, n_feat, ldx;
+  cudaStream_t stream;
+};
+
+template <int VEC, int GPW>
+int launch_walk(const WalkArgs& a) {
+  int warps = kWalkWarps;
+  while (warps > 1 && a.tile_r % (warps * kWalkGroup * GPW)) warps /= 2;
+  const int rows_cta = warps * kWalkGroup * GPW;
+  if (a.tile_r % rows_cta || a.tile_c % kWalkChunk) return (int)cudaErrorInvalidValue;
+  const int smem = kWalkStages * kWalkChunk * 32 * VEC * (int)sizeof(float) +
+                   warps * 2 * kWalkWin * (int)sizeof(int2);
+  auto kernel = spmm_walk_kernel<VEC, GPW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_fb = (a.n_feat + 32 * VEC - 1) / (32 * VEC);
+  const int n_rb = a.tile_r / rows_cta;
+  const size_t blocks = (size_t)a.n_seg * n_fb * n_rb;
+  kernel<<<(unsigned)blocks, warps * 32, smem, a.stream>>>(
+      a.ent, a.rptr, a.seg_tile_ptr, a.seg_row, a.seg_slot, a.tile_cols, a.x, a.out, a.ws,
+      a.tile_r, a.tile_c, a.n_feat, a.ldx, n_fb, n_rb);
+  return 0;
+}
+
 struct Args {
   const void* tiles;
   const int* seg_tile_ptr;
@@ -509,14 +769,13 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename TT, typename XT, bool kScaled>
 int launch_fma(const Args& a) {
   const dim3 grid((unsigned)(a.n_seg * (a.tile_r / kRows)),
                   (unsigned)((a.n_feat + kFeat - 1) / kFeat));
-  spmm_fma_kernel<TT, XT, kScaled><<<grid, kFmaThreads, 0, a.stream>>>(
-      static_cast<const TT*>(a.tiles), a.seg_tile_ptr, a.seg_row, a.seg_slot,
-      a.tile_cols, a.d, static_cast<const XT*>(a.x), a.out, a.ws, a.tile_r,
-      a.tile_c, a.n_feat);
+  spmm_fma_kernel<<<grid, kFmaThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.tiles), a.seg_tile_ptr, a.seg_row, a.seg_slot,
+      a.tile_cols, static_cast<const float*>(a.x), a.out, a.ws, a.tile_r, a.tile_c,
+      a.n_feat);
   return 0;
 }
 
@@ -552,25 +811,17 @@ int launch_pipe_int8(const Args& a) {
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8. The compute dtype is
 // x's for int8 tiles and the tile's otherwise; a bf16 compute dtype takes
-// the pipelined tensor-core kernel, whose x is bf16 with padded rows.
+// the pipelined tensor-core kernel, whose x is bf16 with padded rows. At
+// f32 this entry takes only dense f32 value tiles with f32 x (the FMA
+// kernel); a pack's live entries go through pgcn_bcsr_spmm_walk.
 int dispatch(const Args& a, int tile_dtype, int x_dtype, bool scaled) {
-  const bool bf16 = tile_dtype == 1 || (tile_dtype == 2 && x_dtype == 1);
-  if (bf16 && x_dtype != 1) return (int)cudaErrorInvalidValue;
   if (scaled) {
-    if (tile_dtype != 2) return (int)cudaErrorInvalidValue;
-    if (x_dtype == 0) return launch_fma<int8_t, float, true>(a);
-    if (x_dtype == 1) return launch_pipe_int8<true>(a);
-    return (int)cudaErrorInvalidValue;
+    if (tile_dtype != 2 || x_dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_pipe_int8<true>(a);
   }
-  if (tile_dtype == 0) {
-    if (x_dtype == 0) return launch_fma<float, float, false>(a);
-    if (x_dtype == 1) return launch_fma<float, __nv_bfloat16, false>(a);
-  } else if (tile_dtype == 1) {
-    return launch_pipe<__nv_bfloat16, false, false>(a);
-  } else if (tile_dtype == 2) {
-    if (x_dtype == 0) return launch_fma<int8_t, float, false>(a);
-    if (x_dtype == 1) return launch_pipe_int8<false>(a);
-  }
+  if (tile_dtype == 0 && x_dtype == 0) return launch_fma(a);
+  if (tile_dtype == 1 && x_dtype == 1) return launch_pipe<__nv_bfloat16, false, false>(a);
+  if (tile_dtype == 2 && x_dtype == 1) return launch_pipe_int8<false>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -601,6 +852,36 @@ extern "C" int pgcn_bcsr_spmm(const void* tiles, int tile_dtype,
          tile_r, tile_c, n_feat, f_pad, nonneg != 0,
          static_cast<cudaStream_t>(stream)};
   const int rc = dispatch(a, tile_dtype, x_dtype, d != nullptr);
+  if (rc) return rc;
+  if (n_multi > 0) {
+    const size_t n = (size_t)tile_r * n_feat;
+    const unsigned bx = (unsigned)((n + 255) / 256 < 64 ? (n + 255) / 256 : 64);
+    reduce_segments_kernel<<<dim3(bx, (unsigned)n_multi), 256, 0, a.stream>>>(
+        ws, multi_row, multi_slot_ptr, out, tile_r, n_feat);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The f32 body over a pack's live-entry index (ops/cuda_bcsr.spmm_index):
+// ent int32 [E, 2], rptr int32 [T · tile_c/128 · tile_r + 1]; the segment
+// schedule, workspace and out as for pgcn_bcsr_spmm; x f32 [n, ldx] (its
+// first F columns read; ldx a multiple of 4 and x 16-byte aligned). wide != 0
+// takes 16 rows × 128 features a warp, else 32 rows × 64 features. tile_r
+// must be a multiple of 32 (16 for wide), tile_c of 128. Returns cudaGetLastError() after the launches (0 on
+// success).
+extern "C" int pgcn_bcsr_spmm_walk(const void* ent, const int* rptr, const int* seg_tile_ptr,
+                                   const int* seg_row, const int* seg_slot, int n_seg,
+                                   const int* multi_row, const int* multi_slot_ptr,
+                                   int n_multi, const int* tile_cols, const float* x,
+                                   float* out, float* ws, int tile_r, int tile_c, int n_feat,
+                                   int ldx, int wide, void* stream) {
+  if (n_seg <= 0 || n_feat <= 0 || ldx < n_feat || ldx % 4 || (uintptr_t)x % 16 ||
+      tile_r % kWalkGroup || tile_c % kWalkChunk)
+    return (int)cudaErrorInvalidValue;
+  const WalkArgs a{static_cast<const int2*>(ent), rptr, seg_tile_ptr, seg_row, seg_slot,
+                   n_seg, tile_cols, x, out, ws, tile_r, tile_c, n_feat, ldx,
+                   static_cast<cudaStream_t>(stream)};
+  const int rc = wide ? launch_walk<4, 1>(a) : launch_walk<2, 2>(a);
   if (rc) return rc;
   if (n_multi > 0) {
     const size_t n = (size_t)tile_r * n_feat;

@@ -59,6 +59,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, i32, i32, i32, i32, i32, p,
     ]
     lib.pgcn_bcsr_spmm.restype = i32
+    # the live-entry index (entries, row offsets), the schedule, x, out,
+    # workspace, tile_r, tile_c, F, x's row stride, the shape
+    lib.pgcn_bcsr_spmm_walk.argtypes = [p, p, p, p, p, i32, p, p, i32, p, p, p, p, i32, i32,
+                                        i32, i32, i32, p]
+    lib.pgcn_bcsr_spmm_walk.restype = i32
     lib.pgcn_sddmm.argtypes = [p, p, i32, p, p, i32, i32, p, i32, i32, p]
     lib.pgcn_sddmm.restype = i32
     u32, f32 = ctypes.c_uint32, ctypes.c_float

@@ -4,8 +4,10 @@ Port of ``parallel_gcn_tpu/ops/pallas_bcsr.py``: the ``BCSR`` pack, its numpy
 packer ``build_bcsr``, and the two kernels, K3 ``_bcsr_kernel`` (value
 tiles) and K4 ``_bcsr_kernel_scaled`` (int8 pattern tiles with the symmetric
 normalization ``diag(d)·B·diag(d)`` rebuilt per tile), both in
-``csrc/bcsr_spmm.cu`` (tensor cores for a bf16 compute dtype, CUDA-core
-FMAs for f32).
+``csrc/bcsr_spmm.cu``: tensor cores over the tiles for a bf16 compute dtype;
+for f32, CUDA-core FMAs over the pack's live entries only (``spmm_index``,
+built once a pack), or over every entry of dense value tiles
+(``dense_tiles=True``, K8's backward).
 
 The pack holds only the nonempty tile_r×tile_c blocks of Â, sorted by
 tile-row; its ``TileSchedule`` cuts each tile-row's tiles into short
@@ -47,8 +49,11 @@ from parallel_gcn_tpu_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # kernel launches by wrapper: "bcsr" (K3, value tiles), "bcsr_scaled" (K4),
-# "bcsr_rect" (K3 over a mesh slab)
-launches = {"bcsr": 0, "bcsr_scaled": 0, "bcsr_rect": 0}
+# "bcsr_rect" (K3 over a mesh slab); the f32 body over the live-entry index
+# counts under the same names with "_f32" (the bf16 body and the dense f32
+# body of K8's backward under the names alone)
+launches = {"bcsr": 0, "bcsr_scaled": 0, "bcsr_rect": 0,
+            "bcsr_f32": 0, "bcsr_scaled_f32": 0, "bcsr_rect_f32": 0}
 
 
 # Tiles per segment of a tile-row's work (see tile_schedule) for the tile
@@ -61,6 +66,12 @@ SEGMENT_TILES = 8
 SPMM_SEGMENT_TILES = 4
 # The bf16 kernel's x rows are padded to a multiple of this many features.
 F_ALIGN = 16
+# The f32 body's index (csrc/bcsr_spmm.cu kWalkChunk): tile columns a staged
+# chunk of x.
+SPMM_CHUNK = 128
+# F above which the f32 body takes 16 rows × 128 features a warp (else 32
+# rows × 64 features); chosen by measurement on the H100 (PERF.md).
+SPMM_WALK_WIDE = 64
 
 
 @dataclass(frozen=True)
@@ -155,6 +166,68 @@ def attn_index(pack: "BCSR") -> AttnIndex:
 
 
 @dataclass(frozen=True)
+class SpmmIndex:
+    """The live entries of a pack as the f32 SpMM body walks them: in
+    (tile, chunk of ``SPMM_CHUNK`` columns, row position, column) order,
+    entry e is ``ent[e] = (value bits, row << 16 | column in the chunk)``
+    with the value in f32 as the Pallas kernel rounds it (a scaled pack's
+    fl(fl(k·d_c)·d_r), else the tile's value). Row r sits at position
+    ``spmm_position(r, tile_r)``: the kernel's warps take consecutive
+    positions, so each takes rows 16 apart and a block of dense rows spreads
+    over all of them. Position q of chunk ch of tile t is entries
+    ``rptr[i] : rptr[i + 1]``, i = (t·n_chunks + ch)·tile_r + q."""
+
+    ent: torch.Tensor  # int32 [E, 2]
+    rptr: torch.Tensor  # int32 [T·n_chunks·tile_r + 1]
+
+
+def spmm_position(r, tile_r: int):
+    """The walk's position of tile row r: rows 16 apart are neighbours
+    (r = 16·g + m sits at m·(tile_r / 16) + g)."""
+    return (r % 16) * (tile_r // 16) + r // 16
+
+
+def spmm_row(q, tile_r: int):
+    """The tile row at walk position q (``spmm_position``'s inverse)."""
+    g = tile_r // 16
+    return (q % g) * 16 + q // g
+
+
+def spmm_index(pack: "BCSR", batch_bytes: int = 1 << 28) -> SpmmIndex:
+    """``pack``'s ``SpmmIndex``, built on the pack's device from its tiles
+    (nonzero entries; -0.0 is zero), about ``batch_bytes`` of tiles at a
+    time."""
+    tr, tc = pack.tile_r, pack.tile_c
+    if tc % SPMM_CHUNK or tr % 16 or tr > 1 << 15:
+        raise ValueError(f"the f32 SpMM index needs tile_c a multiple of {SPMM_CHUNK} and "
+                         f"tile_r of 16 (at most 32768), got ({tr}, {tc})")
+    nch = tc // SPMM_CHUNK
+    dev = pack.tiles.device
+    d = pack.sym_scale
+    step = max(1, batch_bytes // (tr * tc * pack.tiles.element_size()))
+    ents, keys = [], []
+    for b0 in range(0, pack.n_tiles, step):
+        # the tiles as [t, chunk, row % 16, row // 16, column in the chunk]:
+        # nonzero lists the entries in the kernel's order
+        blk = pack.tiles[b0 : b0 + step].view(-1, tr // 16, 16, nch, SPMM_CHUNK)
+        t, ch, m, g, c = blk.permute(0, 3, 2, 1, 4).nonzero(as_tuple=True)
+        v = blk[t, g, m, ch, c].float()
+        r = g * 16 + m
+        t = t + b0
+        if d is not None:
+            col = pack.tile_cols[t].long() * tc + ch * SPMM_CHUNK + c
+            v = (v * d[col]) * d[pack.tile_rows[t].long() * tr + r]
+        keys.append(((t * nch + ch) * tr + m * (tr // 16) + g).to(torch.int32))
+        ents.append(torch.stack([v.view(torch.int32), ((r << 16) | c).int()], 1))
+    n_keys = pack.n_tiles * nch * tr
+    rptr = torch.zeros(n_keys + 1, dtype=torch.int32, device=dev)
+    if keys:
+        rptr[1:] = torch.cumsum(torch.bincount(torch.cat(keys).long(), minlength=n_keys), 0)
+    ent = torch.cat(ents) if ents else torch.zeros((0, 2), dtype=torch.int32, device=dev)
+    return SpmmIndex(ent=ent.contiguous(), rptr=rptr)
+
+
+@dataclass(frozen=True)
 class BCSR:
     """Row-sorted pack of the nonempty tile_r×tile_c blocks of Â, or of a
     mesh rank's slab (rows: ``n_rows`` local rows; columns: the
@@ -197,10 +270,11 @@ class BCSR:
     @cached_property
     def live_entries(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The nonzero entries as int64 global (row, col) ids, in tile order;
-        listed once per pack (64 tiles at a time) and kept."""
+        listed once per pack (about 256 MB of tiles at a time) and kept."""
         rows, cols = [], []
-        for b0 in range(0, self.n_tiles, 64):
-            t, r, c = (self.tiles[b0 : b0 + 64] != 0).nonzero(as_tuple=True)
+        step = max(64, (1 << 28) // (self.tile_r * self.tile_c * self.tiles.element_size()))
+        for b0 in range(0, self.n_tiles, step):
+            t, r, c = (self.tiles[b0 : b0 + step] != 0).nonzero(as_tuple=True)
             t = t + b0
             rows.append(self.tile_rows[t].long() * self.tile_r + r)
             cols.append(self.tile_cols[t].long() * self.tile_c + c)
@@ -211,6 +285,12 @@ class BCSR:
         """The live columns per (segment, row) that the attention kernels
         walk (``AttnIndex``); built once per pack on its device and kept."""
         return attn_index(self)
+
+    @cached_property
+    def spmm_index(self) -> SpmmIndex:
+        """The live entries the f32 SpMM body walks (``SpmmIndex``); built
+        once per pack on its device and kept."""
+        return spmm_index(self)
 
     @cached_property
     def nonneg_tiles(self) -> bool:
@@ -383,12 +463,16 @@ def slab_pack(tiles: np.ndarray, tile_rows: np.ndarray, tile_cols: np.ndarray,
     )
 
 
-def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None
-                     ) -> torch.Tensor:
+def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None,
+                     dense_tiles: bool = False) -> torch.Tensor:
     """out = A·x, f32 [n_rows, F] (x [n_nodes, F]): the kernel for a CUDA
     tensor (K4 for an int8 pattern pack, K3 otherwise), the plain version for
     a CPU one. ``launch_key`` names the ``launches`` entry a launch counts
-    under (default: "bcsr_scaled" or "bcsr")."""
+    under (default: "bcsr_scaled" or "bcsr"; the f32 body over the live
+    entries adds "_f32"). At an f32 compute dtype the kernel walks the
+    pack's live entries (``BCSR.spmm_index``, built at the first such call),
+    unless ``dense_tiles`` says the tiles are dense values made for this one
+    call (K8's backward): then it multiplies every entry."""
     if x.dim() != 2 or x.shape[0] != bcsr.n_nodes:
         raise ValueError(f"x must be [{bcsr.n_nodes}, F], got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -421,30 +505,57 @@ def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None
                       device=x.device)
     if F == 0 or bcsr.n_tile_rows == 0:
         return out
-    # a bf16 compute dtype runs the pipelined tensor-core kernel on padded
-    # bf16 rows; f32 runs the FMA kernel on x as it is
-    x = (pad_features(x) if _compute_dtype(bcsr, x) == torch.bfloat16
-         else x.contiguous())
-    if bcsr.tiles.data_ptr() % 16 or x.data_ptr() % 16:
-        raise ValueError("bcsr kernel needs 16-byte aligned tiles and x")
+    key = launch_key or ("bcsr_scaled" if scaled else "bcsr")
+    cd = _compute_dtype(bcsr, x)
+    walk = cd == torch.float32 and not dense_tiles
+    if walk:
+        if bcsr.tile_c % SPMM_CHUNK:
+            raise ValueError(f"the f32 bcsr kernel needs tile_c a multiple of {SPMM_CHUNK}, "
+                             f"got {bcsr.tile_c}")
+        idx = bcsr.spmm_index
+        x = x.float().contiguous()
+        # rows of whole 16-byte pieces at a 16-byte address for the staging
+        # copies: a copy of x where they are not
+        if F % 4:
+            x = torch.nn.functional.pad(x, (0, -F % 4))
+        elif x.data_ptr() % 16:
+            x = x.clone()
+    else:
+        # a bf16 compute dtype runs the pipelined tensor-core kernel on
+        # padded bf16 rows; dense f32 value tiles the FMA kernel on f32 x
+        if cd == torch.float32 and bcsr.tiles.dtype != torch.float32:
+            raise ValueError("dense_tiles takes f32 value tiles")
+        x = pad_features(x) if cd == torch.bfloat16 else x.float().contiguous()
+        if bcsr.tiles.data_ptr() % 16 or x.data_ptr() % 16:
+            raise ValueError("bcsr kernel needs 16-byte aligned tiles and x")
     ws = torch.empty((sched.n_slots, bcsr.tile_r, F), dtype=torch.float32,
                      device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pgcn_bcsr_spmm(
-            bcsr.tiles.data_ptr(), _DTYPE_CODE[bcsr.tiles.dtype],
-            sched.seg_tile_ptr.data_ptr(), sched.seg_row.data_ptr(),
-            sched.seg_slot.data_ptr(), sched.n_seg,
-            sched.multi_row.data_ptr(), sched.multi_slot_ptr.data_ptr(),
-            sched.multi_row.shape[0], bcsr.tile_cols.data_ptr(),
-            bcsr.sym_scale.data_ptr() if scaled else None,
-            x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(), ws.data_ptr(),
-            bcsr.tile_r, bcsr.tile_c, F, x.shape[1], int(bcsr.nonneg_tiles),
-            ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if walk:
+            rc = lib.pgcn_bcsr_spmm_walk(
+                idx.ent.data_ptr(), idx.rptr.data_ptr(), sched.seg_tile_ptr.data_ptr(),
+                sched.seg_row.data_ptr(), sched.seg_slot.data_ptr(), sched.n_seg,
+                sched.multi_row.data_ptr(), sched.multi_slot_ptr.data_ptr(),
+                sched.multi_row.shape[0], bcsr.tile_cols.data_ptr(), x.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), bcsr.tile_r, bcsr.tile_c, F, x.shape[1],
+                int(F > SPMM_WALK_WIDE), stream,
+            )
+            key += "_f32"
+        else:
+            rc = lib.pgcn_bcsr_spmm(
+                bcsr.tiles.data_ptr(), _DTYPE_CODE[bcsr.tiles.dtype],
+                sched.seg_tile_ptr.data_ptr(), sched.seg_row.data_ptr(),
+                sched.seg_slot.data_ptr(), sched.n_seg,
+                sched.multi_row.data_ptr(), sched.multi_slot_ptr.data_ptr(),
+                sched.multi_row.shape[0], bcsr.tile_cols.data_ptr(),
+                bcsr.sym_scale.data_ptr() if scaled else None,
+                x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(), ws.data_ptr(),
+                bcsr.tile_r, bcsr.tile_c, F, x.shape[1], int(bcsr.nonneg_tiles), stream,
+            )
     _build.check(rc, "bcsr kernel")
-    launches[launch_key or ("bcsr_scaled" if scaled else "bcsr")] += 1
+    launches[key] += 1
     return out
 
 

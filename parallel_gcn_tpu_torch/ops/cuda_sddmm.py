@@ -6,14 +6,16 @@ tile position of a pack, f32 [T, R, C] in pack order. Only the pack's tile
 geometry is used, not its values; masking to the exact edges is the caller's
 product with a pattern pack's tiles. The kernel is ``csrc/sddmm.cu``.
 
-The backward reuses the SpMM (K3, ``ops/cuda_bcsr.bcsr_matmul_impl``) on
-the score cotangent G as value tiles at the pack's positions:
+The backward reuses the SpMM (K3, ``ops/cuda_bcsr.bcsr_matmul_impl`` with
+``dense_tiles``: every entry of G is live) on the score cotangent G as value
+tiles at the pack's positions:
 ``dA = G·B`` over the pack, and ``dB = Gᵀ·A`` over the mirror-transposed
 tiles (``mirror_perm``), which needs square tiles and a symmetric position
 set, as the JAX op asserts.
 
 ``sddmm_bcsr`` runs the kernel for CUDA tensors and ``sddmm_plain`` for CPU
-ones; ``launches`` counts kernel launches.
+ones; ``launches`` counts kernel launches. For bf16 the kernel reads a and
+b with K padded to a multiple of 16 (zeros; ``cuda_bcsr.pad_features``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import dataclasses
 import torch
 
 from parallel_gcn_tpu_torch.ops import _build
-from parallel_gcn_tpu_torch.ops.cuda_bcsr import BCSR, bcsr_matmul_impl
+from parallel_gcn_tpu_torch.ops.cuda_bcsr import BCSR, bcsr_matmul_impl, pad_features
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,19 +56,23 @@ def _sddmm_impl(pack: BCSR, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise TypeError(f"sddmm kernel takes float32 or bfloat16 a and b of one dtype, "
                         f"got {a.dtype} and {b.dtype}")
-    if pack.tile_r % 64 or pack.tile_c % 64:
-        raise ValueError(f"sddmm kernel needs tile sides that are multiples of 64, got "
+    if pack.tile_r % 128 or pack.tile_c % 128:
+        raise ValueError(f"sddmm kernel needs tile sides that are multiples of 128, got "
                          f"({pack.tile_r}, {pack.tile_c})")
     index = (pack.tile_rows, pack.tile_cols)
     if any(t.dtype != torch.int32 or t.device != a.device for t in index):
         raise TypeError("the pack's tile_rows and tile_cols must be int32 on a's device")
     if b.device != a.device:
         raise ValueError("a and b must be on one device")
-    a, b = a.contiguous(), b.contiguous()
     out = torch.empty((pack.n_tiles, pack.tile_r, pack.tile_c), dtype=torch.float32,
                       device=a.device)
     if pack.n_tiles == 0 or a.shape[1] == 0:
         return out.zero_()
+    if a.dtype == torch.bfloat16:
+        # whole k16 steps, 16-byte aligned rows for the kernel's copies
+        a, b = pad_features(a), pad_features(b)
+    else:
+        a, b = a.contiguous(), b.contiguous()
     lib = _build.load_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -95,9 +101,11 @@ class _Sddmm(torch.autograd.Function):
         a, b = ctx.saved_tensors
         pack = dataclasses.replace(ctx.pack, sym_scale=None)
         g = g.float()
-        da = bcsr_matmul_impl(dataclasses.replace(pack, tiles=g.to(b.dtype).contiguous()), b)
+        da = bcsr_matmul_impl(dataclasses.replace(pack, tiles=g.to(b.dtype).contiguous()), b,
+                              dense_tiles=True)
         gt = torch.index_select(g.transpose(1, 2), 0, pack.mirror_perm)
-        db = bcsr_matmul_impl(dataclasses.replace(pack, tiles=gt.to(a.dtype).contiguous()), a)
+        db = bcsr_matmul_impl(dataclasses.replace(pack, tiles=gt.to(a.dtype).contiguous()), a,
+                              dense_tiles=True)
         return da.to(a.dtype), db.to(b.dtype), None
 
 

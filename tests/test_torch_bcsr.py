@@ -197,3 +197,18 @@ def test_kernel_matches_plain_on_card(cuda_device):
                                        cb.bcsr_matmul_plain(pk, x),
                                        rtol=1e-4 if dtype == torch.float32 else 2e-3,
                                        atol=1e-5)
+    # the f32 body over the live-entry index at the per-epoch and the set-up
+    # widths (both warp shapes), and the dense f32 body: two runs bit-identical
+    f32_values = _graphs("float32", 256)[1].bcsr.to(cuda_device)
+    for pk in (pack, dataclasses.replace(pack, sym_scale=None), f32_values):
+        for f in (41, 602):
+            x = torch.randn(pack.n_nodes, f, device=cuda_device)
+            ref = cb.bcsr_matmul_plain(pk, x)
+            for dense in ((False, True) if pk is f32_values else (False,)):
+                got = cb.bcsr_matmul_impl(pk, x, dense_tiles=dense)
+                assert torch.equal(got, cb.bcsr_matmul_impl(pk, x, dense_tiles=dense))
+                torch.testing.assert_close(got, ref, rtol=1e-4,
+                                           atol=1e-5 * float(ref.abs().max()))
+    with pytest.raises(ValueError, match="f32 value tiles"):  # int8 tiles walk their entries
+        cb.bcsr_matmul_impl(pack, torch.randn(pack.n_nodes, 41, device=cuda_device),
+                            dense_tiles=True)

@@ -169,5 +169,8 @@ def test_kernel_matches_plain_on_card(cuda_device):
         out = cs.sddmm_bcsr(pack, a, b)
         ref = cs.sddmm_plain(pack, a.detach(), b.detach())
         torch.testing.assert_close(out, ref, rtol=rtol, atol=1e-5 * float(ref.abs().max()))
+        assert torch.equal(out, cs.sddmm_bcsr(pack, a, b))
+        if dtype == torch.float32:  # exact f32 FMAs in k order, as the plain product
+            assert torch.equal(out, ref)
         (out * pack.tiles.float()).sum().backward()
         assert a.grad.dtype == dtype and torch.isfinite(a.grad.float()).all()
