@@ -15,13 +15,13 @@ implicit self-loop (src/parser.cpp:29-31) and
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from parallel_gcn_tpu_torch.device import torch_dtype
+from parallel_gcn_tpu_torch.utils.timer import span
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -277,12 +277,32 @@ def build_graph(
     all of Â into tiles; ``hybrid=True`` packs only the dense-enough tiles
     (``split_dense_tiles``) and keeps the other edges as the COO residual.
     ``times``, when given, receives the seconds of the host pack
-    (``pack_s``) and of the copy to the device with the segments
-    (``copy_s``).
+    (``pack_s``, the span ``pgcn::data.pack``) and of the copy to the
+    device with the segments (``copy_s``, ``pgcn::data.copy``, then ended
+    by a sync).
     """
-    t0 = time.perf_counter()
+    with span("data.pack") as pack:
+        host = _pack_graph(csr, device, node_pad, edge_pad, dense, bcsr, hybrid, n_nodes_pad,
+                           min_tile_nnz, tile_budget_bytes, tile_dtype, tile_size, tile_cols,
+                           adj_dtype)
+    with span("data.copy") as copied:
+        graph = _graph_on(device, csr, *host)
+        if times is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+    if times is not None:
+        times.update(pack_s=pack.seconds, copy_s=copied.seconds)
+    return graph
+
+
+def _pack_graph(csr: HostCSR, device: torch.device, node_pad: int, edge_pad: int, dense: bool,
+                bcsr: bool, hybrid: bool, n_nodes_pad: int | None, min_tile_nnz: int | None,
+                tile_budget_bytes: int, tile_dtype, tile_size: int, tile_cols: int,
+                adj_dtype) -> tuple:
+    """``build_graph``'s host pack (a dense Â goes to ``device`` here):
+    the padded COO residual's (row, col, val), the dense Â and its scale,
+    the tile pack, the padded node count, whether the graph stays hybrid,
+    whether the COO holds every edge, and the square roots of the degrees."""
     from parallel_gcn_tpu_torch.ops.cuda_bcsr import build_bcsr
-    from parallel_gcn_tpu_torch.ops.cuda_segment import segments
 
     tile_dtype = torch_dtype(tile_dtype)
     adj_dtype = torch_dtype(adj_dtype)
@@ -362,7 +382,16 @@ def build_graph(
         np.diff(csr.indptr).astype(np.float32)
     )
 
-    t1 = time.perf_counter()
+    return (row, col, val, adj, adj_scale, bcsr_pack, n_pad, hybrid, coo_complete,
+            sqrt_deg_np)
+
+
+def _graph_on(device: torch.device, csr: HostCSR, row, col, val, adj, adj_scale, bcsr_pack,
+              n_pad: int, hybrid: bool, coo_complete: bool, sqrt_deg_np) -> Graph:
+    """``build_graph``'s copy of the host pack to ``device``, with the
+    segments of its COO."""
+    from parallel_gcn_tpu_torch.ops.cuda_segment import segments
+
     row_t = torch.from_numpy(row).to(device)
     col_t = torch.from_numpy(col).to(device)
     val_t = torch.from_numpy(val).to(device)
@@ -382,10 +411,6 @@ def build_graph(
         row_seg=segments(row_t, n_pad, col_t, val_t),
         col_seg=segments(col_t, n_pad),
     )
-    if times is not None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        times.update(pack_s=t1 - t0, copy_s=time.perf_counter() - t1)
     return graph
 
 

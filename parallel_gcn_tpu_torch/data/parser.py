@@ -13,7 +13,6 @@ The readers are numpy; ``to_device`` writes torch tensors on a given device.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -26,6 +25,7 @@ from parallel_gcn_tpu_torch.data.graph import (
     build_graph,
     pad_to_multiple,
 )
+from parallel_gcn_tpu_torch.utils.timer import span
 
 TRAIN, VAL, TEST = 1, 2, 3
 
@@ -259,8 +259,18 @@ def to_device(
         tile_budget_bytes=tile_budget_mb * 1024 * 1024,
         min_tile_nnz=min_tile_nnz or None, times=setup,
     )
-    t0 = time.perf_counter()
+    with span("data.copy") as copied:
+        dds = _device_dataset(ds, graph, n_pad, device, setup)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    setup["copy_s"] += copied.seconds
+    return dds
 
+
+def _device_dataset(ds: Dataset, graph: Graph, n_pad: int, device: torch.device,
+                    setup: dict) -> DeviceDataset:
+    """``to_device``'s features, labels and split, padded to ``n_pad`` rows
+    and copied to ``device``, around ``graph``."""
     x = np.zeros((n_pad, ds.input_dim), dtype=np.float32)
     x[: ds.n_nodes] = ds.features
     labels = np.full(n_pad, -1, dtype=np.int64)
@@ -268,7 +278,7 @@ def to_device(
     split = np.zeros(n_pad, dtype=np.int32)
     split[: ds.n_nodes] = ds.split
 
-    dds = DeviceDataset(
+    return DeviceDataset(
         graph=graph,
         x=torch.from_numpy(x).to(device),
         labels=torch.from_numpy(labels).to(device),
@@ -279,35 +289,32 @@ def to_device(
         split_counts={s: int((ds.split == s).sum()) for s in (TRAIN, VAL, TEST)},
         setup=setup,
     )
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    setup["copy_s"] += time.perf_counter() - t0
-    return dds
 
 
 def prepare_host_dataset(cfg, name: str, spec: dict | None = None) -> Dataset:
     """Load and (optionally) reorder: the host half of data preparation;
     ``spec`` overrides a synthetic spec's sizes (``load_dataset``). ``setup``
-    of the result holds each stage's seconds and, where this call ran a
+    of the result holds each stage's seconds (the spans ``pgcn::data.load``,
+    ``data.reorder``, ``data.permute``) and, where this call ran a
     label sweep (generation, community reorder), which one: ``native`` where
     its library loads, else ``numpy``."""
     from parallel_gcn_tpu_torch.data import native, reorder
 
-    t0 = time.perf_counter()
-    ds = load_dataset(
-        name, cfg.data.data_dir, binarize_features=cfg.data.binarize_features, spec=spec
-    )
-    setup = {**ds.setup, "load_s": time.perf_counter() - t0}
+    with span("data.load") as loaded:
+        ds = load_dataset(
+            name, cfg.data.data_dir, binarize_features=cfg.data.binarize_features, spec=spec
+        )
+    setup = {**ds.setup, "load_s": loaded.seconds}
     if cfg.tpu.reorder != "none":
-        t0 = time.perf_counter()
-        if cfg.tpu.reorder == "community":
-            order = reorder.community_order(ds.graph, hub_block=cfg.tpu.reorder_hub_block)
-        else:
-            order = reorder.rcm_permutation(ds.graph)
-        setup["reorder_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ds = reorder.permute_dataset(ds, order)
-        setup["permute_s"] = time.perf_counter() - t0
+        with span("data.reorder") as reordered:
+            if cfg.tpu.reorder == "community":
+                order = reorder.community_order(ds.graph, hub_block=cfg.tpu.reorder_hub_block)
+            else:
+                order = reorder.rcm_permutation(ds.graph)
+        setup["reorder_s"] = reordered.seconds
+        with span("data.permute") as permuted:
+            ds = reorder.permute_dataset(ds, order)
+        setup["permute_s"] = permuted.seconds
     if cfg.tpu.reorder == "community" or setup.get("source") == "generated":
         setup["labels"] = "native" if native.available() else "numpy"
     ds.setup = setup

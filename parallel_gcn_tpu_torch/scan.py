@@ -29,11 +29,15 @@ epoch function runs uncaptured.
 The kernel wrappers count a launch where they enqueue it, so a captured
 epoch counts once, at its capture: ``graph_launches`` of the result holds
 those counts (kernels and collectives), which every replay launches again.
+
+``ScanLoop.run`` marks its phases with ``utils.timer.span``:
+``scan.prepare`` (``scan.capture`` in it), ``scan.replays`` and
+``scan.result``; the result's ``setup_s`` and ``epoch_s`` are read off the
+first two. No span is opened inside an epoch.
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
@@ -43,6 +47,7 @@ import torch
 from parallel_gcn_tpu_torch.ops import (cuda_bcsr, cuda_ce, cuda_dropout, cuda_fused,
                                         cuda_sddmm, cuda_segment, tile_attention)
 from parallel_gcn_tpu_torch.parallel import collectives
+from parallel_gcn_tpu_torch.utils.timer import span
 
 # epochs queued between two reads of the stop flag (early stopping only)
 POLL_EPOCHS = 8
@@ -188,7 +193,10 @@ class ScanLoop:
         if warm < self.epochs:
             graph = torch.cuda.CUDAGraph()
             before = launch_counts()
-            with torch.cuda.graph(graph):
+            # torch.cuda.graph opens with this sync; made here, it ends epoch 1
+            # before the capture's span, and the graph's own waits for nothing
+            torch.cuda.synchronize(self.device)
+            with span("scan.capture"), torch.cuda.graph(graph):
                 self._epoch()
             after = launch_counts()
             self.graph_launches = {key: after[key] - before[key] for key in after
@@ -234,11 +242,22 @@ class ScanLoop:
     def run(self) -> ScanResult:
         """Every epoch (fewer after an early stop); the one read of the
         history at the end."""
-        t0 = time.perf_counter()
-        self.prepare()
-        setup = time.perf_counter() - t0
+        with span("scan.prepare") as prepare:
+            self.prepare()
+        setup = prepare.seconds
         first = self.queued
-        t1 = time.perf_counter()
+        with span("scan.replays") as replays:
+            self._replay()
+        # a one-epoch run has no epoch after the warm-up: its one epoch's time
+        epoch_s = (replays.seconds / (self.queued - first) if self.queued > first
+                   else setup / max(self.queued, 1))
+        with span("scan.result"):
+            return self._result(setup if self.device.type == "cuda" else 0.0, epoch_s,
+                                self.queued - first if self.graph is not None else 0)
+
+    def _replay(self) -> None:
+        """Queue the epochs after the warm-up, with the checkpoints due and
+        the stop flag's reads between them; ends with a sync."""
         self._pause()
         pending = None
         while self.queued < self.epochs:
@@ -258,11 +277,6 @@ class ScanLoop:
                 pending = flag
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        # a one-epoch run has no epoch after the warm-up: its one epoch's time
-        epoch_s = ((time.perf_counter() - t1) / (self.queued - first) if self.queued > first
-                   else setup / max(self.queued, 1))
-        return self._result(setup if self.device.type == "cuda" else 0.0, epoch_s,
-                            self.queued - first if self.graph is not None else 0)
 
     def _result(self, setup_s: float, epoch_s: float, replays: int) -> ScanResult:
         """The run's result, after the deferred schedule's final val eval."""

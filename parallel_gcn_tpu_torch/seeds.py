@@ -72,6 +72,7 @@ from parallel_gcn_tpu_torch.scan import ScanLoop, ScanResult
 from parallel_gcn_tpu_torch.train import (_ce_fn, _eval_inputs, build_model, epoch_seeds,
                                           init_weights, l2_term, preaggregate_input,
                                           scan_schedule)
+from parallel_gcn_tpu_torch.utils.timer import run_span, span
 
 
 @dataclass
@@ -602,15 +603,27 @@ def fit_seeds(cfg: Config, dds: DeviceDataset, seeds: Sequence[int], *,
     """Train ``cfg``'s model once a seed, every seed at once (module
     docstring): lane s is ``train.fit`` of ``cfg`` with ``seed=s``.
     ``weights[s]`` (float32, JAX leaf order) replaces lane s's Glorot init.
-    Writes no checkpoints; ``check_config`` lists what it refuses."""
-    verbose = cfg.train.verbose if verbose is None else verbose
-    run = seed_run(cfg, dds, seeds, weights)
-    if dds.device.type == "cuda":
-        torch.cuda.synchronize(dds.device)
+    Writes no checkpoints; ``check_config`` lists what it refuses. The
+    batch runs in the span ``pgcn::fit_seeds`` (``utils.timer.run_span``)
+    with ``build``, the loop's ``scan.*`` and ``test_eval`` in it."""
+    with run_span("fit_seeds"):
+        return _fit_seeds(cfg, dds, seeds, weights,
+                          cfg.train.verbose if verbose is None else verbose)
+
+
+def _fit_seeds(cfg: Config, dds: DeviceDataset, seeds: Sequence[int], weights,
+               verbose: bool) -> SeedsResult:
+    """``fit_seeds``' batch inside its run span (the batch's state is freed
+    as this returns, inside the span)."""
+    with span("build"):
+        run = seed_run(cfg, dds, seeds, weights)
+        if dds.device.type == "cuda":
+            torch.cuda.synchronize(dds.device)
     t0 = time.perf_counter()
     scan = run.loop.run()
     total = time.perf_counter() - t0
-    test = [(float(loss), float(acc)) for loss, acc in run.test()]
+    with span("test_eval"):
+        test = [(float(loss), float(acc)) for loss, acc in run.test()]
     last = [h[max(e - 1, 0)] if e else np.zeros(4, np.float32)
             for h, e in zip(scan.history, scan.epochs_run)]
     result = SeedsResult(

@@ -57,6 +57,7 @@ from parallel_gcn_tpu_torch.optim import AdamState, adam_step, init_adam
 from parallel_gcn_tpu_torch.parallel.collectives import mesh_command
 from parallel_gcn_tpu_torch.scan import ScanLoop, SeedSlots, seed_table, upload_seeds
 from parallel_gcn_tpu_torch.utils.checkpoint import Checkpoint, load_checkpoint, save_checkpoint
+from parallel_gcn_tpu_torch.utils.timer import run_phases, run_span, span
 
 Model = GCNModel | GATModel | SAGEModel | GINModel
 
@@ -420,14 +421,14 @@ def checkpoint_writer(cfg: Config, model: Model, opt_state: AdamState, seed: int
         return None
 
     def save(name: str, epoch: int) -> None:
-        t0 = time.perf_counter()
-        weights, state = (list(model.weights), opt_state) if gather is None else gather()
-        if write:
-            save_checkpoint(os.path.join(ckpt_dir, name), weights, state,
-                            epoch, keys=model.layer_keys, seed=seed)
-        if barrier is not None:
-            barrier()
-        times.append(time.perf_counter() - t0)
+        with span("checkpoint") as written:
+            weights, state = (list(model.weights), opt_state) if gather is None else gather()
+            if write:
+                save_checkpoint(os.path.join(ckpt_dir, name), weights, state,
+                                epoch, keys=model.layer_keys, seed=seed)
+            if barrier is not None:
+                barrier()
+        times.append(written.seconds)
         if verbose:
             print(f"checkpoint {name} (epoch {epoch}) written in {times[-1]:.3f} s")
 
@@ -471,7 +472,8 @@ def skip_epochs(gen: torch.Generator, epochs: int, n_layers: int, attention: boo
 def print_scan(result, epochs: int, start: int = 0) -> None:
     """The whole-run path's report: the epoch lines after the run, as the
     JAX package's scan prints them (no per-epoch time), then "Early
-    stopping..." when it fired and the loop's timing."""
+    stopping..." when it fired, the loop's timing and, inside a run's span
+    (``utils.timer.run_span``), the run's phases so far."""
     for e, (tl, ta, vl, va) in enumerate(result.history):
         print(f"epoch={start + e + 1} train_loss={tl:.5f} train_acc={ta:.5f} "
               f"val_loss={vl:.5f} val_acc={va:.5f}")
@@ -481,6 +483,9 @@ def print_scan(result, epochs: int, start: int = 0) -> None:
         print(f"scan: epoch 1 and the capture in {result.setup_s:.3f} s, {result.replays} "
               f"replays of one CUDA graph, {result.epoch_s * 1e3:.3f} ms/epoch; launches a "
               f"replay: {json.dumps(result.graph_launches, sort_keys=True)}")
+    phases = run_phases()
+    if phases is not None:
+        print(f"phases: {phases}")
 
 
 def epoch_seeds(gen: torch.Generator, n_layers: int, attention: bool = False) -> list[int]:
@@ -516,8 +521,19 @@ def fit(
     write checkpoints (module docstring). ``gat_scan_check`` is accepted and
     does nothing: the JAX package's guard contains failures of XLA's
     whole-run program on the TPU, and a captured epoch holds the eager
-    epoch's memory."""
-    verbose = cfg.train.verbose if verbose is None else verbose
+    epoch's memory. The run goes in the span ``pgcn::fit``
+    (``utils.timer.run_span``) with ``build`` (``preagg`` in it), the
+    loop's ``scan.*``, ``checkpoint`` and ``test_eval`` in it."""
+    with run_span("fit"):
+        return _fit(cfg, dds, weights, cfg.train.verbose if verbose is None else verbose,
+                    resume_from)
+
+
+def _build(cfg: Config, dds: DeviceDataset, weights, verbose: bool, resume_from: str | None):
+    """What ``fit`` sets up before its loop: the model, the dataset (with
+    the input pre-aggregated where that applies), the Adam state, the seed
+    generator, the first epoch, the test eval, the checkpoint writer and
+    its list of seconds. Ends with a sync."""
     ck, weights, start, seed = resume_state(resume_from, weights, cfg.tpu.seed, dds.device,
                                             verbose)
     model = build_model(cfg, dds, weights)
@@ -529,21 +545,31 @@ def fit(
         if verbose:
             print(f"note: input_preagg has no {cfg.gcn.model.upper()} analog — ignored")
     elif cfg.tpu.input_preagg:
-        t0 = time.perf_counter()
-        dds = preaggregate_input(model, dds)
-        _sync(dds.device)
+        with span("preagg") as preagg:
+            dds = preaggregate_input(model, dds)
+            _sync(dds.device)
         if verbose:
             print(f"setup: the input's pre-aggregation (Â·X at {dds.input_dim} columns) in "
-                  f"{time.perf_counter() - t0:.3f} s")
+                  f"{preagg.seconds:.3f} s")
     opt_state = resumed_adam(ck, list(model.weights))
     gen = torch.Generator().manual_seed(seed)
     skip_epochs(gen, start, model.n_layers, gat)
     test_fn = make_eval_fn(model, cfg, dds, TEST)
     ckpt_s: list = []
     save = checkpoint_writer(cfg, model, opt_state, seed, ckpt_s, verbose=verbose)
-    scan = None
-
     _sync(dds.device)
+    return model, dds, opt_state, gen, start, test_fn, save, ckpt_s
+
+
+def _fit(cfg: Config, dds: DeviceDataset, weights, verbose: bool,
+         resume_from: str | None) -> FitResult:
+    """``fit``'s run inside its run span (the run's state is freed as this
+    returns, inside the span)."""
+    with span("build"):
+        model, dds, opt_state, gen, start, test_fn, save, ckpt_s = _build(
+            cfg, dds, weights, verbose, resume_from)
+    gat = isinstance(model, GATModel)
+    scan = None
     t0 = time.perf_counter()
     if cfg.train.mode == "scan":
         scan = make_scan_loop(model, cfg, dds, opt_state, gen, start,
@@ -561,7 +587,8 @@ def fit(
     if save is not None:
         save("ckpt_final.npz", start + epochs_run)
 
-    test_loss, test_acc = (float(v) for v in test_fn())
+    with span("test_eval"):
+        test_loss, test_acc = (float(v) for v in test_fn())
     if verbose:
         print(f"test_loss={test_loss:.5f} test_acc={test_acc:.5f}")
         print(f"total time: {total_time:.5f}")

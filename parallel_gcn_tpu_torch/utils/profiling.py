@@ -52,6 +52,7 @@ _CATEGORIES = (
     ("reduce_splits_kernel", "K10 fused dW"), ("dx_kernel<", "K10 fused dX"),
     ("dx_mma_kernel", "K10 fused dX"),
     ("spmm_pipe_kernel", "K3/K4 tile SpMM"),
+    ("spmm_walk_kernel", "K3/K4 tile SpMM"),
     ("sddmm_", "K8 sddmm"),
     ("spmm_fma_kernel", "K3/K4 tile SpMM"),
     ("reduce_segments_kernel", "K3/K4 tile SpMM"),
@@ -85,7 +86,8 @@ LAUNCHED = (
     (("dropout", "relu_dropout"), ("::dropout_kernel<",)),
     (("dropout_lanes", "relu_dropout_lanes"), ("::dropout_lanes_kernel<",)),
     (("relu_dropout_lanes_bwd",), ("::dropout_lanes_bwd_kernel<",)),
-    (("bcsr", "bcsr_scaled", "bcsr_rect"), ("spmm_pipe_kernel", "spmm_fma_kernel")),
+    (("bcsr", "bcsr_scaled", "bcsr_rect", "bcsr_f32", "bcsr_scaled_f32", "bcsr_rect_f32"),
+     ("spmm_pipe_kernel", "spmm_fma_kernel", "spmm_walk_kernel")),
     (("gat_fwd", "gat_fwd_rect"), ("gat_fwd_kernel",)),
     (("gat_bwd",), ("gat_bwd_kernel",)),
     (("gat_bwd_rect_row",), ("gat_bwd_rect_row_kernel",)),

@@ -1,4 +1,5 @@
-"""Named accumulating timers, and the time of one call on the card.
+"""Named accumulating timers, the time of one call on the card, and the
+program's spans.
 
 Port of ``parallel_gcn_tpu/utils/timer.py`` (reference include/timer.h,
 src/timer.cpp). The reference's host timers cannot time asynchronous CUDA
@@ -6,16 +7,30 @@ work; here a ``Timer`` on a CUDA device records a CUDA event at ``start``
 and at ``stop`` and reads the elapsed time after waiting for the second, so
 a span is the device time between the two points of the stream. On the CPU
 it reads the host clock. For per-op device time use ``utils.profiling``.
+
+``span(name)`` marks a phase of the program on the host: it enters
+``torch.profiler.record_function("pgcn::<name>")``, so a run under
+``torch.profiler`` holds the phase on the clock of the device's kernels,
+and yields a ``Span`` whose seconds (host clock) the program's own timings
+read. A span adds no device work and no sync: it ends where the host leaves
+it. ``run_span`` opens the span of one training run and keeps the spans
+closed inside it, for the run's ``phases:`` line (``run_phases``).
 """
 
 from __future__ import annotations
 
 import statistics
+import threading
 import time
 from collections import defaultdict
-from typing import Callable
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Callable, Iterator
 
 import torch
+
+# every span's name starts with it, on the profiler's timeline too
+PREFIX = "pgcn::"
 
 
 class Timer:
@@ -86,3 +101,60 @@ def events_ms(fn: Callable[[], object], reps: int) -> float:
     torch.cuda.synchronize()
     return statistics.median(start.elapsed_time(end) / n
                              for (start, end), n in zip(events, sizes))
+
+
+@dataclass
+class Span:
+    """One phase of the program: its name (``pgcn::...``) and the host
+    clock at its start and end (``perf_counter``)."""
+
+    name: str
+    start_s: float = 0.0
+    end_s: float = 0.0
+
+    @property
+    def seconds(self) -> float:
+        return self.end_s - self.start_s
+
+
+# the spans closed inside this thread's open run (``run_span``), if one is open
+_run = threading.local()
+
+
+@contextmanager
+def span(name: str) -> Iterator[Span]:
+    """Mark the phase ``name`` (module docstring); yields its ``Span``,
+    whose times are set when the block ends."""
+    s = Span(name=PREFIX + name)
+    with torch.profiler.record_function(s.name):
+        s.start_s = time.perf_counter()
+        try:
+            yield s
+        finally:
+            s.end_s = time.perf_counter()
+    spans = getattr(_run, "spans", None)
+    if spans is not None:
+        spans.append(s)
+
+
+@contextmanager
+def run_span(name: str) -> Iterator[None]:
+    """The span ``name`` of one training run; the spans closed inside it
+    are kept for ``run_phases`` until it ends."""
+    outer = getattr(_run, "spans", None)
+    _run.spans = []
+    try:
+        with span(name):
+            yield
+    finally:
+        _run.spans = outer
+
+
+def run_phases() -> str | None:
+    """The spans closed so far in this thread's open run, as ``name
+    seconds`` in the order they opened; None outside a run."""
+    spans = getattr(_run, "spans", None)
+    if spans is None:
+        return None
+    return ", ".join(f"{s.name[len(PREFIX):]} {s.seconds:.3f} s"
+                     for s in sorted(spans, key=lambda s: s.start_s))

@@ -95,6 +95,8 @@ K2 = "void (anonymous namespace)::dropout_kernel<__nv_bfloat16, true>(args)"
 K2_LANES = "void (anonymous namespace)::dropout_lanes_kernel<__nv_bfloat16, true>(args)"
 K4 = "void spmm_pipe_kernel<signed char, __nv_bfloat16, true>(args)"
 WALK = "void pgcn_seg::items_walk_kernel<__nv_bfloat16, 4, GatherOp>(args)"
+K4_F32 = "void (anonymous namespace)::spmm_walk_kernel<4, 2>(args)"
+BCSR = "bcsr/bcsr_scaled/bcsr_rect/bcsr_f32/bcsr_scaled_f32/bcsr_rect_f32"
 
 
 def test_lost_record_flag_on_a_trace_missing_a_launch(capsys):
@@ -103,14 +105,21 @@ def test_lost_record_flag_on_a_trace_missing_a_launch(capsys):
     whole = {"relu_dropout": 1, "relu_dropout_lanes": 1, "bcsr_scaled": 1, "gather_sum": 2}
     assert profiling.lost_records(ops, whole) == {}
     short = profiling.lost_records(ops, {**whole, "bcsr_scaled": 2, "dropout": 1})
-    assert short == {"bcsr/bcsr_scaled/bcsr_rect": (1, 2), "dropout/relu_dropout": (1, 2)}
+    assert short == {BCSR: (1, 2), "dropout/relu_dropout": (1, 2)}
     prof = profiling.Profile(device="cuda", steps=1, ops=ops, host_ms=[1.0], records=5,
                              shortfall=short, attempts=2)
     profiling.report("built short", prof, host_ms=1.0)
     text = capsys.readouterr().out
     assert "the trace is short after 2 traces" in text
-    assert "bcsr/bcsr_scaled/bcsr_rect 1 records of 2 launches" in text
+    assert f"{BCSR} 1 records of 2 launches" in text
     assert "device idle 95.0%" in text  # 0.05 ms of kernels in 1 ms
+
+
+def test_f32_tile_spmm_launches_are_checked():
+    # the f32 body's launches count under their own keys, its records by the walk kernel
+    ops = profiling.trace_ops(_trace([K4_F32, K4]))
+    assert profiling.lost_records(ops, {"bcsr_scaled_f32": 1, "bcsr_scaled": 1}) == {}
+    assert profiling.lost_records(ops, {"bcsr_f32": 2, "bcsr_scaled": 1}) == {BCSR: (2, 3)}
 
 
 def test_a_short_trace_is_profiled_once_more():
@@ -131,7 +140,7 @@ def test_a_short_trace_is_profiled_once_more():
     ("void (anonymous namespace)::fwd_fma_shared_kernel<1>(x)", "K10 fused fwd (lanes)"),
     (K2, "K2 relu_dropout"),
     ("void (anonymous namespace)::dropout_kernel<float, false>(x)", "K1 dropout"),
-    (K4, "K3/K4 tile SpMM"), (WALK, "scatter/index (residual)"),
+    (K4, "K3/K4 tile SpMM"), (K4_F32, "K3/K4 tile SpMM"), (WALK, "scatter/index (residual)"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "GEMMs"), ("Memcpy DtoD", "copies"),
     ("elementwise_kernel<add>", "other elementwise")])
 def test_categories(name, cat):
