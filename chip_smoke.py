@@ -872,10 +872,21 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
             ms = timer.events_ms(lambda: cb.bcsr_matmul_impl(pack, x), 10)
             pms = timer.events_ms(lambda: cb.bcsr_matmul_plain(pack, x), 2)
             bound = _spmm_bound(pack, x, got)
-            body = _f32_body(pack) if x.dtype == torch.float32 else "bf16 body"
+            body = (_f32_body(pack) if x.dtype == torch.float32 else
+                    f"{cb.spmm_body(pack.tiles.dtype, pack.sym_scale is not None, x.shape[1])} "
+                    "bf16 body")
             print(f"[kernels] {key} bcsr fwd F={x.shape[1]} {x.dtype}, {body}: max_abs_err "
                   f"{errs[-1]:.3e} (rtol {rtol}), runs bit-identical; kernel {ms:.4f} ms, "
                   f"plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            if body.startswith("wide"):
+                # K4's wide body: SAGE's 600 columns the JSON line's numbers,
+                # GIN's 602 under its width
+                r = dict(ms=ms, plain_ms=pms, err=errs[-1], **bound)
+                rec = results.setdefault("K4 wide", {})
+                if x is x600:
+                    rec.update(r)
+                else:
+                    rec[f"F={x.shape[1]}"] = r
             if x.dtype == torch.float32:
                 # the library call at the same width on the same f32 x
                 lib_ms = timer.events_ms(lambda: torch.sparse.mm(csr, x), 10)
@@ -893,6 +904,8 @@ def check_bcsr(results: dict, bcsr_pack, x602, gin602) -> None:
                 lib_ms = timer.events_ms(lambda: torch.sparse.mm(csr, x32), 10)
                 print(f"[kernels] {key} library torch.sparse.mm (CSR f32) F=600: "
                       f"{lib_ms:.4f} ms")
+                if key == "K4":
+                    results["K4 wide"]["library_ms"] = lib_ms
                 del x32
             if x is x41:
                 out_bytes = x.shape[0] * x.shape[1] * 4
@@ -2781,7 +2794,9 @@ KERNEL_KEYS = {"K1": "dropout", "K2": "relu_dropout", "K3": "bcsr", "K4": "bcsr_
                "K10 dW lanes": "fused_dw_lanes", "K10 dX lanes": "fused_dx_lanes",
                # the tile SpMM's f32 body over the live-entry index
                "K4 f32": "bcsr_scaled_f32", "K3 f32": "bcsr_f32",
-               "K3 rect f32": "bcsr_rect_f32"}
+               "K3 rect f32": "bcsr_rect_f32",
+               # K4's wide bf16 body (SAGE's and GIN's widths)
+               "K4 wide": "bcsr_scaled_wide"}
 # the ordered sums' hub kernels (launched beside the walk kernel by a call
 # whose work list has hubs), counted apart from KERNEL_KEYS so the launches
 # a replay stay those of the walk kernels
@@ -3794,24 +3809,25 @@ def main(argv: list[str]) -> int:
     sage["eager_ms"], sage["scan_run"] = phase_eager_compare("main-sage", SAGE_ARGS, dds, sage)
     # a replay (the plain scan: no deferred eval, no pre-aggregation): K4
     # with the gather-sum of its residual for layer 0's neighbour mean at
-    # 600 columns and layer 1's at 41, each in the train forward, the
-    # backward and the val eval (3 calls at each width); K2 at layer 1's
-    # entry; plus both layers of the test eval
-    assert sage["per_replay"] == {"K2": 1, "K4": 6, "ordered gather_sum": 6}, \
+    # 600 columns (the wide body) and layer 1's at 41, each in the train
+    # forward, the backward and the val eval (3 calls at each width); K2 at
+    # layer 1's entry; plus both layers of the test eval
+    assert sage["per_replay"] == {"K2": 1, "K4": 3, "K4 wide": 3, "ordered gather_sum": 6}, \
         sage["per_replay"]
-    assert (sage["counts"]["K4"], sage["counts"]["ordered gather_sum"],
-            sage["counts"]["K2"]) == (6 * EPOCHS + 2, 6 * EPOCHS + 2, EPOCHS), sage
+    assert (sage["counts"]["K4"], sage["counts"]["K4 wide"], sage["counts"]["ordered gather_sum"],
+            sage["counts"]["K2"]) == (3 * EPOCHS + 1, 3 * EPOCHS + 1, 6 * EPOCHS + 2, EPOCHS), sage
     _stamp("main-sage")
     gin = phase_main_path("main-gin", ["synth-reddit", *GIN_ARGS, f"epochs={EPOCHS}"],
                           falls=False)
     gin["eager_ms"], gin["scan_run"] = phase_eager_compare("main-gin", GIN_ARGS, dds, gin)
-    # a replay: K4 with the gather-sum for layer 0's sum of the input at 602
-    # columns (the train forward and the val eval; the input takes no
-    # gradient) and for layer 1's at 600 (forward, backward, val eval); K2 at
-    # layer 1's entry; plus both layers of the test eval
-    assert gin["per_replay"] == {"K2": 1, "K4": 5, "ordered gather_sum": 5}, gin["per_replay"]
-    assert (gin["counts"]["K4"], gin["counts"]["ordered gather_sum"],
-            gin["counts"]["K2"]) == (5 * EPOCHS + 2, 5 * EPOCHS + 2, EPOCHS), gin
+    # a replay: K4 (the wide body) with the gather-sum for layer 0's sum of
+    # the input at 602 columns (the train forward and the val eval; the input
+    # takes no gradient) and for layer 1's at 600 (forward, backward, val
+    # eval); K2 at layer 1's entry; plus both layers of the test eval
+    assert gin["per_replay"] == {"K2": 1, "K4 wide": 5, "ordered gather_sum": 5}, \
+        gin["per_replay"]
+    assert (gin["counts"]["K4 wide"], gin["counts"]["K4"], gin["counts"]["ordered gather_sum"],
+            gin["counts"]["K2"]) == (5 * EPOCHS + 2, 0, 5 * EPOCHS + 2, EPOCHS), gin
     _stamp("main-gin")
     main_seeds = phase_main_seeds(dds)
     # a replay: the GCN's deferred schedule over the lanes: K2 over the lanes
@@ -3834,9 +3850,9 @@ def main(argv: list[str]) -> int:
     # over the lanes once); the GAT's attention once a lane (K5, K6, K1 and
     # the residual's sums 4 times the solo replay's); the fused GCN's K10
     # over the lanes once each way, K9 once a lane
-    for tag, want in (("seeds-sage", {"K2 lanes": 1, "K2 lanes bwd": 1, "K4": 6,
+    for tag, want in (("seeds-sage", {"K2 lanes": 1, "K2 lanes bwd": 1, "K4": 3, "K4 wide": 3,
                                       "ordered gather_sum": 6}),
-                      ("seeds-gin", {"K2 lanes": 1, "K2 lanes bwd": 1, "K4": 5,
+                      ("seeds-gin", {"K2 lanes": 1, "K2 lanes bwd": 1, "K4 wide": 5,
                                      "ordered gather_sum": 5}),
                       ("seeds-gat", {k: SEED_LANES * v for k, v in gat["per_replay"].items()}),
                       ("seeds-fused", {"K4": 2, "K9 train": SEED_LANES, "K9 eval": SEED_LANES,
@@ -4028,6 +4044,10 @@ def main(argv: list[str]) -> int:
         {**entry("K4 f32", "bcsr_spmm_scaled_f32", bcsr_src,
                  "parallel_gcn_tpu/ops/pallas_bcsr.py:254"), "F=41": results["K4 f32"]["F=41"],
          "F=82": results["K4 f32"]["F=82"]},
+        # the wide body (spmm_pipe_kernel_wgmma): SAGE's F=600 numbers, GIN's
+        # F=602 under its width
+        {**entry("K4 wide", "bcsr_spmm_scaled_wide", bcsr_src,
+                 "parallel_gcn_tpu/ops/pallas_bcsr.py:254"), "F=602": results["K4 wide"]["F=602"]},
         entry("K5", "gat_fwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:179"),
         entry("K6", "gat_bwd", attn_src, "parallel_gcn_tpu/ops/tile_attention.py:283"),
         entry("K9 train", "masked_ce_train", ce_src, "parallel_gcn_tpu/ops/pallas_ce.py:77"),

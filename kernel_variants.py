@@ -40,7 +40,13 @@ of the outputs). The base also sweeps the tiles per segment
 the parent commit unpacked with ``git archive``) in a process of its own.
 
     python3 kernel_variants.py spmm-f32 [--parent DIR]    # the f32 tile SpMM body
+    python3 kernel_variants.py spmm-wide [--parent DIR]   # K4's wgmma body at wide F
     python3 kernel_variants.py sddmm [--parent DIR]       # K8 and the dense f32 SpMM body
+
+K4's wide body (``spmm_pipe_kernel_wgmma``) on synth-reddit's pack at 600
+and 602 columns: against its plain version, the threshold sweep against the
+pipe body (41 to 600 columns), the source
+variants of ``SPMM_WIDE_VARIANTS`` and ``--parent``'s K4 at the same widths.
 
 The f32 body of the tile SpMM (``spmm_walk_kernel`` in
 ``csrc/bcsr_spmm.cu``, K3/K4 at f32 compute) on synth-reddit's int8 pack at
@@ -254,6 +260,48 @@ SPMM_VARIANTS = {
     "loads-only": [(_STEPS, "for (int s = 0; s < 0; ++s) {")],
     "loads-only-no-l2-prefetch": [(_STEPS, "for (int s = 0; s < 0; ++s) {"),
                                   (_COPY, "cp.async.cg.shared.global [%0], [%1], 16;")],
+}
+# name -> [(text, replacement)] in csrc/bcsr_spmm.cu: the wide body of K4
+# (spmm_pipe_kernel_wgmma) at 600 and 602 columns
+_WIDE_CHUNK = "        wide_chunk<kNonneg>("
+_WIDE_N = "constexpr int kWideN = 208;"
+_WIDE_CLUSTER = "constexpr int kWideCluster = 2;"
+_WIDE_STAGES = "constexpr int kWideStages = 5;"
+_WGMMA_208 = "template <> struct Wgmma<208> {"
+
+
+def _wgmma_struct(n: int) -> str:
+    """The source's Wgmma<n> specialisation (m64nNk16, n / 2 accumulators a
+    thread), for a variant of another feature-block width."""
+    m = n // 2
+    ops = ", ".join(f"%{k}" for k in range(m))
+    outs = ", ".join(f'"+f"(d[{k}])' for k in range(m))
+    return (f"template <> struct Wgmma<{n}> {{\n"
+            f"  __device__ __forceinline__ static void mma(float (&d)[{m}], "
+            "const uint32_t (&a)[4], uint64_t desc) {\n"
+            f'    asm volatile("{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{m + 5}, 0;\\n"\n'
+            f'        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 {{{ops}}}, '
+            f'{{%{m}, %{m + 1}, %{m + 2}, %{m + 3}}}, %{m + 4}, p, 1, 1, 1;\\n}}\\n"\n'
+            f"        : {outs}\n"
+            '        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));\n'
+            "  }\n};\n")
+
+
+SPMM_WIDE_VARIANTS = {
+    # 152 features a CTA (four blocks at 600, 41 fewer accumulators a thread)
+    "n152": [(_WIDE_N, "constexpr int kWideN = 152;"),
+             (_WGMMA_208, _wgmma_struct(152) + _WGMMA_208)],
+    # the x chunk shared by 4 CTAs (30 clusters held, 120 SMs), or by none
+    "cluster-4": [(_WIDE_CLUSTER, "constexpr int kWideCluster = 4;")],
+    "no-multicast": [(_WIDE_CLUSTER, "constexpr int kWideCluster = 1;")],
+    "stages-4": [(_WIDE_STAGES, "constexpr int kWideStages = 4;")],
+    # wrong on purpose, each removes one cost: the int8 conversion (raw tile
+    # words as A), or the conversion and the products (the TMA ring alone)
+    "no-convert": [("    a_frag<true, kNonneg>(rlo, dc, ndc, dra, af[s][0], af[s][2]);\n"
+                    "    a_frag<true, kNonneg>(rhi, dc, ndc, drb, af[s][1], af[s][3]);\n",
+                    "    af[s][0] = rlo.w;\n    af[s][2] = rlo.w ^ 0x1000u;\n"
+                    "    af[s][1] = rhi.w;\n    af[s][3] = rhi.w ^ 0x1000u;\n")],
+    "loads-only": [(_WIDE_CHUNK, "        if (false) wide_chunk<kNonneg>(")],
 }
 
 
@@ -743,6 +791,85 @@ def spmm_family(parent: str | None) -> int:
         torch.cuda.empty_cache()
         return _run_parent("--time-spmm", parent)
     return 0
+
+
+def _time_wide(torch, cb, pack, xs) -> str:
+    """K4 at each width of ``xs`` (bf16) through the wrapper's dispatch, with
+    hashes of the outputs."""
+    parts = []
+    for x in xs:
+        out = cb.bcsr_matmul_impl(pack, x)
+        assert torch.equal(out, cb.bcsr_matmul_impl(pack, x)), "two runs differ"
+        parts.append(f"K4 F={x.shape[1]} {_events_ms(lambda: cb.bcsr_matmul_impl(pack, x)):.4f} "
+                     f"ms ({_digest(out)})")
+    return "; ".join(parts)
+
+
+def spmm_wide_family(parent: str | None) -> int:
+    """K4's wide body (``spmm_pipe_kernel_wgmma``) at 600 and 602 columns on
+    synth-reddit's pack: this tree against its plain version, beside the
+    pipe body at the same widths (``SPMM_WIDE_F`` raised), the threshold's
+    sweep (both bodies at 41 to 600 columns), the source variants of
+    ``SPMM_WIDE_VARIANTS``, and ``parent``'s K4 at the same widths."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+
+    join = _start_builds(SPMM, SPMM_WIDE_VARIANTS, "spmm-wide")
+    base = _build.load_library()
+    pack, _, x600 = _spmm_inputs(torch)
+    gen = torch.Generator().manual_seed(3)
+    x602 = torch.randn((pack.n_nodes, 602), generator=gen).to(torch.bfloat16).cuda()
+    libs, errors = join()
+    for name, err in errors.items():
+        print(f"[spmm-wide] {name} not built: {err}")
+    ref = cb.bcsr_matmul_plain(pack, x600)
+    err = float((cb.bcsr_matmul_impl(pack, x600) - ref).abs().max() / ref.abs().max())
+    print(f"[spmm-wide] base at F=600 against the plain version: {err:.3e} of max|ref|", flush=True)
+    del ref
+    print(f"[spmm-wide] base: {_time_wide(torch, cb, pack, (x600, x602))}", flush=True)
+    wide_f = cb.SPMM_WIDE_F
+    for f in (41, 82, 164, 328, 416, 512, 600):
+        x = x600[:, :f].contiguous()
+        times = {}
+        for body, threshold in (("wide", 1), ("pipe", 1 << 30)):
+            cb.SPMM_WIDE_F = threshold
+            times[body] = _events_ms(lambda: cb.bcsr_matmul_impl(pack, x))
+        cb.SPMM_WIDE_F = wide_f
+        print(f"[spmm-wide] F={f}: wide body {times['wide']:.4f} ms, pipe body "
+              f"{times['pipe']:.4f} ms", flush=True)
+    for name, (path, log) in libs.items():
+        _load_variant(path, base, ["pgcn_bcsr_spmm", "pgcn_bcsr_spmm_wide"])
+        print(f"[spmm-wide] {name}: {_time_wide(torch, cb, pack, (x600, x602))} "
+              f"[ptxas: {_ptxas(log, _PTXAS_WIDE)}]", flush=True)
+    _build._lib = base
+    print(f"[spmm-wide] base again: {_time_wide(torch, cb, pack, (x600, x602))}", flush=True)
+    if parent:
+        del pack, x600, x602
+        torch.cuda.empty_cache()
+        return _run_parent("--time-spmm-wide", parent) or int(bool(errors))
+    return int(bool(errors))
+
+
+def time_spmm_wide_tree(root: str) -> None:
+    """K4 at 600 and 602 columns of the package under ``root``."""
+    sys.path.insert(0, root)
+    import torch
+
+    from parallel_gcn_tpu_torch.ops import _build
+    from parallel_gcn_tpu_torch.ops import cuda_bcsr as cb
+
+    assert os.path.abspath(cb.__file__).startswith(os.path.abspath(root)), cb.__file__
+    _build.load_library()
+    pack, _, x600 = _spmm_inputs(torch)
+    gen = torch.Generator().manual_seed(3)
+    x602 = torch.randn((pack.n_nodes, 602), generator=gen).to(torch.bfloat16).cuda()
+    print(f"[spmm-wide] {root}: {_time_wide(torch, cb, pack, (x600, x602))}", flush=True)
+
+
+_PTXAS_WIDE = (("spmm_pipe_kernel_wgmmaILb1E", "wide"),)
 
 
 def time_spmm_tree(root: str) -> None:
@@ -1868,6 +1995,9 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--time-spmm"]:
         time_spmm_tree(argv[1])
         return 0
+    if argv[:1] == ["--time-spmm-wide"]:
+        time_spmm_wide_tree(argv[1])
+        return 0
     trees = {"--time-attention": time_attention_tree, "--time-rect": time_rect_tree,
              "--time-dropout": time_dropout_tree, "--time-fused": time_fused_tree}
     if argv[:1] and argv[0] in trees:
@@ -1880,6 +2010,7 @@ def main(argv: list[str]) -> int:
     families = {"spmm": spmm_family, "attention": attention_family, "rect": rect_family,
                 "dropout": dropout_family, "fused": fused_family, "segment": segment_family,
                 "segment-paths": segment_paths, "spmm-f32": spmm_f32_family,
+                "spmm-wide": spmm_wide_family,
                 "sddmm": sddmm_family}
     if argv[:1] == ["segment-paths"] and "--only" in argv:
         return segment_paths(parent, argv[argv.index("--only") + 1].split(","))

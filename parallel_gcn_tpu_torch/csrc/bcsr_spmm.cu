@@ -52,10 +52,39 @@
 //     row as one word; B fragments come from ldmatrix.trans with the same
 //     permutation. Both shared layouts are XOR-swizzled by row, so neither
 //     read has bank conflicts.
-//   * The instruction is mma.sync at every F: at F ≤ 64 the kernel is bound
-//     by the tile stream and the conversion, not the tensor cores; at F=600
-//     the products (1.6e12 FLOP) would be 1.7 ms at the wgmma peak, and
-//     wgmma is later work.
+//   * The instruction is mma.sync: at F ≤ 64 the kernel is bound by the
+//     tile stream and the conversion, not the tensor cores. Wide F takes the
+//     wide body below.
+// K4 at wide F (int8 pattern tiles with d, F >= ops/cuda_bcsr.SPMM_WIDE_F:
+// SAGE's and GIN's 600 and 602 columns and their seed lanes'):
+// spmm_pipe_kernel_wgmma.
+//   * What bounds it: at 64 features a CTA the pipe body reads the 1.36 GB
+//     pack through L2 and converts every byte once a feature block, 10
+//     times at F=600, and runs mma.sync far below the tensor cores' rate.
+//     The products are 1.7e12 FLOP at 608 columns (1.7 ms at the bf16
+//     peak); the pack, x and out once are 0.66 ms of memory.
+//   * A CTA covers 128 rows of a tile and 208 features (three feature blocks
+//     at F=600): two consumer warpgroups of 64 rows, each issuing
+//     wgmma.m64n208k16 with A from registers (the pipe body's a_frag
+//     conversion, rounding k·d_c once, × d_r, → bf16) and B, the staged x
+//     chunk, read by the tensor cores from shared memory (MN-major, 128-byte
+//     swizzle). Each tile byte is read and converted 3 times a call at 600
+//     columns, not 10. A fragment takes the wgmma's natural k order: a thread
+//     reads its columns 2q, 2q+1 and 8+2q, 9+2q of a row as two byte pairs.
+//   * A producer warp fills a 5-stage ring by TMA: per 64-column chunk, x's
+//     64 rows at the CTA's features (boxes of 64 features), the CTA's 128
+//     tile rows (64-byte swizzle) and d of the chunk's columns, each stage
+//     completing on an mbarrier. The CTAs of two row blocks of a tile form a
+//     cluster and share x: each loads half of the boxes and multicasts them
+//     (66 clusters fill the 132 SMs; clusters of 4, which halve x's reads
+//     again, fit on 120). The consumers convert chunk c + 1 while chunk c's
+//     products run (one commit group a chunk) and hand a stage back to the
+//     cluster's producers once its products are done.
+//   * x is read in place where its rows are whole 16-byte pieces (600
+//     columns); TMA reads the features past F as zeros. 602 takes the
+//     wrapper's padded copy. Sums per column in (segment, tile, chunk, k16
+//     step) order, as the pipe body: the two bodies give the same bits, and
+//     a column's sum depends neither on F nor on its place among the columns.
 // Compute dtype f32, int8 pattern tiles or f32 value tiles of a graph's
 // pack (the set-up pre-aggregation Â·X at 602 columns, every aggregation of
 // an f32 hybrid run at 41, products' Â·X at 100, the mesh's set-up K3):
@@ -93,12 +122,13 @@
 // Dense f32 value tiles (K8's backward on its cotangent tiles):
 // spmm_fma_kernel, 64×32 chunks and 4×4 FMA register blocks per thread.
 //
-// What bounds the bf16 body on an H100, per synth-reddit epoch: 3 passes
+// What bounds the pipe body on an H100, per synth-reddit epoch: 3 passes
 // (forward, backward, eval) over 2,596 int8 tiles of 512×1024 (1.36 GB each
 // pass, ~0.4 ms at 3.35 TB/s; the ring alone, without compute, streams it
 // in ~0.64 ms); the int8 → bf16 conversion (~0.15 ms of K4) and the
 // products on top. Variants in kernel_variants.py, numbers in PERF.md.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -514,6 +544,360 @@ __global__ void reduce_segments_kernel(const float* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------------------
+// The wide bf16 body (K4 at wide F, spmm_pipe_kernel_wgmma; see the header):
+// a producer warp fills a ring of stages by TMA, two consumer warpgroups
+// convert the tile bytes to A fragments and run wgmma on them.
+constexpr int kWideN = 208;        // features a CTA (a feature block): the wgmma's N
+constexpr int kWideStages = 5;     // ring depth
+constexpr int kWideCluster = 2;    // CTAs of one tile's row blocks that share x, at most
+constexpr int kWideRows = 128;     // rows a CTA: two consumer warpgroups of 64
+constexpr int kWideThreads = 288;  // 8 consumer warps, then the producer warp
+constexpr int kXBox = 64;          // features of a TMA box of x: one 128-byte row
+constexpr int kXBoxes = (kWideN + kXBox - 1) / kXBox;
+constexpr int kXBoxBytes = 64 * kXBox * 2;  // the chunk's 64 k rows of a box
+constexpr int kWideTileBytes = kWideRows * kChunkBytes;
+constexpr int kWideStageTx = kXBoxes * kXBoxBytes + kWideTileBytes + 64 * 4;
+constexpr int kWideStageBytes = (kWideStageTx + 1023) / 1024 * 1024;
+constexpr int kWideSmem = kWideStages * kWideStageBytes + 2 * kWideStages * 8 + 1024;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity. A wait of
+// more than 2^34 cycles (about 10 s) traps: a fault in the barriers' protocol
+// ends the kernel with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// Arrive on the barrier at the same offset in CTA `cta` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 r;\nmapa.shared::cluster.u32 r, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [r];\n}\n" ::"r"(bar), "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster (a CTA barrier for a cluster of one).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// TMA: box (c0, c1) of the tensor map into shared memory at dst, completing
+// on the barrier bar (of every CTA in mask, at the same offsets, when
+// multicast).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// bytes (a multiple of 16, 16-byte aligned) global → shared, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of an accumulator across a wgmma.
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// The wgmma descriptor of a staged x chunk's k rows from `addr` on: B is
+// MN-major (features contiguous) in 128-byte swizzled rows, 64 features a
+// box; the leading offset steps from one box to the next, the stride offset
+// from 8 k rows to the next.
+__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kXBoxBytes >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t lds_u16(const uint8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// acc += A · B over one k16 step, m64nNk16: A (bf16, each warp's 16 rows in
+// the mma.sync A fragment's layout) from registers, B (bf16, MN-major,
+// 128-byte swizzle) from shared memory by its descriptor, f32 accumulators.
+template <int N> struct Wgmma;
+template <> struct Wgmma<208> {
+  __device__ __forceinline__ static void mma(float (&d)[104], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %109, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+        "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+        "%100, %101, %102, %103"
+        "}, {%104, %105, %106, %107}, %108, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+// A thread's accumulators of a wgmma's N columns (the m64nN layout) into
+// rows da (row g) and db (row g + 8), its first column f.
+template <int N, int M>
+__device__ __forceinline__ void store_rows(const float (&acc)[M], float* da, float* db, int f,
+                                           int n_feat) {
+  const bool pairs = (n_feat & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j, f += 8) {
+    if (pairs && f + 1 < n_feat) {
+      *reinterpret_cast<float2*>(da + f) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(db + f) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    } else {
+      if (f < n_feat) da[f] = acc[4 * j], db[f] = acc[4 * j + 2];
+      if (f + 1 < n_feat) da[f + 1] = acc[4 * j + 1], db[f + 1] = acc[4 * j + 3];
+    }
+  }
+}
+
+// One chunk of a consumer warpgroup: its rows' A fragments for the chunk's 4
+// k16 steps from the staged tile bytes and d (a thread's rows ra, ra + 8),
+// then the 4 products on the staged x, committed as one group.
+template <bool kNonneg>
+__device__ __forceinline__ void wide_chunk(float (&acc)[kWideN / 2], uint32_t (&af)[4][4],
+                                           const uint8_t* stage, uint32_t stage_addr, int ra,
+                                           int q, int swz, float dra, float drb) {
+  const uint8_t* tb = stage + kXBoxes * kXBoxBytes + ra * kChunkBytes + 2 * q;
+  const float* ds = reinterpret_cast<const float*>(stage + kXBoxes * kXBoxBytes + kWideTileBytes);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    // the wgmma's natural k order: fragment k 2q, 2q+1 (lo) and 8+2q, 9+2q
+    // (hi) are the step's columns of the same numbers, a byte pair each
+    const uint8_t* p = tb + ((s ^ swz) << 4);
+    Raw<int8_t> rlo, rhi;
+    rlo.w = __byte_perm(lds_u16(p), lds_u16(p + 8), 0x5410);
+    rhi.w = __byte_perm(lds_u16(p + 8 * kChunkBytes), lds_u16(p + 8 * kChunkBytes + 8), 0x5410);
+    const float2 d0 = *reinterpret_cast<const float2*>(ds + 16 * s + 2 * q);
+    const float2 d1 = *reinterpret_cast<const float2*>(ds + 16 * s + 8 + 2 * q);
+    const float4 dc = make_float4(d0.x, d0.y, d1.x, d1.y);
+    const float4 ndc = make_float4(-8388608.0f * dc.x, -8388608.0f * dc.y, -8388608.0f * dc.z,
+                                   -8388608.0f * dc.w);
+    a_frag<true, kNonneg>(rlo, dc, ndc, dra, af[s][0], af[s][2]);
+    a_frag<true, kNonneg>(rhi, dc, ndc, drb, af[s][1], af[s][3]);
+  }
+  wgmma_fence();
+  const uint64_t desc = x_desc(stage_addr);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) Wgmma<kWideN>::mma(acc, af[s], desc + ((16 * s * 128) >> 4));
+  wgmma_commit();
+}
+
+// The CTA's work: blockIdx.x = (seg · n_fb + fb) · n_rb + rb, the row blocks
+// of one (segment, feature block) side by side, a cluster of them sharing
+// each x chunk. Warps 0-7 (two warpgroups of 64 rows) consume, warp 8's lane
+// 0 produces. A stage holds, for one
+// 64-column chunk of the segment's tiles: x's 64 rows at the CTA's features
+// (kXBoxes boxes of 64 features, 128-byte swizzle, the boxes dealt out to
+// the CTAs of the cluster, each multicast to all), the CTA's 128 tile rows
+// (64 bytes each, 64-byte swizzle) and d of the chunk's columns. full[s]
+// completes when a stage's bytes have landed; empty[s] when the consumer
+// warps of every CTA of the cluster are done with it.
+template <bool kNonneg>
+__global__ void __launch_bounds__(kWideThreads, 1)
+spmm_pipe_kernel_wgmma(const __grid_constant__ CUtensorMap tmap_x,
+                       const __grid_constant__ CUtensorMap tmap_t,
+                       const int* __restrict__ seg_tile_ptr, const int* __restrict__ seg_row,
+                       const int* __restrict__ seg_slot, const int* __restrict__ tile_cols,
+                       const float* __restrict__ d, float* __restrict__ out,
+                       float* __restrict__ ws, int tile_r, int tile_c, int n_feat, int n_fb) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle atoms: 1024-byte aligned
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + kWideStages * kWideStageBytes;
+  const uint32_t empty0 = full0 + kWideStages * 8;
+
+  const int n_rb = tile_r / kWideRows;
+  const int rb = blockIdx.x % n_rb;
+  const int fb = (blockIdx.x / n_rb) % n_fb;
+  const int seg = blockIdx.x / (n_rb * n_fb);
+  const int r0 = rb * kWideRows;
+  const int f0 = fb * kWideN;
+  const uint32_t csize = cluster_size();
+  const int t0 = seg_tile_ptr[seg];
+  const int cpt = tile_c / 64;  // chunks per tile
+  const int n_chunks = (seg_tile_ptr[seg + 1] - t0) * cpt;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8 * csize);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  if (warp == 8) {
+    if (lane == 0) {
+      const uint32_t crank = cluster_rank();
+      const uint16_t mask = (uint16_t)((1u << csize) - 1);
+      for (int c = 0; c < n_chunks; ++c) {
+        const int st = c % kWideStages;
+        if (c >= kWideStages) mbar_wait(empty0 + 8 * st, ((c / kWideStages) + 1) & 1);
+        const uint32_t full = full0 + 8 * st;
+        const uint32_t stage = base + st * kWideStageBytes;
+        mbar_expect_tx(full, kWideStageTx);
+        const int t = t0 + c / cpt;
+        const int kc = c % cpt;
+        const int node0 = tile_cols[t] * tile_c + kc * 64;
+        for (int b = crank; b < kXBoxes; b += csize) {
+          if (csize > 1)
+            tma_load_multicast(stage + b * kXBoxBytes, &tmap_x, full, f0 + b * kXBox, node0, mask);
+          else
+            tma_load(stage + b * kXBoxBytes, &tmap_x, full, f0 + b * kXBox, node0);
+        }
+        tma_load(stage + kXBoxes * kXBoxBytes, &tmap_t, full, kc * 64, t * tile_r + r0);
+        bulk_load(stage + kXBoxes * kXBoxBytes + kWideTileBytes, d + node0, 64 * 4, full);
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // no CTA leaves while a peer may still arrive on its barriers
+  } else {
+    // this thread's fragment rows: ra (a0, a2) and ra + 8 (a1, a3)
+    const int g = lane >> 2;
+    const int q = lane & 3;
+    const int ra = (warp / 4) * 64 + (warp % 4) * 16 + g;
+    const int row_base = seg_row[seg] * tile_r + r0;
+    const float dra = d[row_base + ra];
+    const float drb = d[row_base + ra + 8];
+    const int swz = Chunk<int8_t>::swz(ra);  // the same for ra + 8
+
+    float acc[kWideN / 2];
+#pragma unroll
+    for (int j = 0; j < kWideN / 2; ++j) acc[j] = 0.0f;
+    // the A fragments of a chunk's 4 k16 steps, two chunks' worth: one
+    // chunk's products read theirs while the next chunk's are converted
+    uint32_t a0[4][4], a1[4][4];
+
+    for (int c = 0; c < n_chunks; ++c) {
+      const int st = c % kWideStages;
+      mbar_wait(full0 + 8 * st, (c / kWideStages) & 1);
+      const uint8_t* stage = smem + st * kWideStageBytes;
+      const uint32_t stage_addr = base + st * kWideStageBytes;
+      if (c & 1)
+        wide_chunk<kNonneg>(acc, a1, stage, stage_addr, ra, q, swz, dra, drb);
+      else
+        wide_chunk<kNonneg>(acc, a0, stage, stage_addr, ra, q, swz, dra, drb);
+      // chunk c's products may run on; chunk c - 1's are done, so its
+      // fragments are free and its stage goes back to the cluster's producers
+      wgmma_wait<1>();
+      if (c > 0) {
+        __syncwarp();
+        const uint32_t empty = empty0 + 8 * ((c - 1) % kWideStages);
+        if (csize == 1) {
+          if (lane == 0) mbar_arrive(empty);
+        } else if (lane < csize) {
+          mbar_arrive_cluster(empty, lane);
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kWideN / 2; ++j) fence_operand(acc[j]);
+
+    float* dst = segment_dst(out, ws, seg_row, seg_slot, seg, tile_r, r0, n_feat);
+    float* da = dst + (size_t)ra * n_feat;
+    store_rows<kWideN>(acc, da, da + (size_t)8 * n_feat, f0 + 2 * q, n_feat);
+    cluster_sync();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32 compute over the live-entry index (see the header).
 constexpr int kWalkChunk = 128;  // tile columns a staged chunk (cuda_bcsr.SPMM_CHUNK)
 constexpr int kWalkGroup = 16;   // a warp holds 16·GPW rows (GPW 1 or 2)
@@ -803,6 +1187,82 @@ int launch_pipe(const Args& a) {
   return 0;
 }
 
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query (no
+// link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A 2-D tensor map: rows of `cols` elements `ld` apart, boxes of
+// box_c × box_r; columns past `cols` read as zeros.
+bool tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
+                   uint64_t cols, uint64_t rows, uint64_t ld, uint32_t box_c, uint32_t box_r,
+                   CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld * elem_bytes};
+  const cuuint32_t box[2] = {box_c, box_r};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wide body: x bf16 [n_nodes, ldx] (ldx a multiple of 8, 16-byte
+// aligned; columns n_feat.. read but dropped).
+int launch_wide(const Args& a, int n_tiles, int n_nodes) {
+  CUtensorMap tmap_x, tmap_t;
+  if (!tensor_map_2d(&tmap_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, a.f_pad, n_nodes, a.f_pad,
+                     kXBox, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(&tmap_t, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.tiles, a.tile_c,
+                     (uint64_t)n_tiles * a.tile_r, a.tile_c, kChunkBytes, kWideRows,
+                     CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  const int n_rb = a.tile_r / kWideRows;
+  int cluster = kWideCluster;
+  while (n_rb % cluster) cluster /= 2;
+  const int n_fb = (a.n_feat + kWideN - 1) / kWideN;
+  auto kernel = a.nonneg ? spmm_pipe_kernel_wgmma<true> : spmm_pipe_kernel_wgmma<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((size_t)a.n_seg * n_fb * n_rb));
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = kWideSmem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, tmap_x, tmap_t, a.seg_tile_ptr, a.seg_row,
+                                 a.seg_slot, a.tile_cols, a.d, a.out, a.ws, a.tile_r, a.tile_c,
+                                 a.n_feat, n_fb);
+}
+
 template <bool kScaled>
 int launch_pipe_int8(const Args& a) {
   if (a.nonneg) return launch_pipe<int8_t, kScaled, true>(a);
@@ -823,6 +1283,16 @@ int dispatch(const Args& a, int tile_dtype, int x_dtype, bool scaled) {
   if (tile_dtype == 1 && x_dtype == 1) return launch_pipe<__nv_bfloat16, false, false>(a);
   if (tile_dtype == 2 && x_dtype == 1) return launch_pipe_int8<false>(a);
   return (int)cudaErrorInvalidValue;
+}
+
+// Sum the split tile-rows' workspace slots into out (after a body's launch).
+void reduce_segments(const float* ws, const int* multi_row, const int* multi_slot_ptr,
+                     int n_multi, float* out, int tile_r, int n_feat, cudaStream_t stream) {
+  if (n_multi <= 0) return;
+  const size_t n = (size_t)tile_r * n_feat;
+  const unsigned bx = (unsigned)((n + 255) / 256 < 64 ? (n + 255) / 256 : 64);
+  reduce_segments_kernel<<<dim3(bx, (unsigned)n_multi), 256, 0, stream>>>(
+      ws, multi_row, multi_slot_ptr, out, tile_r, n_feat);
 }
 
 }  // namespace
@@ -853,12 +1323,32 @@ extern "C" int pgcn_bcsr_spmm(const void* tiles, int tile_dtype,
          static_cast<cudaStream_t>(stream)};
   const int rc = dispatch(a, tile_dtype, x_dtype, d != nullptr);
   if (rc) return rc;
-  if (n_multi > 0) {
-    const size_t n = (size_t)tile_r * n_feat;
-    const unsigned bx = (unsigned)((n + 255) / 256 < 64 ? (n + 255) / 256 : 64);
-    reduce_segments_kernel<<<dim3(bx, (unsigned)n_multi), 256, 0, a.stream>>>(
-        ws, multi_row, multi_slot_ptr, out, tile_r, n_feat);
-  }
+  reduce_segments(ws, multi_row, multi_slot_ptr, n_multi, out, tile_r, n_feat, a.stream);
+  return (int)cudaGetLastError();
+}
+
+// The wide bf16 body of K4 (spmm_pipe_kernel_wgmma): int8 pattern tiles
+// [n_tiles, tile_r, tile_c] with d, x bf16 [n_nodes, ldx] (ldx >= n_feat a
+// multiple of 8, x 16-byte aligned, columns n_feat.. read and dropped); the
+// schedule, workspace and out as for pgcn_bcsr_spmm. tile_r must be a
+// multiple of 128 and tile_c of 64. Returns cudaGetLastError() after the
+// launches (0 on success).
+extern "C" int pgcn_bcsr_spmm_wide(const void* tiles, int n_tiles, const int* seg_tile_ptr,
+                                   const int* seg_row, const int* seg_slot, int n_seg,
+                                   const int* multi_row, const int* multi_slot_ptr,
+                                   int n_multi, const int* tile_cols, const float* d,
+                                   const void* x, int n_nodes, int ldx, float* out, float* ws,
+                                   int tile_r, int tile_c, int n_feat, int nonneg,
+                                   void* stream) {
+  if (n_seg <= 0 || n_feat <= 0 || d == nullptr || tile_r % kWideRows || tile_c % 64 ||
+      ldx < n_feat || ldx % 8 || (uintptr_t)x % 16 || (uintptr_t)tiles % 16 ||
+      (uintptr_t)d % 16)
+    return (int)cudaErrorInvalidValue;
+  const Args a{tiles, seg_tile_ptr, seg_row, seg_slot, n_seg, tile_cols, d, x, out, ws,
+               tile_r, tile_c, n_feat, ldx, nonneg != 0, static_cast<cudaStream_t>(stream)};
+  const int rc = launch_wide(a, n_tiles, n_nodes);
+  if (rc) return rc;
+  reduce_segments(ws, multi_row, multi_slot_ptr, n_multi, out, tile_r, n_feat, a.stream);
   return (int)cudaGetLastError();
 }
 
@@ -883,11 +1373,6 @@ extern "C" int pgcn_bcsr_spmm_walk(const void* ent, const int* rptr, const int* 
                    static_cast<cudaStream_t>(stream)};
   const int rc = wide ? launch_walk<4, 1>(a) : launch_walk<2, 2>(a);
   if (rc) return rc;
-  if (n_multi > 0) {
-    const size_t n = (size_t)tile_r * n_feat;
-    const unsigned bx = (unsigned)((n + 255) / 256 < 64 ? (n + 255) / 256 : 64);
-    reduce_segments_kernel<<<dim3(bx, (unsigned)n_multi), 256, 0, a.stream>>>(
-        ws, multi_row, multi_slot_ptr, out, tile_r, n_feat);
-  }
+  reduce_segments(ws, multi_row, multi_slot_ptr, n_multi, out, tile_r, n_feat, a.stream);
   return (int)cudaGetLastError();
 }

@@ -59,6 +59,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, p, p, i32, i32, i32, i32, i32, p,
     ]
     lib.pgcn_bcsr_spmm.restype = i32
+    # K4's wide body: the tiles and their count, the schedule, d, x, its rows
+    # and row stride, out, workspace, tile_r, tile_c, F, nonneg, the stream
+    lib.pgcn_bcsr_spmm_wide.argtypes = [
+        p, i32, p, p, p, i32, p, p, i32, p, p, p, i32, i32, p, p, i32, i32, i32, i32, p,
+    ]
+    lib.pgcn_bcsr_spmm_wide.restype = i32
     # the live-entry index (entries, row offsets), the schedule, x, out,
     # workspace, tile_r, tile_c, F, x's row stride, the shape
     lib.pgcn_bcsr_spmm_walk.argtypes = [p, p, p, p, p, i32, p, p, i32, p, p, p, p, i32, i32,

@@ -4,10 +4,11 @@ Port of ``parallel_gcn_tpu/ops/pallas_bcsr.py``: the ``BCSR`` pack, its numpy
 packer ``build_bcsr``, and the two kernels, K3 ``_bcsr_kernel`` (value
 tiles) and K4 ``_bcsr_kernel_scaled`` (int8 pattern tiles with the symmetric
 normalization ``diag(d)·B·diag(d)`` rebuilt per tile), both in
-``csrc/bcsr_spmm.cu``: tensor cores over the tiles for a bf16 compute dtype;
-for f32, CUDA-core FMAs over the pack's live entries only (``spmm_index``,
-built once a pack), or over every entry of dense value tiles
-(``dense_tiles=True``, K8's backward).
+``csrc/bcsr_spmm.cu``: tensor cores over the tiles for a bf16 compute dtype
+(K4 at wide F on its own ``wgmma`` body, ``spmm_body``); for f32, CUDA-core
+FMAs over the pack's live entries only (``spmm_index``, built once a pack),
+or over every entry of dense value tiles (``dense_tiles=True``, K8's
+backward).
 
 The pack holds only the nonempty tile_r×tile_c blocks of Â, sorted by
 tile-row; its ``TileSchedule`` cuts each tile-row's tiles into short
@@ -30,7 +31,8 @@ row) of ``schedule``.
 ``bcsr_matmul_plain`` for CPU tensors; ``launches`` counts kernel launches.
 For a bf16 compute dtype the kernel reads x as one bf16 buffer whose rows
 are padded to a multiple of 16 features (``pad_features``), so that every
-row is 16-byte aligned for its copy pipeline.
+row is 16-byte aligned for its copy pipeline; K4's wide body reads x in
+place where its rows already are whole 16-byte pieces (``wide_features``).
 """
 
 from __future__ import annotations
@@ -50,10 +52,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # kernel launches by wrapper: "bcsr" (K3, value tiles), "bcsr_scaled" (K4),
 # "bcsr_rect" (K3 over a mesh slab); the f32 body over the live-entry index
-# counts under the same names with "_f32" (the bf16 body and the dense f32
-# body of K8's backward under the names alone)
+# counts under the same names with "_f32", K4's wide body as
+# "bcsr_scaled_wide" (the bf16 body and the dense f32 body of K8's backward
+# under the names alone)
 launches = {"bcsr": 0, "bcsr_scaled": 0, "bcsr_rect": 0,
-            "bcsr_f32": 0, "bcsr_scaled_f32": 0, "bcsr_rect_f32": 0}
+            "bcsr_f32": 0, "bcsr_scaled_f32": 0, "bcsr_rect_f32": 0, "bcsr_scaled_wide": 0}
 
 
 # Tiles per segment of a tile-row's work (see tile_schedule) for the tile
@@ -72,6 +75,14 @@ SPMM_CHUNK = 128
 # F above which the f32 body takes 16 rows × 128 features a warp (else 32
 # rows × 64 features); chosen by measurement on the H100 (PERF.md).
 SPMM_WALK_WIDE = 64
+# F from which K4's bf16 body is the wide one (csrc/bcsr_spmm.cu
+# spmm_pipe_kernel_wgmma, 208 features a CTA): a width between the GCN's
+# (41, 82 and its lanes' 164, 328), which stay on the pipe body, and SAGE's
+# and GIN's (600, 602 and their lanes'), which take the wide one. Not the
+# measured crossover: on the H100 the two bodies tie at 82 columns and the
+# wide one is faster from 164 up (PERF.md). 416 keeps every GCN width, solo
+# and laned, on the pipe body, so the GCN's runs keep their kernel.
+SPMM_WIDE_F = 416
 
 
 @dataclass(frozen=True)
@@ -394,6 +405,14 @@ def build_bcsr(
     )
 
 
+def spmm_body(tile_dtype: torch.dtype, scaled: bool, n_feat: int) -> str:
+    """The bf16 body of the tile SpMM that a call takes: "wide" (``wgmma``
+    over TMA stages, 208 features a CTA) for int8 pattern tiles with
+    ``sym_scale`` at F >= ``SPMM_WIDE_F``, else "pipe" (``mma.sync``, 64
+    features a CTA): K3's value tiles and the mesh's slabs at every F."""
+    return "wide" if tile_dtype == torch.int8 and scaled and n_feat >= SPMM_WIDE_F else "pipe"
+
+
 def _compute_dtype(bcsr: BCSR, x: torch.Tensor) -> torch.dtype:
     """The dtype both operands are rounded to before the f32-accumulated
     product: x's for int8 tiles (exact 0/k values), else the tile's."""
@@ -439,6 +458,16 @@ def pad_features(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def wide_features(x: torch.Tensor) -> torch.Tensor:
+    """x as K4's wide body reads it by TMA: bf16 rows of whole 16-byte
+    pieces at a 16-byte address. x itself where it is one (SAGE's 600
+    columns), else ``pad_features``' copy (GIN's 602)."""
+    if (x.dtype == torch.bfloat16 and x.is_contiguous() and x.shape[1] % 8 == 0
+            and x.data_ptr() % 16 == 0):
+        return x
+    return pad_features(x)
+
+
 def slab_pack(tiles: np.ndarray, tile_rows: np.ndarray, tile_cols: np.ndarray,
               n_rows: int, n_cols: int, dtype, device) -> BCSR:
     """A rank's tile slab as a rectangular pack on ``device``: ``tiles``
@@ -469,10 +498,11 @@ def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None,
     tensor (K4 for an int8 pattern pack, K3 otherwise), the plain version for
     a CPU one. ``launch_key`` names the ``launches`` entry a launch counts
     under (default: "bcsr_scaled" or "bcsr"; the f32 body over the live
-    entries adds "_f32"). At an f32 compute dtype the kernel walks the
-    pack's live entries (``BCSR.spmm_index``, built at the first such call),
-    unless ``dense_tiles`` says the tiles are dense values made for this one
-    call (K8's backward): then it multiplies every entry."""
+    entries adds "_f32", K4's wide body "_wide"). At an f32 compute dtype
+    the kernel walks the pack's live entries (``BCSR.spmm_index``, built at
+    the first such call), unless ``dense_tiles`` says the tiles are dense
+    values made for this one call (K8's backward): then it multiplies every
+    entry."""
     if x.dim() != 2 or x.shape[0] != bcsr.n_nodes:
         raise ValueError(f"x must be [{bcsr.n_nodes}, F], got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -508,6 +538,7 @@ def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None,
     key = launch_key or ("bcsr_scaled" if scaled else "bcsr")
     cd = _compute_dtype(bcsr, x)
     walk = cd == torch.float32 and not dense_tiles
+    wide = cd == torch.bfloat16 and spmm_body(bcsr.tiles.dtype, scaled, F) == "wide"
     if walk:
         if bcsr.tile_c % SPMM_CHUNK:
             raise ValueError(f"the f32 bcsr kernel needs tile_c a multiple of {SPMM_CHUNK}, "
@@ -521,11 +552,18 @@ def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None,
         elif x.data_ptr() % 16:
             x = x.clone()
     else:
-        # a bf16 compute dtype runs the pipelined tensor-core kernel on
-        # padded bf16 rows; dense f32 value tiles the FMA kernel on f32 x
+        # a bf16 compute dtype runs a tensor-core body on padded bf16 rows
+        # (the wide body on x in place where it can); dense f32 value tiles
+        # the FMA kernel on f32 x
         if cd == torch.float32 and bcsr.tiles.dtype != torch.float32:
             raise ValueError("dense_tiles takes f32 value tiles")
-        x = pad_features(x) if cd == torch.bfloat16 else x.float().contiguous()
+        if wide:
+            if bcsr.tile_r % 128:
+                raise ValueError(f"K4's wide body needs tile_r a multiple of 128, "
+                                 f"got {bcsr.tile_r}")
+            x = wide_features(x)
+        else:
+            x = pad_features(x) if cd == torch.bfloat16 else x.float().contiguous()
         if bcsr.tiles.data_ptr() % 16 or x.data_ptr() % 16:
             raise ValueError("bcsr kernel needs 16-byte aligned tiles and x")
     ws = torch.empty((sched.n_slots, bcsr.tile_r, F), dtype=torch.float32,
@@ -543,6 +581,17 @@ def bcsr_matmul_impl(bcsr: BCSR, x: torch.Tensor, launch_key: str | None = None,
                 int(F > SPMM_WALK_WIDE), stream,
             )
             key += "_f32"
+        elif wide:
+            rc = lib.pgcn_bcsr_spmm_wide(
+                bcsr.tiles.data_ptr(), bcsr.n_tiles, sched.seg_tile_ptr.data_ptr(),
+                sched.seg_row.data_ptr(), sched.seg_slot.data_ptr(), sched.n_seg,
+                sched.multi_row.data_ptr(), sched.multi_slot_ptr.data_ptr(),
+                sched.multi_row.shape[0], bcsr.tile_cols.data_ptr(),
+                bcsr.sym_scale.data_ptr(), x.data_ptr(), x.shape[0], x.shape[1],
+                out.data_ptr(), ws.data_ptr(), bcsr.tile_r, bcsr.tile_c, F,
+                int(bcsr.nonneg_tiles), stream,
+            )
+            key += "_wide"
         else:
             rc = lib.pgcn_bcsr_spmm(
                 bcsr.tiles.data_ptr(), _DTYPE_CODE[bcsr.tiles.dtype],

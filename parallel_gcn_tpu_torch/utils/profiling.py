@@ -86,7 +86,8 @@ LAUNCHED = (
     (("dropout", "relu_dropout"), ("::dropout_kernel<",)),
     (("dropout_lanes", "relu_dropout_lanes"), ("::dropout_lanes_kernel<",)),
     (("relu_dropout_lanes_bwd",), ("::dropout_lanes_bwd_kernel<",)),
-    (("bcsr", "bcsr_scaled", "bcsr_rect", "bcsr_f32", "bcsr_scaled_f32", "bcsr_rect_f32"),
+    (("bcsr", "bcsr_scaled", "bcsr_rect", "bcsr_f32", "bcsr_scaled_f32", "bcsr_rect_f32",
+      "bcsr_scaled_wide"),
      ("spmm_pipe_kernel", "spmm_fma_kernel", "spmm_walk_kernel")),
     (("gat_fwd", "gat_fwd_rect"), ("gat_fwd_kernel",)),
     (("gat_bwd",), ("gat_bwd_kernel",)),

@@ -178,6 +178,39 @@ def test_wrapper_rejects_bad_shapes():
         cb.bcsr_matmul_impl(tg.bcsr, torch.empty(tg.n_nodes, 4, device="meta"))
 
 
+@pytest.mark.parametrize("tile_dtype,scaled,f,body", [
+    # the GCN's widths, solo and over 4 seed lanes: the pipe body
+    *[(torch.int8, True, f, "pipe") for f in (41, 82, 164, 328)],
+    # SAGE's and GIN's, solo and over 4 seed lanes: the wide body
+    *[(torch.int8, True, f, "wide") for f in (600, 602, 2400, 2408)],
+    # K3's value tiles and unscaled int8 packs (the mesh's slabs): the pipe body at every F
+    *[(dt, False, f, "pipe") for dt in (torch.int8, torch.bfloat16, torch.float32)
+      for f in (41, 328, 600, 2408)],
+])
+def test_spmm_body_dispatch(tile_dtype, scaled, f, body):
+    assert cb.spmm_body(tile_dtype, scaled, f) == body
+
+
+@pytest.mark.parametrize("f,dtype,in_place", [(600, torch.bfloat16, True),
+                                              (602, torch.bfloat16, False),
+                                              (600, torch.float32, False)])
+def test_wide_features_reads_aligned_bf16_rows_in_place(f, dtype, in_place):
+    x = torch.randn(10, f).to(dtype)
+    got = cb.wide_features(x)
+    assert (got is x) == in_place
+    assert got.dtype == torch.bfloat16 and got.shape[1] % 8 == 0 and got.shape[1] >= f
+    assert torch.equal(got[:, :f], x.to(torch.bfloat16))
+    assert not got[:, f:].any()
+
+
+def _wide_pack():
+    """A 512×1024 int8 pack whose tile-rows have up to 6 tiles: split into
+    segments (the workspace), 4 row blocks a tile (the wide body's clusters)."""
+    csr = synthetic_csr(6000, 150000, seed=1, n_communities=6, shuffle=False)
+    return build_graph(csr, device=CPU, tile_dtype="int8", bcsr=True, tile_size=512,
+                       tile_cols=1024).bcsr
+
+
 def test_build_bcsr_refuses_int8_without_scale():
     with pytest.raises(ValueError):
         cb.build_bcsr(np.array([0]), np.array([0]), np.array([1.0], np.float32),
@@ -212,3 +245,28 @@ def test_kernel_matches_plain_on_card(cuda_device):
     with pytest.raises(ValueError, match="f32 value tiles"):  # int8 tiles walk their entries
         cb.bcsr_matmul_impl(pack, torch.randn(pack.n_nodes, 41, device=cuda_device),
                             dense_tiles=True)
+
+
+@pytest.mark.cuda
+def test_wide_body_matches_plain_on_card(cuda_device):
+    """K4's wide body (SAGE's and GIN's widths and their 4 lanes') on the
+    test pack (a CTA a cluster) and on a 512×1024 pack with split tile-rows,
+    both the multiplicity pack and its negation: within the bf16 tolerance
+    of the plain version, two runs bit-identical, each launch counted, and
+    each lane of a 4·600-column call bit-equal to a 600-column call."""
+    for pack in (_graphs("int8", 256)[1].bcsr.to(cuda_device), _wide_pack().to(cuda_device)):
+        for pk in (pack, dataclasses.replace(pack, tiles=pack.tiles.neg())):
+            for f in (600, 602, 2400):
+                x = torch.randn(pk.n_nodes, f, device=cuda_device).to(torch.bfloat16)
+                before = cb.launches["bcsr_scaled_wide"]
+                got = cb.bcsr_matmul_impl(pk, x)
+                assert cb.launches["bcsr_scaled_wide"] == before + 1
+                torch.testing.assert_close(got, cb.bcsr_matmul_plain(pk, x), rtol=2e-3,
+                                           atol=1e-5)
+                assert torch.equal(got, cb.bcsr_matmul_impl(pk, x))
+        x = torch.randn(pack.n_nodes, 4 * 600, device=cuda_device).to(torch.bfloat16)
+        got = cb.bcsr_matmul_impl(pack, x)
+        for s in range(4):
+            lane = x[:, s * 600:(s + 1) * 600].contiguous()
+            assert torch.equal(got[:, s * 600:(s + 1) * 600], cb.bcsr_matmul_impl(pack, lane))
+    assert _wide_pack().spmm_schedule.n_slots > 0  # the workspace path was taken

@@ -96,7 +96,8 @@ K2_LANES = "void (anonymous namespace)::dropout_lanes_kernel<__nv_bfloat16, true
 K4 = "void spmm_pipe_kernel<signed char, __nv_bfloat16, true>(args)"
 WALK = "void pgcn_seg::items_walk_kernel<__nv_bfloat16, 4, GatherOp>(args)"
 K4_F32 = "void (anonymous namespace)::spmm_walk_kernel<4, 2>(args)"
-BCSR = "bcsr/bcsr_scaled/bcsr_rect/bcsr_f32/bcsr_scaled_f32/bcsr_rect_f32"
+K4_WIDE = "void (anonymous namespace)::spmm_pipe_kernel_wgmma<true>(CUtensorMap_st, args)"
+BCSR = "bcsr/bcsr_scaled/bcsr_rect/bcsr_f32/bcsr_scaled_f32/bcsr_rect_f32/bcsr_scaled_wide"
 
 
 def test_lost_record_flag_on_a_trace_missing_a_launch(capsys):
@@ -122,6 +123,14 @@ def test_f32_tile_spmm_launches_are_checked():
     assert profiling.lost_records(ops, {"bcsr_f32": 2, "bcsr_scaled": 1}) == {BCSR: (2, 3)}
 
 
+def test_wide_tile_spmm_launches_are_checked():
+    # K4's wide body counts under its own key, its records by the pipe kernels' name
+    ops = profiling.trace_ops(_trace([K4_WIDE, K4_WIDE, K4]))
+    assert profiling.lost_records(ops, {"bcsr_scaled_wide": 2, "bcsr_scaled": 1}) == {}
+    assert profiling.lost_records(ops, {"bcsr_scaled_wide": 3, "bcsr_scaled": 1}) == {
+        BCSR: (3, 4)}
+
+
 def test_a_short_trace_is_profiled_once_more():
     calls = []
     # a CPU trace holds no kernel record, so any counted launch is missing
@@ -140,7 +149,8 @@ def test_a_short_trace_is_profiled_once_more():
     ("void (anonymous namespace)::fwd_fma_shared_kernel<1>(x)", "K10 fused fwd (lanes)"),
     (K2, "K2 relu_dropout"),
     ("void (anonymous namespace)::dropout_kernel<float, false>(x)", "K1 dropout"),
-    (K4, "K3/K4 tile SpMM"), (K4_F32, "K3/K4 tile SpMM"), (WALK, "scatter/index (residual)"),
+    (K4, "K3/K4 tile SpMM"), (K4_F32, "K3/K4 tile SpMM"), (K4_WIDE, "K3/K4 tile SpMM"),
+    (WALK, "scatter/index (residual)"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "GEMMs"), ("Memcpy DtoD", "copies"),
     ("elementwise_kernel<add>", "other elementwise")])
 def test_categories(name, cat):
